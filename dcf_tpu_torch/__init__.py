@@ -1,0 +1,42 @@
+"""dcf_tpu_torch: the PyTorch/CUDA port of dcf_tpu.
+
+Two-party distributed comparison functions (function secret sharing):
+``gen`` makes key pairs for ``f(x) = beta if x < alpha else 0`` and each
+party evaluates its key on a batch of points; the two shares reconstruct
+f(x).  This package carries the batch-eval path of ``dcf_tpu`` at
+lam = 16: host keygen, the numpy oracle, and three hand-written CUDA
+kernels for the NVIDIA H100 (``sm_90a``) with their plain PyTorch
+versions:
+
+    B1  ops.walk_eval    from-root walk      (dcf_tpu/ops/pallas_eval.py)
+    B2  ops.tree_expand  tree-frontier level (dcf_tpu/ops/pallas_tree.py)
+    B3  ops.prefix_eval  prefix walk         (dcf_tpu/ops/pallas_prefix.py)
+
+It imports torch and numpy, never jax and never dcf_tpu.  Entry points
+run on the card unless the caller passes ``device="cpu"``.
+"""
+
+from dcf_tpu_torch.api import Dcf
+from dcf_tpu_torch.errors import (
+    BackendUnavailableError,
+    DcfError,
+    KeyFormatError,
+    ShapeError,
+    StaleStateError,
+)
+from dcf_tpu_torch.gen import gen_batch, random_s0s
+from dcf_tpu_torch.keys import KeyBundle
+from dcf_tpu_torch.spec import Bound
+
+__all__ = [
+    "Dcf",
+    "Bound",
+    "KeyBundle",
+    "gen_batch",
+    "random_s0s",
+    "DcfError",
+    "KeyFormatError",
+    "ShapeError",
+    "BackendUnavailableError",
+    "StaleStateError",
+]

@@ -1,0 +1,174 @@
+"""Top-level facade of the port.
+
+Counterpart of ``Dcf`` in ``dcf_tpu/api.py`` (its lines 294-711 and
+``eval`` at :1084), for the slice of it this package carries:
+
+    >>> dcf = Dcf(n_bytes=16, lam=16, cipher_keys=[k0, k1])   # on the card
+    >>> bundle = dcf.gen(alphas, betas)                       # K keys
+    >>> y0 = dcf.eval(0, bundle, xs)                          # uint8 [K, M, 16]
+
+Backends (``backend=``):
+
+    auto     walk
+    walk     kernel B1, the from-root walk (backends.walk_backend)
+    prefix   kernels B2 + B3: per-key frontier of the top k levels, built
+             once per party, then the remaining n - k levels per point
+             (backends.prefix_backend; shared points)
+    numpy    the host oracle (backends.numpy_backend)
+
+Everything runs on the card (``device="cuda"``, the default) unless the
+caller passes ``device="cpu"``, where the kernels' plain PyTorch versions
+run.  Without CUDA, a facade that was not asked for the CPU raises.  An
+explicitly named backend is what runs: there is no fallback chain and no
+canary-driven degrade, so a failing device path surfaces as an error.
+
+Not in this package yet (see ROADMAP.md): lam other than 16, the other
+JAX backends, ``mesh=``, keygen on the card, the protocol, DPF and PIR
+methods, and ``serve``.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Sequence
+
+import numpy as np
+
+from dcf_tpu_torch.backends._common import resolve_device
+from dcf_tpu_torch.errors import ShapeError
+from dcf_tpu_torch.gen import gen_batch, random_s0s
+from dcf_tpu_torch.keys import KeyBundle
+from dcf_tpu_torch.ops.prg import HirosePrgNp
+from dcf_tpu_torch.spec import (
+    Bound,
+    ReferenceContractWarning,
+    hirose_used_cipher_indices,
+)
+
+__all__ = ["Dcf"]
+
+_BACKENDS = ("numpy", "walk", "prefix")
+
+# Backend names of the JAX facade that this package does not carry yet,
+# with the ROADMAP.md item that ports them.
+_LATER = {
+    "cpu": "queue A11 (the native C++ core)",
+    "jax": "queue A11 (the byte-level walk)",
+    "bitsliced": "queue A7 (the off-card bitsliced walk)",
+    "pallas": "none: its kernel is ported as backend 'walk'",
+    "keylanes": "slice 6 (many keys x few points)",
+    "hybrid": "slice 3 (large lambda)",
+}
+
+
+class Dcf:
+    """Runtime-configured DCF over one domain size and one lam."""
+
+    def __init__(self, n_bytes: int, lam: int, cipher_keys: Sequence[bytes],
+                 backend: str = "auto", backend_opts: dict | None = None,
+                 device=None):
+        if n_bytes < 1:
+            raise ValueError("n_bytes must be >= 1")
+        if lam != 16:
+            raise ValueError(
+                f"lam={lam} is not ported yet: this package runs lam=16; "
+                "larger lam waits for slice 3 (large lambda) in ROADMAP.md")
+        name = "walk" if backend == "auto" else backend
+        if name not in _BACKENDS:
+            later = _LATER.get(name)
+            raise ValueError(
+                f"backend {name!r} is not in this package; it has "
+                f"{', '.join(_BACKENDS)} and auto"
+                + (f" (ROADMAP.md: {later})" if later else ""))
+        self._backend_opts = dict(backend_opts or {})
+        if self._backend_opts and name == "numpy":
+            raise ValueError(
+                f"backend_opts {sorted(self._backend_opts)} do not apply to "
+                "the numpy backend")
+        self.n_bytes = n_bytes
+        self.lam = lam
+        self.cipher_keys = list(cipher_keys)
+        self.backend_name = name
+        self.device = resolve_device(device)
+        # The facade is the API edge: the contract warning fires once here;
+        # the nested constructions below are silenced.
+        hirose_used_cipher_indices(lam, len(self.cipher_keys))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", ReferenceContractWarning)
+            self._prg = HirosePrgNp(lam, self.cipher_keys)
+        # One backend per party, each holding its own shipped key image.
+        self._eval_backends: dict = {}
+        self._shipped_bundle: dict = {}
+
+    def gen(self, alphas: np.ndarray, betas: np.ndarray,
+            s0s: np.ndarray | None = None,
+            bound: Bound = Bound.LT_BETA,
+            rng: np.random.Generator | None = None,
+            device: bool = False, group: str = "xor") -> KeyBundle:
+        """Generate K keys on the host: alphas uint8 [K, n_bytes], betas
+        uint8 [K, lam].  s0s (uint8 [K, 2, lam]) default to fresh random
+        seeds from ``rng`` (OS entropy if None).  Returns the two-party
+        bundle; ship ``bundle.for_party(b)`` to party b.  ``group`` selects
+        the output group (xor, add8, add16, add32)."""
+        if device:
+            raise NotImplementedError(
+                "keygen on the card is not ported yet (ROADMAP.md slice 5); "
+                "call gen() with device=False")
+        alphas = np.asarray(alphas, dtype=np.uint8)
+        betas = np.asarray(betas, dtype=np.uint8)
+        if alphas.ndim != 2 or alphas.shape[1] != self.n_bytes:
+            raise ShapeError(f"alphas must be [K, {self.n_bytes}]")
+        if s0s is None:
+            s0s = random_s0s(alphas.shape[0], self.lam,
+                             rng if rng is not None
+                             else np.random.default_rng())
+        return gen_batch(self._prg, alphas, betas, s0s, bound, group=group)
+
+    def eval_backend(self, b: int = 0):
+        """The backend instance serving party ``b``, constructed if absent
+        (``None`` for numpy).  The way to the staged API (``stage`` /
+        ``eval_staged`` / ``staged_to_bytes``) once ``eval`` has shipped
+        the key image."""
+        if self.backend_name == "numpy":
+            return None
+        be = self._eval_backends.get(int(b))
+        if be is None:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", ReferenceContractWarning)
+                if self.backend_name == "walk":
+                    from dcf_tpu_torch.backends.walk_backend import WalkBackend
+
+                    be = WalkBackend(self.lam, self.cipher_keys,
+                                     device=self.device, **self._backend_opts)
+                else:
+                    from dcf_tpu_torch.backends.prefix_backend import (
+                        PrefixBackend)
+
+                    be = PrefixBackend(self.lam, self.cipher_keys,
+                                       device=self.device,
+                                       **self._backend_opts)
+            self._eval_backends[int(b)] = be
+        return be
+
+    def eval(self, b: int, bundle: KeyBundle, xs: np.ndarray) -> np.ndarray:
+        """Party ``b`` batch evaluation: xs uint8 [M, n_bytes] (shared) or
+        [K, M, n_bytes] (per key; walk and numpy).  Returns uint8
+        [K, M, lam]; reconstruct with the bundle's group add of both
+        parties' outputs.
+
+        ``bundle`` may be the two-party bundle (restricted to party ``b``
+        here; its key image is shipped once per party and reused while
+        the caller passes the same object) or ``bundle.for_party(b)``."""
+        xs = np.asarray(xs, dtype=np.uint8)
+        kb = bundle.for_party(b) if bundle.s0s.shape[1] == 2 else bundle
+        if self.backend_name == "numpy":
+            from dcf_tpu_torch.backends.numpy_backend import eval_batch_np
+
+            return eval_batch_np(self._prg, b, kb, xs)
+        be = self.eval_backend(b)
+        # Keyed on the caller's object by identity, and the object is kept
+        # in the entry, so a freed bundle's reused address cannot hit.
+        if self._shipped_bundle.get(int(b)) is not bundle:
+            be.put_bundle(kb)
+            self._shipped_bundle[int(b)] = bundle
+        return be.eval(b, xs)

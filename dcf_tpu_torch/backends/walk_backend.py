@@ -1,0 +1,162 @@
+"""WalkBackend: DCF evaluation on kernel B1, the from-root walk (lam = 16).
+
+Counterpart of ``PallasBackend`` in ``dcf_tpu/backends/pallas_backend.py``,
+with the same staged API: ``put_bundle`` ships the key image once,
+``stage`` ships the points, ``eval_staged`` returns the shares on the
+device, ``staged_to_bytes`` brings them to the host, ``eval`` does all of
+it bytes-in/bytes-out, and ``points_mismatch_count`` checks a two-party
+reconstruction on the device.
+
+The key image is the bundle's own uint8 arrays (no plane layout), the
+staged points are uint8 [Kx, M_pad, n/8], and the shares are uint8
+[K, M_pad, 16].  Points pad to whole warps of 32; the pad points are
+genuine evaluations of x = 0 and are dropped at ``staged_to_bytes``.
+The backend runs on the card unless it is built with ``device="cpu"``,
+where the kernel's plain PyTorch version runs instead.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from dcf_tpu_torch.backends._common import prepare_batch, resolve_device
+from dcf_tpu_torch.errors import ShapeError, StaleStateError
+from dcf_tpu_torch.keys import KeyBundle
+from dcf_tpu_torch.ops.walk_eval import aes_image, group_add_plain, walk_eval
+from dcf_tpu_torch.spec import hirose_used_cipher_indices
+from dcf_tpu_torch.utils.groups import group_width
+
+__all__ = ["WalkBackend", "POINT_TILE"]
+
+POINT_TILE = 32  # points pad to a multiple of one warp
+
+
+def _lex_inside(xs: torch.Tensor, alphas: torch.Tensor,
+                gt: bool) -> torch.Tensor:
+    """bool [K, M]: x < alpha (x > alpha for gt), unsigned big-endian.
+    xs uint8 [1 or K, M, nb]; alphas uint8 [K, nb]."""
+    inside = torch.zeros(alphas.shape[0], xs.shape[1], dtype=torch.bool,
+                         device=xs.device)
+    eq = torch.ones_like(inside)
+    for j in range(xs.shape[-1]):
+        xj = xs[:, :, j]
+        aj = alphas[:, j, None]
+        inside |= eq & ((xj > aj) if gt else (xj < aj))
+        eq &= xj == aj
+    return inside
+
+
+class WalkBackend:
+    """DCF evaluator running the from-root walk kernel (lam = 16)."""
+
+    def __init__(self, lam: int, cipher_keys: Sequence[bytes], device=None):
+        if lam != 16:
+            raise ValueError(
+                f"WalkBackend supports lam=16 only (got {lam}); larger lam "
+                "waits for slice 3 (large lambda) in ROADMAP.md")
+        used = hirose_used_cipher_indices(lam, len(cipher_keys))
+        self.lam = lam
+        self.device = resolve_device(device)
+        self.aes = torch.from_numpy(aes_image(cipher_keys[used[0]])).to(
+            self.device)
+        self._bundle_dev = None
+        self._group = "xor"
+
+    def put_bundle(self, bundle: KeyBundle) -> None:
+        """Ship a party-restricted bundle's arrays to the device."""
+        if bundle.lam != self.lam:
+            raise ShapeError("bundle lam mismatch")
+        if bundle.s0s.shape[1] != 1:
+            raise ShapeError("put_bundle requires a party-restricted bundle")
+        host = dict(s0=bundle.s0s[:, 0, :], cw_s=bundle.cw_s,
+                    cw_v=bundle.cw_v, cw_t=bundle.cw_t, cw_np1=bundle.cw_np1)
+        self._bundle_dev = {
+            name: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for name, a in host.items()}
+        self._group = bundle.group
+
+    def _dims(self) -> tuple[int, int]:
+        """(k_num, n_bits) of the on-device bundle; raises if absent."""
+        if self._bundle_dev is None:
+            raise StaleStateError(
+                "no key bundle on device; call put_bundle first")
+        return tuple(self._bundle_dev["cw_s"].shape[:2])
+
+    def _prepare(self, xs) -> tuple[np.ndarray, int]:
+        """Validate and pad xs: (xs padded [Kx, M_pad, nb], m)."""
+        xs = np.asarray(xs)
+        if xs.dtype != np.uint8:
+            raise ShapeError(f"xs must be uint8, got {xs.dtype}")
+        xs, _, m = prepare_batch(
+            self._dims(), xs, lambda m: -(-m // POINT_TILE) * POINT_TILE)
+        return xs, m
+
+    def stage(self, xs) -> dict:
+        """Ship xs to the device; returns the staged dict for
+        ``eval_staged`` (outside any timed region)."""
+        xs, m = self._prepare(xs)
+        if m == 0:
+            raise ShapeError("cannot stage an empty batch")
+        return {"xs": torch.from_numpy(xs).to(self.device), "m": m}
+
+    def eval_staged(self, b: int, staged: dict) -> torch.Tensor:
+        """Party ``b`` eval on staged points; returns the device-resident
+        shares uint8 [K, M_pad, 16] (asynchronous on the card)."""
+        self._dims()
+        dev = self._bundle_dev
+        return walk_eval(self.aes, dev["s0"], dev["cw_s"], dev["cw_v"],
+                         dev["cw_t"], dev["cw_np1"], staged["xs"], b=int(b),
+                         group=self._group)
+
+    def staged_to_bytes(self, y: torch.Tensor, m: int) -> np.ndarray:
+        """``eval_staged`` output -> uint8 [K, m, 16] on the host."""
+        return y[:, :m].cpu().numpy()
+
+    def eval(self, b: int, xs, bundle: KeyBundle | None = None) -> np.ndarray:
+        """Evaluate party ``b``; xs uint8 [M, n_bytes] or [K, M, n_bytes].
+        Returns uint8 [K, M, lam]."""
+        if bundle is not None:
+            self.put_bundle(bundle)
+        xs, m = self._prepare(xs)
+        if m == 0:
+            return np.zeros((self._dims()[0], 0, self.lam), dtype=np.uint8)
+        staged = {"xs": torch.from_numpy(xs).to(self.device), "m": m}
+        return self.staged_to_bytes(self.eval_staged(b, staged), m)
+
+    def points_mismatch_count(self, y0, y1, alpha, beta, staged: dict,
+                              gt: bool = False) -> torch.Tensor:
+        """Two-party check on the device: the number of (key, point) pairs,
+        pad points included, whose reconstruction differs from ``beta if
+        x < alpha else 0`` (``>`` for gt).  y0/y1 are the ``eval_staged``
+        outputs of the two parties on the same staged points; the
+        reconstruction is the bundle's group add (XOR or lane-wise).
+
+        Single key: alpha/beta as bytes.  Multi-key: uint8 arrays
+        [K, n_bytes] / [K, lam].  Returns a device int64 scalar."""
+        k_num = y0.shape[0]
+        if isinstance(alpha, (bytes, bytearray)):
+            if k_num != 1:
+                raise ShapeError(
+                    "bytes alpha/beta is the single-key form; pass "
+                    "[K, n_bytes]/[K, lam] arrays for multi-key bundles")
+            alphas = np.frombuffer(bytes(alpha), dtype=np.uint8)[None]
+            betas = np.frombuffer(bytes(beta), dtype=np.uint8)[None]
+        else:
+            alphas = np.asarray(alpha, dtype=np.uint8)
+            betas = np.asarray(beta, dtype=np.uint8)
+        xs = staged["xs"]
+        if alphas.shape != (k_num, xs.shape[-1]) \
+                or betas.shape != (k_num, self.lam):
+            raise ShapeError(
+                f"alphas {alphas.shape} / betas {betas.shape} do not fit "
+                f"{k_num}-key outputs over {xs.shape[-1]}-byte points")
+        a = torch.tensor(alphas, device=xs.device)
+        bt = torch.tensor(betas, device=xs.device)
+        inside = _lex_inside(xs, a, gt)
+        expect = torch.where(inside[..., None], bt[:, None, :],
+                             torch.zeros_like(bt[:, None, :]))
+        recon = group_add_plain(y0, y1, group_width(self._group))
+        return (recon != expect).any(-1).sum()

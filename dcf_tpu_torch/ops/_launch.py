@@ -1,0 +1,43 @@
+"""The launch protocol shared by the kernels' wrappers (B1, B2, B3).
+
+A wrapper checks every tensor it hands a kernel (``check_u8``: uint8,
+shape, device, contiguity and, on the card, alignment), loads the kernel's
+C entry point through ``_build.load`` and calls it on the device's current
+stream through ``launch_checked``, which raises if the entry point
+reports a CUDA error.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dcf_tpu_torch.errors import BackendUnavailableError, ShapeError
+
+__all__ = ["check_u8", "launch_checked"]
+
+
+def check_u8(name: str, t: torch.Tensor, shape: tuple,
+             device: torch.device, align: int = 1) -> None:
+    """Raise ``ShapeError`` unless ``t`` is a contiguous uint8 tensor of
+    ``shape`` on ``device`` (and, on the card, ``align``-byte aligned)."""
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.uint8:
+        raise ShapeError(f"{name} must be a uint8 tensor")
+    if tuple(t.shape) != tuple(shape):
+        raise ShapeError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    if t.device != device:
+        raise ShapeError(f"{name} is on {t.device}, want {device}")
+    if not t.is_contiguous():
+        raise ShapeError(f"{name} must be contiguous")
+    if device.type == "cuda" and t.data_ptr() % align:
+        raise ShapeError(f"{name} must be {align}-byte aligned")
+
+
+def launch_checked(name: str, fn, device: torch.device, *args) -> None:
+    """Call a kernel's C entry point on ``device``'s current stream and
+    raise if the launch reports a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise BackendUnavailableError(
+            f"{name} launch failed with CUDA error {rc}")

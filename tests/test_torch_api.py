@@ -1,0 +1,111 @@
+"""The port's Dcf facade on the CPU: gen + eval reconstruct beta*[x < alpha]
+(x = alpha included) on every ported backend; unported backend names and
+lam != 16 raise; a CUDA request without CUDA raises instead of running on
+the CPU; keygen matches dcf_tpu's."""
+
+import numpy as np
+import pytest
+import torch
+
+from dcf_tpu import spec as jspec
+from dcf_tpu.gen import gen_batch as j_gen_batch
+from dcf_tpu.ops.prg import HirosePrgNp as JPrg
+
+from dcf_tpu_torch import BackendUnavailableError, Bound, Dcf
+from dcf_tpu_torch.utils.groups import np_group_add
+
+BACKENDS = ("numpy", "walk", "prefix")
+
+
+def _int(b: bytes) -> int:
+    return int.from_bytes(b, "big")
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_reconstructs_comparison(backend):
+    rng = np.random.default_rng(150 + BACKENDS.index(backend))
+    ck = [rng.bytes(32), rng.bytes(32)]
+    dcf = Dcf(2, 16, ck, backend=backend, device="cpu")
+    for group, bound in (("xor", Bound.LT_BETA), ("add8", Bound.GT_BETA),
+                         ("add32", Bound.LT_BETA)):
+        alphas = rng.integers(0, 256, (1, 2), dtype=np.uint8)
+        betas = rng.integers(0, 256, (1, 16), dtype=np.uint8)
+        bundle = dcf.gen(alphas, betas, bound=bound, rng=rng, group=group)
+        a = _int(alphas[0].tobytes())
+        xs = rng.integers(0, 256, (40, 2), dtype=np.uint8)
+        for j, x in enumerate((a, a - 1, a + 1, 0, 0xFFFF)):
+            xs[j] = np.frombuffer((x % 0x10000).to_bytes(2, "big"), np.uint8)
+        y0, y1 = (dcf.eval(b, bundle, xs) for b in (0, 1))
+        recon = np_group_add(y0, y1, group)[0]
+        for j in range(len(xs)):
+            x = _int(xs[j].tobytes())
+            hit = x < a if bound is Bound.LT_BETA else x > a
+            assert recon[j].tobytes() == (betas[0].tobytes() if hit
+                                          else bytes(16)), (group, j)
+
+
+def test_gen_matches_dcf_tpu_and_bundle_ships_once():
+    rng = np.random.default_rng(160)
+    ck = [rng.bytes(32), rng.bytes(32)]
+    alphas = rng.integers(0, 256, (2, 2), dtype=np.uint8)
+    betas = rng.integers(0, 256, (2, 16), dtype=np.uint8)
+    s0s = rng.integers(0, 256, (2, 2, 16), dtype=np.uint8)
+    dcf = Dcf(2, 16, ck, device="cpu")
+    assert dcf.backend_name == "walk"  # auto
+    got = dcf.gen(alphas, betas, s0s=s0s, bound=Bound.GT_BETA, group="add16")
+    want = j_gen_batch(JPrg(16, ck), alphas, betas, s0s,
+                       jspec.Bound.GT_BETA, group="add16")
+    for f in ("s0s", "cw_s", "cw_v", "cw_t", "cw_np1"):
+        assert np.array_equal(getattr(got, f), getattr(want, f))
+    xs = rng.integers(0, 256, (2, 8, 2), dtype=np.uint8)  # per-key points
+    dcf.eval(0, got, xs)
+    be = dcf.eval_backend(0)
+    image = be._bundle_dev
+    dcf.eval(0, got, xs)
+    assert be._bundle_dev is image  # same bundle object: not re-shipped
+    assert dcf.eval_backend(0) is be and dcf.eval_backend(1) is not be
+    assert Dcf(2, 16, ck, backend="numpy", device="cpu").eval_backend() \
+        is None
+
+
+@pytest.mark.parametrize("name", ["cpu", "jax", "bitsliced", "pallas",
+                                  "keylanes", "hybrid", "nope"])
+def test_unported_backends_raise(name):
+    with pytest.raises(ValueError, match="not in this package"):
+        Dcf(2, 16, [b"k" * 32] * 2, backend=name, device="cpu")
+
+
+@pytest.mark.parametrize("lam", [32, 48, 128])
+def test_other_lam_raises(lam):
+    with pytest.raises(ValueError, match="slice 3"):
+        Dcf(2, lam, [b"k" * 32] * 18, device="cpu")
+
+
+def test_facade_argument_contract():
+    ck = [b"k" * 32] * 2
+    with pytest.raises(ValueError):
+        Dcf(0, 16, ck, device="cpu")
+    with pytest.raises(ValueError):
+        Dcf(2, 16, ck, backend="numpy", backend_opts={"x": 1}, device="cpu")
+    with pytest.raises(ValueError):
+        Dcf(2, 16, ck, device="meta")
+    dcf = Dcf(2, 16, ck, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        dcf.gen(np.zeros((1, 2), np.uint8), np.zeros((1, 16), np.uint8),
+                device=True)
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_cuda_request_without_cuda_raises(monkeypatch, device):
+    """The card is the default; without CUDA the facade and the backends
+    raise rather than run the plain versions on the CPU."""
+    from dcf_tpu_torch.backends.prefix_backend import PrefixBackend
+    from dcf_tpu_torch.backends.walk_backend import WalkBackend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ck = [b"k" * 32] * 2
+    with pytest.raises(BackendUnavailableError, match="CUDA"):
+        Dcf(2, 16, ck, backend="walk", device=device)
+    for cls in (WalkBackend, PrefixBackend):
+        with pytest.raises(BackendUnavailableError):
+            cls(16, ck, device=device)

@@ -1,0 +1,258 @@
+"""The CUDA kernels' per-thread arithmetic, checked on the CPU.
+
+``dcf_tpu_torch/csrc/dcf_walk.cuh`` holds the bodies of kernels B1-B3 as
+plain C++ over uint32_t (T-table AES-256, the Hirose step, the SWAR group
+adds, the walk, the frontier gather index and the tree node).  This test
+compiles that header with the host C++ compiler into a small library that
+runs each body over every (key, point) or node in a loop, and holds the
+results byte for byte against the port's numpy oracle and host tree
+expansion: all four groups, both bounds, both parties, shared and per-key
+points, x = alpha planted.  The launch code (grids, shared-memory fills)
+runs only on the card and is covered by ``chip_smoke.py``."""
+
+import ctypes
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+from dcf_tpu_torch.backends.fulldomain import tree_expand_np
+from dcf_tpu_torch.backends.numpy_backend import eval_batch_np
+from dcf_tpu_torch.gen import gen_batch, random_s0s
+from dcf_tpu_torch.keys import KeyBundle
+from dcf_tpu_torch.ops.aes import SBOX_NP, expand_key_np
+from dcf_tpu_torch.ops.prg import HirosePrgNp
+from dcf_tpu_torch.spec import GROUP_WIDTH, Bound
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "dcf_tpu_torch" / "csrc"
+GROUPS = ("xor", "add8", "add16", "add32")
+
+_HARNESS = r"""
+#include <string.h>
+#include <vector>
+#include "dcf_walk.cuh"
+using namespace dcf;
+
+static void tables(AesTables& a, const uint8_t* sbox, const uint8_t* rk) {
+  for (int i = 0; i < 256; ++i) aes_table_entry(a, sbox, i);
+  for (int i = 0; i < 60; ++i) a.rk[i] = le32(rk + 4 * i);
+}
+
+template <int GW>
+static void walk(const uint8_t* sbox, const uint8_t* rk, const uint8_t* s0,
+                 const uint8_t* cw_s, const uint8_t* cw_v, const uint8_t* cw_t,
+                 const uint8_t* cw_np1, const uint8_t* xs, uint8_t* y, int K,
+                 int n, int m, int per_key, int b) {
+  AesTables a;
+  tables(a, sbox, rk);
+  std::vector<LevelCw> cw(n);
+  for (int key = 0; key < K; ++key) {
+    for (int i = 0; i < n; ++i)
+      level_cw_entry(cw.data(), cw_s + (size_t)key * n * 16,
+                     cw_v + (size_t)key * n * 16, cw_t + (size_t)key * n * 2, i);
+    uint32_t kw[8];
+    for (int q = 0; q < 4; ++q) {
+      kw[q] = le32(s0 + key * 16 + 4 * q);
+      kw[4 + q] = le32(cw_np1 + key * 16 + 4 * q);
+    }
+    for (int pt = 0; pt < m; ++pt) {
+      const uint8_t* x = xs + ((per_key ? (size_t)key * m : 0) + pt) * (n / 8);
+      uint32_t out[4];
+      walk_point<GW>(a, cw.data(), n, kw, kw + 4, x, (uint32_t)b,
+                     b && GW > 0, out);
+      memcpy(y + ((size_t)key * m + pt) * 16, out, 16);
+    }
+  }
+}
+
+template <int GW>
+static void prefix(const uint8_t* sbox, const uint8_t* rk,
+                   const uint8_t* table, const uint8_t* cw_s,
+                   const uint8_t* cw_v, const uint8_t* cw_t,
+                   const uint8_t* cw_np1, const uint8_t* xs, uint8_t* y, int K,
+                   int n, int k, int m, int negate) {
+  AesTables a;
+  tables(a, sbox, rk);
+  std::vector<LevelCw> cw(n);
+  for (int key = 0; key < K; ++key) {
+    const size_t first = (size_t)key * n + k;
+    for (int i = 0; i < n - k; ++i)
+      level_cw_entry(cw.data(), cw_s + first * 16, cw_v + first * 16,
+                     cw_t + first * 2, i);
+    uint32_t np1[4];
+    for (int q = 0; q < 4; ++q) np1[q] = le32(cw_np1 + key * 16 + 4 * q);
+    for (int pt = 0; pt < m; ++pt) {
+      const uint8_t* x = xs + (size_t)pt * (n / 8);
+      const uint8_t* row = table + (((size_t)key << k) + frontier_index(x, k)) * 32;
+      uint32_t rs[4], rv[4], out[4];
+      memcpy(rs, row, 16);
+      memcpy(rv, row + 16, 16);
+      prefix_point<GW>(a, cw.data(), n, k, rs, rv, np1, x, negate != 0, out);
+      memcpy(y + ((size_t)key * m + pt) * 16, out, 16);
+    }
+  }
+}
+
+template <int GW>
+static void tree(const uint8_t* sbox, const uint8_t* rk, const uint8_t* cw_s,
+                 const uint8_t* cw_v, const uint8_t* cw_t, const uint8_t* s_in,
+                 const uint8_t* v_in, const uint8_t* t_in, uint8_t* s_out,
+                 uint8_t* v_out, uint8_t* t_out, int n_par) {
+  AesTables a;
+  tables(a, sbox, rk);
+  LevelCw cw[1];
+  level_cw_entry(cw, cw_s, cw_v, cw_t, 0);
+  for (int j = 0; j < n_par; ++j) {
+    uint32_t s[4], v[4], sl[4], vl[4], sr[4], vr[4], tl, tr;
+    memcpy(s, s_in + 16 * j, 16);
+    memcpy(v, v_in + 16 * j, 16);
+    tree_node<GW>(a, cw[0], s, v, t_in[j] & 1u, sl, vl, tl, sr, vr, tr);
+    memcpy(s_out + 16 * j, sl, 16);
+    memcpy(s_out + 16 * (n_par + j), sr, 16);
+    memcpy(v_out + 16 * j, vl, 16);
+    memcpy(v_out + 16 * (n_par + j), vr, 16);
+    t_out[j] = (uint8_t)tl;
+    t_out[n_par + j] = (uint8_t)tr;
+  }
+}
+
+#define DISPATCH(f, ...)                      \
+  switch (gw) {                               \
+    case 0: f<0>(__VA_ARGS__); break;         \
+    case 8: f<8>(__VA_ARGS__); break;         \
+    case 16: f<16>(__VA_ARGS__); break;       \
+    default: f<32>(__VA_ARGS__); break;       \
+  }
+
+extern "C" {
+void host_walk(const uint8_t* sbox, const uint8_t* rk, const uint8_t* s0,
+               const uint8_t* cw_s, const uint8_t* cw_v, const uint8_t* cw_t,
+               const uint8_t* cw_np1, const uint8_t* xs, uint8_t* y, int K,
+               int n, int m, int per_key, int b, int gw) {
+  DISPATCH(walk, sbox, rk, s0, cw_s, cw_v, cw_t, cw_np1, xs, y, K, n, m,
+           per_key, b)
+}
+void host_prefix(const uint8_t* sbox, const uint8_t* rk, const uint8_t* table,
+                 const uint8_t* cw_s, const uint8_t* cw_v, const uint8_t* cw_t,
+                 const uint8_t* cw_np1, const uint8_t* xs, uint8_t* y, int K,
+                 int n, int k, int m, int negate, int gw) {
+  DISPATCH(prefix, sbox, rk, table, cw_s, cw_v, cw_t, cw_np1, xs, y, K, n, k,
+           m, negate)
+}
+void host_tree(const uint8_t* sbox, const uint8_t* rk, const uint8_t* cw_s,
+               const uint8_t* cw_v, const uint8_t* cw_t, const uint8_t* s_in,
+               const uint8_t* v_in, const uint8_t* t_in, uint8_t* s_out,
+               uint8_t* v_out, uint8_t* t_out, int n_par, int gw) {
+  DISPATCH(tree, sbox, rk, cw_s, cw_v, cw_t, s_in, v_in, t_in, s_out, v_out,
+           t_out, n_par)
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel arithmetic")
+    d = tmp_path_factory.mktemp("csrc")
+    src = d / "harness.cpp"
+    src.write_text(_HARNESS)
+    out = d / "libharness.so"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
+                    "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
+                   check=True, capture_output=True, timeout=300)
+    return ctypes.CDLL(str(out))
+
+
+def _p(a: np.ndarray):
+    assert a.flags.c_contiguous
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _setup(seed, k_num, n_bytes, group, bound):
+    rng = np.random.default_rng(seed)
+    ck = [rng.bytes(32), rng.bytes(32)]
+    prg = HirosePrgNp(16, ck)
+    alphas = rng.integers(0, 256, (k_num, n_bytes), dtype=np.uint8)
+    bundle = gen_batch(prg, alphas,
+                       rng.integers(0, 256, (k_num, 16), dtype=np.uint8),
+                       random_s0s(k_num, 16, rng), bound, group=group)
+    return rng, prg, expand_key_np(ck[0]), alphas, bundle
+
+
+@pytest.mark.parametrize("n_bytes", [2, 16])
+@pytest.mark.parametrize("group", GROUPS)
+def test_walk_body_matches_oracle(lib, group, n_bytes):
+    gw = GROUP_WIDTH.get(group, 0)
+    k_num, m = 2, 24
+    # Both bounds on the short domain; one on the 128-level one, where the
+    # numpy oracle is slow.
+    for bound in (Bound if n_bytes == 2 else (Bound.GT_BETA,)):
+        rng, prg, rk, alphas, bundle = _setup(
+            200 + n_bytes + GROUPS.index(group), k_num, n_bytes, group, bound)
+        shared = rng.integers(0, 256, (m, n_bytes), dtype=np.uint8)
+        shared[:k_num] = alphas
+        per_key = rng.integers(0, 256, (k_num, m, n_bytes), dtype=np.uint8)
+        per_key[:, 0] = alphas
+        for xs in (shared, per_key):
+            for b in (0, 1):
+                kb = bundle.for_party(b)
+                y = np.zeros((k_num, m, 16), np.uint8)
+                lib.host_walk(_p(SBOX_NP), _p(rk),
+                              _p(np.ascontiguousarray(kb.s0s[:, 0])),
+                              _p(kb.cw_s), _p(kb.cw_v), _p(kb.cw_t),
+                              _p(kb.cw_np1), _p(xs), _p(y), k_num,
+                              8 * n_bytes, m, int(xs.ndim == 3), b, gw)
+                assert np.array_equal(y, eval_batch_np(prg, b, kb, xs)), \
+                    (bound, b, xs.ndim)
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_tree_and_prefix_bodies_match_oracle(lib, group):
+    gw = GROUP_WIDTH.get(group, 0)
+    k_num, n_bytes, k0, k, m = 2, 2, 5, 8, 24
+    for bound in Bound:
+        rng, prg, rk, alphas, bundle = _setup(
+            220 + GROUPS.index(group), k_num, n_bytes, group, bound)
+        xs = rng.integers(0, 256, (m, n_bytes), dtype=np.uint8)
+        xs[:k_num] = alphas
+        for b in (0, 1):
+            kb = bundle.for_party(b)
+            rows = []
+            for key in range(k_num):
+                one = KeyBundle(kb.s0s[key:key + 1], kb.cw_s[key:key + 1],
+                                kb.cw_v[key:key + 1], kb.cw_t[key:key + 1],
+                                kb.cw_np1[key:key + 1], group=group)
+                s, v, t = tree_expand_np(prg, one, b, k0)
+                for lvl in range(k0, k):
+                    n_par = s.shape[0]
+                    so = np.zeros((2 * n_par, 16), np.uint8)
+                    vo = np.zeros((2 * n_par, 16), np.uint8)
+                    to = np.zeros(2 * n_par, np.uint8)
+                    lib.host_tree(
+                        _p(SBOX_NP), _p(rk),
+                        _p(np.ascontiguousarray(one.cw_s[0, lvl])),
+                        _p(np.ascontiguousarray(one.cw_v[0, lvl])),
+                        _p(np.ascontiguousarray(one.cw_t[0, lvl])),
+                        _p(np.ascontiguousarray(s)),
+                        _p(np.ascontiguousarray(v)),
+                        _p(np.ascontiguousarray(t)), _p(so), _p(vo), _p(to),
+                        n_par, gw)
+                    s, v, t = so, vo, to
+                for got, want in zip((s, v, t),
+                                     tree_expand_np(prg, one, b, k)):
+                    assert np.array_equal(got, want), (bound, b, key)
+                stashed = s.copy()
+                stashed[:, 15] |= t
+                rows.append(np.concatenate([stashed, v], axis=1))
+            table = np.ascontiguousarray(np.concatenate(rows))
+            y = np.zeros((k_num, m, 16), np.uint8)
+            lib.host_prefix(_p(SBOX_NP), _p(rk), _p(table), _p(kb.cw_s),
+                            _p(kb.cw_v), _p(kb.cw_t), _p(kb.cw_np1), _p(xs),
+                            _p(y), k_num, 8 * n_bytes, k, m,
+                            int(b and gw > 0), gw)
+            assert np.array_equal(y, eval_batch_np(prg, b, kb, xs)), \
+                (bound, b)

@@ -1,0 +1,125 @@
+"""Kernel B2's plain version (the port's tree expansion on the CPU) against
+dcf_tpu's Pallas tree kernel in interpret mode (``tree_expand_raw``) and its
+host expansion (``tree_expand_np``), both parties and all four groups, at a
+small depth.  Exact byte equality; the JAX side's bit planes are turned
+into bytes with dcf_tpu's own helpers."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dcf_tpu import spec as jspec
+from dcf_tpu.backends.fulldomain import tree_expand_np as j_tree_np
+from dcf_tpu.gen import gen_batch as j_gen_batch
+from dcf_tpu.gen import random_s0s
+from dcf_tpu.ops.aes_bitsliced import round_key_masks_bitmajor
+from dcf_tpu.ops.pallas_tree import tree_expand_raw
+from dcf_tpu.ops.prg import HirosePrgNp as JPrg
+from dcf_tpu.utils.bits import (
+    bitmajor_perm,
+    bitmajor_plane_masks,
+    byte_bits_lsb,
+    pack_lanes,
+    planes_to_bytes,
+    unpack_lanes,
+)
+
+from dcf_tpu_torch.backends.fulldomain import tree_expand_np as t_tree_np
+from dcf_tpu_torch.errors import DcfError, ShapeError
+from dcf_tpu_torch.keys import KeyBundle
+from dcf_tpu_torch.ops.prefix_eval import frontier_table
+from dcf_tpu_torch.ops.prg import HirosePrgNp as TPrg
+from dcf_tpu_torch.ops.tree_expand import (
+    tree_expand,
+    tree_expand_level,
+    tree_expand_level_plain,
+)
+from dcf_tpu_torch.ops.walk_eval import aes_image
+
+GROUPS = ("xor", "add8", "add16", "add32")
+K0, K1 = 5, 7
+_PERM = bitmajor_perm(16)
+
+
+def _to_planes(a):  # uint8 [N, 16] -> int32 bit-major planes [128, N/32]
+    bits = byte_bits_lsb(a)[:, _PERM]
+    return jnp.asarray(pack_lanes(np.ascontiguousarray(bits.T)).view(np.int32))
+
+
+def _from_planes(p):  # int32 bit-major planes [128, W] -> uint8 [32W, 16]
+    return planes_to_bytes(np.asarray(p).view(np.uint32)[np.argsort(_PERM)],
+                           16)
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_tree_expand_matches_pallas_and_host(group):
+    rng = np.random.default_rng(80 + GROUPS.index(group))
+    ck = [rng.bytes(32), rng.bytes(32)]
+    jb = j_gen_batch(JPrg(16, ck),
+                     rng.integers(0, 256, (1, 2), dtype=np.uint8),
+                     rng.integers(0, 256, (1, 16), dtype=np.uint8),
+                     random_s0s(1, 16, rng), jspec.Bound.LT_BETA,
+                     group=group)
+    tb = KeyBundle.from_arrays(jb.s0s, jb.cw_s, jb.cw_v, jb.cw_t, jb.cw_np1,
+                               group=group)
+    rk = jnp.asarray(round_key_masks_bitmajor(ck[0]))
+    aes = torch.from_numpy(aes_image(ck[0]))
+    for b in (0, 1):
+        jkb, tkb = jb.for_party(b), tb.for_party(b)
+        # The host expansions agree at every depth used below.
+        for depth in (K0, K1):
+            for got, want in zip(t_tree_np(TPrg(16, ck), tkb, b, depth),
+                                 j_tree_np(JPrg(16, ck), jkb, b, depth)):
+                assert np.array_equal(got, want)
+        s, v, t = t_tree_np(TPrg(16, ck), tkb, b, K0)
+        js, jv, jt = tree_expand_raw(
+            rk, jnp.asarray(bitmajor_plane_masks(jkb.cw_s[0])[..., None]),
+            jnp.asarray(bitmajor_plane_masks(jkb.cw_v[0])[..., None]),
+            jnp.asarray(jkb.cw_t[0].astype(np.int32) * -1),
+            _to_planes(s), _to_planes(v),
+            jnp.asarray(pack_lanes(t[None]).view(np.int32)),
+            k0=K0, k1=K1, interpret=True, group=group)
+        gs, gv, gt = tree_expand(
+            aes, torch.from_numpy(tkb.cw_s[0]), torch.from_numpy(tkb.cw_v[0]),
+            torch.from_numpy(tkb.cw_t[0]), torch.from_numpy(s),
+            torch.from_numpy(v), torch.from_numpy(t), k0=K0, k1=K1,
+            group=group)
+        assert np.array_equal(gs.numpy(), _from_planes(js)), b
+        assert np.array_equal(gv.numpy(), _from_planes(jv)), b
+        assert np.array_equal(
+            gt.numpy(), unpack_lanes(np.asarray(jt).view(np.uint32))[0]), b
+        hs, hv, ht = j_tree_np(JPrg(16, ck), jkb, b, K1)
+        assert np.array_equal(gs.numpy(), hs)
+        assert np.array_equal(gv.numpy(), hv)
+        assert np.array_equal(gt.numpy(), ht)
+
+
+def test_tree_level_wrapper_and_frontier_stash():
+    rng = np.random.default_rng(90)
+    aes = torch.from_numpy(aes_image(rng.bytes(32)))
+    s = torch.from_numpy(rng.integers(0, 256, (8, 16), dtype=np.uint8))
+    v = torch.from_numpy(rng.integers(0, 256, (8, 16), dtype=np.uint8))
+    t = torch.from_numpy(rng.integers(0, 2, 8, dtype=np.uint8))
+    cs, cv = (torch.from_numpy(rng.integers(0, 256, 16, dtype=np.uint8))
+              for _ in range(2))
+    cs[15] &= 0xFE  # a real seed CW is a XOR of masked PRG outputs
+    ct = torch.tensor([1, 0], dtype=torch.uint8)
+    before = tree_expand_level.launches
+    got = tree_expand_level(aes, cs, cv, ct, s, v, t, group="add16")
+    assert tree_expand_level.launches == before  # CPU: the plain version
+    want = tree_expand_level_plain(aes, cs, cv, ct, s, v, t, group="add16")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    s2, v2, t2 = got
+    assert s2.shape == (16, 16) and t2.shape == (16,)
+    # Children seeds have the masked bit clear, so t can ride in it.
+    rows = frontier_table(s2, v2, t2)
+    assert rows.shape == (16, 32)
+    assert torch.equal(rows[:, 15] & 1, t2)
+    assert torch.equal(rows[:, 16:], v2)
+    with pytest.raises(DcfError):
+        frontier_table(s2 | 1, v2, t2)
+    with pytest.raises(ShapeError):
+        tree_expand_level(aes, cs, cv, ct, s[:, :8], v, t, group="xor")
