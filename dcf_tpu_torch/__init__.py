@@ -4,13 +4,17 @@ Two-party distributed comparison functions (function secret sharing):
 ``gen`` makes key pairs for ``f(x) = beta if x < alpha else 0`` and each
 party evaluates its key on a batch of points; the two shares reconstruct
 f(x).  This package carries the batch-eval path of ``dcf_tpu`` at
-lam = 16: host keygen, the numpy oracle, and three hand-written CUDA
-kernels for the NVIDIA H100 (``sm_90a``) with their plain PyTorch
-versions:
+lam = 16 and at lam >= 48 (the large-lambda hybrid): host keygen, the
+numpy oracle, and hand-written CUDA kernels for the NVIDIA H100
+(``sm_90a``) with their plain PyTorch versions:
 
-    B1  ops.walk_eval    from-root walk      (dcf_tpu/ops/pallas_eval.py)
-    B2  ops.tree_expand  tree-frontier level (dcf_tpu/ops/pallas_tree.py)
-    B3  ops.prefix_eval  prefix walk         (dcf_tpu/ops/pallas_prefix.py)
+    B1   ops.walk_eval      from-root walk       (dcf_tpu/ops/pallas_eval.py)
+    B2   ops.tree_expand    tree-frontier level  (dcf_tpu/ops/pallas_tree.py)
+    B3   ops.prefix_eval    prefix walk          (dcf_tpu/ops/pallas_prefix.py)
+    B4   ops.narrow_walk    narrow walk          (dcf_tpu/ops/pallas_narrow.py)
+    B5a  ops.hybrid_prefix  narrow frontier      (dcf_tpu/ops/pallas_hybrid_prefix.py)
+    B5b  ops.hybrid_prefix  narrow prefix walk   (dcf_tpu/ops/pallas_hybrid_prefix.py)
+    W1   ops.wide_tail      GF(2) wide tail      (dcf_tpu/backends/large_lambda.py)
 
 It imports torch and numpy, never jax and never dcf_tpu.  Entry points
 run on the card unless the caller passes ``device="cpu"``.

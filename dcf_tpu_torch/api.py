@@ -3,18 +3,26 @@
 Counterpart of ``Dcf`` in ``dcf_tpu/api.py`` (its lines 294-711 and
 ``eval`` at :1084), for the slice of it this package carries:
 
-    >>> dcf = Dcf(n_bytes=16, lam=16, cipher_keys=[k0, k1])   # on the card
+    >>> dcf = Dcf(n_bytes=16, lam=256, cipher_keys=keys)      # on the card
     >>> bundle = dcf.gen(alphas, betas)                       # K keys
-    >>> y0 = dcf.eval(0, bundle, xs)                          # uint8 [K, M, 16]
+    >>> y0 = dcf.eval(0, bundle, xs)                          # uint8 [K, M, 256]
 
 Backends (``backend=``):
 
-    auto     walk
-    walk     kernel B1, the from-root walk (backends.walk_backend)
-    prefix   kernels B2 + B3: per-key frontier of the top k levels, built
-             once per party, then the remaining n - k levels per point
-             (backends.prefix_backend; shared points)
+    auto     walk for lam = 16, hybrid for lam >= 48
+    walk     lam = 16: kernel B1, the from-root walk (backends.walk_backend)
+    prefix   lam = 16: kernels B2 + B3, per-key frontier of the top k
+             levels, built once per party, then the remaining n - k levels
+             per point (backends.prefix_backend; shared points)
+    hybrid   lam >= 48 (a multiple of 16), XOR group, shared points: the
+             32-byte narrow walk (kernel B4) and the GF(2) wide tail (W1);
+             ``backend_opts={"prefix_levels": k}`` walks the top k narrow
+             levels once per party instead (kernels B5a + B5b)
+             (backends.large_lambda)
     numpy    the host oracle (backends.numpy_backend)
+
+16 < lam < 48 is not carried: the JAX package runs that band on its
+bitsliced backend, which has no kernel (ROADMAP.md A7).
 
 Everything runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``, where the kernels' plain PyTorch versions
@@ -22,9 +30,9 @@ run.  Without CUDA, a facade that was not asked for the CPU raises.  An
 explicitly named backend is what runs: there is no fallback chain and no
 canary-driven degrade, so a failing device path surfaces as an error.
 
-Not in this package yet (see ROADMAP.md): lam other than 16, the other
-JAX backends, ``mesh=``, keygen on the card, the protocol, DPF and PIR
-methods, and ``serve``.
+Not in this package yet (see ROADMAP.md): the other JAX backends,
+``mesh=``, keygen on the card, the protocol, DPF and PIR methods, and
+``serve``.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from dcf_tpu_torch.spec import (
 
 __all__ = ["Dcf"]
 
-_BACKENDS = ("numpy", "walk", "prefix")
+_BACKENDS = ("numpy", "walk", "prefix", "hybrid")
 
 # Backend names of the JAX facade that this package does not carry yet,
 # with the ROADMAP.md item that ports them.
@@ -57,7 +65,19 @@ _LATER = {
     "bitsliced": "queue A7 (the off-card bitsliced walk)",
     "pallas": "none: its kernel is ported as backend 'walk'",
     "keylanes": "slice 6 (many keys x few points)",
-    "hybrid": "slice 3 (large lambda)",
+}
+
+# backend_opts of the JAX package's hybrid backend that have no meaning
+# here, and why.
+_HYBRID_JAX_OPTS = {
+    "col_chunk": "it chunks the columns of the JAX wide tail's int8 "
+                 "matrix-unit product; kernel W1 tiles its columns itself",
+    "narrow": "it picks the JAX narrow walk's XLA or Pallas form; the port "
+              "has one narrow walk, kernel B4",
+    "interpret": "the Pallas interpreter is a JAX tool; on the CPU the port "
+                 "runs the kernels' plain versions (device='cpu')",
+    "host_levels": "the hybrid frontier is built on the device (kernel "
+                   "B5a); use prefix_levels",
 }
 
 
@@ -69,22 +89,42 @@ class Dcf:
                  device=None):
         if n_bytes < 1:
             raise ValueError("n_bytes must be >= 1")
-        if lam != 16:
+        if lam < 16 or lam % 16:
+            raise ValueError(f"lam must be a multiple of 16 bytes, got {lam}")
+        if 16 < lam < 48:
             raise ValueError(
-                f"lam={lam} is not ported yet: this package runs lam=16; "
-                "larger lam waits for slice 3 (large lambda) in ROADMAP.md")
-        name = "walk" if backend == "auto" else backend
+                f"lam={lam} is not ported: the JAX package runs 16 < lam < "
+                "48 on its bitsliced backend, which has no kernel "
+                "(ROADMAP.md A7)")
+        name = backend if backend != "auto" else (
+            "walk" if lam == 16 else "hybrid")
         if name not in _BACKENDS:
             later = _LATER.get(name)
             raise ValueError(
                 f"backend {name!r} is not in this package; it has "
                 f"{', '.join(_BACKENDS)} and auto"
                 + (f" (ROADMAP.md: {later})" if later else ""))
+        if name in ("walk", "prefix") and lam != 16:
+            raise ValueError(
+                f"the {name} backend supports lam=16 only (got {lam}); use "
+                "hybrid")
+        if name == "hybrid" and lam < 48:
+            raise ValueError(
+                f"the hybrid (large-lambda) backend wants lam >= 48 (got "
+                f"{lam}); use walk or prefix")
         self._backend_opts = dict(backend_opts or {})
         if self._backend_opts and name == "numpy":
             raise ValueError(
                 f"backend_opts {sorted(self._backend_opts)} do not apply to "
                 "the numpy backend")
+        if name == "hybrid":
+            for opt in sorted(self._backend_opts):
+                if opt != "prefix_levels":
+                    raise ValueError(
+                        f"backend_opts {opt!r} does not apply to the port's "
+                        "hybrid backend: "
+                        + _HYBRID_JAX_OPTS.get(opt, "unknown option; it "
+                                               "takes prefix_levels"))
         self.n_bytes = n_bytes
         self.lam = lam
         self.cipher_keys = list(cipher_keys)
@@ -140,19 +180,26 @@ class Dcf:
 
                     be = WalkBackend(self.lam, self.cipher_keys,
                                      device=self.device, **self._backend_opts)
-                else:
+                elif self.backend_name == "prefix":
                     from dcf_tpu_torch.backends.prefix_backend import (
                         PrefixBackend)
 
                     be = PrefixBackend(self.lam, self.cipher_keys,
                                        device=self.device,
                                        **self._backend_opts)
+                else:
+                    from dcf_tpu_torch.backends.large_lambda import (
+                        LargeLambdaBackend)
+
+                    be = LargeLambdaBackend(self.lam, self.cipher_keys,
+                                            device=self.device,
+                                            **self._backend_opts)
             self._eval_backends[int(b)] = be
         return be
 
     def eval(self, b: int, bundle: KeyBundle, xs: np.ndarray) -> np.ndarray:
         """Party ``b`` batch evaluation: xs uint8 [M, n_bytes] (shared) or
-        [K, M, n_bytes] (per key; walk and numpy).  Returns uint8
+        [K, M, n_bytes] (per key; walk and numpy only).  Returns uint8
         [K, M, lam]; reconstruct with the bundle's group add of both
         parties' outputs.
 

@@ -1,10 +1,11 @@
-"""Shared batch-shape validation/padding and device selection for the
-port's backends.
+"""Shared batch-shape validation/padding, device selection and the
+two-party verifier of the port's backends.
 
 Counterpart of ``dcf_tpu/backends/_common.py``.  Every backend accepts xs
 as uint8 [M, n_bytes] (points shared by all keys) or [K, M, n_bytes]
-(per-key points) and returns uint8 [K, M, lam]; the checks and the
-pad-and-promote step are identical across backends and live here.
+(per-key points) and returns uint8 [K, M, lam]; the checks, the
+pad-and-promote step and the on-device mismatch count are identical
+across backends and live here.
 """
 
 from __future__ import annotations
@@ -13,8 +14,11 @@ import numpy as np
 import torch
 
 from dcf_tpu_torch.errors import BackendUnavailableError, ShapeError
+from dcf_tpu_torch.ops.walk_eval import group_add_plain
+from dcf_tpu_torch.utils.groups import group_width
 
-__all__ = ["validate_xs", "pad_xs", "prepare_batch", "resolve_device"]
+__all__ = ["validate_xs", "pad_xs", "prepare_batch", "resolve_device",
+           "points_mismatch_count"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,3 +69,53 @@ def prepare_batch(dims: tuple[int, int], xs: np.ndarray,
     shared, m = validate_xs(xs, k_num, n_bits)
     xs = pad_xs(xs, shared, m, m_pad_of(m))
     return np.ascontiguousarray(xs), shared, m
+
+
+def _lex_inside(xs: torch.Tensor, alphas: torch.Tensor,
+                gt: bool) -> torch.Tensor:
+    """bool [K, M]: x < alpha (x > alpha for gt), unsigned big-endian.
+    xs uint8 [1 or K, M, nb]; alphas uint8 [K, nb]."""
+    inside = torch.zeros(alphas.shape[0], xs.shape[1], dtype=torch.bool,
+                         device=xs.device)
+    eq = torch.ones_like(inside)
+    for j in range(xs.shape[-1]):
+        xj = xs[:, :, j]
+        aj = alphas[:, j, None]
+        inside |= eq & ((xj > aj) if gt else (xj < aj))
+        eq &= xj == aj
+    return inside
+
+
+def points_mismatch_count(y0: torch.Tensor, y1: torch.Tensor, alpha, beta,
+                          xs: torch.Tensor, lam: int, group: str,
+                          gt: bool = False) -> torch.Tensor:
+    """Two-party check on the device: the number of (key, point) pairs,
+    pad points included, whose reconstruction differs from ``beta if
+    x < alpha else 0`` (``>`` for gt).  y0/y1 are both parties' shares
+    uint8 [K, M_pad, lam] over the same staged points xs uint8 [1 or K,
+    M_pad, nb]; the reconstruction is the group add (XOR or lane-wise).
+
+    Single key: alpha/beta as bytes.  Multi-key: uint8 arrays [K, n_bytes]
+    / [K, lam].  Returns a device int64 scalar."""
+    k_num = y0.shape[0]
+    if isinstance(alpha, (bytes, bytearray)):
+        if k_num != 1:
+            raise ShapeError(
+                "bytes alpha/beta is the single-key form; pass "
+                "[K, n_bytes]/[K, lam] arrays for multi-key bundles")
+        alphas = np.frombuffer(bytes(alpha), dtype=np.uint8)[None]
+        betas = np.frombuffer(bytes(beta), dtype=np.uint8)[None]
+    else:
+        alphas = np.asarray(alpha, dtype=np.uint8)
+        betas = np.asarray(beta, dtype=np.uint8)
+    if alphas.shape != (k_num, xs.shape[-1]) or betas.shape != (k_num, lam):
+        raise ShapeError(
+            f"alphas {alphas.shape} / betas {betas.shape} do not fit "
+            f"{k_num}-key outputs over {xs.shape[-1]}-byte points")
+    a = torch.tensor(alphas, device=xs.device)
+    bt = torch.tensor(betas, device=xs.device)
+    inside = _lex_inside(xs, a, gt)
+    expect = torch.where(inside[..., None], bt[:, None, :],
+                         torch.zeros_like(bt[:, None, :]))
+    recon = group_add_plain(y0, y1, group_width(group))
+    return (recon != expect).any(-1).sum()

@@ -22,31 +22,19 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from dcf_tpu_torch.backends._common import prepare_batch, resolve_device
+from dcf_tpu_torch.backends._common import (
+    points_mismatch_count,
+    prepare_batch,
+    resolve_device,
+)
 from dcf_tpu_torch.errors import ShapeError, StaleStateError
 from dcf_tpu_torch.keys import KeyBundle
-from dcf_tpu_torch.ops.walk_eval import aes_image, group_add_plain, walk_eval
+from dcf_tpu_torch.ops.walk_eval import aes_image, walk_eval
 from dcf_tpu_torch.spec import hirose_used_cipher_indices
-from dcf_tpu_torch.utils.groups import group_width
 
 __all__ = ["WalkBackend", "POINT_TILE"]
 
 POINT_TILE = 32  # points pad to a multiple of one warp
-
-
-def _lex_inside(xs: torch.Tensor, alphas: torch.Tensor,
-                gt: bool) -> torch.Tensor:
-    """bool [K, M]: x < alpha (x > alpha for gt), unsigned big-endian.
-    xs uint8 [1 or K, M, nb]; alphas uint8 [K, nb]."""
-    inside = torch.zeros(alphas.shape[0], xs.shape[1], dtype=torch.bool,
-                         device=xs.device)
-    eq = torch.ones_like(inside)
-    for j in range(xs.shape[-1]):
-        xj = xs[:, :, j]
-        aj = alphas[:, j, None]
-        inside |= eq & ((xj > aj) if gt else (xj < aj))
-        eq &= xj == aj
-    return inside
 
 
 class WalkBackend:
@@ -128,35 +116,9 @@ class WalkBackend:
 
     def points_mismatch_count(self, y0, y1, alpha, beta, staged: dict,
                               gt: bool = False) -> torch.Tensor:
-        """Two-party check on the device: the number of (key, point) pairs,
-        pad points included, whose reconstruction differs from ``beta if
-        x < alpha else 0`` (``>`` for gt).  y0/y1 are the ``eval_staged``
-        outputs of the two parties on the same staged points; the
-        reconstruction is the bundle's group add (XOR or lane-wise).
-
-        Single key: alpha/beta as bytes.  Multi-key: uint8 arrays
-        [K, n_bytes] / [K, lam].  Returns a device int64 scalar."""
-        k_num = y0.shape[0]
-        if isinstance(alpha, (bytes, bytearray)):
-            if k_num != 1:
-                raise ShapeError(
-                    "bytes alpha/beta is the single-key form; pass "
-                    "[K, n_bytes]/[K, lam] arrays for multi-key bundles")
-            alphas = np.frombuffer(bytes(alpha), dtype=np.uint8)[None]
-            betas = np.frombuffer(bytes(beta), dtype=np.uint8)[None]
-        else:
-            alphas = np.asarray(alpha, dtype=np.uint8)
-            betas = np.asarray(beta, dtype=np.uint8)
-        xs = staged["xs"]
-        if alphas.shape != (k_num, xs.shape[-1]) \
-                or betas.shape != (k_num, self.lam):
-            raise ShapeError(
-                f"alphas {alphas.shape} / betas {betas.shape} do not fit "
-                f"{k_num}-key outputs over {xs.shape[-1]}-byte points")
-        a = torch.tensor(alphas, device=xs.device)
-        bt = torch.tensor(betas, device=xs.device)
-        inside = _lex_inside(xs, a, gt)
-        expect = torch.where(inside[..., None], bt[:, None, :],
-                             torch.zeros_like(bt[:, None, :]))
-        recon = group_add_plain(y0, y1, group_width(self._group))
-        return (recon != expect).any(-1).sum()
+        """Two-party check on the device (``_common.points_mismatch_count``):
+        the (key, point) pairs, pad points included, whose reconstruction
+        in the bundle's group differs from ``beta if x < alpha else 0``
+        (``>`` for gt)."""
+        return points_mismatch_count(y0, y1, alpha, beta, staged["xs"],
+                                     self.lam, self._group, gt)

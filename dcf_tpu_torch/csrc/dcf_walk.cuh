@@ -1,5 +1,6 @@
 // Per-thread DCF arithmetic shared by the three Hopper kernels of the
-// batch-eval path:
+// lam = 16 batch-eval path (its AES also serves the large-lambda kernels of
+// narrow_walk.cuh):
 //
 //   B1  walk_eval.cu    replaces dcf_tpu/ops/pallas_eval.py::dcf_eval_pallas
 //   B2  tree_expand.cu  replaces dcf_tpu/ops/pallas_tree.py::_expand_level
@@ -97,42 +98,51 @@ DCF_HD void level_cw_entry(LevelCw* cw, const uint8_t* cw_s,
   t3 = T.te[0][s3 & 0xFFu] ^ T.te[1][(s0 >> 8) & 0xFFu] ^                    \
        T.te[2][(s1 >> 16) & 0xFFu] ^ T.te[3][s2 >> 24] ^ (K)[3];
 
-// The last round: SubBytes and ShiftRows, no MixColumns.
-#define DCF_AES_LAST(T, s0, s1, s2, s3, out)                                  \
+// The last round: SubBytes and ShiftRows, no MixColumns.  RK is the key
+// schedule (rk[60]) whose last round key it adds.
+#define DCF_AES_LAST(T, RK, s0, s1, s2, s3, out)                              \
   out[0] = (T.sb[s0 & 0xFFu] | (T.sb[(s1 >> 8) & 0xFFu] << 8) |              \
             (T.sb[(s2 >> 16) & 0xFFu] << 16) | (T.sb[s3 >> 24] << 24)) ^     \
-           T.rk[56];                                                         \
+           (RK)[56];                                                         \
   out[1] = (T.sb[s1 & 0xFFu] | (T.sb[(s2 >> 8) & 0xFFu] << 8) |              \
             (T.sb[(s3 >> 16) & 0xFFu] << 16) | (T.sb[s0 >> 24] << 24)) ^     \
-           T.rk[57];                                                         \
+           (RK)[57];                                                         \
   out[2] = (T.sb[s2 & 0xFFu] | (T.sb[(s3 >> 8) & 0xFFu] << 8) |              \
             (T.sb[(s0 >> 16) & 0xFFu] << 16) | (T.sb[s1 >> 24] << 24)) ^     \
-           T.rk[58];                                                         \
+           (RK)[58];                                                         \
   out[3] = (T.sb[s3 & 0xFFu] | (T.sb[(s0 >> 8) & 0xFFu] << 8) |              \
             (T.sb[(s1 >> 16) & 0xFFu] << 16) | (T.sb[s2 >> 24] << 24)) ^     \
-           T.rk[59];
+           (RK)[59];
 
-// AES-256 of two blocks in lockstep (two independent dependency chains).
-DCF_HD void aes256_encrypt2(const AesTables& a, const uint32_t in0[4],
-                            const uint32_t in1[4], uint32_t out0[4],
-                            uint32_t out1[4]) {
-  uint32_t a0 = in0[0] ^ a.rk[0], a1 = in0[1] ^ a.rk[1];
-  uint32_t a2 = in0[2] ^ a.rk[2], a3 = in0[3] ^ a.rk[3];
-  uint32_t b0 = in1[0] ^ a.rk[0], b1 = in1[1] ^ a.rk[1];
-  uint32_t b2 = in1[2] ^ a.rk[2], b3 = in1[3] ^ a.rk[3];
+// AES-256 of two blocks in lockstep (two independent dependency chains)
+// under the round keys rk[60] (the tables' own or another cipher's).
+DCF_HD void aes256_encrypt2_rk(const AesTables& a, const uint32_t* rk,
+                               const uint32_t in0[4], const uint32_t in1[4],
+                               uint32_t out0[4], uint32_t out1[4]) {
+  uint32_t a0 = in0[0] ^ rk[0], a1 = in0[1] ^ rk[1];
+  uint32_t a2 = in0[2] ^ rk[2], a3 = in0[3] ^ rk[3];
+  uint32_t b0 = in1[0] ^ rk[0], b1 = in1[1] ^ rk[1];
+  uint32_t b2 = in1[2] ^ rk[2], b3 = in1[3] ^ rk[3];
   uint32_t c0, c1, c2, c3, d0, d1, d2, d3;
 #if defined(__CUDACC__)
 #pragma unroll
 #endif
   for (int r = 1; r < 14; ++r) {
-    const uint32_t* k = a.rk + 4 * r;
+    const uint32_t* k = rk + 4 * r;
     DCF_AES_ROUND(a, k, a0, a1, a2, a3, c0, c1, c2, c3)
     DCF_AES_ROUND(a, k, b0, b1, b2, b3, d0, d1, d2, d3)
     a0 = c0; a1 = c1; a2 = c2; a3 = c3;
     b0 = d0; b1 = d1; b2 = d2; b3 = d3;
   }
-  DCF_AES_LAST(a, a0, a1, a2, a3, out0)
-  DCF_AES_LAST(a, b0, b1, b2, b3, out1)
+  DCF_AES_LAST(a, rk, a0, a1, a2, a3, out0)
+  DCF_AES_LAST(a, rk, b0, b1, b2, b3, out1)
+}
+
+// The same under the tables' own round keys (cipher 0).
+DCF_HD void aes256_encrypt2(const AesTables& a, const uint32_t in0[4],
+                            const uint32_t in1[4], uint32_t out0[4],
+                            uint32_t out1[4]) {
+  aes256_encrypt2_rk(a, a.rk, in0, in1, out0, out1);
 }
 
 // One Hirose PRG call on a 16-byte seed (lam = 16, cipher 0 only):

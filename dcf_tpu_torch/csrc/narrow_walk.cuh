@@ -1,0 +1,254 @@
+// Per-thread arithmetic of the large-lambda hybrid (lam >= 48), shared by
+// its four Hopper kernels:
+//
+//   B4   narrow_walk.cu    replaces dcf_tpu/ops/pallas_narrow.py::dcf_narrow_walk_pallas
+//   B5a  hybrid_state.cu   replaces dcf_tpu/ops/pallas_hybrid_prefix.py::narrow_state_walk_pallas
+//   B5b  hybrid_prefix.cu  replaces dcf_tpu/ops/pallas_hybrid_prefix.py::dcf_hybrid_prefix_pallas
+//   W1   wide_xor.cu       replaces the XLA int8 dot_general of
+//                          dcf_tpu/backends/large_lambda.py::_wide_tail
+//
+// For lam >= 48 the Hirose PRG encrypts only its first two 16-byte blocks
+// (cipher 0 on block 0, cipher 17 on block 1); every other block is a
+// feed-forward copy.  So a lam-byte evaluation splits into a 32-byte
+// "narrow" walk, which yields y[:32] and the trajectory of gate bits t_0
+// (the party) .. t_n (the bit that gates cw_np1), and a GF(2) affine wide
+// part y[32:] = const ^ XOR_k t_k * W[k] over that trajectory.
+//
+// The narrow walk is the lam = 32 walk without the final-bit mask: the big
+// PRG's masked bit 8*lam-1 lies in the wide part.  Per level, four AES-256
+// encryptions: cipher 0 on (s_b0, ~s_b0), cipher 17 on (s_b1, ~s_b1),
+//
+//   left  s = (E0(s_b0) ^ s_b0, s_b1)     left  v = (E0(~s_b0) ^ ~s_b0, ~s_b1)
+//   right s = (s_b0, E17(s_b1) ^ s_b1)    right v = (~s_b0, E17(~s_b1) ^ ~s_b1)
+//
+// and t_l / t_r are bit 0 of byte 0 of cipher 0's two outputs.  The state
+// is eight little-endian uint32 words per 32 bytes (block 0 in words 0-3),
+// the T-table AES of dcf_walk.cuh runs the two blocks of each cipher in
+// lockstep, and cipher 17's round keys sit beside cipher 0's in shared
+// memory.
+//
+// A trajectory is a bit string, bit i = t_i, packed into little-endian
+// uint32 words (bit i is bit i % 32 of word i / 32, which is also bit i % 8
+// of byte i / 8).
+//
+// Plain C++ over uint32_t; it also compiles on the host.
+
+#pragma once
+
+#include "dcf_walk.cuh"
+
+namespace dcf {
+
+// Shared tables of the narrow walk: the T-tables, the S-box and cipher 0's
+// round keys (a.rk), and cipher 17's round keys.
+struct NarrowTables {
+  AesTables a;
+  uint32_t rk17[60];
+};
+
+// One level's correction word, narrow part: 32 bytes of s and of v, t bits
+// (tl in bit 0, tr in bit 1).
+struct NarrowCw {
+  uint32_t s[8];
+  uint32_t v[8];
+  uint32_t t;
+};
+
+// The carry of a narrow walk.
+struct NarrowState {
+  uint32_t s[8];
+  uint32_t v[8];
+  uint32_t t;
+};
+
+// Appends trajectory bits, in order, to packed words at out.
+struct TrajWriter {
+  uint32_t* out;
+  uint32_t cur;  // the word being filled
+};
+
+DCF_HD void traj_put(TrajWriter& w, int i, uint32_t bit) {
+  w.cur |= bit << (i & 31);
+  if ((i & 31) == 31) {
+    w.out[i >> 5] = w.cur;
+    w.cur = 0u;
+  }
+}
+
+// Stores the partly filled word after the last bit put, `last`.
+DCF_HD void traj_flush(TrajWriter& w, int last) {
+  if ((last & 31) != 31) w.out[last >> 5] = w.cur;
+}
+
+// Level i's narrow CW from the [n, 32] / [n, 2] byte arrays of one key.
+DCF_HD void narrow_cw_entry(NarrowCw* cw, const uint8_t* cw_s,
+                            const uint8_t* cw_v, const uint8_t* cw_t, int i) {
+  for (int q = 0; q < 8; ++q) {
+    cw[i].s[q] = le32(cw_s + 32 * i + 4 * q);
+    cw[i].v[q] = le32(cw_v + 32 * i + 4 * q);
+  }
+  cw[i].t = (cw_t[2 * i] & 1u) | ((cw_t[2 * i + 1] & 1u) << 1);
+}
+
+// One narrow level: the unmasked two-block Hirose step, the s/t correction
+// gated by t, the mux on the input bit xbit, v accumulated by XOR.
+DCF_HD void narrow_level(const NarrowTables& T, const NarrowCw& w,
+                         uint32_t xbit, NarrowState& st) {
+  uint32_t sp[8], es[8], ev[8];
+  for (int q = 0; q < 8; ++q) sp[q] = ~st.s[q];
+  aes256_encrypt2_rk(T.a, T.a.rk, st.s, sp, es, ev);              // cipher 0
+  aes256_encrypt2_rk(T.a, T.rk17, st.s + 4, sp + 4, es + 4, ev + 4);  // 17
+  for (int q = 0; q < 8; ++q) {
+    es[q] ^= st.s[q];
+    ev[q] ^= sp[q];
+  }
+  const uint32_t g = 0u - st.t;
+  const uint32_t xm = 0u - xbit;
+  const uint32_t tl = (es[0] & 1u) ^ (st.t & w.t);
+  const uint32_t tr = (ev[0] & 1u) ^ (st.t & (w.t >> 1));
+  for (int q = 0; q < 8; ++q) {
+    // Block 0 of the left child and block 1 of the right one are
+    // encrypted; the other two blocks are the feed-forward copies.
+    const uint32_t sl = q < 4 ? es[q] : st.s[q];
+    const uint32_t sr = q < 4 ? st.s[q] : es[q];
+    const uint32_t vl = q < 4 ? ev[q] : sp[q];
+    const uint32_t vr = q < 4 ? sp[q] : ev[q];
+    st.v[q] ^= ((vr & xm) | (vl & ~xm)) ^ (w.v[q] & g);
+    st.s[q] = ((sr & xm) | (sl & ~xm)) ^ (w.s[q] & g);
+  }
+  st.t = (tr & xm) | (tl & ~xm);
+}
+
+// Walk n_levels levels from st, input bits from level bit0 of x, CWs from
+// cw[0..n_levels); the gate t of level bit0 + i goes to trajectory bit
+// bit0 + i.
+DCF_HD void narrow_walk_levels(const NarrowTables& T, const NarrowCw* cw,
+                               int n_levels, const uint8_t* x, int bit0,
+                               NarrowState& st, TrajWriter& tw) {
+  for (int i = 0; i < n_levels; ++i) {
+    traj_put(tw, bit0 + i, st.t);
+    narrow_level(T, cw[i], walk_bit(x, bit0 + i), st);
+  }
+}
+
+// y[:32] = v ^ s ^ t * cw_np1[:32].
+DCF_HD void narrow_finalize(const NarrowState& st, const uint32_t np1[8],
+                            uint32_t y[8]) {
+  const uint32_t g = 0u - st.t;
+  for (int q = 0; q < 8; ++q) y[q] = st.v[q] ^ st.s[q] ^ (np1[q] & g);
+}
+
+// B4's per-thread body: the from-root narrow walk of one point under one
+// key; writes y[:32] and the n+1 trajectory bits (ceil((n+1)/32) words).
+DCF_HD void narrow_point(const NarrowTables& T, const NarrowCw* cw, int n,
+                         const uint32_t s0[8], const uint32_t np1[8],
+                         const uint8_t* x, uint32_t t0, uint32_t y[8],
+                         uint32_t* traj) {
+  NarrowState st;
+  for (int q = 0; q < 8; ++q) {
+    st.s[q] = s0[q];
+    st.v[q] = 0u;
+  }
+  st.t = t0;
+  TrajWriter tw = {traj, 0u};
+  narrow_walk_levels(T, cw, n, x, 0, st, tw);
+  traj_put(tw, n, st.t);
+  traj_flush(tw, n);
+  narrow_finalize(st, np1, y);
+}
+
+// Walk bits of frontier node r (k <= 32): MSB-first walk bit i is bit i of
+// r, so the depth-k carry of node r is frontier row r (the enumeration of
+// frontier_index and of the JAX package's _node_prefix_xs).
+DCF_HD void node_prefix_bytes(uint32_t r, int k, uint8_t x[4]) {
+  for (int j = 0; j < 4; ++j) x[j] = 0;
+  for (int i = 0; i < k; ++i)
+    x[i >> 3] |= (uint8_t)(((r >> i) & 1u) << (7 - (i & 7)));
+}
+
+// B5a's per-thread body: walk node r k levels (k <= 30) from the root;
+// leaves the raw carry in st and the trajectory word in word (gate bits
+// 0..k-1, the depth-k carry t at bit k).
+DCF_HD void narrow_node(const NarrowTables& T, const NarrowCw* cw, int k,
+                        const uint32_t s0[8], uint32_t r, uint32_t t0,
+                        NarrowState& st, uint32_t& word) {
+  uint8_t x[4];
+  node_prefix_bytes(r, k, x);
+  for (int q = 0; q < 8; ++q) {
+    st.s[q] = s0[q];
+    st.v[q] = 0u;
+  }
+  st.t = t0;
+  TrajWriter tw = {&word, 0u};
+  narrow_walk_levels(T, cw, k, x, 0, st, tw);
+  traj_put(tw, k, st.t);
+  traj_flush(tw, k);
+}
+
+// B5b's per-thread body: from a frontier row (s then v, 16 words) and its
+// trajectory word, walk levels k..n-1 (cw holds those levels); writes y[:32]
+// and the whole n+1-bit trajectory, the top k gates taken from the word.
+DCF_HD void hybrid_prefix_point(const NarrowTables& T, const NarrowCw* cw,
+                                int n, int k, const uint32_t row[16],
+                                uint32_t word, const uint32_t np1[8],
+                                const uint8_t* x, uint32_t y[8],
+                                uint32_t* traj) {
+  NarrowState st;
+  for (int q = 0; q < 8; ++q) {
+    st.s[q] = row[q];
+    st.v[q] = row[8 + q];
+  }
+  st.t = (word >> k) & 1u;
+  TrajWriter tw = {traj, word & ((1u << k) - 1u)};
+  narrow_walk_levels(T, cw, n - k, x, k, st, tw);
+  traj_put(tw, n, st.t);
+  traj_flush(tw, n);
+  narrow_finalize(st, np1, y);
+}
+
+DCF_HD int lowest_set_bit(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __ffs(x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
+// W1's per-(point, column word) body: c ^ XOR of the words w_col[k *
+// stride] for every trajectory bit k < n1 that is set.  The loop runs once
+// per set bit, so the work follows the data.
+DCF_HD uint32_t wide_word(const uint32_t* traj, int n1, const uint32_t* w_col,
+                          int stride, uint32_t c) {
+  for (int w0 = 0; w0 < n1; w0 += 32) {
+    uint32_t bits = traj[w0 >> 5];
+    if (n1 - w0 < 32) bits &= (1u << (n1 - w0)) - 1u;
+    while (bits) {
+      const int j = lowest_set_bit(bits);
+      bits &= bits - 1u;
+      c ^= w_col[(size_t)(w0 + j) * stride];
+    }
+  }
+  return c;
+}
+
+#if defined(__CUDACC__)
+// Block-cooperative fills of the shared narrow tables; the caller syncs.
+__device__ __forceinline__ void fill_narrow_tables(NarrowTables& t,
+                                                   const uint8_t* sbox,
+                                                   const uint8_t* rk0,
+                                                   const uint8_t* rk17) {
+  fill_aes_tables(t.a, sbox, rk0);
+  for (int i = threadIdx.x; i < 60; i += blockDim.x)
+    t.rk17[i] = le32(rk17 + 4 * i);
+}
+
+__device__ __forceinline__ void fill_narrow_cws(NarrowCw* cw,
+                                                const uint8_t* cw_s,
+                                                const uint8_t* cw_v,
+                                                const uint8_t* cw_t, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    narrow_cw_entry(cw, cw_s, cw_v, cw_t, i);
+}
+#endif
+
+}  // namespace dcf

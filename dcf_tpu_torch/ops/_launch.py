@@ -1,4 +1,4 @@
-"""The launch protocol shared by the kernels' wrappers (B1, B2, B3).
+"""The launch protocol shared by the kernels' wrappers.
 
 A wrapper checks every tensor it hands a kernel (``check_u8``: uint8,
 shape, device, contiguity and, on the card, alignment), loads the kernel's

@@ -36,11 +36,19 @@ class PrgOut:
 
 class HirosePrgNp:
     """Numpy Hirose PRG over ``keys`` (the same key-count contract as the
-    reference: cipher indices 0 and, for lam >= 32, 17 must exist)."""
+    reference: cipher indices 0 and, for lam >= 32, 17 must exist).
 
-    def __init__(self, lam: int, keys: Sequence[bytes]):
+    ``mask=False`` skips the final clearing of bit 8*lam-1: the large-lambda
+    hybrid's narrow 32-byte walk replicates the first two blocks of a
+    bigger PRG whose masked byte lies in its wide part
+    (``backends.large_lambda``).  ``warn=False`` marks such internal
+    constructions, which are not API edges."""
+
+    def __init__(self, lam: int, keys: Sequence[bytes], mask: bool = True,
+                 warn: bool = True):
         self.lam = lam
-        used = hirose_used_cipher_indices(lam, len(keys))
+        self.mask = mask
+        used = hirose_used_cipher_indices(lam, len(keys), warn=warn)
         self.round_keys = {i: expand_key_np(keys[i]) for i in used}
 
     def gen(self, seeds: np.ndarray) -> PrgOut:
@@ -65,8 +73,9 @@ class HirosePrgNp:
         t_l = buf0[..., 0, 0] & np.uint8(1)
         t_r = buf1[..., 0, 0] & np.uint8(1)
         # Clear the LSB of the last byte of all four outputs.
-        buf0[..., lam - 1] &= np.uint8(0xFE)
-        buf1[..., lam - 1] &= np.uint8(0xFE)
+        if self.mask:
+            buf0[..., lam - 1] &= np.uint8(0xFE)
+            buf1[..., lam - 1] &= np.uint8(0xFE)
         return PrgOut(
             s_l=buf0[..., 0, :],
             v_l=buf1[..., 0, :],

@@ -141,7 +141,9 @@ def hirose_used_cipher_indices(lam: int, num_keys: int,
                                warn: bool = True) -> list[int]:
     """Validate a Hirose PRG shape and return the cipher indices it uses:
     ``17*k for k < min(2, lam // 16)``.  Shapes the reference could not
-    run warn with ``ReferenceContractWarning``."""
+    run warn with ``ReferenceContractWarning`` unless ``warn`` is False
+    (internal constructions, such as the hybrid's narrow sub-walk of a
+    larger shape, are not API edges)."""
     if lam % 16 != 0:
         raise ValueError("lam must be a multiple of 16 bytes")
     used = [17 * k for k in range(min(2, lam // 16))]

@@ -1,7 +1,9 @@
 """The port's Dcf facade on the CPU: gen + eval reconstruct beta*[x < alpha]
-(x = alpha included) on every ported backend; unported backend names and
-lam != 16 raise; a CUDA request without CUDA raises instead of running on
-the CPU; keygen matches dcf_tpu's."""
+(x = alpha included) on every ported lam = 16 backend; unported backend
+names, the lam = 16 kernels at other lam and 16 < lam < 48 raise; a CUDA
+request without CUDA raises instead of running on the CPU; keygen matches
+dcf_tpu's.  The lam >= 48 hybrid has its own tests
+(test_torch_large_lambda.py, test_torch_hybrid_prefix.py)."""
 
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ from dcf_tpu.ops.prg import HirosePrgNp as JPrg
 
 from dcf_tpu_torch import BackendUnavailableError, Bound, Dcf
 from dcf_tpu_torch.utils.groups import np_group_add
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BACKENDS = ("numpy", "walk", "prefix")
 
@@ -71,14 +74,25 @@ def test_gen_matches_dcf_tpu_and_bundle_ships_once():
 @pytest.mark.parametrize("name", ["cpu", "jax", "bitsliced", "pallas",
                                   "keylanes", "hybrid", "nope"])
 def test_unported_backends_raise(name):
-    with pytest.raises(ValueError, match="not in this package"):
+    """Every JAX backend name but hybrid is not in the package; hybrid is,
+    for lam >= 48 only."""
+    match = "lam >= 48" if name == "hybrid" else "not in this package"
+    with pytest.raises(ValueError, match=match):
         Dcf(2, 16, [b"k" * 32] * 2, backend=name, device="cpu")
 
 
 @pytest.mark.parametrize("lam", [32, 48, 128])
 def test_other_lam_raises(lam):
-    with pytest.raises(ValueError, match="slice 3"):
-        Dcf(2, lam, [b"k" * 32] * 18, device="cpu")
+    """walk and prefix are lam = 16 kernels; 16 < lam < 48 has no kernel
+    (ROADMAP A7); auto takes hybrid from lam = 48 on."""
+    ck = [b"k" * 32] * 18
+    for name in ("walk", "prefix", "auto"):
+        if name == "auto" and lam >= 48:
+            assert Dcf(2, lam, ck, device="cpu").backend_name == "hybrid"
+            continue
+        with pytest.raises(ValueError,
+                           match="lam=16 only" if lam >= 48 else "A7"):
+            Dcf(2, lam, ck, backend=name, device="cpu")
 
 
 def test_facade_argument_contract():
@@ -99,6 +113,7 @@ def test_facade_argument_contract():
 def test_cuda_request_without_cuda_raises(monkeypatch, device):
     """The card is the default; without CUDA the facade and the backends
     raise rather than run the plain versions on the CPU."""
+    from dcf_tpu_torch.backends.large_lambda import LargeLambdaBackend
     from dcf_tpu_torch.backends.prefix_backend import PrefixBackend
     from dcf_tpu_torch.backends.walk_backend import WalkBackend
 
@@ -109,3 +124,5 @@ def test_cuda_request_without_cuda_raises(monkeypatch, device):
     for cls in (WalkBackend, PrefixBackend):
         with pytest.raises(BackendUnavailableError):
             cls(16, ck, device=device)
+    with pytest.raises(BackendUnavailableError):
+        LargeLambdaBackend(48, ck * 9, device=device)

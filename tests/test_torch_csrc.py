@@ -2,13 +2,18 @@
 
 ``dcf_tpu_torch/csrc/dcf_walk.cuh`` holds the bodies of kernels B1-B3 as
 plain C++ over uint32_t (T-table AES-256, the Hirose step, the SWAR group
-adds, the walk, the frontier gather index and the tree node).  This test
-compiles that header with the host C++ compiler into a small library that
-runs each body over every (key, point) or node in a loop, and holds the
-results byte for byte against the port's numpy oracle and host tree
-expansion: all four groups, both bounds, both parties, shared and per-key
-points, x = alpha planted.  The launch code (grids, shared-memory fills)
-runs only on the card and is covered by ``chip_smoke.py``."""
+adds, the walk, the frontier gather index and the tree node), and
+``csrc/narrow_walk.cuh`` those of the large-lambda kernels B4, B5a, B5b
+and W1 (the unmasked two-cipher narrow step, its level loop with the
+trajectory, the node walk, the frontier walk and the wide XOR).  This test
+compiles both headers with the host C++ compiler into a small library
+that runs each body over every (key, point) or node in a loop, and holds
+the results byte for byte against the port's numpy oracles (the full-width
+``eval_batch_np``, the narrow ``narrow_walk_np`` and
+``wide_affine_batch_np``), its host tree expansion and its plain frontier
+build: both bounds, both parties, x = alpha and alpha +- 1 planted.  The
+launch code (grids, shared-memory fills) runs only on the card and is
+covered by ``chip_smoke.py``."""
 
 import ctypes
 import pathlib
@@ -18,13 +23,22 @@ import subprocess
 import numpy as np
 import pytest
 
+import torch
+
 from dcf_tpu_torch.backends.fulldomain import tree_expand_np
+from dcf_tpu_torch.backends.large_lambda import (
+    narrow_walk_np,
+    wide_affine_batch_np,
+)
 from dcf_tpu_torch.backends.numpy_backend import eval_batch_np
 from dcf_tpu_torch.gen import gen_batch, random_s0s
 from dcf_tpu_torch.keys import KeyBundle
 from dcf_tpu_torch.ops.aes import SBOX_NP, expand_key_np
+from dcf_tpu_torch.ops.hybrid_prefix import narrow_frontier_plain
+from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
 from dcf_tpu_torch.ops.prg import HirosePrgNp
 from dcf_tpu_torch.spec import GROUP_WIDTH, Bound
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "dcf_tpu_torch" / "csrc"
 GROUPS = ("xor", "add8", "add16", "add32")
@@ -152,6 +166,111 @@ void host_tree(const uint8_t* sbox, const uint8_t* rk, const uint8_t* cw_s,
 """
 
 
+_NARROW_HARNESS = r"""
+#include "narrow_walk.cuh"
+
+static void narrow_tables(NarrowTables& t, const uint8_t* sbox,
+                          const uint8_t* rk0, const uint8_t* rk17) {
+  tables(t.a, sbox, rk0);
+  for (int i = 0; i < 60; ++i) t.rk17[i] = le32(rk17 + 4 * i);
+}
+
+static void words8(const uint8_t* p, uint32_t w[8]) {
+  for (int q = 0; q < 8; ++q) w[q] = le32(p + 4 * q);
+}
+
+extern "C" {
+void host_narrow(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
+                 const uint8_t* s0, const uint8_t* cw_s, const uint8_t* cw_v,
+                 const uint8_t* cw_t, const uint8_t* np1, const uint8_t* xs,
+                 uint8_t* y, uint32_t* traj, int K, int n, int m, int tw,
+                 int b) {
+  NarrowTables t;
+  narrow_tables(t, sbox, rk0, rk17);
+  std::vector<NarrowCw> cw(n);
+  for (int key = 0; key < K; ++key) {
+    for (int i = 0; i < n; ++i)
+      narrow_cw_entry(cw.data(), cw_s + (size_t)key * n * 32,
+                      cw_v + (size_t)key * n * 32, cw_t + (size_t)key * n * 2,
+                      i);
+    uint32_t sw[8], fw[8], out[8];
+    words8(s0 + key * 32, sw);
+    words8(np1 + key * 32, fw);
+    for (int pt = 0; pt < m; ++pt) {
+      const size_t row = (size_t)key * m + pt;
+      narrow_point(t, cw.data(), n, sw, fw, xs + (size_t)pt * (n / 8),
+                   (uint32_t)b, out, traj + row * tw);
+      memcpy(y + row * 32, out, 32);
+    }
+  }
+}
+
+void host_frontier(const uint8_t* sbox, const uint8_t* rk0,
+                   const uint8_t* rk17, const uint8_t* s0, const uint8_t* cw_s,
+                   const uint8_t* cw_v, const uint8_t* cw_t, uint8_t* rows,
+                   uint32_t* words, int K, int n, int k, int b) {
+  NarrowTables t;
+  narrow_tables(t, sbox, rk0, rk17);
+  std::vector<NarrowCw> cw(k);
+  for (int key = 0; key < K; ++key) {
+    for (int i = 0; i < k; ++i)
+      narrow_cw_entry(cw.data(), cw_s + (size_t)key * n * 32,
+                      cw_v + (size_t)key * n * 32, cw_t + (size_t)key * n * 2,
+                      i);
+    uint32_t sw[8];
+    words8(s0 + key * 32, sw);
+    for (uint32_t r = 0; r < (1u << k); ++r) {
+      NarrowState st;
+      uint32_t word = 0xFFFFFFFFu;  // overwritten whole by the walk
+      narrow_node(t, cw.data(), k, sw, r, (uint32_t)b, st, word);
+      const size_t node = ((size_t)key << k) + r;
+      memcpy(rows + node * 64, st.s, 32);
+      memcpy(rows + node * 64 + 32, st.v, 32);
+      words[node] = word;
+    }
+  }
+}
+
+void host_hybrid_prefix(const uint8_t* sbox, const uint8_t* rk0,
+                        const uint8_t* rk17, const uint8_t* rows,
+                        const uint32_t* words, const uint8_t* cw_s,
+                        const uint8_t* cw_v, const uint8_t* cw_t,
+                        const uint8_t* np1, const uint8_t* xs, uint8_t* y,
+                        uint32_t* traj, int K, int n, int k, int m, int tw) {
+  NarrowTables t;
+  narrow_tables(t, sbox, rk0, rk17);
+  std::vector<NarrowCw> cw(n - k);
+  for (int key = 0; key < K; ++key) {
+    const size_t first = (size_t)key * n + k;
+    for (int i = 0; i < n - k; ++i)
+      narrow_cw_entry(cw.data(), cw_s + first * 32, cw_v + first * 32,
+                      cw_t + first * 2, i);
+    uint32_t fw[8], out[8], row[16];
+    words8(np1 + key * 32, fw);
+    for (int pt = 0; pt < m; ++pt) {
+      const uint8_t* x = xs + (size_t)pt * (n / 8);
+      const size_t node = ((size_t)key << k) + frontier_index(x, k);
+      memcpy(row, rows + node * 64, 64);
+      const size_t o = (size_t)key * m + pt;
+      hybrid_prefix_point(t, cw.data(), n, k, row, words[node], fw, x, out,
+                          traj + o * tw);
+      memcpy(y + o * 32, out, 32);
+    }
+  }
+}
+
+void host_wide(const uint32_t* traj, const uint32_t* w, const uint32_t* cst,
+               uint32_t* y, int K, int n1, int tw, int wdw, int m) {
+  for (int key = 0; key < K; ++key)
+    for (int pt = 0; pt < m; ++pt)
+      for (int c = 0; c < wdw; ++c)
+        y[((size_t)key * m + pt) * wdw + c] = wide_word(
+            traj + ((size_t)key * m + pt) * tw, n1,
+            w + (size_t)key * n1 * wdw + c, wdw, cst[(size_t)key * wdw + c]);
+}
+}
+"""
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -159,7 +278,7 @@ def lib(tmp_path_factory):
         pytest.skip("no host C++ compiler to build the kernel arithmetic")
     d = tmp_path_factory.mktemp("csrc")
     src = d / "harness.cpp"
-    src.write_text(_HARNESS)
+    src.write_text(_HARNESS + _NARROW_HARNESS)
     out = d / "libharness.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
@@ -255,4 +374,115 @@ def test_tree_and_prefix_bodies_match_oracle(lib, group):
                             _p(y), k_num, 8 * n_bytes, k, m,
                             int(b and gw > 0), gw)
             assert np.array_equal(y, eval_batch_np(prg, b, kb, xs)), \
+                (bound, b)
+
+
+
+def _large_setup(seed, lam, k_num, n_bytes, bound):
+    """A lam >= 48 bundle from the port's keygen, with x = alpha and
+    alpha +- 1 planted among the points (per key)."""
+    rng = np.random.default_rng(seed)
+    ck = [rng.bytes(32) for _ in range(max(18, 2 * (lam // 16)))]
+    prg = HirosePrgNp(lam, ck)
+    alphas = rng.integers(0, 256, (k_num, n_bytes), dtype=np.uint8)
+    bundle = gen_batch(prg, alphas,
+                       rng.integers(0, 256, (k_num, lam), dtype=np.uint8),
+                       random_s0s(k_num, lam, rng), bound)
+    xs = rng.integers(0, 256, (24, n_bytes), dtype=np.uint8)
+    top = 1 << (8 * n_bytes)
+    for j, a in enumerate(alphas):
+        a = int.from_bytes(a.tobytes(), "big")
+        for d in (-1, 0, 1):
+            xs[3 * j + d + 1] = np.frombuffer(
+                ((a + d) % top).to_bytes(n_bytes, "big"), np.uint8)
+    return ck, prg, bundle, xs, narrow_aes_image(ck[0], ck[17])
+
+
+def _narrow_arrays(kb):
+    return [np.ascontiguousarray(a) for a in (
+        kb.s0s[:, 0, :32], kb.cw_s[..., :32], kb.cw_v[..., :32], kb.cw_t,
+        kb.cw_np1[:, :32])]
+
+
+def _traj_bits(words: np.ndarray, n1: int) -> np.ndarray:
+    bits = np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little")
+    return bits[..., :n1]
+
+
+def _wide(lib, kb, traj, m):
+    const, w = wide_affine_batch_np(kb)
+    k_num, n1, wd = w.shape
+    y = np.zeros((k_num, m, wd), np.uint8)
+    lib.host_wide(_p(traj), _p(np.ascontiguousarray(w)),
+                  _p(np.ascontiguousarray(const)), _p(y), k_num, n1,
+                  traj.shape[-1], wd // 4, m)
+    return y
+
+
+@pytest.mark.parametrize("lam,n_bytes", [(48, 2), (144, 4), (144, 16)])
+def test_narrow_walk_and_wide_bodies_match_oracle(lib, lam, n_bytes):
+    """B4's body (the unmasked two-cipher step, its n+1-bit trajectory)
+    against narrow_walk_np, and W1's body over that trajectory against
+    wide_affine_batch_np: together the full-width oracle.  n = 16, 32, 128
+    put the final bit inside a word, at bit 0 of a fresh word and after
+    four full words."""
+    k_num, n = 2, 8 * n_bytes
+    rk = expand_key_np
+    for bound in (Bound if n_bytes < 16 else (Bound.LT_BETA,)):
+        ck, prg, bundle, xs, aes = _large_setup(
+            300 + lam + n_bytes, lam, k_num, n_bytes, bound)
+        m, tw = xs.shape[0], -(-(n + 1) // 32)
+        for b in (0, 1):
+            kb = bundle.for_party(b)
+            s0, cs, cv, ct, np1 = _narrow_arrays(kb)
+            y32 = np.zeros((k_num, m, 32), np.uint8)
+            traj = np.zeros((k_num, m, tw), np.uint32)
+            lib.host_narrow(_p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])),
+                            _p(s0), _p(cs), _p(cv), _p(ct), _p(np1), _p(xs),
+                            _p(y32), _p(traj), k_num, n, m, tw, b)
+            for key in range(k_num):
+                one = KeyBundle(*(a[key:key + 1] for a in (
+                    kb.s0s, kb.cw_s, kb.cw_v, kb.cw_t, kb.cw_np1)))
+                want_y, want_t = narrow_walk_np(ck, one, b, xs)
+                assert np.array_equal(y32[key], want_y), (bound, b, key)
+                assert np.array_equal(_traj_bits(traj[key], n + 1),
+                                      want_t), (bound, b, key)
+            got = np.concatenate([y32, _wide(lib, kb, traj, m)], axis=-1)
+            assert np.array_equal(got, eval_batch_np(prg, b, kb, xs)), \
+                (bound, b)
+
+
+def test_frontier_and_hybrid_prefix_bodies_match_oracle(lib):
+    """B5a's body against the plain frontier build, and B5b's (gather,
+    levels k..n-1, top-k gates from the word) + W1's against the
+    full-width oracle."""
+    lam, k_num, n_bytes, k = 144, 2, 2, 6
+    n = 8 * n_bytes
+    rk = expand_key_np
+    for bound in Bound:
+        ck, prg, bundle, xs, aes = _large_setup(320, lam, k_num, n_bytes,
+                                                bound)
+        m, tw = xs.shape[0], -(-(n + 1) // 32)
+        for b in (0, 1):
+            kb = bundle.for_party(b)
+            s0, cs, cv, ct, np1 = _narrow_arrays(kb)
+            rows = np.zeros((k_num << k, 64), np.uint8)
+            words = np.zeros(k_num << k, np.uint32)
+            lib.host_frontier(_p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])),
+                              _p(s0), _p(cs), _p(cv), _p(ct), _p(rows),
+                              _p(words), k_num, n, k, b)
+            want_rows, want_words = narrow_frontier_plain(
+                *(torch.from_numpy(a) for a in (aes, s0, cs, cv, ct)),
+                k=k, b=b)
+            assert np.array_equal(rows, want_rows.numpy()), (bound, b)
+            assert np.array_equal(words.view(np.uint8).reshape(-1, 4),
+                                  want_words.numpy()), (bound, b)
+            y32 = np.zeros((k_num, m, 32), np.uint8)
+            traj = np.zeros((k_num, m, tw), np.uint32)
+            lib.host_hybrid_prefix(_p(SBOX_NP), _p(rk(ck[0])),
+                                   _p(rk(ck[17])), _p(rows), _p(words),
+                                   _p(cs), _p(cv), _p(ct), _p(np1), _p(xs),
+                                   _p(y32), _p(traj), k_num, n, k, m, tw)
+            got = np.concatenate([y32, _wide(lib, kb, traj, m)], axis=-1)
+            assert np.array_equal(got, eval_batch_np(prg, b, kb, xs)), \
                 (bound, b)

@@ -30,6 +30,7 @@ from dcf_tpu_torch.ops.aes import aes256_encrypt_np as t_aes
 from dcf_tpu_torch.ops.aes import expand_key_np
 from dcf_tpu_torch.ops.prg import HirosePrgNp as TPrg
 from dcf_tpu_torch.utils import groups as tgroups
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GROUPS = ("xor", "add8", "add16", "add32")

@@ -16,6 +16,7 @@ from dcf_tpu.ops.prg import HirosePrgNp as JPrg
 from dcf_tpu_torch.backends.prefix_backend import PrefixBackend
 from dcf_tpu_torch.errors import ShapeError, StaleStateError
 from dcf_tpu_torch.keys import KeyBundle
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GROUPS = ("xor", "add8", "add16", "add32")
 

@@ -37,6 +37,7 @@ from dcf_tpu_torch.ops.tree_expand import (
     tree_expand_level_plain,
 )
 from dcf_tpu_torch.ops.walk_eval import aes_image
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GROUPS = ("xor", "add8", "add16", "add32")
 K0, K1 = 5, 7

@@ -23,6 +23,7 @@ from dcf_tpu_torch.errors import ShapeError, StaleStateError
 from dcf_tpu_torch.keys import KeyBundle
 from dcf_tpu_torch.ops.walk_eval import aes_image, walk_eval, walk_eval_plain
 from dcf_tpu_torch.utils.groups import np_group_add
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 GROUPS = ("xor", "add8", "add16", "add32")
 
