@@ -7,9 +7,9 @@ Run from the repository root, with no arguments:
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build kernels B1-B5b and W1 from ``dcf_tpu_torch/csrc`` with nvcc, one
-   process per source, all at once, and print the build seconds and
-   ptxas' register and spill counts;
+2. build every kernel (B1-B6, B2f, W1, P1: nine sources) from
+   ``dcf_tpu_torch/csrc`` with nvcc, one process per source, all at once,
+   and print the build seconds and ptxas' register and spill counts;
 3. hold each kernel byte for byte against its plain PyTorch version on the
    card, at 2^16 points: B1-B3 (B2 from level 6 to 21) over both parties,
    all four output groups, both bounds, and B1 with 3 keys and per-key
@@ -36,12 +36,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    checked against W1's output;
 7. the hybrid prefix depth on the card: B5a and B5b called directly at
    k = 16..24 on the lam = 256 main inputs, each result equal to the
-   from-root walk's, and B5b's time per walked level beside B4's.
+   from-root walk's, and B5b's time per walked level beside B4's;
+8. the full-domain kernels against their plain versions at n = 16: B6
+   (K = 3, every level from 6, the leaf correction, both parties, full
+   depth and the prefix depth 13), B2f (both bounds, both parties) and P1
+   (K = 3, 32-byte records, B6's own t bytes);
+9. full-domain evaluation, lam = 16, n = 24 (BASELINE.json config 3), both
+   bounds: ``TreeFullDomain.check`` (B2 + B2f) gives 0, and 7 for
+   alpha + 7; beside it the per-point ``full_domain_check_device`` over two
+   ``WalkBackend``s (B1) gives 0; both timed;
+10. DPF EvalAll, lam = 32, n = 24, K = 4, keys from ``Dcf.dpf``:
+    ``DpfEvalAll.check`` (B6) gives 0, a tampered alpha is counted, and
+    the first 4096 leaves and the leaf at bitreverse(alpha) of
+    ``Dcf.eval_all`` (by default on the card) equal ``dpf_eval_points`` on
+    the host;
+11. 2-server PIR through ``PirServer`` (B6 + P1), 32-byte records, at
+    n = 14, 16, 18 and 24 (2^24 records, 512 MiB on the card): queries
+    from ``Dcf.pir_query``, registered as DCFK frames; records 0, 2^n - 1
+    and four random ones reconstruct bit-exactly from both parties'
+    answers; then queries/s with K = 4 and a fresh bundle per call, and at
+    n = 24 once more with an evaluator that keeps no level on the host;
+12. B6, B2f and P1 against their plain versions at those paths' shapes
+    (n = 24), their times and bounds; P1 also beside ``torch._int_mm`` on
+    the database unpacked to bits, whose parity is checked against P1.
 
-The next to last line is one JSON object with every kernel's numbers; the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a
-directory that does not hold the package, it exits non-zero and prints no
-result.  Only torch and numpy are used (no JAX, nothing of ``dcf_tpu``).
+Launches are counted per path: the counts are set to 0 just before one
+run of a path and read just after it, before any timed repeat, and held
+against the number that run must make (phases 9-11; phase 4's run is both
+parties' anchor and staged evaluations).  The next to last line is one JSON
+object with every kernel's numbers, ``launches`` the sum over those single
+runs and ``launches_by_path`` each of them; the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
+that does not hold the package, it exits non-zero and prints no result.
+Only torch and numpy are used (no JAX, nothing of ``dcf_tpu``).
 """
 
 from __future__ import annotations
@@ -69,6 +96,13 @@ LAM_CRATE = 16384  # the reference crate's benches/dcf_large_lambda.rs
 M_CRATE = 10_000
 M_CRATE_ANCHOR = 64
 REPEATS = 10  # timed eval_staged repeats per backend
+N_CHECK = 16  # domain bits of the full-domain kernel-vs-plain checks
+N_FULL = 24  # domain bits of the full-domain, DPF and top PIR paths
+K_DPF = 4  # DPF keys (PIR queries) per batch
+RECORD_BYTES = 32  # PIR record width
+PIR_BITS = (14, 16, 18, N_FULL)  # PIR database domains
+PIR_REPS = 5  # timed PIR batches per domain
+M_LEAVES = 4096  # leading leaves held against the per-point host walk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 LOOKUP_LANES = 32  # shared-memory words served per SM per clock
 INT8_OPS_PER_S = 1.979e15  # H100 SXM published dense int8 tensor rate
@@ -115,11 +149,17 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from dcf_tpu_torch import Bound, Dcf, _build
-    from dcf_tpu_torch.backends.fulldomain import tree_expand_np
+    from dcf_tpu_torch.backends.evalall import (
+        DpfEvalAll, bitrev, dpf_tree_expand_np)
+    from dcf_tpu_torch.backends.fulldomain import (
+        TreeFullDomain, tree_expand_np)
     from dcf_tpu_torch.backends.large_lambda import wide_affine_batch_np
     from dcf_tpu_torch.backends.numpy_backend import eval_batch_np
+    from dcf_tpu_torch.backends.walk_backend import WalkBackend
     from dcf_tpu_torch.gen import gen_batch, random_s0s
     from dcf_tpu_torch.keys import KeyBundle
+    from dcf_tpu_torch.ops.evalall_expand import (
+        evalall_expand, evalall_expand_level, evalall_expand_level_plain)
     from dcf_tpu_torch.ops.hybrid_prefix import (
         hybrid_prefix_eval, hybrid_prefix_eval_plain, narrow_frontier,
         narrow_frontier_plain)
@@ -128,13 +168,20 @@ def main() -> int:
         unpack_traj_plain)
     from dcf_tpu_torch.ops.prefix_eval import (
         frontier_index_plain, frontier_table, prefix_eval, prefix_eval_plain)
+    from dcf_tpu_torch.ops.pir_answer import pir_answer, pir_answer_plain
     from dcf_tpu_torch.ops.prg import HirosePrgNp
     from dcf_tpu_torch.ops.tree_expand import (
-        tree_expand, tree_expand_level, tree_expand_level_plain)
+        tree_expand, tree_expand_final, tree_expand_final_plain,
+        tree_expand_level, tree_expand_level_plain)
     from dcf_tpu_torch.ops.walk_eval import (
         aes_image, walk_bits_plain, walk_eval, walk_eval_plain)
     from dcf_tpu_torch.ops.wide_tail import wide_tail, wide_tail_plain
+    from dcf_tpu_torch.protocols.dpf import (
+        decode_proto_frame, dpf_eval_points)
     from dcf_tpu_torch.spec import GROUPS
+    from dcf_tpu_torch.workloads.core import full_domain_check_device
+    from dcf_tpu_torch.workloads.pir import (
+        PirDatabase, PirServer, pir_reconstruct)
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -163,7 +210,8 @@ def main() -> int:
     ck = [rng.bytes(32), rng.bytes(32)]
     prg = HirosePrgNp(16, ck)
     aes = torch.from_numpy(aes_image(ck[0])).to(dev)
-    max_err = {k: 0 for k in ("B1", "B2", "B3", "B4", "B5a", "B5b", "W1")}
+    max_err = {k: 0 for k in ("B1", "B2", "B3", "B4", "B5a", "B5b", "W1",
+                              "B6", "B2f", "P1")}
 
     def same(kernel: str, what: str, got, want) -> None:
         err = int((got.int() - want.int()).abs().max().item()) \
@@ -341,8 +389,10 @@ def main() -> int:
     # -- phase 4: the main paths through the facade --------------------------------
     counters = {"B1": walk_eval, "B2": tree_expand_level, "B3": prefix_eval,
                 "B4": narrow_walk, "B5a": narrow_frontier,
-                "B5b": hybrid_prefix_eval, "W1": wide_tail}
-    launches = {k: 0 for k in counters}
+                "B5b": hybrid_prefix_eval, "W1": wide_tail,
+                "B6": evalall_expand_level, "B2f": tree_expand_final,
+                "P1": pir_answer}
+    launches = {k: {} for k in counters}  # kernel -> {path: launches}
     main_ms = {}
     main_inputs = {}
     paths = (("walk", 16, "walk", None, ("B1",)),
@@ -388,7 +438,7 @@ def main() -> int:
             if ran[k] == 0:
                 raise RuntimeError(f"{name}: kernel {k} never launched on "
                                    "the main path")
-            launches[k] += ran[k]
+            launches[k][name] = ran[k]
         times = []
         for _ in range(REPEATS):
             torch.cuda.synchronize()
@@ -617,7 +667,23 @@ def main() -> int:
             else (bytes_ms, "bytes")
 
     rows_out = []
-    for kid, src, rep, ms, plain, lk, nb in (
+
+    def add_row(phase: str, kid: str, src: str, rep: str, ms: float,
+                plain: float, lk: int, nb: int, lib=None) -> None:
+        b_ms, b_by = bound(lk, nb)
+        rows_out.append({
+            "name": f"{kid} {src}", "route": "cuda",
+            "source": f"dcf_tpu_torch/csrc/{src}.cu", "replaces": rep,
+            "launches": 0, "launches_by_path": {},
+            "max_abs_err": max_err[kid],
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib})
+        log(f"{phase} {kid}: {ms:.3f} ms (plain {plain:.1f} ms, bound "
+            f"{b_ms:.3f} ms by {b_by}: {lk:.3e} table lookups at "
+            f"{lookups_per_s:.3e}/s, {nb} bytes at {HBM_BYTES_PER_S:.3e} B/s;"
+            f" {b_ms / ms:.1%} of bound) [{card}]")
+
+    for row in (
             ("B1", "walk_eval", "dcf_tpu/ops/pallas_eval.py:164", b1_ms,
              b1_plain, b1_lookups, b1_bytes),
             ("B2", "tree_expand", "dcf_tpu/ops/pallas_tree.py:92", b2_ms,
@@ -632,19 +698,8 @@ def main() -> int:
              "dcf_tpu/ops/pallas_hybrid_prefix.py:160", b5b_ms, b5b_plain,
              b5b_lookups, b5b_bytes),
             ("W1", "wide_xor", "dcf_tpu/backends/large_lambda.py:203", w1_ms,
-             w1_plain, 0, w1_bytes)):
-        b_ms, b_by = bound(lk, nb)
-        lib = w1_lib if kid == "W1" else None
-        rows_out.append({
-            "name": f"{kid} {src}", "route": "cuda",
-            "source": f"dcf_tpu_torch/csrc/{src}.cu", "replaces": rep,
-            "launches": launches[kid], "max_abs_err": max_err[kid],
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib})
-        log(f"phase 6 {kid}: {ms:.3f} ms (plain {plain:.1f} ms, bound "
-            f"{b_ms:.3f} ms by {b_by}: {lk:.3e} table lookups at "
-            f"{lookups_per_s:.3e}/s, {nb} bytes at {HBM_BYTES_PER_S:.3e} B/s;"
-            f" {b_ms / ms:.1%} of bound) [{card}]")
+             w1_plain, 0, w1_bytes, w1_lib)):
+        add_row("phase 6", *row)
     log(f"phase 6 W1 design figures: {w1_reads:.3e} shared-memory word "
         f"reads ({w1_reads / lookups_per_s * 1e3:.3f} ms at "
         f"{lookups_per_s:.3e}/s); as an int8 tensor-core product "
@@ -674,6 +729,398 @@ def main() -> int:
             f"(B4 {b4_ms / n * 1e3:.2f}), {used_k} rows gathered; equal to "
             f"the from-root walk [{card}]")
         del rows_k, words_k, yk, trk
+    del y, traj, yp, trajp, y2, traj2, y2p, traj2p, rows_t, words_t, table
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the full-domain kernels against their plain versions ----------------
+    t0 = time.perf_counter()
+    dck = [rng.bytes(32) for _ in range(18)]  # ciphers 0 and 17 are used
+    dprg = HirosePrgNp(32, dck, warn=False)
+    daes = torch.from_numpy(narrow_aes_image(dck[0], dck[17])).to(dev)
+
+    def to_dev(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays)
+
+    dcf_chk = Dcf(N_CHECK // 8, 32, dck)
+    dbundle = dcf_chk.dpf(
+        rng.integers(0, 256, (3, N_CHECK // 8), dtype=np.uint8),
+        rng.integers(0, 256, (3, 32), dtype=np.uint8), rng=rng)
+    dcw = to_dev(dbundle.cw_s, dbundle.cw_t, dbundle.cw_np1)
+    t_leaves = {}
+    for b in (0, 1):
+        for depth in (N_CHECK, 13):
+            st = to_dev(*dpf_tree_expand_np(dprg, dbundle.for_party(b), b,
+                                            HOST_LEVELS))
+            for i in range(HOST_LEVELS, depth):
+                np1 = dcw[2] if i == depth - 1 else None
+                got = evalall_expand_level(daes, dcw[0], dcw[1], *st,
+                                           level=i, cw_np1=np1)
+                want = evalall_expand_level_plain(daes, dcw[0], dcw[1], *st,
+                                                  level=i, cw_np1=np1)
+                what = f"n={N_CHECK} K=3 party {b} depth {depth} level {i}"
+                same("B6", what + " s", got[0], want[0])
+                same("B6", what + " t", got[1], want[1])
+                st = got
+            if depth == N_CHECK:
+                t_leaves[b] = st[1]
+    for bnd in Bound:
+        kb2 = gen_batch(
+            prg, rng.integers(0, 256, (1, N_CHECK // 8), dtype=np.uint8),
+            rng.integers(0, 256, (1, 16), dtype=np.uint8),
+            random_s0s(1, 16, rng), bnd)
+        c = to_dev(kb2.cw_s[0], kb2.cw_v[0], kb2.cw_t[0], kb2.cw_np1[0])
+        for b in (0, 1):
+            st = to_dev(*tree_expand_np(prg, kb2.for_party(b), b,
+                                        HOST_LEVELS))
+            st = tree_expand(aes, c[0], c[1], c[2], *st, k0=HOST_LEVELS,
+                             k1=N_CHECK - 1, group="xor")
+            last = (aes, c[0][N_CHECK - 1], c[1][N_CHECK - 1],
+                    c[2][N_CHECK - 1], c[3], *st)
+            same("B2f", f"n={N_CHECK} {bnd.name} party {b}",
+                 tree_expand_final(*last), tree_expand_final_plain(*last))
+    db_chk = torch.from_numpy(rng.integers(
+        0, 256, (1 << N_CHECK, RECORD_BYTES), dtype=np.uint8)).to(dev)
+    for b in (0, 1):
+        same("P1", f"n={N_CHECK} K=3 R={RECORD_BYTES} party {b}",
+             pir_answer(t_leaves[b], db_chk),
+             pir_answer_plain(t_leaves[b], db_chk))
+    del db_chk, t_leaves, st, got, want
+    log(f"phase 8 B6, B2f, P1: byte-identical to their plain versions at "
+        f"n={N_CHECK} (B6 K=3, levels {HOST_LEVELS}.. with the leaf "
+        f"correction, depths {N_CHECK} and 13, 2 parties; B2f 2 bounds x 2 "
+        f"parties; P1 K=3, {RECORD_BYTES}-byte records, B6's t bytes) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    def reset_counts() -> None:
+        for fn in counters.values():
+            fn.launches = 0
+
+    def take_counts(name: str, want: dict) -> dict:
+        """The launches of the one run of path ``name`` since
+        ``reset_counts``, held against ``want`` (kernel -> the count that
+        run must make) and kept under the path's name."""
+        ran = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        for k, n_want in want.items():
+            if ran.get(k) != n_want:
+                raise RuntimeError(
+                    f"{name}: kernel {k} launched {ran.get(k, 0)} times on "
+                    f"one run of the path, expected {n_want}")
+            launches[k][name] = n_want
+        return ran
+
+    def wall_ms(fn, reps: int) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        return float(np.median(times)) * 1e3
+
+    # -- phase 9: full-domain evaluation, lam = 16, n = 24 ------------------------------
+    frng = np.random.default_rng(SEED + 3)
+    fck = [frng.bytes(32), frng.bytes(32)]
+    fdcf = Dcf(N_FULL // 8, 16, fck, backend="walk")
+    tree = TreeFullDomain(16, fck, host_levels=HOST_LEVELS)
+    for bnd in Bound:
+        gt = bnd is Bound.GT_BETA
+        alpha = int(frng.integers(8, (1 << N_FULL) - 8))
+        beta = frng.integers(0, 256, (1, 16), dtype=np.uint8)
+        bundle = fdcf.gen(np.frombuffer(
+            alpha.to_bytes(N_FULL // 8, "big"), dtype=np.uint8)[None].copy(),
+            beta, rng=frng, bound=bnd)
+        beta = beta[0].tobytes()
+        # One check is both parties: levels k0..n-2 by B2, the last by B2f.
+        reset_counts()
+        clean = tree.check(bundle, alpha, beta, N_FULL, gt)
+        ran_tree = take_counts(
+            f"full domain tree n={N_FULL}",
+            {"B2": 2 * (N_FULL - 1 - HOST_LEVELS), "B2f": 2})
+        tampered = tree.check(bundle, alpha + 7, beta, N_FULL, gt)
+        if clean != 0 or tampered != 7:
+            raise RuntimeError(
+                f"full domain {bnd.name}: TreeFullDomain.check gave {clean} "
+                f"(want 0) and {tampered} for alpha + 7 (want 7)")
+        tree_ms = wall_ms(
+            lambda: tree.check(bundle, alpha, beta, N_FULL, gt), 5)
+        bes = [WalkBackend(16, fck) for _ in (0, 1)]
+        for b in (0, 1):
+            bes[b].put_bundle(bundle.for_party(b))
+        reset_counts()
+        walked = full_domain_check_device(bes[0], bes[1], alpha, beta,
+                                          N_FULL, gt)
+        ran_walk = take_counts(f"full domain walk n={N_FULL}",
+                               {"B1": 2 * ((1 << N_FULL) >> 20)})
+        if walked != 0:
+            raise RuntimeError(f"full domain {bnd.name}: the per-point walk "
+                               f"counted {walked} mismatches")
+        walk_ms = wall_ms(lambda: full_domain_check_device(
+            bes[0], bes[1], alpha, beta, N_FULL, gt), 3)
+        log(f"phase 9 full domain lam=16 n={N_FULL} {bnd.name}: "
+            f"TreeFullDomain.check 0 mismatches over 2^{N_FULL} leaves, 7 for "
+            f"alpha + 7 (launches {ran_tree}); full_domain_check_device over "
+            f"two WalkBackends 0 mismatches (launches {ran_walk}); both "
+            f"parties and the count on the card: tree median "
+            f"{tree_ms:.3f} ms of 5, per-point walk median {walk_ms:.3f} ms "
+            f"of 3 = {walk_ms / tree_ms:.2f}x the tree [{card}]")
+    fd_inputs = (bundle.for_party(0), tree)
+    del bes
+
+    # -- phase 10: DPF EvalAll, lam = 32, n = 24, K = 4 ----------------------------------
+    t0 = time.perf_counter()
+    prng = np.random.default_rng(SEED + 4)
+    pck = [prng.bytes(32) for _ in range(18)]
+    pprg = HirosePrgNp(32, pck, warn=False)
+    pdcf = Dcf(N_FULL // 8, 32, pck)
+    alphas = [int(a) for a in prng.integers(0, 1 << N_FULL, K_DPF)]
+    alpha_bytes = np.array([list(a.to_bytes(N_FULL // 8, "big"))
+                            for a in alphas], dtype=np.uint8)
+    betas = prng.integers(0, 256, (K_DPF, 32), dtype=np.uint8)
+    dbundle = pdcf.dpf(alpha_bytes, betas, rng=prng)
+    evaluator = DpfEvalAll(32, pck, host_levels=HOST_LEVELS)
+    reset_counts()
+    clean = evaluator.check(dbundle, alphas, betas, N_FULL)
+    ran_check = take_counts(f"DpfEvalAll.check n={N_FULL} K={K_DPF}",
+                            {"B6": 2 * (N_FULL - HOST_LEVELS)})
+    moved = list(alphas)
+    moved[1] ^= 1
+    tampered = evaluator.check(dbundle, moved, betas, N_FULL)
+    if clean != 0 or tampered != 2:
+        raise RuntimeError(
+            f"DPF EvalAll: check gave {clean} (want 0) and {tampered} for one "
+            "moved alpha (want 2: its old leaf and its new one)")
+    dpf_check_ms = wall_ms(
+        lambda: evaluator.check(dbundle, alphas, betas, N_FULL), 3)
+    hits = [bitrev(a, N_FULL) for a in alphas]
+    lead = np.array([bitrev(p, N_FULL) for p in range(M_LEAVES)])
+    xs_lead = np.stack([(lead >> sh) & 0xFF
+                        for sh in range(N_FULL - 8, -8, -8)],
+                       axis=1).astype(np.uint8)
+    for b in (0, 1):
+        # The facade's default: kernel B6 on its device, the card.
+        reset_counts()
+        y_all, t_all = pdcf.eval_all(b, dbundle)
+        ran_all = take_counts(f"Dcf.eval_all n={N_FULL} K={K_DPF}",
+                              {"B6": N_FULL - HOST_LEVELS})
+        if y_all.shape != (K_DPF, 1 << N_FULL, 32) \
+                or t_all.shape != (K_DPF, 1 << N_FULL):
+            raise RuntimeError(f"eval_all: shapes {y_all.shape}, "
+                               f"{t_all.shape}")
+        want = dpf_eval_points(pprg, dbundle, b, np.concatenate(
+            [xs_lead, alpha_bytes]))
+        ok = np.array_equal(y_all[:, :M_LEAVES], want[:, :M_LEAVES]) and all(
+            np.array_equal(y_all[k, hits[k]], want[k, M_LEAVES + k])
+            for k in range(K_DPF))
+        if not ok:
+            raise RuntimeError(f"eval_all: party {b}'s leaves differ from "
+                               "dpf_eval_points")
+        del y_all, t_all
+    log(f"phase 10 DPF EvalAll lam=32 n={N_FULL} K={K_DPF}: DpfEvalAll.check "
+        f"0 mismatches over {K_DPF} x 2^{N_FULL} leaves, 2 for one moved "
+        f"alpha; Dcf.eval_all (by default on the card): first {M_LEAVES} "
+        f"leaves and the "
+        f"leaf at bitreverse(alpha) of each key equal dpf_eval_points, both "
+        f"parties; launches of one check {ran_check}, of one party's "
+        f"eval_all {ran_all}; check (both parties and the count) median "
+        f"{dpf_check_ms:.3f} ms of 3 ({time.perf_counter() - t0:.1f} s) "
+        f"[{card}]")
+
+    # -- phase 11: 2-server PIR through PirServer ---------------------------------------
+    class Registry:
+        """Key frames by id: what ``PirServer`` snapshots from."""
+
+        def __init__(self):
+            self.keys = {}
+
+        def register(self, key_id: str, frame: bytes) -> None:
+            self.keys[key_id] = (decode_proto_frame(frame), None, 1)
+
+        def snapshot(self, key_id: str):
+            return self.keys[key_id]
+
+    # The last leg repeats the top domain with no host levels: the whole
+    # tree on the card, to show what the host's numpy levels cost.
+    evaluator0 = DpfEvalAll(32, pck, host_levels=0)
+    pir_inputs = None
+    for n_db in PIR_BITS:
+        t0 = time.perf_counter()
+        records = prng.integers(0, 256, (1 << n_db, RECORD_BYTES),
+                                dtype=np.uint8)
+        db = PirDatabase(records, n_db)
+        client = Dcf((n_db + 7) // 8, 32, pck)
+        setup_s = time.perf_counter() - t0
+        for ev in (evaluator, evaluator0) if n_db == N_FULL else (evaluator,):
+            registry = Registry()
+            server = PirServer(ev, db, registry)
+            gate = [0, (1 << n_db) - 1] + [
+                int(x) for x in prng.integers(0, 1 << n_db, 4)]
+            registry.register("gate", client.pir_query(
+                gate, rng=prng, n_bits=n_db).to_bytes())
+            # One batch served to both parties: each runs B6 from level k0
+            # to the database's depth, then P1 once.
+            reset_counts()
+            got = pir_reconstruct(server.answer("gate", 0),
+                                  server.answer("gate", 1))
+            ran = take_counts(
+                f"PIR n={n_db} host_levels={ev.host_levels}",
+                {"B6": 2 * (n_db - min(ev.host_levels, n_db - 1)), "P1": 2})
+            for j, i in enumerate(gate):
+                if got[j].tobytes() != records[i].tobytes():
+                    raise RuntimeError(
+                        f"PIR gate: record {i} of the 2^{n_db} database did "
+                        "not reconstruct bit-exactly through PirServer")
+            reg_ms, batch_ms, stage_ms = [], [], []
+            for q in range(PIR_REPS + 1):
+                t1 = time.perf_counter()
+                query = client.pir_query(
+                    prng.integers(0, 1 << n_db, K_DPF), rng=prng,
+                    n_bits=n_db)
+                registry.register(f"q{q}", query.to_bytes())
+                reg_ms.append((time.perf_counter() - t1) * 1e3)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                pir_reconstruct(server.answer(f"q{q}", 0),
+                                server.answer(f"q{q}", 1))
+                batch_ms.append((time.perf_counter() - t1) * 1e3)
+                # The host's share of a batch: both parties' top levels by
+                # numpy and the key image shipped, timed again on its own.
+                ev.invalidate()
+                t1 = time.perf_counter()
+                ev._staged_for(registry.snapshot(f"q{q}")[0], n_db)
+                torch.cuda.synchronize()
+                stage_ms.append((time.perf_counter() - t1) * 1e3)
+            med = float(np.median(batch_ms[1:]))
+            log(f"phase 11 PIR n={n_db}, host_levels={ev.host_levels}, "
+                f"{1 << n_db} records x {RECORD_BYTES} B "
+                f"({db.rows.numel() / 2**20:.1f} MiB on the card, set up in "
+                f"{setup_s:.2f} s): gate records {gate} reconstruct "
+                f"bit-exactly from both parties' answers; K={K_DPF} queries "
+                f"a batch, a fresh registered bundle per call, both parties "
+                f"served: median {med:.3f} ms of {PIR_REPS} = "
+                f"{K_DPF / med * 1e3:,.1f} queries/s (first batch "
+                f"{batch_ms[0]:.3f} ms); of a batch, the host's top levels "
+                f"and key shipping take {np.median(stage_ms):.3f} ms; off "
+                f"the clock, client keygen and registration "
+                f"{np.median(reg_ms):.3f} ms; eval_faults "
+                f"{server.eval_faults}; launches of the gate batch {ran} "
+                f"[{card}]")
+            if server.eval_faults:
+                raise RuntimeError(f"PIR n={n_db}: {server.eval_faults} "
+                                   "served attempts failed")
+            if n_db == N_FULL and ev is evaluator:
+                pir_inputs = (db, registry.snapshot("q0")[0])
+            del server
+        del db, records
+    del evaluator0
+
+    # -- phase 12: B6, B2f and P1 at those paths' shapes ------------------------------------
+    db, query = pir_inputs
+    kb = query.for_party(0)
+    cw3 = evaluator._stage_cw(kb)
+    front = evaluator._frontier(kb, 0, HOST_LEVELS)
+    b6_ms, (y6, t6) = cuda_ms(lambda: evalall_expand(
+        evaluator.aes, *cw3, *front, k0=HOST_LEVELS, k1=N_FULL), 5)
+
+    def b6_plain_fn():
+        st = front
+        for i in range(HOST_LEVELS, N_FULL):
+            st = evalall_expand_level_plain(
+                evaluator.aes, cw3[0], cw3[1], *st, level=i,
+                cw_np1=cw3[2] if i == N_FULL - 1 else None)
+        return st
+
+    b6_plain, (y6p, t6p) = cuda_ms(b6_plain_fn, 1)
+    same("B6", f"main shape K={K_DPF} n={N_FULL} y", y6, y6p)
+    same("B6", f"main shape K={K_DPF} n={N_FULL} t", t6, t6p)
+    del y6, y6p, t6p
+    torch.cuda.empty_cache()
+    # Three AES blocks a parent (E0(s_b0), E0(~s_b0), E17(s_b1)); the
+    # function's bytes are the level-k0 nodes read and the leaves written
+    # (33 bytes a node), the CWs and the cipher image.  This design also
+    # writes and reads back every level between them (b6_level_bytes).
+    b6_parents = K_DPF * ((1 << N_FULL) - (1 << HOST_LEVELS))
+    b6_lookups = b6_parents * 3 * 14 * 16
+    b6_bytes = K_DPF * ((1 << HOST_LEVELS) + (1 << N_FULL)) * 33 \
+        + K_DPF * (N_FULL * 34 + 32) + 736
+    b6_level_bytes = 3 * b6_parents * 33
+    add_row("phase 12", "B6", "evalall_expand",
+            "dcf_tpu/ops/pallas_evalall.py:75", b6_ms, b6_plain, b6_lookups,
+            b6_bytes)
+    log(f"phase 12 B6: its per-level traffic in this design is "
+        f"{b6_level_bytes} bytes "
+        f"({b6_level_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+        f"{HBM_BYTES_PER_S:.3e} B/s)")
+
+    p1_ms, a1 = cuda_ms(lambda: pir_answer(t6, db.rows), 10)
+    p1_plain, a1p = cuda_ms(lambda: pir_answer_plain(t6, db.rows), 1)
+    same("P1", f"main shape K={K_DPF} n={N_FULL} R={RECORD_BYTES}", a1, a1p)
+    # The function's bytes: the database, one selection bit a (key,
+    # record) and the answers.  This design reads t as a byte a leaf
+    # (p1_t_bytes), 8 times that.
+    p1_t_bytes = t6.numel()
+    p1_bytes = db.rows.numel() + p1_t_bytes // 8 + a1.numel()
+    # The library's product: torch._int_mm (int8 x int8 -> int32) of the t
+    # bits, padded to 32 rows (it wants more than 16), and the database
+    # unpacked to one int8 per bit, column-major: 8 times the database's
+    # bytes.  The low bit of each sum, packed, is P1's answer.
+    shifts = torch.arange(8, device=dev, dtype=torch.uint8)
+    n_rec = db.num_records
+    t8 = torch.zeros((32, n_rec), dtype=torch.int8, device=dev)
+    t8[:K_DPF] = t6
+    db8 = torch.empty((8 * RECORD_BYTES, n_rec), dtype=torch.int8, device=dev)
+    step = 1 << 20
+    for lo in range(0, n_rec, step):
+        db8[:, lo:lo + step] = ((db.rows[lo:lo + step].unsqueeze(-1)
+                                 >> shifts) & 1).reshape(
+            -1, 8 * RECORD_BYTES).t()
+    p1_lib, acc = cuda_ms(lambda: torch._int_mm(t8, db8.t()), 5)
+    parity = (acc[:K_DPF] & 1).to(torch.uint8).view(K_DPF, RECORD_BYTES, 8)
+    if not torch.equal((parity << shifts).sum(-1).to(torch.uint8), a1):
+        raise RuntimeError("P1: torch._int_mm's parity differs from P1")
+    del t8, db8, acc, parity
+    torch.cuda.empty_cache()
+    add_row("phase 12", "P1", "pir_answer", "dcf_tpu/workloads/pir.py:110",
+            p1_ms, p1_plain, 0, p1_bytes, p1_lib)
+    log(f"phase 12 P1: torch._int_mm [32x{n_rec}] x [{n_rec}x"
+        f"{8 * RECORD_BYTES}] on the database unpacked to "
+        f"{8 * db.rows.numel()} bytes {p1_lib:.3f} ms, its parity equal to "
+        f"P1's answer; P1 reads t as {p1_t_bytes} bytes in this design, "
+        f"{p1_t_bytes // 8} as packed bits [{card}]")
+    del t6, db, a1, a1p
+
+    kb, tree = fd_inputs
+    cw4 = tree._stage_cw(kb)
+    front = tree._frontier(kb, 0, HOST_LEVELS)
+    b2fd_ms, st = cuda_ms(lambda: tree_expand(
+        tree.aes, *cw4[:3], *front, k0=HOST_LEVELS, k1=N_FULL - 1,
+        group="xor"), 5)
+    last = (tree.aes, cw4[0][N_FULL - 1], cw4[1][N_FULL - 1],
+            cw4[2][N_FULL - 1], cw4[3], *st)
+    b2f_ms, yf = cuda_ms(lambda: tree_expand_final(*last), 10)
+    b2f_plain, yfp = cuda_ms(lambda: tree_expand_final_plain(*last), 1)
+    same("B2f", f"main shape, level {N_FULL - 1} of n={N_FULL}", yf, yfp)
+    b2f_parents = 1 << (N_FULL - 1)
+    b2f_lookups = b2f_parents * 2 * 14 * 16
+    b2f_bytes = b2f_parents * 33 + 2 * b2f_parents * 16 + 34 + 16 + 496
+    add_row("phase 12", "B2f", "tree_expand", "dcf_tpu/ops/pallas_tree.py:149",
+            b2f_ms, b2f_plain, b2f_lookups, b2f_bytes)
+    fd_parents = (1 << (N_FULL - 1)) - (1 << HOST_LEVELS)
+    log(f"phase 12 B2 on the full-domain path: levels {HOST_LEVELS}.."
+        f"{N_FULL - 2} ({fd_parents} parents) {b2fd_ms:.3f} ms, lookup bound "
+        f"{fd_parents * 2 * 14 * 16 / lookups_per_s * 1e3:.3f} ms; with B2f "
+        f"one party's 2^{N_FULL} leaves take {b2fd_ms + b2f_ms:.3f} ms "
+        f"[{card}]")
+    del st, yf, yfp, last
+    # Each path was run once between reset_counts and take_counts;
+    # "launches" is the sum over those single runs.
+    for row in rows_out:
+        by_path = launches[row["name"].split()[0]]
+        if not by_path:
+            raise RuntimeError(f"{row['name']}: on no main path")
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
         "interpreter started the script's main")
 

@@ -7,6 +7,13 @@ Counterpart of ``Dcf`` in ``dcf_tpu/api.py`` (its lines 294-711 and
     >>> bundle = dcf.gen(alphas, betas)                       # K keys
     >>> y0 = dcf.eval(0, bundle, xs)                          # uint8 [K, M, 256]
 
+and the point-function side (``Dcf.dpf`` / ``eval_all`` / ``pir_query``,
+its lines 979-1080):
+
+    >>> dpf = Dcf(n_bytes=3, lam=32, cipher_keys=keys)
+    >>> q = dpf.pir_query([17, 4711])                        # 2 queries
+    >>> y, t = dpf.eval_all(0, q)                            # kernel B6
+
 Backends (``backend=``):
 
     auto     walk for lam = 16, hybrid for lam >= 48
@@ -21,7 +28,9 @@ Backends (``backend=``):
              (backends.large_lambda)
     numpy    the host oracle (backends.numpy_backend)
 
-16 < lam < 48 is not carried: the JAX package runs that band on its
+lam = 32 constructs for the DPF methods only (full-domain evaluation on
+kernel B6); ``gen`` and ``eval`` raise there, as for the rest of
+16 < lam < 48: the JAX package runs DCF batch eval in that band on its
 bitsliced backend, which has no kernel (ROADMAP.md A7).
 
 Everything runs on the card (``device="cuda"``, the default) unless the
@@ -31,8 +40,8 @@ explicitly named backend is what runs: there is no fallback chain and no
 canary-driven degrade, so a failing device path surfaces as an error.
 
 Not in this package yet (see ROADMAP.md): the other JAX backends,
-``mesh=``, keygen on the card, the protocol, DPF and PIR methods, and
-``serve``.
+``mesh=``, keygen on the card (DCF and DPF), the interval protocol
+methods, and ``serve``.
 """
 
 from __future__ import annotations
@@ -47,6 +56,11 @@ from dcf_tpu_torch.errors import ShapeError
 from dcf_tpu_torch.gen import gen_batch, random_s0s
 from dcf_tpu_torch.keys import KeyBundle
 from dcf_tpu_torch.ops.prg import HirosePrgNp
+from dcf_tpu_torch.protocols.dpf import (
+    DPF_DEVICE_LAM,
+    DpfBundle,
+    dpf_gen_batch,
+)
 from dcf_tpu_torch.spec import (
     Bound,
     ReferenceContractWarning,
@@ -91,13 +105,22 @@ class Dcf:
             raise ValueError("n_bytes must be >= 1")
         if lam < 16 or lam % 16:
             raise ValueError(f"lam must be a multiple of 16 bytes, got {lam}")
-        if 16 < lam < 48:
+        if 16 < lam < 48 and lam != DPF_DEVICE_LAM:
             raise ValueError(
                 f"lam={lam} is not ported: the JAX package runs 16 < lam < "
                 "48 on its bitsliced backend, which has no kernel "
                 "(ROADMAP.md A7)")
-        name = backend if backend != "auto" else (
-            "walk" if lam == 16 else "hybrid")
+        if lam == DPF_DEVICE_LAM:
+            # The DPF width: dpf / eval_all / pir_query only.
+            if backend not in ("auto", "numpy"):
+                raise ValueError(
+                    f"lam={lam} serves the DPF methods (dpf, eval_all, "
+                    f"pir_query); it has no {backend!r} backend: DCF batch "
+                    "eval at 16 < lam < 48 is not ported (ROADMAP.md A7)")
+            name = "numpy"
+        else:
+            name = backend if backend != "auto" else (
+                "walk" if lam == 16 else "hybrid")
         if name not in _BACKENDS:
             later = _LATER.get(name)
             raise ValueError(
@@ -139,6 +162,15 @@ class Dcf:
         # One backend per party, each holding its own shipped key image.
         self._eval_backends: dict = {}
         self._shipped_bundle: dict = {}
+        self._dpf_evalall = None  # built by the first eval_all on the device
+
+    def _refuse_dcf_at_dpf_width(self, what: str) -> None:
+        if self.lam == DPF_DEVICE_LAM:
+            raise ValueError(
+                f"{what} at lam={self.lam} is not ported: the JAX package "
+                "runs DCF keys of 16 < lam < 48 on its bitsliced backend, "
+                "which has no kernel (ROADMAP.md A7); this width serves "
+                "dpf, eval_all and pir_query")
 
     def gen(self, alphas: np.ndarray, betas: np.ndarray,
             s0s: np.ndarray | None = None,
@@ -150,6 +182,7 @@ class Dcf:
         seeds from ``rng`` (OS entropy if None).  Returns the two-party
         bundle; ship ``bundle.for_party(b)`` to party b.  ``group`` selects
         the output group (xor, add8, add16, add32)."""
+        self._refuse_dcf_at_dpf_width("gen")
         if device:
             raise NotImplementedError(
                 "keygen on the card is not ported yet (ROADMAP.md slice 5); "
@@ -158,11 +191,9 @@ class Dcf:
         betas = np.asarray(betas, dtype=np.uint8)
         if alphas.ndim != 2 or alphas.shape[1] != self.n_bytes:
             raise ShapeError(f"alphas must be [K, {self.n_bytes}]")
-        if s0s is None:
-            s0s = random_s0s(alphas.shape[0], self.lam,
-                             rng if rng is not None
-                             else np.random.default_rng())
-        return gen_batch(self._prg, alphas, betas, s0s, bound, group=group)
+        return gen_batch(self._prg, alphas, betas,
+                         self._fresh_s0s(alphas.shape[0], s0s, rng), bound,
+                         group=group)
 
     def eval_backend(self, b: int = 0):
         """The backend instance serving party ``b``, constructed if absent
@@ -206,6 +237,7 @@ class Dcf:
         ``bundle`` may be the two-party bundle (restricted to party ``b``
         here; its key image is shipped once per party and reused while
         the caller passes the same object) or ``bundle.for_party(b)``."""
+        self._refuse_dcf_at_dpf_width("eval")
         xs = np.asarray(xs, dtype=np.uint8)
         kb = bundle.for_party(b) if bundle.s0s.shape[1] == 2 else bundle
         if self.backend_name == "numpy":
@@ -219,3 +251,111 @@ class Dcf:
             be.put_bundle(kb)
             self._shipped_bundle[int(b)] = bundle
         return be.eval(b, xs)
+
+    # -- DPF / PIR: point functions and full-domain evaluation ---------------
+
+    def _fresh_s0s(self, k_num: int, s0s, rng) -> np.ndarray:
+        """The caller's root seeds, or K fresh pairs from ``rng`` (OS
+        entropy if None)."""
+        if s0s is not None:
+            return s0s
+        return random_s0s(k_num, self.lam,
+                          rng if rng is not None else np.random.default_rng())
+
+    def dpf(self, alphas: np.ndarray, betas: np.ndarray | None = None,
+            s0s: np.ndarray | None = None,
+            rng: np.random.Generator | None = None,
+            device: bool = False) -> DpfBundle:
+        """Generate K DPF keys for ``f(x) = beta_k * 1_{x == alpha_k}`` on
+        the host (any lam).
+
+        The GGM walk minus the comparison accumulation (no ``cw_v``):
+        alphas uint8 [K, n_bytes], betas uint8 [K, lam] (default all ones;
+        PIR reads only the leaf t bits), s0s uint8 [K, 2, lam] fresh
+        random root seeds (from ``rng``, OS entropy if None).  Returns the
+        two-party ``DpfBundle`` (DCFK v3 ``proto=2`` on the wire; ship
+        ``bundle.for_party(b)``).  Evaluate point by point with
+        ``protocols.dpf.dpf_eval_points`` or over the whole domain with
+        ``eval_all``."""
+        if device:
+            raise NotImplementedError(
+                "DPF keygen on the card waits for its kernel, the K-packed "
+                "DPF keygen walk (dcf_tpu/ops/pallas_keygen.py:540, "
+                "ROADMAP.md slice 5); call dpf() with device=False")
+        alphas = np.asarray(alphas, dtype=np.uint8)
+        if alphas.ndim != 2 or alphas.shape[1] != self.n_bytes:
+            raise ShapeError(f"alphas must be [K, {self.n_bytes}]")
+        if betas is None:
+            betas = np.full((alphas.shape[0], self.lam), 0xFF,
+                            dtype=np.uint8)
+        betas = np.asarray(betas, dtype=np.uint8)
+        return dpf_gen_batch(self._prg, alphas, betas,
+                             self._fresh_s0s(alphas.shape[0], s0s, rng))
+
+    def eval_all(self, b: int, bundle: DpfBundle, device: bool = True):
+        """Party ``b``'s full-domain DPF evaluation: every leaf at once,
+        about 2^(n+1) PRG calls instead of n * 2^n per-point walks.
+
+        Returns ``(y, t)`` on the host: leaf shares uint8 [K, 2^n_bits,
+        lam] and leaf t bits uint8 [K, 2^n_bits], in bitreverse_n leaf
+        order (position p holds domain point bitreverse(p);
+        ``workloads.pir.PirDatabase`` orders its records the same way).
+        XOR the two parties: ``y0 ^ y1`` is beta at alpha and 0
+        elsewhere, ``t0 ^ t1`` the one-hot selection vector.
+
+        By default the evaluation follows the facade's device, as ``eval``
+        does: kernel B6 through ``backends.evalall.DpfEvalAll`` on the
+        card (its plain version under ``device="cpu"``), fetched back to
+        host bytes.  B6 exists at lam = 32 only; any other lam raises
+        unless the caller names the host: ``device=False`` runs the
+        portable numpy expansion (any lam) and touches no device.  PIR
+        servers use ``DpfEvalAll`` directly and keep the leaves on the
+        device."""
+        from dcf_tpu_torch.backends.evalall import (
+            DpfEvalAll,
+            dpf_finalize_np,
+            dpf_tree_expand_np,
+            leaves_to_bytes,
+        )
+
+        kb = bundle.for_party(b) if bundle.s0s.shape[1] == 2 else bundle
+        if not device:
+            s, t = dpf_tree_expand_np(self._prg, kb, b, kb.n_bits)
+            return dpf_finalize_np(kb, s, t), t
+        if self.lam != DPF_DEVICE_LAM:
+            raise ValueError(
+                f"eval_all has a kernel at lam={DPF_DEVICE_LAM} only (got "
+                f"lam={self.lam}); pass device=False for the host expansion")
+        if self._dpf_evalall is None:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", ReferenceContractWarning)
+                self._dpf_evalall = DpfEvalAll(
+                    self.lam, self.cipher_keys, device=self.device)
+        return leaves_to_bytes(
+            *self._dpf_evalall.eval_party(b, kb, kb.n_bits))
+
+    def pir_query(self, indices, s0s: np.ndarray | None = None,
+                  rng: np.random.Generator | None = None,
+                  n_bits: int | None = None) -> DpfBundle:
+        """Client-side 2-server-PIR query keygen: one DPF key pair per
+        record index (``workloads.pir.pir_query_bundle`` over this
+        facade's PRG and domain).  ``n_bits`` is the database's domain,
+        2^n_bits records; it defaults to the facade's own 8 * n_bytes and
+        may be any depth whose byte-granular key domain that is
+        (8 * n_bytes - 7 .. 8 * n_bytes).  Register the returned bundle
+        with both servers, collect ``PirServer.answer(key_id, b)`` from
+        each, and XOR the shares (``workloads.pir.pir_reconstruct``): the
+        record comes back bit-exact while neither server learns which
+        one."""
+        from dcf_tpu_torch.workloads.pir import pir_query_bundle
+
+        n_key = 8 * self.n_bytes
+        n_bits = n_key if n_bits is None else int(n_bits)
+        if not n_key - 8 < n_bits <= n_key:
+            raise ValueError(
+                f"a 2^{n_bits}-record database wants keys over "
+                f"{(n_bits + 7) // 8} bytes, this facade has n_bytes="
+                f"{self.n_bytes}")
+        indices = [int(i) for i in np.asarray(indices).reshape(-1)]
+        return pir_query_bundle(self._prg, indices, n_bits,
+                                self._fresh_s0s(len(indices), s0s, rng))

@@ -1,5 +1,6 @@
-"""Shared batch-shape validation/padding, device selection and the
-two-party verifier of the port's backends.
+"""Shared batch-shape validation/padding, device selection, the
+two-party verifier and the full-domain evaluators' ship-once cache of the
+port's backends.
 
 Counterpart of ``dcf_tpu/backends/_common.py``.  Every backend accepts xs
 as uint8 [M, n_bytes] (points shared by all keys) or [K, M, n_bytes]
@@ -18,7 +19,8 @@ from dcf_tpu_torch.ops.walk_eval import group_add_plain
 from dcf_tpu_torch.utils.groups import group_width
 
 __all__ = ["validate_xs", "pad_xs", "prepare_batch", "resolve_device",
-           "points_mismatch_count"]
+           "points_mismatch_count", "xor_mismatch_count", "to_device",
+           "bitrev_values", "StagedFrontierCache"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -119,3 +121,72 @@ def points_mismatch_count(y0: torch.Tensor, y1: torch.Tensor, alpha, beta,
                          torch.zeros_like(bt[:, None, :]))
     recon = group_add_plain(y0, y1, group_width(group))
     return (recon != expect).any(-1).sum()
+
+
+def xor_mismatch_count(y0: torch.Tensor, y1: torch.Tensor,
+                       inside: torch.Tensor, beta: bytes) -> torch.Tensor:
+    """The full-domain verifiers' count: the rows of y0 ^ y1 (uint8
+    [M, 16]) that differ from ``beta`` where ``inside`` (bool [M]) holds
+    and from zero elsewhere.  A device int64 scalar."""
+    recon = (y0 ^ y1).view(torch.int64)  # [M, 2]
+    want = torch.from_numpy(np.frombuffer(beta, dtype=np.uint8).copy()).to(
+        y0.device).view(torch.int64)
+    bad = torch.where(inside, (recon != want).any(-1), (recon != 0).any(-1))
+    return bad.sum()
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a contiguous tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def bitrev_values(n_bits: int, device) -> torch.Tensor:
+    """int64 [2^n_bits]: the domain value of each leaf position,
+    value[p] = bitreverse_n(p), computed on ``device``."""
+    pos = torch.arange(1 << n_bits, dtype=torch.int64, device=device)
+    value = torch.zeros_like(pos)
+    for k in range(n_bits):
+        value |= ((pos >> k) & 1) << (n_bits - 1 - k)
+    return value
+
+
+class StagedFrontierCache:
+    """The ship-once cache of the full-domain evaluators
+    (``fulldomain.TreeFullDomain``, ``evalall.DpfEvalAll``): the staged
+    correction words and both parties' host-expanded frontiers of the
+    bundle last evaluated, keyed on the caller's object by identity (the
+    entry retains it, so a freed bundle's reused address cannot hit) and
+    on the depth.
+
+    Subclass contract: set ``host_levels``, provide ``_stage_cw(bundle)``
+    (the party-independent CW image on the device) and
+    ``_frontier(bundle_b, b, k0)`` (party b's level-k0 nodes on the
+    device)."""
+
+    host_levels: int
+    _cache = None  # (bundle, n_bits, staged_cw, fronts, parts)
+
+    def _k0(self, n_bits: int) -> int:
+        """Levels expanded on the host: the last one always runs on the
+        device."""
+        return min(self.host_levels, n_bits - 1)
+
+    def invalidate(self) -> None:
+        """Drop the staged image (the serving layer's retry-then-evict
+        rule: a faulted evaluation must not hand its device residency to
+        the retry)."""
+        self._cache = None
+
+    def _staged_for(self, bundle, n_bits: int):
+        """``(staged_cw, fronts, parts)`` of the two-party ``bundle``:
+        shipped once and reused while the caller keeps evaluating the
+        same bundle object at the same depth."""
+        c = self._cache
+        if c is not None and c[0] is bundle and c[1] == n_bits:
+            return c[2], c[3], c[4]
+        k0 = self._k0(n_bits)
+        staged_cw = self._stage_cw(bundle)
+        parts = {b: bundle.for_party(b) for b in (0, 1)}
+        fronts = {b: self._frontier(parts[b], b, k0) for b in (0, 1)}
+        self._cache = (bundle, n_bits, staged_cw, fronts, parts)
+        return staged_cw, fronts, parts

@@ -5,7 +5,9 @@ with the same staged API: ``put_bundle`` ships the key image once,
 ``stage`` ships the points, ``eval_staged`` returns the shares on the
 device, ``staged_to_bytes`` brings them to the host, ``eval`` does all of
 it bytes-in/bytes-out, and ``points_mismatch_count`` checks a two-party
-reconstruction on the device.
+reconstruction on the device.  ``stage_range`` and ``mismatch_count`` are
+the per-point full-domain pair: consecutive points made on the device,
+checked there against the plain comparison.
 
 The key image is the bundle's own uint8 arrays (no plane layout), the
 staged points are uint8 [Kx, M_pad, n/8], and the shares are uint8
@@ -26,6 +28,7 @@ from dcf_tpu_torch.backends._common import (
     points_mismatch_count,
     prepare_batch,
     resolve_device,
+    xor_mismatch_count,
 )
 from dcf_tpu_torch.errors import ShapeError, StaleStateError
 from dcf_tpu_torch.keys import KeyBundle
@@ -89,6 +92,43 @@ class WalkBackend:
         if m == 0:
             raise ShapeError("cannot stage an empty batch")
         return {"xs": torch.from_numpy(xs).to(self.device), "m": m}
+
+    def stage_range(self, start: int, count: int) -> dict:
+        """Stage the consecutive points start..start+count-1 with no host
+        to device transfer: the big-endian bytes are made on the device
+        from an arange (the full-domain workload, BASELINE.json config
+        3).  ``count`` must be a whole number of point tiles."""
+        n = self._dims()[1]
+        if count < 1 or count % POINT_TILE or start < 0 \
+                or start + count > 1 << n:
+            raise ShapeError(
+                f"range [{start}, {start + count}) must be a whole number "
+                f"of {POINT_TILE}-point tiles inside the 2^{n} domain")
+        if n > 56:
+            raise ShapeError(f"stage_range serves domains up to 56 bits, "
+                             f"got {n}")
+        idx = torch.arange(start, start + count, dtype=torch.int64,
+                           device=self.device)
+        shifts = torch.arange(n - 8, -8, -8, dtype=torch.int64,
+                              device=self.device)
+        xs = ((idx[:, None] >> shifts) & 0xFF).to(torch.uint8)
+        return {"xs": xs[None].contiguous(), "m": count}
+
+    def mismatch_count(self, y0: torch.Tensor, y1: torch.Tensor, alpha: int,
+                       beta: bytes, start: int,
+                       gt: bool = False) -> torch.Tensor:
+        """Verification of a full-domain chunk on the device: the number
+        of points of the staged range start..start+M-1 whose XOR
+        reconstruction differs from ``beta if x < alpha else 0`` (``>``
+        for gt).  y0/y1: both parties' ``eval_staged`` outputs over that
+        range (single key).  Returns a device int64 scalar, so chunked
+        callers can add up without a host round trip per chunk."""
+        if y0.shape[0] != 1 or self._group != "xor":
+            raise ShapeError("mismatch_count checks one XOR-group key")
+        idx = torch.arange(start, start + y0.shape[1], dtype=torch.int64,
+                           device=y0.device)
+        inside = (idx > alpha) if gt else (idx < alpha)
+        return xor_mismatch_count(y0[0], y1[0], inside, beta)
 
     def eval_staged(self, b: int, staged: dict) -> torch.Tensor:
         """Party ``b`` eval on staged points; returns the device-resident

@@ -1,9 +1,10 @@
 // Per-thread DCF arithmetic shared by the three Hopper kernels of the
-// lam = 16 batch-eval path (its AES also serves the large-lambda kernels of
-// narrow_walk.cuh):
+// lam = 16 batch-eval and full-domain paths (its AES also serves the
+// two-cipher kernels of narrow_walk.cuh):
 //
 //   B1  walk_eval.cu    replaces dcf_tpu/ops/pallas_eval.py::dcf_eval_pallas
 //   B2  tree_expand.cu  replaces dcf_tpu/ops/pallas_tree.py::_expand_level
+//                       and the leaf finalize of its tree_expand_device
 //   B3  prefix_eval.cu  replaces dcf_tpu/ops/pallas_prefix.py::dcf_eval_prefix_pallas
 //
 // The TPU kernels run a bitsliced AES (128 one-bit planes, 32 points per
@@ -294,6 +295,18 @@ DCF_HD void tree_node(const AesTables& a, const LevelCw& w,
   }
   tl = c.tl ^ (t & w.t);
   tr = c.tr ^ (t & (w.t >> 1));
+}
+
+// The last level of a full-domain expansion (XOR group): one parent node
+// into the two leaf shares y = v ^ s ^ t * cw_np1 of its children.
+DCF_HD void tree_leaves(const AesTables& a, const LevelCw& w,
+                        const uint32_t np1[4], const uint32_t s[4],
+                        const uint32_t v[4], uint32_t t, uint32_t yl[4],
+                        uint32_t yr[4]) {
+  uint32_t sl[4], vl[4], sr[4], vr[4], tl, tr;
+  tree_node<0>(a, w, s, v, t, sl, vl, tl, sr, vr, tr);
+  finalize<0>(sl, tl, vl, np1, false, yl);
+  finalize<0>(sr, tr, vr, np1, false, yr);
 }
 
 #if defined(__CUDACC__)

@@ -1,11 +1,13 @@
-// Per-thread arithmetic of the large-lambda hybrid (lam >= 48), shared by
-// its four Hopper kernels:
+// Per-thread arithmetic of the two-cipher (32-byte) Hirose step, shared by
+// the four Hopper kernels of the large-lambda hybrid (lam >= 48) and by the
+// full-domain DPF kernel (lam = 32):
 //
 //   B4   narrow_walk.cu    replaces dcf_tpu/ops/pallas_narrow.py::dcf_narrow_walk_pallas
 //   B5a  hybrid_state.cu   replaces dcf_tpu/ops/pallas_hybrid_prefix.py::narrow_state_walk_pallas
 //   B5b  hybrid_prefix.cu  replaces dcf_tpu/ops/pallas_hybrid_prefix.py::dcf_hybrid_prefix_pallas
 //   W1   wide_xor.cu       replaces the XLA int8 dot_general of
 //                          dcf_tpu/backends/large_lambda.py::_wide_tail
+//   B6   evalall_expand.cu replaces dcf_tpu/ops/pallas_evalall.py::_expand_level
 //
 // For lam >= 48 the Hirose PRG encrypts only its first two 16-byte blocks
 // (cipher 0 on block 0, cipher 17 on block 1); every other block is a
@@ -204,6 +206,87 @@ DCF_HD void hybrid_prefix_point(const NarrowTables& T, const NarrowCw* cw,
   traj_put(tw, n, st.t);
   traj_flush(tw, n);
   narrow_finalize(st, np1, y);
+}
+
+// AES-256 of three blocks in lockstep, three independent lookup chains:
+// in0 and in1 under the round keys rk_a, in2 under rk_b.
+DCF_HD void aes256_encrypt3_rk(const AesTables& a, const uint32_t* rk_a,
+                               const uint32_t* rk_b, const uint32_t in0[4],
+                               const uint32_t in1[4], const uint32_t in2[4],
+                               uint32_t out0[4], uint32_t out1[4],
+                               uint32_t out2[4]) {
+  uint32_t a0 = in0[0] ^ rk_a[0], a1 = in0[1] ^ rk_a[1];
+  uint32_t a2 = in0[2] ^ rk_a[2], a3 = in0[3] ^ rk_a[3];
+  uint32_t b0 = in1[0] ^ rk_a[0], b1 = in1[1] ^ rk_a[1];
+  uint32_t b2 = in1[2] ^ rk_a[2], b3 = in1[3] ^ rk_a[3];
+  uint32_t c0 = in2[0] ^ rk_b[0], c1 = in2[1] ^ rk_b[1];
+  uint32_t c2 = in2[2] ^ rk_b[2], c3 = in2[3] ^ rk_b[3];
+  uint32_t d0, d1, d2, d3, e0, e1, e2, e3, f0, f1, f2, f3;
+#if defined(__CUDACC__)
+#pragma unroll
+#endif
+  for (int r = 1; r < 14; ++r) {
+    const uint32_t* ka = rk_a + 4 * r;
+    const uint32_t* kb = rk_b + 4 * r;
+    DCF_AES_ROUND(a, ka, a0, a1, a2, a3, d0, d1, d2, d3)
+    DCF_AES_ROUND(a, ka, b0, b1, b2, b3, e0, e1, e2, e3)
+    DCF_AES_ROUND(a, kb, c0, c1, c2, c3, f0, f1, f2, f3)
+    a0 = d0; a1 = d1; a2 = d2; a3 = d3;
+    b0 = e0; b1 = e1; b2 = e2; b3 = e3;
+    c0 = f0; c1 = f1; c2 = f2; c3 = f3;
+  }
+  DCF_AES_LAST(a, rk_a, a0, a1, a2, a3, out0)
+  DCF_AES_LAST(a, rk_a, b0, b1, b2, b3, out1)
+  DCF_AES_LAST(a, rk_b, c0, c1, c2, c3, out2)
+}
+
+// One level's DPF correction word at lam = 32: 32 bytes of s, t bits (tl
+// in bit 0, tr in bit 1).  A DPF key has no value correction.
+struct DpfCw {
+  uint32_t s[8];
+  uint32_t t;
+};
+
+// The CW of one level from its 32 seed bytes and its two t bytes.
+DCF_HD void dpf_cw_entry(DpfCw& cw, const uint8_t* cw_s,
+                         const uint8_t* cw_t) {
+  for (int q = 0; q < 8; ++q) cw.s[q] = le32(cw_s + 4 * q);
+  cw.t = (cw_t[0] & 1u) | ((cw_t[1] & 1u) << 1);
+}
+
+// B6's per-thread body: one parent node of the lam = 32 DPF tree into its
+// two children, seed correction gated by t.  The masked Hirose step:
+//
+//   s_l = (E0(s_b0) ^ s_b0, s_b1)    s_r = (s_b0, E17(s_b1) ^ s_b1)
+//
+// with bit 8*lam-1 = bit 0 of byte 31 (word 7, kMaskBit) cleared in both
+// children (block 0 is never masked), and t_l / t_r bit 0 of byte 0 of
+// E0(s_b0) ^ s_b0 and E0(~s_b0) ^ ~s_b0.  Three AES blocks: E17(~s_b1)
+// feeds only the value half, which a DPF has not.
+DCF_HD void dpf_node(const NarrowTables& T, const DpfCw& w,
+                     const uint32_t s[8], uint32_t t, uint32_t sl[8],
+                     uint32_t& tl, uint32_t sr[8], uint32_t& tr) {
+  uint32_t sp[4], e0[4], e0p[4], e1[4];
+  for (int q = 0; q < 4; ++q) sp[q] = ~s[q];
+  aes256_encrypt3_rk(T.a, T.a.rk, T.rk17, s, sp, s + 4, e0, e0p, e1);
+  const uint32_t g = 0u - t;
+  tl = ((e0[0] ^ s[0]) & 1u) ^ (t & w.t);
+  tr = ((e0p[0] ^ sp[0]) & 1u) ^ (t & (w.t >> 1));
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t m = q == 3 ? kMaskBit : 0xFFFFFFFFu;
+    const uint32_t c0 = w.s[q] & g;
+    const uint32_t c1 = w.s[4 + q] & g;
+    sl[q] = e0[q] ^ s[q] ^ c0;
+    sr[q] = s[q] ^ c0;
+    sl[4 + q] = (s[4 + q] & m) ^ c1;
+    sr[4 + q] = ((e1[q] ^ s[4 + q]) & m) ^ c1;
+  }
+}
+
+// The leaf share of a DPF node: y = s ^ t * cw_np1, in place.
+DCF_HD void dpf_leaf(uint32_t s[8], uint32_t t, const uint32_t np1[8]) {
+  const uint32_t g = 0u - t;
+  for (int q = 0; q < 8; ++q) s[q] ^= np1[q] & g;
 }
 
 DCF_HD int lowest_set_bit(uint32_t x) {

@@ -1,7 +1,7 @@
-"""Key material: structure-of-arrays bundles.
+"""Key material: structure-of-arrays bundles and the DCFK wire codec.
 
-Counterpart of ``KeyBundle`` in ``dcf_tpu/keys.py`` (its lines 145-244):
-K stacked DCF keys, shared by both parties except for the starting seeds.
+Counterpart of ``dcf_tpu/keys.py``: K stacked DCF keys, shared by both
+parties except for the starting seeds.
 
     s0s     uint8 [K, P, lam]   starting seeds (P = 2 from gen, 1 per party)
     cw_s    uint8 [K, n, lam]   correction-word seeds
@@ -12,20 +12,111 @@ K stacked DCF keys, shared by both parties except for the starting seeds.
 These arrays are also the device image: the port's backends ship them to
 the card as they are.  ``KeyBundle.from_arrays`` takes the same five
 arrays from any source (for instance the JAX package's bundle fields), so
-both packages can evaluate the same keys.  The DCFK wire codec is not
-part of this package yet.
+both packages can evaluate the same keys.
+
+DCFK bytes on the wire (``to_bytes`` / ``from_bytes``; byte-identical to
+the JAX package's frames in both directions):
+
+    offset  size            field
+    0       4               magic ``b"DCFK"``
+    4       2               version (uint16 LE)
+    6       2               P, parties stored (2 full bundle, 1 per party)
+    8       4               K, number of keys (uint32 LE)
+    12      4               n, tree depth in bits (uint32 LE)
+    16      2               lam, range size in bytes (uint16 LE)
+    [18     2               proto (version >= 3); 0 = plain bundle]
+    [20     2               group code (version 4; ``spec.GROUP_CODE``)]
+    ...     K*P*lam         s0s, C-order uint8
+    ...     K*n*lam         cw_s
+    ...     K*n*lam         cw_v
+    ...     K*n*2           cw_t (tl, tr per level)
+    ...     K*lam           cw_np1
+    end-4   4               crc32 of all prior bytes (version >= 2)
+
+XOR bundles write version 2, additive bundles version 4; versions 1 (no
+CRC trailer) and 3 with proto = 0 are still read.  A version-3 frame with
+proto != 0 belongs to a protocol decoder (``protocols.dpf`` for proto = 2)
+and is refused here.  Decoding is strict: the header is checked field by
+field, every section must fit, the size must match exactly, and any
+violation raises ``KeyFormatError`` naming the field.
 """
 
 from __future__ import annotations
 
+import math
+import struct
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
 
-from dcf_tpu_torch.errors import ShapeError
-from dcf_tpu_torch.spec import check_group
+from dcf_tpu_torch.errors import KeyFormatError, ShapeError
+from dcf_tpu_torch.spec import (
+    GROUP_CODE,
+    GROUP_FROM_CODE,
+    GROUP_WIDTH,
+    check_group,
+)
 
 __all__ = ["KeyBundle"]
+
+_MAGIC = b"DCFK"
+_VERSION = 2
+_HEADER = "<HHIIH"  # version, P, K, n, lam (after the 4-byte magic)
+_HEADER_SIZE = 4 + struct.calcsize(_HEADER)
+_CRC_SIZE = 4
+_VERSION_PROTO = 3  # the v2 header plus a uint16 proto field
+_HEADER3 = "<HHIIHH"
+_HEADER3_SIZE = 4 + struct.calcsize(_HEADER3)
+_VERSION_GROUP = 4  # the v3 header plus a uint16 output-group code
+_HEADER4 = "<HHIIHHH"
+_HEADER4_SIZE = 4 + struct.calcsize(_HEADER4)
+
+
+def _decode_sections(data: bytes, sections, header_size: int,
+                     crc_size: int, claims: str) -> dict[str, np.ndarray]:
+    """The strict section decode shared by every DCFK reader of the port
+    (``KeyBundle.from_bytes`` and ``protocols.dpf.DpfBundle.from_bytes``).
+
+    ``sections``: ordered ``(name, shape)`` uint8 section table; ``claims``:
+    the header's geometry rendered for error messages.  Bounds-checks
+    every section against the frame before touching the payload (so a
+    truncated frame names the field where it ran out), requires the total
+    size to match exactly, verifies the CRC32 trailer when ``crc_size`` is
+    nonzero, then returns the decoded arrays by name.
+    """
+    payload_end = len(data) - crc_size
+    off = header_size
+    for name, shape in sections:
+        size = math.prod(shape)  # Python ints: no fixed-width overflow
+        if off + size > payload_end:
+            raise KeyFormatError(
+                f"truncated frame: section {name!r} needs bytes "
+                f"[{off}, {off + size}) but the payload ends at "
+                f"{payload_end} (header claims {claims})")
+        off += size
+    if off != payload_end:
+        raise KeyFormatError(
+            f"oversized frame: {payload_end - off} trailing bytes after "
+            f"section {sections[-1][0]!r} (corrupt header or concatenated "
+            "frames)")
+    if crc_size:
+        (crc_stored,) = struct.unpack_from("<I", data, payload_end)
+        # memoryview: hash in place, without a copy of the key image.
+        crc_actual = zlib.crc32(memoryview(data)[:payload_end])
+        if crc_stored != crc_actual:
+            raise KeyFormatError(
+                f"crc32 mismatch: trailer records {crc_stored:#010x}, "
+                f"frame hashes to {crc_actual:#010x}; key material is "
+                "corrupt")
+    off = header_size
+    arrays: dict[str, np.ndarray] = {}
+    for name, shape in sections:
+        size = math.prod(shape)
+        arr = np.frombuffer(data, dtype=np.uint8, count=size, offset=off)
+        arrays[name] = arr.reshape(shape).copy()
+        off += size
+    return arrays
 
 
 @dataclass(frozen=True)
@@ -121,3 +212,113 @@ class KeyBundle:
             cw_np1=self.cw_np1,
             group=self.group,
         )
+
+    # -- codec ---------------------------------------------------------------
+
+    def to_bytes(self) -> bytes:
+        """Flat framed binary: header, the raw arrays, a CRC32 trailer.
+        XOR bundles emit version-2 frames, additive bundles version-4
+        frames whose header carries the group code."""
+        k, p = self.s0s.shape[0], self.s0s.shape[1]
+        if self.group == "xor":
+            header = _MAGIC + struct.pack(
+                _HEADER, _VERSION, p, k, self.n_bits, self.lam)
+        else:
+            header = _MAGIC + struct.pack(
+                _HEADER4, _VERSION_GROUP, p, k, self.n_bits, self.lam, 0,
+                GROUP_CODE[self.group])
+        body = b"".join([header, self.s0s.tobytes(), self.cw_s.tobytes(),
+                         self.cw_v.tobytes(), self.cw_t.tobytes(),
+                         self.cw_np1.tobytes()])
+        return body + struct.pack("<I", zlib.crc32(body))
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "KeyBundle":
+        """Strict bounds-checked DCFK decode of a plain bundle (versions
+        1, 2, 3 with proto = 0, and 4).  Rejects truncated, oversized,
+        corrupt and protocol frames with ``KeyFormatError`` naming the
+        offending field."""
+        if len(data) < 4 or data[:4] != _MAGIC:
+            raise KeyFormatError(
+                f"bad magic: expected {_MAGIC!r}, got {bytes(data[:4])!r} "
+                "(not a DCFK key bundle)")
+        if len(data) < _HEADER_SIZE:
+            raise KeyFormatError(
+                f"truncated header: frame is {len(data)} bytes, the DCFK "
+                f"header needs {_HEADER_SIZE}")
+        version, p, k, n, lam = struct.unpack_from(_HEADER, data, 4)
+        header_size = _HEADER_SIZE
+        group = "xor"
+        if version == _VERSION_GROUP:
+            if len(data) < _HEADER4_SIZE:
+                raise KeyFormatError(
+                    f"truncated header: frame is {len(data)} bytes, the "
+                    f"DCFK v4 header needs {_HEADER4_SIZE}")
+            version, p, k, n, lam, proto, group_code = struct.unpack_from(
+                _HEADER4, data, 4)
+            header_size = _HEADER4_SIZE
+            if proto != 0:
+                raise KeyFormatError(
+                    f"frame carries protocol section {proto}; decode with "
+                    "a protocol bundle reader: reading it as a plain "
+                    "bundle would misparse the sections")
+            if group_code not in GROUP_FROM_CODE:
+                raise KeyFormatError(
+                    f"unknown output-group code {group_code} (this reader "
+                    f"handles {sorted(GROUP_FROM_CODE)}); refusing to "
+                    "guess a reconstruction group for key material")
+            group = GROUP_FROM_CODE[group_code]
+            if group != "xor" and (8 * lam) % GROUP_WIDTH[group]:
+                raise KeyFormatError(
+                    f"group {group!r} needs lam*8={8 * lam} divisible by "
+                    f"{GROUP_WIDTH[group]}: corrupt or mismatched header "
+                    "fields")
+        elif version == _VERSION_PROTO:
+            if len(data) < _HEADER3_SIZE:
+                raise KeyFormatError(
+                    f"truncated header: frame is {len(data)} bytes, the "
+                    f"DCFK v3 header needs {_HEADER3_SIZE}")
+            version, p, k, n, lam, proto = struct.unpack_from(
+                _HEADER3, data, 4)
+            header_size = _HEADER3_SIZE
+            if proto == 2:  # protocols.dpf.PROTO_DPF, named literally to
+                # keep this module free of the protocol layer
+                raise KeyFormatError(
+                    f"frame carries protocol section {proto} (DPF "
+                    "point-function key, no cw_v); decode with "
+                    "dcf_tpu_torch.protocols.dpf.DpfBundle.from_bytes: "
+                    "reading it as a plain bundle would misparse the "
+                    "sections")
+            if proto != 0:
+                raise KeyFormatError(
+                    f"frame carries protocol section {proto} (interval "
+                    "combine masks); a plain reader would silently drop "
+                    "the public correction, and the interval protocols "
+                    "are not in this package yet (ROADMAP.md slice 7)")
+        elif version not in (1, _VERSION):
+            raise KeyFormatError(
+                f"unsupported version {version} (this reader handles "
+                f"1..{_VERSION_GROUP})")
+        if p not in (1, 2):
+            raise KeyFormatError(f"parties field must be 1 or 2, got {p}")
+        if n == 0 or n % 8:
+            raise KeyFormatError(
+                f"n field must be a positive multiple of 8 bits, got {n}")
+        if lam == 0:
+            raise KeyFormatError("lam field must be positive, got 0")
+        sections = (
+            ("s0s", (k, p, lam)),
+            ("cw_s", (k, n, lam)),
+            ("cw_v", (k, n, lam)),
+            ("cw_t", (k, n, 2)),
+            ("cw_np1", (k, lam)),
+        )
+        arrays = _decode_sections(
+            data, sections, header_size,
+            _CRC_SIZE if version >= 2 else 0,
+            f"K={k}, P={p}, n={n}, lam={lam}")
+        try:
+            return cls(*(arrays[name] for name, _ in sections), group=group)
+        except ShapeError as e:
+            raise KeyFormatError(
+                f"header fields do not describe a bundle: {e}") from None

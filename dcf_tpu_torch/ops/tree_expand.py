@@ -1,18 +1,23 @@
-"""Kernel B2, one breadth-first GGM tree level at lam = 16, and its plain
-version.
+"""Kernel B2, one breadth-first GGM tree level at lam = 16, its leaf-level
+form B2f, and their plain versions.
 
-Counterpart of ``dcf_tpu/ops/pallas_tree.py`` (``_expand_level`` and
-``tree_expand_raw``).  A level turns N parent nodes (s, v, t) into 2N
+Counterpart of ``dcf_tpu/ops/pallas_tree.py`` (``_expand_level``,
+``tree_expand_raw`` and ``tree_expand_device``).  A level turns N parent nodes (s, v, t) into 2N
 children with the correction words applied and the value accumulator
 pushed down both branches; the children are stored as [all lefts ; all
 rights], so after several levels the leaf at position p is the node whose
 walk directions are the bits of p, LSB first (bitreverse order).  The
 prefix backend uses it to build the frontier that kernel B3 gathers from.
 
-``tree_expand_level`` launches the CUDA kernel (``csrc/tree_expand.cu``)
-for tensors on the card and runs ``tree_expand_level_plain`` for tensors
-on the CPU.  The full-domain finalization (``tree_expand_device``) is not
-part of this package yet.
+The full-domain evaluator (``tree_expand_device``) runs levels k0..n-2
+through the same kernel and the last level through B2f
+(``tree_expand_final``), which turns each parent straight into the two
+leaf shares y = v ^ s ^ t * cw_np1 of its children (XOR group): the leaf
+level's s, v and t are never stored.
+
+``tree_expand_level`` and ``tree_expand_final`` launch their CUDA kernels
+(``csrc/tree_expand.cu``) for tensors on the card and run their plain
+versions for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ from dcf_tpu_torch.ops.walk_eval import (
 )
 from dcf_tpu_torch.utils.groups import group_width
 
-__all__ = ["tree_expand_level_plain", "tree_expand_level", "tree_expand"]
+__all__ = ["tree_expand_level_plain", "tree_expand_level", "tree_expand",
+           "tree_expand_final_plain", "tree_expand_final",
+           "tree_expand_device"]
 
 
 def tree_expand_level_plain(aes, cw_s, cw_v, cw_t, s, v, t, *, group: str):
@@ -49,17 +56,20 @@ def tree_expand_level_plain(aes, cw_s, cw_v, cw_t, s, v, t, *, group: str):
     return s2, v2, t2
 
 
+def tree_expand_final_plain(aes, cw_s, cw_v, cw_t, cw_np1, s, v, t):
+    """Plain PyTorch version of kernel B2f (same arguments as
+    ``tree_expand_final``)."""
+    s2, v2, t2 = tree_expand_level_plain(aes, cw_s, cw_v, cw_t, s, v, t,
+                                         group="xor")
+    return v2 ^ s2 ^ (cw_np1 & (t2.unsqueeze(-1) * 0xFF))
+
+
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_FINAL_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
 
 
-def tree_expand_level(aes, cw_s, cw_v, cw_t, s, v, t, *, group: str):
-    """One tree level: N parents -> 2N children, [lefts ; rights].
-
-    aes uint8 [496]; cw_s/cw_v uint8 [16] and cw_t uint8 [2] (0/1) are the
-    level's correction words; s/v uint8 [N, 16], t uint8 [N] (0/1).
-    Returns (s2 [2N, 16], v2 [2N, 16], t2 [2N]).  Additive groups push
-    down the unsigned sum.  The card launches kernel B2, the CPU runs
-    ``tree_expand_level_plain``."""
+def _check_level(aes, cw_s, cw_v, cw_t, s, v, t) -> int:
+    """The input checks B2 and B2f share; returns the parent count."""
     device = s.device
     n_par = s.shape[0]
     check_u8("aes", aes, (AES_IMAGE_BYTES,), device)
@@ -71,6 +81,19 @@ def tree_expand_level(aes, cw_s, cw_v, cw_t, s, v, t, *, group: str):
     check_u8("t", t, (n_par,), device)
     if n_par < 1 or n_par >= 1 << 30:
         raise ShapeError(f"bad parent count {n_par}")
+    return n_par
+
+
+def tree_expand_level(aes, cw_s, cw_v, cw_t, s, v, t, *, group: str):
+    """One tree level: N parents -> 2N children, [lefts ; rights].
+
+    aes uint8 [496]; cw_s/cw_v uint8 [16] and cw_t uint8 [2] (0/1) are the
+    level's correction words; s/v uint8 [N, 16], t uint8 [N] (0/1).
+    Returns (s2 [2N, 16], v2 [2N, 16], t2 [2N]).  Additive groups push
+    down the unsigned sum.  The card launches kernel B2, the CPU runs
+    ``tree_expand_level_plain``."""
+    device = s.device
+    n_par = _check_level(aes, cw_s, cw_v, cw_t, s, v, t)
     if device.type == "cpu":
         return tree_expand_level_plain(aes, cw_s, cw_v, cw_t, s, v, t,
                                        group=group)
@@ -102,3 +125,51 @@ def tree_expand(aes, cw_s, cw_v, cw_t, s, v, t, *, k0: int, k1: int,
         s, v, t = tree_expand_level(aes, cw_s[i], cw_v[i], cw_t[i], s, v, t,
                                     group=group)
     return s, v, t
+
+
+def tree_expand_final(aes, cw_s, cw_v, cw_t, cw_np1, s, v, t):
+    """The last tree level and the leaf finalize in one (XOR group): N
+    parents -> 2N leaf shares y = v ^ s ^ t * cw_np1, uint8 [2N, 16],
+    [lefts ; rights].
+
+    Arguments as ``tree_expand_level`` (the last level's correction
+    words) plus cw_np1 uint8 [16].  The card launches kernel B2f, the CPU
+    runs ``tree_expand_final_plain``."""
+    device = s.device
+    n_par = _check_level(aes, cw_s, cw_v, cw_t, s, v, t)
+    check_u8("cw_np1", cw_np1, (16,), device)
+    if device.type == "cpu":
+        return tree_expand_final_plain(aes, cw_s, cw_v, cw_t, cw_np1, s, v,
+                                       t)
+    if device.type != "cuda":
+        raise ShapeError(f"tree_expand_final runs on cuda or cpu, not {device}")
+    y = torch.empty((2 * n_par, 16), dtype=torch.uint8, device=device)
+    fn = _build.load("tree_expand", "dcf_tree_expand_final", _FINAL_ARGTYPES)
+    a = aes.data_ptr()
+    launch_checked("tree_expand_final", fn, device, a, a + 256,
+                   cw_s.data_ptr(), cw_v.data_ptr(), cw_t.data_ptr(),
+                   cw_np1.data_ptr(), s.data_ptr(), v.data_ptr(),
+                   t.data_ptr(), y.data_ptr(), n_par)
+    tree_expand_final.launches += 1
+    return y
+
+
+tree_expand_final.launches = 0  # kernel B2f launches in this process
+
+
+def tree_expand_device(aes, cw_s, cw_v, cw_t, cw_np1, s, v, t, *, k0: int,
+                       n: int):
+    """Expand levels k0..n-1 of one XOR-group key and finalize the leaves:
+    cw_s/cw_v uint8 [n, 16], cw_t uint8 [n, 2], cw_np1 uint8 [16];
+    (s, v, t) the level-k0 nodes in bitreverse order, k0 < n.  Returns the
+    leaf shares uint8 [2^n, 16] in bitreverse_n order: kernel B2 for
+    levels k0..n-2, kernel B2f for level n-1."""
+    if not 0 <= k0 < n or cw_s.shape[0] != n or s.shape[0] != 1 << k0:
+        raise ShapeError(
+            f"tree_expand_device wants 2^k0 nodes and 0 <= k0 < n = "
+            f"{cw_s.shape[0]} levels, got k0={k0}, n={n}, "
+            f"{s.shape[0]} nodes")
+    s, v, t = tree_expand(aes, cw_s, cw_v, cw_t, s, v, t, k0=k0, k1=n - 1,
+                          group="xor")
+    return tree_expand_final(aes, cw_s[n - 1], cw_v[n - 1], cw_t[n - 1],
+                             cw_np1, s, v, t)

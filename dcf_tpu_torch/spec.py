@@ -31,6 +31,7 @@ __all__ = [
     "AES_SBOX",
     "GROUPS",
     "GROUP_CODE",
+    "GROUP_FROM_CODE",
     "GROUP_WIDTH",
     "SHIFT_ROWS",
     "Bound",
@@ -42,6 +43,7 @@ __all__ = [
 
 GROUPS = ("xor", "add8", "add16", "add32")
 GROUP_CODE = {"xor": 0, "add8": 1, "add16": 2, "add32": 3}
+GROUP_FROM_CODE = {code: name for name, code in GROUP_CODE.items()}
 GROUP_WIDTH = {"add8": 8, "add16": 16, "add32": 32}  # lane width, bits
 
 

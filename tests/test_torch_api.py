@@ -5,6 +5,8 @@ request without CUDA raises instead of running on the CPU; keygen matches
 dcf_tpu's.  The lam >= 48 hybrid has its own tests
 (test_torch_large_lambda.py, test_torch_hybrid_prefix.py)."""
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -83,12 +85,23 @@ def test_unported_backends_raise(name):
 
 @pytest.mark.parametrize("lam", [32, 48, 128])
 def test_other_lam_raises(lam):
-    """walk and prefix are lam = 16 kernels; 16 < lam < 48 has no kernel
-    (ROADMAP A7); auto takes hybrid from lam = 48 on."""
+    """walk and prefix are lam = 16 kernels; 16 < lam < 48 has no DCF
+    kernel (ROADMAP A7); auto takes hybrid from lam = 48 on, and at
+    lam = 32 builds a facade for the DPF methods whose gen and eval
+    raise."""
     ck = [b"k" * 32] * 18
     for name in ("walk", "prefix", "auto"):
         if name == "auto" and lam >= 48:
             assert Dcf(2, lam, ck, device="cpu").backend_name == "hybrid"
+            continue
+        if name == "auto":
+            dcf = Dcf(2, lam, ck, device="cpu")
+            with pytest.raises(ValueError, match="A7"):
+                dcf.gen(np.zeros((1, 2), np.uint8),
+                        np.zeros((1, lam), np.uint8))
+            with pytest.raises(ValueError, match="A7"):
+                dcf.eval(0, dcf.dpf(np.zeros((1, 2), np.uint8)),
+                         np.zeros((1, 2), np.uint8))
             continue
         with pytest.raises(ValueError,
                            match="lam=16 only" if lam >= 48 else "A7"):
@@ -126,3 +139,32 @@ def test_cuda_request_without_cuda_raises(monkeypatch, device):
             cls(16, ck, device=device)
     with pytest.raises(BackendUnavailableError):
         LargeLambdaBackend(48, ck * 9, device=device)
+
+
+def test_eval_all_follows_the_facade_device():
+    """``eval_all`` runs kernel B6's evaluator on the facade's device by
+    default (here its plain version, the facade being built for the CPU)
+    and the numpy expansion only on ``device=False``; at a lam without
+    the kernel the default raises and names the host argument."""
+    from dcf_tpu_torch.backends.evalall import DpfEvalAll
+
+    rng = np.random.default_rng(31)
+    ck = [rng.bytes(32) for _ in range(18)]
+    alphas = rng.integers(0, 256, (2, 1), dtype=np.uint8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dcf = Dcf(1, 32, ck, device="cpu")
+        wide = Dcf(1, 48, ck, device="cpu")
+    bundle = dcf.dpf(alphas, rng=rng)
+    host = dcf.eval_all(0, bundle, device=False)
+    assert dcf._dpf_evalall is None  # the host expansion builds no evaluator
+    got = dcf.eval_all(0, bundle)
+    assert isinstance(dcf._dpf_evalall, DpfEvalAll)
+    assert dcf._dpf_evalall.device == dcf.device == torch.device("cpu")
+    for g, h in zip(got, host):
+        assert g.dtype == np.uint8 and np.array_equal(g, h)
+    wb = wide.dpf(alphas, rng=rng)
+    with pytest.raises(ValueError, match="device=False"):
+        wide.eval_all(0, wb)
+    y, t = wide.eval_all(0, wb, device=False)
+    assert y.shape == (2, 256, 48) and t.shape == (2, 256)

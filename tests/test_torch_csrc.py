@@ -5,7 +5,9 @@ plain C++ over uint32_t (T-table AES-256, the Hirose step, the SWAR group
 adds, the walk, the frontier gather index and the tree node), and
 ``csrc/narrow_walk.cuh`` those of the large-lambda kernels B4, B5a, B5b
 and W1 (the unmasked two-cipher narrow step, its level loop with the
-trajectory, the node walk, the frontier walk and the wide XOR).  This test
+trajectory, the node walk, the frontier walk and the wide XOR) and of the
+full-domain kernels B6 (the masked lam = 32 DPF node and its leaf
+correction) and B2f (``tree_leaves`` in ``dcf_walk.cuh``).  This test
 compiles both headers with the host C++ compiler into a small library
 that runs each body over every (key, point) or node in a loop, and holds
 the results byte for byte against the port's numpy oracles (the full-width
@@ -259,6 +261,60 @@ void host_hybrid_prefix(const uint8_t* sbox, const uint8_t* rk0,
   }
 }
 
+// One B6 level over K keys: [K, N, 32] parents -> [K, 2N, 32] children,
+// leaf correction applied when np1 is not null.
+void host_dpf_level(const uint8_t* sbox, const uint8_t* rk0,
+                    const uint8_t* rk17, const uint8_t* cw_s,
+                    const uint8_t* cw_t, const uint8_t* np1,
+                    const uint8_t* s_in, const uint8_t* t_in, uint8_t* s_out,
+                    uint8_t* t_out, int K, int n_par, int n, int level) {
+  NarrowTables t;
+  narrow_tables(t, sbox, rk0, rk17);
+  for (int key = 0; key < K; ++key) {
+    DpfCw cw;
+    dpf_cw_entry(cw, cw_s + ((size_t)key * n + level) * 32,
+                 cw_t + ((size_t)key * n + level) * 2);
+    uint32_t fw[8];
+    if (np1) words8(np1 + key * 32, fw);
+    for (int j = 0; j < n_par; ++j) {
+      const size_t in = (size_t)key * n_par + j;
+      uint32_t s[8], sl[8], sr[8], tl, tr;
+      memcpy(s, s_in + in * 32, 32);
+      dpf_node(t, cw, s, t_in[in] & 1u, sl, tl, sr, tr);
+      if (np1) {
+        dpf_leaf(sl, tl, fw);
+        dpf_leaf(sr, tr, fw);
+      }
+      const size_t left = (size_t)key * 2 * n_par + j;
+      memcpy(s_out + left * 32, sl, 32);
+      memcpy(s_out + (left + n_par) * 32, sr, 32);
+      t_out[left] = (uint8_t)tl;
+      t_out[left + n_par] = (uint8_t)tr;
+    }
+  }
+}
+
+void host_tree_final(const uint8_t* sbox, const uint8_t* rk,
+                     const uint8_t* cw_s, const uint8_t* cw_v,
+                     const uint8_t* cw_t, const uint8_t* cw_np1,
+                     const uint8_t* s_in, const uint8_t* v_in,
+                     const uint8_t* t_in, uint8_t* y_out, int n_par) {
+  AesTables a;
+  tables(a, sbox, rk);
+  LevelCw cw[1];
+  level_cw_entry(cw, cw_s, cw_v, cw_t, 0);
+  uint32_t np1[4];
+  for (int q = 0; q < 4; ++q) np1[q] = le32(cw_np1 + 4 * q);
+  for (int j = 0; j < n_par; ++j) {
+    uint32_t s[4], v[4], yl[4], yr[4];
+    memcpy(s, s_in + 16 * j, 16);
+    memcpy(v, v_in + 16 * j, 16);
+    tree_leaves(a, cw[0], np1, s, v, t_in[j] & 1u, yl, yr);
+    memcpy(y_out + 16 * j, yl, 16);
+    memcpy(y_out + 16 * ((size_t)n_par + j), yr, 16);
+  }
+}
+
 void host_wide(const uint32_t* traj, const uint32_t* w, const uint32_t* cst,
                uint32_t* y, int K, int n1, int tw, int wdw, int m) {
   for (int key = 0; key < K; ++key)
@@ -486,3 +542,70 @@ def test_frontier_and_hybrid_prefix_bodies_match_oracle(lib):
             got = np.concatenate([y32, _wide(lib, kb, traj, m)], axis=-1)
             assert np.array_equal(got, eval_batch_np(prg, b, kb, xs)), \
                 (bound, b)
+
+
+@pytest.mark.parametrize("k_num", [1, 3])
+def test_dpf_node_body_matches_oracle(lib, k_num):
+    """B6's body, level by level from the host frontier at k0 = 3 to the
+    leaves of an n = 8 key and to a prefix depth 6, against the numpy
+    expansion under the masked lam = 32 PRG: seeds and t bits of every
+    level, and the leaf shares of the last."""
+    from dcf_tpu_torch.backends.evalall import (
+        dpf_finalize_np, dpf_tree_expand_np)
+    from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
+
+    rng = np.random.default_rng(340 + k_num)
+    ck = [rng.bytes(32) for _ in range(18)]
+    prg = HirosePrgNp(32, ck, warn=False)
+    n, k0 = 8, 3
+    bundle = dpf_gen_batch(
+        prg, rng.integers(0, 256, (k_num, 1), dtype=np.uint8),
+        rng.integers(0, 256, (k_num, 32), dtype=np.uint8),
+        random_s0s(k_num, 32, rng))
+    rk = expand_key_np
+    for b in (0, 1):
+        kb = bundle.for_party(b)
+        for depth in (n, 6):
+            s, t = dpf_tree_expand_np(prg, kb, b, k0)
+            for lvl in range(k0, depth):
+                n_par = s.shape[1]
+                last = lvl == depth - 1
+                so = np.zeros((k_num, 2 * n_par, 32), np.uint8)
+                to = np.zeros((k_num, 2 * n_par), np.uint8)
+                lib.host_dpf_level(
+                    _p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])), _p(kb.cw_s),
+                    _p(kb.cw_t), _p(kb.cw_np1) if last else None,
+                    _p(np.ascontiguousarray(s)), _p(np.ascontiguousarray(t)),
+                    _p(so), _p(to), k_num, n_par, n, lvl)
+                want_s, want_t = dpf_tree_expand_np(prg, kb, b, lvl + 1)
+                if last:
+                    want_s = dpf_finalize_np(kb, want_s, want_t)
+                assert np.array_equal(so, want_s), (b, depth, lvl)
+                assert np.array_equal(to, want_t), (b, depth, lvl)
+                s, t = so, to
+
+
+@pytest.mark.parametrize("bound", list(Bound))
+def test_tree_leaves_body_matches_oracle(lib, bound):
+    """B2f's body: the last level of an n = 16 XOR key from the host
+    expansion at depth 15, against the numpy oracle's shares over the
+    whole domain (leaf p holds domain value bitreverse_16(p))."""
+    rng, prg, rk, alphas, bundle = _setup(360, 1, 2, "xor", bound)
+    n = 16
+    pos = np.arange(1 << n)
+    value = np.zeros_like(pos)
+    for k in range(n):
+        value |= ((pos >> k) & 1) << (n - 1 - k)
+    xs = np.stack([value >> 8, value & 0xFF], axis=1).astype(np.uint8)
+    for b in (0, 1):
+        kb = bundle.for_party(b)
+        s, v, t = tree_expand_np(prg, kb, b, n - 1)
+        y = np.zeros((1 << n, 16), np.uint8)
+        lib.host_tree_final(
+            _p(SBOX_NP), _p(rk), _p(np.ascontiguousarray(kb.cw_s[0, n - 1])),
+            _p(np.ascontiguousarray(kb.cw_v[0, n - 1])),
+            _p(np.ascontiguousarray(kb.cw_t[0, n - 1])),
+            _p(np.ascontiguousarray(kb.cw_np1[0])),
+            _p(np.ascontiguousarray(s)), _p(np.ascontiguousarray(v)),
+            _p(np.ascontiguousarray(t)), _p(y), s.shape[0])
+        assert np.array_equal(y, eval_batch_np(prg, b, kb, xs)[0]), b

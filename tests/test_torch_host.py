@@ -219,6 +219,11 @@ def test_port_imports_neither_jax_nor_dcf_tpu():
     ``__init__`` imports jax)."""
     files = _port_sources()
     assert len(files) > 15
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    for sub in ("protocols/dpf.py", "workloads/pir.py", "workloads/core.py",
+                "testing/faults.py", "backends/evalall.py",
+                "ops/evalall_expand.py", "ops/pir_answer.py"):
+        assert f"dcf_tpu_torch/{sub}" in scanned
     banned = ("jax", "jaxlib", "dcf_tpu")
     offenders = []
     for path in files:

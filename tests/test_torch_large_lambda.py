@@ -189,7 +189,8 @@ def test_carried_bundle_takes_any_lam(lam):
 
 
 def test_facade_routing():
-    """auto is walk at lam = 16 and hybrid at lam >= 48; 16 < lam < 48
+    """auto is walk at lam = 16 and hybrid at lam >= 48; DCF keys at
+    16 < lam < 48 (lam = 32, which constructs for the DPF methods alone)
     and the other mismatches raise, naming why."""
     ck = [bytes([i]) * 32 for i in range(32)]
     with warnings.catch_warnings():
@@ -203,7 +204,10 @@ def test_facade_routing():
                   device="cpu")
         assert dcf.eval_backend(1).prefix_levels == 6
         with pytest.raises(ValueError, match="A7"):
-            Dcf(2, 32, ck, device="cpu")
+            Dcf(2, 32, ck, backend="hybrid", device="cpu")
+        with pytest.raises(ValueError, match="A7"):
+            Dcf(2, 32, ck, device="cpu").gen(
+                np.zeros((1, 2), np.uint8), np.zeros((1, 32), np.uint8))
         for name in ("walk", "prefix"):
             with pytest.raises(ValueError, match="lam=16 only"):
                 Dcf(2, 256, ck, backend=name, device="cpu")
