@@ -7,7 +7,7 @@ Run from the repository root, with no arguments:
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel (B1-B6, B2f, W1, P1: nine sources) from
+2. build every kernel (B1-B8, B2f, G1, W1, P1: eleven sources) from
    ``dcf_tpu_torch/csrc`` with nvcc, one process per source, all at once,
    and print the build seconds and ptxas' register and spill counts;
 3. hold each kernel byte for byte against its plain PyTorch version on the
@@ -58,12 +58,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     n = 24 once more with an evaluator that keeps no level on the host;
 12. B6, B2f and P1 against their plain versions at those paths' shapes
     (n = 24), their times and bounds; P1 also beside ``torch._int_mm`` on
-    the database unpacked to bits, whose parity is checked against P1.
+    the database unpacked to bits, whose parity is checked against P1;
+13. the keygen kernels against their plain versions, K = 4096, both
+    bounds: G1 (lam = 16) and B7a (lam = 256) at n = 128, B7b (lam = 32)
+    at n = 24;
+14. keygen at its full shapes, timed, the first 1024 keys of each held
+    against the numpy ``gen_batch`` / ``dpf_gen_batch``: G1 at 10^6 keys;
+    B7a and its wide tail at lam = 256, K = 2^16 and at lam = 16384,
+    K = 64 (all 64 keys; there also against its plain version); B7b at
+    n = 24, K = 2^16;
+15. B8 against its plain version (K = 1024 keys x 1024 points, both
+    bounds, both parties), and B1 at K = 65,537 keys x 64 points (two
+    launches of at most 65,535 keys) against its plain version;
+16. keygen through the facade (``Dcf.gen`` at lam = 16, 256 and 16384,
+    ``Dcf.dpf`` at lam = 32; the first 64 keys against the numpy oracle),
+    then BASELINE.json config 5 at full size: ``secure_relu_check_device``
+    over 10^6 keys x 1024 shared points, n = 128, both parties (G1, B8
+    twice and the count per chunk of 2^17 keys): 0 mismatches; the first
+    chunk's shares recounted give 0, and >= 1 with alpha_0 moved by one;
+    the first 64 keys' shares at the first 32 points equal the numpy
+    oracle; wall time and evals/s; B8 timed on the first chunk's inputs.
+    The keygen rows' plain times are taken at the check shapes (phase 13,
+    and K = 64 at lam = 16384), B8's at K = 1024 x 1024: the rows say so
+    in ``shape`` and ``plain_shape``.
 
 Launches are counted per path: the counts are set to 0 just before one
 run of a path and read just after it, before any timed repeat, and held
-against the number that run must make (phases 9-11; phase 4's run is both
-parties' anchor and staged evaluations).  The next to last line is one JSON
+against the number that run must make (phases 9-11 and 16; phase 4's run
+is both parties' anchor and staged evaluations).  The next to last line is one JSON
 object with every kernel's numbers, ``launches`` the sum over those single
 runs and ``launches_by_path`` each of them; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
@@ -106,6 +128,18 @@ M_LEAVES = 4096  # leading leaves held against the per-point host walk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 LOOKUP_LANES = 32  # shared-memory words served per SM per clock
 INT8_OPS_PER_S = 1.979e15  # H100 SXM published dense int8 tensor rate
+K_KEYGEN_CHECK = 4096  # keys of the keygen kernel-vs-plain checks
+K_ANCHOR = 1024  # keys held against the numpy keygen oracle
+N_DPF_KEYGEN = 24  # DPF keygen depth (the PIR domain)
+K_RELU = 10**6  # BASELINE.json config 5: 10^6 keys x 1024 shared points
+M_RELU = 1024
+K_RELU_ANCHOR = 64  # config-5 keys held against the numpy oracle ...
+M_RELU_ANCHOR = 32  # ... at these leading points
+K_WIDE_KEYGEN = 1 << 16  # B7a's timed shape at lam = 256 (B7b's at n = 24)
+K_CRATE_KEYGEN = 64  # B7a's timed shape at lam = 16384
+K_B8_CHECK = 1024  # B8 kernel-vs-plain keys, at M_RELU points
+K_CAP = 65537  # B1 beyond the 65,535-block grid axis ...
+M_CAP = 64  # ... at these points
 
 
 def log(msg: str) -> None:
@@ -179,7 +213,15 @@ def main() -> int:
     from dcf_tpu_torch.protocols.dpf import (
         decode_proto_frame, dpf_eval_points)
     from dcf_tpu_torch.spec import GROUPS
-    from dcf_tpu_torch.workloads.core import full_domain_check_device
+    from dcf_tpu_torch.backends._common import points_mismatch_count
+    from dcf_tpu_torch.ops.keygen_walk import (
+        MODE_B7A, MODE_B7B, MODE_G1, keygen_dcf16, keygen_dpf,
+        keygen_narrow, keygen_walk_plain, keygen_wide_tail)
+    from dcf_tpu_torch.ops.keylanes_eval import (
+        keylanes_eval, keylanes_eval_plain)
+    from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
+    from dcf_tpu_torch.workloads.core import (
+        full_domain_check_device, secure_relu_check_device)
     from dcf_tpu_torch.workloads.pir import (
         PirDatabase, PirServer, pir_reconstruct)
 
@@ -211,7 +253,7 @@ def main() -> int:
     prg = HirosePrgNp(16, ck)
     aes = torch.from_numpy(aes_image(ck[0])).to(dev)
     max_err = {k: 0 for k in ("B1", "B2", "B3", "B4", "B5a", "B5b", "W1",
-                              "B6", "B2f", "P1")}
+                              "B6", "B2f", "P1", "G1", "B7a", "B7b", "B8")}
 
     def same(kernel: str, what: str, got, want) -> None:
         err = int((got.int() - want.int()).abs().max().item()) \
@@ -391,7 +433,8 @@ def main() -> int:
                 "B4": narrow_walk, "B5a": narrow_frontier,
                 "B5b": hybrid_prefix_eval, "W1": wide_tail,
                 "B6": evalall_expand_level, "B2f": tree_expand_final,
-                "P1": pir_answer}
+                "P1": pir_answer, "G1": keygen_dcf16, "B7a": keygen_narrow,
+                "B7b": keygen_dpf, "B8": keylanes_eval}
     launches = {k: {} for k in counters}  # kernel -> {path: launches}
     main_ms = {}
     main_inputs = {}
@@ -669,16 +712,17 @@ def main() -> int:
     rows_out = []
 
     def add_row(phase: str, kid: str, src: str, rep: str, ms: float,
-                plain: float, lk: int, nb: int, lib=None) -> None:
+                plain: float, lk: int, nb: int, lib=None, label: str = "",
+                **extra) -> None:
         b_ms, b_by = bound(lk, nb)
         rows_out.append({
-            "name": f"{kid} {src}", "route": "cuda",
+            "name": f"{kid} {src}{label}", "route": "cuda",
             "source": f"dcf_tpu_torch/csrc/{src}.cu", "replaces": rep,
             "launches": 0, "launches_by_path": {},
             "max_abs_err": max_err[kid],
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib})
-        log(f"{phase} {kid}: {ms:.3f} ms (plain {plain:.1f} ms, bound "
+            "library_ms": lib, **extra})
+        log(f"{phase} {kid}{label}: {ms:.3f} ms (plain {plain:.1f} ms, bound "
             f"{b_ms:.3f} ms by {b_by}: {lk:.3e} table lookups at "
             f"{lookups_per_s:.3e}/s, {nb} bytes at {HBM_BYTES_PER_S:.3e} B/s;"
             f" {b_ms / ms:.1%} of bound) [{card}]")
@@ -1113,6 +1157,315 @@ def main() -> int:
         f"one party's 2^{N_FULL} leaves take {b2fd_ms + b2f_ms:.3f} ms "
         f"[{card}]")
     del st, yf, yfp, last
+    # -- phase 13: the keygen kernels against their plain versions ---------------------
+    # G1 (lam = 16), B7a (lam = 256) at n = 128 and B7b (lam = 32) at
+    # n = 24, K = 4096 keys a run, both bounds; B7a is held on the bytes it
+    # writes (the narrow 32 of each row, cw_t and the trajectories).
+    t0 = time.perf_counter()
+    krng = np.random.default_rng(SEED + 5)
+    gck = [krng.bytes(32) for _ in range(2 * (LAM_CRATE // 16))]
+    g_aes = torch.from_numpy(aes_image(gck[0])).to(dev)
+    n_aes = torch.from_numpy(narrow_aes_image(gck[0], gck[17])).to(dev)
+
+    def key_inputs(k_num: int, n_bytes: int, lam: int):
+        return tuple(torch.from_numpy(a).to(dev) for a in (
+            krng.integers(0, 256, (k_num, n_bytes), dtype=np.uint8),
+            krng.integers(0, 256, (k_num, lam), dtype=np.uint8),
+            random_s0s(k_num, lam, krng)))
+
+    def narrow_of(out):
+        cw_s, cw_v, cw_t, np1, traj = out
+        return (cw_s[..., :NARROW], cw_v[..., :NARROW], cw_t,
+                np1[:, :NARROW], traj)
+
+    kg_plain = {}
+    for bnd in Bound:
+        lt = bnd is Bound.LT_BETA
+        for kid, mode, n_bytes, lam, fn, aes_k, names in (
+                ("G1", MODE_G1, N_BYTES, 16, keygen_dcf16, g_aes,
+                 ("cw_s", "cw_v", "cw_t", "cw_np1")),
+                ("B7a", MODE_B7A, N_BYTES, LAM_WIDE, keygen_narrow, n_aes,
+                 ("cw_s", "cw_v", "cw_t", "cw_np1", "traj")),
+                ("B7b", MODE_B7B, N_DPF_KEYGEN // 8, 32, keygen_dpf, n_aes,
+                 ("cw_s", "cw_t", "cw_np1"))):
+            ins = key_inputs(K_KEYGEN_CHECK, n_bytes, lam)
+            kw = {} if mode == MODE_B7B else {"lt": lt}
+            got = fn(aes_k, *ins, **kw)
+            p_ms, want = cuda_ms(lambda: keygen_walk_plain(
+                aes_k, *ins, mode=mode, lt=lt), 1)
+            if lt:
+                kg_plain[kid] = p_ms
+            if mode == MODE_B7A:
+                got, want = narrow_of(got), narrow_of(want)
+            for name, g_, w_ in zip(names, got, want):
+                same(kid, f"K={K_KEYGEN_CHECK} lam={lam} {bnd.name} "
+                     f"{name}", g_, w_)
+    log(f"phase 13 G1, B7a, B7b: byte-identical to their plain versions, "
+        f"K={K_KEYGEN_CHECK} keys, 2 bounds (G1 lam=16 and B7a lam="
+        f"{LAM_WIDE} at n={8 * N_BYTES}, B7b lam=32 at n={N_DPF_KEYGEN}); "
+        f"plain versions at LT_BETA: " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in kg_plain.items())
+        + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # -- phase 14: keygen at its full shapes: numpy anchors and times -------------------
+    # G1 at config 5's 10^6 keys; B7a and its wide tail at lam = 256,
+    # K = 2^16 and at lam = 16384, K = 64; B7b at n = 24, K = 2^16.  The
+    # first 1024 keys of each (all 64 at lam = 16384) equal the numpy
+    # gen_batch / dpf_gen_batch, every byte of the key.
+    t0 = time.perf_counter()
+
+    def host(*tensors):
+        return tuple(t.cpu().numpy() for t in tensors)
+
+    def anchor(kid: str, what: str, got: dict, want) -> None:
+        for name, g_ in got.items():
+            if not np.array_equal(g_, getattr(want, name)):
+                raise RuntimeError(f"{kid} {what}: {name} differs from the "
+                                   "numpy oracle")
+
+    ins = key_inputs(K_RELU, N_BYTES, 16)
+    g1_ms, out = cuda_ms(lambda: keygen_dcf16(g_aes, *ins, lt=True), 3)
+    k_a = K_ANCHOR
+    anchor("G1", f"K={K_RELU}", dict(zip(
+        ("cw_s", "cw_v", "cw_t", "cw_np1"), host(*(o[:k_a] for o in out)))),
+        gen_batch(HirosePrgNp(16, gck[:2]),
+                  *host(*(a[:k_a] for a in ins)), Bound.LT_BETA))
+    g1_lookups = K_RELU * n * 2 * 2 * 14 * 16
+    g1_bytes = K_RELU * (N_BYTES + 16 + 32) + K_RELU * (n * 34 + 16)
+    del ins, out
+
+    b7a = {}
+    for lam, k_num, reps in ((LAM_WIDE, K_WIDE_KEYGEN, 5),
+                             (LAM_CRATE, K_CRATE_KEYGEN, 5)):
+        ins = key_inputs(k_num, N_BYTES, lam)
+        ms, out = cuda_ms(lambda: keygen_narrow(n_aes, *ins, lt=True), reps)
+        tail_ms, _ = cuda_ms(lambda: keygen_wide_tail(
+            out[0], out[1], out[3], out[4], *ins, lt=True), 3)
+        k_a = min(K_ANCHOR, k_num)
+        anchor("B7a", f"lam={lam} K={k_num}", dict(zip(
+            ("cw_s", "cw_v", "cw_t", "cw_np1"),
+            host(*(o[:k_a] for o in out[:4])))),
+            gen_batch(HirosePrgNp(lam, gck[:2 * (lam // 16)]),
+                      *host(*(a[:k_a] for a in ins)), Bound.LT_BETA))
+        if lam == LAM_CRATE:  # the plain version at this (small) shape
+            p_ms, want = cuda_ms(lambda: keygen_walk_plain(
+                n_aes, *ins, mode=MODE_B7A, lt=True), 1)
+            got = keygen_narrow(n_aes, *ins, lt=True)
+            for name, g_, w_ in zip(("cw_s", "cw_v", "cw_t", "cw_np1",
+                                     "traj"), narrow_of(got),
+                                    narrow_of(want)):
+                same("B7a", f"lam={lam} K={k_num} {name}", g_, w_)
+        else:
+            p_ms = kg_plain["B7a"]
+        b7a[lam] = dict(
+            ms=ms, tail_ms=tail_ms, plain=p_ms, k=k_num,
+            lookups=k_num * n * 2 * 4 * 14 * 16,
+            bytes=k_num * (N_BYTES + 3 * NARROW)
+            + k_num * (n * (2 * NARROW + 4) + NARROW))
+        log(f"phase 14 B7a lam={lam} K={k_num}: {ms:.3f} ms (plain "
+            f"{p_ms:.1f} ms at K={K_KEYGEN_CHECK if lam == LAM_WIDE else k_num}"
+            f"), its wide tail "
+            f"(torch ops, {n} levels over [{k_num}, {lam - NARROW}] bytes) "
+            f"{tail_ms:.3f} ms; first {k_a} keys equal the numpy gen_batch "
+            f"[{card}]")
+        del ins, out
+
+    ins = key_inputs(K_WIDE_KEYGEN, N_DPF_KEYGEN // 8, 32)
+    b7b_ms, out = cuda_ms(lambda: keygen_dpf(n_aes, *ins), 5)
+    anchor("B7b", f"n={N_DPF_KEYGEN} K={K_WIDE_KEYGEN}", dict(zip(
+        ("cw_s", "cw_t", "cw_np1"), host(*(o[:K_ANCHOR] for o in out)))),
+        dpf_gen_batch(HirosePrgNp(32, gck[:18], warn=False),
+                      *host(*(a[:K_ANCHOR] for a in ins))))
+    b7b_lookups = K_WIDE_KEYGEN * N_DPF_KEYGEN * 2 * 3 * 14 * 16
+    b7b_bytes = K_WIDE_KEYGEN * (N_DPF_KEYGEN // 8 + 3 * 32) \
+        + K_WIDE_KEYGEN * (N_DPF_KEYGEN * 34 + 32)
+    del ins, out
+    log(f"phase 14 G1 K={K_RELU}: {g1_ms:.3f} ms; B7b n={N_DPF_KEYGEN} "
+        f"K={K_WIDE_KEYGEN}: {b7b_ms:.3f} ms; first {K_ANCHOR} keys of each "
+        f"equal the numpy oracle ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # -- phase 15: B8 against its plain version; B1 beyond 65,535 keys -------------------
+    t0 = time.perf_counter()
+    xs_r = torch.from_numpy(krng.integers(
+        0, 256, (1, M_RELU, N_BYTES), dtype=np.uint8)).to(dev)
+    for bnd in Bound:
+        ins = key_inputs(K_B8_CHECK, N_BYTES, 16)
+        img = keygen_dcf16(g_aes, *ins, lt=bnd is Bound.LT_BETA)
+        for b in (0, 1):
+            args = (g_aes, ins[2], *img, xs_r)
+            b8_plain, want = cuda_ms(
+                lambda: keylanes_eval_plain(*args, b=b), 1)
+            same("B8", f"K={K_B8_CHECK} M={M_RELU} {bnd.name} party {b}",
+                 keylanes_eval(*args, b=b), want)
+    del img, want
+    ins = key_inputs(K_CAP, N_BYTES, 16)
+    img = keygen_dcf16(g_aes, *ins, lt=True)
+    xs_c = torch.from_numpy(krng.integers(
+        0, 256, (1, M_CAP, N_BYTES), dtype=np.uint8)).to(dev)
+    args = (g_aes, ins[2][:, 0].contiguous(), *img, xs_c)
+    walk_eval.launches = 0
+    got = walk_eval(*args, b=0, group="xor")
+    cap_launches = walk_eval.launches
+    same("B1", f"K={K_CAP} x {M_CAP} points", got,
+         walk_eval_plain(*args, b=0, group="xor"))
+    if cap_launches != 2:
+        raise RuntimeError(f"B1 at K={K_CAP}: {cap_launches} launches, want "
+                           "2 key slices")
+    del ins, img, args, got
+    log(f"phase 15 B8: byte-identical to its plain version at K={K_B8_CHECK}"
+        f" x {M_RELU} points, 2 bounds x 2 parties (its plain version "
+        f"{b8_plain:.1f} ms there); B1 at K={K_CAP} keys x {M_CAP} points "
+        f"({cap_launches} launches of at most 65,535 keys) byte-identical to "
+        f"its plain version ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # -- phase 16: keygen through the facade; config 5 at full size ------------------------
+    # Each keygen path is one facade call on the card, its first 64 keys
+    # held against the numpy oracle.
+    t0 = time.perf_counter()
+    kg_paths = (
+        (f"Dcf.gen lam=16 K={K_KEYGEN_CHECK}", 16, N_BYTES, K_KEYGEN_CHECK,
+         "gen", "G1"),
+        (f"Dcf.gen lam={LAM_WIDE} K={K_ANCHOR}", LAM_WIDE, N_BYTES, K_ANCHOR,
+         "gen", "B7a"),
+        (f"Dcf.gen lam={LAM_CRATE} K={K_CRATE_KEYGEN}", LAM_CRATE, N_BYTES,
+         K_CRATE_KEYGEN, "gen", "B7a"),
+        (f"Dcf.dpf lam=32 n={N_DPF_KEYGEN} K={K_KEYGEN_CHECK}", 32,
+         N_DPF_KEYGEN // 8, K_KEYGEN_CHECK, "dpf", "B7b"))
+    kg_ms = {}
+    for name, lam, n_bytes, k_num, method, kid in kg_paths:
+        kck = gck[:max(18, 2 * (lam // 16))]
+        client = Dcf(n_bytes, lam, kck)
+        a = krng.integers(0, 256, (k_num, n_bytes), dtype=np.uint8)
+        bt = krng.integers(0, 256, (k_num, lam), dtype=np.uint8)
+        s0 = random_s0s(k_num, lam, krng)
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = getattr(client, method)(a, bt, s0s=s0)
+        kg_ms[name] = (time.perf_counter() - t1) * 1e3
+        take_counts(name, {kid: 1})
+        kprg = HirosePrgNp(lam, kck, warn=False)
+        want = (gen_batch(kprg, a[:64], bt[:64], s0[:64], Bound.LT_BETA)
+                if method == "gen" else dpf_gen_batch(kprg, a[:64], bt[:64],
+                                                      s0[:64]))
+        for field in ("cw_s", "cw_t", "cw_np1") + (
+                ("cw_v",) if method == "gen" else ()):
+            if not np.array_equal(getattr(got, field)[:64],
+                                  getattr(want, field)):
+                raise RuntimeError(f"{name}: {field} of the first 64 keys "
+                                   "differs from the numpy oracle")
+    log(f"phase 16 keygen through the facade, host clock, keys fetched to "
+        f"host bundles: " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                      kg_ms.items())
+        + f"; first 64 keys of each equal the numpy oracle [{card}]")
+
+    # BASELINE.json config 5: 10^6 keys x 1024 shared points, lam = 16,
+    # n = 128, both parties, keygen, evaluation and the count on the card.
+    rrng = np.random.default_rng(SEED + 6)
+    rck = [rrng.bytes(32), rrng.bytes(32)]
+    r_alphas = rrng.integers(0, 256, (K_RELU, N_BYTES), dtype=np.uint8)
+    r_betas = rrng.integers(0, 256, (K_RELU, 16), dtype=np.uint8)
+    r_s0s = random_s0s(K_RELU, 16, rrng)
+    r_xs = rrng.integers(0, 256, (M_RELU, N_BYTES), dtype=np.uint8)
+    for j, d in enumerate((0, -1, 1)):  # x = alpha, alpha - 1, alpha + 1
+        a = int.from_bytes(r_alphas[j].tobytes(), "big") + d
+        r_xs[j] = np.frombuffer((a % (1 << 8 * N_BYTES)).to_bytes(
+            N_BYTES, "big"), dtype=np.uint8)
+    kept = {}
+
+    def keep_first(lo, hi, y0, y1, be) -> None:
+        if lo == 0:
+            kept["chunk"] = (hi, y0, y1)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mism = secure_relu_check_device(16, rck, r_alphas, r_betas, r_s0s, r_xs,
+                                    on_chunk=keep_first)
+    relu_s = time.perf_counter() - t1  # the count's fetch synchronised
+    relu_peak = torch.cuda.max_memory_allocated()
+    n_chunks = -(-K_RELU // (1 << 17))
+    ran_relu = take_counts(f"secure ReLU config 5 K={K_RELU} M={M_RELU}",
+                           {"G1": n_chunks, "B8": 2 * n_chunks})
+    if mism != 0:
+        raise RuntimeError(f"config 5: {mism} mismatches over {K_RELU} keys "
+                           f"x {M_RELU} points")
+    hi0, y0c, y1c = kept.pop("chunk")
+    if tuple(y0c.shape) != (hi0, M_RELU, 16):
+        raise RuntimeError(f"config 5: chunk shares of shape {y0c.shape}")
+    xs_t = torch.from_numpy(r_xs[None].copy()).to(dev)
+    moved = r_alphas[:hi0].copy()
+    a0 = int.from_bytes(moved[0].tobytes(), "big")
+    moved[0] = np.frombuffer(((a0 + 1) % (1 << 8 * N_BYTES)).to_bytes(
+        N_BYTES, "big"), dtype=np.uint8)
+    recount = int(points_mismatch_count(y0c, y1c, r_alphas[:hi0],
+                                        r_betas[:hi0], xs_t, 16, "xor"))
+    control = int(points_mismatch_count(y0c, y1c, moved, r_betas[:hi0],
+                                        xs_t, 16, "xor"))
+    if recount != 0 or control < 1:
+        raise RuntimeError(f"config 5 control: the first chunk recounts "
+                           f"{recount} (want 0) and {control} with alpha_0 "
+                           "moved (want >= 1)")
+    rprg = HirosePrgNp(16, rck)
+    kb = gen_batch(rprg, r_alphas[:K_RELU_ANCHOR], r_betas[:K_RELU_ANCHOR],
+                   r_s0s[:K_RELU_ANCHOR], Bound.LT_BETA)
+    for b, yc in ((0, y0c), (1, y1c)):
+        want = eval_batch_np(rprg, b, kb.for_party(b), r_xs[:M_RELU_ANCHOR])
+        if not np.array_equal(
+                yc[:K_RELU_ANCHOR, :M_RELU_ANCHOR].cpu().numpy(), want):
+            raise RuntimeError(f"config 5: party {b}'s shares of the first "
+                               f"{K_RELU_ANCHOR} keys differ from the numpy "
+                               "oracle")
+    # B8 timed on the first chunk's inputs; its shares equal the run's.
+    r_aes = torch.from_numpy(aes_image(rck[0])).to(dev)
+    ins = tuple(torch.from_numpy(np.ascontiguousarray(a[:hi0])).to(dev)
+                for a in (r_alphas, r_betas, r_s0s))
+    img = keygen_dcf16(r_aes, *ins, lt=True)
+    b8_ms, got = cuda_ms(lambda: keylanes_eval(r_aes, ins[2], *img, xs_t,
+                                               b=0), 2)
+    if not torch.equal(got, y0c):
+        raise RuntimeError("B8: a repeat of the first chunk's party-0 "
+                           "evaluation differs from the run's shares")
+    b8_lookups = (2 * hi0 * M_RELU * n
+                  - hi0 * right_turns(xs_t, 0, n)) * 14 * 16
+    b8_bytes = M_RELU * N_BYTES + hi0 * (n * 34 + 32 + 16) \
+        + hi0 * M_RELU * 16
+    del kept, y0c, y1c, got, img, ins
+    torch.cuda.empty_cache()
+    log(f"phase 16 secure ReLU (BASELINE.json config 5): {K_RELU} keys x "
+        f"{M_RELU} shared points, lam=16, n={n}, both parties, "
+        f"workloads.secure_relu_check_device (G1 + B8 x 2 + the count per "
+        f"chunk of {hi0} keys, on the card): 0 mismatches; the first chunk "
+        f"recounts 0, and {control} with alpha_0 moved by one; the first "
+        f"{K_RELU_ANCHOR} keys' shares at the first {M_RELU_ANCHOR} points "
+        f"equal the numpy oracle; wall {relu_s:.3f} s = "
+        f"{2 * K_RELU * M_RELU / relu_s:,.0f} evals/s (both parties, keygen "
+        f"and the check included), peak device memory "
+        f"{relu_peak / 2**30:.2f} GiB; launches {ran_relu}; B8 alone on one "
+        f"chunk {b8_ms:.3f} ms ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    add_row("phase 16", "G1", "keygen_walk",
+            "dcf_tpu/backends/device_gen.py:70", g1_ms, kg_plain["G1"],
+            g1_lookups, g1_bytes, shape=f"K={K_RELU} n={n} lam=16",
+            plain_shape=f"K={K_KEYGEN_CHECK}")
+    for lam, r in b7a.items():
+        add_row("phase 16", "B7a", "keygen_walk",
+                "dcf_tpu/ops/pallas_keygen.py:153", r["ms"], r["plain"],
+                r["lookups"], r["bytes"], label=f" lam={lam}",
+                shape=f"K={r['k']} n={n} lam={lam}",
+                plain_shape=f"K={K_KEYGEN_CHECK if lam == LAM_WIDE else r['k']}",
+                wide_tail_ms=r["tail_ms"])
+    add_row("phase 16", "B7b", "keygen_walk",
+            "dcf_tpu/ops/pallas_keygen.py:540", b7b_ms, kg_plain["B7b"],
+            b7b_lookups, b7b_bytes,
+            shape=f"K={K_WIDE_KEYGEN} n={N_DPF_KEYGEN} lam=32",
+            plain_shape=f"K={K_KEYGEN_CHECK}")
+    add_row("phase 16", "B8", "keylanes_eval",
+            "dcf_tpu/ops/pallas_keylanes.py:113", b8_ms, b8_plain,
+            b8_lookups, b8_bytes, shape=f"K={hi0} M={M_RELU} n={n}",
+            plain_shape=f"K={K_B8_CHECK} M={M_RELU}")
+
     # Each path was run once between reset_counts and take_counts;
     # "launches" is the sum over those single runs.
     for row in rows_out:

@@ -26,6 +26,9 @@ Backends (``backend=``):
              ``backend_opts={"prefix_levels": k}`` walks the top k narrow
              levels once per party instead (kernels B5a + B5b)
              (backends.large_lambda)
+    keylanes lam = 16, XOR group, shared points: kernel B8, many keys at
+             few points (the secure-ReLU shape); one two-party key image
+             serves both parties (backends.keylanes_backend)
     numpy    the host oracle (backends.numpy_backend)
 
 lam = 32 constructs for the DPF methods only (full-domain evaluation on
@@ -39,9 +42,16 @@ run.  Without CUDA, a facade that was not asked for the CPU raises.  An
 explicitly named backend is what runs: there is no fallback chain and no
 canary-driven degrade, so a failing device path surfaces as an error.
 
+Keygen follows the facade's device too: ``gen``, ``dpf`` and ``pir_query``
+take ``device=None`` (the default), which runs a keygen kernel where one
+exists -- G1 for XOR keys at lam = 16, B7a and the wide tail at lam >= 48,
+B7b for DPF keys at lam = 32 -- and the numpy host walk where none does
+(additive groups, DPF keys at other widths), as ``dcf_tpu`` routes those.
+``device=False`` always names the host walk; ``device=True`` names the
+kernel and raises where there is none.
+
 Not in this package yet (see ROADMAP.md): the other JAX backends,
-``mesh=``, keygen on the card (DCF and DPF), the interval protocol
-methods, and ``serve``.
+``mesh=``, the interval protocol methods, and ``serve``.
 """
 
 from __future__ import annotations
@@ -53,13 +63,14 @@ import numpy as np
 
 from dcf_tpu_torch.backends._common import resolve_device
 from dcf_tpu_torch.errors import ShapeError
-from dcf_tpu_torch.gen import gen_batch, random_s0s
+from dcf_tpu_torch.gen import gen_batch, gen_on_device, random_s0s
 from dcf_tpu_torch.keys import KeyBundle
 from dcf_tpu_torch.ops.prg import HirosePrgNp
 from dcf_tpu_torch.protocols.dpf import (
     DPF_DEVICE_LAM,
     DpfBundle,
     dpf_gen_batch,
+    dpf_gen_on_device,
 )
 from dcf_tpu_torch.spec import (
     Bound,
@@ -69,7 +80,7 @@ from dcf_tpu_torch.spec import (
 
 __all__ = ["Dcf"]
 
-_BACKENDS = ("numpy", "walk", "prefix", "hybrid")
+_BACKENDS = ("numpy", "walk", "prefix", "hybrid", "keylanes")
 
 # Backend names of the JAX facade that this package does not carry yet,
 # with the ROADMAP.md item that ports them.
@@ -78,7 +89,6 @@ _LATER = {
     "jax": "queue A11 (the byte-level walk)",
     "bitsliced": "queue A7 (the off-card bitsliced walk)",
     "pallas": "none: its kernel is ported as backend 'walk'",
-    "keylanes": "slice 6 (many keys x few points)",
 }
 
 # backend_opts of the JAX package's hybrid backend that have no meaning
@@ -127,7 +137,7 @@ class Dcf:
                 f"backend {name!r} is not in this package; it has "
                 f"{', '.join(_BACKENDS)} and auto"
                 + (f" (ROADMAP.md: {later})" if later else ""))
-        if name in ("walk", "prefix") and lam != 16:
+        if name in ("walk", "prefix", "keylanes") and lam != 16:
             raise ValueError(
                 f"the {name} backend supports lam=16 only (got {lam}); use "
                 "hybrid")
@@ -136,10 +146,13 @@ class Dcf:
                 f"the hybrid (large-lambda) backend wants lam >= 48 (got "
                 f"{lam}); use walk or prefix")
         self._backend_opts = dict(backend_opts or {})
-        if self._backend_opts and name == "numpy":
+        if self._backend_opts and name in ("numpy", "keylanes"):
             raise ValueError(
                 f"backend_opts {sorted(self._backend_opts)} do not apply to "
-                "the numpy backend")
+                f"the {name} backend"
+                + (": the JAX keylanes kernel's tiling (m_tile, kw_tile, "
+                   "level_chunk) has no counterpart in kernel B8"
+                   if name == "keylanes" else ""))
         if name == "hybrid":
             for opt in sorted(self._backend_opts):
                 if opt != "prefix_levels":
@@ -172,37 +185,59 @@ class Dcf:
                 "which has no kernel (ROADMAP.md A7); this width serves "
                 "dpf, eval_all and pir_query")
 
+    @staticmethod
+    def _keygen_on_device(device, kernel: bool, why: str) -> bool:
+        """Whether a keygen call runs its kernel: ``device=None`` where
+        one exists, ``True`` always (raising ``why`` where none does),
+        ``False`` never."""
+        if device is None:
+            return kernel
+        if device and not kernel:
+            raise ValueError(why)
+        return bool(device)
+
     def gen(self, alphas: np.ndarray, betas: np.ndarray,
             s0s: np.ndarray | None = None,
             bound: Bound = Bound.LT_BETA,
             rng: np.random.Generator | None = None,
-            device: bool = False, group: str = "xor") -> KeyBundle:
-        """Generate K keys on the host: alphas uint8 [K, n_bytes], betas
-        uint8 [K, lam].  s0s (uint8 [K, 2, lam]) default to fresh random
-        seeds from ``rng`` (OS entropy if None).  Returns the two-party
-        bundle; ship ``bundle.for_party(b)`` to party b.  ``group`` selects
-        the output group (xor, add8, add16, add32)."""
+            device: bool | None = None, group: str = "xor") -> KeyBundle:
+        """Generate K keys: alphas uint8 [K, n_bytes], betas uint8
+        [K, lam].  s0s (uint8 [K, 2, lam]) default to fresh random seeds
+        from ``rng`` (OS entropy if None).  Returns the two-party bundle;
+        ship ``bundle.for_party(b)`` to party b.  ``group`` selects the
+        output group (xor, add8, add16, add32).
+
+        XOR keys run on the facade's device by default (``gen.
+        gen_on_device``: kernel G1 at lam = 16, B7a and the wide tail at
+        lam >= 48, their plain versions under ``device="cpu"``); additive
+        groups take the host walk, as no keygen kernel has their algebra.
+        ``device=False`` names the host walk, ``device=True`` the kernel
+        (an additive group then raises).  The bytes are the same."""
         self._refuse_dcf_at_dpf_width("gen")
-        if device:
-            raise NotImplementedError(
-                "keygen on the card is not ported yet (ROADMAP.md slice 5); "
-                "call gen() with device=False")
+        on_device = self._keygen_on_device(
+            device, group == "xor",
+            f"no keygen kernel has the additive algebra of group {group!r} "
+            "(in this package or in dcf_tpu); call gen() with device=None "
+            "or False for the host walk")
         alphas = np.asarray(alphas, dtype=np.uint8)
         betas = np.asarray(betas, dtype=np.uint8)
         if alphas.ndim != 2 or alphas.shape[1] != self.n_bytes:
             raise ShapeError(f"alphas must be [K, {self.n_bytes}]")
-        return gen_batch(self._prg, alphas, betas,
-                         self._fresh_s0s(alphas.shape[0], s0s, rng), bound,
-                         group=group)
+        s0s = self._fresh_s0s(alphas.shape[0], s0s, rng)
+        if on_device:
+            return gen_on_device(self.lam, self.cipher_keys, alphas, betas,
+                                 s0s, bound, device=self.device)
+        return gen_batch(self._prg, alphas, betas, s0s, bound, group=group)
 
     def eval_backend(self, b: int = 0):
-        """The backend instance serving party ``b``, constructed if absent
-        (``None`` for numpy).  The way to the staged API (``stage`` /
-        ``eval_staged`` / ``staged_to_bytes``) once ``eval`` has shipped
-        the key image."""
+        """The backend instance serving party ``b`` (the one two-party
+        instance for keylanes), constructed if absent (``None`` for
+        numpy).  The way to the staged API (``stage`` / ``eval_staged`` /
+        ``staged_to_bytes``) once ``eval`` has shipped the key image."""
         if self.backend_name == "numpy":
             return None
-        be = self._eval_backends.get(int(b))
+        slot = "kl" if self.backend_name == "keylanes" else int(b)
+        be = self._eval_backends.get(slot)
         if be is None:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", ReferenceContractWarning)
@@ -211,6 +246,12 @@ class Dcf:
 
                     be = WalkBackend(self.lam, self.cipher_keys,
                                      device=self.device, **self._backend_opts)
+                elif self.backend_name == "keylanes":
+                    from dcf_tpu_torch.backends.keylanes_backend import (
+                        KeyLanesBackend)
+
+                    be = KeyLanesBackend(self.lam, self.cipher_keys,
+                                         device=self.device)
                 elif self.backend_name == "prefix":
                     from dcf_tpu_torch.backends.prefix_backend import (
                         PrefixBackend)
@@ -225,7 +266,7 @@ class Dcf:
                     be = LargeLambdaBackend(self.lam, self.cipher_keys,
                                             device=self.device,
                                             **self._backend_opts)
-            self._eval_backends[int(b)] = be
+            self._eval_backends[slot] = be
         return be
 
     def eval(self, b: int, bundle: KeyBundle, xs: np.ndarray) -> np.ndarray:
@@ -239,6 +280,18 @@ class Dcf:
         the caller passes the same object) or ``bundle.for_party(b)``."""
         self._refuse_dcf_at_dpf_width("eval")
         xs = np.asarray(xs, dtype=np.uint8)
+        if self.backend_name == "keylanes":
+            # One two-party image serves both parties (the correction
+            # words are shared, the reference's src/lib.rs:269-272).
+            if bundle.s0s.shape[1] != 2:
+                raise ShapeError(
+                    "the keylanes backend wants the full two-party bundle "
+                    "(its key image is shared between parties)")
+            be = self.eval_backend(b)
+            if self._shipped_bundle.get("kl") is not bundle:
+                be.put_bundle(bundle)
+                self._shipped_bundle["kl"] = bundle
+            return be.eval(int(b), xs)
         kb = bundle.for_party(b) if bundle.s0s.shape[1] == 2 else bundle
         if self.backend_name == "numpy":
             from dcf_tpu_torch.backends.numpy_backend import eval_batch_np
@@ -265,9 +318,8 @@ class Dcf:
     def dpf(self, alphas: np.ndarray, betas: np.ndarray | None = None,
             s0s: np.ndarray | None = None,
             rng: np.random.Generator | None = None,
-            device: bool = False) -> DpfBundle:
-        """Generate K DPF keys for ``f(x) = beta_k * 1_{x == alpha_k}`` on
-        the host (any lam).
+            device: bool | None = None) -> DpfBundle:
+        """Generate K DPF keys for ``f(x) = beta_k * 1_{x == alpha_k}``.
 
         The GGM walk minus the comparison accumulation (no ``cw_v``):
         alphas uint8 [K, n_bytes], betas uint8 [K, lam] (default all ones;
@@ -276,12 +328,18 @@ class Dcf:
         two-party ``DpfBundle`` (DCFK v3 ``proto=2`` on the wire; ship
         ``bundle.for_party(b)``).  Evaluate point by point with
         ``protocols.dpf.dpf_eval_points`` or over the whole domain with
-        ``eval_all``."""
-        if device:
-            raise NotImplementedError(
-                "DPF keygen on the card waits for its kernel, the K-packed "
-                "DPF keygen walk (dcf_tpu/ops/pallas_keygen.py:540, "
-                "ROADMAP.md slice 5); call dpf() with device=False")
+        ``eval_all``.
+
+        At lam = 32 the keys are made on the facade's device by default
+        (kernel B7b, ``protocols.dpf.dpf_gen_on_device``; its plain
+        version under ``device="cpu"``); other widths take the host walk,
+        which ``device=False`` names at any width.  ``device=True`` where
+        there is no kernel raises."""
+        on_device = self._keygen_on_device(
+            device, self.lam == DPF_DEVICE_LAM,
+            f"DPF keygen has a kernel at lam={DPF_DEVICE_LAM} only (got "
+            f"lam={self.lam}); call dpf() with device=None or False for "
+            "the host walk")
         alphas = np.asarray(alphas, dtype=np.uint8)
         if alphas.ndim != 2 or alphas.shape[1] != self.n_bytes:
             raise ShapeError(f"alphas must be [K, {self.n_bytes}]")
@@ -289,8 +347,11 @@ class Dcf:
             betas = np.full((alphas.shape[0], self.lam), 0xFF,
                             dtype=np.uint8)
         betas = np.asarray(betas, dtype=np.uint8)
-        return dpf_gen_batch(self._prg, alphas, betas,
-                             self._fresh_s0s(alphas.shape[0], s0s, rng))
+        s0s = self._fresh_s0s(alphas.shape[0], s0s, rng)
+        if on_device:
+            return dpf_gen_on_device(self.lam, self.cipher_keys, alphas,
+                                     betas, s0s, device=self.device)
+        return dpf_gen_batch(self._prg, alphas, betas, s0s)
 
     def eval_all(self, b: int, bundle: DpfBundle, device: bool = True):
         """Party ``b``'s full-domain DPF evaluation: every leaf at once,
@@ -336,10 +397,12 @@ class Dcf:
 
     def pir_query(self, indices, s0s: np.ndarray | None = None,
                   rng: np.random.Generator | None = None,
-                  n_bits: int | None = None) -> DpfBundle:
+                  n_bits: int | None = None,
+                  device: bool | None = None) -> DpfBundle:
         """Client-side 2-server-PIR query keygen: one DPF key pair per
-        record index (``workloads.pir.pir_query_bundle`` over this
-        facade's PRG and domain).  ``n_bits`` is the database's domain,
+        record index, the keys ``workloads.pir.pir_query_bundle`` makes on
+        the host, made as ``dpf`` makes them (``device=``: kernel B7b at
+        lam = 32 by default).  ``n_bits`` is the database's domain,
         2^n_bits records; it defaults to the facade's own 8 * n_bytes and
         may be any depth whose byte-granular key domain that is
         (8 * n_bytes - 7 .. 8 * n_bytes).  Register the returned bundle
@@ -347,7 +410,7 @@ class Dcf:
         each, and XOR the shares (``workloads.pir.pir_reconstruct``): the
         record comes back bit-exact while neither server learns which
         one."""
-        from dcf_tpu_torch.workloads.pir import pir_query_bundle
+        from dcf_tpu_torch.workloads.pir import pir_query_alphas
 
         n_key = 8 * self.n_bytes
         n_bits = n_key if n_bits is None else int(n_bits)
@@ -356,6 +419,5 @@ class Dcf:
                 f"a 2^{n_bits}-record database wants keys over "
                 f"{(n_bits + 7) // 8} bytes, this facade has n_bytes="
                 f"{self.n_bytes}")
-        indices = [int(i) for i in np.asarray(indices).reshape(-1)]
-        return pir_query_bundle(self._prg, indices, n_bits,
-                                self._fresh_s0s(len(indices), s0s, rng))
+        return self.dpf(pir_query_alphas(indices, n_bits), s0s=s0s, rng=rng,
+                        device=device)

@@ -1,9 +1,11 @@
-"""Batched key generation on the host (numpy walk).
+"""Batched key generation: the host numpy walk and the router to the card.
 
-Counterpart of ``random_s0s`` and ``gen_batch`` in ``dcf_tpu/gen.py``
-(its lines 60-190): K comparison functions processed level by level with
-one batched PRG call per party per level.  Keygen on the card is not part
-of this package yet.
+Counterpart of ``random_s0s``, ``gen_batch`` and ``gen_on_device`` in
+``dcf_tpu/gen.py`` (its lines 60-190 and 230-357).  ``gen_batch`` processes
+K comparison functions level by level with one batched PRG call per party
+per level; ``gen_on_device`` runs the same walk on the card (kernel G1 at
+lam = 16, kernel B7a and the wide tail at lam >= 48,
+``backends.device_gen``) and gives the same bytes.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from dcf_tpu_torch.ops.prg import HirosePrgNp
 from dcf_tpu_torch.spec import Bound, check_group
 from dcf_tpu_torch.utils.groups import bytes_of, lanes_of
 
-__all__ = ["gen_batch", "random_s0s"]
+__all__ = ["gen_batch", "gen_on_device", "random_s0s"]
 
 
 def random_s0s(num_keys: int, lam: int, rng: np.random.Generator) -> np.ndarray:
@@ -146,3 +148,46 @@ def gen_batch(
         s0s=s0s.copy(), cw_s=cw_s, cw_v=cw_v, cw_t=cw_t, cw_np1=cw_np1,
         group=group,
     )
+
+
+def gen_on_device(
+    lam: int,
+    cipher_keys,
+    alphas: np.ndarray,
+    betas: np.ndarray,
+    s0s: np.ndarray,
+    bound: Bound,
+    group: str = "xor",
+    device=None,
+) -> KeyBundle:
+    """Generate K keys with the level walk on the card (``device``, the
+    card unless the caller passes ``"cpu"``, where the kernels' plain
+    versions run).  Returns the two-party ``KeyBundle``, byte-identical to
+    ``gen_batch`` on the same ``(alphas, betas, s0s, bound)``.
+
+    lam = 16 runs kernel G1 (``backends.device_gen.DeviceKeyGen``), lam >=
+    48 kernel B7a and the wide tail (``HybridKeyGen``); 16 < lam < 48 raises
+    (ROADMAP.md A7).  An additive ``group`` takes ``gen_batch`` on the
+    host: no keygen kernel, in this package or in ``dcf_tpu``, has the
+    signed lane algebra, and ``dcf_tpu`` routes it the same way.  A device
+    failure raises (the ``keygen.device`` fault point sits in front of the
+    kernels): there is no fallback to the host walk."""
+    check_group(group, lam)
+    _check_gen_inputs(alphas, betas, s0s, lam)
+    if group != "xor":
+        prg = HirosePrgNp(lam, cipher_keys, warn=False)
+        return gen_batch(prg, alphas, betas, s0s, bound, group)
+    from dcf_tpu_torch.backends.device_gen import DeviceKeyGen, HybridKeyGen
+    from dcf_tpu_torch.testing.faults import fire
+
+    if 16 < lam < 48:
+        raise ValueError(
+            f"keygen on the device at lam={lam} is not ported: the JAX "
+            "package runs 16 < lam < 48 on its bitsliced generator, which "
+            "has no kernel (ROADMAP.md A7)")
+    fire("keygen.device", alphas.shape[0], lam)
+    if lam == 16:
+        kg = DeviceKeyGen(lam, cipher_keys, device=device)
+        return kg.to_host_bundle(kg.gen(alphas, betas, s0s, bound))
+    return HybridKeyGen(lam, cipher_keys, device=device).gen(
+        alphas, betas, s0s, bound)

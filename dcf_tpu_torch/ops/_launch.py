@@ -4,7 +4,8 @@ A wrapper checks every tensor it hands a kernel (``check_u8``: uint8,
 shape, device, contiguity and, on the card, alignment), loads the kernel's
 C entry point through ``_build.load`` and calls it on the device's current
 stream through ``launch_checked``, which raises if the entry point
-reports a CUDA error.
+reports a CUDA error.  ``key_slices`` cuts a launch whose key index is
+``gridDim.y`` (kernels B1-B6) into launches of at most 65,535 keys.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import torch
 
 from dcf_tpu_torch.errors import BackendUnavailableError, ShapeError
 
-__all__ = ["check_u8", "launch_checked"]
+__all__ = ["MAX_GRID_Y", "check_u8", "key_slices", "launch_checked"]
+
+MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y
 
 
 def check_u8(name: str, t: torch.Tensor, shape: tuple,
@@ -41,3 +44,13 @@ def launch_checked(name: str, fn, device: torch.device, *args) -> None:
     if rc != 0:
         raise BackendUnavailableError(
             f"{name} launch failed with CUDA error {rc}")
+
+
+def key_slices(k_num: int, limit: int = MAX_GRID_Y) -> list[tuple[int, int]]:
+    """``(first key, keys)`` of consecutive slices of at most ``limit``
+    keys that cover ``k_num`` keys in order: one launch each for a kernel
+    whose key index is ``gridDim.y``, its key arrays offset by the first
+    key's rows."""
+    if limit < 1:
+        raise ValueError(f"a slice holds at least one key, got {limit}")
+    return [(k0, min(limit, k_num - k0)) for k0 in range(0, k_num, limit)]

@@ -40,7 +40,7 @@ import torch
 
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import ShapeError
-from dcf_tpu_torch.ops._launch import check_u8, launch_checked
+from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
 from dcf_tpu_torch.ops.narrow_walk import NARROW, NARROW_AES_BYTES, _ciphers
 from dcf_tpu_torch.ops.walk_eval import aes256_encrypt_plain
 
@@ -106,19 +106,23 @@ def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None):
     if device.type != "cuda":
         raise ShapeError(
             f"evalall_expand_level runs on cuda or cpu, not {device}")
-    if k_num > 65535:
-        raise ShapeError(f"{k_num} keys exceed the 65535-block grid axis")
     s2 = torch.empty((k_num, 2 * n_par, NARROW), dtype=torch.uint8,
                      device=device)
     t2 = torch.empty((k_num, 2 * n_par), dtype=torch.uint8, device=device)
     fn = _build.load("evalall_expand", "dcf_evalall_expand_level", _ARGTYPES)
     a = aes.data_ptr()
-    launch_checked("evalall_expand", fn, device, a, a + 256, a + 496,
-                   cw_s.data_ptr(), cw_t.data_ptr(),
-                   cw_np1.data_ptr() if cw_np1 is not None else 0,
-                   s.data_ptr(), t.data_ptr(), s2.data_ptr(), t2.data_ptr(),
-                   k_num, n_par, n, int(level), int(cw_np1 is not None))
-    evalall_expand_level.launches += 1
+    for k0, kk in key_slices(k_num):
+        launch_checked("evalall_expand", fn, device, a, a + 256, a + 496,
+                       cw_s.data_ptr() + k0 * n * NARROW,
+                       cw_t.data_ptr() + k0 * n * 2,
+                       cw_np1.data_ptr() + k0 * NARROW
+                       if cw_np1 is not None else 0,
+                       s.data_ptr() + k0 * n_par * NARROW,
+                       t.data_ptr() + k0 * n_par,
+                       s2.data_ptr() + k0 * 2 * n_par * NARROW,
+                       t2.data_ptr() + k0 * 2 * n_par, kk, n_par, n,
+                       int(level), int(cw_np1 is not None))
+        evalall_expand_level.launches += 1
     return s2, t2
 
 

@@ -33,7 +33,7 @@ import torch
 
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import ShapeError
-from dcf_tpu_torch.ops._launch import check_u8, launch_checked
+from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
 from dcf_tpu_torch.ops.narrow_walk import (
     NARROW,
     check_narrow_image,
@@ -111,18 +111,20 @@ def narrow_frontier(aes, s0, cw_s, cw_v, cw_t, *, k: int, b: int):
         return narrow_frontier_plain(aes, s0, cw_s, cw_v, cw_t, k=k, b=b)
     if device.type != "cuda":
         raise ShapeError(f"narrow_frontier runs on cuda or cpu, not {device}")
-    if k_num > 65535:
-        raise ShapeError(f"{k_num} keys exceed the 65535-block grid axis")
     rows = torch.empty((k_num << k, 2 * NARROW), dtype=torch.uint8,
                        device=device)
     words = torch.empty((k_num << k, 4), dtype=torch.uint8, device=device)
     fn = _build.load("hybrid_state", "dcf_hybrid_state", _STATE_ARGTYPES)
     a = aes.data_ptr()
-    launch_checked("hybrid_state", fn, device, a, a + 256, a + 496,
-                   s0.data_ptr(), cw_s.data_ptr(), cw_v.data_ptr(),
-                   cw_t.data_ptr(), rows.data_ptr(), words.data_ptr(), k_num,
-                   n, k, int(b))
-    narrow_frontier.launches += 1
+    for k0, kk in key_slices(k_num):
+        launch_checked("hybrid_state", fn, device, a, a + 256, a + 496,
+                       s0.data_ptr() + k0 * NARROW,
+                       cw_s.data_ptr() + k0 * n * NARROW,
+                       cw_v.data_ptr() + k0 * n * NARROW,
+                       cw_t.data_ptr() + k0 * n * 2,
+                       rows.data_ptr() + (k0 << k) * 2 * NARROW,
+                       words.data_ptr() + (k0 << k) * 4, kk, n, k, int(b))
+        narrow_frontier.launches += 1
     return rows, words
 
 
@@ -182,8 +184,6 @@ def hybrid_prefix_eval(aes, rows, words, cw_s, cw_v, cw_t, cw_np1, xs, *,
     if device.type != "cuda":
         raise ShapeError(
             f"hybrid_prefix_eval runs on cuda or cpu, not {device}")
-    if k_num > 65535:
-        raise ShapeError(f"{k_num} keys exceed the 65535-block grid axis")
     nt = traj_bytes(n + 1)
     y = torch.empty((k_num, m, lam), dtype=torch.uint8, device=device)
     traj = torch.empty((k_num, m, nt), dtype=torch.uint8, device=device)
@@ -191,12 +191,18 @@ def hybrid_prefix_eval(aes, rows, words, cw_s, cw_v, cw_t, cw_np1, xs, *,
         return y, traj
     fn = _build.load("hybrid_prefix", "dcf_hybrid_prefix", _EVAL_ARGTYPES)
     a = aes.data_ptr()
-    launch_checked("hybrid_prefix", fn, device, a, a + 256, a + 496,
-                   rows.data_ptr(), words.data_ptr(), cw_s.data_ptr(),
-                   cw_v.data_ptr(), cw_t.data_ptr(), cw_np1.data_ptr(),
-                   xs.data_ptr(), y.data_ptr(), traj.data_ptr(), k_num, n, k,
-                   m, lam, nt // 4)
-    hybrid_prefix_eval.launches += 1
+    for k0, kk in key_slices(k_num):
+        launch_checked("hybrid_prefix", fn, device, a, a + 256, a + 496,
+                       rows.data_ptr() + (k0 << k) * 2 * NARROW,
+                       words.data_ptr() + (k0 << k) * 4,
+                       cw_s.data_ptr() + k0 * n * NARROW,
+                       cw_v.data_ptr() + k0 * n * NARROW,
+                       cw_t.data_ptr() + k0 * n * 2,
+                       cw_np1.data_ptr() + k0 * NARROW, xs.data_ptr(),
+                       y.data_ptr() + k0 * m * lam,
+                       traj.data_ptr() + k0 * m * nt, kk, n, k, m, lam,
+                       nt // 4)
+        hybrid_prefix_eval.launches += 1
     return y, traj
 
 

@@ -34,7 +34,7 @@ import torch
 
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import ShapeError
-from dcf_tpu_torch.ops._launch import check_u8, launch_checked
+from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
 from dcf_tpu_torch.ops.aes import SBOX_NP, expand_key_np
 from dcf_tpu_torch.ops.walk_eval import aes256_encrypt_plain, walk_bits_plain
 
@@ -187,8 +187,6 @@ def narrow_walk(aes, s0, cw_s, cw_v, cw_t, cw_np1, xs, *, b: int, lam: int):
                                  b=b, lam=lam)
     if device.type != "cuda":
         raise ShapeError(f"narrow_walk runs on cuda or cpu, not {device}")
-    if k_num > 65535:
-        raise ShapeError(f"{k_num} keys exceed the 65535-block grid axis")
     nt = traj_bytes(n + 1)
     y = torch.empty((k_num, m, lam), dtype=torch.uint8, device=device)
     traj = torch.empty((k_num, m, nt), dtype=torch.uint8, device=device)
@@ -196,12 +194,17 @@ def narrow_walk(aes, s0, cw_s, cw_v, cw_t, cw_np1, xs, *, b: int, lam: int):
         return y, traj
     fn = _build.load("narrow_walk", "dcf_narrow_walk", _ARGTYPES)
     a = aes.data_ptr()
-    launch_checked("narrow_walk", fn, device, a, a + 256, a + 496,
-                   s0.data_ptr(), cw_s.data_ptr(), cw_v.data_ptr(),
-                   cw_t.data_ptr(), cw_np1.data_ptr(), xs.data_ptr(),
-                   y.data_ptr(), traj.data_ptr(), k_num, n, m, lam, nt // 4,
-                   int(b))
-    narrow_walk.launches += 1
+    for k0, kk in key_slices(k_num):
+        launch_checked("narrow_walk", fn, device, a, a + 256, a + 496,
+                       s0.data_ptr() + k0 * NARROW,
+                       cw_s.data_ptr() + k0 * n * NARROW,
+                       cw_v.data_ptr() + k0 * n * NARROW,
+                       cw_t.data_ptr() + k0 * n * 2,
+                       cw_np1.data_ptr() + k0 * NARROW, xs.data_ptr(),
+                       y.data_ptr() + k0 * m * lam,
+                       traj.data_ptr() + k0 * m * nt, kk, n, m, lam, nt // 4,
+                       int(b))
+        narrow_walk.launches += 1
     return y, traj
 
 

@@ -27,7 +27,7 @@ import torch
 
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import DcfError, ShapeError
-from dcf_tpu_torch.ops._launch import check_u8, launch_checked
+from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
 from dcf_tpu_torch.ops.walk_eval import (
     AES_IMAGE_BYTES,
     finalize_plain,
@@ -112,18 +112,21 @@ def prefix_eval(aes, table, cw_s, cw_v, cw_t, cw_np1, xs, *, k: int,
                                  k=k, negate=negate, group=group)
     if device.type != "cuda":
         raise ShapeError(f"prefix_eval runs on cuda or cpu, not {device}")
-    if k_num > 65535:
-        raise ShapeError(f"{k_num} keys exceed the 65535-block grid axis")
     y = torch.empty((k_num, m, 16), dtype=torch.uint8, device=device)
     if m == 0:
         return y
     fn = _build.load("prefix_eval", "dcf_prefix_eval", _ARGTYPES)
     a = aes.data_ptr()
-    launch_checked("prefix_eval", fn, device, a, a + 256, table.data_ptr(),
-                   cw_s.data_ptr(), cw_v.data_ptr(), cw_t.data_ptr(),
-                   cw_np1.data_ptr(), xs.data_ptr(), y.data_ptr(), k_num, n,
-                   k, m, int(bool(negate)), group_width(group))
-    prefix_eval.launches += 1
+    for k0, kk in key_slices(k_num):
+        launch_checked("prefix_eval", fn, device, a, a + 256,
+                       table.data_ptr() + (k0 << k) * 32,
+                       cw_s.data_ptr() + k0 * n * 16,
+                       cw_v.data_ptr() + k0 * n * 16,
+                       cw_t.data_ptr() + k0 * n * 2,
+                       cw_np1.data_ptr() + k0 * 16, xs.data_ptr(),
+                       y.data_ptr() + k0 * m * 16, kk, n, k, m,
+                       int(bool(negate)), group_width(group))
+        prefix_eval.launches += 1
     return y
 
 

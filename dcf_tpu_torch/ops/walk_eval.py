@@ -29,7 +29,7 @@ import torch
 
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import ShapeError
-from dcf_tpu_torch.ops._launch import check_u8, launch_checked
+from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
 from dcf_tpu_torch.ops.aes import SBOX_NP, SHIFT_ROWS_NP, expand_key_np
 from dcf_tpu_torch.utils.groups import group_width
 
@@ -217,20 +217,24 @@ def walk_eval(aes, s0, cw_s, cw_v, cw_t, cw_np1, xs, *, b: int,
                                group=group)
     if device.type != "cuda":
         raise ShapeError(f"walk_eval runs on cuda or cpu, not {device}")
-    if k_num > 65535:
-        raise ShapeError(f"{k_num} keys exceed the 65535-block grid axis")
     gw = group_width(group)
     y = torch.empty((k_num, m, 16), dtype=torch.uint8, device=device)
     if m == 0:
         return y
     fn = _build.load("walk_eval", "dcf_walk_eval", _ARGTYPES)
     a = aes.data_ptr()
-    launch_checked("walk_eval", fn, device, a, a + 256, s0.data_ptr(),
-                   cw_s.data_ptr(), cw_v.data_ptr(), cw_t.data_ptr(),
-                   cw_np1.data_ptr(), xs.data_ptr(), y.data_ptr(), k_num, n,
-                   m, int(kx == k_num and k_num > 1), int(b),
-                   int(bool(b) and gw > 0), gw)
-    walk_eval.launches += 1
+    per_key = int(kx == k_num and k_num > 1)
+    for k0, kk in key_slices(k_num):
+        launch_checked("walk_eval", fn, device, a, a + 256,
+                       s0.data_ptr() + k0 * 16,
+                       cw_s.data_ptr() + k0 * n * 16,
+                       cw_v.data_ptr() + k0 * n * 16,
+                       cw_t.data_ptr() + k0 * n * 2,
+                       cw_np1.data_ptr() + k0 * 16,
+                       xs.data_ptr() + per_key * k0 * m * (n // 8),
+                       y.data_ptr() + k0 * m * 16, kk, n, m, per_key, int(b),
+                       int(bool(b) and gw > 0), gw)
+        walk_eval.launches += 1
     return y
 
 

@@ -29,7 +29,7 @@ import torch
 
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import ShapeError
-from dcf_tpu_torch.ops._launch import check_u8, launch_checked
+from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
 from dcf_tpu_torch.ops.narrow_walk import NARROW, traj_bytes, unpack_traj_plain
 
 __all__ = ["wide_tail_plain", "wide_tail"]
@@ -77,17 +77,21 @@ def wide_tail(y: torch.Tensor, traj: torch.Tensor, const: torch.Tensor,
         return wide_tail_plain(y, traj, const, w)
     if device.type != "cuda":
         raise ShapeError(f"wide_tail runs on cuda or cpu, not {device}")
-    if k_num > 65535 or -(-m // 512) > 65535:
-        raise ShapeError(f"{k_num} keys x {m} points exceed the grid")
+    if -(-m // 512) > 65535:
+        raise ShapeError(f"{m} points exceed the grid")
     if n1 * _TILE_BYTES > _SMEM_MAX:
         raise ShapeError(f"a {n1}-row tile of W exceeds shared memory")
     if m == 0:
         return y
     fn = _build.load("wide_xor", "dcf_wide_xor", _ARGTYPES)
-    launch_checked("wide_xor", fn, device, traj.data_ptr(), w.data_ptr(),
-                   const.data_ptr(), y.data_ptr(), k_num, n1,
-                   traj.shape[2] // 4, wd // 4, m, lam)
-    wide_tail.launches += 1
+    nt = traj.shape[2]
+    for k0, kk in key_slices(k_num):
+        launch_checked("wide_xor", fn, device, traj.data_ptr() + k0 * m * nt,
+                       w.data_ptr() + k0 * n1 * wd,
+                       const.data_ptr() + k0 * wd,
+                       y.data_ptr() + k0 * m * lam, kk, n1, nt // 4, wd // 4,
+                       m, lam)
+        wide_tail.launches += 1
     return y
 
 

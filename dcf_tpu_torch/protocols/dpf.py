@@ -21,8 +21,9 @@ header's proto field.  The frames are byte-identical to the JAX
 package's in both directions.
 
 The full-domain evaluator on the card is ``backends.evalall.DpfEvalAll``
-(lam = ``DPF_DEVICE_LAM``); the host paths here take any lam.  Keygen on
-the card waits for its kernel (ROADMAP.md slice 5).
+(lam = ``DPF_DEVICE_LAM``), and ``dpf_gen_on_device`` makes keys there
+(kernel B7b, ``backends.device_gen.DpfKeyGen``); the host paths here take
+any lam.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ __all__ = [
     "decode_proto_frame",
     "dpf_eval_points",
     "dpf_gen_batch",
+    "dpf_gen_on_device",
 ]
 
 #: proto header value of DPF frames.  0 = plain DCF (KeyBundle), 1 = the
@@ -293,6 +295,27 @@ def dpf_gen_batch(prg: HirosePrgNp, alphas: np.ndarray, betas: np.ndarray,
 
     cw_np1 = s_a ^ s_b ^ betas
     return DpfBundle(s0s=s0s.copy(), cw_s=cw_s, cw_t=cw_t, cw_np1=cw_np1)
+
+
+def dpf_gen_on_device(lam: int, cipher_keys, alphas: np.ndarray,
+                      betas: np.ndarray, s0s: np.ndarray,
+                      device=None) -> DpfBundle:
+    """Generate K DPF keys with the level walk on the card (kernel B7b;
+    ``device="cpu"`` runs its plain version).  ``lam`` must be
+    ``DPF_DEVICE_LAM`` (32, two AES blocks); other widths take the host
+    ``dpf_gen_batch``.  Returns the two-party ``DpfBundle``, byte-identical
+    to ``dpf_gen_batch`` on the same ``(alphas, betas, s0s)``.  A device
+    failure raises (fault point ``keygen.device``): no fallback."""
+    from dcf_tpu_torch.backends.device_gen import DpfKeyGen
+    from dcf_tpu_torch.testing.faults import fire
+
+    if lam != DPF_DEVICE_LAM:
+        raise ValueError(
+            f"DPF keygen on the device is for lam={DPF_DEVICE_LAM} (two AES "
+            f"blocks), got {lam}; other widths take dpf_gen_batch")
+    _check_gen_inputs(alphas, betas, s0s, lam)
+    fire("keygen.device", alphas.shape[0], lam)
+    return DpfKeyGen(lam, cipher_keys, device=device).gen(alphas, betas, s0s)
 
 
 def dpf_eval_points(prg: HirosePrgNp, bundle: DpfBundle, b: int,

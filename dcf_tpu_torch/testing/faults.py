@@ -5,7 +5,8 @@ Counterpart of the core of ``dcf_tpu/testing/faults.py`` (its lines
 ``inject``.  Production seams call ``fire(point, *args)`` where the real
 failure would surface; unarmed, that is a dict lookup and a return.  Armed
 through the ``inject`` context manager, it runs the test's handler, which
-raises:
+raises, and the failure reaches the caller (no seam of the port falls back
+to another path):
 
     from dcf_tpu_torch.testing import faults
 
@@ -36,6 +37,9 @@ class InjectedFault(Exception):
 POINTS = (
     "serve.eval",  # one served evaluation attempt (workloads/pir.py;
     #                handler args: key_id, number of keys in the bundle)
+    "keygen.device",  # keygen on the device, before its kernels run
+    #                   (gen.gen_on_device, protocols.dpf.dpf_gen_on_device;
+    #                   handler args: number of keys, lam)
 )
 
 _ACTIVE: dict[str, Callable] = {}

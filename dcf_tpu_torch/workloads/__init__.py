@@ -1,15 +1,18 @@
 """Reference and extension workloads as runnable functions.
 
-``workloads.core`` holds BASELINE.json config 3, the per-point full-domain
-check; ``workloads.pir`` the 2-server PIR workload built on the DPF
-EvalAll backend.  The secure-ReLU workload and the gate suite of
-``dcf_tpu/workloads`` wait for their backends (ROADMAP.md slices 6 and 7).
+``workloads.core`` holds BASELINE.json config 3 (the per-point full-domain
+check) and config 5 (secure ReLU: many keys at few shared points, keygen,
+evaluation and check on the device); ``workloads.pir`` the 2-server PIR
+workload built on the DPF EvalAll backend.  The gate suite of
+``dcf_tpu/workloads`` waits for the protocol layer (ROADMAP.md slice 7).
 """
 
 from dcf_tpu_torch.workloads.core import (  # noqa: F401
     domain_points,
     full_domain_check,
     full_domain_check_device,
+    secure_relu_check_device,
+    secure_relu_eval,
 )
 from dcf_tpu_torch.workloads.pir import (  # noqa: F401
     PirDatabase,
@@ -28,4 +31,6 @@ __all__ = [
     "pir_answer_share",
     "pir_query_bundle",
     "pir_reconstruct",
+    "secure_relu_check_device",
+    "secure_relu_eval",
 ]

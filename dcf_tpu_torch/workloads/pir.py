@@ -40,6 +40,7 @@ __all__ = [
     "PirDatabase",
     "PirServer",
     "pir_answer_share",
+    "pir_query_alphas",
     "pir_query_bundle",
     "pir_reconstruct",
 ]
@@ -120,6 +121,17 @@ def pir_query_bundle(prg, indices, n_bits: int, s0s: np.ndarray,
     of alpha's d-bit prefix, which is the selection vector
     (``DpfEvalAll.eval_party``'s prefix contract).
     """
+    alphas = pir_query_alphas(indices, n_bits)
+    if betas is None:
+        betas = np.full((alphas.shape[0], s0s.shape[-1]), 0xFF,
+                        dtype=np.uint8)
+    return dpf_gen_batch(prg, alphas, betas, s0s)
+
+
+def pir_query_alphas(indices, n_bits: int) -> np.ndarray:
+    """The DPF points of ``pir_query_bundle``'s keys: uint8 [K, ceil(n_bits
+    / 8)], each index in the top ``n_bits`` bits of the byte-granular key
+    domain."""
     idx = [int(i) for i in np.asarray(indices).reshape(-1)]
     n_key = 8 * ((n_bits + 7) // 8)  # the wire (key) domain
     pad = n_key - n_bits
@@ -127,12 +139,9 @@ def pir_query_bundle(prg, indices, n_bits: int, s0s: np.ndarray,
         if not 0 <= i < (1 << n_bits):
             raise ValueError(
                 f"record index {i} outside the 2^{n_bits}-record database")
-    alphas = np.array(
+    return np.array(
         [list((i << pad).to_bytes(n_key // 8, "big")) for i in idx],
         dtype=np.uint8).reshape(len(idx), n_key // 8)
-    if betas is None:
-        betas = np.full((len(idx), s0s.shape[-1]), 0xFF, dtype=np.uint8)
-    return dpf_gen_batch(prg, alphas, betas, s0s)
 
 
 def pir_reconstruct(a0: np.ndarray, a1: np.ndarray) -> np.ndarray:

@@ -76,11 +76,14 @@ def test_gen_matches_dcf_tpu_and_bundle_ships_once():
 @pytest.mark.parametrize("name", ["cpu", "jax", "bitsliced", "pallas",
                                   "keylanes", "hybrid", "nope"])
 def test_unported_backends_raise(name):
-    """Every JAX backend name but hybrid is not in the package; hybrid is,
-    for lam >= 48 only."""
-    match = "lam >= 48" if name == "hybrid" else "not in this package"
+    """Every JAX backend name but hybrid and keylanes is not in the
+    package; hybrid is, for lam >= 48 only, and keylanes for lam = 16
+    only."""
+    lam = 48 if name == "keylanes" else 16
+    match = {"hybrid": "lam >= 48", "keylanes": "lam=16 only"}.get(
+        name, "not in this package")
     with pytest.raises(ValueError, match=match):
-        Dcf(2, 16, [b"k" * 32] * 2, backend=name, device="cpu")
+        Dcf(2, lam, [b"k" * 32] * 2, backend=name, device="cpu")
 
 
 @pytest.mark.parametrize("lam", [32, 48, 128])
@@ -117,9 +120,13 @@ def test_facade_argument_contract():
     with pytest.raises(ValueError):
         Dcf(2, 16, ck, device="meta")
     dcf = Dcf(2, 16, ck, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        dcf.gen(np.zeros((1, 2), np.uint8), np.zeros((1, 16), np.uint8),
-                device=True)
+    alphas, betas = np.zeros((1, 2), np.uint8), np.zeros((1, 16), np.uint8)
+    s0s = np.ones((1, 2, 16), np.uint8)
+    on_card = dcf.gen(alphas, betas, s0s=s0s, device=True)
+    host = dcf.gen(alphas, betas, s0s=s0s, device=False)
+    assert on_card.to_bytes() == host.to_bytes()
+    with pytest.raises(ValueError, match="additive algebra"):
+        dcf.gen(alphas, betas, s0s=s0s, device=True, group="add8")
 
 
 @pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])

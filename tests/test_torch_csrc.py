@@ -327,6 +327,36 @@ void host_wide(const uint32_t* traj, const uint32_t* w, const uint32_t* cst,
 }
 """
 
+_KEYGEN_HARNESS = r"""
+#include "keygen_walk.cuh"
+
+extern "C" {
+// Kernels G1 (mode 0), B7a (1) and B7b (2), one key after another.
+void host_keygen(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
+                 const uint8_t* alphas, const uint8_t* betas,
+                 const uint8_t* s0s, uint8_t* cw_s, uint8_t* cw_v,
+                 uint8_t* cw_t, uint8_t* cw_np1, uint8_t* traj, int K, int n,
+                 int lam, int lt, int mode) {
+  NarrowTables t;
+  narrow_tables(t, sbox, rk0, rk17);
+  for (int key = 0; key < K; ++key) {
+    const size_t rows = (size_t)key * n;
+    const uint8_t* s0 = s0s + (size_t)key * 2 * lam;
+    uint8_t* v = cw_v ? cw_v + rows * lam : nullptr;
+    uint8_t* tr = traj ? traj + rows * 2 : nullptr;
+#define KG_ARGS t, n, lt != 0, alphas + (size_t)key * (n / 8),              \
+      betas + (size_t)key * lam, s0, s0 + lam, lam, cw_s + rows * lam, v,   \
+      cw_t + rows * 2, cw_np1 + (size_t)key * lam, tr
+    if (mode == 0) keygen_key<kKgDcf16>(KG_ARGS);
+    else if (mode == 1) keygen_key<kKgNarrow>(KG_ARGS);
+    else keygen_key<kKgDpf32>(KG_ARGS);
+#undef KG_ARGS
+  }
+}
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -334,7 +364,7 @@ def lib(tmp_path_factory):
         pytest.skip("no host C++ compiler to build the kernel arithmetic")
     d = tmp_path_factory.mktemp("csrc")
     src = d / "harness.cpp"
-    src.write_text(_HARNESS + _NARROW_HARNESS)
+    src.write_text(_HARNESS + _NARROW_HARNESS + _KEYGEN_HARNESS)
     out = d / "libharness.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
@@ -609,3 +639,67 @@ def test_tree_leaves_body_matches_oracle(lib, bound):
             _p(np.ascontiguousarray(s)), _p(np.ascontiguousarray(v)),
             _p(np.ascontiguousarray(t)), _p(y), s.shape[0])
         assert np.array_equal(y, eval_batch_np(prg, b, kb, xs)[0]), b
+
+
+def _keygen_body(lib, mode, ck, alphas, betas, s0s, lt=True):
+    """Run kernel G1's (mode 0), B7a's (1) or B7b's (2) body over K keys."""
+    k_num, n, lam = alphas.shape[0], 8 * alphas.shape[1], betas.shape[1]
+    cw_s = np.zeros((k_num, n, lam), np.uint8)
+    cw_v = np.zeros((k_num, n, lam), np.uint8) if mode != 2 else None
+    cw_t = np.zeros((k_num, n, 2), np.uint8)
+    cw_np1 = np.zeros((k_num, lam), np.uint8)
+    traj = np.zeros((k_num, n, 2), np.uint8) if mode == 1 else None
+    rk0 = expand_key_np(ck[0])
+    lib.host_keygen(
+        _p(SBOX_NP), _p(rk0), _p(expand_key_np(ck[17]) if mode else rk0),
+        _p(alphas), _p(betas), _p(s0s), _p(cw_s),
+        _p(cw_v) if cw_v is not None else None, _p(cw_t), _p(cw_np1),
+        _p(traj) if traj is not None else None, k_num, n, lam, int(lt), mode)
+    return cw_s, cw_v, cw_t, cw_np1, traj
+
+
+@pytest.mark.parametrize("k_num", [1, 33])
+@pytest.mark.parametrize("lam", [16, 48, 256])
+def test_keygen_body_matches_gen_batch(lib, lam, k_num):
+    """G1's body at lam = 16 and B7a's at lam >= 48 (its trajectories
+    completed by the wide tail) give gen_batch's keys byte for byte, both
+    bounds, n = 16."""
+    from dcf_tpu_torch.ops.keygen_walk import keygen_wide_tail
+
+    rng = np.random.default_rng(380 + lam + k_num)
+    ck = [rng.bytes(32) for _ in range(max(18, 2 * (lam // 16)))]
+    prg = HirosePrgNp(lam, ck, warn=False)
+    alphas = rng.integers(0, 256, (k_num, 2), dtype=np.uint8)
+    alphas[0] = (0, 0) if k_num > 1 else alphas[0]
+    betas = rng.integers(0, 256, (k_num, lam), dtype=np.uint8)
+    s0s = random_s0s(k_num, lam, rng)
+    mode = 0 if lam == 16 else 1
+    for bound in Bound:
+        lt = bound is Bound.LT_BETA
+        cw_s, cw_v, cw_t, cw_np1, traj = _keygen_body(lib, mode, ck, alphas,
+                                                      betas, s0s, lt)
+        if mode == 1:
+            t = [torch.from_numpy(a) for a in (cw_s, cw_v, cw_np1, traj,
+                                               alphas, betas, s0s)]
+            keygen_wide_tail(*t, lt=lt)
+        want = gen_batch(prg, alphas, betas, s0s, bound)
+        for name, got in (("cw_s", cw_s), ("cw_v", cw_v), ("cw_t", cw_t),
+                          ("cw_np1", cw_np1)):
+            assert np.array_equal(got, getattr(want, name)), (bound, name)
+
+
+@pytest.mark.parametrize("k_num", [1, 8])
+def test_dpf_keygen_body_matches_dpf_gen_batch(lib, k_num):
+    """B7b's body gives dpf_gen_batch's lam = 32 keys byte for byte."""
+    from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
+
+    rng = np.random.default_rng(390 + k_num)
+    ck = [rng.bytes(32) for _ in range(18)]
+    alphas = rng.integers(0, 256, (k_num, 2), dtype=np.uint8)
+    betas = rng.integers(0, 256, (k_num, 32), dtype=np.uint8)
+    s0s = random_s0s(k_num, 32, rng)
+    cw_s, _, cw_t, cw_np1, _ = _keygen_body(lib, 2, ck, alphas, betas, s0s)
+    want = dpf_gen_batch(HirosePrgNp(32, ck, warn=False), alphas, betas, s0s)
+    assert np.array_equal(cw_s, want.cw_s)
+    assert np.array_equal(cw_t, want.cw_t)
+    assert np.array_equal(cw_np1, want.cw_np1)

@@ -271,7 +271,8 @@ def test_facade_eval_all_matches_dcf_tpu(ck, device):
             assert t.dtype == np.uint8 and t.shape == (2, 256)
     default = td.dpf(alphas, rng=np.random.default_rng(1))
     assert default.lam == LAM and default.s0s.shape == (2, 2, LAM)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        td.dpf(alphas, betas, device=True)
+    on_card = td.dpf(alphas, betas, s0s=s0s, device=True)  # B7b's plain
+    assert on_card.to_bytes() == td.dpf(alphas, betas, s0s=s0s,
+                                        device=False).to_bytes()
     with pytest.raises(ShapeError):
         td.dpf(np.zeros((2, 2), np.uint8))

@@ -222,7 +222,10 @@ def test_port_imports_neither_jax_nor_dcf_tpu():
     scanned = {str(f.relative_to(REPO)) for f in files}
     for sub in ("protocols/dpf.py", "workloads/pir.py", "workloads/core.py",
                 "testing/faults.py", "backends/evalall.py",
-                "ops/evalall_expand.py", "ops/pir_answer.py"):
+                "ops/evalall_expand.py", "ops/pir_answer.py",
+                "ops/keygen_walk.py", "ops/keylanes_eval.py",
+                "backends/device_gen.py", "backends/keylanes_backend.py",
+                "protocols/combine.py"):
         assert f"dcf_tpu_torch/{sub}" in scanned
     banned = ("jax", "jaxlib", "dcf_tpu")
     offenders = []
