@@ -1,0 +1,191 @@
+"""Times kernels of this tree against the same kernels of another checkout
+of the repository, in turns, on one GPU.
+
+    mkdir -p _archive/other && git archive <commit> | tar -x -C _archive/other
+    python3 chip_ab.py _archive/other keylanes_eval narrow_walk
+
+Each NAME is a kernel source of ``dcf_tpu_torch._build.KERNELS`` that has
+a case in ``CASES``: its inputs at the main path's shape, made from a
+seed, and the call of its wrapper.  A turn is a process of its own that
+imports the package of one tree, so the wrapper of that tree launches the
+kernel of that tree, built from its sources into its own gitignored
+``dcf_tpu_torch/_build/``: any checkout whose wrapper takes the same
+arguments can be compared.  Both trees are built first, at the same time.
+The turns run other, this, this, other.  A turn calls the wrapper once
+untimed, then times it with ``chip_smoke.cuda_ms`` (CUDA events), and
+reports a digest of the outputs, which must be equal in all four turns.
+That a kernel equals its plain version is ``chip_smoke.py``'s check, not
+this script's.
+
+Prints the card's name and power limit, ptxas' registers and spills of
+each build, one line per kernel, and a JSON line.  Exits non-zero without
+CUDA, on a name with no case, and when the trees' outputs differ.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+from chip_smoke import cuda_ms, log, nvidia_smi
+
+SEED = 2027
+THIS = Path(__file__).resolve().parent
+
+
+def case_keylanes_eval(torch, dev):
+    """B8 at one chunk of BASELINE.json config 5: 2^17 keys (from G1) x
+    1024 shared points, n = 128, party 0."""
+    from dcf_tpu_torch.gen import random_s0s
+    from dcf_tpu_torch.ops.keygen_walk import keygen_dcf16
+    from dcf_tpu_torch.ops.keylanes_eval import keylanes_eval
+    from dcf_tpu_torch.ops.walk_eval import aes_image
+
+    rng = np.random.default_rng(SEED)
+    k_num, m = 1 << 17, 1024
+    aes = torch.from_numpy(aes_image(rng.bytes(32))).to(dev)
+    alphas, betas, s0s = (torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 256, (k_num, 16), dtype=np.uint8),
+        rng.integers(0, 256, (k_num, 16), dtype=np.uint8),
+        random_s0s(k_num, 16, rng)))
+    img = keygen_dcf16(aes, alphas, betas, s0s, lt=True)
+    xs = torch.from_numpy(rng.integers(0, 256, (1, m, 16),
+                                       dtype=np.uint8)).to(dev)
+    return (f"K={k_num} M={m} n=128", 1,
+            lambda: (keylanes_eval(aes, s0s, *img, xs, b=0),))
+
+
+def case_narrow_walk(torch, dev):
+    """B4 at BASELINE.json config 4's shape: lam = 256, n = 128, one key,
+    2^20 points, party 0; y[:32] and the trajectory words."""
+    from dcf_tpu_torch.gen import gen_batch, random_s0s
+    from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image, narrow_walk
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.spec import Bound
+
+    rng = np.random.default_rng(SEED)
+    lam, m = 256, 1 << 20
+    ck = [rng.bytes(32) for _ in range(2 * (lam // 16))]
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17])).to(dev)
+    kb = gen_batch(HirosePrgNp(lam, ck),
+                   rng.integers(0, 256, (1, 16), dtype=np.uint8),
+                   rng.integers(0, 256, (1, lam), dtype=np.uint8),
+                   random_s0s(1, lam, rng), Bound.LT_BETA)
+    xs = rng.integers(0, 256, (1, m, 16), dtype=np.uint8)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        kb.s0s[:, 0, :32], kb.cw_s[..., :32], kb.cw_v[..., :32], kb.cw_t,
+        kb.cw_np1[:, :32], xs))
+
+    def call():
+        y, traj = narrow_walk(aes, *args, b=0, lam=lam)
+        return y[..., :32], traj
+
+    return f"lam={lam} n=128 K=1 M={m}", 10, call
+
+
+CASES = {"keylanes_eval": case_keylanes_eval,
+         "narrow_walk": case_narrow_walk}
+
+
+def _package(root: str):
+    """Import ``root``'s dcf_tpu_torch; returns its ``_build``."""
+    sys.path.insert(0, root)
+    from dcf_tpu_torch import _build
+
+    if not Path(_build.__file__).resolve().is_relative_to(Path(root)):
+        raise RuntimeError(f"imported {_build.__file__}, not {root}'s")
+    return _build
+
+
+def build(root: str, names: list[str]) -> int:
+    """Build ``names`` from ``root``'s sources; print a JSON line of each
+    one's ptxas (registers, spill-store bytes)."""
+    import re
+
+    _build = _package(root)
+    _build.build(names)
+    print(json.dumps({name: (
+        re.findall(r"Used (\d+) registers", _build.build_log(name)),
+        re.findall(r"(\d+) bytes spill stores", _build.build_log(name)))
+        for name in names}), flush=True)
+    return 0
+
+
+def turn(root: str, name: str) -> int:
+    """One timed turn of kernel ``name`` from ``root``'s package; prints a
+    JSON line with the shape, the mean ms and the outputs' digest."""
+    import torch
+
+    _package(root)
+    shape, reps, call = CASES[name](torch, torch.device("cuda"))
+    digest = hashlib.sha256()
+    for t in call():
+        digest.update(t.contiguous().cpu().numpy().tobytes())
+    ms, _ = cuda_ms(call, reps)
+    print(json.dumps({"shape": shape, "ms": ms, "reps": reps,
+                      "digest": digest.hexdigest()}), flush=True)
+    return 0
+
+
+def _last_json(cmd: list[str], timeout: int) -> dict:
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, text=True,
+                          timeout=timeout)
+    if proc.returncode:
+        raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    import torch
+
+    args = sys.argv[1:]
+    if args[:1] == ["--build"]:
+        return build(args[1], args[2:])
+    if args[:1] == ["--turn"]:
+        return turn(args[1], args[2])
+    from dcf_tpu_torch._build import KERNELS
+
+    names = args[1:]
+    if not names or not torch.cuda.is_available() or any(
+            name not in KERNELS or name not in CASES for name in names):
+        print(f"usage: chip_ab.py OTHER_CHECKOUT NAME... (NAME in "
+              f"{sorted(CASES)}; on a machine with CUDA)", file=sys.stderr)
+        return 1
+    trees = {"other": str(Path(args[0]).resolve()), "this": str(THIS)}
+    card = nvidia_smi("name,power.limit")
+    log(card)
+    me = [sys.executable, str(Path(__file__).resolve())]
+    builds = {tree: subprocess.Popen([*me, "--build", root, *names],
+                                     stdout=subprocess.PIPE, text=True)
+              for tree, root in trees.items()}
+    for tree, proc in builds.items():
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode:
+            raise RuntimeError(f"building {trees[tree]} failed")
+        log(f"{tree} tree {trees[tree]}: (registers, spill-store bytes) "
+            f"{out.strip().splitlines()[-1]}")
+    result = {"card": card, "other": trees["other"]}
+    for name in names:
+        runs = {"other": [], "this": []}
+        for tree in ("other", "this", "this", "other"):
+            runs[tree].append(_last_json(
+                [*me, "--turn", trees[tree], name], 900))
+        every = runs["other"] + runs["this"]
+        if len({r["digest"] for r in every}) != 1:
+            raise RuntimeError(f"{name}: the trees' outputs differ")
+        times = {tree: [r["ms"] for r in rs] for tree, rs in runs.items()}
+        result[name] = dict(times, shape=every[0]["shape"],
+                            reps=every[0]["reps"])
+        log(f"{name} at {every[0]['shape']}: other {times['other']} ms, "
+            f"this {times['this']} ms, outputs equal [{card}]")
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

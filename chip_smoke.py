@@ -9,7 +9,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel (B1-B8, B2f, G1, W1, P1: eleven sources) from
    ``dcf_tpu_torch/csrc`` with nvcc, one process per source, all at once,
-   and print the build seconds and ptxas' register and spill counts;
+   and print the build seconds and ptxas' register and spill counts (on a
+   line of their own for B8 and B4, the two kernels on the banked AES);
 3. hold each kernel byte for byte against its plain PyTorch version on the
    card, at 2^16 points: B1-B3 (B2 from level 6 to 21) over both parties,
    all four output groups, both bounds, and B1 with 3 keys and per-key
@@ -33,7 +34,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    path's shapes (2^20 points; B2 levels 6 to 21, B5a k = 20), and its
    time there beside its plain version's and its bound; W1 also beside
    ``torch._int_mm``, the library's integer product, whose parity is
-   checked against W1's output;
+   checked against W1's output; B4 also beside the AES lookups its
+   design computes per lookup its bound counts;
 7. the hybrid prefix depth on the card: B5a and B5b called directly at
    k = 16..24 on the lam = 256 main inputs, each result equal to the
    from-root walk's, and B5b's time per walked level beside B4's;
@@ -59,17 +61,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 12. B6, B2f and P1 against their plain versions at those paths' shapes
     (n = 24), their times and bounds; P1 also beside ``torch._int_mm`` on
     the database unpacked to bits, whose parity is checked against P1;
+    B6 a launch, level by level, and B1 a launch at the per-point full
+    domain's shape (n = 24, 2^20 points), each beside its bound: with B1
+    at the walk path's two shapes (phase 6), the script ends by printing
+    launches x (ms - bound) of B1 and B6 on each path;
 13. the keygen kernels against their plain versions, K = 4096, both
     bounds: G1 (lam = 16) and B7a (lam = 256) at n = 128, B7b (lam = 32)
     at n = 24;
-14. keygen at its full shapes, timed, the first 1024 keys of each held
+14. keygen at its full shapes, timed (G1 after two untimed calls, so that
+    its 4.4 GB of outputs are not allocated inside the timed window), the
+    first 1024 keys of each held
     against the numpy ``gen_batch`` / ``dpf_gen_batch``: G1 at 10^6 keys;
     B7a and its wide tail at lam = 256, K = 2^16 and at lam = 16384,
     K = 64 (all 64 keys; there also against its plain version); B7b at
     n = 24, K = 2^16;
-15. B8 against its plain version (K = 1024 keys x 1024 points, both
-    bounds, both parties), and B1 at K = 65,537 keys x 64 points (two
-    launches of at most 65,535 keys) against its plain version;
+15. B8 against its plain version, both bounds, both parties: at
+    K = 1024 keys x 1024 points, at K = 4099 x 1000 (a group of 3 keys
+    past the last full one, and points that do not divide among a block's
+    warps) and at n = 256, K = 100 x 40 (levels past the 160 staged in
+    shared memory read from the key rows); and B1 at K = 65,537 keys x 64
+    points (two launches of at most 65,535 keys) against its plain
+    version;
 16. keygen through the facade (``Dcf.gen`` at lam = 16, 256 and 16384,
     ``Dcf.dpf`` at lam = 32; the first 64 keys against the numpy oracle),
     then BASELINE.json config 5 at full size: ``secure_relu_check_device``
@@ -127,6 +139,10 @@ PIR_REPS = 5  # timed PIR batches per domain
 M_LEAVES = 4096  # leading leaves held against the per-point host walk
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 LOOKUP_LANES = 32  # shared-memory words served per SM per clock
+LOOKUPS_BLOCK = 14 * 16  # T-table lookups of one AES-256 block
+# ... of bit 0 alone (a walk's t bit): 12 full rounds, the 4 lookups of
+# round 13's column that feeds byte 0, and byte 0's S-box lookup
+LOOKUPS_T_BIT = 12 * 16 + 4 + 1
 INT8_OPS_PER_S = 1.979e15  # H100 SXM published dense int8 tensor rate
 K_KEYGEN_CHECK = 4096  # keys of the keygen kernel-vs-plain checks
 K_ANCHOR = 1024  # keys held against the numpy keygen oracle
@@ -138,6 +154,8 @@ M_RELU_ANCHOR = 32  # ... at these leading points
 K_WIDE_KEYGEN = 1 << 16  # B7a's timed shape at lam = 256 (B7b's at n = 24)
 K_CRATE_KEYGEN = 64  # B7a's timed shape at lam = 16384
 K_B8_CHECK = 1024  # B8 kernel-vs-plain keys, at M_RELU points
+K_B8_TAIL, M_B8_TAIL = 4099, 1000  # B8 with a partial group and odd points
+K_B8_DEEP, M_B8_DEEP, N_B8_DEEP = 100, 40, 256  # B8 past its staged levels
 K_CAP = 65537  # B1 beyond the 65,535-block grid axis ...
 M_CAP = 64  # ... at these points
 
@@ -246,6 +264,11 @@ def main() -> int:
     log(f"phase 2 build: {build_s:.2f} s for {len(_build.KERNELS)} kernels; "
         "(registers, spill-store bytes) per instantiation (B1-B3: xor, "
         f"add8, add16, add32 in some order): {ptxas}")
+    log("phase 2 the kernels on the banked AES: B8 keylanes_eval registers "
+        f"{ptxas['keylanes_eval'][0]}, spill-store bytes "
+        f"{ptxas['keylanes_eval'][1]}; B4 narrow_walk registers "
+        f"{ptxas['narrow_walk'][0]}, spill-store bytes "
+        f"{ptxas['narrow_walk'][1]}")
 
     # -- phase 3: each kernel against its plain version --------------------------
     rng = np.random.default_rng(SEED)
@@ -555,15 +578,23 @@ def main() -> int:
     # Each kernel is also held against its plain version on these inputs,
     # so max_abs_err covers the shape the kernel is timed at.
     #
-    # Each bound counts the AES blocks the function needs on this run's
-    # points, 14 rounds x 16 table lookups a block.  A walk follows one
-    # child per level.  At lam = 16 a left turn needs E(s) and E(~s), a
-    # right turn only E(~s) (for t_r; its s and v are copies of s and ~s).
-    # The narrow walk's left turn needs E0(sa) and E0(~sa), its right turn
-    # E0(~sa), E17(sb) and E17(~sb).  A full expansion (B2, B5a) needs
-    # every block of each parent once.
-    def right_turns(xs: torch.Tensor, lo: int, hi: int) -> int:
-        return int(walk_bits_plain(xs)[..., lo:hi].sum(dtype=torch.int64))
+    # Each bound counts the AES table lookups the function needs on this
+    # run's points.  A walk follows one child per level.  At lam = 16 a
+    # left turn needs E(s) and E(~s), a right turn only t_r, bit 0 of
+    # E(~s) (its s and v are copies of s and ~s).  The narrow walk's left
+    # turn needs E0(sa) and E0(~sa), its right turn E17(sb), E17(~sb) and
+    # t_r, bit 0 of E0(~sa).  A full expansion (B2, B5a) needs every block
+    # of each parent once.
+    def walk_lookups(xs: torch.Tensor, lo: int, hi: int, left: int,
+                     right: int) -> int:
+        """Lookups of a walk over xs's points through levels lo..hi-1 at
+        ``left`` lookups a left turn and ``right`` a right turn."""
+        bits = walk_bits_plain(xs)[..., lo:hi]
+        rights = int(bits.sum(dtype=torch.int64))
+        return left * (bits.numel() - rights) + right * rights
+
+    lam16_turns = (2 * LOOKUPS_BLOCK, LOOKUPS_T_BIT)
+    narrow_turns = (2 * LOOKUPS_BLOCK, 2 * LOOKUPS_BLOCK + LOOKUPS_T_BIT)
 
     kb, xs, _ = main_inputs["walk"]
     t = on_card(kb)
@@ -573,8 +604,14 @@ def main() -> int:
     b1_plain, want = cuda_ms(
         lambda: walk_eval_plain(*args, b=0, group="xor"), 1)
     same("B1", f"main shape {tuple(xs.shape)}", got, want)
-    b1_lookups = (2 * M_MAIN * n - right_turns(xs, 0, n)) * 14 * 16
+    b1_lookups = walk_lookups(xs, 0, n, *lam16_turns)
     b1_bytes = M_MAIN * N_BYTES + M_MAIN * 16 + n * 34 + 32 + 496
+    # The walk path's other two B1 launches: the anchors, 1024 points.
+    xa = xs[:, :M_ANCHOR].contiguous()
+    b1a_ms, _ = cuda_ms(lambda: walk_eval(*args[:-1], xa, b=0, group="xor"),
+                        10)
+    b1a_work = (walk_lookups(xa, 0, n, *lam16_turns),
+                M_ANCHOR * (N_BYTES + 16) + n * 34 + 32 + 496)
 
     kb, xs, _ = main_inputs["prefix"]
     t = on_card(kb)
@@ -596,7 +633,7 @@ def main() -> int:
         same("B2", f"main shape, levels {HOST_LEVELS}..{k_full - 1} {name}",
              g_, w_)
     parents = (1 << k_full) - (1 << HOST_LEVELS)
-    b2_lookups = parents * 2 * 14 * 16
+    b2_lookups = parents * 2 * LOOKUPS_BLOCK
     # The function's bytes: the level-k0 nodes read once, the level-k1
     # nodes written once (33 bytes a node), the CWs and the cipher image.
     # This design also writes and reads back every level between them
@@ -613,8 +650,7 @@ def main() -> int:
         *pargs, k=k_full, negate=False, group="xor"), 1)
     same("B3", f"main shape {tuple(xs.shape)}", got, want)
     rows = int(torch.unique(frontier_index_plain(xs[0], k_full)).numel())
-    b3_lookups = (2 * M_MAIN * (n - k_full)
-                  - right_turns(xs, k_full, n)) * 14 * 16
+    b3_lookups = walk_lookups(xs, k_full, n, *lam16_turns)
     b3_bytes = M_MAIN * N_BYTES + rows * 32 + M_MAIN * 16 \
         + (n - k_full) * 34 + 16 + 496
     log(f"phase 6: B1, B2, B3 byte-identical to their plain versions at the "
@@ -635,8 +671,14 @@ def main() -> int:
         lambda: narrow_walk_plain(*nargs, b=0, lam=LAM_WIDE), 1)
     same("B4", "main shape y[:32]", y[..., :32], yp[..., :32])
     same("B4", "main shape trajectory", traj, trajp)
-    b4_lookups = (2 * M_MAIN * n + right_turns(xs, 0, n)) * 14 * 16
+    b4_lookups = walk_lookups(xs, 0, n, *narrow_turns)
     b4_bytes = M_MAIN * (N_BYTES + 32 + 4 * nt) + n * 66 + 64 + 736
+    # What B4's design computes: three full blocks a lane and level in a
+    # warp (32 consecutive points) where some lane turns right, two where
+    # none does.
+    warp_right = walk_bits_plain(xs)[0].view(M_MAIN // 32, 32, n).any(1)
+    b4_computed = 32 * (2 * warp_right.numel()
+                        + int(warp_right.sum())) * LOOKUPS_BLOCK
 
     wide = wide_of(kb)
     wd = LAM_WIDE - 32
@@ -681,7 +723,7 @@ def main() -> int:
     same("B5a", "main shape rows", rows_t, rowsp)
     same("B5a", "main shape words", words_t, wordsp)
     nodes = 1 << K_HYBRID
-    b5a_lookups = (nodes - 1) * 4 * 14 * 16
+    b5a_lookups = (nodes - 1) * 4 * LOOKUPS_BLOCK
     b5a_bytes = nodes * 68 + K_HYBRID * 66 + 32 + 736
 
     pargs = (maes, rows_t, words_t, t["cw_s"], t["cw_v"], t["cw_t"],
@@ -694,8 +736,7 @@ def main() -> int:
     same("B5b", "main shape y[:32]", y2[..., :32], y2p[..., :32])
     same("B5b", "main shape trajectory", traj2, traj2p)
     used = int(torch.unique(frontier_index_plain(xs[0], K_HYBRID)).numel())
-    b5b_lookups = (2 * M_MAIN * (n - K_HYBRID)
-                   + right_turns(xs, K_HYBRID, n)) * 14 * 16
+    b5b_lookups = walk_lookups(xs, K_HYBRID, n, *narrow_turns)
     b5b_bytes = M_MAIN * (N_BYTES + 32 + 4 * nt) + used * 68 \
         + (n - K_HYBRID) * 66 + 32 + 736
     log(f"phase 6: B4, W1, B5a, B5b byte-identical to their plain versions "
@@ -744,6 +785,11 @@ def main() -> int:
             ("W1", "wide_xor", "dcf_tpu/backends/large_lambda.py:203", w1_ms,
              w1_plain, 0, w1_bytes, w1_lib)):
         add_row("phase 6", *row)
+    b4_row = next(r for r in rows_out if r["name"].startswith("B4 "))
+    b4_row["lookups_computed_per_needed"] = b4_computed / b4_lookups
+    log(f"phase 6 B4 design: {b4_computed:.3e} lookups computed, "
+        f"{b4_computed / b4_lookups:.3f}x the {b4_lookups:.3e} its bound "
+        f"counts")
     log(f"phase 6 W1 design figures: {w1_reads:.3e} shared-memory word "
         f"reads ({w1_reads / lookups_per_s * 1e3:.3f} ms at "
         f"{lookups_per_s:.3e}/s); as an int8 tensor-core product "
@@ -928,6 +974,11 @@ def main() -> int:
     clean = evaluator.check(dbundle, alphas, betas, N_FULL)
     ran_check = take_counts(f"DpfEvalAll.check n={N_FULL} K={K_DPF}",
                             {"B6": 2 * (N_FULL - HOST_LEVELS)})
+    # Which B6 levels each path launches (parties, first, end): their
+    # per-launch times come from phase 12.
+    b6_spans = {f"DpfEvalAll.check n={N_FULL} K={K_DPF}":
+                (2, HOST_LEVELS, N_FULL),
+                f"Dcf.eval_all n={N_FULL} K={K_DPF}": (1, HOST_LEVELS, N_FULL)}
     moved = list(alphas)
     moved[1] ^= 1
     tampered = evaluator.check(dbundle, moved, betas, N_FULL)
@@ -1010,6 +1061,8 @@ def main() -> int:
             ran = take_counts(
                 f"PIR n={n_db} host_levels={ev.host_levels}",
                 {"B6": 2 * (n_db - min(ev.host_levels, n_db - 1)), "P1": 2})
+            b6_spans[f"PIR n={n_db} host_levels={ev.host_levels}"] = (
+                2, min(ev.host_levels, n_db - 1), n_db)
             for j, i in enumerate(gate):
                 if got[j].tobytes() != records[i].tobytes():
                     raise RuntimeError(
@@ -1085,7 +1138,7 @@ def main() -> int:
     # (33 bytes a node), the CWs and the cipher image.  This design also
     # writes and reads back every level between them (b6_level_bytes).
     b6_parents = K_DPF * ((1 << N_FULL) - (1 << HOST_LEVELS))
-    b6_lookups = b6_parents * 3 * 14 * 16
+    b6_lookups = b6_parents * 3 * LOOKUPS_BLOCK
     b6_bytes = K_DPF * ((1 << HOST_LEVELS) + (1 << N_FULL)) * 33 \
         + K_DPF * (N_FULL * 34 + 32) + 736
     b6_level_bytes = 3 * b6_parents * 33
@@ -1096,6 +1149,33 @@ def main() -> int:
         f"{b6_level_bytes} bytes "
         f"({b6_level_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
         f"{HBM_BYTES_PER_S:.3e} B/s)")
+    # B6 a launch: each level of this expansion from the root, timed alone
+    # beside its bound.  Every path's B6 launches are levels of such a tree
+    # (K = 4 keys): level i has K * 2^i parents whatever the depth.  Two
+    # untimed calls first, so that the allocator holds the outputs' memory.
+    st = evaluator._frontier(kb, 0, 0)
+    b6_by_level = []
+    for i in range(N_FULL):
+        np1 = cw3[2] if i == N_FULL - 1 else None
+
+        def level_i(st=st, i=i, np1=np1):
+            return evalall_expand_level(evaluator.aes, cw3[0], cw3[1], *st,
+                                        level=i, cw_np1=np1)
+
+        level_i(), level_i()
+        ms_i, nxt = cuda_ms(level_i, 5)
+        par = K_DPF << i
+        b6_by_level.append((ms_i, bound(par * 3 * LOOKUPS_BLOCK,
+                                        3 * par * 33 + K_DPF * 34 + 736)[0]))
+        st = nxt
+    del st, nxt, level_i
+    torch.cuda.empty_cache()
+    b6_row = next(r for r in rows_out if r["name"].startswith("B6 "))
+    b6_row["ms_by_level"] = [m_ for m_, _ in b6_by_level]
+    b6_row["bound_ms_by_level"] = [b_ for _, b_ in b6_by_level]
+    log("phase 12 B6 a launch, by level i (K=4 x 2^i parents; ms, bound "
+        "ms): " + ", ".join(f"{i}: {m_:.4f}, {b_:.4f}" for i, (m_, b_) in
+                            enumerate(b6_by_level)) + f" [{card}]")
 
     p1_ms, a1 = cuda_ms(lambda: pir_answer(t6, db.rows), 10)
     p1_plain, a1p = cuda_ms(lambda: pir_answer_plain(t6, db.rows), 1)
@@ -1146,17 +1226,39 @@ def main() -> int:
     b2f_plain, yfp = cuda_ms(lambda: tree_expand_final_plain(*last), 1)
     same("B2f", f"main shape, level {N_FULL - 1} of n={N_FULL}", yf, yfp)
     b2f_parents = 1 << (N_FULL - 1)
-    b2f_lookups = b2f_parents * 2 * 14 * 16
+    b2f_lookups = b2f_parents * 2 * LOOKUPS_BLOCK
     b2f_bytes = b2f_parents * 33 + 2 * b2f_parents * 16 + 34 + 16 + 496
     add_row("phase 12", "B2f", "tree_expand", "dcf_tpu/ops/pallas_tree.py:149",
             b2f_ms, b2f_plain, b2f_lookups, b2f_bytes)
     fd_parents = (1 << (N_FULL - 1)) - (1 << HOST_LEVELS)
     log(f"phase 12 B2 on the full-domain path: levels {HOST_LEVELS}.."
         f"{N_FULL - 2} ({fd_parents} parents) {b2fd_ms:.3f} ms, lookup bound "
-        f"{fd_parents * 2 * 14 * 16 / lookups_per_s * 1e3:.3f} ms; with B2f "
+        f"{fd_parents * 2 * LOOKUPS_BLOCK / lookups_per_s * 1e3:.3f} ms; with B2f "
         f"one party's 2^{N_FULL} leaves take {b2fd_ms + b2f_ms:.3f} ms "
         f"[{card}]")
     del st, yf, yfp, last
+    # B1 a launch on the per-point full-domain path: one chunk of 2^20
+    # domain values of the n = 24 key (its 32 launches have this shape).
+    t24 = on_card(kb)
+    vals = np.arange(1 << 20, dtype=np.uint32)
+    xs24 = torch.from_numpy(np.stack(
+        [(vals >> 16) & 0xFF, (vals >> 8) & 0xFF, vals & 0xFF],
+        axis=1).astype(np.uint8)[None]).to(dev)
+    args24 = (tree.aes, t24["s0"], t24["cw_s"], t24["cw_v"], t24["cw_t"],
+              t24["cw_np1"], xs24)
+    b1c_ms, got = cuda_ms(lambda: walk_eval(*args24, b=0, group="xor"), 10)
+    same("B1", f"n={N_FULL} chunk of 2^20 points", got,
+         walk_eval_plain(*args24, b=0, group="xor"))
+    b1c_bound = bound(
+        walk_lookups(xs24, 0, N_FULL, *lam16_turns),
+        (1 << 20) * (N_FULL // 8 + 16) + N_FULL * 34 + 32 + 496)[0]
+    b1_row = next(r for r in rows_out if r["name"].startswith("B1 "))
+    b1_row["ms_full_domain_chunk"] = b1c_ms
+    b1_row["bound_ms_full_domain_chunk"] = b1c_bound
+    log(f"phase 12 B1 a launch on the per-point full-domain path (n="
+        f"{N_FULL}, one key, 2^20 points): {b1c_ms:.3f} ms, bound "
+        f"{b1c_bound:.3f} ms [{card}]")
+    del t24, xs24, args24, got
     # -- phase 13: the keygen kernels against their plain versions ---------------------
     # G1 (lam = 16), B7a (lam = 256) at n = 128 and B7b (lam = 32) at
     # n = 24, K = 4096 keys a run, both bounds; B7a is held on the bytes it
@@ -1224,13 +1326,16 @@ def main() -> int:
                                    "numpy oracle")
 
     ins = key_inputs(K_RELU, N_BYTES, 16)
+    # Two untimed calls first: each call allocates 4.4 GB of keys, which
+    # the allocator then holds for the timed ones.
+    keygen_dcf16(g_aes, *ins, lt=True), keygen_dcf16(g_aes, *ins, lt=True)
     g1_ms, out = cuda_ms(lambda: keygen_dcf16(g_aes, *ins, lt=True), 3)
     k_a = K_ANCHOR
     anchor("G1", f"K={K_RELU}", dict(zip(
         ("cw_s", "cw_v", "cw_t", "cw_np1"), host(*(o[:k_a] for o in out)))),
         gen_batch(HirosePrgNp(16, gck[:2]),
                   *host(*(a[:k_a] for a in ins)), Bound.LT_BETA))
-    g1_lookups = K_RELU * n * 2 * 2 * 14 * 16
+    g1_lookups = K_RELU * n * 2 * 2 * LOOKUPS_BLOCK
     g1_bytes = K_RELU * (N_BYTES + 16 + 32) + K_RELU * (n * 34 + 16)
     del ins, out
 
@@ -1259,7 +1364,7 @@ def main() -> int:
             p_ms = kg_plain["B7a"]
         b7a[lam] = dict(
             ms=ms, tail_ms=tail_ms, plain=p_ms, k=k_num,
-            lookups=k_num * n * 2 * 4 * 14 * 16,
+            lookups=k_num * n * 2 * 4 * LOOKUPS_BLOCK,
             bytes=k_num * (N_BYTES + 3 * NARROW)
             + k_num * (n * (2 * NARROW + 4) + NARROW))
         log(f"phase 14 B7a lam={lam} K={k_num}: {ms:.3f} ms (plain "
@@ -1276,7 +1381,7 @@ def main() -> int:
         ("cw_s", "cw_t", "cw_np1"), host(*(o[:K_ANCHOR] for o in out)))),
         dpf_gen_batch(HirosePrgNp(32, gck[:18], warn=False),
                       *host(*(a[:K_ANCHOR] for a in ins))))
-    b7b_lookups = K_WIDE_KEYGEN * N_DPF_KEYGEN * 2 * 3 * 14 * 16
+    b7b_lookups = K_WIDE_KEYGEN * N_DPF_KEYGEN * 2 * 3 * LOOKUPS_BLOCK
     b7b_bytes = K_WIDE_KEYGEN * (N_DPF_KEYGEN // 8 + 3 * 32) \
         + K_WIDE_KEYGEN * (N_DPF_KEYGEN * 34 + 32)
     del ins, out
@@ -1298,6 +1403,37 @@ def main() -> int:
             same("B8", f"K={K_B8_CHECK} M={M_RELU} {bnd.name} party {b}",
                  keylanes_eval(*args, b=b), want)
     del img, want
+    # A partial last group (4099 = 128 x 32 + 3 keys) and points that do
+    # not divide among a block's 16 warps.
+    xs_tail = torch.from_numpy(krng.integers(
+        0, 256, (1, M_B8_TAIL, N_BYTES), dtype=np.uint8)).to(dev)
+    for bnd in Bound:
+        ins = key_inputs(K_B8_TAIL, N_BYTES, 16)
+        img = keygen_dcf16(g_aes, *ins, lt=bnd is Bound.LT_BETA)
+        for b in (0, 1):
+            args = (g_aes, ins[2], *img, xs_tail)
+            same("B8", f"K={K_B8_TAIL} M={M_B8_TAIL} {bnd.name} party {b}",
+                 keylanes_eval(*args, b=b), keylanes_eval_plain(*args, b=b))
+    del img, ins, xs_tail
+    # n = 256: levels 160.. are read from the key rows, not staged (host
+    # keys, so that this check does not rest on G1 at this depth).
+    nb_deep = N_B8_DEEP // 8
+    d_alphas = krng.integers(0, 256, (K_B8_DEEP, nb_deep), dtype=np.uint8)
+    xs_deep = krng.integers(0, 256, (M_B8_DEEP, nb_deep), dtype=np.uint8)
+    xs_deep[0] = d_alphas[0]
+    xs_deep = torch.from_numpy(xs_deep[None]).to(dev)
+    for bnd in Bound:
+        kb = gen_batch(HirosePrgNp(16, gck[:2]), d_alphas, krng.integers(
+            0, 256, (K_B8_DEEP, 16), dtype=np.uint8),
+            random_s0s(K_B8_DEEP, 16, krng), bnd)
+        args = (g_aes, *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in (kb.s0s, kb.cw_s, kb.cw_v, kb.cw_t,
+                                   kb.cw_np1)), xs_deep)
+        for b in (0, 1):
+            same("B8", f"n={N_B8_DEEP} K={K_B8_DEEP} M={M_B8_DEEP} "
+                 f"{bnd.name} party {b}", keylanes_eval(*args, b=b),
+                 keylanes_eval_plain(*args, b=b))
+    del args, xs_deep
     ins = key_inputs(K_CAP, N_BYTES, 16)
     img = keygen_dcf16(g_aes, *ins, lt=True)
     xs_c = torch.from_numpy(krng.integers(
@@ -1313,8 +1449,9 @@ def main() -> int:
                            "2 key slices")
     del ins, img, args, got
     log(f"phase 15 B8: byte-identical to its plain version at K={K_B8_CHECK}"
-        f" x {M_RELU} points, 2 bounds x 2 parties (its plain version "
-        f"{b8_plain:.1f} ms there); B1 at K={K_CAP} keys x {M_CAP} points "
+        f" x {M_RELU} points (its plain version {b8_plain:.1f} ms there), at "
+        f"K={K_B8_TAIL} x {M_B8_TAIL} and at n={N_B8_DEEP}, K={K_B8_DEEP} x "
+        f"{M_B8_DEEP}, each 2 bounds x 2 parties; B1 at K={K_CAP} keys x {M_CAP} points "
         f"({cap_launches} launches of at most 65,535 keys) byte-identical to "
         f"its plain version ({time.perf_counter() - t0:.1f} s) [{card}]")
 
@@ -1427,8 +1564,7 @@ def main() -> int:
     if not torch.equal(got, y0c):
         raise RuntimeError("B8: a repeat of the first chunk's party-0 "
                            "evaluation differs from the run's shares")
-    b8_lookups = (2 * hi0 * M_RELU * n
-                  - hi0 * right_turns(xs_t, 0, n)) * 14 * 16
+    b8_lookups = hi0 * walk_lookups(xs_t, 0, n, *lam16_turns)
     b8_bytes = M_RELU * N_BYTES + hi0 * (n * 34 + 32 + 16) \
         + hi0 * M_RELU * 16
     del kept, y0c, y1c, got, img, ins
@@ -1465,6 +1601,22 @@ def main() -> int:
             "dcf_tpu/ops/pallas_keylanes.py:113", b8_ms, b8_plain,
             b8_lookups, b8_bytes, shape=f"K={hi0} M={M_RELU} n={n}",
             plain_shape=f"K={K_B8_CHECK} M={M_RELU}")
+
+    # launches x (time - bound) of B1 and B6 on each path, from their
+    # per-launch times at each path's shapes (phases 6 and 12).
+    b1a_bound = bound(*b1a_work)[0]
+    b1_row["loss_ms_by_path"] = {
+        "walk": 2 * (b1a_ms - b1a_bound) + 2 * (b1_ms - b1_row["bound_ms"]),
+        f"full domain walk n={N_FULL}": 32 * (b1c_ms - b1c_bound)}
+    b1_row["ms_anchor_1024"], b1_row["bound_ms_anchor_1024"] = \
+        b1a_ms, b1a_bound
+    gap6 = [m_ - b_ for m_, b_ in b6_by_level]
+    b6_row["loss_ms_by_path"] = {
+        path: k * sum(gap6[lo:hi]) for path, (k, lo, hi) in b6_spans.items()}
+    log(f"launches x (ms - bound) by path [{card}]: B1 "
+        + json.dumps(b1_row["loss_ms_by_path"]) + f" (the walk path's "
+        f"anchors, 1024 points: {b1a_ms:.4f} ms, bound {b1a_bound:.4f}); B6 "
+        + json.dumps(b6_row["loss_ms_by_path"]))
 
     # Each path was run once between reset_counts and take_counts;
     # "launches" is the sum over those single runs.

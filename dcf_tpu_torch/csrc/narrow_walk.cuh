@@ -24,10 +24,11 @@
 //   right s = (s_b0, E17(s_b1) ^ s_b1)    right v = (~s_b0, E17(~s_b1) ^ ~s_b1)
 //
 // and t_l / t_r are bit 0 of byte 0 of cipher 0's two outputs.  The state
-// is eight little-endian uint32 words per 32 bytes (block 0 in words 0-3),
-// the T-table AES of dcf_walk.cuh runs the two blocks of each cipher in
-// lockstep, and cipher 17's round keys sit beside cipher 0's in shared
-// memory.
+// is eight little-endian uint32 words per 32 bytes (block 0 in words 0-3).
+// B5a and B5b run the level on the T-table AES of dcf_walk.cuh, the two
+// blocks of each cipher in lockstep, cipher 17's round keys beside cipher
+// 0's in shared memory; B4 runs it as three slots on the banked AES of
+// aes_banked.cuh (narrow_level_banked).
 //
 // A trajectory is a bit string, bit i = t_i, packed into little-endian
 // uint32 words (bit i is bit i % 32 of word i / 32, which is also bit i % 8
@@ -37,6 +38,7 @@
 
 #pragma once
 
+#include "aes_banked.cuh"
 #include "dcf_walk.cuh"
 
 namespace dcf {
@@ -140,22 +142,94 @@ DCF_HD void narrow_finalize(const NarrowState& st, const uint32_t np1[8],
   for (int q = 0; q < 8; ++q) y[q] = st.v[q] ^ st.s[q] ^ (np1[q] & g);
 }
 
+// The narrow level of kernel B4 on the banked AES (aes_banked.cuh), as
+// three slots of one instruction stream with per-lane inputs and round
+// keys.  A left turn needs E0(sa) and E0(~sa), a right turn E0(~sa),
+// E17(sb) and E17(~sb):
+//
+//   slot A: E0(~sa) on every lane;
+//   slot B: E0(sa) where the lane turns left, E17(sb) where it turns right
+//           (a select of the input words and of the round-key pointer);
+//   slot C: E17(~sb), needed by right-turning lanes only.
+//
+// A and B run in lockstep; C joins them when `any_right` (on the card: some
+// lane of the warp turns right), so a mixed warp computes 3 blocks, not 4,
+// and an all-left warp 2.  rk0 and rk17 sit in different banks, so slot B's
+// two round keys are one broadcast wavefront.  Same output as
+// narrow_level.
+DCF_HD void narrow_level_banked(const BkLane& t, const RoundKey* rk0,
+                                const RoundKey* rk17, const NarrowCw& w,
+                                uint32_t xbit, bool any_right,
+                                NarrowState& st) {
+  const uint32_t xm = 0u - xbit;
+  uint32_t na[4], nb[4], in_b[4], e[3][4];
+  for (int q = 0; q < 4; ++q) {
+    na[q] = ~st.s[q];
+    nb[q] = ~st.s[4 + q];
+    in_b[q] = (st.s[4 + q] & xm) | (st.s[q] & ~xm);
+    e[0][q] = na[q];
+    e[1][q] = in_b[q];
+    e[2][q] = nb[q];
+  }
+  const RoundKey* const rk[3] = {rk0, xbit ? rk17 : rk0, rk17};
+  if (any_right)
+    bk_encrypt<3>(t, rk, e);
+  else
+    bk_encrypt<2>(t, rk, e);  // slot C idle: no lane of the warp needs it
+  uint32_t fa[4], fb[4], fc[4];
+  for (int q = 0; q < 4; ++q) {
+    fa[q] = e[0][q] ^ na[q];
+    fb[q] = e[1][q] ^ in_b[q];
+    fc[q] = e[2][q] ^ nb[q];
+  }
+  const uint32_t g = 0u - st.t;
+  const uint32_t tl = (fb[0] & 1u) ^ (st.t & w.t);
+  const uint32_t tr = (fa[0] & 1u) ^ (st.t & (w.t >> 1));
+  for (int q = 0; q < 4; ++q) {
+    // Left child: s = (fb, sb), v = (fa, ~sb); right: s = (sa, fb),
+    // v = (~sa, fc).
+    const uint32_t s0 = (st.s[q] & xm) | (fb[q] & ~xm);
+    const uint32_t s1 = (fb[q] & xm) | (st.s[4 + q] & ~xm);
+    const uint32_t v0 = (na[q] & xm) | (fa[q] & ~xm);
+    const uint32_t v1 = (fc[q] & xm) | (nb[q] & ~xm);
+    st.v[q] ^= v0 ^ (w.v[q] & g);
+    st.v[4 + q] ^= v1 ^ (w.v[4 + q] & g);
+    st.s[q] = s0 ^ (w.s[q] & g);
+    st.s[4 + q] = s1 ^ (w.s[4 + q] & g);
+  }
+  st.t = (tr & xm) | (tl & ~xm);
+}
+
 // B4's per-thread body: the from-root narrow walk of one point under one
-// key; writes y[:32] and the n+1 trajectory bits (ceil((n+1)/32) words).
-DCF_HD void narrow_point(const NarrowTables& T, const NarrowCw* cw, int n,
-                         const uint32_t s0[8], const uint32_t np1[8],
-                         const uint8_t* x, uint32_t t0, uint32_t y[8],
-                         uint32_t* traj) {
+// key on narrow_level_banked; writes y[:32] and the n+1 trajectory bits
+// (ceil((n+1)/32) words) to traj unless it is null (a thread past the
+// last point, which walks only to take part in the warp's votes).
+// vote(i, xbit) says whether slot C runs at level i.
+template <typename Vote>
+DCF_HD void narrow_point_banked(const BkLane& t, const RoundKey* rk0,
+                                const RoundKey* rk17, const NarrowCw* cw,
+                                int n, const uint32_t s0[8],
+                                const uint32_t np1[8], const uint8_t* x,
+                                uint32_t t0, Vote vote, uint32_t y[8],
+                                uint32_t* traj) {
   NarrowState st;
   for (int q = 0; q < 8; ++q) {
     st.s[q] = s0[q];
     st.v[q] = 0u;
   }
   st.t = t0;
-  TrajWriter tw = {traj, 0u};
-  narrow_walk_levels(T, cw, n, x, 0, st, tw);
-  traj_put(tw, n, st.t);
-  traj_flush(tw, n);
+  uint32_t word = 0u;
+  for (int i = 0; i < n; ++i) {
+    word |= st.t << (i & 31);
+    if ((i & 31) == 31) {
+      if (traj) traj[i >> 5] = word;
+      word = 0u;
+    }
+    const uint32_t xbit = walk_bit(x, i);
+    narrow_level_banked(t, rk0, rk17, cw[i], xbit, vote(i, xbit), st);
+  }
+  word |= st.t << (n & 31);
+  if (traj) traj[n >> 5] = word;
   narrow_finalize(st, np1, y);
 }
 

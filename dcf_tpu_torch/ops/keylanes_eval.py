@@ -6,10 +6,22 @@ Counterpart of ``dcf_tpu/ops/pallas_keylanes.py``
 shared by all keys, XOR group, the secure-ReLU shape (BASELINE.json
 config 5: 10^6 keys x 1024 points).  The TPU kernel packs 32 keys per lane
 word and carries a tile's state through HBM every ``level_chunk`` levels;
-the port keeps none of that.  On the card (``csrc/keylanes_eval.cu``) a
-persistent grid takes keys in a grid-stride loop, stages each key's
-correction words in shared memory once for all of its M points, and walks
-each (key, point) from the root with kernel B1's per-thread walk.
+the port keeps the keys in lanes and drops the carry.
+
+What bounds the kernel on the card is the AES table lookups in shared
+memory.  ``csrc/keylanes_eval.cu`` runs them on the banked table of
+``csrc/aes_banked.cuh`` (T0 and T2 once for each of a warp's 32 lanes:
+a warp's lookups are one wavefront, not the ~3.3 that random indices cost
+in four 1 KB tables, and one byte permute forms each address), and walks
+32 keys at shared points a warp, so that every lane turns the same way at
+every level and a right turn encrypts one block, to its t bit, not two.
+Each warp walks two points at a time, their blocks in lockstep.  A block
+of 16 warps stages its 32 keys' correction words in shared memory once,
+transposed into the lanes' banks, and takes the M points in a stride
+loop; a persistent grid takes groups of 32 keys, and splits the groups
+of the last wave by points.  Its first design (one thread a (key,
+point), kernel B1's walk) reached 23% of the lookup bound on an NVIDIA
+H100 80GB HBM3 at a 700 W power limit (``chip_smoke.py``).
 
 It reads the key image as kernel G1 writes it (``ops.keygen_walk``):
 s0s uint8 [K, 2, 16] with both parties' seeds, cw_s / cw_v [K, n, 16],
@@ -58,11 +70,11 @@ def keylanes_eval(aes, s0s, cw_s, cw_v, cw_t, cw_np1, xs, *,
     n = cw_s.shape[1] if cw_s.dim() == 3 else -1
     m = xs.shape[1] if xs.dim() == 3 else -1
     check_u8("aes", aes, (AES_IMAGE_BYTES,), device)
-    check_u8("s0s", s0s, (k_num, 2, 16), device)
-    check_u8("cw_s", cw_s, (k_num, n, 16), device)
-    check_u8("cw_v", cw_v, (k_num, n, 16), device)
+    check_u8("s0s", s0s, (k_num, 2, 16), device, align=16)
+    check_u8("cw_s", cw_s, (k_num, n, 16), device, align=16)
+    check_u8("cw_v", cw_v, (k_num, n, 16), device, align=16)
     check_u8("cw_t", cw_t, (k_num, n, 2), device)
-    check_u8("cw_np1", cw_np1, (k_num, 16), device)
+    check_u8("cw_np1", cw_np1, (k_num, 16), device, align=16)
     check_u8("xs", xs, (1, m, n // 8), device)
     if n < 8 or n % 8 or b not in (0, 1):
         raise ShapeError(f"bad keylanes geometry: n={n}, b={b}")

@@ -12,9 +12,16 @@ t_0 = b, the gate of every level, the final t.
 
 ``narrow_walk`` launches the CUDA kernel (``csrc/narrow_walk.cu``, per-
 thread code in ``csrc/narrow_walk.cuh``) for tensors on the card and runs
-``narrow_walk_plain`` for tensors on the CPU.  The plain pieces (the
-two-cipher step, the level loop, the trajectory packing) are shared with
-the plain versions of kernels B5a and B5b.
+``narrow_walk_plain`` for tensors on the CPU.  What bounds the kernel is
+the AES table lookups in shared memory; it runs them on the banked table
+of ``csrc/aes_banked.cuh`` (a warp's lookups are one wavefront), and runs
+each level as three slots with per-lane inputs and round keys
+(``narrow_level_banked``): a warp whose points turn both ways computes
+three AES blocks a level, not four.  Its first design (four blocks a
+level on four 1 KB tables) reached 19% of the lookup bound on an NVIDIA
+H100 80GB HBM3 at a 700 W power limit (``chip_smoke.py``).  The plain
+pieces (the two-cipher step, the level loop, the trajectory packing) are
+shared with the plain versions of kernels B5a and B5b.
 
 Cipher image: the S-box (256 bytes), then the 15 AES-256 round keys of
 cipher 0 and of cipher 17 (240 bytes each), uint8 [736]

@@ -7,8 +7,12 @@ adds, the walk, the frontier gather index and the tree node), and
 and W1 (the unmasked two-cipher narrow step, its level loop with the
 trajectory, the node walk, the frontier walk and the wide XOR) and of the
 full-domain kernels B6 (the masked lam = 32 DPF node and its leaf
-correction) and B2f (``tree_leaves`` in ``dcf_walk.cuh``).  This test
-compiles both headers with the host C++ compiler into a small library
+correction) and B2f (``tree_leaves`` in ``dcf_walk.cuh``).
+``csrc/aes_banked.cuh`` holds the bank-conflict-free AES core (T0 and T2
+replicated over 32 lanes) with kernel B8's keys-in-lanes body, and
+``narrow_walk.cuh`` kernel B4's three-slot level on it; their tests run
+the lanes of a warp in a loop.  This test
+compiles the headers with the host C++ compiler into a small library
 that runs each body over every (key, point) or node in a loop, and holds
 the results byte for byte against the port's numpy oracles (the full-width
 ``eval_batch_np``, the narrow ``narrow_walk_np`` and
@@ -35,7 +39,7 @@ from dcf_tpu_torch.backends.large_lambda import (
 from dcf_tpu_torch.backends.numpy_backend import eval_batch_np
 from dcf_tpu_torch.gen import gen_batch, random_s0s
 from dcf_tpu_torch.keys import KeyBundle
-from dcf_tpu_torch.ops.aes import SBOX_NP, expand_key_np
+from dcf_tpu_torch.ops.aes import SBOX_NP, aes256_encrypt_np, expand_key_np
 from dcf_tpu_torch.ops.hybrid_prefix import narrow_frontier_plain
 from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
 from dcf_tpu_torch.ops.prg import HirosePrgNp
@@ -182,31 +186,6 @@ static void words8(const uint8_t* p, uint32_t w[8]) {
 }
 
 extern "C" {
-void host_narrow(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
-                 const uint8_t* s0, const uint8_t* cw_s, const uint8_t* cw_v,
-                 const uint8_t* cw_t, const uint8_t* np1, const uint8_t* xs,
-                 uint8_t* y, uint32_t* traj, int K, int n, int m, int tw,
-                 int b) {
-  NarrowTables t;
-  narrow_tables(t, sbox, rk0, rk17);
-  std::vector<NarrowCw> cw(n);
-  for (int key = 0; key < K; ++key) {
-    for (int i = 0; i < n; ++i)
-      narrow_cw_entry(cw.data(), cw_s + (size_t)key * n * 32,
-                      cw_v + (size_t)key * n * 32, cw_t + (size_t)key * n * 2,
-                      i);
-    uint32_t sw[8], fw[8], out[8];
-    words8(s0 + key * 32, sw);
-    words8(np1 + key * 32, fw);
-    for (int pt = 0; pt < m; ++pt) {
-      const size_t row = (size_t)key * m + pt;
-      narrow_point(t, cw.data(), n, sw, fw, xs + (size_t)pt * (n / 8),
-                   (uint32_t)b, out, traj + row * tw);
-      memcpy(y + row * 32, out, 32);
-    }
-  }
-}
-
 void host_frontier(const uint8_t* sbox, const uint8_t* rk0,
                    const uint8_t* rk17, const uint8_t* s0, const uint8_t* cw_s,
                    const uint8_t* cw_v, const uint8_t* cw_t, uint8_t* rows,
@@ -357,6 +336,154 @@ void host_keygen(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
 """
 
 
+_BANKED_HARNESS = r"""
+#include <algorithm>
+
+// The banked AES core and the bodies of kernels B8 and B4 on it, run over
+// the lanes of a warp in a loop.
+static void banked_table(std::vector<uint32_t>& te, const uint8_t* sbox) {
+  te.resize(kBankedWords);
+  for (int e = 0; e < kBankedWords; ++e) te[e] = banked_table_word(sbox, e);
+}
+
+static void round_keys(RoundKey rk[15], const uint8_t* bytes) {
+  for (int i = 0; i < 60; ++i) rk[i >> 2].w[i & 3] = le32(bytes + 4 * i);
+}
+
+// Slot C of the three-slot level at level i: where any lane of the warp
+// turns right there.
+struct LevelVote {
+  const uint8_t* any_right;
+  bool operator()(int i, uint32_t) const { return any_right[i] != 0; }
+};
+
+extern "C" {
+// Call c encrypts the blocks from j = step * c on lane c % 32: mode 0 two
+// in lockstep (j, j + 1) under ciphers rk_a and rk_b, mode 1 three (j,
+// j + 1, j + 2) under rk_a, rk_b, rk_a; mode 2 blocks j and j + 1 in full
+// and bit 0 of byte 0 of block j + 2 (into out[16 (j + 2)]), all under
+// rk_a.
+void host_banked_aes(const uint8_t* sbox, const uint8_t* rk_a,
+                     const uint8_t* rk_b, const uint8_t* in, uint8_t* out,
+                     int n_blocks, int mode) {
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey ka[15], kb[15];
+  round_keys(ka, rk_a);
+  round_keys(kb, rk_b);
+  const int step = mode == 0 ? 2 : 3;
+  for (int j = 0; j + step <= n_blocks; j += step) {
+    const BkLane t = bk_lane(te.data(), (j / step) % kLanes);
+    uint32_t x[3][4];
+    for (int c = 0; c < step; ++c) memcpy(x[c], in + 16 * (j + c), 16);
+    if (mode == 2) {
+      uint32_t bit[1];
+      const RoundKey* const rk1[3] = {ka, ka, ka};
+      bk_encrypt<2, 1>(t, rk1, x, bit);
+      memcpy(out + 16 * j, x[0], 32);
+      memset(out + 16 * (j + 2), 0, 16);
+      out[16 * (j + 2)] = (uint8_t)bit[0];
+      continue;
+    }
+    const RoundKey* const rk[3] = {ka, kb, ka};
+    if (mode == 0)
+      bk_encrypt<2>(t, rk, x);
+    else
+      bk_encrypt<3>(t, rk, x);
+    for (int c = 0; c < step; ++c) memcpy(out + 16 * (j + c), x[c], 16);
+  }
+}
+
+// Kernel B8 as a block runs it: groups of 32 keys, each staged transposed
+// (the first `staged` levels; the rest read from the key rows), the t bits
+// of a level gathered from the 32 lanes as the ballot does, then every
+// pair of points walked by the 32 lanes.
+void host_keylanes(const uint8_t* sbox, const uint8_t* rk, const uint8_t* s0s,
+                   const uint8_t* cw_s, const uint8_t* cw_v,
+                   const uint8_t* cw_t, const uint8_t* cw_np1,
+                   const uint8_t* xs, uint8_t* y, int K, int n, int m, int b,
+                   int staged) {
+  std::vector<uint32_t> te, st_s(staged * 4 * kLanes), st_v(staged * 4 * kLanes),
+      st_t(2 * staged);
+  banked_table(te, sbox);
+  RoundKey rks[15];
+  round_keys(rks, rk);
+  for (int g0 = 0; g0 < K; g0 += kLanes) {
+    for (int i = 0; i < staged; ++i) {
+      st_t[2 * i] = st_t[2 * i + 1] = 0u;
+      for (int l = 0; l < kLanes; ++l) {
+        const size_t kk = (size_t)std::min(g0 + l, K - 1);
+        kl_stage_entry(st_s.data(), st_v.data(), cw_s + kk * n * 16,
+                       cw_v + kk * n * 16, i, l);
+        const uint32_t bits = kl_t_bits(cw_t + kk * n * 2, i);
+        st_t[2 * i] |= (bits & 1u) << l;
+        st_t[2 * i + 1] |= (bits >> 1) << l;
+      }
+    }
+    for (int pt = 0; pt < m; pt += 2) {
+      const int p1 = pt + 1 < m ? pt + 1 : pt;  // an odd last point twice
+      for (int l = 0; l < kLanes; ++l) {
+        const size_t kc = (size_t)std::min(g0 + l, K - 1);
+        const KlCw cw = {st_s.data(), st_v.data(), st_t.data(), staged,
+                         cw_s + kc * n * 16, cw_v + kc * n * 16,
+                         cw_t + kc * n * 2};
+        uint32_t seed[4], np1[4], y0[4], y1[4];
+        load16(s0s + kc * 32 + b * 16, seed);
+        load16(cw_np1 + kc * 16, np1);
+        keylanes_lane_pair(bk_lane(te.data(), l), rks, cw, n, l, seed, np1,
+                           xs + (size_t)pt * (n / 8),
+                           xs + (size_t)p1 * (n / 8), (uint32_t)b, y0, y1);
+        if (g0 + l >= K) continue;
+        memcpy(y + (kc * m + pt) * 16, y0, 16);
+        if (p1 != pt) memcpy(y + (kc * m + p1) * 16, y1, 16);
+      }
+    }
+  }
+}
+
+// Kernel B4: points pt of one key on lane pt % 32 of warp pt / 32, slot C
+// run at a level where any point of the warp turns right; all3 runs it at
+// every level.
+void host_narrow(const uint8_t* sbox, const uint8_t* rk0,
+                        const uint8_t* rk17, const uint8_t* s0,
+                        const uint8_t* cw_s, const uint8_t* cw_v,
+                        const uint8_t* cw_t, const uint8_t* np1,
+                        const uint8_t* xs, uint8_t* y, uint32_t* traj, int K,
+                        int n, int m, int tw, int b, int all3) {
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey k0[15], k17[15];
+  round_keys(k0, rk0);
+  round_keys(k17, rk17);
+  std::vector<uint8_t> any((size_t)(m / kLanes + 1) * n, (uint8_t)all3);
+  for (int pt = 0; pt < m; ++pt)
+    for (int i = 0; i < n; ++i)
+      any[(size_t)(pt / kLanes) * n + i] |=
+          walk_bit(xs + (size_t)pt * (n / 8), i);
+  std::vector<NarrowCw> cw(n);
+  for (int key = 0; key < K; ++key) {
+    for (int i = 0; i < n; ++i)
+      narrow_cw_entry(cw.data(), cw_s + (size_t)key * n * 32,
+                      cw_v + (size_t)key * n * 32, cw_t + (size_t)key * n * 2,
+                      i);
+    uint32_t sw[8], fw[8], out[8];
+    words8(s0 + key * 32, sw);
+    words8(np1 + key * 32, fw);
+    for (int pt = 0; pt < m; ++pt) {
+      const size_t row = (size_t)key * m + pt;
+      narrow_point_banked(bk_lane(te.data(), pt % kLanes), k0, k17,
+                          cw.data(), n, sw, fw, xs + (size_t)pt * (n / 8),
+                          (uint32_t)b,
+                          LevelVote{any.data() + (size_t)(pt / kLanes) * n},
+                          out, traj + row * tw);
+      memcpy(y + row * 32, out, 32);
+    }
+  }
+}
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -364,7 +491,8 @@ def lib(tmp_path_factory):
         pytest.skip("no host C++ compiler to build the kernel arithmetic")
     d = tmp_path_factory.mktemp("csrc")
     src = d / "harness.cpp"
-    src.write_text(_HARNESS + _NARROW_HARNESS + _KEYGEN_HARNESS)
+    src.write_text(_HARNESS + _NARROW_HARNESS + _KEYGEN_HARNESS
+                   + _BANKED_HARNESS)
     out = d / "libharness.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
@@ -525,7 +653,7 @@ def test_narrow_walk_and_wide_bodies_match_oracle(lib, lam, n_bytes):
             traj = np.zeros((k_num, m, tw), np.uint32)
             lib.host_narrow(_p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])),
                             _p(s0), _p(cs), _p(cv), _p(ct), _p(np1), _p(xs),
-                            _p(y32), _p(traj), k_num, n, m, tw, b)
+                            _p(y32), _p(traj), k_num, n, m, tw, b, 0)
             for key in range(k_num):
                 one = KeyBundle(*(a[key:key + 1] for a in (
                     kb.s0s, kb.cw_s, kb.cw_v, kb.cw_t, kb.cw_np1)))
@@ -703,3 +831,104 @@ def test_dpf_keygen_body_matches_dpf_gen_batch(lib, k_num):
     assert np.array_equal(cw_s, want.cw_s)
     assert np.array_equal(cw_t, want.cw_t)
     assert np.array_equal(cw_np1, want.cw_np1)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_banked_aes_matches_numpy(lib, mode):
+    """The banked AES core (aes_banked.cuh) over lanes 0-31, twice each:
+    two and three blocks in lockstep under ciphers 0 and 17 (and 17 and
+    0), and two blocks beside a third's t bit alone, against the numpy
+    AES-256."""
+    rng = np.random.default_rng(400 + mode)
+    ck = [rng.bytes(32) for _ in range(18)]
+    step = (2, 3, 3)[mode]
+    blocks = rng.integers(0, 256, (64 * step, 16), dtype=np.uint8)
+    for a, b in ((0, 17), (17, 0)):
+        rk_a, rk_b = expand_key_np(ck[a]), expand_key_np(ck[b])
+        out = np.zeros_like(blocks)
+        lib.host_banked_aes(_p(SBOX_NP), _p(rk_a), _p(rk_b), _p(blocks),
+                            _p(out), blocks.shape[0], mode)
+        keys = [rk_a, rk_a, rk_a] if mode == 2 else [rk_a, rk_b, rk_a]
+        want = np.stack([aes256_encrypt_np(keys[j % step], blocks[j])
+                         for j in range(blocks.shape[0])])
+        if mode == 2:  # every third block: its t bit alone
+            want[2::3, 0] &= 1
+            want[2::3, 1:] = 0
+        assert np.array_equal(out, want), (a, b)
+
+
+def _shared_points(rng, alphas, m):
+    """m shared points with x = alpha and alpha +- 1 planted for the first
+    and the last key."""
+    n_bytes = alphas.shape[1]
+    xs = rng.integers(0, 256, (m, n_bytes), dtype=np.uint8)
+    top = 1 << (8 * n_bytes)
+    for j, a in enumerate((alphas[0], alphas[-1])):
+        a = int.from_bytes(a.tobytes(), "big")
+        for d in (-1, 0, 1):
+            xs[3 * j + d + 1] = np.frombuffer(
+                ((a + d) % top).to_bytes(n_bytes, "big"), np.uint8)
+    return xs
+
+
+@pytest.mark.parametrize("n_bytes,staged", [(2, 16), (16, 128), (16, 40)])
+def test_keylanes_body_matches_oracle(lib, n_bytes, staged):
+    """B8's keys-in-lanes body as a block runs it (the transposed CW
+    staging, the t bits gathered across lanes, the walk that turns the
+    same way on all 32 lanes) against eval_batch_np: K = 37 keys (a full
+    group and a tail of 5) x M = 9 shared points, both bounds, both
+    parties; at n = 128 with every level staged and with levels 40.. read
+    from the key rows."""
+    k_num, m, n = 37, 9, 8 * n_bytes
+    for bound in Bound:
+        rng, prg, rk, alphas, bundle = _setup(
+            410 + n_bytes + staged, k_num, n_bytes, "xor", bound)
+        xs = _shared_points(rng, alphas, m)
+        for b in (0, 1):
+            y = np.zeros((k_num, m, 16), np.uint8)
+            lib.host_keylanes(_p(SBOX_NP), _p(rk), _p(bundle.s0s),
+                              _p(bundle.cw_s), _p(bundle.cw_v),
+                              _p(bundle.cw_t), _p(bundle.cw_np1), _p(xs),
+                              _p(y), k_num, n, m, b, staged)
+            want = eval_batch_np(prg, b, bundle.for_party(b), xs)
+            assert np.array_equal(y, want), (bound, b)
+
+
+@pytest.mark.parametrize("lam", [48, 256])
+def test_narrow_banked_body_matches_oracle(lib, lam):
+    """B4's three-slot level loop on the banked core against
+    narrow_walk_np and, with W1's body, the full-width oracle: random points
+    with alpha and alpha +- 1 planted (lanes turn both ways at the same
+    level, slot C runs), and points sharing their first byte 0x5A (levels
+    where every lane turns left run slots A and B alone); slot C also forced
+    at every level."""
+    k_num, n_bytes = 2, 4
+    n = 8 * n_bytes
+    rk = expand_key_np
+    for bound in Bound:
+        ck, prg, bundle, xs_mixed, aes = _large_setup(
+            430 + lam, lam, k_num, n_bytes, bound)
+        xs_prefix = xs_mixed.copy()
+        xs_prefix[:, 0] = 0x5A
+        m, tw = xs_mixed.shape[0], -(-(n + 1) // 32)
+        for b in (0, 1):
+            kb = bundle.for_party(b)
+            s0, cs, cv, ct, np1 = _narrow_arrays(kb)
+            for xs, all3 in ((xs_mixed, 0), (xs_prefix, 0), (xs_prefix, 1)):
+                y32 = np.zeros((k_num, m, 32), np.uint8)
+                traj = np.zeros((k_num, m, tw), np.uint32)
+                lib.host_narrow(
+                    _p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])), _p(s0),
+                    _p(cs), _p(cv), _p(ct), _p(np1), _p(xs), _p(y32),
+                    _p(traj), k_num, n, m, tw, b, all3)
+                what = (bound, b, all3, int(xs[0, 0]))
+                for key in range(k_num):
+                    one = KeyBundle(*(a[key:key + 1] for a in (
+                        kb.s0s, kb.cw_s, kb.cw_v, kb.cw_t, kb.cw_np1)))
+                    want_y, want_t = narrow_walk_np(ck, one, b, xs)
+                    assert np.array_equal(y32[key], want_y), what
+                    assert np.array_equal(_traj_bits(traj[key], n + 1),
+                                          want_t), what
+                got = np.concatenate([y32, _wide(lib, kb, traj, m)], axis=-1)
+                assert np.array_equal(got, eval_batch_np(prg, b, kb, xs)), \
+                    what

@@ -210,11 +210,11 @@ def test_prepare_batch_pads_and_promotes():
 
 def _port_sources():
     files = sorted((REPO / "dcf_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
 
 
 def test_port_imports_neither_jax_nor_dcf_tpu():
-    """AST scan of every module of the port and of chip_smoke.py: no
+    """AST scan of every module of the port, chip_smoke.py and chip_ab.py: no
     ``import jax``/``from jax`` and nothing of ``dcf_tpu`` (whose
     ``__init__`` imports jax)."""
     files = _port_sources()
@@ -242,3 +242,19 @@ def test_port_imports_neither_jax_nor_dcf_tpu():
                 if name.split(".")[0] in banned:
                     offenders.append(f"{path.name}:{node.lineno} {name}")
     assert offenders == []
+
+
+def test_chip_ab_cases_are_built_kernels():
+    """Every case of chip_ab.py names a kernel source that ``_build``
+    builds."""
+    import sys
+
+    from dcf_tpu_torch import _build
+
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_ab
+    finally:
+        sys.path.remove(str(REPO))
+    assert chip_ab.CASES
+    assert set(chip_ab.CASES) <= set(_build.KERNELS)
