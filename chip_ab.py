@@ -2,7 +2,7 @@
 of the repository, in turns, on one GPU.
 
     mkdir -p _archive/other && git archive <commit> | tar -x -C _archive/other
-    python3 chip_ab.py _archive/other keylanes_eval narrow_walk
+    python3 chip_ab.py _archive/other walk_eval prefix_eval
 
 Each NAME is a kernel source of ``dcf_tpu_torch._build.KERNELS`` that has
 a case in ``CASES``: its inputs at the main path's shape, made from a
@@ -88,8 +88,65 @@ def case_narrow_walk(torch, dev):
     return f"lam={lam} n=128 K=1 M={m}", 10, call
 
 
+def _flagship(torch, dev):
+    """The flagship batch eval's inputs (bench.py:1-31): one lam = 16 key
+    (n = 128) and 2^20 random shared points on the card, and the numpy
+    key bundle (party 0)."""
+    from dcf_tpu_torch.gen import gen_batch, random_s0s
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.ops.walk_eval import aes_image
+    from dcf_tpu_torch.spec import Bound
+
+    rng = np.random.default_rng(SEED)
+    ck = [rng.bytes(32), rng.bytes(32)]
+    prg = HirosePrgNp(16, ck)
+    kb = gen_batch(prg, rng.integers(0, 256, (1, 16), dtype=np.uint8),
+                   rng.integers(0, 256, (1, 16), dtype=np.uint8),
+                   random_s0s(1, 16, rng), Bound.LT_BETA).for_party(0)
+    xs = rng.integers(0, 256, (1, 1 << 20, 16), dtype=np.uint8)
+    on = {name: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for name, a in (("s0", kb.s0s[:, 0]), ("cw_s", kb.cw_s),
+                          ("cw_v", kb.cw_v), ("cw_t", kb.cw_t),
+                          ("cw_np1", kb.cw_np1), ("xs", xs))}
+    return prg, kb, torch.from_numpy(aes_image(ck[0])).to(dev), on
+
+
+def case_walk_eval(torch, dev):
+    """B1 at the flagship shape: one key, n = 128, 2^20 shared points,
+    XOR, party 0."""
+    from dcf_tpu_torch.ops.walk_eval import walk_eval
+
+    _, _, aes, on = _flagship(torch, dev)
+    args = (aes, on["s0"], on["cw_s"], on["cw_v"], on["cw_t"],
+            on["cw_np1"], on["xs"])
+    return ("K=1 M=1048576 n=128", 10,
+            lambda: (walk_eval(*args, b=0, group="xor"),))
+
+
+def case_prefix_eval(torch, dev):
+    """B3 at the flagship shape from the k = 21 frontier (the prefix
+    backend's depth at 2^20 points), built by B2 from the host's top 6
+    levels: one key, n = 128, 2^20 shared points, XOR, party 0."""
+    from dcf_tpu_torch.backends.fulldomain import tree_expand_np
+    from dcf_tpu_torch.ops.prefix_eval import frontier_table, prefix_eval
+    from dcf_tpu_torch.ops.tree_expand import tree_expand
+
+    prg, kb, aes, on = _flagship(torch, dev)
+    k0, k = 6, 21
+    top = (torch.from_numpy(a).to(dev) for a in tree_expand_np(prg, kb, 0, k0))
+    table = frontier_table(*tree_expand(
+        aes, on["cw_s"][0], on["cw_v"][0], on["cw_t"][0], *top, k0=k0, k1=k,
+        group="xor"))
+    args = (aes, table, on["cw_s"], on["cw_v"], on["cw_t"], on["cw_np1"],
+            on["xs"])
+    return (f"K=1 M=1048576 n=128 k={k}", 10,
+            lambda: (prefix_eval(*args, k=k, negate=False, group="xor"),))
+
+
 CASES = {"keylanes_eval": case_keylanes_eval,
-         "narrow_walk": case_narrow_walk}
+         "narrow_walk": case_narrow_walk,
+         "walk_eval": case_walk_eval,
+         "prefix_eval": case_prefix_eval}
 
 
 def _package(root: str):

@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. build every kernel (B1-B8, B2f, G1, W1, P1: eleven sources) from
    ``dcf_tpu_torch/csrc`` with nvcc, one process per source, all at once,
    and print the build seconds and ptxas' register and spill counts (on a
-   line of their own for B8 and B4, the two kernels on the banked AES);
+   line of their own for B8, B4, B1 and B3, the kernels on the banked
+   AES);
 3. hold each kernel byte for byte against its plain PyTorch version on the
    card, at 2^16 points: B1-B3 (B2 from level 6 to 21) over both parties,
    all four output groups, both bounds, and B1 with 3 keys and per-key
@@ -34,8 +35,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    path's shapes (2^20 points; B2 levels 6 to 21, B5a k = 20), and its
    time there beside its plain version's and its bound; W1 also beside
    ``torch._int_mm``, the library's integer product, whose parity is
-   checked against W1's output; B4 also beside the AES lookups its
-   design computes per lookup its bound counts;
+   checked against W1's output; B4, B1 and B3 also beside the AES lookups
+   their designs compute per lookup their bounds count, on the run's own
+   turns;
 7. the hybrid prefix depth on the card: B5a and B5b called directly at
    k = 16..24 on the lam = 256 main inputs, each result equal to the
    from-root walk's, and B5b's time per walked level beside B4's;
@@ -171,6 +173,24 @@ def nvidia_smi(query: str) -> str:
     return out.strip().splitlines()[0]
 
 
+def pair_lookups_computed(bits) -> int:
+    """The AES table lookups B1's and B3's design computes
+    (``walk_level_pair`` in ``csrc/aes_banked.cuh``) on points whose walk
+    bits over the walked levels are ``bits`` (uint8 [M, L], one key): the
+    points in warp units of 64, a unit's points past the last repeating
+    the last one, lane l walking points l and 32 + l; at a level, each of
+    the two point slots computes E(s) and E(~s) on all 32 lanes where one
+    of its 32 points turns left, else bit 0 of E(~s)."""
+    import torch
+
+    pad = -bits.shape[0] % 64
+    if pad:
+        bits = torch.cat([bits, bits[-1:].expand(pad, -1)])
+    any_left = (bits.reshape(-1, 2, 32, bits.shape[1]) == 0).any(2)
+    return 32 * int(torch.where(any_left, 2 * LOOKUPS_BLOCK,
+                                LOOKUPS_T_BIT).sum())
+
+
 def cuda_ms(fn, reps: int):
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events, and
     what the last call returned."""
@@ -264,11 +284,11 @@ def main() -> int:
     log(f"phase 2 build: {build_s:.2f} s for {len(_build.KERNELS)} kernels; "
         "(registers, spill-store bytes) per instantiation (B1-B3: xor, "
         f"add8, add16, add32 in some order): {ptxas}")
-    log("phase 2 the kernels on the banked AES: B8 keylanes_eval registers "
-        f"{ptxas['keylanes_eval'][0]}, spill-store bytes "
-        f"{ptxas['keylanes_eval'][1]}; B4 narrow_walk registers "
-        f"{ptxas['narrow_walk'][0]}, spill-store bytes "
-        f"{ptxas['narrow_walk'][1]}")
+    log("phase 2 the kernels on the banked AES: " + "; ".join(
+        f"{kid} {src} registers {ptxas[src][0]}, spill-store bytes "
+        f"{ptxas[src][1]}" for kid, src in (
+            ("B8", "keylanes_eval"), ("B4", "narrow_walk"),
+            ("B1", "walk_eval"), ("B3", "prefix_eval"))))
 
     # -- phase 3: each kernel against its plain version --------------------------
     rng = np.random.default_rng(SEED)
@@ -605,6 +625,7 @@ def main() -> int:
         lambda: walk_eval_plain(*args, b=0, group="xor"), 1)
     same("B1", f"main shape {tuple(xs.shape)}", got, want)
     b1_lookups = walk_lookups(xs, 0, n, *lam16_turns)
+    b1_computed = pair_lookups_computed(walk_bits_plain(xs)[0])
     b1_bytes = M_MAIN * N_BYTES + M_MAIN * 16 + n * 34 + 32 + 496
     # The walk path's other two B1 launches: the anchors, 1024 points.
     xa = xs[:, :M_ANCHOR].contiguous()
@@ -651,6 +672,7 @@ def main() -> int:
     same("B3", f"main shape {tuple(xs.shape)}", got, want)
     rows = int(torch.unique(frontier_index_plain(xs[0], k_full)).numel())
     b3_lookups = walk_lookups(xs, k_full, n, *lam16_turns)
+    b3_computed = pair_lookups_computed(walk_bits_plain(xs)[0, :, k_full:])
     b3_bytes = M_MAIN * N_BYTES + rows * 32 + M_MAIN * 16 \
         + (n - k_full) * 34 + 16 + 496
     log(f"phase 6: B1, B2, B3 byte-identical to their plain versions at the "
@@ -785,11 +807,13 @@ def main() -> int:
             ("W1", "wide_xor", "dcf_tpu/backends/large_lambda.py:203", w1_ms,
              w1_plain, 0, w1_bytes, w1_lib)):
         add_row("phase 6", *row)
-    b4_row = next(r for r in rows_out if r["name"].startswith("B4 "))
-    b4_row["lookups_computed_per_needed"] = b4_computed / b4_lookups
-    log(f"phase 6 B4 design: {b4_computed:.3e} lookups computed, "
-        f"{b4_computed / b4_lookups:.3f}x the {b4_lookups:.3e} its bound "
-        f"counts")
+    for kid, computed, needed in (("B4", b4_computed, b4_lookups),
+                                  ("B1", b1_computed, b1_lookups),
+                                  ("B3", b3_computed, b3_lookups)):
+        row = next(r for r in rows_out if r["name"].startswith(f"{kid} "))
+        row["lookups_computed_per_needed"] = computed / needed
+        log(f"phase 6 {kid} design: {computed:.3e} lookups computed, "
+            f"{computed / needed:.3f}x the {needed:.3e} its bound counts")
     log(f"phase 6 W1 design figures: {w1_reads:.3e} shared-memory word "
         f"reads ({w1_reads / lookups_per_s * 1e3:.3f} ms at "
         f"{lookups_per_s:.3e}/s); as an int8 tensor-core product "
@@ -1249,15 +1273,19 @@ def main() -> int:
     b1c_ms, got = cuda_ms(lambda: walk_eval(*args24, b=0, group="xor"), 10)
     same("B1", f"n={N_FULL} chunk of 2^20 points", got,
          walk_eval_plain(*args24, b=0, group="xor"))
+    b1c_needed = walk_lookups(xs24, 0, N_FULL, *lam16_turns)
     b1c_bound = bound(
-        walk_lookups(xs24, 0, N_FULL, *lam16_turns),
+        b1c_needed,
         (1 << 20) * (N_FULL // 8 + 16) + N_FULL * 34 + 32 + 496)[0]
+    b1c_design = pair_lookups_computed(walk_bits_plain(xs24)[0]) / b1c_needed
     b1_row = next(r for r in rows_out if r["name"].startswith("B1 "))
     b1_row["ms_full_domain_chunk"] = b1c_ms
     b1_row["bound_ms_full_domain_chunk"] = b1c_bound
+    b1_row["lookups_computed_per_needed_full_domain_chunk"] = b1c_design
     log(f"phase 12 B1 a launch on the per-point full-domain path (n="
         f"{N_FULL}, one key, 2^20 points): {b1c_ms:.3f} ms, bound "
-        f"{b1c_bound:.3f} ms [{card}]")
+        f"{b1c_bound:.3f} ms; its design computes {b1c_design:.3f}x the "
+        f"lookups the bound counts [{card}]")
     del t24, xs24, args24, got
     # -- phase 13: the keygen kernels against their plain versions ---------------------
     # G1 (lam = 16), B7a (lam = 256) at n = 128 and B7b (lam = 32) at

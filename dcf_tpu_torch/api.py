@@ -31,10 +31,12 @@ Backends (``backend=``):
              serves both parties (backends.keylanes_backend)
     numpy    the host oracle (backends.numpy_backend)
 
-lam = 32 constructs for the DPF methods only (full-domain evaluation on
-kernel B6); ``gen`` and ``eval`` raise there, as for the rest of
-16 < lam < 48: the JAX package runs DCF batch eval in that band on its
-bitsliced backend, which has no kernel (ROADMAP.md A7).
+lam = 32 serves the DPF methods (full-domain evaluation on kernel B6)
+under ``auto`` and ``numpy``.  DCF ``gen`` and ``eval`` run there only on
+the host, under an explicit ``backend="numpy"`` (the numpy keygen walk
+and oracle); under ``auto`` they raise, as does the rest of 16 < lam < 48:
+the JAX package runs DCF batch eval in that band on its bitsliced
+backend, which has no kernel here yet (ROADMAP.md A7).
 
 Everything runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``, where the kernels' plain PyTorch versions
@@ -127,7 +129,7 @@ class Dcf:
                     f"lam={lam} serves the DPF methods (dpf, eval_all, "
                     f"pir_query); it has no {backend!r} backend: DCF batch "
                     "eval at 16 < lam < 48 is not ported (ROADMAP.md A7)")
-            name = "numpy"
+            name = "numpy"  # DCF keys only if asked for (backend_requested)
         else:
             name = backend if backend != "auto" else (
                 "walk" if lam == 16 else "hybrid")
@@ -165,6 +167,9 @@ class Dcf:
         self.lam = lam
         self.cipher_keys = list(cipher_keys)
         self.backend_name = name
+        # The name asked for: at lam = 32 both auto and numpy run the DPF
+        # methods, but only an explicit numpy serves DCF keys (on the host).
+        self.backend_requested = backend
         self.device = resolve_device(device)
         # The facade is the API edge: the contract warning fires once here;
         # the nested constructions below are silenced.
@@ -178,12 +183,14 @@ class Dcf:
         self._dpf_evalall = None  # built by the first eval_all on the device
 
     def _refuse_dcf_at_dpf_width(self, what: str) -> None:
-        if self.lam == DPF_DEVICE_LAM:
+        if self.lam == DPF_DEVICE_LAM and self.backend_requested != "numpy":
             raise ValueError(
-                f"{what} at lam={self.lam} is not ported: the JAX package "
+                f"{what} at lam={self.lam} with backend="
+                f"{self.backend_requested!r} is not ported: the JAX package "
                 "runs DCF keys of 16 < lam < 48 on its bitsliced backend, "
-                "which has no kernel (ROADMAP.md A7); this width serves "
-                "dpf, eval_all and pir_query")
+                "which has no kernel (ROADMAP.md A7); backend='numpy' runs "
+                "them on the host, and this width serves dpf, eval_all and "
+                "pir_query")
 
     @staticmethod
     def _keygen_on_device(device, kernel: bool, why: str) -> bool:
@@ -212,13 +219,20 @@ class Dcf:
         lam >= 48, their plain versions under ``device="cpu"``); additive
         groups take the host walk, as no keygen kernel has their algebra.
         ``device=False`` names the host walk, ``device=True`` the kernel
-        (an additive group then raises).  The bytes are the same."""
+        (an additive group then raises).  The bytes are the same.  At
+        lam = 32 (``backend="numpy"`` only) keygen is the host walk: no
+        kernel has the DCF algebra at that width."""
         self._refuse_dcf_at_dpf_width("gen")
+        if self.lam == DPF_DEVICE_LAM:
+            why = (f"no keygen kernel has the DCF algebra at lam={self.lam} "
+                   "(ROADMAP.md A7); call gen() with device=None or False "
+                   "for the host walk")
+        else:
+            why = (f"no keygen kernel has the additive algebra of group "
+                   f"{group!r} (in this package or in dcf_tpu); call gen() "
+                   "with device=None or False for the host walk")
         on_device = self._keygen_on_device(
-            device, group == "xor",
-            f"no keygen kernel has the additive algebra of group {group!r} "
-            "(in this package or in dcf_tpu); call gen() with device=None "
-            "or False for the host walk")
+            device, group == "xor" and self.lam != DPF_DEVICE_LAM, why)
         alphas = np.asarray(alphas, dtype=np.uint8)
         betas = np.asarray(betas, dtype=np.uint8)
         if alphas.ndim != 2 or alphas.shape[1] != self.n_bytes:

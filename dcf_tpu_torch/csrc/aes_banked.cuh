@@ -1,6 +1,8 @@
-// A bank-conflict-free T-table AES-256 for Hopper, and the per-lane body
-// of kernel B8 (keylanes_eval.cu) that runs on it.  The three-slot narrow
-// level of kernel B4 (narrow_walk.cu) runs on it too (narrow_walk.cuh).
+// A bank-conflict-free T-table AES-256 for Hopper, and the per-lane bodies
+// that run on it: kernel B8's (keylanes_eval.cu), and the walk of kernels
+// B1 and B3 (walk_eval.cu, prefix_eval.cu), two points a lane.  The
+// three-slot narrow level of kernel B4 (narrow_walk.cu) runs on it too
+// (narrow_walk.cuh).
 //
 // Why: the T-tables of dcf_walk.cuh are uint32_t te[4][256] in shared
 // memory, so entry x sits in bank x mod 32.  Each round does 16 lookups
@@ -346,6 +348,124 @@ DCF_HD void keylanes_lane_pair(const BkLane& t, const RoundKey* rk,
   finalize<0>(p1.s, p1.t, p1.v, np1, false, y1);
 }
 
+// ---------------------------------------------------------------------------
+// Kernels B1 and B3 (walk_eval.cu, prefix_eval.cu): one key's lam = 16
+// walk at many points, any group.  The points of a warp are unrelated, so
+// its lanes turn both ways at most levels; a left turn needs E(s) and
+// E(~s), a right turn only bit 0 of E(~s).
+// ---------------------------------------------------------------------------
+
+// Level i's correction word from one key's rows (cw_s / cw_v [n, 16],
+// 16-byte aligned, and cw_t [n, 2]).
+DCF_HD void walk_cw(const uint8_t* cw_s, const uint8_t* cw_v,
+                    const uint8_t* cw_t, int i, LevelCw& w) {
+  load16(cw_s + 16 * i, w.s);
+  load16(cw_v + 16 * i, w.v);
+  w.t = kl_t_bits(cw_t, i);
+}
+
+// A level's update of one point in group GW, from es = E(s) (read on a
+// left turn only) and en = E(~s) (only its bit 0 is read on a right
+// turn): the Hirose children, masked, the child on the walk bit, the s/t
+// correction gated by t, v accumulated unsigned (walk_levels in
+// dcf_walk.cuh, without its two full blocks on a right turn).
+template <int GW>
+DCF_HD void walk_turn(KlState& p, uint32_t xbit, const uint32_t es[4],
+                      const uint32_t en[4], const LevelCw& w) {
+  const uint32_t lm = xbit - 1u;  // all ones on a left turn
+  const uint32_t g = 0u - p.t;
+  uint32_t sc[4], vc[4];
+  for (int q = 0; q < 4; ++q) {
+    sc[q] = p.s[q] ^ (es[q] & lm);   // left E(s) ^ s, right s
+    vc[q] = ~p.s[q] ^ (en[q] & lm);  // left E(~s) ^ ~s, right ~s
+  }
+  const uint32_t tc = ((sc[0] & lm) | ((en[0] ^ ~p.s[0]) & ~lm)) & 1u;
+  sc[3] &= kMaskBit;
+  vc[3] &= kMaskBit;
+  for (int q = 0; q < 4; ++q) {
+    p.v[q] = gadd<GW>(p.v[q], gadd<GW>(vc[q], w.v[q] & g));
+    p.s[q] = sc[q] ^ (w.s[q] & g);
+  }
+  p.t = tc ^ (p.t & (w.t >> xbit) & 1u);
+}
+
+// Two points a lane (points l and 32 + l of the warp's 64), their blocks
+// in lockstep.  Per level and point the warp votes whether some lane turns
+// left with it: if so, that point's E(s) and E(~s) run in full on every
+// lane; if not, bit 0 of E(~s) alone.  So random points run 4 chains a
+// lane (448 lookups a point, against the 322.5 a random walk needs on
+// average), and where a warp's points turn the same way (points in order,
+// as the per-point full domain walks them) 4, 3 or 2 chains compute what
+// the turns need.
+template <int GW>
+DCF_HD void walk_level_mixed(const BkLane& t, const RoundKey* const rks[],
+                             const LevelCw& w, uint32_t xl, uint32_t xr,
+                             KlState& pl, KlState& pr) {
+  uint32_t x[3][4], bit[1];
+  for (int q = 0; q < 4; ++q) {
+    x[0][q] = pl.s[q];
+    x[1][q] = ~pl.s[q];
+    x[2][q] = ~pr.s[q];
+  }
+  bk_encrypt<2, 1>(t, rks, x, bit);
+  x[2][0] = bit[0];
+  walk_turn<GW>(pl, xl, x[0], x[1], w);
+  walk_turn<GW>(pr, xr, x[2], x[2], w);
+}
+
+// One level of a lane's two points p0 and p1 at walk bits x0 and x1; any0
+// and any1 are the warp's votes (some lane turns left with point 0, 1).
+template <int GW>
+DCF_HD void walk_level_pair(const BkLane& t, const RoundKey* rk,
+                            const LevelCw& w, uint32_t x0, uint32_t x1,
+                            bool any0, bool any1, KlState& p0, KlState& p1) {
+  const RoundKey* const rks[4] = {rk, rk, rk, rk};  // one cipher
+  if (any0 && any1) {
+    uint32_t x[4][4];
+    for (int q = 0; q < 4; ++q) {
+      x[0][q] = p0.s[q];
+      x[1][q] = ~p0.s[q];
+      x[2][q] = p1.s[q];
+      x[3][q] = ~p1.s[q];
+    }
+    bk_encrypt<4>(t, rks, x);
+    walk_turn<GW>(p0, x0, x[0], x[1], w);
+    walk_turn<GW>(p1, x1, x[2], x[3], w);
+  } else if (any0) {
+    walk_level_mixed<GW>(t, rks, w, x0, x1, p0, p1);
+  } else if (any1) {
+    walk_level_mixed<GW>(t, rks, w, x1, x0, p1, p0);
+  } else {
+    uint32_t x[2][4], bit[2];
+    for (int q = 0; q < 4; ++q) {
+      x[0][q] = ~p0.s[q];
+      x[1][q] = ~p1.s[q];
+    }
+    bk_encrypt<0, 2>(t, rks, x, bit);
+    x[0][0] = bit[0];
+    x[1][0] = bit[1];
+    walk_turn<GW>(p0, x0, x[0], x[0], w);
+    walk_turn<GW>(p1, x1, x[1], x[1], w);
+  }
+}
+
+// A walk's start: from the root (seed s0, t = the party), or from the
+// frontier row of a point (s with t in bit 0 of byte 15, then v).
+DCF_HD void walk_root(KlState& p, const uint32_t s0[4], uint32_t t0) {
+  for (int q = 0; q < 4; ++q) {
+    p.s[q] = s0[q];
+    p.v[q] = 0u;
+  }
+  p.t = t0;
+}
+
+DCF_HD void walk_row(KlState& p, const uint8_t* row) {
+  load16(row, p.s);
+  load16(row + 16, p.v);
+  p.t = (p.s[3] >> 24) & 1u;
+  p.s[3] &= kMaskBit;
+}
+
 #if defined(__CUDACC__)
 // Block-cooperative fills; the caller syncs.
 __device__ __forceinline__ void fill_banked_table(uint32_t* te,
@@ -358,6 +478,23 @@ __device__ __forceinline__ void fill_round_keys(RoundKey* rk,
                                                 const uint8_t* bytes) {
   for (int i = threadIdx.x; i < 60; i += blockDim.x)
     rk[i >> 2].w[i & 3] = le32(bytes + 4 * i);
+}
+
+// B1's and B3's level loop: a lane walks its two points (bytes at x0 and
+// x1) through levels lo..n-1 of one key (rows cw_s, cw_v, cw_t).
+template <int GW>
+__device__ __forceinline__ void walk_pair_levels(
+    const BkLane& t, const RoundKey* rk, const uint8_t* cw_s,
+    const uint8_t* cw_v, const uint8_t* cw_t, int lo, int n,
+    const uint8_t* x0, const uint8_t* x1, KlState& p0, KlState& p1) {
+  for (int i = lo; i < n; ++i) {
+    LevelCw w;
+    walk_cw(cw_s, cw_v, cw_t, i, w);
+    const uint32_t b0 = walk_bit(x0, i), b1 = walk_bit(x1, i);
+    walk_level_pair<GW>(t, rk, w, b0, b1,
+                        __any_sync(0xFFFFFFFFu, b0 == 0u) != 0,
+                        __any_sync(0xFFFFFFFFu, b1 == 0u) != 0, p0, p1);
+  }
 }
 #endif
 

@@ -1,11 +1,15 @@
-// Per-thread DCF arithmetic shared by the three Hopper kernels of the
-// lam = 16 batch-eval and full-domain paths (its AES also serves the
-// two-cipher kernels of narrow_walk.cuh):
+// Per-thread DCF arithmetic at lam = 16 on four 1 KB T-tables: the bodies
+// of kernels B2 and B2f (its AES also serves the two-cipher kernels of
+// narrow_walk.cuh and keygen_walk.cuh), and the group algebra and walk
+// bits that the banked walks of aes_banked.cuh share:
 //
-//   B1  walk_eval.cu    replaces dcf_tpu/ops/pallas_eval.py::dcf_eval_pallas
 //   B2  tree_expand.cu  replaces dcf_tpu/ops/pallas_tree.py::_expand_level
 //                       and the leaf finalize of its tree_expand_device
-//   B3  prefix_eval.cu  replaces dcf_tpu/ops/pallas_prefix.py::dcf_eval_prefix_pallas
+//
+// walk_point and prefix_point walk one point on these tables, from the
+// root or from a frontier row; no kernel runs them (B1 and B3 walk on the
+// banked AES of aes_banked.cuh), and the host tests hold them, and with
+// them this file's Hirose step and group algebra, to the numpy oracle.
 //
 // The TPU kernels run a bitsliced AES (128 one-bit planes, 32 points per
 // int32 lane word) because the TPU has no byte gather.  A Hopper SM has

@@ -102,10 +102,10 @@ def prefix_eval(aes, table, cw_s, cw_v, cw_t, cw_np1, xs, *, k: int,
         raise ShapeError(f"bad prefix geometry: n={n}, k={k}")
     check_u8("aes", aes, (AES_IMAGE_BYTES,), device)
     check_u8("table", table, (k_num << k, 32), device, align=16)
-    check_u8("cw_s", cw_s, (k_num, n, 16), device)
-    check_u8("cw_v", cw_v, (k_num, n, 16), device)
+    check_u8("cw_s", cw_s, (k_num, n, 16), device, align=16)
+    check_u8("cw_v", cw_v, (k_num, n, 16), device, align=16)
     check_u8("cw_t", cw_t, (k_num, n, 2), device)
-    check_u8("cw_np1", cw_np1, (k_num, 16), device)
+    check_u8("cw_np1", cw_np1, (k_num, 16), device, align=16)
     check_u8("xs", xs, (1, m, n // 8), device)
     if device.type == "cpu":
         return prefix_eval_plain(aes, table, cw_s, cw_v, cw_t, cw_np1, xs,

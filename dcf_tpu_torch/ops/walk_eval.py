@@ -3,9 +3,10 @@
 Counterpart of ``dcf_tpu/ops/pallas_eval.py`` (``dcf_eval_pallas``, its
 ``_kernel`` and ``walk_levels``).  The TPU kernel walks bit planes of 32
 points per lane word; this port keeps the bytes at the edges and nothing
-of that layout: the state of a walk is 16 bytes, and on the card one
-thread owns one (key, point) (``csrc/walk_eval.cu``, sharing its
-per-thread walk with kernel B3 in ``csrc/dcf_walk.cuh``).
+of that layout: the state of a walk is 16 bytes, and on the card a lane
+owns two (key, point) walks whose AES blocks the warp deals out among
+its lanes (``csrc/walk_eval.cu``, sharing its level loop with kernel B3
+in ``csrc/aes_banked.cuh``).
 
 ``walk_eval`` launches the CUDA kernel for tensors on the card and runs
 ``walk_eval_plain`` -- the same function in plain PyTorch ops, S-box by
@@ -204,11 +205,11 @@ def walk_eval(aes, s0, cw_s, cw_v, cw_t, cw_np1, xs, *, b: int,
     n = cw_s.shape[1] if cw_s.dim() == 3 else -1
     kx, m = xs.shape[0], xs.shape[1]
     check_u8("aes", aes, (AES_IMAGE_BYTES,), device)
-    check_u8("s0", s0, (k_num, 16), device)
-    check_u8("cw_s", cw_s, (k_num, n, 16), device)
-    check_u8("cw_v", cw_v, (k_num, n, 16), device)
+    check_u8("s0", s0, (k_num, 16), device, align=16)
+    check_u8("cw_s", cw_s, (k_num, n, 16), device, align=16)
+    check_u8("cw_v", cw_v, (k_num, n, 16), device, align=16)
     check_u8("cw_t", cw_t, (k_num, n, 2), device)
-    check_u8("cw_np1", cw_np1, (k_num, 16), device)
+    check_u8("cw_np1", cw_np1, (k_num, 16), device, align=16)
     check_u8("xs", xs, (kx, m, n // 8), device)
     if n < 8 or n % 8 or kx not in (1, k_num) or b not in (0, 1):
         raise ShapeError(f"bad walk geometry: n={n}, Kx={kx}, K={k_num}, b={b}")

@@ -1,8 +1,9 @@
 """The port's Dcf facade on the CPU: gen + eval reconstruct beta*[x < alpha]
 (x = alpha included) on every ported lam = 16 backend; unported backend
-names, the lam = 16 kernels at other lam and 16 < lam < 48 raise; a CUDA
-request without CUDA raises instead of running on the CPU; keygen matches
-dcf_tpu's.  The lam >= 48 hybrid has its own tests
+names, the lam = 16 kernels at other lam and 16 < lam < 48 raise, but for
+DCF at lam = 32 under an explicit backend="numpy", which runs on the host
+and matches dcf_tpu's frames and shares; a CUDA request without CUDA
+raises instead of running on the CPU; keygen matches dcf_tpu's.  The lam >= 48 hybrid has its own tests
 (test_torch_large_lambda.py, test_torch_hybrid_prefix.py)."""
 
 import warnings
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from dcf_tpu import spec as jspec
+from dcf_tpu.api import Dcf as JDcf
 from dcf_tpu.gen import gen_batch as j_gen_batch
 from dcf_tpu.ops.prg import HirosePrgNp as JPrg
 
@@ -109,6 +111,86 @@ def test_other_lam_raises(lam):
         with pytest.raises(ValueError,
                            match="lam=16 only" if lam >= 48 else "A7"):
             Dcf(2, lam, ck, backend=name, device="cpu")
+
+
+@pytest.mark.parametrize("bound", list(Bound))
+@pytest.mark.parametrize("group", ["xor", "add8", "add16", "add32"])
+def test_lam32_numpy_backend_matches_dcf_tpu(group, bound):
+    """DCF at lam = 32 under an explicit backend="numpy": gen (device=None
+    takes the host walk) gives DCFK frames byte-equal to dcf_tpu's facade
+    with the same backend, and eval gives its shares for both parties,
+    with x = alpha and alpha +- 1 planted for every key; the shares
+    reconstruct beta * [x < alpha] (or [x > alpha])."""
+    rng = np.random.default_rng(
+        180 + 2 * ["xor", "add8", "add16", "add32"].index(group)
+        + list(Bound).index(bound))
+    ck = [rng.bytes(32) for _ in range(18)]
+    k_num, n_bytes, lam = 3, 2, 32
+    alphas = rng.integers(0, 256, (k_num, n_bytes), dtype=np.uint8)
+    betas = rng.integers(0, 256, (k_num, lam), dtype=np.uint8)
+    s0s = rng.integers(0, 256, (k_num, 2, lam), dtype=np.uint8)
+    xs = rng.integers(0, 256, (16, n_bytes), dtype=np.uint8)
+    for key in range(k_num):
+        a = _int(alphas[key].tobytes())
+        for d in (-1, 0, 1):
+            xs[3 * key + d + 1] = np.frombuffer(
+                ((a + d) % 0x10000).to_bytes(2, "big"), np.uint8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dcf = Dcf(n_bytes, lam, ck, backend="numpy", device="cpu")
+        ref = JDcf(n_bytes, lam, ck, backend="numpy")
+    got = dcf.gen(alphas, betas, s0s=s0s, bound=bound, group=group)
+    want = ref.gen(alphas, betas, s0s=s0s, bound=jspec.Bound[bound.name],
+                   group=group)
+    assert got.to_bytes() == want.to_bytes()
+    ys = []
+    for b in (0, 1):
+        assert got.for_party(b).to_bytes() == want.for_party(b).to_bytes()
+        y = dcf.eval(b, got, xs)
+        assert np.array_equal(y, ref.eval(b, want, xs)), b
+        ys.append(y)
+    recon = np_group_add(ys[0], ys[1], group)
+    for key in range(k_num):
+        a = _int(alphas[key].tobytes())
+        for j in range(len(xs)):
+            x = _int(xs[j].tobytes())
+            hit = x < a if bound is Bound.LT_BETA else x > a
+            assert recon[key, j].tobytes() == (
+                betas[key].tobytes() if hit else bytes(lam)), (key, j)
+
+
+def test_lam32_keygen_routing(monkeypatch):
+    """At lam = 32 no kernel has the DCF algebra: gen(device=None) runs
+    the host walk (the kernel path is never entered), device=True raises
+    naming A7, device=False gives the same bytes; backend="auto" still
+    refuses DCF gen and eval, naming A7, while serving the DPF methods."""
+    import dcf_tpu_torch.api as api
+
+    def no_kernel(*a, **k):
+        raise AssertionError("the keygen kernel path ran at lam = 32")
+
+    monkeypatch.setattr(api, "gen_on_device", no_kernel)
+    rng = np.random.default_rng(190)
+    ck = [rng.bytes(32) for _ in range(18)]
+    alphas = rng.integers(0, 256, (2, 2), dtype=np.uint8)
+    betas = rng.integers(0, 256, (2, 32), dtype=np.uint8)
+    s0s = rng.integers(0, 256, (2, 2, 32), dtype=np.uint8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dcf = Dcf(2, 32, ck, backend="numpy", device="cpu")
+        auto = Dcf(2, 32, ck, device="cpu")
+    assert dcf.backend_requested == "numpy" and auto.backend_requested \
+        == "auto"
+    host = dcf.gen(alphas, betas, s0s=s0s)
+    assert host.to_bytes() == dcf.gen(alphas, betas, s0s=s0s,
+                                      device=False).to_bytes()
+    with pytest.raises(ValueError, match="A7"):
+        dcf.gen(alphas, betas, s0s=s0s, device=True)
+    with pytest.raises(ValueError, match="A7"):
+        auto.gen(alphas, betas, s0s=s0s)
+    with pytest.raises(ValueError, match="A7"):
+        auto.eval(0, host, alphas)
+    assert auto.dpf(alphas, s0s=s0s, device=False).num_keys == 2
 
 
 def test_facade_argument_contract():

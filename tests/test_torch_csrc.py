@@ -9,9 +9,10 @@ trajectory, the node walk, the frontier walk and the wide XOR) and of the
 full-domain kernels B6 (the masked lam = 32 DPF node and its leaf
 correction) and B2f (``tree_leaves`` in ``dcf_walk.cuh``).
 ``csrc/aes_banked.cuh`` holds the bank-conflict-free AES core (T0 and T2
-replicated over 32 lanes) with kernel B8's keys-in-lanes body, and
-``narrow_walk.cuh`` kernel B4's three-slot level on it; their tests run
-the lanes of a warp in a loop.  This test
+replicated over 32 lanes) with kernel B8's keys-in-lanes body and the
+two-points-a-lane walk of kernels B1 and B3, and ``narrow_walk.cuh``
+kernel B4's three-slot level on it; their tests run the lanes of a warp
+in a loop, the warp's votes taken over all lanes first.  This test
 compiles the headers with the host C++ compiler into a small library
 that runs each body over every (key, point) or node in a loop, and holds
 the results byte for byte against the port's numpy oracles (the full-width
@@ -42,7 +43,9 @@ from dcf_tpu_torch.keys import KeyBundle
 from dcf_tpu_torch.ops.aes import SBOX_NP, aes256_encrypt_np, expand_key_np
 from dcf_tpu_torch.ops.hybrid_prefix import narrow_frontier_plain
 from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
+from dcf_tpu_torch.ops.prefix_eval import frontier_index_plain
 from dcf_tpu_torch.ops.prg import HirosePrgNp
+from dcf_tpu_torch.ops.walk_eval import walk_bits_plain, walk_levels_plain
 from dcf_tpu_torch.spec import GROUP_WIDTH, Bound
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -484,6 +487,100 @@ void host_narrow(const uint8_t* sbox, const uint8_t* rk0,
 """
 
 
+_PAIR_HARNESS = r"""
+// Kernels B1 and B3 as a warp runs them: a unit of 64 points of one key on
+// lanes 0-31 (lane l: points l and 32 + l; a point past the last walks the
+// last one and is not stored), each level's two warp votes (some lane
+// turns left with its point 0, with its point 1) taken over all lanes
+// first, then each lane's level.  *computed counts the AES table lookups
+// the lanes' blocks compute (a bit-0 block at 197).
+template <int GW>
+static void pair_unit(const BkLane* lanes, const RoundKey* rks,
+                      const uint8_t* cw_s, const uint8_t* cw_v,
+                      const uint8_t* cw_t, int lo, int n,
+                      const uint8_t* const* x, KlState (*P)[2],
+                      long long* computed) {
+  const long long full = 224, bit = 12 * 16 + 4 + 1;
+  for (int i = lo; i < n; ++i) {
+    LevelCw w;
+    walk_cw(cw_s, cw_v, cw_t, i, w);
+    bool any0 = false, any1 = false;
+    for (int l = 0; l < kLanes; ++l) {
+      any0 |= walk_bit(x[l], i) == 0u;
+      any1 |= walk_bit(x[kLanes + l], i) == 0u;
+    }
+    *computed += kLanes * ((any0 ? 2 * full : bit) + (any1 ? 2 * full : bit));
+    for (int l = 0; l < kLanes; ++l)
+      walk_level_pair<GW>(lanes[l], rks, w, walk_bit(x[l], i),
+                          walk_bit(x[kLanes + l], i), any0, any1, P[l][0],
+                          P[l][1]);
+  }
+}
+
+template <int GW>
+static void pair_walk(const uint8_t* sbox, const uint8_t* rk,
+                      const uint8_t* s0, const uint8_t* cw_s,
+                      const uint8_t* cw_v, const uint8_t* cw_t,
+                      const uint8_t* cw_np1, const uint8_t* xs,
+                      const uint8_t* table, uint8_t* y, int K, int n, int k,
+                      int m, int per_key, int b, long long* computed) {
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey rks[15];
+  round_keys(rks, rk);
+  BkLane lanes[kLanes];
+  for (int l = 0; l < kLanes; ++l) lanes[l] = bk_lane(te.data(), l);
+  const int nb = n / 8;
+  for (int key = 0; key < K; ++key) {
+    uint32_t seed[4], np1[4];
+    load16(s0 + key * 16, seed);
+    load16(cw_np1 + key * 16, np1);
+    const uint8_t* xk = xs + (per_key ? (size_t)key * m : 0) * nb;
+    for (int base = 0; base < m; base += 2 * kLanes) {
+      const uint8_t* x[2 * kLanes];
+      KlState P[kLanes][2];
+      for (int j = 0; j < 2 * kLanes; ++j) {
+        x[j] = xk + (size_t)std::min(base + j, m - 1) * nb;
+        KlState& p = P[j % kLanes][j / kLanes];
+        if (table)
+          walk_row(p, table + (((size_t)key << k) + frontier_index(x[j], k)) * 32);
+        else
+          walk_root(p, seed, (uint32_t)b);
+      }
+      pair_unit<GW>(lanes, rks, cw_s + (size_t)key * n * 16,
+                    cw_v + (size_t)key * n * 16, cw_t + (size_t)key * n * 2,
+                    table ? k : 0, n, x, P, computed);
+      for (int j = 0; j < 2 * kLanes && base + j < m; ++j) {
+        const KlState& p = P[j % kLanes][j / kLanes];
+        uint32_t out[4];
+        finalize<GW>(p.s, p.t, p.v, np1, b && GW > 0, out);
+        memcpy(y + ((size_t)key * m + base + j) * 16, out, 16);
+      }
+    }
+  }
+}
+
+extern "C" {
+// B1 (table null: from the root, party b) or B3 (from the stacked frontier
+// table at depth k; b is 1 where party 1 of an additive group negates).
+void host_pair_walk(const uint8_t* sbox, const uint8_t* rk, const uint8_t* s0,
+                    const uint8_t* cw_s, const uint8_t* cw_v,
+                    const uint8_t* cw_t, const uint8_t* cw_np1,
+                    const uint8_t* xs, const uint8_t* table, uint8_t* y, int K,
+                    int n, int k, int m, int per_key, int b, int gw,
+                    long long* computed) {
+#define PAIR_ARGS sbox, rk, s0, cw_s, cw_v, cw_t, cw_np1, xs, table, y, K, n, \
+      k, m, per_key, b, computed
+  if (gw == 0) pair_walk<0>(PAIR_ARGS);
+  else if (gw == 8) pair_walk<8>(PAIR_ARGS);
+  else if (gw == 16) pair_walk<16>(PAIR_ARGS);
+  else pair_walk<32>(PAIR_ARGS);
+#undef PAIR_ARGS
+}
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -492,7 +589,7 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc")
     src = d / "harness.cpp"
     src.write_text(_HARNESS + _NARROW_HARNESS + _KEYGEN_HARNESS
-                   + _BANKED_HARNESS)
+                   + _BANKED_HARNESS + _PAIR_HARNESS)
     out = d / "libharness.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
@@ -932,3 +1029,165 @@ def test_narrow_banked_body_matches_oracle(lib, lam):
                 got = np.concatenate([y32, _wide(lib, kb, traj, m)], axis=-1)
                 assert np.array_equal(got, eval_batch_np(prg, b, kb, xs)), \
                     what
+
+
+# ---------------------------------------------------------------------------
+# Kernels B1 and B3 on the banked AES: two points a lane, the left turns'
+# E(s) compacted across the warp (aes_banked.cuh, walk_pair_levels).
+# ---------------------------------------------------------------------------
+
+def _pair_points(rng, alphas, n_bytes):
+    """134 points in three warp units of 64: random with x = alpha and
+    alpha +- 1 planted for every key (lanes turn both ways at a level, and
+    more than 32 of the 64 points turn left at some levels), then 64
+    points whose first byte is 0xFF except for point 32 + 5's 0x7F (at
+    levels 1-7 every point turns right: the t-bit blocks alone; at level 0
+    one lane's point 1 turns left: three chains), then 6 points whose
+    first byte is 0x00 but for the last one's 0x80 (the last unit, its
+    lanes past the last point walking that point: at levels 1-7 every
+    point turns left, four chains; at level 0 some lanes' point 0 turns
+    left and every point 1 right, three chains)."""
+    xs = rng.integers(0, 256, (134, n_bytes), dtype=np.uint8)
+    top = 1 << (8 * n_bytes)
+    for key, a in enumerate(alphas):
+        a = int.from_bytes(a.tobytes(), "big")
+        for d in (-1, 0, 1):
+            xs[3 * key + d + 1] = np.frombuffer(
+                ((a + d) % top).to_bytes(n_bytes, "big"), np.uint8)
+    xs[64:128, 0] = 0xFF
+    xs[64 + 32 + 5, 0] = 0x7F
+    xs[128:, 0] = 0x00
+    xs[133, 0] = 0x80
+    return xs
+
+
+def _host_pair(lib, rk, kb, xs, b, gw, table=None, k=0):
+    """B1 (table None) or B3 through the lane harness: shares [K, M, 16]
+    and the lookups its slots computed."""
+    k_num, n = kb.cw_s.shape[:2]
+    m = xs.shape[-2]
+    y = np.zeros((k_num, m, 16), np.uint8)
+    computed = ctypes.c_longlong(0)
+    lib.host_pair_walk(
+        _p(SBOX_NP), _p(rk), _p(np.ascontiguousarray(kb.s0s[:, 0])),
+        _p(kb.cw_s), _p(kb.cw_v), _p(kb.cw_t), _p(kb.cw_np1), _p(xs),
+        None if table is None else _p(table), _p(y), k_num, n, k, m,
+        int(xs.ndim == 3), b, gw, ctypes.byref(computed))
+    return y, computed.value
+
+
+@pytest.mark.parametrize("n_bytes", [2, 16])
+@pytest.mark.parametrize("group", GROUPS)
+def test_pair_walk_body_matches_oracle(lib, group, n_bytes):
+    """B1's body: K = 2 keys at 134 shared and per-key points
+    (``_pair_points``), both parties, against eval_batch_np; both bounds,
+    at n = 16 and n = 128."""
+    gw = GROUP_WIDTH.get(group, 0)
+    k_num = 2
+    for bound in Bound:
+        rng, prg, rk, alphas, bundle = _setup(
+            440 + n_bytes + GROUPS.index(group), k_num, n_bytes, group, bound)
+        shared = _pair_points(rng, alphas, n_bytes)
+        per_key = np.stack([_pair_points(rng, alphas[key:key + 1], n_bytes)
+                            for key in range(k_num)])
+        for xs in (shared, per_key):
+            for b in (0, 1):
+                kb = bundle.for_party(b)
+                y, _ = _host_pair(lib, rk, kb, xs, b, gw)
+                assert np.array_equal(y, eval_batch_np(prg, b, kb, xs)), \
+                    (bound, b, xs.ndim)
+
+
+def _path_frontier(prg, rk, kb, b, k, xs, group):
+    """The depth-k frontier table [K * 2^k, 32] of ``kb`` with only the
+    rows of the points ``xs`` filled: each point's carry after its first
+    k levels, from the plain walk (``walk_levels_plain``), t stashed in
+    bit 0 of byte 15, at the bit-reversed index of its first k bits."""
+    aes = torch.from_numpy(np.concatenate([SBOX_NP, rk.reshape(-1)]))
+    k_num, m = kb.cw_s.shape[0], xs.shape[0]
+    cw = [torch.from_numpy(np.ascontiguousarray(a[:, :k]))
+          for a in (kb.cw_s, kb.cw_v, kb.cw_t)]
+    s = torch.from_numpy(np.ascontiguousarray(kb.s0s[:, 0]))
+    s, t, v = walk_levels_plain(
+        aes, s[:, None].expand(k_num, m, 16).contiguous(),
+        torch.full((k_num, m), b, dtype=torch.uint8),
+        torch.zeros((k_num, m, 16), dtype=torch.uint8), *cw,
+        walk_bits_plain(torch.from_numpy(xs))[None, :, :k],
+        GROUP_WIDTH.get(group, 0))
+    s = s.numpy().copy()
+    s[..., 15] |= t.numpy()
+    idx = frontier_index_plain(torch.from_numpy(xs), k).numpy()
+    table = np.zeros((k_num << k, 32), np.uint8)
+    for key in range(k_num):
+        table[(key << k) + idx] = np.concatenate([s[key], v[key].numpy()], 1)
+    return table
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_pair_prefix_body_matches_oracle(lib, group):
+    """B3's body from tree_expand_np's depth-4 frontier (n = 16, K = 2,
+    the 134 points of ``_pair_points``), both bounds, both parties,
+    against eval_batch_np; the frontier rows the points gather, made by
+    ``_path_frontier``, equal tree_expand_np's."""
+    gw = GROUP_WIDTH.get(group, 0)
+    k_num, n_bytes, k = 2, 2, 4
+    for bound in Bound:
+        rng, prg, rk, alphas, bundle = _setup(
+            460 + GROUPS.index(group), k_num, n_bytes, group, bound)
+        xs = _pair_points(rng, alphas, n_bytes)
+        idx = frontier_index_plain(torch.from_numpy(xs), k).numpy()
+        for b in (0, 1):
+            kb = bundle.for_party(b)
+            rows = []
+            for key in range(k_num):
+                one = KeyBundle(*(a[key:key + 1] for a in (
+                    kb.s0s, kb.cw_s, kb.cw_v, kb.cw_t, kb.cw_np1)),
+                    group=group)
+                s, v, t = tree_expand_np(prg, one, b, k)
+                s = s.copy()
+                s[:, 15] |= t
+                rows.append(np.concatenate([s, v], axis=1))
+            table = np.ascontiguousarray(np.concatenate(rows))
+            path = _path_frontier(prg, rk, kb, b, k, xs, group)
+            for key in range(k_num):
+                assert np.array_equal(path[(key << k) + idx],
+                                      table[(key << k) + idx]), (bound, b)
+            y, _ = _host_pair(lib, rk, kb, xs, b, gw, table, k)
+            assert np.array_equal(y, eval_batch_np(prg, b, kb, xs)), \
+                (bound, b)
+
+
+@pytest.mark.parametrize("bound", list(Bound))
+def test_pair_prefix_body_at_depth_21(lib, bound):
+    """B3's body at the main path's frontier depth, k = 21, n = 24, from
+    a frontier with the points' rows (``_path_frontier``; a full numpy
+    expansion to depth 21 takes about 40 s a key and party), add16, K = 2,
+    both parties, against eval_batch_np."""
+    group, k_num, n_bytes, k = "add16", 2, 3, 21
+    rng, prg, rk, alphas, bundle = _setup(
+        470 + list(Bound).index(bound), k_num, n_bytes, group, bound)
+    xs = _pair_points(rng, alphas, n_bytes)
+    for b in (0, 1):
+        kb = bundle.for_party(b)
+        table = _path_frontier(prg, rk, kb, b, k, xs, group)
+        y, _ = _host_pair(lib, rk, kb, xs, b, 16, table, k)
+        assert np.array_equal(y, eval_batch_np(prg, b, kb, xs)), b
+
+
+@pytest.mark.parametrize("n_bytes", [2, 16])
+def test_pair_lookups_computed_counts_the_blocks(lib, n_bytes):
+    """``chip_smoke.pair_lookups_computed``, the design figure the smoke
+    prints for B1 and B3, equals the lookups the lane harness's slots
+    compute, from the root and from depth 4."""
+    from chip_smoke import pair_lookups_computed
+
+    rng, prg, rk, alphas, bundle = _setup(480 + n_bytes, 1, n_bytes, "xor",
+                                          Bound.LT_BETA)
+    xs = _pair_points(rng, alphas, n_bytes)
+    kb = bundle.for_party(0)
+    bits = walk_bits_plain(torch.from_numpy(xs))
+    _, got = _host_pair(lib, rk, kb, xs, 0, 0)
+    assert got == pair_lookups_computed(bits)
+    table = _path_frontier(prg, rk, kb, 0, 4, xs, "xor")
+    _, got = _host_pair(lib, rk, kb, xs, 0, 0, table, 4)
+    assert got == pair_lookups_computed(bits[:, 4:])
