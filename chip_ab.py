@@ -60,11 +60,11 @@ def case_keylanes_eval(torch, dev):
             lambda: (keylanes_eval(aes, s0s, *img, xs, b=0),))
 
 
-def case_narrow_walk(torch, dev):
-    """B4 at BASELINE.json config 4's shape: lam = 256, n = 128, one key,
-    2^20 points, party 0; y[:32] and the trajectory words."""
+def _config4(torch, dev):
+    """BASELINE.json config 4's inputs on the card: one lam = 256 key
+    (n = 128, party 0's narrow arrays) and 2^20 random shared points."""
     from dcf_tpu_torch.gen import gen_batch, random_s0s
-    from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image, narrow_walk
+    from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
     from dcf_tpu_torch.ops.prg import HirosePrgNp
     from dcf_tpu_torch.spec import Bound
 
@@ -80,12 +80,66 @@ def case_narrow_walk(torch, dev):
     args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         kb.s0s[:, 0, :32], kb.cw_s[..., :32], kb.cw_v[..., :32], kb.cw_t,
         kb.cw_np1[:, :32], xs))
+    return aes, args, lam, m
+
+
+def case_narrow_walk(torch, dev):
+    """B4 at BASELINE.json config 4's shape: lam = 256, n = 128, one key,
+    2^20 points, party 0; y[:32] and the trajectory words."""
+    from dcf_tpu_torch.ops.narrow_walk import narrow_walk
+
+    aes, args, lam, m = _config4(torch, dev)
 
     def call():
         y, traj = narrow_walk(aes, *args, b=0, lam=lam)
         return y[..., :32], traj
 
     return f"lam={lam} n=128 K=1 M={m}", 10, call
+
+
+def case_hybrid_prefix(torch, dev):
+    """B5b at config 4's shape from the k = 20 frontier that kernel B5a
+    builds (the hybrid's prefix_levels=20 path): lam = 256, n = 128, one
+    key, 2^20 points, party 0; y[:32] and the trajectory words."""
+    from dcf_tpu_torch.ops.hybrid_prefix import (
+        hybrid_prefix_eval, narrow_frontier)
+
+    aes, (s0, cw_s, cw_v, cw_t, np1, xs), lam, m = _config4(torch, dev)
+    k = 20
+    rows, words = narrow_frontier(aes, s0, cw_s, cw_v, cw_t, k=k, b=0)
+
+    def call():
+        y, traj = hybrid_prefix_eval(aes, rows, words, cw_s, cw_v, cw_t,
+                                     np1, xs, k=k, lam=lam)
+        return y[..., :32], traj
+
+    return f"lam={lam} n=128 K=1 M={m} k={k}", 10, call
+
+
+def case_evalall_expand(torch, dev):
+    """B6 at the DPF EvalAll and PIR shape: K = 4 lam = 32 DPF keys,
+    n = 24, party 0, levels 6-23 from the host's level-6 frontier (the
+    smoke's phase 12); the leaf shares and t bytes."""
+    from dcf_tpu_torch.backends.evalall import dpf_tree_expand_np
+    from dcf_tpu_torch.gen import random_s0s
+    from dcf_tpu_torch.ops.evalall_expand import evalall_expand
+    from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
+
+    rng = np.random.default_rng(SEED)
+    k_num, n, k0 = 4, 24, 6
+    ck = [rng.bytes(32) for _ in range(18)]
+    prg = HirosePrgNp(32, ck, warn=False)
+    kb = dpf_gen_batch(prg, rng.integers(0, 256, (k_num, n // 8),
+                                         dtype=np.uint8),
+                       rng.integers(0, 256, (k_num, 32), dtype=np.uint8),
+                       random_s0s(k_num, 32, rng)).for_party(0)
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17])).to(dev)
+    on = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        kb.cw_s, kb.cw_t, kb.cw_np1, *dpf_tree_expand_np(prg, kb, 0, k0))]
+    return (f"K={k_num} n={n} levels {k0}-{n - 1}", 5,
+            lambda: evalall_expand(aes, *on, k0=k0, k1=n))
 
 
 def _flagship(torch, dev):
@@ -145,6 +199,8 @@ def case_prefix_eval(torch, dev):
 
 CASES = {"keylanes_eval": case_keylanes_eval,
          "narrow_walk": case_narrow_walk,
+         "hybrid_prefix": case_hybrid_prefix,
+         "evalall_expand": case_evalall_expand,
          "walk_eval": case_walk_eval,
          "prefix_eval": case_prefix_eval}
 

@@ -10,12 +10,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. build every kernel (B1-B8, B2f, G1, W1, P1: eleven sources) from
    ``dcf_tpu_torch/csrc`` with nvcc, one process per source, all at once,
    and print the build seconds and ptxas' register and spill counts (on a
-   line of their own for B8, B4, B1 and B3, the kernels on the banked
-   AES);
+   line of their own for B8, B4, B1, B3, B6 and B5b, the kernels on the
+   banked AES);
 3. hold each kernel byte for byte against its plain PyTorch version on the
    card, at 2^16 points: B1-B3 (B2 from level 6 to 21) over both parties,
    all four output groups, both bounds, and B1 with 3 keys and per-key
-   points; B4 + W1 and B5a + B5b (k = 16) + W1 at lam = 256 over both
+   points; B4 + W1 and B5a + B5b (k = 16, 20) + W1 at lam = 256 over both
    parties and both bounds, and B4 + W1 with 3 keys; x = alpha and
    alpha +- 1 planted throughout;
 4. the main paths through the port's ``Dcf`` facade, one key, n = 128,
@@ -35,16 +35,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    path's shapes (2^20 points; B2 levels 6 to 21, B5a k = 20), and its
    time there beside its plain version's and its bound; W1 also beside
    ``torch._int_mm``, the library's integer product, whose parity is
-   checked against W1's output; B4, B1 and B3 also beside the AES lookups
-   their designs compute per lookup their bounds count, on the run's own
-   turns;
+   checked against W1's output; B4, B5b, B1 and B3 also beside the AES
+   lookups their designs compute per lookup their bounds count, on the
+   run's own turns;
 7. the hybrid prefix depth on the card: B5a and B5b called directly at
    k = 16..24 on the lam = 256 main inputs, each result equal to the
    from-root walk's, and B5b's time per walked level beside B4's;
 8. the full-domain kernels against their plain versions at n = 16: B6
-   (K = 3, every level from 6, the leaf correction, both parties, full
-   depth and the prefix depth 13), B2f (both bounds, both parties) and P1
-   (K = 3, 32-byte records, B6's own t bytes);
+   (K = 3, from level 6, the leaf correction, both parties: one level a
+   launch to full depth and to the prefix depth 13, and 1-3 levels a
+   launch as ``evalall_expand`` cuts them, to full depth and to 14, the
+   last launch also writing t alone, as for PIR), B2f (both bounds, both
+   parties) and P1 (K = 3, 32-byte records, B6's own t bytes);
 9. full-domain evaluation, lam = 16, n = 24 (BASELINE.json config 3), both
    bounds: ``TreeFullDomain.check`` (B2 + B2f) gives 0, and 7 for
    alpha + 7; beside it the per-point ``full_domain_check_device`` over two
@@ -52,21 +54,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 10. DPF EvalAll, lam = 32, n = 24, K = 4, keys from ``Dcf.dpf``:
     ``DpfEvalAll.check`` (B6) gives 0, a tampered alpha is counted, and
     the first 4096 leaves and the leaf at bitreverse(alpha) of
-    ``Dcf.eval_all`` (by default on the card) equal ``dpf_eval_points`` on
-    the host;
+    ``Dcf.eval_all`` (by default on the card, from the roots) equal
+    ``dpf_eval_points`` on the host;
 11. 2-server PIR through ``PirServer`` (B6 + P1), 32-byte records, at
     n = 14, 16, 18 and 24 (2^24 records, 512 MiB on the card): queries
     from ``Dcf.pir_query``, registered as DCFK frames; records 0, 2^n - 1
     and four random ones reconstruct bit-exactly from both parties'
-    answers; then queries/s with K = 4 and a fresh bundle per call, and at
-    n = 24 once more with an evaluator that keeps no level on the host;
+    answers; then queries/s with K = 4 and a fresh bundle per call, the
+    evaluator's default (no level on the host), and at n = 24 once more
+    with the top 6 levels on the host;
 12. B6, B2f and P1 against their plain versions at those paths' shapes
-    (n = 24), their times and bounds; P1 also beside ``torch._int_mm`` on
-    the database unpacked to bits, whose parity is checked against P1;
-    B6 a launch, level by level, and B1 a launch at the per-point full
-    domain's shape (n = 24, 2^20 points), each beside its bound: with B1
-    at the walk path's two shapes (phase 6), the script ends by printing
-    launches x (ms - bound) of B1 and B6 on each path;
+    (n = 24; B6 both parties), their times and bounds; P1 also beside
+    ``torch._int_mm`` on the database unpacked to bits, whose parity is
+    checked against P1;
+    each B6 launch the paths of phases 10-11 make (a level and 1-3 levels
+    deep) and B1 a launch at the per-point full domain's shape (n = 24,
+    2^20 points), each beside its bound: with B1 at the walk path's two
+    shapes (phase 6), the script ends by printing launches x (ms - bound)
+    of B1 and B6 on each path;
 13. the keygen kernels against their plain versions, K = 4096, both
     bounds: G1 (lam = 16) and B7a (lam = 256) at n = 128, B7b (lam = 32)
     at n = 24;
@@ -145,6 +150,15 @@ LOOKUPS_BLOCK = 14 * 16  # T-table lookups of one AES-256 block
 # ... of bit 0 alone (a walk's t bit): 12 full rounds, the 4 lookups of
 # round 13's column that feeds byte 0, and byte 0's S-box lookup
 LOOKUPS_T_BIT = 12 * 16 + 4 + 1
+# ... of a DPF tree's parent (kernel B6): E0(s_b0) and E17(s_b1) in full,
+# E0(~s_b0) to its t bit
+LOOKUPS_DPF_NODE = 2 * LOOKUPS_BLOCK + LOOKUPS_T_BIT
+# ... where only the leaves' t bits are read (a PIR selection): block 1
+# feeds neither a child's block 0 nor a t bit, so E17 is not needed;
+# a parent needs E0(s_b0) and E0(~s_b0)'s t bit, one on the last level the
+# two t bits alone
+LOOKUPS_DPF_T_NODE = LOOKUPS_BLOCK + LOOKUPS_T_BIT
+LOOKUPS_DPF_T_LEAF = 2 * LOOKUPS_T_BIT
 INT8_OPS_PER_S = 1.979e15  # H100 SXM published dense int8 tensor rate
 K_KEYGEN_CHECK = 4096  # keys of the keygen kernel-vs-plain checks
 K_ANCHOR = 1024  # keys held against the numpy keygen oracle
@@ -231,7 +245,8 @@ def main() -> int:
     from dcf_tpu_torch.gen import gen_batch, random_s0s
     from dcf_tpu_torch.keys import KeyBundle
     from dcf_tpu_torch.ops.evalall_expand import (
-        evalall_expand, evalall_expand_level, evalall_expand_level_plain)
+        evalall_expand, evalall_expand_level, evalall_expand_level_plain,
+        launch_depths)
     from dcf_tpu_torch.ops.hybrid_prefix import (
         hybrid_prefix_eval, hybrid_prefix_eval_plain, narrow_frontier,
         narrow_frontier_plain)
@@ -288,7 +303,8 @@ def main() -> int:
         f"{kid} {src} registers {ptxas[src][0]}, spill-store bytes "
         f"{ptxas[src][1]}" for kid, src in (
             ("B8", "keylanes_eval"), ("B4", "narrow_walk"),
-            ("B1", "walk_eval"), ("B3", "prefix_eval"))))
+            ("B1", "walk_eval"), ("B3", "prefix_eval"),
+            ("B6", "evalall_expand"), ("B5b", "hybrid_prefix"))))
 
     # -- phase 3: each kernel against its plain version --------------------------
     rng = np.random.default_rng(SEED)
@@ -439,21 +455,23 @@ def main() -> int:
             same("B4", what + " trajectory", traj, trajp)
             check_w1(what + " from B4", y, traj, yp, trajp, wide)
             fargs = (waes, t["s0"], t["cw_s"], t["cw_v"], t["cw_t"])
-            rows, words = narrow_frontier(*fargs, k=K_CHECK, b=b)
-            rowsp, wordsp = narrow_frontier_plain(*fargs, k=K_CHECK, b=b)
-            same("B5a", what + " rows", rows, rowsp)
-            same("B5a", what + " words", words, wordsp)
-            pargs = (waes, rows, words, t["cw_s"], t["cw_v"], t["cw_t"],
-                     t["cw_np1"], xs)
-            y2, traj2 = hybrid_prefix_eval(*pargs, k=K_CHECK, lam=LAM_WIDE)
-            y2p, traj2p = hybrid_prefix_eval_plain(*pargs, k=K_CHECK,
-                                                   lam=LAM_WIDE)
-            same("B5b", what + " y[:32]", y2[..., :32], y2p[..., :32])
-            same("B5b", what + " trajectory", traj2, traj2p)
-            check_w1(what + " from B5b", y2, traj2, y2p, traj2p, wide)
-            if not torch.equal(y2, y):
-                raise RuntimeError(f"{what}: the prefix path's shares differ "
-                                   "from the from-root path's")
+            for k in (K_CHECK, K_HYBRID):
+                at = f"{what} k={k}"
+                rows, words = narrow_frontier(*fargs, k=k, b=b)
+                rowsp, wordsp = narrow_frontier_plain(*fargs, k=k, b=b)
+                same("B5a", at + " rows", rows, rowsp)
+                same("B5a", at + " words", words, wordsp)
+                pargs = (waes, rows, words, t["cw_s"], t["cw_v"],
+                         t["cw_t"], t["cw_np1"], xs)
+                y2, traj2 = hybrid_prefix_eval(*pargs, k=k, lam=LAM_WIDE)
+                y2p, traj2p = hybrid_prefix_eval_plain(*pargs, k=k,
+                                                       lam=LAM_WIDE)
+                same("B5b", at + " y[:32]", y2[..., :32], y2p[..., :32])
+                same("B5b", at + " trajectory", traj2, traj2p)
+                check_w1(at + " from B5b", y2, traj2, y2p, traj2p, wide)
+                if not torch.equal(y2, y):
+                    raise RuntimeError(f"{at}: the prefix path's shares "
+                                       "differ from the from-root path's")
     alphas, bundle = wide_keys(3, Bound.GT_BETA)
     xs = torch.from_numpy(planted_points(alphas[0], M_CHECK)[None]).to(dev)
     for b in (0, 1):
@@ -468,7 +486,8 @@ def main() -> int:
         check_w1(f"K=3 party {b}", y, traj, yp, trajp, wide_of(kb))
     log(f"phase 3 B4, W1, B5a, B5b: byte-identical to their plain versions "
         f"at lam={LAM_WIDE}, {M_CHECK} points, 2 bounds x 2 parties (B5a/B5b "
-        f"at k={K_CHECK}, prefix shares equal to from-root shares), and B4 + "
+        f"at k={K_CHECK} and {K_HYBRID}, prefix shares equal to from-root "
+        f"shares), and B4 + "
         f"W1 with K=3 ({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 4: the main paths through the facade --------------------------------
@@ -695,12 +714,16 @@ def main() -> int:
     same("B4", "main shape trajectory", traj, trajp)
     b4_lookups = walk_lookups(xs, 0, n, *narrow_turns)
     b4_bytes = M_MAIN * (N_BYTES + 32 + 4 * nt) + n * 66 + 64 + 736
-    # What B4's design computes: three full blocks a lane and level in a
-    # warp (32 consecutive points) where some lane turns right, two where
-    # none does.
+    # What B4's and B5b's design computes: three full blocks a lane and
+    # level in a warp (32 consecutive points) where some lane turns right,
+    # two where none does.
     warp_right = walk_bits_plain(xs)[0].view(M_MAIN // 32, 32, n).any(1)
-    b4_computed = 32 * (2 * warp_right.numel()
-                        + int(warp_right.sum())) * LOOKUPS_BLOCK
+
+    def narrow_computed(lo: int) -> int:
+        right = warp_right[:, lo:]
+        return 32 * (2 * right.numel() + int(right.sum())) * LOOKUPS_BLOCK
+
+    b4_computed = narrow_computed(0)
 
     wide = wide_of(kb)
     wd = LAM_WIDE - 32
@@ -759,6 +782,7 @@ def main() -> int:
     same("B5b", "main shape trajectory", traj2, traj2p)
     used = int(torch.unique(frontier_index_plain(xs[0], K_HYBRID)).numel())
     b5b_lookups = walk_lookups(xs, K_HYBRID, n, *narrow_turns)
+    b5b_computed = narrow_computed(K_HYBRID)
     b5b_bytes = M_MAIN * (N_BYTES + 32 + 4 * nt) + used * 68 \
         + (n - K_HYBRID) * 66 + 32 + 736
     log(f"phase 6: B4, W1, B5a, B5b byte-identical to their plain versions "
@@ -808,6 +832,7 @@ def main() -> int:
              w1_plain, 0, w1_bytes, w1_lib)):
         add_row("phase 6", *row)
     for kid, computed, needed in (("B4", b4_computed, b4_lookups),
+                                  ("B5b", b5b_computed, b5b_lookups),
                                   ("B1", b1_computed, b1_lookups),
                                   ("B3", b3_computed, b3_lookups)):
         row = next(r for r in rows_out if r["name"].startswith(f"{kid} "))
@@ -863,18 +888,33 @@ def main() -> int:
     dcw = to_dev(dbundle.cw_s, dbundle.cw_t, dbundle.cw_np1)
     t_leaves = {}
     for b in (0, 1):
-        for depth in (N_CHECK, 13):
+        # One level a launch to full depth and to the prefix depth 13, and
+        # the launches evalall_expand makes to depths 16 and 14 (depths 1,
+        # 3, 3, 3 and 2, 3, 3).
+        for depth, steps in (
+                (N_CHECK, [(i, 1) for i in range(HOST_LEVELS, N_CHECK)]),
+                (13, [(i, 1) for i in range(HOST_LEVELS, 13)]),
+                (N_CHECK, launch_depths(HOST_LEVELS, N_CHECK)),
+                (14, launch_depths(HOST_LEVELS, 14))):
             st = to_dev(*dpf_tree_expand_np(dprg, dbundle.for_party(b), b,
                                             HOST_LEVELS))
-            for i in range(HOST_LEVELS, depth):
-                np1 = dcw[2] if i == depth - 1 else None
+            for i, d in steps:
+                np1 = dcw[2] if i + d == depth else None
                 got = evalall_expand_level(daes, dcw[0], dcw[1], *st,
-                                           level=i, cw_np1=np1)
-                want = evalall_expand_level_plain(daes, dcw[0], dcw[1], *st,
-                                                  level=i, cw_np1=np1)
-                what = f"n={N_CHECK} K=3 party {b} depth {depth} level {i}"
+                                           level=i, depth=d, cw_np1=np1)
+                want = evalall_expand_level_plain(
+                    daes, dcw[0], dcw[1], *st, level=i, depth=d, cw_np1=np1)
+                what = (f"n={N_CHECK} K=3 party {b} depth {depth} levels "
+                        f"{i}..{i + d - 1}")
                 same("B6", what + " s", got[0], want[0])
                 same("B6", what + " t", got[1], want[1])
+                if np1 is not None:  # the PIR selection: t alone
+                    no_y = evalall_expand_level(
+                        daes, dcw[0], dcw[1], *st, level=i, depth=d,
+                        cw_np1=np1, want_y=False)
+                    if no_y[0] is not None:
+                        raise RuntimeError("B6: want_y=False returned y")
+                    same("B6", what + " t without y", no_y[1], want[1])
                 st = got
             if depth == N_CHECK:
                 t_leaves[b] = st[1]
@@ -902,8 +942,10 @@ def main() -> int:
     del db_chk, t_leaves, st, got, want
     log(f"phase 8 B6, B2f, P1: byte-identical to their plain versions at "
         f"n={N_CHECK} (B6 K=3, levels {HOST_LEVELS}.. with the leaf "
-        f"correction, depths {N_CHECK} and 13, 2 parties; B2f 2 bounds x 2 "
-        f"parties; P1 K=3, {RECORD_BYTES}-byte records, B6's t bytes) "
+        f"correction, one level a launch to depths {N_CHECK} and 13 and "
+        f"1-3 levels a launch to depths {N_CHECK} and 14, the last also "
+        f"without y, 2 parties; B2f 2 bounds x 2 parties; P1 K=3, "
+        f"{RECORD_BYTES}-byte records, B6's t bytes) "
         f"({time.perf_counter() - t0:.1f} s)")
 
     def reset_counts() -> None:
@@ -996,13 +1038,15 @@ def main() -> int:
     evaluator = DpfEvalAll(32, pck, host_levels=HOST_LEVELS)
     reset_counts()
     clean = evaluator.check(dbundle, alphas, betas, N_FULL)
-    ran_check = take_counts(f"DpfEvalAll.check n={N_FULL} K={K_DPF}",
-                            {"B6": 2 * (N_FULL - HOST_LEVELS)})
-    # Which B6 levels each path launches (parties, first, end): their
-    # per-launch times come from phase 12.
+    ran_check = take_counts(
+        f"DpfEvalAll.check n={N_FULL} K={K_DPF}",
+        {"B6": 2 * len(launch_depths(HOST_LEVELS, N_FULL))})
+    # Which B6 levels each path expands (parties, first, end, whether its
+    # last launch writes y), in the launches of launch_depths: their times
+    # come from phase 12.
     b6_spans = {f"DpfEvalAll.check n={N_FULL} K={K_DPF}":
-                (2, HOST_LEVELS, N_FULL),
-                f"Dcf.eval_all n={N_FULL} K={K_DPF}": (1, HOST_LEVELS, N_FULL)}
+                (2, HOST_LEVELS, N_FULL, True),
+                f"Dcf.eval_all n={N_FULL} K={K_DPF}": (1, 0, N_FULL, True)}
     moved = list(alphas)
     moved[1] ^= 1
     tampered = evaluator.check(dbundle, moved, betas, N_FULL)
@@ -1018,11 +1062,12 @@ def main() -> int:
                         for sh in range(N_FULL - 8, -8, -8)],
                        axis=1).astype(np.uint8)
     for b in (0, 1):
-        # The facade's default: kernel B6 on its device, the card.
+        # The facade's default: kernel B6 on its device, the card, from
+        # the roots.
         reset_counts()
         y_all, t_all = pdcf.eval_all(b, dbundle)
         ran_all = take_counts(f"Dcf.eval_all n={N_FULL} K={K_DPF}",
-                              {"B6": N_FULL - HOST_LEVELS})
+                              {"B6": len(launch_depths(0, N_FULL))})
         if y_all.shape != (K_DPF, 1 << N_FULL, 32) \
                 or t_all.shape != (K_DPF, 1 << N_FULL):
             raise RuntimeError(f"eval_all: shapes {y_all.shape}, "
@@ -1059,9 +1104,10 @@ def main() -> int:
         def snapshot(self, key_id: str):
             return self.keys[key_id]
 
-    # The last leg repeats the top domain with no host levels: the whole
-    # tree on the card, to show what the host's numpy levels cost.
-    evaluator0 = DpfEvalAll(32, pck, host_levels=0)
+    # Every leg runs the evaluator's default, the whole tree on the card;
+    # the top domain again with HOST_LEVELS levels on the host, to show
+    # what the host's numpy levels cost.
+    evaluator0 = DpfEvalAll(32, pck)
     pir_inputs = None
     for n_db in PIR_BITS:
         t0 = time.perf_counter()
@@ -1070,7 +1116,8 @@ def main() -> int:
         db = PirDatabase(records, n_db)
         client = Dcf((n_db + 7) // 8, 32, pck)
         setup_s = time.perf_counter() - t0
-        for ev in (evaluator, evaluator0) if n_db == N_FULL else (evaluator,):
+        for ev in (evaluator0, evaluator) if n_db == N_FULL \
+                else (evaluator0,):
             registry = Registry()
             server = PirServer(ev, db, registry)
             gate = [0, (1 << n_db) - 1] + [
@@ -1082,11 +1129,12 @@ def main() -> int:
             reset_counts()
             got = pir_reconstruct(server.answer("gate", 0),
                                   server.answer("gate", 1))
+            k0 = min(ev.host_levels, n_db - 1)
             ran = take_counts(
                 f"PIR n={n_db} host_levels={ev.host_levels}",
-                {"B6": 2 * (n_db - min(ev.host_levels, n_db - 1)), "P1": 2})
+                {"B6": 2 * len(launch_depths(k0, n_db)), "P1": 2})
             b6_spans[f"PIR n={n_db} host_levels={ev.host_levels}"] = (
-                2, min(ev.host_levels, n_db - 1), n_db)
+                2, k0, n_db, False)
             for j, i in enumerate(gate):
                 if got[j].tobytes() != records[i].tobytes():
                     raise RuntimeError(
@@ -1144,8 +1192,7 @@ def main() -> int:
     b6_ms, (y6, t6) = cuda_ms(lambda: evalall_expand(
         evaluator.aes, *cw3, *front, k0=HOST_LEVELS, k1=N_FULL), 5)
 
-    def b6_plain_fn():
-        st = front
+    def b6_plain_fn(st=front):
         for i in range(HOST_LEVELS, N_FULL):
             st = evalall_expand_level_plain(
                 evaluator.aes, cw3[0], cw3[1], *st, level=i,
@@ -1153,53 +1200,94 @@ def main() -> int:
         return st
 
     b6_plain, (y6p, t6p) = cuda_ms(b6_plain_fn, 1)
-    same("B6", f"main shape K={K_DPF} n={N_FULL} y", y6, y6p)
-    same("B6", f"main shape K={K_DPF} n={N_FULL} t", t6, t6p)
+    same("B6", f"main shape K={K_DPF} n={N_FULL} party 0 y", y6, y6p)
+    same("B6", f"main shape K={K_DPF} n={N_FULL} party 0 t", t6, t6p)
     del y6, y6p, t6p
     torch.cuda.empty_cache()
-    # Three AES blocks a parent (E0(s_b0), E0(~s_b0), E17(s_b1)); the
-    # function's bytes are the level-k0 nodes read and the leaves written
-    # (33 bytes a node), the CWs and the cipher image.  This design also
-    # writes and reads back every level between them (b6_level_bytes).
+    front1 = evaluator._frontier(query.for_party(1), 1, HOST_LEVELS)
+    got = evalall_expand(evaluator.aes, *cw3, *front1, k0=HOST_LEVELS,
+                         k1=N_FULL)
+    want = b6_plain_fn(front1)
+    for name, g_, w_ in zip("yt", got, want):
+        same("B6", f"main shape K={K_DPF} n={N_FULL} party 1 {name}", g_,
+             w_)
+    del front1, got, want, g_, w_
+    torch.cuda.empty_cache()
+    # A parent needs E0(s_b0) and E17(s_b1) in full and E0(~s_b0) to its t
+    # bit (LOOKUPS_DPF_NODE); the function's bytes are the level-k0 nodes
+    # read and the leaves written (33 bytes a node), the CWs and the cipher
+    # image.  This design also writes and reads back the nodes between its
+    # launches (launch_depths: up to 3 levels a launch kept in registers),
+    # b6_launch_bytes in all.
     b6_parents = K_DPF * ((1 << N_FULL) - (1 << HOST_LEVELS))
-    b6_lookups = b6_parents * 3 * LOOKUPS_BLOCK
+    b6_lookups = b6_parents * LOOKUPS_DPF_NODE
     b6_bytes = K_DPF * ((1 << HOST_LEVELS) + (1 << N_FULL)) * 33 \
         + K_DPF * (N_FULL * 34 + 32) + 736
-    b6_level_bytes = 3 * b6_parents * 33
+    b6_launch_bytes = sum(
+        K_DPF * ((1 << lvl) + (1 << (lvl + d))) * 33
+        for lvl, d in launch_depths(HOST_LEVELS, N_FULL))
     add_row("phase 12", "B6", "evalall_expand",
             "dcf_tpu/ops/pallas_evalall.py:75", b6_ms, b6_plain, b6_lookups,
             b6_bytes)
-    log(f"phase 12 B6: its per-level traffic in this design is "
-        f"{b6_level_bytes} bytes "
-        f"({b6_level_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
-        f"{HBM_BYTES_PER_S:.3e} B/s)")
-    # B6 a launch: each level of this expansion from the root, timed alone
-    # beside its bound.  Every path's B6 launches are levels of such a tree
-    # (K = 4 keys): level i has K * 2^i parents whatever the depth.  Two
-    # untimed calls first, so that the allocator holds the outputs' memory.
+    log(f"phase 12 B6: its launches {launch_depths(HOST_LEVELS, N_FULL)} "
+        f"(level, depth) read and write {b6_launch_bytes} bytes of nodes in "
+        f"this design ({b6_launch_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+        f"{HBM_BYTES_PER_S:.3e} B/s; one level a launch: "
+        f"{3 * b6_parents * 33} bytes)")
+    # B6 a launch: each launch the paths make (a level L and a depth d,
+    # launch_depths; a PIR path's last one writes t alone, and its bound
+    # counts LOOKUPS_DPF_T_NODE / _LEAF), timed alone from the level-L
+    # nodes of this expansion from the roots, beside its bound.  Every path's B6 launches are launches of such a tree (K = 4
+    # keys): the launch (L, d) has K * 2^L parents whatever the depth of
+    # the tree.  The leaf correction (8 XORs a node) is applied where
+    # L + d = n or y is left out.  Two untimed calls first, so that the
+    # allocator holds the outputs' memory.
+    def path_launches(lo: int, hi: int, writes_y: bool):
+        ld = launch_depths(lo, hi)
+        return [(lvl, d, writes_y or j < len(ld) - 1)
+                for j, (lvl, d) in enumerate(ld)]
+
+    wanted = sorted({x for _, lo, hi, y_ in b6_spans.values()
+                     for x in path_launches(lo, hi, y_)})
     st = evaluator._frontier(kb, 0, 0)
-    b6_by_level = []
+    b6_by_launch = {}
     for i in range(N_FULL):
-        np1 = cw3[2] if i == N_FULL - 1 else None
+        for lvl, d, y_ in (x for x in wanted if x[0] == i):
+            np1 = cw3[2] if lvl + d == N_FULL or not y_ else None
 
-        def level_i(st=st, i=i, np1=np1):
-            return evalall_expand_level(evaluator.aes, cw3[0], cw3[1], *st,
-                                        level=i, cw_np1=np1)
+            def launch(st=st, lvl=lvl, d=d, np1=np1, y_=y_):
+                return evalall_expand_level(evaluator.aes, cw3[0], cw3[1],
+                                            *st, level=lvl, depth=d,
+                                            cw_np1=np1, want_y=y_)
 
-        level_i(), level_i()
-        ms_i, nxt = cuda_ms(level_i, 5)
-        par = K_DPF << i
-        b6_by_level.append((ms_i, bound(par * 3 * LOOKUPS_BLOCK,
-                                        3 * par * 33 + K_DPF * 34 + 736)[0]))
-        st = nxt
-    del st, nxt, level_i
+            launch(), launch()
+            ms_i, _ = cuda_ms(launch, 5)
+            par = K_DPF << lvl
+            on_last = par << (d - 1)  # parents on the launch's last level
+            lookups = par * ((1 << d) - 1) * LOOKUPS_DPF_NODE if y_ else \
+                (par * ((1 << (d - 1)) - 1) * LOOKUPS_DPF_T_NODE
+                 + on_last * LOOKUPS_DPF_T_LEAF)
+            b6_by_launch[(lvl, d, y_)] = (ms_i, bound(
+                lookups, par * 33 + (par << d) * (33 if y_ else 1)
+                + K_DPF * d * 34 + 736)[0])
+            del launch, _
+        st = evalall_expand_level(evaluator.aes, cw3[0], cw3[1], *st,
+                                  level=i)
+    del st
     torch.cuda.empty_cache()
     b6_row = next(r for r in rows_out if r["name"].startswith("B6 "))
-    b6_row["ms_by_level"] = [m_ for m_, _ in b6_by_level]
-    b6_row["bound_ms_by_level"] = [b_ for _, b_ in b6_by_level]
-    log("phase 12 B6 a launch, by level i (K=4 x 2^i parents; ms, bound "
-        "ms): " + ", ".join(f"{i}: {m_:.4f}, {b_:.4f}" for i, (m_, b_) in
-                            enumerate(b6_by_level)) + f" [{card}]")
+
+    def launch_name(lvl: int, d: int, y_: bool) -> str:
+        return f"{lvl}+{d}" + ("" if y_ else " t only")
+
+    b6_row["ms_by_launch"] = {launch_name(*x): m_ for x, (m_, _) in
+                              b6_by_launch.items()}
+    b6_row["bound_ms_by_launch"] = {launch_name(*x): b_ for x, (_, b_) in
+                                    b6_by_launch.items()}
+    log("phase 12 B6 a launch, by level L and depth d (K=4 x 2^L parents; "
+        "ms, bound ms): " + ", ".join(
+            f"{launch_name(*x)}: {m_:.4f}, {b_:.4f}"
+            for x, (m_, b_) in b6_by_launch.items()) + f" [{card}]")
 
     p1_ms, a1 = cuda_ms(lambda: pir_answer(t6, db.rows), 10)
     p1_plain, a1p = cuda_ms(lambda: pir_answer_plain(t6, db.rows), 1)
@@ -1638,9 +1726,10 @@ def main() -> int:
         f"full domain walk n={N_FULL}": 32 * (b1c_ms - b1c_bound)}
     b1_row["ms_anchor_1024"], b1_row["bound_ms_anchor_1024"] = \
         b1a_ms, b1a_bound
-    gap6 = [m_ - b_ for m_, b_ in b6_by_level]
     b6_row["loss_ms_by_path"] = {
-        path: k * sum(gap6[lo:hi]) for path, (k, lo, hi) in b6_spans.items()}
+        path: k * sum(b6_by_launch[x][0] - b6_by_launch[x][1]
+                      for x in path_launches(lo, hi, y_))
+        for path, (k, lo, hi, y_) in b6_spans.items()}
     log(f"launches x (ms - bound) by path [{card}]: B1 "
         + json.dumps(b1_row["loss_ms_by_path"]) + f" (the walk path's "
         f"anchors, 1024 points: {b1a_ms:.4f} ms, bound {b1a_bound:.4f}); B6 "

@@ -2,10 +2,10 @@
 
 Counterpart of ``dcf_tpu/backends/evalall.py``.  ``backends.fulldomain``
 expands the lam = 16 DCF tree; this is its DPF twin at the two-block
-width: the host numpy walk (``dpf_tree_expand_np``) expands the small top
-(levels 0..k0, 2^k0 nodes, K keys at once), the frontier ships to the
-card, and kernel B6 (``ops.evalall_expand``) doubles the node arrays
-level by level, applying the leaf correction on the last one.  PRG work
+width: kernel B6 (``ops.evalall_expand``) doubles the node arrays level
+by level from the roots (or from a frontier the host numpy walk,
+``dpf_tree_expand_np``, expanded to level k0), applying the leaf
+correction on the last one.  PRG work
 drops from n * 2^n per-point walks to about 2^(n+1) level-order calls per
 key, which is what makes 2-server PIR economic: every query touches the
 whole database, so the cost per leaf is the cost of a query
@@ -91,21 +91,26 @@ def leaves_to_bytes(y: torch.Tensor, t: torch.Tensor):
 class DpfEvalAll(StagedFrontierCache):
     """Full-domain K-packed DPF evaluator and verifier (lam = 32).
 
-    The DPF twin of ``fulldomain.TreeFullDomain``: host-expand the top
-    ``host_levels`` of each key's tree, run kernel B6 for the rest,
-    finalize in its last launch.  ``eval_party`` returns the leaf shares
-    and the leaf t bytes, the PIR selection-vector share.  Repeated calls
-    on the same bundle object reuse the shipped CW image and frontiers
-    (``StagedFrontierCache``; the PIR server's resident key).
+    The DPF twin of ``fulldomain.TreeFullDomain``: kernel B6 expands each
+    key's tree level by level, finalizing in its last launch; the top
+    ``host_levels`` levels may instead be expanded on the host.
+    ``eval_party`` returns the leaf shares and the leaf t bytes, the PIR
+    selection-vector share.  Repeated calls on the same bundle object
+    reuse the shipped CW image and frontiers (``StagedFrontierCache``; the
+    PIR server's resident key).
 
-    ``host_levels`` is capped at depth - 1, so the last level always runs
-    on the device.  The JAX package wants at least 5 host levels, one
-    32-node lane word of its plane layout; the byte-row layout here has
-    no such floor, and any host_levels >= 0 is taken.
+    ``host_levels`` defaults to 0: the whole tree runs on the device, from
+    the roots, and a fresh key costs no host PRG call (the numpy walk of
+    the top levels took most of a 2^24-record PIR batch on an H100,
+    PERF.md).  The leaves are the same bytes at any depth.  It is capped
+    at depth - 1, so the last level always runs on the device.  The JAX
+    package wants at least 5 host levels, one 32-node lane word of its
+    plane layout; the byte-row layout here has no such floor, and any
+    host_levels >= 0 is taken.
     """
 
     def __init__(self, lam: int, cipher_keys: Sequence[bytes],
-                 host_levels: int = 6, device=None):
+                 host_levels: int = 0, device=None):
         if lam != DPF_DEVICE_LAM:
             raise ValueError(
                 f"DpfEvalAll supports lam={DPF_DEVICE_LAM} only, got {lam}")
@@ -134,12 +139,13 @@ class DpfEvalAll(StagedFrontierCache):
                      for a in dpf_tree_expand_np(self._prg, bundle, b, k0))
 
     def eval_party(self, b: int, bundle: DpfBundle, n_bits: int,
-                   staged_cw=None, frontier=None):
+                   staged_cw=None, frontier=None, want_y: bool = True):
         """Party ``b``'s full-domain leaves as device tensors ``(y uint8
         [K, 2^n_bits, 32], t uint8 [K, 2^n_bits])``, bitreverse_n order.
         ``bundle`` must be party-restricted (``for_party(b)``).
         ``staged_cw`` / ``frontier`` reuse earlier ``_stage_cw`` /
-        ``_frontier`` results.
+        ``_frontier`` results.  ``want_y=False`` returns ``(None, t)``
+        and writes no leaf share (the PIR server's selection).
 
         ``n_bits < bundle.n_bits`` is a prefix evaluation: the walk stops
         at depth ``n_bits``, where the t bytes are the one-hot share of
@@ -162,7 +168,7 @@ class DpfEvalAll(StagedFrontierCache):
         s, t = (frontier if frontier is not None
                 else self._frontier(bundle, b, k0))
         return evalall_expand(self.aes, cw_s, cw_t, cw_np1, s, t, k0=k0,
-                              k1=n_bits)
+                              k1=n_bits, want_y=want_y)
 
     def check_device(self, bundle: DpfBundle, alphas, betas: np.ndarray,
                      n_bits: int) -> torch.Tensor:

@@ -1,8 +1,9 @@
 // A bank-conflict-free T-table AES-256 for Hopper, and the per-lane bodies
 // that run on it: kernel B8's (keylanes_eval.cu), and the walk of kernels
 // B1 and B3 (walk_eval.cu, prefix_eval.cu), two points a lane.  The
-// three-slot narrow level of kernel B4 (narrow_walk.cu) runs on it too
-// (narrow_walk.cuh).
+// three-slot narrow level of kernels B4 and B5b (narrow_walk.cu,
+// hybrid_prefix.cu) and the DPF node of kernel B6 (evalall_expand.cu) run
+// on it too (narrow_walk.cuh).
 //
 // Why: the T-tables of dcf_walk.cuh are uint32_t te[4][256] in shared
 // memory, so entry x sits in bank x mod 32.  Each round does 16 lookups

@@ -1,25 +1,52 @@
-// Kernel B6: one breadth-first level of the DPF tree at lam = 32, K keys.
+// Kernel B6: breadth-first levels of the DPF tree at lam = 32, K keys.
 //
 // Replaces dcf_tpu/ops/pallas_evalall.py::_expand_level (its
 // _expand_kernel) and, on the last level, the leaf finalize of
 // dpf_tree_expand_device.  The TPU kernel expands tiles of parent nodes
 // packed 32 per int32 lane word in bit-major planes and computes all four
 // encryptions of the narrow Hirose step.  Here one thread owns one parent
-// node of one key as eight uint32 words and runs the three T-table AES
-// blocks a DPF needs in lockstep (narrow_walk.cuh::dpf_node).
+// node of one key as eight uint32 words (narrow_walk.cuh::dpf_subtree).
 //
 // Layout: parents s [K, N, 32], t [K, N]; children s [K, 2N, 32],
 // t [K, 2N], per key the lefts in [0, N) and the rights in [N, 2N), so the
 // leaves of a multi-level expansion come out in bitreverse order, as from
-// kernel B2.  The FINAL instantiation writes the leaf shares
+// kernel B2 (a launch of D levels leaves [K, 2^D N] in that order).  The FINAL instantiation writes the leaf shares
 // y = s ^ t * cw_np1 instead of the children's seeds, which saves writing
 // and reading back 2N x 32 bytes per key.
 //
-// Bound on the H100: operations, the shared-memory table lookups (3 blocks
-// x 14 rounds x 16 per parent) ahead of the bytes (33 in, 66 out per
-// parent).  Design: as B2; the level's per-key correction word is read once
-// per block into shared memory (grid: parent blocks x keys), and offsets
-// are 64-bit (K * 2N * 32 reaches 2^31 at n = 24, K = 4).
+// Bound on the H100: operations, the shared-memory table lookups a parent
+// needs: E0(s_b0) and E17(s_b1) in full and E0(~s_b0) to its t bit (224 +
+// 224 + 197), ahead of the bytes (33 in, 66 out per parent).  The first
+// design (three full blocks on the four 1 KB T-tables of dcf_walk.cuh, a
+// 256-thread block per 256 parents) reached 35% of that bound (NVIDIA H100
+// 80GB HBM3, 700 W power limit, chip_smoke.py): the tables put about 3.3
+// lanes' lookups into one bank.  This design:
+//
+//   - the banked AES of aes_banked.cuh (one wavefront a warp's lookups),
+//     the parent's two full blocks and the t bit in lockstep
+//     (dpf_node_banked); a full-domain level turns every lane the same
+//     way, so every lane of every warp does the same work and no vote is
+//     needed;
+//   - a persistent grid: 512-thread blocks (one an SM at up to 128
+//     registers, two at up to 64) fill the 64 KB table and both ciphers'
+//     round keys once, then stride over the launch's K x N parents; a
+//     thread keeps its key's correction words (and leaf correction) in
+//     registers and reloads them only when the key changes;
+//   - up to three levels a launch (dpf_subtree<D>): a thread expands its
+//     parent D levels deep in registers and writes the 2^D nodes of the
+//     last straight to their rows, so the levels between are neither
+//     written nor read back.  One level a launch wrote and read back
+//     every level: 6.6 GB at n = 24, K = 4 from level 6, against 2.8 GB
+//     at three (chip_smoke.py, phase 12).  The ops wrapper cuts a tree
+//     into such launches, the deepest last (launch_depths);
+//   - the last launch may store the leaves' t bytes alone (Y false, a PIR
+//     selection).  Nothing then reads block 1 of a node inside the
+//     launch, and the compiler drops cipher 17: a parent costs E0(s_b0)
+//     and the t bit of E0(~s_b0), and one on the last level the two t
+//     bits (at n = 24, K = 4, the last launch 3.3 ms against 5.4 with y,
+//     NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py).
+//
+// Offsets are 64-bit (K * 2N * 32 reaches 2^31 at n = 24, K = 4).
 
 #include <cuda_runtime.h>
 
@@ -27,8 +54,16 @@
 
 namespace {
 
-template <bool FINAL>
-__global__ void __launch_bounds__(dcf::kThreads)
+constexpr int kBlock = 512;
+// Shared layout: the banked table, then cipher 0's and cipher 17's round
+// keys (16 rows each; every lane reads the same row, a broadcast).
+constexpr size_t kSmem =
+    sizeof(uint32_t) * dcf::kBankedWords + sizeof(dcf::RoundKey) * 32;
+
+// D levels a launch (D = 1: one level), FINAL: the last one of the tree,
+// Y: s_out is written (else only t_out, on a FINAL launch).
+template <int D, bool FINAL, bool Y>
+__global__ void __launch_bounds__(kBlock, 1)
     evalall_expand_kernel(const uint8_t* __restrict__ sbox,
                           const uint8_t* __restrict__ rk0,
                           const uint8_t* __restrict__ rk17,
@@ -38,50 +73,131 @@ __global__ void __launch_bounds__(dcf::kThreads)
                           const uint8_t* __restrict__ s_in,
                           const uint8_t* __restrict__ t_in,
                           uint8_t* __restrict__ s_out,
-                          uint8_t* __restrict__ t_out, int n_par, int n,
-                          int level) {
-  __shared__ dcf::NarrowTables tab;
-  __shared__ dcf::DpfCw cw;
-  __shared__ uint32_t np1[8];
-
-  const size_t key = blockIdx.y;
-  dcf::fill_narrow_tables(tab, sbox, rk0, rk17);
-  if (threadIdx.x == 0)
-    dcf::dpf_cw_entry(cw, cw_s + (key * n + level) * 32,
-                      cw_t + (key * n + level) * 2);
-  if (FINAL && threadIdx.x < 8)
-    np1[threadIdx.x] = dcf::le32(cw_np1 + key * 32 + 4 * threadIdx.x);
+                          uint8_t* __restrict__ t_out, long long n_par,
+                          int n, int level, long long total) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  uint32_t* te = reinterpret_cast<uint32_t*>(dyn_smem);
+  dcf::RoundKey* rks0 =
+      reinterpret_cast<dcf::RoundKey*>(te + dcf::kBankedWords);
+  dcf::RoundKey* rks17 = rks0 + 16;
+  dcf::fill_banked_table(te, sbox);
+  dcf::fill_round_keys(rks0, rk0);
+  dcf::fill_round_keys(rks17, rk17);
   __syncthreads();
 
-  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= (size_t)n_par) return;
-  const size_t in = key * n_par + j;
-  const uint4* si = reinterpret_cast<const uint4*>(s_in) + 2 * in;
-  const uint4 lo = si[0], hi = si[1];
-  const uint32_t s[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-  uint32_t sl[8], sr[8], tl, tr;
-  dcf::dpf_node(tab, cw, s, t_in[in] & 1u, sl, tl, sr, tr);
-  if (FINAL) {
-    dcf::dpf_leaf(sl, tl, np1);
-    dcf::dpf_leaf(sr, tr, np1);
+  const dcf::BkLane lane = dcf::bk_lane(te, threadIdx.x & 31);
+  const long long stride = (long long)gridDim.x * kBlock;
+  long long g = (long long)blockIdx.x * kBlock + threadIdx.x;
+  long long key = g / n_par, j = g - key * n_par, cur = -1;
+  dcf::DpfCw w[D];
+  uint32_t np1[8];
+  for (; g < total; g += stride, j += stride) {
+    if (j >= n_par) {  // past the key's last parent
+      key += j / n_par;
+      j %= n_par;
+    }
+    if (key != cur) {
+      cur = key;
+      for (int l = 0; l < D; ++l) {
+        const size_t row = (size_t)key * n + level + l;
+        dcf::dpf_cw_entry(w[l], cw_s + row * 32, cw_t + row * 2);
+      }
+      if (FINAL)
+        for (int q = 0; q < 8; ++q)
+          np1[q] = dcf::le32(cw_np1 + key * 32 + 4 * q);
+    }
+    const uint4* si = reinterpret_cast<const uint4*>(s_in) + 2 * g;
+    const uint4 lo = si[0], hi = si[1];
+    const uint32_t s[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const size_t out = (size_t)key * ((size_t)n_par << D);
+    dcf::dpf_subtree<D, Y>(lane, rks0, rks17, w, FINAL ? np1 : nullptr, s,
+                           t_in[g] & 1u, Y ? s_out + out * 32 : nullptr,
+                           t_out + out, (size_t)j, (size_t)n_par);
   }
-  const size_t left = key * 2 * n_par + j;
-  const size_t right = left + n_par;
-  uint4* so = reinterpret_cast<uint4*>(s_out);
-  so[2 * left] = make_uint4(sl[0], sl[1], sl[2], sl[3]);
-  so[2 * left + 1] = make_uint4(sl[4], sl[5], sl[6], sl[7]);
-  so[2 * right] = make_uint4(sr[0], sr[1], sr[2], sr[3]);
-  so[2 * right + 1] = make_uint4(sr[4], sr[5], sr[6], sr[7]);
-  t_out[left] = (uint8_t)tl;
-  t_out[right] = (uint8_t)tr;
+}
+
+template <int D, bool FINAL, bool Y>
+cudaError_t launch(const uint8_t* sbox, const uint8_t* rk0,
+                   const uint8_t* rk17, const uint8_t* cw_s,
+                   const uint8_t* cw_t, const uint8_t* cw_np1,
+                   const uint8_t* s_in, const uint8_t* t_in, uint8_t* s_out,
+                   uint8_t* t_out, int k_num, int n_par, int n, int level,
+                   cudaStream_t stream) {
+  if (k_num < 1 || n_par < 1) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      evalall_expand_kernel<D, FINAL, Y>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, evalall_expand_kernel<D, FINAL, Y>, kBlock, kSmem);
+  if (e != cudaSuccess) return e;
+  const long long total = (long long)k_num * n_par;
+  const long long need = (total + kBlock - 1) / kBlock;
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  evalall_expand_kernel<D, FINAL, Y>
+      <<<(unsigned)(need < most ? need : most), kBlock, kSmem, stream>>>(
+          sbox, rk0, rk17, cw_s, cw_t, cw_np1, s_in, t_in, s_out, t_out,
+          n_par, n, level, total);
+  return cudaGetLastError();
+}
+
+// The instantiation for a launch: one level a launch and the levels
+// between in registers; the last level's leaf shares, or its t alone.
+template <int D>
+cudaError_t launch_depth(bool final, bool y, const uint8_t* sbox,
+                         const uint8_t* rk0, const uint8_t* rk17,
+                         const uint8_t* cw_s, const uint8_t* cw_t,
+                         const uint8_t* cw_np1, const uint8_t* s_in,
+                         const uint8_t* t_in, uint8_t* s_out, uint8_t* t_out,
+                         int k_num, int n_par, int n, int level,
+                         cudaStream_t stream) {
+#define DCF_ARGS                                                             \
+  sbox, rk0, rk17, cw_s, cw_t, cw_np1, s_in, t_in, s_out, t_out, k_num,      \
+      n_par, n, level, stream
+  if (!final) return launch<D, false, true>(DCF_ARGS);
+  if (y) return launch<D, true, true>(DCF_ARGS);
+  return launch<D, true, false>(DCF_ARGS);
+#undef DCF_ARGS
 }
 
 }  // namespace
 
-// C entry point, bound through ctypes.  cw_s [K, n, 32] and cw_t [K, n, 2]
-// are the keys' whole correction-word arrays, `level` the level to expand;
-// final != 0 writes leaf shares (cw_np1 [K, 32] applied) into s_out.
-// Returns the cudaError_t of the launch (0 on success).
+// C entry points, bound through ctypes.  cw_s [K, n, 32] and cw_t
+// [K, n, 2] are the keys' whole correction-word arrays; final != 0 writes
+// leaf shares (cw_np1 [K, 32] applied) into s_out, or, with s_out null,
+// only the leaves' t bytes (a PIR selection share).  Levels level ..
+// level+depth-1 (depth 1-3) in one launch: s_out [K, 2^depth N, 32],
+// t_out [K, 2^depth N] as depth launches of one level would leave them.
+// Each returns the cudaError_t of the launch (0 on success).
+extern "C" int dcf_evalall_expand_levels(const void* sbox, const void* rk0,
+                                         const void* rk17, const void* cw_s,
+                                         const void* cw_t, const void* cw_np1,
+                                         const void* s_in, const void* t_in,
+                                         void* s_out, void* t_out, int k_num,
+                                         int n_par, int n, int level,
+                                         int depth, int final, void* stream) {
+  const bool y = s_out != nullptr;
+  if (!y && !final) return (int)cudaErrorInvalidValue;
+#define DCF_ARGS                                                             \
+  final != 0, y, (const uint8_t*)sbox, (const uint8_t*)rk0,                  \
+      (const uint8_t*)rk17, (const uint8_t*)cw_s, (const uint8_t*)cw_t,      \
+      (const uint8_t*)cw_np1, (const uint8_t*)s_in, (const uint8_t*)t_in,    \
+      (uint8_t*)s_out, (uint8_t*)t_out, k_num, n_par, n, level,              \
+      (cudaStream_t)stream
+  switch (depth) {
+    case 1: return (int)launch_depth<1>(DCF_ARGS);
+    case 2: return (int)launch_depth<2>(DCF_ARGS);
+    case 3: return (int)launch_depth<3>(DCF_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DCF_ARGS
+}
+
+// One level, `level`.
 extern "C" int dcf_evalall_expand_level(const void* sbox, const void* rk0,
                                         const void* rk17, const void* cw_s,
                                         const void* cw_t, const void* cw_np1,
@@ -89,18 +205,7 @@ extern "C" int dcf_evalall_expand_level(const void* sbox, const void* rk0,
                                         void* s_out, void* t_out, int k_num,
                                         int n_par, int n, int level,
                                         int final, void* stream) {
-  dim3 grid((n_par + dcf::kThreads - 1) / dcf::kThreads, k_num);
-#define DCF_ARGS                                                             \
-  (const uint8_t*)sbox, (const uint8_t*)rk0, (const uint8_t*)rk17,           \
-      (const uint8_t*)cw_s, (const uint8_t*)cw_t, (const uint8_t*)cw_np1,    \
-      (const uint8_t*)s_in, (const uint8_t*)t_in, (uint8_t*)s_out,           \
-      (uint8_t*)t_out, n_par, n, level
-  if (final)
-    evalall_expand_kernel<true>
-        <<<grid, dcf::kThreads, 0, (cudaStream_t)stream>>>(DCF_ARGS);
-  else
-    evalall_expand_kernel<false>
-        <<<grid, dcf::kThreads, 0, (cudaStream_t)stream>>>(DCF_ARGS);
-#undef DCF_ARGS
-  return (int)cudaGetLastError();
+  return dcf_evalall_expand_levels(sbox, rk0, rk17, cw_s, cw_t, cw_np1, s_in,
+                                   t_in, s_out, t_out, k_num, n_par, n, level,
+                                   1, final, stream);
 }

@@ -28,7 +28,7 @@
 //        blocks a party.  It also writes both parties' t at the entry of
 //        every level, the trajectories the wide tail (bytes 32..lam-1,
 //        ops.keygen_walk.keygen_wide_tail) is computed from.
-//   B7b  the masked lam = 32 DPF step of dpf_node: E0(s_b0), E0(~s_b0),
+//   B7b  the masked lam = 32 DPF step of B6's node: E0(s_b0), E0(~s_b0),
 //        E17(s_b1), three blocks a party (E17(~s_b1) feeds only v, which a
 //        DPF has not); bit 0 of byte 31 cleared in block 1 of both children.
 //        No v column: cw_np1 = s_a ^ s_b ^ beta.

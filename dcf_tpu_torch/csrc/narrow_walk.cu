@@ -37,17 +37,6 @@
 
 namespace {
 
-// Slot C runs where any lane of the warp turns right.
-struct WarpVote {
-  __host__ __device__ bool operator()(int, uint32_t xbit) const {
-#if defined(__CUDA_ARCH__)
-    return __any_sync(0xFFFFFFFFu, xbit) != 0;
-#else
-    return xbit != 0u;
-#endif
-  }
-};
-
 // 512 threads a block: with a 64 KB table, two blocks (32 warps) an SM.
 constexpr int kBlock = 512;
 
@@ -94,10 +83,12 @@ __global__ void __launch_bounds__(kBlock, 2)
   const bool live = p < m;
   const int pt = live ? p : m - 1;
   const size_t row = (size_t)key * m + pt;
+  dcf::NarrowState st;
+  dcf::narrow_root(st, seed, (uint32_t)b);
   uint32_t out[8];
   dcf::narrow_point_banked(dcf::bk_lane(te, threadIdx.x & 31), rks0, rks17,
-                           cw, n, seed, np1, xs + (size_t)pt * (n / 8),
-                           (uint32_t)b, WarpVote(), out,
+                           cw, 0, n, st, 0u, np1, xs + (size_t)pt * (n / 8),
+                           dcf::WarpVote(), out,
                            live ? traj + row * tw : nullptr);
   if (!live) return;
   uint4* yo = reinterpret_cast<uint4*>(y + row * lam);

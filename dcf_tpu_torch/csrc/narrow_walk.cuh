@@ -25,10 +25,11 @@
 //
 // and t_l / t_r are bit 0 of byte 0 of cipher 0's two outputs.  The state
 // is eight little-endian uint32 words per 32 bytes (block 0 in words 0-3).
-// B5a and B5b run the level on the T-table AES of dcf_walk.cuh, the two
-// blocks of each cipher in lockstep, cipher 17's round keys beside cipher
-// 0's in shared memory; B4 runs it as three slots on the banked AES of
-// aes_banked.cuh (narrow_level_banked).
+// B5a runs the level on the T-table AES of dcf_walk.cuh, the two blocks of
+// each cipher in lockstep, cipher 17's round keys beside cipher 0's in
+// shared memory; B4 and B5b run it as three slots on the banked AES of
+// aes_banked.cuh (narrow_level_banked), and B6 its DPF node
+// (dpf_node_banked).
 //
 // A trajectory is a bit string, bit i = t_i, packed into little-endian
 // uint32 words (bit i is bit i % 32 of word i / 32, which is also bit i % 8
@@ -200,37 +201,70 @@ DCF_HD void narrow_level_banked(const BkLane& t, const RoundKey* rk0,
   st.t = (tr & xm) | (tl & ~xm);
 }
 
-// B4's per-thread body: the from-root narrow walk of one point under one
-// key on narrow_level_banked; writes y[:32] and the n+1 trajectory bits
-// (ceil((n+1)/32) words) to traj unless it is null (a thread past the
-// last point, which walks only to take part in the warp's votes).
-// vote(i, xbit) says whether slot C runs at level i.
+// Slot C of narrow_level_banked runs where any lane of the warp turns
+// right (on the host, where the lane turns right: the tests vote over the
+// lanes themselves).
+struct WarpVote {
+#if defined(__CUDACC__)
+  __host__ __device__
+#endif
+  bool operator()(int, uint32_t xbit) const {
+#if defined(__CUDA_ARCH__)
+    return __any_sync(0xFFFFFFFFu, xbit) != 0;
+#else
+    return xbit != 0u;
+#endif
+  }
+};
+
+// The per-thread body of kernels B4 and B5b: the narrow walk of one point
+// under one key from the carry st at level lo through levels lo..n-1 on
+// narrow_level_banked (cw holds those levels: cw[i - lo] is level i's),
+// then y[:32].  word holds the trajectory bits of the levels above lo
+// (lo <= 31: they fit its first word); the n+1 bits (ceil((n+1)/32)
+// words) go to traj unless it is null (a thread past the last point,
+// which walks only to take part in the warp's votes).  vote(i, xbit) says
+// whether slot C runs at level i.  B4 starts at the root (narrow_root), B5b
+// from a frontier row (narrow_row).
 template <typename Vote>
 DCF_HD void narrow_point_banked(const BkLane& t, const RoundKey* rk0,
                                 const RoundKey* rk17, const NarrowCw* cw,
-                                int n, const uint32_t s0[8],
+                                int lo, int n, NarrowState& st, uint32_t word,
                                 const uint32_t np1[8], const uint8_t* x,
-                                uint32_t t0, Vote vote, uint32_t y[8],
-                                uint32_t* traj) {
-  NarrowState st;
-  for (int q = 0; q < 8; ++q) {
-    st.s[q] = s0[q];
-    st.v[q] = 0u;
-  }
-  st.t = t0;
-  uint32_t word = 0u;
-  for (int i = 0; i < n; ++i) {
+                                Vote vote, uint32_t y[8], uint32_t* traj) {
+  for (int i = lo; i < n; ++i) {
     word |= st.t << (i & 31);
     if ((i & 31) == 31) {
       if (traj) traj[i >> 5] = word;
       word = 0u;
     }
     const uint32_t xbit = walk_bit(x, i);
-    narrow_level_banked(t, rk0, rk17, cw[i], xbit, vote(i, xbit), st);
+    narrow_level_banked(t, rk0, rk17, cw[i - lo], xbit, vote(i, xbit), st);
   }
   word |= st.t << (n & 31);
   if (traj) traj[n >> 5] = word;
   narrow_finalize(st, np1, y);
+}
+
+// The root carry of party t0's seed s0.
+DCF_HD void narrow_root(NarrowState& st, const uint32_t s0[8], uint32_t t0) {
+  for (int q = 0; q < 8; ++q) {
+    st.s[q] = s0[q];
+    st.v[q] = 0u;
+  }
+  st.t = t0;
+}
+
+// The depth-k carry of a frontier row (s then v, 16 words) and its word
+// (gate bits 0..k-1, t at bit k); returns the trajectory's first k bits.
+DCF_HD uint32_t narrow_row(NarrowState& st, const uint32_t row[16],
+                           uint32_t word, int k) {
+  for (int q = 0; q < 8; ++q) {
+    st.s[q] = row[q];
+    st.v[q] = row[8 + q];
+  }
+  st.t = (word >> k) & 1u;
+  return word & ((1u << k) - 1u);
 }
 
 // Walk bits of frontier node r (k <= 32): MSB-first walk bit i is bit i of
@@ -259,27 +293,6 @@ DCF_HD void narrow_node(const NarrowTables& T, const NarrowCw* cw, int k,
   narrow_walk_levels(T, cw, k, x, 0, st, tw);
   traj_put(tw, k, st.t);
   traj_flush(tw, k);
-}
-
-// B5b's per-thread body: from a frontier row (s then v, 16 words) and its
-// trajectory word, walk levels k..n-1 (cw holds those levels); writes y[:32]
-// and the whole n+1-bit trajectory, the top k gates taken from the word.
-DCF_HD void hybrid_prefix_point(const NarrowTables& T, const NarrowCw* cw,
-                                int n, int k, const uint32_t row[16],
-                                uint32_t word, const uint32_t np1[8],
-                                const uint8_t* x, uint32_t y[8],
-                                uint32_t* traj) {
-  NarrowState st;
-  for (int q = 0; q < 8; ++q) {
-    st.s[q] = row[q];
-    st.v[q] = row[8 + q];
-  }
-  st.t = (word >> k) & 1u;
-  TrajWriter tw = {traj, word & ((1u << k) - 1u)};
-  narrow_walk_levels(T, cw, n - k, x, k, st, tw);
-  traj_put(tw, n, st.t);
-  traj_flush(tw, n);
-  narrow_finalize(st, np1, y);
 }
 
 // AES-256 of three blocks in lockstep, three independent lookup chains:
@@ -328,39 +341,100 @@ DCF_HD void dpf_cw_entry(DpfCw& cw, const uint8_t* cw_s,
   cw.t = (cw_t[0] & 1u) | ((cw_t[1] & 1u) << 1);
 }
 
-// B6's per-thread body: one parent node of the lam = 32 DPF tree into its
-// two children, seed correction gated by t.  The masked Hirose step:
+// The leaf share of a DPF node: y = s ^ t * cw_np1, in place.
+DCF_HD void dpf_leaf(uint32_t s[8], uint32_t t, const uint32_t np1[8]) {
+  const uint32_t g = 0u - t;
+  for (int q = 0; q < 8; ++q) s[q] ^= np1[q] & g;
+}
+
+// One parent node of the lam = 32 DPF tree into its two children, seed
+// correction gated by t, on the banked AES.  The masked Hirose step:
 //
 //   s_l = (E0(s_b0) ^ s_b0, s_b1)    s_r = (s_b0, E17(s_b1) ^ s_b1)
 //
 // with bit 8*lam-1 = bit 0 of byte 31 (word 7, kMaskBit) cleared in both
 // children (block 0 is never masked), and t_l / t_r bit 0 of byte 0 of
-// E0(s_b0) ^ s_b0 and E0(~s_b0) ^ ~s_b0.  Three AES blocks: E17(~s_b1)
-// feeds only the value half, which a DPF has not.
-DCF_HD void dpf_node(const NarrowTables& T, const DpfCw& w,
-                     const uint32_t s[8], uint32_t t, uint32_t sl[8],
-                     uint32_t& tl, uint32_t sr[8], uint32_t& tr) {
-  uint32_t sp[4], e0[4], e0p[4], e1[4];
-  for (int q = 0; q < 4; ++q) sp[q] = ~s[q];
-  aes256_encrypt3_rk(T.a, T.a.rk, T.rk17, s, sp, s + 4, e0, e0p, e1);
-  const uint32_t g = 0u - t;
-  tl = ((e0[0] ^ s[0]) & 1u) ^ (t & w.t);
-  tr = ((e0p[0] ^ sp[0]) & 1u) ^ (t & (w.t >> 1));
+// E0(s_b0) ^ s_b0 and E0(~s_b0) ^ ~s_b0.  E17(~s_b1) feeds only the value
+// half, which a DPF has not, and of E0(~s_b0) only t_r is read: two full
+// blocks and one t bit in lockstep (bk_encrypt<2, 1>, 224 + 224 + 197
+// lookups).  Every lane does the same work, so a warp needs no vote.
+DCF_HD void dpf_node_banked(const BkLane& t, const RoundKey* rk0,
+                            const RoundKey* rk17, const DpfCw& w,
+                            const uint32_t s[8], uint32_t tt, uint32_t sl[8],
+                            uint32_t& tl, uint32_t sr[8], uint32_t& tr) {
+  uint32_t x[3][4], bit[1];
+  for (int q = 0; q < 4; ++q) {
+    x[0][q] = s[q];
+    x[1][q] = s[4 + q];
+    x[2][q] = ~s[q];
+  }
+  const RoundKey* const rk[3] = {rk0, rk17, rk0};
+  bk_encrypt<2, 1>(t, rk, x, bit);
+  const uint32_t g = 0u - tt;
+  tl = ((x[0][0] ^ s[0]) & 1u) ^ (tt & w.t);
+  tr = (bit[0] ^ (~s[0] & 1u)) ^ (tt & (w.t >> 1));
   for (int q = 0; q < 4; ++q) {
     const uint32_t m = q == 3 ? kMaskBit : 0xFFFFFFFFu;
     const uint32_t c0 = w.s[q] & g;
     const uint32_t c1 = w.s[4 + q] & g;
-    sl[q] = e0[q] ^ s[q] ^ c0;
+    sl[q] = x[0][q] ^ s[q] ^ c0;
     sr[q] = s[q] ^ c0;
     sl[4 + q] = (s[4 + q] & m) ^ c1;
-    sr[4 + q] = ((e1[q] ^ s[4 + q]) & m) ^ c1;
+    sr[4 + q] = ((x[1][q] ^ s[4 + q]) & m) ^ c1;
   }
 }
 
-// The leaf share of a DPF node: y = s ^ t * cw_np1, in place.
-DCF_HD void dpf_leaf(uint32_t s[8], uint32_t t, const uint32_t np1[8]) {
-  const uint32_t g = 0u - t;
-  for (int q = 0; q < 8; ++q) s[q] ^= np1[q] & g;
+// 32 bytes from eight little-endian words (16-byte aligned on the card).
+DCF_HD void store32(uint8_t* p, const uint32_t w[8]) {
+#if defined(__CUDA_ARCH__)
+  uint4* o = reinterpret_cast<uint4*>(p);
+  o[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  o[1] = make_uint4(w[4], w[5], w[6], w[7]);
+#else
+  for (int q = 0; q < 8; ++q)
+    for (int j = 0; j < 4; ++j) p[4 * q + j] = (uint8_t)(w[q] >> (8 * j));
+#endif
+}
+
+// B6's per-thread body: the parent (s, t) at level L expanded D levels in
+// registers, w[0..D) the CWs of levels L..L+D-1.  The 2^D nodes of level
+// L + D go to rows pos + stride * r of s_out and t_out (one key's rows),
+// r their walk directions LSB first: with pos the parent's index j and
+// stride the level's N parents, the rows D level-order launches of one
+// level each would fill ([lefts ; rights] per level).  With np1 (not
+// null) the stored nodes are leaf shares y = s ^ t * cw_np1; with Y false
+// only their t bits are stored (s_out is not read).  One call site of
+// dpf_node_banked per level: the two children of a node are expanded in a
+// rolled loop.  Y is a template argument: a run-time test of s_out cost
+// the launches that write y about 10% (NVIDIA H100 80GB HBM3, 700 W,
+// PERF.md).
+template <int D, bool Y = true>
+DCF_HD void dpf_subtree(const BkLane& t, const RoundKey* rk0,
+                        const RoundKey* rk17, const DpfCw* w,
+                        const uint32_t* np1, const uint32_t s[8], uint32_t tt,
+                        uint8_t* s_out, uint8_t* t_out, size_t pos,
+                        size_t stride) {
+  uint32_t c[2][8], ct[2];
+  dpf_node_banked(t, rk0, rk17, w[0], s, tt, c[0], ct[0], c[1], ct[1]);
+#if defined(__CUDACC__)
+#pragma unroll 1
+#endif
+  for (int d = 0; d < 2; ++d) {
+    uint32_t cs[8];
+    for (int q = 0; q < 8; ++q) cs[q] = d ? c[1][q] : c[0][q];
+    const uint32_t ctd = d ? ct[1] : ct[0];
+    const size_t at = pos + (size_t)d * stride;
+    if constexpr (D == 1) {
+      if constexpr (Y) {
+        if (np1) dpf_leaf(cs, ctd, np1);
+        store32(s_out + at * 32, cs);
+      }
+      t_out[at] = (uint8_t)ctd;
+    } else {
+      dpf_subtree<D - 1, Y>(t, rk0, rk17, w + 1, np1, cs, ctd, s_out, t_out,
+                            at, 2 * stride);
+    }
+  }
 }
 
 DCF_HD int lowest_set_bit(uint32_t x) {

@@ -23,11 +23,19 @@ kernel P1 (``ops.pir_answer``) reads, and ``Dcf.eval_all`` returns them
 as they are.
 
 With ``cw_np1`` the level is the last one and writes the leaf shares
-y = s ^ t * cw_np1 in place of the children's seeds.
+y = s ^ t * cw_np1 in place of the children's seeds, or, with
+``want_y=False``, only the leaves' t bytes (a PIR server reads nothing
+else: at 2^24 leaves and K = 4 that saves writing 2 GiB, and the launch
+computes no cipher-17 block, since t never depends on one).  One launch may
+expand up to ``MAX_DEPTH`` levels, the levels between them kept in
+registers: its nodes land in the rows that launches of one level each
+would fill, so only the launches' count and the traffic between them
+change.  ``evalall_expand`` cuts a tree's levels into such launches
+(``launch_depths``).
 
 ``evalall_expand_level`` launches the CUDA kernel
-(``csrc/evalall_expand.cu``, per-thread code ``dpf_node`` in
-``csrc/narrow_walk.cuh``) for tensors on the card and runs
+(``csrc/evalall_expand.cu``, per-thread code ``dpf_subtree`` in
+``csrc/narrow_walk.cuh``, on the banked AES of ``csrc/aes_banked.cuh``) for tensors on the card and runs
 ``evalall_expand_level_plain`` for tensors on the CPU.  The cipher image
 is the narrow one, uint8 [736] (``ops.narrow_walk.narrow_aes_image``).
 """
@@ -44,14 +52,25 @@ from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
 from dcf_tpu_torch.ops.narrow_walk import NARROW, NARROW_AES_BYTES, _ciphers
 from dcf_tpu_torch.ops.walk_eval import aes256_encrypt_plain
 
-__all__ = ["evalall_expand_level_plain", "evalall_expand_level",
-           "evalall_expand"]
+__all__ = ["MAX_DEPTH", "launch_depths", "evalall_expand_level_plain",
+           "evalall_expand_level", "evalall_expand"]
+
+MAX_DEPTH = 3  # levels one launch of kernel B6 expands
 
 
 def evalall_expand_level_plain(aes, cw_s, cw_t, s, t, *, level: int,
-                               cw_np1=None):
+                               cw_np1=None, depth: int = 1,
+                               want_y: bool = True):
     """Plain PyTorch version of kernel B6 (same arguments as
     ``evalall_expand_level``)."""
+    for i in range(level, level + depth - 1):
+        s, t = _level_plain(aes, cw_s, cw_t, s, t, level=i, cw_np1=None)
+    y, t = _level_plain(aes, cw_s, cw_t, s, t, level=level + depth - 1,
+                        cw_np1=cw_np1)
+    return (y if want_y else None), t
+
+
+def _level_plain(aes, cw_s, cw_t, s, t, *, level: int, cw_np1):
     aes0, aes17 = _ciphers(aes)
     sa, sb = s[..., :16], s[..., 16:]
     spa = ~sa
@@ -73,18 +92,24 @@ def evalall_expand_level_plain(aes, cw_s, cw_t, s, t, *, level: int,
 
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_DEPTH_ARGTYPES = _ARGTYPES[:14] + [ctypes.c_int] + _ARGTYPES[14:]
 
 
-def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None):
+def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None,
+                         depth: int = 1, want_y: bool = True):
     """One DPF tree level for K keys: N parents -> 2N children per key,
-    [lefts ; rights].
+    [lefts ; rights]; with ``depth`` d (1..MAX_DEPTH), levels level ..
+    level + d - 1 in one launch: N parents -> 2^d N nodes per key, as d
+    calls of one level would leave them.
 
     aes uint8 [736]; cw_s uint8 [K, n, 32] and cw_t uint8 [K, n, 2] (0/1)
     are the keys' whole correction-word arrays and ``level`` picks the
-    level; s uint8 [K, N, 32], t uint8 [K, N] (0/1).  Returns (s2
-    [K, 2N, 32], t2 [K, 2N]).  With cw_np1 uint8 [K, 32] this is the last
-    level: s2 holds the leaf shares y = s ^ t * cw_np1.  The card launches
-    kernel B6, the CPU runs ``evalall_expand_level_plain``."""
+    (first) level; s uint8 [K, N, 32], t uint8 [K, N] (0/1).  Returns (s2
+    [K, 2^d N, 32], t2 [K, 2^d N]).  With cw_np1 uint8 [K, 32] the last
+    level expanded is the tree's last: s2 holds the leaf shares
+    y = s ^ t * cw_np1, or is None with ``want_y=False`` (only t2 is
+    written).  The card launches kernel B6, the CPU runs
+    ``evalall_expand_level_plain``."""
     device = s.device
     if s.dim() != 3 or cw_s.dim() != 3:
         raise ShapeError("s must be [K, N, 32] and cw_s [K, n, 32]")
@@ -97,19 +122,32 @@ def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None):
     check_u8("t", t, (k_num, n_par), device)
     if cw_np1 is not None:
         check_u8("cw_np1", cw_np1, (k_num, NARROW), device)
-    if not 0 <= level < n or not 1 <= n_par < 1 << 30 or k_num < 1:
-        raise ShapeError(f"bad level geometry: level={level} of {n}, "
-                         f"{n_par} parents, {k_num} keys")
+    if not 1 <= depth <= MAX_DEPTH or not 0 <= level <= n - depth \
+            or not 1 <= n_par < 1 << 30 or k_num < 1:
+        raise ShapeError(f"bad level geometry: levels {level}.."
+                         f"{level + depth - 1} of {n}, {n_par} parents, "
+                         f"{k_num} keys")
+    if not want_y and cw_np1 is None:
+        raise ShapeError("only the tree's last level may leave out y")
     if device.type == "cpu":
         return evalall_expand_level_plain(aes, cw_s, cw_t, s, t, level=level,
-                                          cw_np1=cw_np1)
+                                          cw_np1=cw_np1, depth=depth,
+                                          want_y=want_y)
     if device.type != "cuda":
         raise ShapeError(
             f"evalall_expand_level runs on cuda or cpu, not {device}")
-    s2 = torch.empty((k_num, 2 * n_par, NARROW), dtype=torch.uint8,
-                     device=device)
-    t2 = torch.empty((k_num, 2 * n_par), dtype=torch.uint8, device=device)
-    fn = _build.load("evalall_expand", "dcf_evalall_expand_level", _ARGTYPES)
+    n_out = n_par << depth
+    s2 = torch.empty((k_num, n_out, NARROW), dtype=torch.uint8,
+                     device=device) if want_y else None
+    t2 = torch.empty((k_num, n_out), dtype=torch.uint8, device=device)
+    if depth == 1:
+        fn = _build.load("evalall_expand", "dcf_evalall_expand_level",
+                         _ARGTYPES)
+        levels = (int(level),)
+    else:  # the same kernel, the levels between kept in registers
+        fn = _build.load("evalall_expand", "dcf_evalall_expand_levels",
+                         _DEPTH_ARGTYPES)
+        levels = (int(level), int(depth))
     a = aes.data_ptr()
     for k0, kk in key_slices(k_num):
         launch_checked("evalall_expand", fn, device, a, a + 256, a + 496,
@@ -119,9 +157,10 @@ def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None):
                        if cw_np1 is not None else 0,
                        s.data_ptr() + k0 * n_par * NARROW,
                        t.data_ptr() + k0 * n_par,
-                       s2.data_ptr() + k0 * 2 * n_par * NARROW,
-                       t2.data_ptr() + k0 * 2 * n_par, kk, n_par, n,
-                       int(level), int(cw_np1 is not None))
+                       s2.data_ptr() + k0 * n_out * NARROW
+                       if want_y else 0,
+                       t2.data_ptr() + k0 * n_out, kk, n_par, n, *levels,
+                       int(cw_np1 is not None))
         evalall_expand_level.launches += 1
     return s2, t2
 
@@ -129,20 +168,33 @@ def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None):
 evalall_expand_level.launches = 0  # kernel B6 launches in this process
 
 
-def evalall_expand(aes, cw_s, cw_t, cw_np1, s, t, *, k0: int, k1: int):
+def launch_depths(k0: int, k1: int) -> list[tuple[int, int]]:
+    """``(first level, depth)`` of the B6 launches that expand levels
+    k0..k1-1: MAX_DEPTH levels each, the remainder in the first launch,
+    so the large last levels always share one."""
+    first = (k1 - k0) % MAX_DEPTH or MAX_DEPTH
+    return [(k0, first)] + [(i, MAX_DEPTH)
+                            for i in range(k0 + first, k1, MAX_DEPTH)]
+
+
+def evalall_expand(aes, cw_s, cw_t, cw_np1, s, t, *, k0: int, k1: int,
+                   want_y: bool = True):
     """Expand levels k0..k1-1 of K keys from the level-k0 nodes (s
     [K, 2^k0, 32], t [K, 2^k0], bitreverse order) and apply the leaf
-    correction on the last one, k0 < k1 <= n: one kernel launch per level.
+    correction on the last one, k0 < k1 <= n: one kernel launch per
+    ``launch_depths(k0, k1)`` entry.
     Returns (y uint8 [K, 2^k1, 32], t uint8 [K, 2^k1]) in bitreverse_k1
     order.  y is the leaf share only at full depth, k1 = n; at a prefix
     depth the correction lands on inner seeds and only t means something
-    (the one-hot share of alpha's top k1 bits)."""
+    (the one-hot share of alpha's top k1 bits).  With ``want_y=False`` y
+    is None: the last launch writes the t bytes alone."""
     if not 0 <= k0 < k1 <= cw_s.shape[1] or s.shape[1] != 1 << k0:
         raise ShapeError(
             f"evalall_expand wants 2^k0 nodes and 0 <= k0 < k1 <= n = "
             f"{cw_s.shape[1]}, got k0={k0}, k1={k1}, {s.shape[1]} nodes")
-    for i in range(k0, k1):
+    for i, depth in launch_depths(k0, k1):
+        last = i + depth == k1
         s, t = evalall_expand_level(
-            aes, cw_s, cw_t, s, t, level=i,
-            cw_np1=cw_np1 if i == k1 - 1 else None)
+            aes, cw_s, cw_t, s, t, level=i, depth=depth,
+            cw_np1=cw_np1 if last else None, want_y=want_y or not last)
     return s, t

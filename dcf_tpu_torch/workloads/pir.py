@@ -187,8 +187,8 @@ class PirServer:
             return ent[1]
         staged_cw, fronts, parts = self.evaluator._staged_for(
             bundle, self.db.n_bits)
-        _y, t = self.evaluator.eval_party(
-            b, parts[b], self.db.n_bits, staged_cw, fronts[b])
+        _, t = self.evaluator.eval_party(
+            b, parts[b], self.db.n_bits, staged_cw, fronts[b], want_y=False)
         self._sel[(key_id, b)] = (generation, t)
         return t
 

@@ -3,16 +3,17 @@
 ``dcf_tpu_torch/csrc/dcf_walk.cuh`` holds the bodies of kernels B1-B3 as
 plain C++ over uint32_t (T-table AES-256, the Hirose step, the SWAR group
 adds, the walk, the frontier gather index and the tree node), and
-``csrc/narrow_walk.cuh`` those of the large-lambda kernels B4, B5a, B5b
-and W1 (the unmasked two-cipher narrow step, its level loop with the
-trajectory, the node walk, the frontier walk and the wide XOR) and of the
-full-domain kernels B6 (the masked lam = 32 DPF node and its leaf
-correction) and B2f (``tree_leaves`` in ``dcf_walk.cuh``).
-``csrc/aes_banked.cuh`` holds the bank-conflict-free AES core (T0 and T2
-replicated over 32 lanes) with kernel B8's keys-in-lanes body and the
-two-points-a-lane walk of kernels B1 and B3, and ``narrow_walk.cuh``
-kernel B4's three-slot level on it; their tests run the lanes of a warp
-in a loop, the warp's votes taken over all lanes first.  This test
+``csrc/narrow_walk.cuh`` those of the large-lambda kernels B5a and W1
+(the unmasked two-cipher narrow step, its level loop with the trajectory,
+the node walk and the wide XOR) and of the full-domain kernel B2f
+(``tree_leaves`` in ``dcf_walk.cuh``).  ``csrc/aes_banked.cuh`` holds the
+bank-conflict-free AES core (T0 and T2 replicated over 32 lanes) with
+kernel B8's keys-in-lanes body and the two-points-a-lane walk of kernels
+B1 and B3, and ``narrow_walk.cuh`` the bodies on it of kernels B4 and B5b
+(the three-slot narrow level, from the root or from a frontier row) and
+B6 (the masked lam = 32 DPF node, up to three levels a thread, and its
+leaf correction); their tests run the lanes of a warp in a loop, the
+warp's votes taken over all lanes first.  This test
 compiles the headers with the host C++ compiler into a small library
 that runs each body over every (key, point) or node in a loop, and holds
 the results byte for byte against the port's numpy oracles (the full-width
@@ -215,67 +216,6 @@ void host_frontier(const uint8_t* sbox, const uint8_t* rk0,
   }
 }
 
-void host_hybrid_prefix(const uint8_t* sbox, const uint8_t* rk0,
-                        const uint8_t* rk17, const uint8_t* rows,
-                        const uint32_t* words, const uint8_t* cw_s,
-                        const uint8_t* cw_v, const uint8_t* cw_t,
-                        const uint8_t* np1, const uint8_t* xs, uint8_t* y,
-                        uint32_t* traj, int K, int n, int k, int m, int tw) {
-  NarrowTables t;
-  narrow_tables(t, sbox, rk0, rk17);
-  std::vector<NarrowCw> cw(n - k);
-  for (int key = 0; key < K; ++key) {
-    const size_t first = (size_t)key * n + k;
-    for (int i = 0; i < n - k; ++i)
-      narrow_cw_entry(cw.data(), cw_s + first * 32, cw_v + first * 32,
-                      cw_t + first * 2, i);
-    uint32_t fw[8], out[8], row[16];
-    words8(np1 + key * 32, fw);
-    for (int pt = 0; pt < m; ++pt) {
-      const uint8_t* x = xs + (size_t)pt * (n / 8);
-      const size_t node = ((size_t)key << k) + frontier_index(x, k);
-      memcpy(row, rows + node * 64, 64);
-      const size_t o = (size_t)key * m + pt;
-      hybrid_prefix_point(t, cw.data(), n, k, row, words[node], fw, x, out,
-                          traj + o * tw);
-      memcpy(y + o * 32, out, 32);
-    }
-  }
-}
-
-// One B6 level over K keys: [K, N, 32] parents -> [K, 2N, 32] children,
-// leaf correction applied when np1 is not null.
-void host_dpf_level(const uint8_t* sbox, const uint8_t* rk0,
-                    const uint8_t* rk17, const uint8_t* cw_s,
-                    const uint8_t* cw_t, const uint8_t* np1,
-                    const uint8_t* s_in, const uint8_t* t_in, uint8_t* s_out,
-                    uint8_t* t_out, int K, int n_par, int n, int level) {
-  NarrowTables t;
-  narrow_tables(t, sbox, rk0, rk17);
-  for (int key = 0; key < K; ++key) {
-    DpfCw cw;
-    dpf_cw_entry(cw, cw_s + ((size_t)key * n + level) * 32,
-                 cw_t + ((size_t)key * n + level) * 2);
-    uint32_t fw[8];
-    if (np1) words8(np1 + key * 32, fw);
-    for (int j = 0; j < n_par; ++j) {
-      const size_t in = (size_t)key * n_par + j;
-      uint32_t s[8], sl[8], sr[8], tl, tr;
-      memcpy(s, s_in + in * 32, 32);
-      dpf_node(t, cw, s, t_in[in] & 1u, sl, tl, sr, tr);
-      if (np1) {
-        dpf_leaf(sl, tl, fw);
-        dpf_leaf(sr, tr, fw);
-      }
-      const size_t left = (size_t)key * 2 * n_par + j;
-      memcpy(s_out + left * 32, sl, 32);
-      memcpy(s_out + (left + n_par) * 32, sr, 32);
-      t_out[left] = (uint8_t)tl;
-      t_out[left + n_par] = (uint8_t)tr;
-    }
-  }
-}
-
 void host_tree_final(const uint8_t* sbox, const uint8_t* rk,
                      const uint8_t* cw_s, const uint8_t* cw_v,
                      const uint8_t* cw_t, const uint8_t* cw_np1,
@@ -474,12 +414,109 @@ void host_narrow(const uint8_t* sbox, const uint8_t* rk0,
     words8(np1 + key * 32, fw);
     for (int pt = 0; pt < m; ++pt) {
       const size_t row = (size_t)key * m + pt;
+      NarrowState st;
+      narrow_root(st, sw, (uint32_t)b);
       narrow_point_banked(bk_lane(te.data(), pt % kLanes), k0, k17,
-                          cw.data(), n, sw, fw, xs + (size_t)pt * (n / 8),
-                          (uint32_t)b,
+                          cw.data(), 0, n, st, 0u, fw,
+                          xs + (size_t)pt * (n / 8),
                           LevelVote{any.data() + (size_t)(pt / kLanes) * n},
                           out, traj + row * tw);
       memcpy(y + row * 32, out, 32);
+    }
+  }
+}
+}
+"""
+
+
+_BANKED_NARROW_HARNESS = r"""
+// Kernels B5b and B6 on the banked AES.
+extern "C" {
+// Kernel B5b: points pt of one key on lane pt % 32 of warp pt / 32, each
+// from its frontier row and word (levels k..n-1 walked), slot C run at a
+// level where any point of the warp turns right.
+void host_hybrid_prefix(const uint8_t* sbox, const uint8_t* rk0,
+                        const uint8_t* rk17, const uint8_t* rows,
+                        const uint32_t* words, const uint8_t* cw_s,
+                        const uint8_t* cw_v, const uint8_t* cw_t,
+                        const uint8_t* np1, const uint8_t* xs, uint8_t* y,
+                        uint32_t* traj, int K, int n, int k, int m, int tw) {
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey k0[15], k17[15];
+  round_keys(k0, rk0);
+  round_keys(k17, rk17);
+  std::vector<uint8_t> any((size_t)(m / kLanes + 1) * n, 0);
+  for (int pt = 0; pt < m; ++pt)
+    for (int i = 0; i < n; ++i)
+      any[(size_t)(pt / kLanes) * n + i] |=
+          walk_bit(xs + (size_t)pt * (n / 8), i);
+  std::vector<NarrowCw> cw(n - k);
+  for (int key = 0; key < K; ++key) {
+    const size_t first = (size_t)key * n + k;
+    for (int i = 0; i < n - k; ++i)
+      narrow_cw_entry(cw.data(), cw_s + first * 32, cw_v + first * 32,
+                      cw_t + first * 2, i);
+    uint32_t fw[8], out[8], row[16];
+    words8(np1 + key * 32, fw);
+    for (int pt = 0; pt < m; ++pt) {
+      const uint8_t* x = xs + (size_t)pt * (n / 8);
+      const size_t node = ((size_t)key << k) + frontier_index(x, k);
+      memcpy(row, rows + node * 64, 64);
+      const size_t o = (size_t)key * m + pt;
+      NarrowState st;
+      const uint32_t word = narrow_row(st, row, words[node], k);
+      narrow_point_banked(bk_lane(te.data(), pt % kLanes), k0, k17,
+                          cw.data(), k, n, st, word, fw, x,
+                          LevelVote{any.data() + (size_t)(pt / kLanes) * n},
+                          out, traj + o * tw);
+      memcpy(y + o * 32, out, 32);
+    }
+  }
+}
+
+// Kernel B6 over K keys: [K, N, 32] parents at level `level` ->
+// [K, 2^depth N, 32] nodes of level level + depth (depth 1-3), parent j on
+// lane j % 32, leaf correction applied when np1 is not null; the t bytes
+// alone when s_out is null.
+void host_dpf_levels(const uint8_t* sbox, const uint8_t* rk0,
+                     const uint8_t* rk17, const uint8_t* cw_s,
+                     const uint8_t* cw_t, const uint8_t* np1,
+                     const uint8_t* s_in, const uint8_t* t_in, uint8_t* s_out,
+                     uint8_t* t_out, int K, int n_par, int n, int level,
+                     int depth) {
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey k0[15], k17[15];
+  round_keys(k0, rk0);
+  round_keys(k17, rk17);
+  for (int key = 0; key < K; ++key) {
+    DpfCw w[3];
+    for (int l = 0; l < depth; ++l) {
+      const size_t row = (size_t)key * n + level + l;
+      dpf_cw_entry(w[l], cw_s + row * 32, cw_t + row * 2);
+    }
+    uint32_t fw[8];
+    if (np1) words8(np1 + key * 32, fw);
+    const size_t out = (size_t)key * ((size_t)n_par << depth);
+    for (int j = 0; j < n_par; ++j) {
+      const size_t in = (size_t)key * n_par + j;
+      uint32_t s[8];
+      memcpy(s, s_in + in * 32, 32);
+#define DPF_ARGS bk_lane(te.data(), j % kLanes), k0, k17, w,                \
+      np1 ? fw : nullptr, s, t_in[in] & 1u,                                \
+      s_out ? s_out + out * 32 : nullptr, t_out + out, (size_t)j,          \
+      (size_t)n_par
+      if (s_out) {
+        if (depth == 1) dpf_subtree<1>(DPF_ARGS);
+        else if (depth == 2) dpf_subtree<2>(DPF_ARGS);
+        else dpf_subtree<3>(DPF_ARGS);
+      } else {
+        if (depth == 1) dpf_subtree<1, false>(DPF_ARGS);
+        else if (depth == 2) dpf_subtree<2, false>(DPF_ARGS);
+        else dpf_subtree<3, false>(DPF_ARGS);
+      }
+#undef DPF_ARGS
     }
   }
 }
@@ -589,7 +626,7 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc")
     src = d / "harness.cpp"
     src.write_text(_HARNESS + _NARROW_HARNESS + _KEYGEN_HARNESS
-                   + _BANKED_HARNESS + _PAIR_HARNESS)
+                   + _BANKED_HARNESS + _BANKED_NARROW_HARNESS + _PAIR_HARNESS)
     out = d / "libharness.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
@@ -827,17 +864,67 @@ def test_dpf_node_body_matches_oracle(lib, k_num):
                 last = lvl == depth - 1
                 so = np.zeros((k_num, 2 * n_par, 32), np.uint8)
                 to = np.zeros((k_num, 2 * n_par), np.uint8)
-                lib.host_dpf_level(
+                lib.host_dpf_levels(
                     _p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])), _p(kb.cw_s),
                     _p(kb.cw_t), _p(kb.cw_np1) if last else None,
                     _p(np.ascontiguousarray(s)), _p(np.ascontiguousarray(t)),
-                    _p(so), _p(to), k_num, n_par, n, lvl)
+                    _p(so), _p(to), k_num, n_par, n, lvl, 1)
                 want_s, want_t = dpf_tree_expand_np(prg, kb, b, lvl + 1)
                 if last:
                     want_s = dpf_finalize_np(kb, want_s, want_t)
                 assert np.array_equal(so, want_s), (b, depth, lvl)
                 assert np.array_equal(to, want_t), (b, depth, lvl)
                 s, t = so, to
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_dpf_subtree_body_matches_oracle(lib, depth):
+    """B6's banked body expanding ``depth`` levels in registers (parent j
+    on lane j % 32): from the host frontier at k0 = 2 of n = 8 keys,
+    every launch start L with L + depth <= 8, K = 3, both parties, against
+    the numpy expansion at depth L + depth: the nodes land at rows
+    j + 2^L * r (r the directions, LSB first), seeds and t bits, and the
+    leaf shares where L + depth = n."""
+    from dcf_tpu_torch.backends.evalall import (
+        dpf_finalize_np, dpf_tree_expand_np)
+    from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
+
+    k_num, n, k0 = 3, 8, 2
+    rng = np.random.default_rng(350 + depth)
+    ck = [rng.bytes(32) for _ in range(18)]
+    prg = HirosePrgNp(32, ck, warn=False)
+    bundle = dpf_gen_batch(
+        prg, rng.integers(0, 256, (k_num, 1), dtype=np.uint8),
+        rng.integers(0, 256, (k_num, 32), dtype=np.uint8),
+        random_s0s(k_num, 32, rng))
+    rk = expand_key_np
+    for b in (0, 1):
+        kb = bundle.for_party(b)
+        for lvl in range(k0, n - depth + 1):
+            s, t = dpf_tree_expand_np(prg, kb, b, lvl)
+            n_par = s.shape[1]
+            last = lvl + depth == n
+            so = np.zeros((k_num, n_par << depth, 32), np.uint8)
+            to = np.zeros((k_num, n_par << depth), np.uint8)
+            lib.host_dpf_levels(
+                _p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])), _p(kb.cw_s),
+                _p(kb.cw_t), _p(kb.cw_np1) if last else None,
+                _p(np.ascontiguousarray(s)), _p(np.ascontiguousarray(t)),
+                _p(so), _p(to), k_num, n_par, n, lvl, depth)
+            want_s, want_t = dpf_tree_expand_np(prg, kb, b, lvl + depth)
+            if last:
+                want_s = dpf_finalize_np(kb, want_s, want_t)
+            assert np.array_equal(so, want_s), (b, lvl)
+            assert np.array_equal(to, want_t), (b, lvl)
+            if last:  # the PIR selection: the leaves' t bytes alone
+                to[:] = 0
+                lib.host_dpf_levels(
+                    _p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])),
+                    _p(kb.cw_s), _p(kb.cw_t), _p(kb.cw_np1),
+                    _p(np.ascontiguousarray(s)),
+                    _p(np.ascontiguousarray(t)), None, _p(to), k_num,
+                    n_par, n, lvl, depth)
+                assert np.array_equal(to, want_t), (b, lvl)
 
 
 @pytest.mark.parametrize("bound", list(Bound))
@@ -1029,6 +1116,71 @@ def test_narrow_banked_body_matches_oracle(lib, lam):
                 got = np.concatenate([y32, _wide(lib, kb, traj, m)], axis=-1)
                 assert np.array_equal(got, eval_batch_np(prg, b, kb, xs)), \
                     what
+
+
+def _warp_points(rng, alphas, n_bytes, k):
+    """136 points in warps of 32 for a walk from depth k: random with
+    x = alpha and alpha +- 1 planted for every key (lanes turn both ways);
+    every walked bit 0 (all-left warp); every walked bit 1 (all-right);
+    lanes alternating all-left and all-right (mixed at every level); and a
+    last warp of 8 random points (lanes past the last point walk it).  The
+    first k bits stay random, so the points gather many frontier rows."""
+    n = 8 * n_bytes
+    bits = rng.integers(0, 2, (136, n), dtype=np.uint8)
+    bits[32:64, k:] = 0
+    bits[64:96, k:] = 1
+    bits[96:128, k:] = (np.arange(32) % 2)[:, None]
+    xs = np.packbits(bits, axis=1)
+    top = 1 << n
+    for j, a in enumerate(alphas):
+        a = int.from_bytes(a.tobytes(), "big")
+        for d in (-1, 0, 1):
+            xs[3 * j + d + 1] = np.frombuffer(
+                ((a + d) % top).to_bytes(n_bytes, "big"), np.uint8)
+    return xs
+
+
+@pytest.mark.parametrize("lam", [80, 256])
+def test_hybrid_prefix_banked_body_matches_oracle(lib, lam):
+    """B5b's body, B4's banked level from a frontier row
+    (``narrow_point_banked`` from level k, slot C by each warp's vote):
+    K = 2 keys, n = 16, k = 6, random, all-left, all-right and mixed warps
+    (``_warp_points``), both bounds, both parties; y[:32] and the
+    trajectory against ``hybrid_prefix_eval_plain``, and with W1's body
+    the full-width oracle."""
+    from dcf_tpu_torch.ops.hybrid_prefix import hybrid_prefix_eval_plain
+
+    k_num, n_bytes, k = 2, 2, 6
+    n = 8 * n_bytes
+    rk = expand_key_np
+    for bound in Bound:
+        ck, prg, bundle, planted, aes = _large_setup(500 + lam, lam, k_num,
+                                                     n_bytes, bound)
+        alphas = planted[1:3 * k_num:3]  # x = alpha of each key
+        xs = _warp_points(np.random.default_rng(510 + lam), alphas, n_bytes,
+                          k)
+        m, tw = xs.shape[0], -(-(n + 1) // 32)
+        for b in (0, 1):
+            kb = bundle.for_party(b)
+            s0, cs, cv, ct, np1 = _narrow_arrays(kb)
+            tens = [torch.from_numpy(a) for a in (aes, s0, cs, cv, ct, np1)]
+            rows, words = narrow_frontier_plain(*tens[:5], k=k, b=b)
+            y32 = np.zeros((k_num, m, 32), np.uint8)
+            traj = np.zeros((k_num, m, tw), np.uint32)
+            lib.host_hybrid_prefix(
+                _p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])),
+                _p(rows.numpy()), _p(words.numpy().view(np.uint32)),
+                _p(cs), _p(cv), _p(ct), _p(np1), _p(xs), _p(y32), _p(traj),
+                k_num, n, k, m, tw)
+            want_y, want_traj = hybrid_prefix_eval_plain(
+                tens[0], rows, words, *tens[2:], torch.from_numpy(xs)[None],
+                k=k, lam=lam)
+            assert np.array_equal(y32, want_y[..., :32].numpy()), (bound, b)
+            assert np.array_equal(traj.view(np.uint8), want_traj.numpy()), \
+                (bound, b)
+            got = np.concatenate([y32, _wide(lib, kb, traj, m)], axis=-1)
+            assert np.array_equal(got, eval_batch_np(prg, b, kb, xs)), \
+                (bound, b)
 
 
 # ---------------------------------------------------------------------------

@@ -31,9 +31,11 @@ from dcf_tpu_torch.backends.evalall import (
 from dcf_tpu_torch.errors import BackendUnavailableError, ShapeError
 from dcf_tpu_torch.gen import random_s0s
 from dcf_tpu_torch.ops.evalall_expand import (
+    MAX_DEPTH,
     evalall_expand,
     evalall_expand_level,
     evalall_expand_level_plain,
+    launch_depths,
 )
 from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
 from dcf_tpu_torch.ops.prg import HirosePrgNp as TPrg
@@ -146,7 +148,8 @@ def test_plain_level_matches_host_expansion_every_level(prgs, ck, k_num):
 @pytest.mark.parametrize("host_levels", [0, 3, 6, 20])
 def test_host_levels_do_not_change_the_leaves(prgs, ck, t_eval, host_levels):
     """Any split between the host's levels and the kernel's gives the
-    same leaves (there is no 5-level floor in the byte layout)."""
+    same leaves (there is no 5-level floor in the byte layout), and the
+    same t bytes without y (``want_y=False``, the PIR selection)."""
     _, tb, _ = _bundles(prgs, 520, [0x4D, 0xE2], 8)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -158,6 +161,8 @@ def test_host_levels_do_not_change_the_leaves(prgs, ck, t_eval, host_levels):
             want = t_eval.eval_party(b, kb, depth)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                                  want[1])
+            y, t = ev.eval_party(b, kb, depth, want_y=False)
+            assert y is None and torch.equal(t, want[1])
     with pytest.raises(ValueError):
         DpfEvalAll(LAM, ck, host_levels=-1, device="cpu")
 
@@ -247,6 +252,59 @@ def test_level_wrapper_runs_the_plain_version_on_the_cpu(prgs, ck):
         evalall_expand(aes, cw_s, cw_t, cw_np1, s, t, k0=4, k1=8)
 
 
+def test_launch_depths_cover_the_levels_once():
+    """The launches of an expansion cover levels k0..k1-1 in order, each
+    once, at most MAX_DEPTH a launch, the last always MAX_DEPTH deep when
+    the span allows."""
+    for k0 in range(0, 8):
+        for k1 in range(k0 + 1, 26):
+            got = launch_depths(k0, k1)
+            levels = [i + d for i, depth in got for d in range(depth)]
+            assert levels == list(range(k0, k1)), (k0, k1)
+            assert all(1 <= d <= MAX_DEPTH for _, d in got)
+            assert got[-1][1] == min(MAX_DEPTH, k1 - k0)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_level_wrapper_depth_equals_levels_one_at_a_time(prgs, ck, depth):
+    """``evalall_expand_level`` at depth d (its plain version on the CPU)
+    equals d calls of one level, with and without the leaf correction,
+    both parties; with the correction and ``want_y=False`` it returns the
+    t bytes alone (only the tree's last level may leave y out)."""
+    _, tb, _ = _bundles(prgs, 590 + depth, [0x5A, 0xC3], 8)
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17]))
+    for b in (0, 1):
+        kb = tb.for_party(b)
+        cw_s, cw_t, cw_np1 = (torch.from_numpy(a)
+                              for a in (kb.cw_s, kb.cw_t, kb.cw_np1))
+        s, t = (torch.from_numpy(a)
+                for a in dpf_tree_expand_np(prgs[1], kb, b, 8 - depth))
+        for np1 in (None, cw_np1):
+            got = evalall_expand_level(aes, cw_s, cw_t, s, t,
+                                       level=8 - depth, cw_np1=np1,
+                                       depth=depth)
+            want = (s, t)
+            for i in range(8 - depth, 8):
+                want = evalall_expand_level(
+                    aes, cw_s, cw_t, *want, level=i,
+                    cw_np1=np1 if i == 7 else None)
+            assert torch.equal(got[0], want[0]), (b, np1 is None)
+            assert torch.equal(got[1], want[1]), (b, np1 is None)
+        y, t_only = evalall_expand_level(aes, cw_s, cw_t, s, t,
+                                         level=8 - depth, cw_np1=cw_np1,
+                                         depth=depth, want_y=False)
+        assert y is None and torch.equal(t_only, want[1]), b
+        with pytest.raises(ShapeError):
+            evalall_expand_level(aes, cw_s, cw_t, s, t, level=8 - depth,
+                                 depth=depth, want_y=False)
+        with pytest.raises(ShapeError):
+            evalall_expand_level(aes, cw_s, cw_t, s, t, level=9 - depth,
+                                 depth=depth)
+    with pytest.raises(ShapeError):
+        evalall_expand_level(aes, cw_s, cw_t, s, t, level=0,
+                             depth=MAX_DEPTH + 1)
+
+
 @pytest.mark.parametrize("device", [False, True])
 def test_facade_eval_all_matches_dcf_tpu(ck, device):
     """``Dcf.dpf`` and ``Dcf.eval_all`` against the JAX facade on the same
@@ -276,3 +334,36 @@ def test_facade_eval_all_matches_dcf_tpu(ck, device):
                                         device=False).to_bytes()
     with pytest.raises(ShapeError):
         td.dpf(np.zeros((2, 2), np.uint8))
+
+
+def test_facade_default_eval_all_runs_from_the_roots(ck, monkeypatch):
+    """The facade's default ``eval_all`` on ``device="cpu"``: its
+    evaluator keeps no level on the host (``host_levels`` 0, so the numpy
+    PRG walks no level of a fresh key) and its leaves and t bits equal
+    dcf_tpu's ``eval_all`` on the same keys, n = 16, K = 2, both
+    parties."""
+    import dcf_tpu_torch.backends.evalall as evalall_mod
+
+    rng = np.random.default_rng(580)
+    alphas = rng.integers(0, 256, (2, 2), dtype=np.uint8)
+    betas = rng.integers(0, 256, (2, LAM), dtype=np.uint8)
+    s0s = random_s0s(2, LAM, rng)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jd = JDcf(2, LAM, ck, backend="numpy")
+        td = Dcf(2, LAM, ck, device="cpu")
+    jb = jd.dpf(alphas, betas, s0s=s0s)
+    tb = td.dpf(alphas, betas, s0s=s0s)
+    host_levels = []
+    expand = evalall_mod.dpf_tree_expand_np
+    monkeypatch.setattr(
+        evalall_mod, "dpf_tree_expand_np",
+        lambda prg, bundle, b, levels: host_levels.append(levels)
+        or expand(prg, bundle, b, levels))
+    for b in (0, 1):
+        y, t = td.eval_all(b, tb)
+        jy, jt = jd.eval_all(b, jb, device=False)
+        assert np.array_equal(y, jy) and np.array_equal(t, jt), b
+        assert y.shape == (2, 1 << 16, LAM)
+    assert td._dpf_evalall.host_levels == 0
+    assert host_levels == [0, 0]
