@@ -60,6 +60,24 @@ def case_keylanes_eval(torch, dev):
             lambda: (keylanes_eval(aes, s0s, *img, xs, b=0),))
 
 
+def case_keygen_walk(torch, dev):
+    """G1 at config 5's keygen shape: 10^6 lam = 16 DCF keys, n = 128,
+    LT_BETA; every byte of the keys."""
+    from dcf_tpu_torch.gen import random_s0s
+    from dcf_tpu_torch.ops.keygen_walk import keygen_dcf16
+    from dcf_tpu_torch.ops.walk_eval import aes_image
+
+    rng = np.random.default_rng(SEED)
+    k_num = 10**6
+    aes = torch.from_numpy(aes_image(rng.bytes(32))).to(dev)
+    ins = tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 256, (k_num, 16), dtype=np.uint8),
+        rng.integers(0, 256, (k_num, 16), dtype=np.uint8),
+        random_s0s(k_num, 16, rng)))
+    return (f"K={k_num} n=128 lam=16", 5,
+            lambda: keygen_dcf16(aes, *ins, lt=True))
+
+
 def _config4(torch, dev):
     """BASELINE.json config 4's inputs on the card: one lam = 256 key
     (n = 128, party 0's narrow arrays) and 2^20 random shared points."""
@@ -114,6 +132,17 @@ def case_hybrid_prefix(torch, dev):
         return y[..., :32], traj
 
     return f"lam={lam} n=128 K=1 M={m} k={k}", 10, call
+
+
+def case_hybrid_state(torch, dev):
+    """B5a at config 4's prefix depth: the k = 20 narrow frontier of its
+    lam = 256 key (n = 128), party 0; rows and words."""
+    from dcf_tpu_torch.ops.hybrid_prefix import narrow_frontier
+
+    aes, (s0, cw_s, cw_v, cw_t, _, _), lam, _ = _config4(torch, dev)
+    k = 20
+    return (f"lam={lam} n=128 K=1 k={k}", 10,
+            lambda: narrow_frontier(aes, s0, cw_s, cw_v, cw_t, k=k, b=0))
 
 
 def case_evalall_expand(torch, dev):
@@ -198,6 +227,8 @@ def case_prefix_eval(torch, dev):
 
 
 CASES = {"keylanes_eval": case_keylanes_eval,
+         "keygen_walk": case_keygen_walk,
+         "hybrid_state": case_hybrid_state,
          "narrow_walk": case_narrow_walk,
          "hybrid_prefix": case_hybrid_prefix,
          "evalall_expand": case_evalall_expand,

@@ -10,8 +10,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. build every kernel (B1-B8, B2f, G1, W1, P1: eleven sources) from
    ``dcf_tpu_torch/csrc`` with nvcc, one process per source, all at once,
    and print the build seconds and ptxas' register and spill counts (on a
-   line of their own for B8, B4, B1, B3, B6 and B5b, the kernels on the
-   banked AES);
+   line of their own, by kernel function, for B8, B4, B1, B3, B6, B5b, G1
+   and B5a, the kernels on the banked AES);
 3. hold each kernel byte for byte against its plain PyTorch version on the
    card, at 2^16 points: B1-B3 (B2 from level 6 to 21) over both parties,
    all four output groups, both bounds, and B1 with 3 keys and per-key
@@ -33,14 +33,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plain version;
 6. each kernel held byte for byte against its plain version at its main
    path's shapes (2^20 points; B2 levels 6 to 21, B5a k = 20), and its
-   time there beside its plain version's and its bound; W1 also beside
+   time there beside its plain version's and its bound (B5a's also as
+   device and host time a call apart); W1 also beside
    ``torch._int_mm``, the library's integer product, whose parity is
    checked against W1's output; B4, B5b, B1 and B3 also beside the AES
    lookups their designs compute per lookup their bounds count, on the
    run's own turns;
 7. the hybrid prefix depth on the card: B5a and B5b called directly at
    k = 16..24 on the lam = 256 main inputs, each result equal to the
-   from-root walk's, and B5b's time per walked level beside B4's;
+   from-root walk's, B5a's device and host time a call, and B5b's time per
+   walked level beside B4's;
 8. the full-domain kernels against their plain versions at n = 16: B6
    (K = 3, from level 6, the leaf correction, both parties: one level a
    launch to full depth and to the prefix depth 13, and 1-3 levels a
@@ -205,6 +207,52 @@ def pair_lookups_computed(bits) -> int:
                                 LOOKUPS_T_BIT).sum())
 
 
+def ptxas_functions(log: str) -> dict:
+    """ptxas' (registers, spill-store bytes) of each kernel function in a
+    build log, by its name (a template's first argument in brackets)."""
+    out = {}
+    for m in re.finditer(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores"
+            r".*?Used (\d+) registers", log, re.S):
+        mangled, i, names = m.group(1), 2, []
+        if mangled.startswith("_ZN"):
+            i = 3
+        while i < len(mangled) and mangled[i].isdigit():
+            j = i
+            while mangled[j].isdigit():
+                j += 1
+            names.append(mangled[j:j + int(mangled[i:j])])
+            i = j + int(mangled[i:j])
+        arg = re.match(r"(?:E)?ILi(\d+)E", mangled[i:])
+        name = names[-1] + (f"<{arg.group(1)}>" if arg else "")
+        out[name] = (int(m.group(3)), int(m.group(2)))
+    return out
+
+
+def device_host_ms(fn, reps: int) -> tuple[float, float]:
+    """Device and host ms a call of ``fn`` apart: the device's, by CUDA
+    events around ``reps`` calls enqueued behind a long sleep of the card
+    (so that it never waits for the host); the host's, wall time over
+    ``reps`` calls that do not wait for the card."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e8))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, host
+
+
 def cuda_ms(fn, reps: int):
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events, and
     what the last call returned."""
@@ -248,8 +296,8 @@ def main() -> int:
         evalall_expand, evalall_expand_level, evalall_expand_level_plain,
         launch_depths)
     from dcf_tpu_torch.ops.hybrid_prefix import (
-        hybrid_prefix_eval, hybrid_prefix_eval_plain, narrow_frontier,
-        narrow_frontier_plain)
+        frontier_launches, hybrid_prefix_eval, hybrid_prefix_eval_plain,
+        narrow_frontier, narrow_frontier_plain)
     from dcf_tpu_torch.ops.narrow_walk import (
         NARROW, narrow_aes_image, narrow_walk, narrow_walk_plain,
         unpack_traj_plain)
@@ -299,12 +347,16 @@ def main() -> int:
     log(f"phase 2 build: {build_s:.2f} s for {len(_build.KERNELS)} kernels; "
         "(registers, spill-store bytes) per instantiation (B1-B3: xor, "
         f"add8, add16, add32 in some order): {ptxas}")
-    log("phase 2 the kernels on the banked AES: " + "; ".join(
-        f"{kid} {src} registers {ptxas[src][0]}, spill-store bytes "
-        f"{ptxas[src][1]}" for kid, src in (
-            ("B8", "keylanes_eval"), ("B4", "narrow_walk"),
-            ("B1", "walk_eval"), ("B3", "prefix_eval"),
-            ("B6", "evalall_expand"), ("B5b", "hybrid_prefix"))))
+    banked = {"keylanes_eval": "B8", "narrow_walk": "B4",
+              "walk_eval": "B1", "prefix_eval": "B3",
+              "evalall_expand": "B6", "hybrid_prefix": "B5b",
+              "keygen_walk": "G1", "hybrid_state": "B5a"}
+    log("phase 2 the kernels on the banked AES, (registers, spill-store "
+        "bytes) by kernel function: " + "; ".join(
+            f"{kid} {src} {ptxas_functions(_build.build_log(src))}"
+            for src, kid in banked.items())
+        + " (keygen_walk's keygen_walk_kernel<1>, <2> are B7a, B7b on the "
+        "T-tables)")
 
     # -- phase 3: each kernel against its plain version --------------------------
     rng = np.random.default_rng(SEED)
@@ -767,6 +819,8 @@ def main() -> int:
         lambda: narrow_frontier_plain(*fargs, k=K_HYBRID, b=0), 1)
     same("B5a", "main shape rows", rows_t, rowsp)
     same("B5a", "main shape words", words_t, wordsp)
+    b5a_dev, b5a_host = device_host_ms(
+        lambda: narrow_frontier(*fargs, k=K_HYBRID, b=0), 10)
     nodes = 1 << K_HYBRID
     b5a_lookups = (nodes - 1) * 4 * LOOKUPS_BLOCK
     b5a_bytes = nodes * 68 + K_HYBRID * 66 + 32 + 736
@@ -788,7 +842,9 @@ def main() -> int:
     log(f"phase 6: B4, W1, B5a, B5b byte-identical to their plain versions "
         f"at the lam={LAM_WIDE} main path's shapes; W1 read {set_bits} set "
         f"trajectory bits of {M_MAIN * (n + 1)}; B5b gathered {used} of "
-        f"{nodes} frontier rows")
+        f"{nodes} frontier rows; B5a k={K_HYBRID} a call: device "
+        f"{b5a_dev:.4f} ms, host {b5a_host:.4f} ms, "
+        f"{1 + len(frontier_launches(K_HYBRID)[1])} launches [{card}]")
 
     def bound(lookups: int, nbytes: int) -> tuple[float, str]:
         ops_ms = lookups / lookups_per_s * 1e3
@@ -831,6 +887,9 @@ def main() -> int:
             ("W1", "wide_xor", "dcf_tpu/backends/large_lambda.py:203", w1_ms,
              w1_plain, 0, w1_bytes, w1_lib)):
         add_row("phase 6", *row)
+    b5a_row = next(r for r in rows_out if r["name"].startswith("B5a "))
+    b5a_row["device_ms_a_call"], b5a_row["host_ms_a_call"] = \
+        b5a_dev, b5a_host
     for kid, computed, needed in (("B4", b4_computed, b4_lookups),
                                   ("B5b", b5b_computed, b5b_lookups),
                                   ("B1", b1_computed, b1_lookups),
@@ -853,6 +912,8 @@ def main() -> int:
     for k in K_SWEEP:
         fr_ms, (rows_k, words_k) = cuda_ms(
             lambda k=k: narrow_frontier(*fargs, k=k, b=0), 1)
+        fr_dev, fr_host = device_host_ms(
+            lambda k=k: narrow_frontier(*fargs, k=k, b=0), 5)
         pk = (maes, rows_k, words_k, t["cw_s"], t["cw_v"], t["cw_t"],
               t["cw_np1"], xs)
         ev_ms, (yk, trk) = cuda_ms(
@@ -863,7 +924,10 @@ def main() -> int:
                                "from the from-root walk")
         used_k = int(torch.unique(frontier_index_plain(xs[0], k)).numel())
         log(f"phase 7 k={k}: frontier {(rows_k.numel() + words_k.numel())}"
-            f" bytes built by B5a in {fr_ms:.3f} ms; B5b {ev_ms:.3f} ms over "
+            f" bytes built by B5a in {fr_ms:.3f} ms (a call: device "
+            f"{fr_dev:.4f} ms, host {fr_host:.4f} ms; bound "
+            f"{((1 << k) - 1) * 4 * LOOKUPS_BLOCK / lookups_per_s * 1e3:.4f}"
+            f" ms); B5b {ev_ms:.3f} ms over "
             f"{n - k} walked levels = {ev_ms / (n - k) * 1e3:.2f} us a level "
             f"(B4 {b4_ms / n * 1e3:.2f}), {used_k} rows gathered; equal to "
             f"the from-root walk [{card}]")
@@ -1497,7 +1561,9 @@ def main() -> int:
         ("cw_s", "cw_t", "cw_np1"), host(*(o[:K_ANCHOR] for o in out)))),
         dpf_gen_batch(HirosePrgNp(32, gck[:18], warn=False),
                       *host(*(a[:K_ANCHOR] for a in ins))))
-    b7b_lookups = K_WIDE_KEYGEN * N_DPF_KEYGEN * 2 * 3 * LOOKUPS_BLOCK
+    # A party's level needs E0(s_b0) and E17(s_b1) in full and E0(~s_b0)
+    # to its t bit, as a DPF tree's parent (kernel B6).
+    b7b_lookups = K_WIDE_KEYGEN * N_DPF_KEYGEN * 2 * LOOKUPS_DPF_NODE
     b7b_bytes = K_WIDE_KEYGEN * (N_DPF_KEYGEN // 8 + 3 * 32) \
         + K_WIDE_KEYGEN * (N_DPF_KEYGEN * 34 + 32)
     del ins, out
@@ -1730,10 +1796,17 @@ def main() -> int:
         path: k * sum(b6_by_launch[x][0] - b6_by_launch[x][1]
                       for x in path_launches(lo, hi, y_))
         for path, (k, lo, hi, y_) in b6_spans.items()}
+    # G1 in runs of 10^6 keys: config 5's chunks hold 10^6 keys, and the
+    # keygen shape of phase 14 is one such run.
+    g1_row = next(r for r in rows_out if r["name"].startswith("G1 "))
+    g1_row["loss_ms_by_path"] = {
+        f"secure ReLU config 5 K={K_RELU}": g1_ms - g1_row["bound_ms"],
+        f"keygen K={K_RELU}": g1_ms - g1_row["bound_ms"]}
     log(f"launches x (ms - bound) by path [{card}]: B1 "
         + json.dumps(b1_row["loss_ms_by_path"]) + f" (the walk path's "
         f"anchors, 1024 points: {b1a_ms:.4f} ms, bound {b1a_bound:.4f}); B6 "
-        + json.dumps(b6_row["loss_ms_by_path"]))
+        + json.dumps(b6_row["loss_ms_by_path"]) + "; G1, in runs of "
+        f"{K_RELU} keys, " + json.dumps(g1_row["loss_ms_by_path"]))
 
     # Each path was run once between reset_counts and take_counts;
     # "launches" is the sum over those single runs.

@@ -13,17 +13,75 @@
 // blocks (G1), x 4 (B7a), x 3 (B7b).  The bytes are the inputs (alpha, beta,
 // two seeds) and the correction words written once, 34 bytes a level at
 // lam = 16 (4.35 GB for 10^6 keys at n = 128, about a tenth of G1's lookup
-// time at 3.35 TB/s).  Design: one thread walks one key's n levels with both
-// parties' state in registers (keygen_walk.cuh), the T-tables and both
-// ciphers' round keys in shared memory once a block; keys lie on the grid's
-// x axis (no 65,535 limit) and every offset is 64-bit.  Each level's
+// time at 3.35 TB/s).  One thread walks one key's n levels with both
+// parties' state in registers (keygen_walk.cuh); keys lie on the grid's x
+// axis (no 65,535 limit) and every offset is 64-bit.  Each level's
 // correction words go out as 16-byte stores, one row per thread.
+//
+// G1 runs on the banked AES of aes_banked.cuh (64 KB in dynamic shared
+// memory, one wavefront a warp's lookups) with both parties' four blocks
+// of a level in lockstep (KgBanked16): every lane does the same work, as
+// in kernel B8.  On the four 1 KB T-tables of dcf_walk.cuh, where about
+// 3.3 lanes' lookups fall into one bank, it reached 29% of its bound; on
+// the banked AES 76% (18.1 ms for 10^6 keys at n = 128; NVIDIA H100 80GB
+// HBM3, 700 W power limit, chip_smoke.py).  Four blocks in lockstep beat
+// two and two, also at 768 threads a block, and a key's alpha read a byte
+// each 8 levels with a level's t bits in one store beat a byte load and
+// two stores a level (chip_ab.py, in turns).  Its grid is persistent: as
+// many 512-thread blocks as fit on the card fill the table once and take
+// keys in a stride loop.  B7a and B7b still run on the T-tables
+// (KgTables), a 256-thread block a 256 keys.
 
 #include <cuda_runtime.h>
 
 #include "keygen_walk.cuh"
 
 namespace {
+
+constexpr int kBlock = 512;  // G1
+// G1's shared layout: the banked table, then cipher 0's round keys.
+constexpr size_t kSmem =
+    sizeof(uint32_t) * dcf::kBankedWords + sizeof(dcf::RoundKey) * 16;
+
+// One key's rows: its keygen by `expand`.
+template <int MODE, typename Expand>
+__device__ __forceinline__ void key_rows(
+    const Expand& expand, size_t key, const uint8_t* alphas,
+    const uint8_t* betas, const uint8_t* s0s, uint8_t* cw_s, uint8_t* cw_v,
+    uint8_t* cw_t, uint8_t* cw_np1, uint8_t* traj, int n, int lam, int lt) {
+  const size_t rows = key * n;  // this key's first level row
+  dcf::keygen_key<MODE>(
+      expand, n, lt != 0, alphas + key * (n / 8), betas + key * lam,
+      s0s + key * 2 * lam, s0s + key * 2 * lam + lam, lam,
+      cw_s + rows * lam, cw_v ? cw_v + rows * lam : nullptr,
+      cw_t + rows * 2, cw_np1 + key * lam, traj ? traj + rows * 2 : nullptr);
+}
+
+__global__ void __launch_bounds__(kBlock, 1)
+    keygen_g1_kernel(const uint8_t* __restrict__ sbox,
+                     const uint8_t* __restrict__ rk0,
+                     const uint8_t* __restrict__ alphas,
+                     const uint8_t* __restrict__ betas,
+                     const uint8_t* __restrict__ s0s,
+                     uint8_t* __restrict__ cw_s, uint8_t* __restrict__ cw_v,
+                     uint8_t* __restrict__ cw_t,
+                     uint8_t* __restrict__ cw_np1, long long k_num, int n,
+                     int lt) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  uint32_t* te = reinterpret_cast<uint32_t*>(dyn_smem);
+  dcf::RoundKey* rks =
+      reinterpret_cast<dcf::RoundKey*>(te + dcf::kBankedWords);
+  dcf::fill_banked_table(te, sbox);
+  dcf::fill_round_keys(rks, rk0);
+  __syncthreads();
+
+  const dcf::KgBanked16 expand{dcf::bk_lane(te, threadIdx.x & 31), rks};
+  const size_t stride = (size_t)gridDim.x * kBlock;
+  for (size_t key = (size_t)blockIdx.x * kBlock + threadIdx.x;
+       key < (size_t)k_num; key += stride)
+    key_rows<dcf::kKgDcf16>(expand, key, alphas, betas, s0s, cw_s, cw_v,
+                            cw_t, cw_np1, nullptr, n, 16, lt);
+}
 
 template <int MODE>
 __global__ void __launch_bounds__(dcf::kThreads)
@@ -44,12 +102,32 @@ __global__ void __launch_bounds__(dcf::kThreads)
 
   const size_t key = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (key >= (size_t)k_num) return;
-  const size_t rows = key * n;  // this key's first level row
-  dcf::keygen_key<MODE>(
-      tab, n, lt != 0, alphas + key * (n / 8), betas + key * lam,
-      s0s + key * 2 * lam, s0s + key * 2 * lam + lam, lam,
-      cw_s + rows * lam, cw_v ? cw_v + rows * lam : nullptr,
-      cw_t + rows * 2, cw_np1 + key * lam, traj ? traj + rows * 2 : nullptr);
+  key_rows<MODE>(dcf::KgTables<MODE>{tab}, key, alphas, betas, s0s, cw_s,
+                 cw_v, cw_t, cw_np1, traj, n, lam, lt);
+}
+
+cudaError_t launch_g1(const uint8_t* sbox, const uint8_t* rk0,
+                      const uint8_t* alphas, const uint8_t* betas,
+                      const uint8_t* s0s, uint8_t* cw_s, uint8_t* cw_v,
+                      uint8_t* cw_t, uint8_t* cw_np1, long long k_num, int n,
+                      int lt, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      keygen_g1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, keygen_g1_kernel, kBlock, kSmem);
+  if (e != cudaSuccess) return e;
+  const long long need = (k_num + kBlock - 1) / kBlock;
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  keygen_g1_kernel<<<(unsigned)(need < most ? need : most), kBlock, kSmem,
+                     stream>>>(sbox, rk0, alphas, betas, s0s, cw_s, cw_v,
+                               cw_t, cw_np1, k_num, n, lt);
+  return cudaGetLastError();
 }
 
 template <int MODE>
@@ -86,7 +164,12 @@ extern "C" int dcf_keygen_walk(const void* sbox, const void* rk0,
       (uint8_t*)traj, k_num, n, lam, lt, (cudaStream_t)stream
   if (k_num < 1) return (int)cudaSuccess;
   switch (mode) {
-    case dcf::kKgDcf16: return (int)launch<dcf::kKgDcf16>(DCF_ARGS);
+    case dcf::kKgDcf16:
+      return (int)launch_g1(
+          (const uint8_t*)sbox, (const uint8_t*)rk0, (const uint8_t*)alphas,
+          (const uint8_t*)betas, (const uint8_t*)s0s, (uint8_t*)cw_s,
+          (uint8_t*)cw_v, (uint8_t*)cw_t, (uint8_t*)cw_np1, k_num, n, lt,
+          (cudaStream_t)stream);
     case dcf::kKgNarrow: return (int)launch<dcf::kKgNarrow>(DCF_ARGS);
     case dcf::kKgDpf32: return (int)launch<dcf::kKgDpf32>(DCF_ARGS);
     default: return (int)cudaErrorInvalidValue;

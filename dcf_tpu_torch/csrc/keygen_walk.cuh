@@ -18,20 +18,24 @@
 // all n levels, with both parties' seeds, t bits and v_alpha in registers,
 // and writes the correction words as the byte rows of a KeyBundle.
 //
-// What differs between the three:
+// The level loop (keygen_key), the level's algebra (keygen_level) and the
+// stores are one copy; the expansion of both parties' seeds at a level is
+// keygen_key's policy argument, with the table it reads:
 //
-//   G1   one Hirose block a party (hirose_expand, dcf_walk.cuh): E(s) and
-//        E(~s), the mask bit 8*lam-1 = bit 0 of byte 15 cleared in all four
-//        children.
-//   B7a  the narrow step of narrow_walk.cuh, unmasked (the mask bit of a
-//        lam >= 48 PRG lies in the wide part): E0 and E17 on (s, ~s), four
-//        blocks a party.  It also writes both parties' t at the entry of
-//        every level, the trajectories the wide tail (bytes 32..lam-1,
+//   G1   KgBanked16: one Hirose block a party, E(s) and E(~s) under cipher
+//        0, both parties' four blocks in lockstep on the banked AES of
+//        aes_banked.cuh; the mask bit 8*lam-1 = bit 0 of byte 15 cleared
+//        in all four children.
+//   B7a  KgTables<kKgNarrow>, on the T-tables of dcf_walk.cuh: the narrow
+//        step of narrow_walk.cuh, unmasked (the mask bit of a lam >= 48 PRG
+//        lies in the wide part): E0 and E17 on (s, ~s), four blocks a
+//        party.  It also writes both parties' t at the entry of every
+//        level, the trajectories the wide tail (bytes 32..lam-1,
 //        ops.keygen_walk.keygen_wide_tail) is computed from.
-//   B7b  the masked lam = 32 DPF step of B6's node: E0(s_b0), E0(~s_b0),
-//        E17(s_b1), three blocks a party (E17(~s_b1) feeds only v, which a
-//        DPF has not); bit 0 of byte 31 cleared in block 1 of both children.
-//        No v column: cw_np1 = s_a ^ s_b ^ beta.
+//   B7b  KgTables<kKgDpf32>: the masked lam = 32 DPF step of B6's node:
+//        E0(s_b0), E0(~s_b0), E17(s_b1), three blocks a party (E17(~s_b1)
+//        feeds only v, which a DPF has not); bit 0 of byte 31 cleared in
+//        block 1 of both children.  No v column: cw_np1 = s_a ^ s_b ^ beta.
 //
 // Plain C++ over uint32_t; it also compiles on the host.
 
@@ -68,18 +72,48 @@ struct KgState {
   uint32_t ta, tb;
 };
 
-DCF_HD void kg_expand(const NarrowTables& T, const uint32_t s[4],
-                      KgChildren<4>& c) {
-  Children h;
-  hirose_expand(T.a, s, h);
+// One party's Hirose children at lam = 16 from es = E(s) and ev = E(~s)
+// under cipher 0 (hirose_expand in dcf_walk.cuh): t from the unmasked
+// bit 0 of byte 0, then bit 0 of byte 15 cleared in all four children.
+DCF_HD void kg_hirose(const uint32_t s[4], const uint32_t es[4],
+                      const uint32_t ev[4], KgChildren<4>& c) {
   for (int q = 0; q < 4; ++q) {
-    c.sl[q] = h.sl[q];
-    c.sr[q] = h.sr[q];
-    c.vl[q] = h.vl[q];
-    c.vr[q] = h.vr[q];
+    c.sl[q] = es[q] ^ s[q];
+    c.vl[q] = ev[q] ^ ~s[q];
+    c.sr[q] = s[q];
+    c.vr[q] = ~s[q];
   }
-  c.tl = h.tl;
-  c.tr = h.tr;
+  c.tl = c.sl[0] & 1u;
+  c.tr = c.vl[0] & 1u;
+  c.sl[3] &= kMaskBit;
+  c.vl[3] &= kMaskBit;
+  c.sr[3] &= kMaskBit;
+  c.vr[3] &= kMaskBit;
+}
+
+// G1's expansion: the lane's view t of the banked AES and cipher 0's round
+// keys rk.
+struct KgBanked16 {
+  BkLane t;
+  const RoundKey* rk;
+};
+
+// Both parties' E(s) and E(~s), four full blocks in lockstep.  Every lane
+// does the same work: no vote.
+DCF_HD void kg_expand(const KgBanked16& e, const uint32_t sa[4],
+                      const uint32_t sb[4], KgChildren<4>& ea,
+                      KgChildren<4>& eb) {
+  uint32_t x[4][4];
+  for (int q = 0; q < 4; ++q) {
+    x[0][q] = sa[q];
+    x[1][q] = ~sa[q];
+    x[2][q] = sb[q];
+    x[3][q] = ~sb[q];
+  }
+  const RoundKey* const rks[4] = {e.rk, e.rk, e.rk, e.rk};
+  bk_encrypt<4>(e.t, rks, x);
+  kg_hirose(sa, x[0], x[1], ea);
+  kg_hirose(sb, x[2], x[3], eb);
 }
 
 // B7a's expansion: the unmasked narrow step (narrow_level's children).
@@ -117,6 +151,25 @@ DCF_HD void kg_expand_dpf(const NarrowTables& T, const uint32_t s[8],
     c.sr[q] = s[q];
     c.sl[4 + q] = s[4 + q] & m;
     c.sr[4 + q] = (e1[q] ^ s[4 + q]) & m;
+  }
+}
+
+// B7a's and B7b's expansion: the T-tables, one party after the other.
+template <int MODE>
+struct KgTables {
+  const NarrowTables& T;
+};
+
+template <int MODE>
+DCF_HD void kg_expand(const KgTables<MODE>& e, const uint32_t sa[8],
+                      const uint32_t sb[8], KgChildren<8>& ea,
+                      KgChildren<8>& eb) {
+  if constexpr (MODE == kKgNarrow) {
+    kg_expand_narrow(e.T, sa, ea);
+    kg_expand_narrow(e.T, sb, eb);
+  } else {
+    kg_expand_dpf(e.T, sa, ea);
+    kg_expand_dpf(e.T, sb, eb);
   }
 }
 
@@ -164,13 +217,26 @@ DCF_HD void kg_store(uint8_t* p, const uint32_t* w, int nw) {
 #endif
 }
 
-// The whole keygen of one key, n levels.  alpha: n/8 bytes; beta: the
-// key's beta row; s0a / s0b: the parties' root seeds.  Rows of lam bytes:
-// cw_s (and cw_v) [n][lam], cw_np1 [lam], of which the first 4 * W bytes
-// are written; cw_t [n][2] bytes (0/1); traj, when not null, [n][2] bytes:
-// party 0's and party 1's t at the entry of each level.
-template <int MODE>
-DCF_HD void keygen_key(const NarrowTables& T, int n, bool lt,
+// A level's t bits (tl in bit 0, tr in bit 1) as its two cw_t bytes, one
+// 2-byte store on the card.
+DCF_HD void kg_store_t(uint8_t* p, uint32_t ct) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<uint16_t*>(p) = (uint16_t)((ct & 1u) | ((ct >> 1) << 8));
+#else
+  p[0] = (uint8_t)(ct & 1u);
+  p[1] = (uint8_t)(ct >> 1);
+#endif
+}
+
+// The whole keygen of one key, n levels, both parties' seeds expanded at
+// each level by `expand` (KgBanked16 or KgTables<MODE>).  alpha: n/8
+// bytes, read a byte each 8 levels; beta: the key's beta row; s0a / s0b:
+// the parties' root seeds.  Rows of lam bytes: cw_s (and cw_v) [n][lam],
+// cw_np1 [lam], of which the first 4 * W bytes are written; cw_t [n][2]
+// bytes (0/1); traj, when not null, [n][2] bytes: party 0's and party 1's
+// t at the entry of each level.
+template <int MODE, typename Expand>
+DCF_HD void keygen_key(const Expand& expand, int n, bool lt,
                        const uint8_t* alpha, const uint8_t* beta,
                        const uint8_t* s0a, const uint8_t* s0b, int lam,
                        uint8_t* cw_s, uint8_t* cw_v, uint8_t* cw_t,
@@ -187,28 +253,21 @@ DCF_HD void keygen_key(const NarrowTables& T, int n, bool lt,
   }
   st.ta = 0u;  // party 0 starts at t = 0, party 1 at t = 1
   st.tb = 1u;
+  uint32_t ab = 0u;  // the byte of alpha that holds walk bit i
   for (int i = 0; i < n; ++i) {
+    if ((i & 7) == 0) ab = alpha[i >> 3];
     if (traj) {
       traj[2 * i] = (uint8_t)st.ta;
       traj[2 * i + 1] = (uint8_t)st.tb;
     }
     KgChildren<W> ea, eb;
-    if constexpr (MODE == kKgDcf16) {
-      kg_expand(T, st.sa, ea);
-      kg_expand(T, st.sb, eb);
-    } else if constexpr (MODE == kKgNarrow) {
-      kg_expand_narrow(T, st.sa, ea);
-      kg_expand_narrow(T, st.sb, eb);
-    } else {
-      kg_expand_dpf(T, st.sa, ea);
-      kg_expand_dpf(T, st.sb, eb);
-    }
+    kg_expand(expand, st.sa, st.sb, ea, eb);
     uint32_t cs[W], cv[W], ct;
-    keygen_level<W, V>(ea, eb, walk_bit(alpha, i), lt, bw, st, cs, cv, ct);
+    keygen_level<W, V>(ea, eb, (ab >> (7 - (i & 7))) & 1u, lt, bw, st, cs, cv,
+                       ct);
     kg_store(cw_s + (size_t)i * lam, cs, W);
     if constexpr (V) kg_store(cw_v + (size_t)i * lam, cv, W);
-    cw_t[2 * i] = (uint8_t)(ct & 1u);
-    cw_t[2 * i + 1] = (uint8_t)(ct >> 1);
+    kg_store_t(cw_t + 2 * i, ct);
   }
   uint32_t np1[W];
   for (int q = 0; q < W; ++q)

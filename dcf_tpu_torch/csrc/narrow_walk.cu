@@ -1,11 +1,11 @@
 // Kernel B4: the narrow walk of the large-lambda hybrid (lam >= 48).
 //
 // Replaces dcf_tpu/ops/pallas_narrow.py::dcf_narrow_walk_pallas (its
-// _kernel and narrow_walk_levels).  The TPU kernel walks 128 bit planes per
-// 16-byte block with 32 points per lane word, and runs the level's four
-// encryptions as one bitsliced cipher over lane-dependent round keys.  Here
-// one thread owns one (key, point): its 32-byte state is eight uint32
-// words (narrow_walk.cuh).
+// _kernel and that file's Pallas level loop narrow_walk_levels).  The TPU
+// kernel walks 128 bit planes per 16-byte block with 32 points per lane
+// word, and runs the level's four encryptions as one bitsliced cipher over
+// lane-dependent round keys.  Here one thread owns one (key, point): its
+// 32-byte state is eight uint32 words (narrow_walk.cuh).
 //
 // Output: y[:32] straight into the first 32 bytes of each lam-byte row of
 // y [K, M, lam] (kernel W1 fills the rest), and the n+1-bit trajectory as

@@ -25,10 +25,9 @@
 //
 // and t_l / t_r are bit 0 of byte 0 of cipher 0's two outputs.  The state
 // is eight little-endian uint32 words per 32 bytes (block 0 in words 0-3).
-// B5a runs the level on the T-table AES of dcf_walk.cuh, the two blocks of
-// each cipher in lockstep, cipher 17's round keys beside cipher 0's in
-// shared memory; B4 and B5b run it as three slots on the banked AES of
-// aes_banked.cuh (narrow_level_banked), and B6 its DPF node
+// The kernels run it on the banked AES of aes_banked.cuh: B4 and B5b as
+// three slots a level (narrow_level_banked), B5a both children of a
+// frontier node at once (frontier_expand), B6 its DPF node
 // (dpf_node_banked).
 //
 // A trajectory is a bit string, bit i = t_i, packed into little-endian
@@ -66,25 +65,6 @@ struct NarrowState {
   uint32_t t;
 };
 
-// Appends trajectory bits, in order, to packed words at out.
-struct TrajWriter {
-  uint32_t* out;
-  uint32_t cur;  // the word being filled
-};
-
-DCF_HD void traj_put(TrajWriter& w, int i, uint32_t bit) {
-  w.cur |= bit << (i & 31);
-  if ((i & 31) == 31) {
-    w.out[i >> 5] = w.cur;
-    w.cur = 0u;
-  }
-}
-
-// Stores the partly filled word after the last bit put, `last`.
-DCF_HD void traj_flush(TrajWriter& w, int last) {
-  if ((last & 31) != 31) w.out[last >> 5] = w.cur;
-}
-
 // Level i's narrow CW from the [n, 32] / [n, 2] byte arrays of one key.
 DCF_HD void narrow_cw_entry(NarrowCw* cw, const uint8_t* cw_s,
                             const uint8_t* cw_v, const uint8_t* cw_t, int i) {
@@ -93,47 +73,6 @@ DCF_HD void narrow_cw_entry(NarrowCw* cw, const uint8_t* cw_s,
     cw[i].v[q] = le32(cw_v + 32 * i + 4 * q);
   }
   cw[i].t = (cw_t[2 * i] & 1u) | ((cw_t[2 * i + 1] & 1u) << 1);
-}
-
-// One narrow level: the unmasked two-block Hirose step, the s/t correction
-// gated by t, the mux on the input bit xbit, v accumulated by XOR.
-DCF_HD void narrow_level(const NarrowTables& T, const NarrowCw& w,
-                         uint32_t xbit, NarrowState& st) {
-  uint32_t sp[8], es[8], ev[8];
-  for (int q = 0; q < 8; ++q) sp[q] = ~st.s[q];
-  aes256_encrypt2_rk(T.a, T.a.rk, st.s, sp, es, ev);              // cipher 0
-  aes256_encrypt2_rk(T.a, T.rk17, st.s + 4, sp + 4, es + 4, ev + 4);  // 17
-  for (int q = 0; q < 8; ++q) {
-    es[q] ^= st.s[q];
-    ev[q] ^= sp[q];
-  }
-  const uint32_t g = 0u - st.t;
-  const uint32_t xm = 0u - xbit;
-  const uint32_t tl = (es[0] & 1u) ^ (st.t & w.t);
-  const uint32_t tr = (ev[0] & 1u) ^ (st.t & (w.t >> 1));
-  for (int q = 0; q < 8; ++q) {
-    // Block 0 of the left child and block 1 of the right one are
-    // encrypted; the other two blocks are the feed-forward copies.
-    const uint32_t sl = q < 4 ? es[q] : st.s[q];
-    const uint32_t sr = q < 4 ? st.s[q] : es[q];
-    const uint32_t vl = q < 4 ? ev[q] : sp[q];
-    const uint32_t vr = q < 4 ? sp[q] : ev[q];
-    st.v[q] ^= ((vr & xm) | (vl & ~xm)) ^ (w.v[q] & g);
-    st.s[q] = ((sr & xm) | (sl & ~xm)) ^ (w.s[q] & g);
-  }
-  st.t = (tr & xm) | (tl & ~xm);
-}
-
-// Walk n_levels levels from st, input bits from level bit0 of x, CWs from
-// cw[0..n_levels); the gate t of level bit0 + i goes to trajectory bit
-// bit0 + i.
-DCF_HD void narrow_walk_levels(const NarrowTables& T, const NarrowCw* cw,
-                               int n_levels, const uint8_t* x, int bit0,
-                               NarrowState& st, TrajWriter& tw) {
-  for (int i = 0; i < n_levels; ++i) {
-    traj_put(tw, bit0 + i, st.t);
-    narrow_level(T, cw[i], walk_bit(x, bit0 + i), st);
-  }
 }
 
 // y[:32] = v ^ s ^ t * cw_np1[:32].
@@ -156,8 +95,7 @@ DCF_HD void narrow_finalize(const NarrowState& st, const uint32_t np1[8],
 // A and B run in lockstep; C joins them when `any_right` (on the card: some
 // lane of the warp turns right), so a mixed warp computes 3 blocks, not 4,
 // and an all-left warp 2.  rk0 and rk17 sit in different banks, so slot B's
-// two round keys are one broadcast wavefront.  Same output as
-// narrow_level.
+// two round keys are one broadcast wavefront.
 DCF_HD void narrow_level_banked(const BkLane& t, const RoundKey* rk0,
                                 const RoundKey* rk17, const NarrowCw& w,
                                 uint32_t xbit, bool any_right,
@@ -265,34 +203,6 @@ DCF_HD uint32_t narrow_row(NarrowState& st, const uint32_t row[16],
   }
   st.t = (word >> k) & 1u;
   return word & ((1u << k) - 1u);
-}
-
-// Walk bits of frontier node r (k <= 32): MSB-first walk bit i is bit i of
-// r, so the depth-k carry of node r is frontier row r (the enumeration of
-// frontier_index and of the JAX package's _node_prefix_xs).
-DCF_HD void node_prefix_bytes(uint32_t r, int k, uint8_t x[4]) {
-  for (int j = 0; j < 4; ++j) x[j] = 0;
-  for (int i = 0; i < k; ++i)
-    x[i >> 3] |= (uint8_t)(((r >> i) & 1u) << (7 - (i & 7)));
-}
-
-// B5a's per-thread body: walk node r k levels (k <= 30) from the root;
-// leaves the raw carry in st and the trajectory word in word (gate bits
-// 0..k-1, the depth-k carry t at bit k).
-DCF_HD void narrow_node(const NarrowTables& T, const NarrowCw* cw, int k,
-                        const uint32_t s0[8], uint32_t r, uint32_t t0,
-                        NarrowState& st, uint32_t& word) {
-  uint8_t x[4];
-  node_prefix_bytes(r, k, x);
-  for (int q = 0; q < 8; ++q) {
-    st.s[q] = s0[q];
-    st.v[q] = 0u;
-  }
-  st.t = t0;
-  TrajWriter tw = {&word, 0u};
-  narrow_walk_levels(T, cw, k, x, 0, st, tw);
-  traj_put(tw, k, st.t);
-  traj_flush(tw, k);
 }
 
 // AES-256 of three blocks in lockstep, three independent lookup chains:
@@ -433,6 +343,129 @@ DCF_HD void dpf_subtree(const BkLane& t, const RoundKey* rk0,
     } else {
       dpf_subtree<D - 1, Y>(t, rk0, rk17, w + 1, np1, cs, ctd, s_out, t_out,
                             at, 2 * stride);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel B5a: the narrow frontier of the prefix-shared hybrid, built level
+// by level.  Walk bit l of frontier node p is bit l of p, so node p at
+// depth i has its children at p (walk bit i = 0) and p + 2^i (bit i = 1):
+// depth i's nodes are rows [0, 2^i) of the key's range, and the build runs
+// in place, each depth a valid frontier of its own.  A node is its raw
+// carry (s, v) and its word: the gate bits of levels 0..i-1 and its t at
+// bit i.
+// ---------------------------------------------------------------------------
+
+struct FrontierNode {
+  uint32_t s[8], v[8];
+  uint32_t word;
+};
+
+// Level i's narrow CW from one key's rows (cw_s / cw_v [n, 32], 16-byte
+// aligned on the card, and cw_t [n, 2]).
+DCF_HD void narrow_cw_load(const uint8_t* cw_s, const uint8_t* cw_v,
+                           const uint8_t* cw_t, int i, NarrowCw& w) {
+  load16(cw_s + 32 * i, w.s);
+  load16(cw_s + 32 * i + 16, w.s + 4);
+  load16(cw_v + 32 * i, w.v);
+  load16(cw_v + 32 * i + 16, w.v + 4);
+  w.t = kl_t_bits(cw_t, i);
+}
+
+DCF_HD void frontier_load(FrontierNode& p, const uint8_t* rows,
+                          const uint32_t* words, size_t at) {
+  load16(rows + at * 64, p.s);
+  load16(rows + at * 64 + 16, p.s + 4);
+  load16(rows + at * 64 + 32, p.v);
+  load16(rows + at * 64 + 48, p.v + 4);
+  p.word = words[at];
+}
+
+DCF_HD void frontier_store(const FrontierNode& c, uint8_t* rows,
+                           uint32_t* words, size_t at) {
+  store32(rows + at * 64, c.s);
+  store32(rows + at * 64 + 32, c.v);
+  words[at] = c.word;
+}
+
+// One node p at depth i into both children: the four blocks of the narrow
+// step, E0(s_a), E0(~s_a), E17(s_b) and E17(~s_b), in lockstep on every
+// lane (no vote), then the level's correction w under p's t and v
+// accumulated, as narrow_level_banked does for the child a lane takes:
+//
+//   left  s = (E0(s_a) ^ s_a, s_b)     v ^= (E0(~s_a) ^ ~s_a, ~s_b)
+//   right s = (s_a, E17(s_b) ^ s_b)    v ^= (~s_a, E17(~s_b) ^ ~s_b)
+//
+// t_l / t_r are bit 0 of E0(s_a) ^ s_a and of E0(~s_a) ^ ~s_a, each
+// corrected by its CW t bit under p's t; each child's word is p's with the
+// child's t at bit i + 1.
+DCF_HD void frontier_expand(const BkLane& t, const RoundKey* rk0,
+                            const RoundKey* rk17, const NarrowCw& w, int i,
+                            const FrontierNode& p, FrontierNode c[2]) {
+  uint32_t x[4][4];
+  for (int q = 0; q < 4; ++q) {
+    x[0][q] = p.s[q];
+    x[1][q] = ~p.s[q];
+    x[2][q] = p.s[4 + q];
+    x[3][q] = ~p.s[4 + q];
+  }
+  const RoundKey* const rk[4] = {rk0, rk0, rk17, rk17};
+  bk_encrypt<4>(t, rk, x);
+  const uint32_t tt = (p.word >> i) & 1u;
+  const uint32_t g = 0u - tt;
+  const uint32_t tl = ((x[0][0] ^ p.s[0]) & 1u) ^ (tt & w.t);
+  const uint32_t tr = ((x[1][0] ^ ~p.s[0]) & 1u) ^ (tt & (w.t >> 1));
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t sa = p.s[q], sb = p.s[4 + q];
+    const uint32_t cs0 = w.s[q] & g, cs1 = w.s[4 + q] & g;
+    const uint32_t va = p.v[q] ^ ~sa ^ (w.v[q] & g);
+    const uint32_t vb = p.v[4 + q] ^ ~sb ^ (w.v[4 + q] & g);
+    c[0].s[q] = x[0][q] ^ sa ^ cs0;
+    c[0].s[4 + q] = sb ^ cs1;
+    c[0].v[q] = va ^ x[1][q];
+    c[0].v[4 + q] = vb;
+    c[1].s[q] = sa ^ cs0;
+    c[1].s[4 + q] = x[2][q] ^ sb ^ cs1;
+    c[1].v[q] = va;
+    c[1].v[4 + q] = vb ^ x[3][q];
+  }
+  c[0].word = p.word | (tl << (i + 1));
+  c[1].word = p.word | (tr << (i + 1));
+}
+
+// B5a's per-thread body: the node p at depth `level` of one key (its CW
+// rows cw_s / cw_v [n, 32], cw_t [n, 2]) expanded D levels in registers;
+// the 2^D nodes of depth level + D go to rows pos + stride * r of the
+// key's rows [2^k, 64] and words [2^k], r their walk bits LSB first: with
+// pos = p's index and stride = 2^level, their frontier rows.  One call
+// site of frontier_expand per level: the two children in a rolled loop.
+template <int D>
+DCF_HD void frontier_subtree(const BkLane& t, const RoundKey* rk0,
+                             const RoundKey* rk17, const uint8_t* cw_s,
+                             const uint8_t* cw_v, const uint8_t* cw_t,
+                             int level, const FrontierNode& p, uint8_t* rows,
+                             uint32_t* words, size_t pos, size_t stride) {
+  NarrowCw w;
+  narrow_cw_load(cw_s, cw_v, cw_t, level, w);
+  FrontierNode c[2];
+  frontier_expand(t, rk0, rk17, w, level, p, c);
+#if defined(__CUDACC__)
+#pragma unroll 1
+#endif
+  for (int d = 0; d < 2; ++d) {
+    FrontierNode cd;
+    for (int q = 0; q < 8; ++q) {
+      cd.s[q] = d ? c[1].s[q] : c[0].s[q];
+      cd.v[q] = d ? c[1].v[q] : c[0].v[q];
+    }
+    cd.word = d ? c[1].word : c[0].word;
+    const size_t at = pos + (size_t)d * stride;
+    if constexpr (D == 1) {
+      frontier_store(cd, rows, words, at);
+    } else {
+      frontier_subtree<D - 1>(t, rk0, rk17, cw_s, cw_v, cw_t, level + 1, cd,
+                              rows, words, at, 2 * stride);
     }
   }
 }

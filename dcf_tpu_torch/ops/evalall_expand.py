@@ -168,13 +168,14 @@ def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None,
 evalall_expand_level.launches = 0  # kernel B6 launches in this process
 
 
-def launch_depths(k0: int, k1: int) -> list[tuple[int, int]]:
-    """``(first level, depth)`` of the B6 launches that expand levels
-    k0..k1-1: MAX_DEPTH levels each, the remainder in the first launch,
-    so the large last levels always share one."""
-    first = (k1 - k0) % MAX_DEPTH or MAX_DEPTH
-    return [(k0, first)] + [(i, MAX_DEPTH)
-                            for i in range(k0 + first, k1, MAX_DEPTH)]
+def launch_depths(k0: int, k1: int,
+                  most: int = MAX_DEPTH) -> list[tuple[int, int]]:
+    """``(first level, depth)`` of the launches that expand levels
+    k0..k1-1 (kernel B6's; kernel B5a's with ``most=2``): ``most`` levels
+    each, the remainder in the first launch, so the large last levels
+    always share one."""
+    first = (k1 - k0) % most or most
+    return [(k0, first)] + [(i, most) for i in range(k0 + first, k1, most)]
 
 
 def evalall_expand(aes, cw_s, cw_t, cw_np1, s, t, *, k0: int, k1: int,

@@ -18,10 +18,17 @@ carry t at bit k.  The narrow walk is unmasked, so no bit of s is free to
 carry t as the lam = 16 frontier does; the wide tail needs the top-k gates
 anyway, so t rides with them.
 
-``narrow_frontier`` (B5a, ``csrc/hybrid_state.cu``) and
-``hybrid_prefix_eval`` (B5b, ``csrc/hybrid_prefix.cu``, which gathers
-inside the kernel) launch their kernels for tensors on the card and run
-their plain versions for tensors on the CPU.
+The order makes the build natural level by level, in place: node p at
+depth i has its children at p (walk bit i = 0) and p + 2^i (bit i = 1),
+so depth i's nodes are rows [0, 2^i) of a key's range.  Kernel B5a
+(``narrow_frontier``, ``csrc/hybrid_state.cu``) expands each parent once,
+into both children: the top ``TOP_LEVELS`` levels in one launch, a level
+at a time, then launches of one or two levels, the second kept in
+registers (``ops.evalall_expand.launch_depths`` with ``most=2`` cuts
+them), all from one call of its entry point; B5b (``hybrid_prefix_eval``,
+``csrc/hybrid_prefix.cu``) gathers inside the kernel.  Both launch their
+kernels for tensors on the card and run their plain versions for tensors
+on the CPU.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import ShapeError
 from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
+from dcf_tpu_torch.ops.evalall_expand import launch_depths
 from dcf_tpu_torch.ops.narrow_walk import (
     NARROW,
     check_narrow_image,
@@ -46,10 +54,15 @@ from dcf_tpu_torch.ops.narrow_walk import (
 from dcf_tpu_torch.ops.prefix_eval import frontier_index_plain
 from dcf_tpu_torch.ops.walk_eval import walk_bits_plain
 
-__all__ = ["node_prefix_xs", "narrow_frontier_plain", "narrow_frontier",
-           "hybrid_prefix_eval_plain", "hybrid_prefix_eval"]
+__all__ = ["node_prefix_xs", "frontier_launches", "narrow_frontier_plain",
+           "narrow_frontier", "hybrid_prefix_eval_plain",
+           "hybrid_prefix_eval"]
 
 MAX_K = 30  # the gate bits and the carry t share one 32-bit word
+# Kernel B5a: levels built by its top launch (up to 512 parents a key on
+# the last, one a thread of a block), and levels a later launch expands.
+TOP_LEVELS = 10
+FUSED_LEVELS = 2
 
 
 def node_prefix_xs(k: int, n_bytes: int) -> np.ndarray:
@@ -57,7 +70,7 @@ def node_prefix_xs(k: int, n_bytes: int) -> np.ndarray:
     for i < k, zero beyond -- the frontier-index enumeration, so the
     depth-k carry of "point" r is frontier row r (the port's copy of
     ``_node_prefix_xs`` in ``dcf_tpu/backends/large_lambda.py``; kernel
-    B5a derives the same bits in ``node_prefix_bytes``)."""
+    B5a writes node r's children to rows r and r + 2^i)."""
     r = np.arange(1 << k, dtype=np.uint32)
     bits = np.zeros((1 << k, 8 * n_bytes), dtype=np.uint8)
     for i in range(k):
@@ -84,8 +97,17 @@ def narrow_frontier_plain(aes, s0, cw_s, cw_v, cw_t, *, k: int, b: int):
     return rows, words.reshape(k_num * nodes, 4)
 
 
-_STATE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
-    + [ctypes.c_void_p]
+_STATE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] \
+    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] \
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def frontier_launches(k: int) -> tuple[int, list[int]]:
+    """Kernel B5a's launches for depth k: (the levels of the top launch,
+    the depths of the launches after it)."""
+    top = min(k, TOP_LEVELS)
+    return top, [d for _, d in launch_depths(top, k, FUSED_LEVELS)] \
+        if top < k else []
 
 
 def _check_k(k: int, n: int) -> None:
@@ -98,13 +120,14 @@ def narrow_frontier(aes, s0, cw_s, cw_v, cw_t, *, k: int, b: int):
     [K * 2^k, 64], words uint8 [K * 2^k, 4]).
 
     aes uint8 [736]; s0 [K, 32]; cw_s/cw_v [K, n, 32], cw_t [K, n, 2]
-    (all n levels; the walk reads levels 0..k-1).  The card launches kernel
-    B5a, the CPU runs ``narrow_frontier_plain``."""
+    (all n levels; the build reads levels 0..k-1).  The card launches
+    kernel B5a (``frontier_launches``), the CPU runs
+    ``narrow_frontier_plain``."""
     device = s0.device
     k_num = s0.shape[0]
     n = cw_s.shape[1] if cw_s.dim() == 3 else -1
     _check_k(k, n)
-    check_narrow_image(aes, s0, cw_s, cw_v, cw_t, device, k_num, n)
+    check_narrow_image(aes, s0, cw_s, cw_v, cw_t, device, k_num, n, align=16)
     if b not in (0, 1):
         raise ShapeError(f"party must be 0 or 1, got {b}")
     if device.type == "cpu":
@@ -116,15 +139,13 @@ def narrow_frontier(aes, s0, cw_s, cw_v, cw_t, *, k: int, b: int):
     words = torch.empty((k_num << k, 4), dtype=torch.uint8, device=device)
     fn = _build.load("hybrid_state", "dcf_hybrid_state", _STATE_ARGTYPES)
     a = aes.data_ptr()
-    for k0, kk in key_slices(k_num):
-        launch_checked("hybrid_state", fn, device, a, a + 256, a + 496,
-                       s0.data_ptr() + k0 * NARROW,
-                       cw_s.data_ptr() + k0 * n * NARROW,
-                       cw_v.data_ptr() + k0 * n * NARROW,
-                       cw_t.data_ptr() + k0 * n * 2,
-                       rows.data_ptr() + (k0 << k) * 2 * NARROW,
-                       words.data_ptr() + (k0 << k) * 4, kk, n, k, int(b))
-        narrow_frontier.launches += 1
+    top, depths = frontier_launches(k)
+    launch_checked("hybrid_state", fn, device, a, a + 256, a + 496,
+                   s0.data_ptr(), cw_s.data_ptr(), cw_v.data_ptr(),
+                   cw_t.data_ptr(), rows.data_ptr(), words.data_ptr(), k_num,
+                   n, k, top, (ctypes.c_int * max(1, len(depths)))(*depths),
+                   len(depths), int(b))
+    narrow_frontier.launches += 1 + len(depths)
     return rows, words
 
 

@@ -1,8 +1,9 @@
 """Kernel B4, the narrow walk of the large-lambda hybrid, and its plain
 version.
 
-Counterpart of ``dcf_tpu/ops/pallas_narrow.py`` (``dcf_narrow_walk_pallas``,
-``narrow_prg_expand``, ``narrow_walk_levels``).  For lam >= 48 a DCF
+Counterpart of ``dcf_tpu/ops/pallas_narrow.py`` (``dcf_narrow_walk_pallas``
+and its Pallas helpers ``narrow_prg_expand`` and ``narrow_walk_levels``,
+here ``narrow_levels_plain``).  For lam >= 48 a DCF
 evaluation splits into a 32-byte narrow walk -- the first two blocks of
 the Hirose PRG, cipher 0 on block 0 and cipher 17 on block 1, without the
 final-bit mask -- and a GF(2) affine wide part over the walk's gate bits
@@ -160,13 +161,14 @@ _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def check_narrow_image(aes, s0, cw_s, cw_v, cw_t, device, k_num: int,
-                       n_levels: int) -> None:
+                       n_levels: int, align: int = 1) -> None:
     """The input checks kernels B4 and B5a share: the narrow cipher image
-    and the narrow key arrays of ``n_levels`` levels."""
+    and the narrow key arrays of ``n_levels`` levels (s0, cw_s and cw_v
+    ``align``-byte aligned on the card)."""
     check_u8("aes", aes, (NARROW_AES_BYTES,), device)
-    check_u8("s0", s0, (k_num, NARROW), device)
-    check_u8("cw_s", cw_s, (k_num, n_levels, NARROW), device)
-    check_u8("cw_v", cw_v, (k_num, n_levels, NARROW), device)
+    check_u8("s0", s0, (k_num, NARROW), device, align=align)
+    check_u8("cw_s", cw_s, (k_num, n_levels, NARROW), device, align=align)
+    check_u8("cw_v", cw_v, (k_num, n_levels, NARROW), device, align=align)
     check_u8("cw_t", cw_t, (k_num, n_levels, 2), device)
 
 

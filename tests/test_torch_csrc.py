@@ -3,17 +3,18 @@
 ``dcf_tpu_torch/csrc/dcf_walk.cuh`` holds the bodies of kernels B1-B3 as
 plain C++ over uint32_t (T-table AES-256, the Hirose step, the SWAR group
 adds, the walk, the frontier gather index and the tree node), and
-``csrc/narrow_walk.cuh`` those of the large-lambda kernels B5a and W1
-(the unmasked two-cipher narrow step, its level loop with the trajectory,
-the node walk and the wide XOR) and of the full-domain kernel B2f
-(``tree_leaves`` in ``dcf_walk.cuh``).  ``csrc/aes_banked.cuh`` holds the
-bank-conflict-free AES core (T0 and T2 replicated over 32 lanes) with
-kernel B8's keys-in-lanes body and the two-points-a-lane walk of kernels
-B1 and B3, and ``narrow_walk.cuh`` the bodies on it of kernels B4 and B5b
-(the three-slot narrow level, from the root or from a frontier row) and
-B6 (the masked lam = 32 DPF node, up to three levels a thread, and its
-leaf correction); their tests run the lanes of a warp in a loop, the
-warp's votes taken over all lanes first.  This test
+``csrc/narrow_walk.cuh`` that of the large-lambda kernel W1 (the wide
+XOR) and of the full-domain kernel B2f (``tree_leaves`` in
+``dcf_walk.cuh``).  ``csrc/aes_banked.cuh`` holds the bank-conflict-free
+AES core (T0 and T2 replicated over 32 lanes) with kernel B8's
+keys-in-lanes body and the two-points-a-lane walk of kernels B1 and B3;
+``narrow_walk.cuh`` the bodies on it of kernels B4 and B5b (the
+three-slot narrow level, from the root or from a frontier row), B5a (a
+frontier node into both children, up to three levels a thread, in place)
+and B6 (the masked lam = 32 DPF node, up to three levels a thread, and
+its leaf correction); ``keygen_walk.cuh`` the keygen of kernels G1 (on
+the banked AES), B7a and B7b.  The banked bodies' tests run the lanes of
+a warp in a loop, the warp's votes taken over all lanes first.  This test
 compiles the headers with the host C++ compiler into a small library
 that runs each body over every (key, point) or node in a loop, and holds
 the results byte for byte against the port's numpy oracles (the full-width
@@ -42,7 +43,10 @@ from dcf_tpu_torch.backends.numpy_backend import eval_batch_np
 from dcf_tpu_torch.gen import gen_batch, random_s0s
 from dcf_tpu_torch.keys import KeyBundle
 from dcf_tpu_torch.ops.aes import SBOX_NP, aes256_encrypt_np, expand_key_np
-from dcf_tpu_torch.ops.hybrid_prefix import narrow_frontier_plain
+from dcf_tpu_torch.ops.hybrid_prefix import (
+    frontier_launches,
+    narrow_frontier_plain,
+)
 from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
 from dcf_tpu_torch.ops.prefix_eval import frontier_index_plain
 from dcf_tpu_torch.ops.prg import HirosePrgNp
@@ -190,32 +194,6 @@ static void words8(const uint8_t* p, uint32_t w[8]) {
 }
 
 extern "C" {
-void host_frontier(const uint8_t* sbox, const uint8_t* rk0,
-                   const uint8_t* rk17, const uint8_t* s0, const uint8_t* cw_s,
-                   const uint8_t* cw_v, const uint8_t* cw_t, uint8_t* rows,
-                   uint32_t* words, int K, int n, int k, int b) {
-  NarrowTables t;
-  narrow_tables(t, sbox, rk0, rk17);
-  std::vector<NarrowCw> cw(k);
-  for (int key = 0; key < K; ++key) {
-    for (int i = 0; i < k; ++i)
-      narrow_cw_entry(cw.data(), cw_s + (size_t)key * n * 32,
-                      cw_v + (size_t)key * n * 32, cw_t + (size_t)key * n * 2,
-                      i);
-    uint32_t sw[8];
-    words8(s0 + key * 32, sw);
-    for (uint32_t r = 0; r < (1u << k); ++r) {
-      NarrowState st;
-      uint32_t word = 0xFFFFFFFFu;  // overwritten whole by the walk
-      narrow_node(t, cw.data(), k, sw, r, (uint32_t)b, st, word);
-      const size_t node = ((size_t)key << k) + r;
-      memcpy(rows + node * 64, st.s, 32);
-      memcpy(rows + node * 64 + 32, st.v, 32);
-      words[node] = word;
-    }
-  }
-}
-
 void host_tree_final(const uint8_t* sbox, const uint8_t* rk,
                      const uint8_t* cw_s, const uint8_t* cw_v,
                      const uint8_t* cw_t, const uint8_t* cw_np1,
@@ -253,7 +231,8 @@ _KEYGEN_HARNESS = r"""
 #include "keygen_walk.cuh"
 
 extern "C" {
-// Kernels G1 (mode 0), B7a (1) and B7b (2), one key after another.
+// Kernels G1 (mode 0: key j on lane j % 32 of the banked AES), B7a (1)
+// and B7b (2), one key after another.
 void host_keygen(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
                  const uint8_t* alphas, const uint8_t* betas,
                  const uint8_t* s0s, uint8_t* cw_s, uint8_t* cw_v,
@@ -261,17 +240,25 @@ void host_keygen(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
                  int lam, int lt, int mode) {
   NarrowTables t;
   narrow_tables(t, sbox, rk0, rk17);
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey rks[15];
+  round_keys(rks, rk0);
   for (int key = 0; key < K; ++key) {
     const size_t rows = (size_t)key * n;
     const uint8_t* s0 = s0s + (size_t)key * 2 * lam;
     uint8_t* v = cw_v ? cw_v + rows * lam : nullptr;
     uint8_t* tr = traj ? traj + rows * 2 : nullptr;
-#define KG_ARGS t, n, lt != 0, alphas + (size_t)key * (n / 8),              \
+#define KG_ARGS n, lt != 0, alphas + (size_t)key * (n / 8),                 \
       betas + (size_t)key * lam, s0, s0 + lam, lam, cw_s + rows * lam, v,   \
       cw_t + rows * 2, cw_np1 + (size_t)key * lam, tr
-    if (mode == 0) keygen_key<kKgDcf16>(KG_ARGS);
-    else if (mode == 1) keygen_key<kKgNarrow>(KG_ARGS);
-    else keygen_key<kKgDpf32>(KG_ARGS);
+    if (mode == 0)
+      keygen_key<kKgDcf16>(KgBanked16{bk_lane(te.data(), key % kLanes), rks},
+                           KG_ARGS);
+    else if (mode == 1)
+      keygen_key<kKgNarrow>(KgTables<kKgNarrow>{t}, KG_ARGS);
+    else
+      keygen_key<kKgDpf32>(KgTables<kKgDpf32>{t}, KG_ARGS);
 #undef KG_ARGS
   }
 }
@@ -430,8 +417,49 @@ void host_narrow(const uint8_t* sbox, const uint8_t* rk0,
 
 
 _BANKED_NARROW_HARNESS = r"""
-// Kernels B5b and B6 on the banked AES.
+// Kernels B5a, B5b and B6 on the banked AES.
 extern "C" {
+// Kernel B5a: levels 0 .. top - 1 of K keys' frontiers at depth k from
+// the root, a level at a time (its top launch), or (top = 0) one later
+// launch, levels level .. level + depth - 1 in place; the parent j of key
+// `key` at level i on lane (key * 2^i + j) % 32.
+void host_frontier(const uint8_t* sbox, const uint8_t* rk0,
+                   const uint8_t* rk17, const uint8_t* s0,
+                   const uint8_t* cw_s, const uint8_t* cw_v,
+                   const uint8_t* cw_t, uint8_t* rows, uint32_t* words, int K,
+                   int n, int k, int top, int level, int depth, int b) {
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey k0[15], k17[15];
+  round_keys(k0, rk0);
+  round_keys(k17, rk17);
+  const int lo = top ? 0 : level, hi = top ? top : level + 1;
+  for (int i = lo; i < hi; ++i) {
+    for (int key = 0; key < K; ++key) {
+      uint8_t* kr = rows + ((size_t)key << k) * 64;
+      uint32_t* kw = words + ((size_t)key << k);
+      const size_t first = (size_t)key * n;
+      for (size_t j = 0; j < ((size_t)1 << i); ++j) {
+        FrontierNode p;
+        if (top && i == 0) {
+          words8(s0 + (size_t)key * 32, p.s);
+          for (int q = 0; q < 8; ++q) p.v[q] = 0u;
+          p.word = (uint32_t)b;
+        } else {
+          frontier_load(p, kr, kw, j);
+        }
+        const BkLane lane =
+            bk_lane(te.data(), (int)((((size_t)key << i) + j) % kLanes));
+#define B5A_ARGS lane, k0, k17, cw_s + first * 32, cw_v + first * 32,       \
+      cw_t + first * 2, i, p, kr, kw, j, (size_t)1 << i
+        if (top || depth == 1) frontier_subtree<1>(B5A_ARGS);
+        else frontier_subtree<2>(B5A_ARGS);
+#undef B5A_ARGS
+      }
+    }
+  }
+}
+
 // Kernel B5b: points pt of one key on lane pt % 32 of warp pt / 32, each
 // from its frontier row and word (levels k..n-1 walked), slot C run at a
 // level where any point of the warp turns right.
@@ -625,8 +653,8 @@ def lib(tmp_path_factory):
         pytest.skip("no host C++ compiler to build the kernel arithmetic")
     d = tmp_path_factory.mktemp("csrc")
     src = d / "harness.cpp"
-    src.write_text(_HARNESS + _NARROW_HARNESS + _KEYGEN_HARNESS
-                   + _BANKED_HARNESS + _BANKED_NARROW_HARNESS + _PAIR_HARNESS)
+    src.write_text(_HARNESS + _NARROW_HARNESS + _BANKED_HARNESS
+                   + _KEYGEN_HARNESS + _BANKED_NARROW_HARNESS + _PAIR_HARNESS)
     out = d / "libharness.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
@@ -800,6 +828,24 @@ def test_narrow_walk_and_wide_bodies_match_oracle(lib, lam, n_bytes):
                 (bound, b)
 
 
+def _host_frontier(lib, ck, s0, cs, cv, ct, k, b):
+    """Party b's frontier at depth k built by B5a's body, one host call per
+    launch of ``frontier_launches(k)`` as the wrapper launches the kernel;
+    rows and words start as garbage, so a node left unwritten shows."""
+    k_num, n = cs.shape[:2]
+    rows = np.full((k_num << k, 64), 0xA5, np.uint8)
+    words = np.full(k_num << k, 0xA5A5A5A5, np.uint32)
+    top, depths = frontier_launches(k)
+    args = (_p(SBOX_NP), _p(expand_key_np(ck[0])), _p(expand_key_np(ck[17])),
+            _p(s0), _p(cs), _p(cv), _p(ct), _p(rows), _p(words), k_num, n, k)
+    lib.host_frontier(*args, top, 0, 0, b)
+    level = top
+    for depth in depths:
+        lib.host_frontier(*args, 0, level, depth, b)
+        level += depth
+    return rows, words
+
+
 def test_frontier_and_hybrid_prefix_bodies_match_oracle(lib):
     """B5a's body against the plain frontier build, and B5b's (gather,
     levels k..n-1, top-k gates from the word) + W1's against the
@@ -814,11 +860,7 @@ def test_frontier_and_hybrid_prefix_bodies_match_oracle(lib):
         for b in (0, 1):
             kb = bundle.for_party(b)
             s0, cs, cv, ct, np1 = _narrow_arrays(kb)
-            rows = np.zeros((k_num << k, 64), np.uint8)
-            words = np.zeros(k_num << k, np.uint32)
-            lib.host_frontier(_p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])),
-                              _p(s0), _p(cs), _p(cv), _p(ct), _p(rows),
-                              _p(words), k_num, n, k, b)
+            rows, words = _host_frontier(lib, ck, s0, cs, cv, ct, k, b)
             want_rows, want_words = narrow_frontier_plain(
                 *(torch.from_numpy(a) for a in (aes, s0, cs, cv, ct)),
                 k=k, b=b)
@@ -834,6 +876,28 @@ def test_frontier_and_hybrid_prefix_bodies_match_oracle(lib):
             got = np.concatenate([y32, _wide(lib, kb, traj, m)], axis=-1)
             assert np.array_equal(got, eval_batch_np(prg, b, kb, xs)), \
                 (bound, b)
+
+
+@pytest.mark.parametrize("k", [1, 5, 6, 9, 11, 12, 13])
+def test_frontier_body_level_by_level(lib, k):
+    """B5a's body as its launches run it (frontier_launches): the top
+    launch alone (k <= 10), then one level (k = 11), two in registers
+    (12), and one then two (13), each in place over the rows of the last.
+    K = 3 keys, both bounds, both parties: rows and words equal the plain
+    frontier build's."""
+    lam, k_num, n_bytes = 48, 3, 2
+    for bound in Bound:
+        ck, _, bundle, _, aes = _large_setup(330 + k, lam, k_num, n_bytes,
+                                             bound)
+        for b in (0, 1):
+            s0, cs, cv, ct, _ = _narrow_arrays(bundle.for_party(b))
+            rows, words = _host_frontier(lib, ck, s0, cs, cv, ct, k, b)
+            want_rows, want_words = narrow_frontier_plain(
+                *(torch.from_numpy(a) for a in (aes, s0, cs, cv, ct)),
+                k=k, b=b)
+            assert np.array_equal(rows, want_rows.numpy()), (bound, b)
+            assert np.array_equal(words.view(np.uint8).reshape(-1, 4),
+                                  want_words.numpy()), (bound, b)
 
 
 @pytest.mark.parametrize("k_num", [1, 3])
@@ -995,6 +1059,25 @@ def test_keygen_body_matches_gen_batch(lib, lam, k_num):
                                                alphas, betas, s0s)]
             keygen_wide_tail(*t, lt=lt)
         want = gen_batch(prg, alphas, betas, s0s, bound)
+        for name, got in (("cw_s", cw_s), ("cw_v", cw_v), ("cw_t", cw_t),
+                          ("cw_np1", cw_np1)):
+            assert np.array_equal(got, getattr(want, name)), (bound, name)
+
+
+def test_banked_keygen_body_at_full_depth(lib):
+    """G1's banked body at the main path's depth, n = 128, over K = 33
+    keys (lanes 0-31 and a partial warp of one): gen_batch's keys byte for
+    byte, both bounds."""
+    rng = np.random.default_rng(385)
+    ck = [rng.bytes(32), rng.bytes(32)]
+    k_num = 33
+    alphas = rng.integers(0, 256, (k_num, 16), dtype=np.uint8)
+    betas = rng.integers(0, 256, (k_num, 16), dtype=np.uint8)
+    s0s = random_s0s(k_num, 16, rng)
+    for bound in Bound:
+        cw_s, cw_v, cw_t, cw_np1, _ = _keygen_body(
+            lib, 0, ck, alphas, betas, s0s, bound is Bound.LT_BETA)
+        want = gen_batch(HirosePrgNp(16, ck), alphas, betas, s0s, bound)
         for name, got in (("cw_s", cw_s), ("cw_v", cw_v), ("cw_t", cw_t),
                           ("cw_np1", cw_np1)):
             assert np.array_equal(got, getattr(want, name)), (bound, name)
