@@ -4,15 +4,20 @@ of the repository, in turns, on one GPU.
     mkdir -p _archive/other && git archive <commit> | tar -x -C _archive/other
     python3 chip_ab.py _archive/other walk_eval prefix_eval
 
-Each NAME is a kernel source of ``dcf_tpu_torch._build.KERNELS`` that has
-a case in ``CASES``: its inputs at the main path's shape, made from a
-seed, and the call of its wrapper.  A turn is a process of its own that
-imports the package of one tree, so the wrapper of that tree launches the
-kernel of that tree, built from its sources into its own gitignored
+Each NAME is a case of ``CASES``: the kernel source of
+``dcf_tpu_torch._build.KERNELS`` it builds (``keygen_walk`` holds G1, B7a
+and B7b), its inputs at the main path's shape, made from a seed, and the
+call of its wrapper.  A turn is a process of its own that imports the
+package of one tree, so the wrapper of that tree launches the kernel of
+that tree, built from its sources into its own gitignored
 ``dcf_tpu_torch/_build/``: any checkout whose wrapper takes the same
-arguments can be compared.  Both trees are built first, at the same time.
+arguments can be compared, also one that computes the function with torch
+ops where this tree has a kernel (its build skips the sources it does
+not have).  Both trees are built first, at the same time.
 The turns run other, this, this, other.  A turn calls the wrapper once
-untimed, then times it with ``chip_smoke.cuda_ms`` (CUDA events), and
+untimed, then twice more with the first's outputs alive, so that no
+allocation falls into the timed calls, then times it with
+``chip_smoke.cuda_ms`` (CUDA events), and
 reports a digest of the outputs, which must be equal in all four turns.
 That a kernel equals its plain version is ``chip_smoke.py``'s check, not
 this script's.
@@ -76,6 +81,71 @@ def case_keygen_walk(torch, dev):
         random_s0s(k_num, 16, rng)))
     return (f"K={k_num} n=128 lam=16", 5,
             lambda: keygen_dcf16(aes, *ins, lt=True))
+
+
+def _keygen_wide_inputs(torch, dev, lam: int, k_num: int):
+    """A seeded key set of width lam, n = 128, k_num keys, LT_BETA, on the
+    card: B7a's aes image, (alphas, betas, s0s) and the shape's name."""
+    from dcf_tpu_torch.gen import random_s0s
+    from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
+
+    rng = np.random.default_rng(SEED)
+    ck = [rng.bytes(32) for _ in range(max(18, 2 * (lam // 16)))]
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17])).to(dev)
+    ins = tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 256, (k_num, 16), dtype=np.uint8),
+        rng.integers(0, 256, (k_num, lam), dtype=np.uint8),
+        random_s0s(k_num, lam, rng)))
+    return aes, ins, f"K={k_num} n=128 lam={lam}"
+
+
+def _keygen_narrow(torch, dev, lam: int, k_num: int, reps: int):
+    """B7a: the narrow 32 bytes of each row, cw_t and the trajectories
+    (the rest of its rows is W2's)."""
+    from dcf_tpu_torch.ops.keygen_walk import keygen_narrow
+
+    aes, ins, shape = _keygen_wide_inputs(torch, dev, lam, k_num)
+
+    def call():
+        cw_s, cw_v, cw_t, np1, traj = keygen_narrow(aes, *ins, lt=True)
+        return cw_s[..., :32], cw_v[..., :32], cw_t, np1[:, :32], traj
+
+    return shape, reps, call
+
+
+def _keygen_wide(torch, dev, lam: int, k_num: int, reps: int):
+    """W2 (B7a's wide tail) on B7a's outputs, in place: bytes 32..lam-1
+    of cw_s, cw_v and cw_np1."""
+    from dcf_tpu_torch.ops.keygen_walk import keygen_narrow, keygen_wide_tail
+
+    aes, ins, shape = _keygen_wide_inputs(torch, dev, lam, k_num)
+    cw_s, cw_v, _, np1, traj = keygen_narrow(aes, *ins, lt=True)
+
+    def call():
+        keygen_wide_tail(cw_s, cw_v, np1, traj, *ins, lt=True)
+        return cw_s[..., 32:], cw_v[..., 32:], np1[:, 32:]
+
+    return shape, reps, call
+
+
+def case_keygen_narrow(torch, dev):
+    """B7a at config 4's width: lam = 256, K = 2^16, n = 128."""
+    return _keygen_narrow(torch, dev, 256, 1 << 16, 5)
+
+
+def case_keygen_wide(torch, dev):
+    """W2 at config 4's width: lam = 256, K = 2^16, n = 128."""
+    return _keygen_wide(torch, dev, 256, 1 << 16, 5)
+
+
+def case_keygen_narrow_crate(torch, dev):
+    """B7a at the reference crate's width: lam = 16384, K = 64."""
+    return _keygen_narrow(torch, dev, 16384, 64, 10)
+
+
+def case_keygen_wide_crate(torch, dev):
+    """W2 at the reference crate's width: lam = 16384, K = 64."""
+    return _keygen_wide(torch, dev, 16384, 64, 10)
 
 
 def _config4(torch, dev):
@@ -226,14 +296,19 @@ def case_prefix_eval(torch, dev):
             lambda: (prefix_eval(*args, k=k, negate=False, group="xor"),))
 
 
-CASES = {"keylanes_eval": case_keylanes_eval,
-         "keygen_walk": case_keygen_walk,
-         "hybrid_state": case_hybrid_state,
-         "narrow_walk": case_narrow_walk,
-         "hybrid_prefix": case_hybrid_prefix,
-         "evalall_expand": case_evalall_expand,
-         "walk_eval": case_walk_eval,
-         "prefix_eval": case_prefix_eval}
+# case name -> (the kernel source it builds, its inputs and call)
+CASES = {"keylanes_eval": ("keylanes_eval", case_keylanes_eval),
+         "keygen_walk": ("keygen_walk", case_keygen_walk),
+         "keygen_narrow": ("keygen_walk", case_keygen_narrow),
+         "keygen_wide": ("keygen_wide", case_keygen_wide),
+         "keygen_narrow_crate": ("keygen_walk", case_keygen_narrow_crate),
+         "keygen_wide_crate": ("keygen_wide", case_keygen_wide_crate),
+         "hybrid_state": ("hybrid_state", case_hybrid_state),
+         "narrow_walk": ("narrow_walk", case_narrow_walk),
+         "hybrid_prefix": ("hybrid_prefix", case_hybrid_prefix),
+         "evalall_expand": ("evalall_expand", case_evalall_expand),
+         "walk_eval": ("walk_eval", case_walk_eval),
+         "prefix_eval": ("prefix_eval", case_prefix_eval)}
 
 
 def _package(root: str):
@@ -247,11 +322,13 @@ def _package(root: str):
 
 
 def build(root: str, names: list[str]) -> int:
-    """Build ``names`` from ``root``'s sources; print a JSON line of each
-    one's ptxas (registers, spill-store bytes)."""
+    """Build the kernel sources ``names`` that ``root`` has from its
+    sources; print a JSON line of each one's ptxas (registers, spill-store
+    bytes)."""
     import re
 
     _build = _package(root)
+    names = [name for name in names if name in _build.KERNELS]
     _build.build(names)
     print(json.dumps({name: (
         re.findall(r"Used (\d+) registers", _build.build_log(name)),
@@ -266,10 +343,13 @@ def turn(root: str, name: str) -> int:
     import torch
 
     _package(root)
-    shape, reps, call = CASES[name](torch, torch.device("cuda"))
+    shape, reps, call = CASES[name][1](torch, torch.device("cuda"))
     digest = hashlib.sha256()
     for t in call():
         digest.update(t.contiguous().cpu().numpy().tobytes())
+    held = call()  # two calls' outputs alive at once, as in the timed
+    call()  # loop, so that the allocator holds their memory before it
+    del held
     ms, _ = cuda_ms(call, reps)
     print(json.dumps({"shape": shape, "ms": ms, "reps": reps,
                       "digest": digest.hexdigest()}), flush=True)
@@ -296,15 +376,17 @@ def main() -> int:
 
     names = args[1:]
     if not names or not torch.cuda.is_available() or any(
-            name not in KERNELS or name not in CASES for name in names):
+            name not in CASES or CASES[name][0] not in KERNELS
+            for name in names):
         print(f"usage: chip_ab.py OTHER_CHECKOUT NAME... (NAME in "
               f"{sorted(CASES)}; on a machine with CUDA)", file=sys.stderr)
         return 1
+    sources = sorted({CASES[name][0] for name in names})
     trees = {"other": str(Path(args[0]).resolve()), "this": str(THIS)}
     card = nvidia_smi("name,power.limit")
     log(card)
     me = [sys.executable, str(Path(__file__).resolve())]
-    builds = {tree: subprocess.Popen([*me, "--build", root, *names],
+    builds = {tree: subprocess.Popen([*me, "--build", root, *sources],
                                      stdout=subprocess.PIPE, text=True)
               for tree, root in trees.items()}
     for tree, proc in builds.items():

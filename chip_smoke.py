@@ -7,11 +7,11 @@ Run from the repository root, with no arguments:
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel (B1-B8, B2f, G1, W1, P1: eleven sources) from
+2. build every kernel (B1-B8, B2f, G1, W1, W2, P1: twelve sources) from
    ``dcf_tpu_torch/csrc`` with nvcc, one process per source, all at once,
    and print the build seconds and ptxas' register and spill counts (on a
-   line of their own, by kernel function, for B8, B4, B1, B3, B6, B5b, G1
-   and B5a, the kernels on the banked AES);
+   line of their own, by kernel function, for B8, B4, B1, B3, B6, B5b, G1,
+   B7a and B5a, the kernels on the banked AES);
 3. hold each kernel byte for byte against its plain PyTorch version on the
    card, at 2^16 points: B1-B3 (B2 from level 6 to 21) over both parties,
    all four output groups, both bounds, and B1 with 3 keys and per-key
@@ -76,14 +76,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     of B1 and B6 on each path;
 13. the keygen kernels against their plain versions, K = 4096, both
     bounds: G1 (lam = 16) and B7a (lam = 256) at n = 128, B7b (lam = 32)
-    at n = 24;
+    at n = 24; W2 on B7a's outputs at lam = 256, K = 4096 and at
+    lam = 16384, K = 64, both bounds, every byte of cw_s, cw_v and
+    cw_np1;
 14. keygen at its full shapes, timed (G1 after two untimed calls, so that
     its 4.4 GB of outputs are not allocated inside the timed window), the
     first 1024 keys of each held
     against the numpy ``gen_batch`` / ``dpf_gen_batch``: G1 at 10^6 keys;
-    B7a and its wide tail at lam = 256, K = 2^16 and at lam = 16384,
-    K = 64 (all 64 keys; there also against its plain version); B7b at
-    n = 24, K = 2^16;
+    B7a and W2, its wide tail, at lam = 256, K = 2^16 and at
+    lam = 16384, K = 64 (all 64 keys; B7a there also against its plain
+    version), every byte of the keys; B7b at n = 24, K = 2^16;
 15. B8 against its plain version, both bounds, both parties: at
     K = 1024 keys x 1024 points, at K = 4099 x 1000 (a group of 3 keys
     past the last full one, and points that do not divide among a block's
@@ -101,7 +103,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     oracle; wall time and evals/s; B8 timed on the first chunk's inputs.
     The keygen rows' plain times are taken at the check shapes (phase 13,
     and K = 64 at lam = 16384), B8's at K = 1024 x 1024: the rows say so
-    in ``shape`` and ``plain_shape``.
+    in ``shape`` and ``plain_shape``.  W2's rows are bound by bytes.
 
 Launches are counted per path: the counts are set to 0 just before one
 run of a path and read just after it, before any timed repeat, and held
@@ -169,8 +171,9 @@ K_RELU = 10**6  # BASELINE.json config 5: 10^6 keys x 1024 shared points
 M_RELU = 1024
 K_RELU_ANCHOR = 64  # config-5 keys held against the numpy oracle ...
 M_RELU_ANCHOR = 32  # ... at these leading points
-K_WIDE_KEYGEN = 1 << 16  # B7a's timed shape at lam = 256 (B7b's at n = 24)
-K_CRATE_KEYGEN = 64  # B7a's timed shape at lam = 16384
+K_WIDE_KEYGEN = 1 << 16  # B7a's and W2's timed shape at lam = 256 (B7b's
+                         # at n = 24)
+K_CRATE_KEYGEN = 64  # B7a's and W2's timed shape at lam = 16384
 K_B8_CHECK = 1024  # B8 kernel-vs-plain keys, at M_RELU points
 K_B8_TAIL, M_B8_TAIL = 4099, 1000  # B8 with a partial group and odd points
 K_B8_DEEP, M_B8_DEEP, N_B8_DEEP = 100, 40, 256  # B8 past its staged levels
@@ -317,7 +320,8 @@ def main() -> int:
     from dcf_tpu_torch.backends._common import points_mismatch_count
     from dcf_tpu_torch.ops.keygen_walk import (
         MODE_B7A, MODE_B7B, MODE_G1, keygen_dcf16, keygen_dpf,
-        keygen_narrow, keygen_walk_plain, keygen_wide_tail)
+        keygen_narrow, keygen_walk_plain, keygen_wide_tail,
+        keygen_wide_tail_plain)
     from dcf_tpu_torch.ops.keylanes_eval import (
         keylanes_eval, keylanes_eval_plain)
     from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
@@ -350,13 +354,13 @@ def main() -> int:
     banked = {"keylanes_eval": "B8", "narrow_walk": "B4",
               "walk_eval": "B1", "prefix_eval": "B3",
               "evalall_expand": "B6", "hybrid_prefix": "B5b",
-              "keygen_walk": "G1", "hybrid_state": "B5a"}
+              "keygen_walk": "G1, B7a", "hybrid_state": "B5a"}
     log("phase 2 the kernels on the banked AES, (registers, spill-store "
         "bytes) by kernel function: " + "; ".join(
             f"{kid} {src} {ptxas_functions(_build.build_log(src))}"
             for src, kid in banked.items())
-        + " (keygen_walk's keygen_walk_kernel<1>, <2> are B7a, B7b on the "
-        "T-tables)")
+        + " (keygen_walk's keygen_banked_kernel<0> is G1, <1> B7a; "
+        "keygen_dpf_kernel is B7b on the T-tables)")
 
     # -- phase 3: each kernel against its plain version --------------------------
     rng = np.random.default_rng(SEED)
@@ -364,7 +368,8 @@ def main() -> int:
     prg = HirosePrgNp(16, ck)
     aes = torch.from_numpy(aes_image(ck[0])).to(dev)
     max_err = {k: 0 for k in ("B1", "B2", "B3", "B4", "B5a", "B5b", "W1",
-                              "B6", "B2f", "P1", "G1", "B7a", "B7b", "B8")}
+                              "B6", "B2f", "P1", "G1", "B7a", "B7b", "B8",
+                              "W2")}
 
     def same(kernel: str, what: str, got, want) -> None:
         err = int((got.int() - want.int()).abs().max().item()) \
@@ -548,7 +553,8 @@ def main() -> int:
                 "B5b": hybrid_prefix_eval, "W1": wide_tail,
                 "B6": evalall_expand_level, "B2f": tree_expand_final,
                 "P1": pir_answer, "G1": keygen_dcf16, "B7a": keygen_narrow,
-                "B7b": keygen_dpf, "B8": keylanes_eval}
+                "B7b": keygen_dpf, "B8": keylanes_eval,
+                "W2": keygen_wide_tail}
     launches = {k: {} for k in counters}  # kernel -> {path: launches}
     main_ms = {}
     main_inputs = {}
@@ -1442,7 +1448,9 @@ def main() -> int:
     # -- phase 13: the keygen kernels against their plain versions ---------------------
     # G1 (lam = 16), B7a (lam = 256) at n = 128 and B7b (lam = 32) at
     # n = 24, K = 4096 keys a run, both bounds; B7a is held on the bytes it
-    # writes (the narrow 32 of each row, cw_t and the trajectories).
+    # writes (the narrow 32 of each row, cw_t and the trajectories), W2 on
+    # B7a's outputs over every byte of the rows it completes, here and at
+    # lam = 16384, K = 64.
     t0 = time.perf_counter()
     krng = np.random.default_rng(SEED + 5)
     gck = [krng.bytes(32) for _ in range(2 * (LAM_CRATE // 16))]
@@ -1459,6 +1467,20 @@ def main() -> int:
         cw_s, cw_v, cw_t, np1, traj = out
         return (cw_s[..., :NARROW], cw_v[..., :NARROW], cw_t,
                 np1[:, :NARROW], traj)
+
+    def wide_check(what: str, out, ins, lt: bool) -> float:
+        """W2 on B7a's outputs ``out`` against its plain version, each on
+        its own copy of them, every byte; returns the plain version's
+        ms."""
+        cw_s, cw_v, _, np1, traj = out
+        mine = [t.clone() for t in (cw_s, cw_v, np1)]
+        keygen_wide_tail(*mine, traj, *ins, lt=lt)
+        plain = [t.clone() for t in (cw_s, cw_v, np1)]
+        p_ms, _ = cuda_ms(lambda: keygen_wide_tail_plain(
+            *plain, traj, *ins, lt=lt), 1)
+        for name, g_, w_ in zip(("cw_s", "cw_v", "cw_np1"), mine, plain):
+            same("W2", f"{what} {name}", g_, w_)
+        return p_ms
 
     kg_plain = {}
     for bnd in Bound:
@@ -1478,19 +1500,30 @@ def main() -> int:
             if lt:
                 kg_plain[kid] = p_ms
             if mode == MODE_B7A:
+                w_ms = wide_check(f"K={K_KEYGEN_CHECK} lam={lam} "
+                                  f"{bnd.name}", got, ins, lt)
+                if lt:
+                    kg_plain[f"W2 lam={lam}"] = w_ms
                 got, want = narrow_of(got), narrow_of(want)
             for name, g_, w_ in zip(names, got, want):
                 same(kid, f"K={K_KEYGEN_CHECK} lam={lam} {bnd.name} "
                      f"{name}", g_, w_)
-    log(f"phase 13 G1, B7a, B7b: byte-identical to their plain versions, "
-        f"K={K_KEYGEN_CHECK} keys, 2 bounds (G1 lam=16 and B7a lam="
-        f"{LAM_WIDE} at n={8 * N_BYTES}, B7b lam=32 at n={N_DPF_KEYGEN}); "
+        ins = key_inputs(K_CRATE_KEYGEN, N_BYTES, LAM_CRATE)
+        w_ms = wide_check(f"K={K_CRATE_KEYGEN} lam={LAM_CRATE} {bnd.name}",
+                          keygen_narrow(n_aes, *ins, lt=lt), ins, lt)
+        if lt:
+            kg_plain[f"W2 lam={LAM_CRATE}"] = w_ms
+    del got, want, ins
+    log(f"phase 13 G1, B7a, B7b, W2: byte-identical to their plain versions, "
+        f"K={K_KEYGEN_CHECK} keys, 2 bounds (G1 lam=16 and B7a + W2 lam="
+        f"{LAM_WIDE} at n={8 * N_BYTES}, B7b lam=32 at n={N_DPF_KEYGEN}; W2 "
+        f"also at lam={LAM_CRATE}, K={K_CRATE_KEYGEN}); "
         f"plain versions at LT_BETA: " + ", ".join(
             f"{k} {v:.1f} ms" for k, v in kg_plain.items())
         + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
 
     # -- phase 14: keygen at its full shapes: numpy anchors and times -------------------
-    # G1 at config 5's 10^6 keys; B7a and its wide tail at lam = 256,
+    # G1 at config 5's 10^6 keys; B7a and W2, its wide tail, at lam = 256,
     # K = 2^16 and at lam = 16384, K = 64; B7b at n = 24, K = 2^16.  The
     # first 1024 keys of each (all 64 at lam = 16384) equal the numpy
     # gen_batch / dpf_gen_batch, every byte of the key.
@@ -1523,9 +1556,14 @@ def main() -> int:
     for lam, k_num, reps in ((LAM_WIDE, K_WIDE_KEYGEN, 5),
                              (LAM_CRATE, K_CRATE_KEYGEN, 5)):
         ins = key_inputs(k_num, N_BYTES, lam)
+        # Two calls' outputs alive at once first, as in the timed loop, so
+        # that no allocation falls into it.
+        held = keygen_narrow(n_aes, *ins, lt=True)
+        keygen_narrow(n_aes, *ins, lt=True)
+        del held
         ms, out = cuda_ms(lambda: keygen_narrow(n_aes, *ins, lt=True), reps)
         tail_ms, _ = cuda_ms(lambda: keygen_wide_tail(
-            out[0], out[1], out[3], out[4], *ins, lt=True), 3)
+            out[0], out[1], out[3], out[4], *ins, lt=True), 5)
         k_a = min(K_ANCHOR, k_num)
         anchor("B7a", f"lam={lam} K={k_num}", dict(zip(
             ("cw_s", "cw_v", "cw_t", "cw_np1"),
@@ -1542,17 +1580,22 @@ def main() -> int:
                 same("B7a", f"lam={lam} K={k_num} {name}", g_, w_)
         else:
             p_ms = kg_plain["B7a"]
+        wd = lam - NARROW
         b7a[lam] = dict(
             ms=ms, tail_ms=tail_ms, plain=p_ms, k=k_num,
+            tail_plain=kg_plain[f"W2 lam={lam}"],
             lookups=k_num * n * 2 * 4 * LOOKUPS_BLOCK,
             bytes=k_num * (N_BYTES + 3 * NARROW)
-            + k_num * (n * (2 * NARROW + 4) + NARROW))
+            + k_num * (n * (2 * NARROW + 4) + NARROW),
+            # W2 reads alpha, the trajectories, beta's and the seeds' wide
+            # bytes, and writes the wide bytes of cw_s, cw_v and cw_np1.
+            tail_bytes=k_num * (n // 8 + 2 * n + 3 * wd)
+            + k_num * (2 * n + 1) * wd)
         log(f"phase 14 B7a lam={lam} K={k_num}: {ms:.3f} ms (plain "
             f"{p_ms:.1f} ms at K={K_KEYGEN_CHECK if lam == LAM_WIDE else k_num}"
-            f"), its wide tail "
-            f"(torch ops, {n} levels over [{k_num}, {lam - NARROW}] bytes) "
-            f"{tail_ms:.3f} ms; first {k_a} keys equal the numpy gen_batch "
-            f"[{card}]")
+            f"), W2, its wide tail ({n} levels over [{k_num}, {wd}] bytes), "
+            f"{tail_ms:.3f} ms; first {k_a} keys equal the numpy gen_batch, "
+            f"every byte [{card}]")
         del ins, out
 
     ins = key_inputs(K_WIDE_KEYGEN, N_DPF_KEYGEN // 8, 32)
@@ -1643,15 +1686,15 @@ def main() -> int:
     t0 = time.perf_counter()
     kg_paths = (
         (f"Dcf.gen lam=16 K={K_KEYGEN_CHECK}", 16, N_BYTES, K_KEYGEN_CHECK,
-         "gen", "G1"),
+         "gen", {"G1": 1}),
         (f"Dcf.gen lam={LAM_WIDE} K={K_ANCHOR}", LAM_WIDE, N_BYTES, K_ANCHOR,
-         "gen", "B7a"),
+         "gen", {"B7a": 1, "W2": 1}),
         (f"Dcf.gen lam={LAM_CRATE} K={K_CRATE_KEYGEN}", LAM_CRATE, N_BYTES,
-         K_CRATE_KEYGEN, "gen", "B7a"),
+         K_CRATE_KEYGEN, "gen", {"B7a": 1, "W2": 1}),
         (f"Dcf.dpf lam=32 n={N_DPF_KEYGEN} K={K_KEYGEN_CHECK}", 32,
-         N_DPF_KEYGEN // 8, K_KEYGEN_CHECK, "dpf", "B7b"))
+         N_DPF_KEYGEN // 8, K_KEYGEN_CHECK, "dpf", {"B7b": 1}))
     kg_ms = {}
-    for name, lam, n_bytes, k_num, method, kid in kg_paths:
+    for name, lam, n_bytes, k_num, method, want_launches in kg_paths:
         kck = gck[:max(18, 2 * (lam // 16))]
         client = Dcf(n_bytes, lam, kck)
         a = krng.integers(0, 256, (k_num, n_bytes), dtype=np.uint8)
@@ -1662,7 +1705,7 @@ def main() -> int:
         t1 = time.perf_counter()
         got = getattr(client, method)(a, bt, s0s=s0)
         kg_ms[name] = (time.perf_counter() - t1) * 1e3
-        take_counts(name, {kid: 1})
+        take_counts(name, want_launches)
         kprg = HirosePrgNp(lam, kck, warn=False)
         want = (gen_batch(kprg, a[:64], bt[:64], s0[:64], Bound.LT_BETA)
                 if method == "gen" else dpf_gen_batch(kprg, a[:64], bt[:64],
@@ -1772,8 +1815,13 @@ def main() -> int:
                 "dcf_tpu/ops/pallas_keygen.py:153", r["ms"], r["plain"],
                 r["lookups"], r["bytes"], label=f" lam={lam}",
                 shape=f"K={r['k']} n={n} lam={lam}",
-                plain_shape=f"K={K_KEYGEN_CHECK if lam == LAM_WIDE else r['k']}",
-                wide_tail_ms=r["tail_ms"])
+                plain_shape=f"K={K_KEYGEN_CHECK if lam == LAM_WIDE else r['k']}")
+    for lam, r in b7a.items():
+        add_row("phase 16", "W2", "keygen_wide",
+                "dcf_tpu/ops/pallas_keygen.py:214", r["tail_ms"],
+                r["tail_plain"], 0, r["tail_bytes"], label=f" lam={lam}",
+                shape=f"K={r['k']} n={n} lam={lam}",
+                plain_shape=f"K={K_KEYGEN_CHECK if lam == LAM_WIDE else r['k']}")
     add_row("phase 16", "B7b", "keygen_walk",
             "dcf_tpu/ops/pallas_keygen.py:540", b7b_ms, kg_plain["B7b"],
             b7b_lookups, b7b_bytes,

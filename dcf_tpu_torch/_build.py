@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("walk_eval", "tree_expand", "prefix_eval", "narrow_walk",
            "wide_xor", "hybrid_state", "hybrid_prefix", "evalall_expand",
-           "pir_answer", "keygen_walk", "keylanes_eval")
+           "pir_answer", "keygen_walk", "keygen_wide", "keylanes_eval")
 _HEADERS = ("dcf_walk.cuh", "narrow_walk.cuh", "keygen_walk.cuh",
             "aes_banked.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

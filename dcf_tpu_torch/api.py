@@ -46,9 +46,10 @@ canary-driven degrade, so a failing device path surfaces as an error.
 
 Keygen follows the facade's device too: ``gen``, ``dpf`` and ``pir_query``
 take ``device=None`` (the default), which runs a keygen kernel where one
-exists -- G1 for XOR keys at lam = 16, B7a and the wide tail at lam >= 48,
-B7b for DPF keys at lam = 32 -- and the numpy host walk where none does
-(additive groups, DPF keys at other widths), as ``dcf_tpu`` routes those.
+exists -- G1 for XOR keys at lam = 16, B7a and W2 (the wide tail) at
+lam >= 48, B7b for DPF keys at lam = 32 -- and the numpy host walk where
+none does (additive groups, DPF keys at other widths), as ``dcf_tpu``
+routes those.
 ``device=False`` always names the host walk; ``device=True`` names the
 kernel and raises where there is none.
 
@@ -215,7 +216,7 @@ class Dcf:
         output group (xor, add8, add16, add32).
 
         XOR keys run on the facade's device by default (``gen.
-        gen_on_device``: kernel G1 at lam = 16, B7a and the wide tail at
+        gen_on_device``: kernel G1 at lam = 16, B7a and W2 (the wide tail) at
         lam >= 48, their plain versions under ``device="cpu"``); additive
         groups take the host walk, as no keygen kernel has their algebra.
         ``device=False`` names the host walk, ``device=True`` the kernel

@@ -10,9 +10,10 @@ keys-in-lanes generator) and of the generator classes of
                              device, both parties' seeds included, in the
                              layout ``backends.keylanes_backend`` reads
     HybridKeyGen  lam >= 48  kernel B7a (the narrow 32 bytes and both
-                             trajectories) and the GF(2) wide tail
-                             (``ops.keygen_walk.keygen_wide_tail``), on the
-                             device with no host round trip in between
+                             trajectories), then kernel W2, the GF(2) wide
+                             tail (``ops.keygen_walk.keygen_wide_tail``),
+                             on the device with no host round trip in
+                             between
     DpfKeyGen     lam = 32   kernel B7b
 
 Keygen is sequential over the n levels and independent across keys, so at
@@ -97,8 +98,8 @@ class DeviceKeyGen(_KeyGen):
 
 
 class HybridKeyGen(_KeyGen):
-    """DCF keys at lam >= 48 (a multiple of 16) on kernel B7a and the wide
-    tail."""
+    """DCF keys at lam >= 48 (a multiple of 16) on kernels B7a and W2 (the
+    wide tail)."""
 
     def __init__(self, lam: int, cipher_keys: Sequence[bytes], device=None):
         if lam < 48 or lam % 16:

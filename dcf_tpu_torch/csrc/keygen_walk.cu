@@ -18,19 +18,26 @@
 // axis (no 65,535 limit) and every offset is 64-bit.  Each level's
 // correction words go out as 16-byte stores, one row per thread.
 //
-// G1 runs on the banked AES of aes_banked.cuh (64 KB in dynamic shared
-// memory, one wavefront a warp's lookups) with both parties' four blocks
-// of a level in lockstep (KgBanked16): every lane does the same work, as
-// in kernel B8.  On the four 1 KB T-tables of dcf_walk.cuh, where about
-// 3.3 lanes' lookups fall into one bank, it reached 29% of its bound; on
-// the banked AES 76% (18.1 ms for 10^6 keys at n = 128; NVIDIA H100 80GB
-// HBM3, 700 W power limit, chip_smoke.py).  Four blocks in lockstep beat
-// two and two, also at 768 threads a block, and a key's alpha read a byte
-// each 8 levels with a level's t bits in one store beat a byte load and
-// two stores a level (chip_ab.py, in turns).  Its grid is persistent: as
-// many 512-thread blocks as fit on the card fill the table once and take
-// keys in a stride loop.  B7a and B7b still run on the T-tables
-// (KgTables), a 256-thread block a 256 keys.
+// G1 and B7a run on the banked AES of aes_banked.cuh (64 KB in dynamic
+// shared memory, one wavefront a warp's lookups), every lane doing the
+// same work, as in kernel B8: G1 both parties' four blocks of a level in
+// lockstep (KgBanked16), B7a a party's four, one party after the other
+// (KgBankedNarrow).  On the four 1 KB T-tables of dcf_walk.cuh, where
+// about 3.3 lanes' lookups fall into one bank, G1 reached 29% of its
+// bound and B7a 26%; on the banked AES G1 76% (18.1 ms for 10^6 keys at
+// n = 128) and B7a 71% (2.51 ms at lam = 256, K = 2^16; NVIDIA H100 80GB
+// HBM3, 700 W power limit, chip_smoke.py and chip_ab.py).  In turns
+// (chip_ab.py): for G1 four blocks in lockstep beat two and two, also at
+// 768 threads a block, and a key's alpha read a byte each 8 levels with a
+// level's t bits in one store beat a byte load and two stores a level
+// (B7a stores a level's two trajectory bytes in one store too); for B7a
+// both parties' eight blocks in lockstep (128 registers) ran 2% slower
+// than four and four (127) at lam = 256, K = 2^16, and 3-5% faster at
+// lam = 16384, K = 64, where 64 threads wait on latency; streaming stores
+// of the correction words changed neither.  Their grid is persistent: as
+// many 512-thread blocks as fit on the card, never more than the keys
+// need, fill the table once and take keys in a stride loop.  B7b still
+// runs on the T-tables (KgTables), a 256-thread block a 256 keys.
 
 #include <cuda_runtime.h>
 
@@ -38,10 +45,14 @@
 
 namespace {
 
-constexpr int kBlock = 512;  // G1
-// G1's shared layout: the banked table, then cipher 0's round keys.
+constexpr int kBlock = 512;  // G1 and B7a
+
+// G1's and B7a's shared layout: the banked table, then cipher 0's round
+// keys and, for B7a, cipher 17's.
+template <int MODE>
 constexpr size_t kSmem =
-    sizeof(uint32_t) * dcf::kBankedWords + sizeof(dcf::RoundKey) * 16;
+    sizeof(uint32_t) * dcf::kBankedWords +
+    sizeof(dcf::RoundKey) * (MODE == dcf::kKgDcf16 ? 16 : 32);
 
 // One key's rows: its keygen by `expand`.
 template <int MODE, typename Expand>
@@ -57,88 +68,86 @@ __device__ __forceinline__ void key_rows(
       cw_t + rows * 2, cw_np1 + key * lam, traj ? traj + rows * 2 : nullptr);
 }
 
+// G1 (MODE kKgDcf16, lam = 16, no traj) and B7a (kKgNarrow).
+template <int MODE>
 __global__ void __launch_bounds__(kBlock, 1)
-    keygen_g1_kernel(const uint8_t* __restrict__ sbox,
-                     const uint8_t* __restrict__ rk0,
-                     const uint8_t* __restrict__ alphas,
-                     const uint8_t* __restrict__ betas,
-                     const uint8_t* __restrict__ s0s,
-                     uint8_t* __restrict__ cw_s, uint8_t* __restrict__ cw_v,
-                     uint8_t* __restrict__ cw_t,
-                     uint8_t* __restrict__ cw_np1, long long k_num, int n,
-                     int lt) {
+    keygen_banked_kernel(const uint8_t* __restrict__ sbox,
+                         const uint8_t* __restrict__ rk0,
+                         const uint8_t* __restrict__ rk17,
+                         const uint8_t* __restrict__ alphas,
+                         const uint8_t* __restrict__ betas,
+                         const uint8_t* __restrict__ s0s,
+                         uint8_t* __restrict__ cw_s,
+                         uint8_t* __restrict__ cw_v,
+                         uint8_t* __restrict__ cw_t,
+                         uint8_t* __restrict__ cw_np1,
+                         uint8_t* __restrict__ traj, long long k_num, int n,
+                         int lam, int lt) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   uint32_t* te = reinterpret_cast<uint32_t*>(dyn_smem);
   dcf::RoundKey* rks =
       reinterpret_cast<dcf::RoundKey*>(te + dcf::kBankedWords);
   dcf::fill_banked_table(te, sbox);
   dcf::fill_round_keys(rks, rk0);
+  if constexpr (MODE == dcf::kKgNarrow) dcf::fill_round_keys(rks + 16, rk17);
   __syncthreads();
 
-  const dcf::KgBanked16 expand{dcf::bk_lane(te, threadIdx.x & 31), rks};
+  const dcf::BkLane lane = dcf::bk_lane(te, threadIdx.x & 31);
   const size_t stride = (size_t)gridDim.x * kBlock;
   for (size_t key = (size_t)blockIdx.x * kBlock + threadIdx.x;
-       key < (size_t)k_num; key += stride)
-    key_rows<dcf::kKgDcf16>(expand, key, alphas, betas, s0s, cw_s, cw_v,
-                            cw_t, cw_np1, nullptr, n, 16, lt);
+       key < (size_t)k_num; key += stride) {
+    if constexpr (MODE == dcf::kKgDcf16)
+      key_rows<MODE>(dcf::KgBanked16{lane, rks}, key, alphas, betas, s0s,
+                     cw_s, cw_v, cw_t, cw_np1, nullptr, n, 16, lt);
+    else
+      key_rows<MODE>(dcf::KgBankedNarrow{lane, rks, rks + 16}, key, alphas,
+                     betas, s0s, cw_s, cw_v, cw_t, cw_np1, traj, n, lam, lt);
+  }
 }
 
-template <int MODE>
+// B7b on the T-tables, one thread a key.
 __global__ void __launch_bounds__(dcf::kThreads)
-    keygen_walk_kernel(const uint8_t* __restrict__ sbox,
-                       const uint8_t* __restrict__ rk0,
-                       const uint8_t* __restrict__ rk17,
-                       const uint8_t* __restrict__ alphas,
-                       const uint8_t* __restrict__ betas,
-                       const uint8_t* __restrict__ s0s,
-                       uint8_t* __restrict__ cw_s, uint8_t* __restrict__ cw_v,
-                       uint8_t* __restrict__ cw_t,
-                       uint8_t* __restrict__ cw_np1,
-                       uint8_t* __restrict__ traj, long long k_num, int n,
-                       int lam, int lt) {
+    keygen_dpf_kernel(const uint8_t* __restrict__ sbox,
+                      const uint8_t* __restrict__ rk0,
+                      const uint8_t* __restrict__ rk17,
+                      const uint8_t* __restrict__ alphas,
+                      const uint8_t* __restrict__ betas,
+                      const uint8_t* __restrict__ s0s,
+                      uint8_t* __restrict__ cw_s, uint8_t* __restrict__ cw_t,
+                      uint8_t* __restrict__ cw_np1, long long k_num, int n) {
   __shared__ dcf::NarrowTables tab;
   dcf::fill_narrow_tables(tab, sbox, rk0, rk17);
   __syncthreads();
 
   const size_t key = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (key >= (size_t)k_num) return;
-  key_rows<MODE>(dcf::KgTables<MODE>{tab}, key, alphas, betas, s0s, cw_s,
-                 cw_v, cw_t, cw_np1, traj, n, lam, lt);
+  key_rows<dcf::kKgDpf32>(dcf::KgTables{tab}, key, alphas, betas, s0s, cw_s,
+                          nullptr, cw_t, cw_np1, nullptr, n, 32, 1);
 }
 
-cudaError_t launch_g1(const uint8_t* sbox, const uint8_t* rk0,
-                      const uint8_t* alphas, const uint8_t* betas,
-                      const uint8_t* s0s, uint8_t* cw_s, uint8_t* cw_v,
-                      uint8_t* cw_t, uint8_t* cw_np1, long long k_num, int n,
-                      int lt, cudaStream_t stream) {
+template <int MODE>
+cudaError_t launch_banked(const uint8_t* sbox, const uint8_t* rk0,
+                          const uint8_t* rk17, const uint8_t* alphas,
+                          const uint8_t* betas, const uint8_t* s0s,
+                          uint8_t* cw_s, uint8_t* cw_v, uint8_t* cw_t,
+                          uint8_t* cw_np1, uint8_t* traj, long long k_num,
+                          int n, int lam, int lt, cudaStream_t stream) {
+  constexpr size_t smem = kSmem<MODE>;
   cudaError_t e = cudaFuncSetAttribute(
-      keygen_g1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmem);
+      keygen_banked_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, keygen_g1_kernel, kBlock, kSmem);
+      &per_sm, keygen_banked_kernel<MODE>, kBlock, smem);
   if (e != cudaSuccess) return e;
   const long long need = (k_num + kBlock - 1) / kBlock;
   const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  keygen_g1_kernel<<<(unsigned)(need < most ? need : most), kBlock, kSmem,
-                     stream>>>(sbox, rk0, alphas, betas, s0s, cw_s, cw_v,
-                               cw_t, cw_np1, k_num, n, lt);
-  return cudaGetLastError();
-}
-
-template <int MODE>
-cudaError_t launch(const uint8_t* sbox, const uint8_t* rk0,
-                   const uint8_t* rk17, const uint8_t* alphas,
-                   const uint8_t* betas, const uint8_t* s0s, uint8_t* cw_s,
-                   uint8_t* cw_v, uint8_t* cw_t, uint8_t* cw_np1,
-                   uint8_t* traj, long long k_num, int n, int lam, int lt,
-                   cudaStream_t stream) {
-  const long long blocks = (k_num + dcf::kThreads - 1) / dcf::kThreads;
-  keygen_walk_kernel<MODE><<<(unsigned)blocks, dcf::kThreads, 0, stream>>>(
+  keygen_banked_kernel<MODE><<<(unsigned)(need < most ? need : most), kBlock,
+                               smem, stream>>>(
       sbox, rk0, rk17, alphas, betas, s0s, cw_s, cw_v, cw_t, cw_np1, traj,
       k_num, n, lam, lt);
   return cudaGetLastError();
@@ -148,9 +157,10 @@ cudaError_t launch(const uint8_t* sbox, const uint8_t* rk0,
 
 // C entry point, bound through ctypes.  Returns the cudaError_t of the
 // launch (0 on success).  mode: 0 = G1 (lam = 16; rk17 unused), 1 = B7a
-// (writes the narrow 32 bytes of each lam-byte row and traj), 2 = B7b (no
-// cw_v).  alphas [K, n/8], betas [K, lam], s0s [K, 2, lam]; cw_s / cw_v
-// [K, n, lam], cw_t [K, n, 2], cw_np1 [K, lam], traj [K, n, 2] bytes.
+// (writes the narrow 32 bytes of each lam-byte row and traj), 2 = B7b
+// (lam = 32; no cw_v, no traj, lt unused).  alphas [K, n/8], betas
+// [K, lam], s0s [K, 2, lam]; cw_s / cw_v [K, n, lam], cw_t [K, n, 2],
+// cw_np1 [K, lam], traj [K, n, 2] bytes.
 extern "C" int dcf_keygen_walk(const void* sbox, const void* rk0,
                                const void* rk17, const void* alphas,
                                const void* betas, const void* s0s, void* cw_s,
@@ -164,14 +174,18 @@ extern "C" int dcf_keygen_walk(const void* sbox, const void* rk0,
       (uint8_t*)traj, k_num, n, lam, lt, (cudaStream_t)stream
   if (k_num < 1) return (int)cudaSuccess;
   switch (mode) {
-    case dcf::kKgDcf16:
-      return (int)launch_g1(
-          (const uint8_t*)sbox, (const uint8_t*)rk0, (const uint8_t*)alphas,
-          (const uint8_t*)betas, (const uint8_t*)s0s, (uint8_t*)cw_s,
-          (uint8_t*)cw_v, (uint8_t*)cw_t, (uint8_t*)cw_np1, k_num, n, lt,
-          (cudaStream_t)stream);
-    case dcf::kKgNarrow: return (int)launch<dcf::kKgNarrow>(DCF_ARGS);
-    case dcf::kKgDpf32: return (int)launch<dcf::kKgDpf32>(DCF_ARGS);
+    case dcf::kKgDcf16: return (int)launch_banked<dcf::kKgDcf16>(DCF_ARGS);
+    case dcf::kKgNarrow: return (int)launch_banked<dcf::kKgNarrow>(DCF_ARGS);
+    case dcf::kKgDpf32: {
+      const long long blocks = (k_num + dcf::kThreads - 1) / dcf::kThreads;
+      keygen_dpf_kernel<<<(unsigned)blocks, dcf::kThreads, 0,
+                          (cudaStream_t)stream>>>(
+          (const uint8_t*)sbox, (const uint8_t*)rk0, (const uint8_t*)rk17,
+          (const uint8_t*)alphas, (const uint8_t*)betas,
+          (const uint8_t*)s0s, (uint8_t*)cw_s, (uint8_t*)cw_t,
+          (uint8_t*)cw_np1, k_num, n);
+      return (int)cudaGetLastError();
+    }
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DCF_ARGS

@@ -1,5 +1,6 @@
-// Per-thread key generation shared by the three Hopper keygen kernels of
-// keygen_walk.cu, one function with three instantiations:
+// Per-thread key generation shared by the Hopper keygen kernels: one
+// level loop with three instantiations (keygen_walk.cu), and the wide tail
+// of a lam >= 48 key (keygen_wide.cu):
 //
 //   G1   kKgDcf16   replaces the XLA level scan of
 //                   dcf_tpu/backends/device_gen.py::_gen_core (lam = 16)
@@ -7,6 +8,9 @@
 //                   (the 32-byte narrow part of a lam >= 48 key)
 //   B7b  kKgDpf32   replaces dcf_tpu/ops/pallas_keygen.py::dpf_keygen_walk_pallas
 //                   (lam = 32 DPF keys)
+//   W2   wide_tail_column replaces the XLA lax.scan of
+//                   dcf_tpu/ops/pallas_keygen.py::_keygen_wide_tail
+//                   (bytes 32..lam-1 of a lam >= 48 key)
 //
 // Keygen walks the GGM tree once per key, along alpha's path: at each level
 // both parties' seeds expand through the same Hirose PRG as evaluation, the
@@ -26,16 +30,23 @@
 //        0, both parties' four blocks in lockstep on the banked AES of
 //        aes_banked.cuh; the mask bit 8*lam-1 = bit 0 of byte 15 cleared
 //        in all four children.
-//   B7a  KgTables<kKgNarrow>, on the T-tables of dcf_walk.cuh: the narrow
-//        step of narrow_walk.cuh, unmasked (the mask bit of a lam >= 48 PRG
-//        lies in the wide part): E0 and E17 on (s, ~s), four blocks a
-//        party.  It also writes both parties' t at the entry of every
-//        level, the trajectories the wide tail (bytes 32..lam-1,
-//        ops.keygen_walk.keygen_wide_tail) is computed from.
-//   B7b  KgTables<kKgDpf32>: the masked lam = 32 DPF step of B6's node:
-//        E0(s_b0), E0(~s_b0), E17(s_b1), three blocks a party (E17(~s_b1)
-//        feeds only v, which a DPF has not); bit 0 of byte 31 cleared in
-//        block 1 of both children.  No v column: cw_np1 = s_a ^ s_b ^ beta.
+//   B7a  KgBankedNarrow: the narrow step of narrow_walk.cuh, unmasked (the
+//        mask bit of a lam >= 48 PRG lies in the wide part): E0 and E17 on
+//        (s, ~s), a party's four blocks in lockstep on the banked AES,
+//        the block set-up and the children B5a's (narrow_step_in,
+//        narrow_children).  It also writes both
+//        parties' t at the entry of every level, the trajectories the wide
+//        tail is computed from.
+//   B7b  KgTables, on the T-tables of dcf_walk.cuh: the masked lam = 32 DPF
+//        step of B6's node: E0(s_b0), E0(~s_b0), E17(s_b1), three blocks a
+//        party (E17(~s_b1) feeds only v, which a DPF has not); bit 0 of
+//        byte 31 cleared in block 1 of both children.  No v column:
+//        cw_np1 = s_a ^ s_b ^ beta.
+//
+// Beyond byte 32 the Hirose PRG of lam >= 48 copies its input, so the wide
+// part of B7a's keys is a GF(2) recursion over alpha's bits and the two
+// trajectories, independent per byte: wide_tail_column carries one
+// 16-byte column of one key through the n levels.
 //
 // Plain C++ over uint32_t; it also compiles on the host.
 
@@ -56,15 +67,6 @@ struct Kg {
   static constexpr bool V = MODE != kKgDpf32;
 };
 
-// One party's seed expanded at one level: both children's seeds and values
-// as the level's PRG gives them (mask applied where the PRG masks), and the
-// t bits from the unmasked outputs.
-template <int W>
-struct KgChildren {
-  uint32_t sl[W], sr[W], vl[W], vr[W];
-  uint32_t tl, tr;
-};
-
 // The carry of one key's keygen: both parties' seeds and t bits, v_alpha.
 template <int W>
 struct KgState {
@@ -76,7 +78,7 @@ struct KgState {
 // under cipher 0 (hirose_expand in dcf_walk.cuh): t from the unmasked
 // bit 0 of byte 0, then bit 0 of byte 15 cleared in all four children.
 DCF_HD void kg_hirose(const uint32_t s[4], const uint32_t es[4],
-                      const uint32_t ev[4], KgChildren<4>& c) {
+                      const uint32_t ev[4], StepChildren<4>& c) {
   for (int q = 0; q < 4; ++q) {
     c.sl[q] = es[q] ^ s[q];
     c.vl[q] = ev[q] ^ ~s[q];
@@ -101,8 +103,8 @@ struct KgBanked16 {
 // Both parties' E(s) and E(~s), four full blocks in lockstep.  Every lane
 // does the same work: no vote.
 DCF_HD void kg_expand(const KgBanked16& e, const uint32_t sa[4],
-                      const uint32_t sb[4], KgChildren<4>& ea,
-                      KgChildren<4>& eb) {
+                      const uint32_t sb[4], StepChildren<4>& ea,
+                      StepChildren<4>& eb) {
   uint32_t x[4][4];
   for (int q = 0; q < 4; ++q) {
     x[0][q] = sa[q];
@@ -116,30 +118,34 @@ DCF_HD void kg_expand(const KgBanked16& e, const uint32_t sa[4],
   kg_hirose(sb, x[2], x[3], eb);
 }
 
-// B7a's expansion: the unmasked narrow step (narrow_level's children).
-DCF_HD void kg_expand_narrow(const NarrowTables& T, const uint32_t s[8],
-                             KgChildren<8>& c) {
-  uint32_t sp[8], es[8], ev[8];
-  for (int q = 0; q < 8; ++q) sp[q] = ~s[q];
-  aes256_encrypt2_rk(T.a, T.a.rk, s, sp, es, ev);
-  aes256_encrypt2_rk(T.a, T.rk17, s + 4, sp + 4, es + 4, ev + 4);
-  for (int q = 0; q < 8; ++q) {
-    es[q] ^= s[q];
-    ev[q] ^= sp[q];
-  }
-  c.tl = es[0] & 1u;
-  c.tr = ev[0] & 1u;
-  for (int q = 0; q < 8; ++q) {
-    c.sl[q] = q < 4 ? es[q] : s[q];
-    c.sr[q] = q < 4 ? s[q] : es[q];
-    c.vl[q] = q < 4 ? ev[q] : sp[q];
-    c.vr[q] = q < 4 ? sp[q] : ev[q];
-  }
+// B7a's expansion: the lane's view t of the banked AES, cipher 0's and
+// cipher 17's round keys.
+struct KgBankedNarrow {
+  BkLane t;
+  const RoundKey* rk0;
+  const RoundKey* rk17;
+};
+
+// Both parties' unmasked narrow steps, a party's four full blocks in
+// lockstep, one party after the other (all eight in lockstep ran 2%
+// slower at lam = 256, K = 2^16).  Every lane does the same work: no
+// vote.
+DCF_HD void kg_expand(const KgBankedNarrow& e, const uint32_t sa[8],
+                      const uint32_t sb[8], StepChildren<8>& ea,
+                      StepChildren<8>& eb) {
+  const RoundKey* const rks[4] = {e.rk0, e.rk0, e.rk17, e.rk17};
+  uint32_t x[4][4];
+  narrow_step_in(sa, x);
+  bk_encrypt<4>(e.t, rks, x);
+  narrow_children(sa, x, ea);
+  narrow_step_in(sb, x);
+  bk_encrypt<4>(e.t, rks, x);
+  narrow_children(sb, x, eb);
 }
 
 // B7b's expansion: dpf_node's masked lam = 32 step, seeds only.
 DCF_HD void kg_expand_dpf(const NarrowTables& T, const uint32_t s[8],
-                          KgChildren<8>& c) {
+                          StepChildren<8>& c) {
   uint32_t sp[4], e0[4], e0p[4], e1[4];
   for (int q = 0; q < 4; ++q) sp[q] = ~s[q];
   aes256_encrypt3_rk(T.a, T.a.rk, T.rk17, s, sp, s + 4, e0, e0p, e1);
@@ -154,23 +160,16 @@ DCF_HD void kg_expand_dpf(const NarrowTables& T, const uint32_t s[8],
   }
 }
 
-// B7a's and B7b's expansion: the T-tables, one party after the other.
-template <int MODE>
+// B7b's expansion: the T-tables, one party after the other.
 struct KgTables {
   const NarrowTables& T;
 };
 
-template <int MODE>
-DCF_HD void kg_expand(const KgTables<MODE>& e, const uint32_t sa[8],
-                      const uint32_t sb[8], KgChildren<8>& ea,
-                      KgChildren<8>& eb) {
-  if constexpr (MODE == kKgNarrow) {
-    kg_expand_narrow(e.T, sa, ea);
-    kg_expand_narrow(e.T, sb, eb);
-  } else {
-    kg_expand_dpf(e.T, sa, ea);
-    kg_expand_dpf(e.T, sb, eb);
-  }
+DCF_HD void kg_expand(const KgTables& e, const uint32_t sa[8],
+                      const uint32_t sb[8], StepChildren<8>& ea,
+                      StepChildren<8>& eb) {
+  kg_expand_dpf(e.T, sa, ea);
+  kg_expand_dpf(e.T, sb, eb);
 }
 
 // One keygen level from both parties' expansions.  a is alpha's walk bit:
@@ -179,10 +178,10 @@ DCF_HD void kg_expand(const KgTables<MODE>& e, const uint32_t sa[8],
 // in bit 1), and advances the carry.  beta folds into the value correction
 // on the lose side under LT_BETA and on the keep side under GT_BETA.
 template <int W, bool V>
-DCF_HD void keygen_level(const KgChildren<W>& ea, const KgChildren<W>& eb,
-                         uint32_t a, bool lt, const uint32_t beta[W],
-                         KgState<W>& st, uint32_t cs[W], uint32_t cv[W],
-                         uint32_t& ct) {
+DCF_HD void keygen_level(const StepChildren<W>& ea,
+                         const StepChildren<W>& eb, uint32_t a, bool lt,
+                         const uint32_t beta[W], KgState<W>& st,
+                         uint32_t cs[W], uint32_t cv[W], uint32_t& ct) {
   const uint32_t am = 0u - a;  // all ones where the left child is lost
   const uint32_t bg = lt ? am : ~am;
   const uint32_t ga = 0u - st.ta;
@@ -217,21 +216,32 @@ DCF_HD void kg_store(uint8_t* p, const uint32_t* w, int nw) {
 #endif
 }
 
-// A level's t bits (tl in bit 0, tr in bit 1) as its two cw_t bytes, one
-// 2-byte store on the card.
-DCF_HD void kg_store_t(uint8_t* p, uint32_t ct) {
+// 4 little-endian words to p (16-byte aligned on the card) that this
+// kernel does not read back: a streaming store (st.global.cs, evict first)
+// on the card.
+DCF_HD void kg_store_stream(uint8_t* p, const uint32_t w[4]) {
 #if defined(__CUDA_ARCH__)
-  *reinterpret_cast<uint16_t*>(p) = (uint16_t)((ct & 1u) | ((ct >> 1) << 8));
+  __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
 #else
-  p[0] = (uint8_t)(ct & 1u);
-  p[1] = (uint8_t)(ct >> 1);
+  memcpy(p, w, 16);
+#endif
+}
+
+// Two bytes b0, b1 (0/1) to p: a level's cw_t or trajectory pair, one
+// 2-byte store on the card.
+DCF_HD void kg_store2(uint8_t* p, uint32_t b0, uint32_t b1) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<uint16_t*>(p) = (uint16_t)(b0 | (b1 << 8));
+#else
+  p[0] = (uint8_t)b0;
+  p[1] = (uint8_t)b1;
 #endif
 }
 
 // The whole keygen of one key, n levels, both parties' seeds expanded at
-// each level by `expand` (KgBanked16 or KgTables<MODE>).  alpha: n/8
-// bytes, read a byte each 8 levels; beta: the key's beta row; s0a / s0b:
-// the parties' root seeds.  Rows of lam bytes: cw_s (and cw_v) [n][lam],
+// each level by `expand` (KgBanked16, KgBankedNarrow or KgTables).  alpha:
+// n/8 bytes, read a byte each 8 levels; beta: the key's beta row; s0a /
+// s0b: the parties' root seeds.  Rows of lam bytes: cw_s (and cw_v) [n][lam],
 // cw_np1 [lam], of which the first 4 * W bytes are written; cw_t [n][2]
 // bytes (0/1); traj, when not null, [n][2] bytes: party 0's and party 1's
 // t at the entry of each level.
@@ -256,23 +266,73 @@ DCF_HD void keygen_key(const Expand& expand, int n, bool lt,
   uint32_t ab = 0u;  // the byte of alpha that holds walk bit i
   for (int i = 0; i < n; ++i) {
     if ((i & 7) == 0) ab = alpha[i >> 3];
-    if (traj) {
-      traj[2 * i] = (uint8_t)st.ta;
-      traj[2 * i + 1] = (uint8_t)st.tb;
-    }
-    KgChildren<W> ea, eb;
+    if (traj) kg_store2(traj + 2 * i, st.ta, st.tb);
+    StepChildren<W> ea, eb;
     kg_expand(expand, st.sa, st.sb, ea, eb);
     uint32_t cs[W], cv[W], ct;
     keygen_level<W, V>(ea, eb, (ab >> (7 - (i & 7))) & 1u, lt, bw, st, cs, cv,
                        ct);
     kg_store(cw_s + (size_t)i * lam, cs, W);
     if constexpr (V) kg_store(cw_v + (size_t)i * lam, cv, W);
-    kg_store_t(cw_t + 2 * i, ct);
+    kg_store2(cw_t + 2 * i, ct & 1u, ct >> 1);
   }
   uint32_t np1[W];
   for (int q = 0; q < W; ++q)
     np1[q] = st.sa[q] ^ st.sb[q] ^ (V ? st.va[q] : bw[q]);
   kg_store(cw_np1, np1, W);
+}
+
+// W2's body: one 16-byte column of the wide part (bytes 32..lam-1) of one
+// key through its n levels, from the trajectories B7a wrote.  With mask
+// clearing the PRG's bit 8*lam-1 (bit 0 of byte lam-1: the top byte of
+// word 3 of the last column, `last`) and g alpha's walk bit i, inverted
+// under GT_BETA, each level is
+//
+//   s_cw = mask(s_a ^ s_b)            (the lose and keep sides agree)
+//   v_cw = s_cw ^ v ^ beta * g
+//   v'   = v ^ s_cw ^ v_cw            (v_l == v_r)
+//   s_p' = mask(s_p) ^ s_cw * t_p     (p in {a, b}, t_p from traj)
+//
+// and cw_np1 = s_a ^ s_b ^ v after the last.  alpha: the key's n/8 bytes;
+// traj: its [n][2] trajectory bytes (16-byte aligned on the card), both
+// read once each 8 levels; beta, s0a, s0b: the column's 16 bytes of the
+// key's beta and root seeds; cw_s, cw_v: the column in level row 0 (rows
+// lam bytes apart); np1: the column of cw_np1.
+DCF_HD void wide_tail_column(int n, bool lt, bool last, int lam,
+                             const uint8_t* alpha, const uint8_t* traj,
+                             const uint8_t* beta, const uint8_t* s0a,
+                             const uint8_t* s0b, uint8_t* cw_s,
+                             uint8_t* cw_v, uint8_t* np1) {
+  uint32_t sa[4], sb[4], v[4] = {0u, 0u, 0u, 0u}, bw[4], tw[4];
+  load16(s0a, sa);
+  load16(s0b, sb);
+  load16(beta, bw);
+  const uint32_t m3 = last ? kMaskBit : 0xFFFFFFFFu;
+  const uint32_t flip = lt ? 0u : 1u;
+  uint32_t ab = 0u;
+  for (int i = 0; i < n; ++i) {
+    if ((i & 7) == 0) {
+      ab = alpha[i >> 3];
+      load16(traj + 2 * i, tw);  // levels i..i+7, a 16-bit pair each
+    }
+    const uint32_t g = 0u - (((ab >> (7 - (i & 7))) & 1u) ^ flip);
+    const uint32_t tp = tw[(i & 7) >> 1] >> (16 * (i & 1));
+    const uint32_t ga = 0u - (tp & 1u);
+    const uint32_t gb = 0u - ((tp >> 8) & 1u);
+    uint32_t sx[4], vc[4];
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t m = q == 3 ? m3 : 0xFFFFFFFFu;
+      sx[q] = (sa[q] ^ sb[q]) & m;
+      vc[q] = sx[q] ^ v[q] ^ (bw[q] & g);
+      v[q] ^= sx[q] ^ vc[q];
+      sa[q] = (sa[q] & m) ^ (sx[q] & ga);
+      sb[q] = (sb[q] & m) ^ (sx[q] & gb);
+    }
+    kg_store_stream(cw_s + (size_t)i * lam, sx);
+    kg_store_stream(cw_v + (size_t)i * lam, vc);
+  }
+  for (int q = 0; q < 4; ++q) sa[q] ^= sb[q] ^ v[q];
+  kg_store(np1, sa, 4);
 }
 
 }  // namespace dcf

@@ -389,49 +389,77 @@ DCF_HD void frontier_store(const FrontierNode& c, uint8_t* rows,
   words[at] = c.word;
 }
 
+// One seed's children under a Hirose step, uncorrected: seeds and values as
+// the PRG gives them (the mask applied where the PRG masks) and the t bits
+// from the unmasked outputs.  W words a seed: 4 at lam = 16, 8 in the
+// narrow step.
+template <int W>
+struct StepChildren {
+  uint32_t sl[W], sr[W], vl[W], vr[W];
+  uint32_t tl, tr;
+};
+
+// The narrow step's four blocks of seed s, to be encrypted under the
+// round keys {rk0, rk0, rk17, rk17}: s_a, ~s_a, s_b, ~s_b.
+DCF_HD void narrow_step_in(const uint32_t s[8], uint32_t (*x)[4]) {
+  for (int q = 0; q < 4; ++q) {
+    x[0][q] = s[q];
+    x[1][q] = ~s[q];
+    x[2][q] = s[4 + q];
+    x[3][q] = ~s[4 + q];
+  }
+}
+
+// The unmasked narrow step's children of seed s from its four blocks
+// encrypted (x, in narrow_step_in's order):
+//
+//   left  s = (E0(s_a) ^ s_a, s_b)     left  v = (E0(~s_a) ^ ~s_a, ~s_b)
+//   right s = (s_a, E17(s_b) ^ s_b)    right v = (~s_a, E17(~s_b) ^ ~s_b)
+//
+// t_l / t_r are bit 0 of the left child's s and v.
+DCF_HD void narrow_children(const uint32_t s[8], const uint32_t (*x)[4],
+                            StepChildren<8>& c) {
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t sa = s[q], sb = s[4 + q];
+    c.sl[q] = x[0][q] ^ sa;
+    c.sl[4 + q] = sb;
+    c.vl[q] = x[1][q] ^ ~sa;
+    c.vl[4 + q] = ~sb;
+    c.sr[q] = sa;
+    c.sr[4 + q] = x[2][q] ^ sb;
+    c.vr[q] = ~sa;
+    c.vr[4 + q] = x[3][q] ^ ~sb;
+  }
+  c.tl = c.sl[0] & 1u;
+  c.tr = c.vl[0] & 1u;
+}
+
 // One node p at depth i into both children: the four blocks of the narrow
-// step, E0(s_a), E0(~s_a), E17(s_b) and E17(~s_b), in lockstep on every
-// lane (no vote), then the level's correction w under p's t and v
-// accumulated, as narrow_level_banked does for the child a lane takes:
-//
-//   left  s = (E0(s_a) ^ s_a, s_b)     v ^= (E0(~s_a) ^ ~s_a, ~s_b)
-//   right s = (s_a, E17(s_b) ^ s_b)    v ^= (~s_a, E17(~s_b) ^ ~s_b)
-//
-// t_l / t_r are bit 0 of E0(s_a) ^ s_a and of E0(~s_a) ^ ~s_a, each
-// corrected by its CW t bit under p's t; each child's word is p's with the
-// child's t at bit i + 1.
+// step in lockstep on every lane (no vote), then the level's correction w
+// under p's t and v accumulated, as narrow_level_banked does for the child
+// a lane takes.  Each child's word is p's with the child's corrected t at
+// bit i + 1.
 DCF_HD void frontier_expand(const BkLane& t, const RoundKey* rk0,
                             const RoundKey* rk17, const NarrowCw& w, int i,
                             const FrontierNode& p, FrontierNode c[2]) {
   uint32_t x[4][4];
-  for (int q = 0; q < 4; ++q) {
-    x[0][q] = p.s[q];
-    x[1][q] = ~p.s[q];
-    x[2][q] = p.s[4 + q];
-    x[3][q] = ~p.s[4 + q];
-  }
+  narrow_step_in(p.s, x);
   const RoundKey* const rk[4] = {rk0, rk0, rk17, rk17};
   bk_encrypt<4>(t, rk, x);
+  StepChildren<8> e;
+  narrow_children(p.s, x, e);
   const uint32_t tt = (p.word >> i) & 1u;
   const uint32_t g = 0u - tt;
-  const uint32_t tl = ((x[0][0] ^ p.s[0]) & 1u) ^ (tt & w.t);
-  const uint32_t tr = ((x[1][0] ^ ~p.s[0]) & 1u) ^ (tt & (w.t >> 1));
-  for (int q = 0; q < 4; ++q) {
-    const uint32_t sa = p.s[q], sb = p.s[4 + q];
-    const uint32_t cs0 = w.s[q] & g, cs1 = w.s[4 + q] & g;
-    const uint32_t va = p.v[q] ^ ~sa ^ (w.v[q] & g);
-    const uint32_t vb = p.v[4 + q] ^ ~sb ^ (w.v[4 + q] & g);
-    c[0].s[q] = x[0][q] ^ sa ^ cs0;
-    c[0].s[4 + q] = sb ^ cs1;
-    c[0].v[q] = va ^ x[1][q];
-    c[0].v[4 + q] = vb;
-    c[1].s[q] = sa ^ cs0;
-    c[1].s[4 + q] = x[2][q] ^ sb ^ cs1;
-    c[1].v[q] = va;
-    c[1].v[4 + q] = vb ^ x[3][q];
+  for (int q = 0; q < 8; ++q) {
+    const uint32_t cs = w.s[q] & g;
+    const uint32_t cv = p.v[q] ^ (w.v[q] & g);
+    c[0].s[q] = e.sl[q] ^ cs;
+    c[1].s[q] = e.sr[q] ^ cs;
+    c[0].v[q] = e.vl[q] ^ cv;
+    c[1].v[q] = e.vr[q] ^ cv;
   }
-  c[0].word = p.word | (tl << (i + 1));
-  c[1].word = p.word | (tr << (i + 1));
+  c[0].word = p.word | ((e.tl ^ (tt & w.t)) << (i + 1));
+  c[1].word = p.word | ((e.tr ^ (tt & (w.t >> 1))) << (i + 1));
 }
 
 // B5a's per-thread body: the node p at depth `level` of one key (its CW

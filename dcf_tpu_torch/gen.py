@@ -4,7 +4,7 @@ Counterpart of ``random_s0s``, ``gen_batch`` and ``gen_on_device`` in
 ``dcf_tpu/gen.py`` (its lines 60-190 and 230-357).  ``gen_batch`` processes
 K comparison functions level by level with one batched PRG call per party
 per level; ``gen_on_device`` runs the same walk on the card (kernel G1 at
-lam = 16, kernel B7a and the wide tail at lam >= 48,
+lam = 16, kernels B7a and W2, the wide tail, at lam >= 48,
 ``backends.device_gen``) and gives the same bytes.
 """
 
@@ -166,7 +166,7 @@ def gen_on_device(
     ``gen_batch`` on the same ``(alphas, betas, s0s, bound)``.
 
     lam = 16 runs kernel G1 (``backends.device_gen.DeviceKeyGen``), lam >=
-    48 kernel B7a and the wide tail (``HybridKeyGen``); 16 < lam < 48 raises
+    48 kernels B7a and W2 (``HybridKeyGen``); 16 < lam < 48 raises
     (ROADMAP.md A7).  An additive ``group`` takes ``gen_batch`` on the
     host: no keygen kernel, in this package or in ``dcf_tpu``, has the
     signed lane algebra, and ``dcf_tpu`` routes it the same way.  A device

@@ -1,28 +1,30 @@
-"""Kernels G1, B7a and B7b, DCF and DPF key generation on the card, their
-plain versions, and B7a's wide tail.
+"""Kernels G1, B7a and B7b, DCF and DPF key generation on the card, kernel
+W2, B7a's wide tail, and their plain versions.
 
 Counterparts of ``dcf_tpu/backends/device_gen.py`` (``_gen_core``, the XLA
 level scan at lam < 48: G1 here, lam = 16), ``dcf_tpu/ops/pallas_keygen.py``
 (``dcf_keygen_walk_pallas``, B7a: the narrow 32 bytes of a lam >= 48 key;
 ``dpf_keygen_walk_pallas``, B7b: lam = 32 DPF keys) and its
-``_keygen_wide_tail`` (``keygen_wide_tail`` here).  The JAX package packs
-32 keys per lane word and emits bit planes; the port keeps the byte rows of
-a ``KeyBundle`` from end to end, and on the card one thread walks one key
-(``csrc/keygen_walk.cu``, per-thread code in ``csrc/keygen_walk.cuh``).
+``_keygen_wide_tail`` (the XLA scan over bytes 32..lam-1: W2 here).  The
+JAX package packs 32 keys per lane word and emits bit planes; the port
+keeps the byte rows of a ``KeyBundle`` from end to end, and on the card
+one thread walks one key (``csrc/keygen_walk.cu``) and one thread carries
+one 16-byte column of a key's wide part (``csrc/keygen_wide.cu``);
+per-thread code in ``csrc/keygen_walk.cuh``.
 
 Inputs, on one device: alphas uint8 [K, n/8], betas uint8 [K, lam], s0s
 uint8 [K, 2, lam] (both parties' root seeds).  Outputs, left on that
 device: cw_s / cw_v uint8 [K, n, lam], cw_t uint8 [K, n, 2] (0/1), cw_np1
 uint8 [K, lam], and for B7a the trajectories uint8 [K, n, 2]: party 0's
 and party 1's t at the entry of each level.  B7a writes the first 32 bytes
-of each cw row; ``keygen_wide_tail`` the rest.
+of each cw row; ``keygen_wide_tail`` the rest, in place.
 
-``keygen_dcf16``, ``keygen_narrow`` and ``keygen_dpf`` launch their kernel
-for tensors on the card and run ``keygen_walk_plain`` (the same walk in
-plain PyTorch ops over the AES and Hirose pieces of ``ops.walk_eval``) for
-tensors on the CPU.  The wide tail is a GF(2) recursion of n levels of
-torch ops over [K, lam - 32] bytes on either device, as the JAX package
-runs it as an XLA scan.
+``keygen_dcf16``, ``keygen_narrow``, ``keygen_dpf`` and
+``keygen_wide_tail`` launch their kernel for tensors on the card and run
+their plain version for tensors on the CPU: ``keygen_walk_plain`` (the
+same walk in plain PyTorch ops over the AES and Hirose pieces of
+``ops.walk_eval``) and ``keygen_wide_tail_plain`` (the wide part's GF(2)
+recursion as n levels of torch ops over [K, lam - 32] bytes).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from dcf_tpu_torch.ops.walk_eval import (
 )
 
 __all__ = ["MODE_G1", "MODE_B7A", "MODE_B7B", "keygen_walk_plain",
-           "keygen_dcf16", "keygen_narrow", "keygen_dpf", "keygen_wide_tail"]
+           "keygen_wide_tail_plain", "keygen_dcf16", "keygen_narrow",
+           "keygen_dpf", "keygen_wide_tail"]
 
 MODE_G1, MODE_B7A, MODE_B7B = 0, 1, 2  # csrc/keygen_walk.cuh's KgMode
 
@@ -134,9 +137,10 @@ def keygen_walk_plain(aes, alphas, betas, s0s, *, mode: int, lt: bool = True):
     return cw_s, cw_t, cw_np1
 
 
-def keygen_wide_tail(cw_s, cw_v, cw_np1, traj, alphas, betas, s0s, *,
-                     lt: bool = True) -> None:
-    """Bytes 32..lam-1 of B7a's keys, in place, from its trajectories.
+def keygen_wide_tail_plain(cw_s, cw_v, cw_np1, traj, alphas, betas, s0s, *,
+                           lt: bool = True) -> None:
+    """Plain PyTorch version of kernel W2: bytes 32..lam-1 of B7a's keys,
+    in place, from its trajectories.
 
     Beyond byte 32 the Hirose PRG of lam >= 48 is a copy of its input, so
     the wide part is a GF(2) recursion in alpha's bits and the two
@@ -271,3 +275,45 @@ def keygen_dpf(aes, alphas, betas, s0s):
 
 
 keygen_dpf.launches = 0  # kernel B7b launches in this process
+
+
+_WIDE_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def keygen_wide_tail(cw_s, cw_v, cw_np1, traj, alphas, betas, s0s, *,
+                     lt: bool = True) -> None:
+    """Bytes 32..lam-1 of B7a's keys (``keygen_narrow``'s cw_s, cw_v,
+    cw_np1 and traj), in place.  The card launches kernel W2, the CPU runs
+    ``keygen_wide_tail_plain``."""
+    device = cw_s.device
+    if cw_s.dim() != 3 or alphas.dim() != 2:
+        raise ShapeError("cw_s must be [K, n, lam] and alphas [K, n/8]")
+    k_num, n, lam = cw_s.shape
+    if k_num < 1 or n < 8 or n % 8 or lam < 48 or lam % 16:
+        raise ShapeError(f"bad wide tail geometry: K={k_num}, n={n}, "
+                         f"lam={lam}")
+    if device.type == "cpu":
+        keygen_wide_tail_plain(cw_s, cw_v, cw_np1, traj, alphas, betas, s0s,
+                               lt=lt)
+        return
+    if device.type != "cuda":
+        raise ShapeError(f"keygen runs on cuda or cpu, not {device}")
+    for name, t, shape, align in (
+            ("cw_s", cw_s, (k_num, n, lam), 16),
+            ("cw_v", cw_v, (k_num, n, lam), 16),
+            ("cw_np1", cw_np1, (k_num, lam), 16),
+            ("traj", traj, (k_num, n, 2), 16),
+            ("alphas", alphas, (k_num, n // 8), 1),
+            ("betas", betas, (k_num, lam), 16),
+            ("s0s", s0s, (k_num, 2, lam), 16)):
+        check_u8(name, t, shape, device, align)
+    fn = _build.load("keygen_wide", "dcf_keygen_wide", _WIDE_ARGTYPES)
+    launch_checked("keygen_wide", fn, device, alphas.data_ptr(),
+                   betas.data_ptr(), s0s.data_ptr(), traj.data_ptr(),
+                   cw_s.data_ptr(), cw_v.data_ptr(), cw_np1.data_ptr(),
+                   k_num, n, lam, int(bool(lt)))
+    keygen_wide_tail.launches += 1
+
+
+keygen_wide_tail.launches = 0  # kernel W2 launches in this process

@@ -12,8 +12,8 @@ keys-in-lanes body and the two-points-a-lane walk of kernels B1 and B3;
 three-slot narrow level, from the root or from a frontier row), B5a (a
 frontier node into both children, up to three levels a thread, in place)
 and B6 (the masked lam = 32 DPF node, up to three levels a thread, and
-its leaf correction); ``keygen_walk.cuh`` the keygen of kernels G1 (on
-the banked AES), B7a and B7b.  The banked bodies' tests run the lanes of
+its leaf correction); ``keygen_walk.cuh`` the keygen of kernels G1 and
+B7a (on the banked AES) and B7b, and W2's wide-tail column.  The banked bodies' tests run the lanes of
 a warp in a loop, the warp's votes taken over all lanes first.  This test
 compiles the headers with the host C++ compiler into a small library
 that runs each body over every (key, point) or node in a loop, and holds
@@ -231,8 +231,8 @@ _KEYGEN_HARNESS = r"""
 #include "keygen_walk.cuh"
 
 extern "C" {
-// Kernels G1 (mode 0: key j on lane j % 32 of the banked AES), B7a (1)
-// and B7b (2), one key after another.
+// Kernels G1 (mode 0) and B7a (1), key j on lane j % 32 of the banked
+// AES, and B7b (2), one key after another.
 void host_keygen(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
                  const uint8_t* alphas, const uint8_t* betas,
                  const uint8_t* s0s, uint8_t* cw_s, uint8_t* cw_v,
@@ -242,24 +242,46 @@ void host_keygen(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
   narrow_tables(t, sbox, rk0, rk17);
   std::vector<uint32_t> te;
   banked_table(te, sbox);
-  RoundKey rks[15];
+  RoundKey rks[15], rks17[15];
   round_keys(rks, rk0);
+  round_keys(rks17, rk17);
   for (int key = 0; key < K; ++key) {
     const size_t rows = (size_t)key * n;
     const uint8_t* s0 = s0s + (size_t)key * 2 * lam;
     uint8_t* v = cw_v ? cw_v + rows * lam : nullptr;
     uint8_t* tr = traj ? traj + rows * 2 : nullptr;
+    const BkLane lane = bk_lane(te.data(), key % kLanes);
 #define KG_ARGS n, lt != 0, alphas + (size_t)key * (n / 8),                 \
       betas + (size_t)key * lam, s0, s0 + lam, lam, cw_s + rows * lam, v,   \
       cw_t + rows * 2, cw_np1 + (size_t)key * lam, tr
     if (mode == 0)
-      keygen_key<kKgDcf16>(KgBanked16{bk_lane(te.data(), key % kLanes), rks},
-                           KG_ARGS);
+      keygen_key<kKgDcf16>(KgBanked16{lane, rks}, KG_ARGS);
     else if (mode == 1)
-      keygen_key<kKgNarrow>(KgTables<kKgNarrow>{t}, KG_ARGS);
+      keygen_key<kKgNarrow>(KgBankedNarrow{lane, rks, rks17}, KG_ARGS);
     else
-      keygen_key<kKgDpf32>(KgTables<kKgDpf32>{t}, KG_ARGS);
+      keygen_key<kKgDpf32>(KgTables{t}, KG_ARGS);
 #undef KG_ARGS
+  }
+}
+
+// Kernel W2: every (key, 16-byte column) of the wide part, as a thread of
+// keygen_wide.cu takes it.
+void host_wide_tail(const uint8_t* alphas, const uint8_t* betas,
+                    const uint8_t* s0s, const uint8_t* traj, uint8_t* cw_s,
+                    uint8_t* cw_v, uint8_t* cw_np1, int K, int n, int lam,
+                    int lt) {
+  const int cols = (lam - 32) / 16;
+  for (int key = 0; key < K; ++key) {
+    const size_t rows = (size_t)key * n;
+    const uint8_t* s0 = s0s + (size_t)key * 2 * lam;
+    for (int c = 0; c < cols; ++c) {
+      const size_t at = 32 + 16 * (size_t)c;
+      wide_tail_column(n, lt != 0, c == cols - 1, lam,
+                       alphas + (size_t)key * (n / 8), traj + rows * 2,
+                       betas + (size_t)key * lam + at, s0 + at,
+                       s0 + lam + at, cw_s + rows * lam + at,
+                       cw_v + rows * lam + at, cw_np1 + (size_t)key * lam + at);
+    }
   }
 }
 }
@@ -1037,9 +1059,9 @@ def _keygen_body(lib, mode, ck, alphas, betas, s0s, lt=True):
 @pytest.mark.parametrize("k_num", [1, 33])
 @pytest.mark.parametrize("lam", [16, 48, 256])
 def test_keygen_body_matches_gen_batch(lib, lam, k_num):
-    """G1's body at lam = 16 and B7a's at lam >= 48 (its trajectories
-    completed by the wide tail) give gen_batch's keys byte for byte, both
-    bounds, n = 16."""
+    """G1's and B7a's banked bodies, at lam = 16 and lam >= 48 (B7a's
+    trajectories completed by the wide tail), give gen_batch's keys byte
+    for byte, both bounds, n = 16."""
     from dcf_tpu_torch.ops.keygen_walk import keygen_wide_tail
 
     rng = np.random.default_rng(380 + lam + k_num)
@@ -1078,6 +1100,71 @@ def test_banked_keygen_body_at_full_depth(lib):
         cw_s, cw_v, cw_t, cw_np1, _ = _keygen_body(
             lib, 0, ck, alphas, betas, s0s, bound is Bound.LT_BETA)
         want = gen_batch(HirosePrgNp(16, ck), alphas, betas, s0s, bound)
+        for name, got in (("cw_s", cw_s), ("cw_v", cw_v), ("cw_t", cw_t),
+                          ("cw_np1", cw_np1)):
+            assert np.array_equal(got, getattr(want, name)), (bound, name)
+
+
+def _wide_tail_body(lib, cw_s, cw_v, cw_np1, traj, alphas, betas, s0s, lt):
+    """Run kernel W2's body over every (key, column) of B7a's outputs, on
+    copies; returns the completed (cw_s, cw_v, cw_np1)."""
+    k_num, n, lam = cw_s.shape
+    cw_s, cw_v, cw_np1 = cw_s.copy(), cw_v.copy(), cw_np1.copy()
+    lib.host_wide_tail(_p(alphas), _p(betas), _p(s0s), _p(traj), _p(cw_s),
+                       _p(cw_v), _p(cw_np1), k_num, n, lam, int(lt))
+    return cw_s, cw_v, cw_np1
+
+
+@pytest.mark.parametrize("lam,k_num,n", [
+    (48, 1, 16), (48, 33, 16), (144, 1, 16), (144, 33, 16), (256, 1, 16),
+    (256, 33, 16), (256, 33, 128)])
+def test_wide_tail_body_matches_plain_and_gen_batch(lib, lam, k_num, n):
+    """W2's body (one 16-byte column a thread: one, seven and fourteen
+    columns, the last one masked) on the trajectories of B7a's body equals
+    ``keygen_wide_tail_plain`` on the same inputs, and the completed keys
+    equal gen_batch's byte for byte, both bounds."""
+    from dcf_tpu_torch.ops.keygen_walk import keygen_wide_tail_plain
+
+    rng = np.random.default_rng(1200 + lam + k_num + n)
+    ck = [rng.bytes(32) for _ in range(max(18, 2 * (lam // 16)))]
+    prg = HirosePrgNp(lam, ck, warn=False)
+    alphas = rng.integers(0, 256, (k_num, n // 8), dtype=np.uint8)
+    betas = rng.integers(0, 256, (k_num, lam), dtype=np.uint8)
+    s0s = random_s0s(k_num, lam, rng)
+    for bound in Bound:
+        lt = bound is Bound.LT_BETA
+        cw_s, cw_v, cw_t, cw_np1, traj = _keygen_body(lib, 1, ck, alphas,
+                                                      betas, s0s, lt)
+        got = _wide_tail_body(lib, cw_s, cw_v, cw_np1, traj, alphas, betas,
+                              s0s, lt)
+        plain = [torch.from_numpy(a.copy()) for a in (cw_s, cw_v, cw_np1)]
+        keygen_wide_tail_plain(*plain, *(torch.from_numpy(a) for a in (
+            traj, alphas, betas, s0s)), lt=lt)
+        want = gen_batch(prg, alphas, betas, s0s, bound)
+        for name, g_, p_ in zip(("cw_s", "cw_v", "cw_np1"), got, plain):
+            assert np.array_equal(g_, p_.numpy()), (bound, name)
+            assert np.array_equal(g_, getattr(want, name)), (bound, name)
+        assert np.array_equal(cw_t, want.cw_t), bound
+
+
+def test_banked_narrow_keygen_body_at_full_depth(lib):
+    """B7a's banked body at the main path's depth and width, lam = 256,
+    n = 128, over K = 33 keys (lanes 0-31 and a partial warp of one),
+    completed by W2's body: gen_batch's keys byte for byte, both
+    bounds."""
+    rng = np.random.default_rng(1386)
+    lam, k_num = 256, 33
+    ck = [rng.bytes(32) for _ in range(2 * (lam // 16))]
+    alphas = rng.integers(0, 256, (k_num, 16), dtype=np.uint8)
+    betas = rng.integers(0, 256, (k_num, lam), dtype=np.uint8)
+    s0s = random_s0s(k_num, lam, rng)
+    for bound in Bound:
+        lt = bound is Bound.LT_BETA
+        cw_s, cw_v, cw_t, cw_np1, traj = _keygen_body(lib, 1, ck, alphas,
+                                                      betas, s0s, lt)
+        cw_s, cw_v, cw_np1 = _wide_tail_body(lib, cw_s, cw_v, cw_np1, traj,
+                                             alphas, betas, s0s, lt)
+        want = gen_batch(HirosePrgNp(lam, ck), alphas, betas, s0s, bound)
         for name, got in (("cw_s", cw_s), ("cw_v", cw_v), ("cw_t", cw_t),
                           ("cw_np1", cw_np1)):
             assert np.array_equal(got, getattr(want, name)), (bound, name)

@@ -257,4 +257,5 @@ def test_chip_ab_cases_are_built_kernels():
     finally:
         sys.path.remove(str(REPO))
     assert chip_ab.CASES
-    assert set(chip_ab.CASES) <= set(_build.KERNELS)
+    assert {src for src, _ in chip_ab.CASES.values()} <= set(_build.KERNELS)
+    assert all(callable(case) for _, case in chip_ab.CASES.values())

@@ -6,19 +6,27 @@ to ``dcf_tpu``'s host ``gen_batch`` / ``dpf_gen_batch`` as DCFK frames, at
 n = 16, K in {1, 3, 8, 33}, both bounds, lam in {16, 48, 256} and DPF
 lam = 32 (the JAX package's own tests pin those to its device kernels).
 One tiny run each holds the port against ``dcf_tpu``'s ``DeviceKeyGen`` on
-XLA-CPU and its ``PallasKeyGen`` / ``PallasDpfKeyGen`` in interpret mode.
+XLA-CPU and its ``PallasKeyGen`` / ``PallasDpfKeyGen`` in interpret mode,
+and kernel W2's plain version against ``dcf_tpu``'s XLA wide-tail scan on
+the same trajectories.
 Then the facade's routing of ``gen`` / ``dpf`` / ``pir_query`` and the
 ``keygen.device`` fault point, which raises: there is no fallback."""
 
 import warnings
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from dcf_tpu import spec as jspec
 from dcf_tpu.backends.device_gen import DeviceKeyGen as JDeviceKeyGen
 from dcf_tpu.gen import gen_batch as j_gen_batch
-from dcf_tpu.ops.pallas_keygen import PallasDpfKeyGen, PallasKeyGen
+from dcf_tpu.ops.pallas_keygen import (
+    PallasDpfKeyGen,
+    PallasKeyGen,
+    _keygen_wide_tail,
+)
 from dcf_tpu.ops.prg import HirosePrgNp as JPrg
 from dcf_tpu.protocols.dpf import dpf_gen_batch as j_dpf_gen_batch
 
@@ -29,6 +37,12 @@ from dcf_tpu_torch.backends.device_gen import (
     HybridKeyGen,
 )
 from dcf_tpu_torch.gen import gen_on_device, random_s0s
+from dcf_tpu_torch.ops.keygen_walk import (
+    keygen_narrow,
+    keygen_wide_tail_plain,
+)
+from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
+from dcf_tpu_torch.ops.walk_eval import walk_bits_plain
 from dcf_tpu_torch.protocols.dpf import dpf_gen_on_device
 from dcf_tpu_torch.testing import faults
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -111,6 +125,44 @@ def test_hybrid_and_dpf_keygen_match_pallas_interpret():
                                                            s0s)
     got = DpfKeyGen(32, ck, device="cpu").gen(alphas, betas, s0s)
     assert got.to_bytes() == want.to_bytes()
+
+
+def _lane_planes(bits: np.ndarray) -> np.ndarray:
+    """uint8 [K, n] (0/1) -> the JAX kernels' int32 lane planes [n, 1, W]:
+    key k at bit k % 32 of word k // 32."""
+    k_num, n = bits.shape
+    w = -(-k_num // 32)
+    padded = np.zeros((w * 32, n), np.uint64)
+    padded[:k_num] = bits
+    words = (padded.reshape(w, 32, n)
+             << np.arange(32, dtype=np.uint64)[None, :, None]).sum(1)
+    return words.astype(np.uint32).view(np.int32).T.reshape(n, 1, w)
+
+
+@pytest.mark.parametrize("bound", list(Bound))
+@pytest.mark.parametrize("lam", [48, 256])
+def test_wide_tail_plain_matches_dcf_tpu_scan(lam, bound):
+    """W2's plain version against ``dcf_tpu``'s ``_keygen_wide_tail`` (the
+    XLA scan behind ``PallasKeyGen``) on the trajectories of B7a's plain
+    version, K = 33, n = 16: every wide byte of cw_s, cw_v and cw_np1."""
+    rng = np.random.default_rng(900 + lam + len(bound.name))
+    ck = _ck(rng, lam)
+    k_num, lt = 33, bound is Bound.LT_BETA
+    alphas, betas, s0s = _inputs(rng, k_num, lam)
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17]))
+    ins = [torch.from_numpy(a) for a in (alphas, betas, s0s)]
+    cw_s, cw_v, _, cw_np1, traj = keygen_narrow(aes, *ins, lt=lt)
+    keygen_wide_tail_plain(cw_s, cw_v, cw_np1, traj, *ins, lt=lt)
+    tr = traj.numpy()
+    want = _keygen_wide_tail(
+        jnp.asarray(s0s[:, :, 32:]), jnp.asarray(betas[:, 32:]),
+        jnp.asarray(walk_bits_plain(ins[0]).numpy()),
+        jnp.asarray(_lane_planes(tr[..., 0])),
+        jnp.asarray(_lane_planes(tr[..., 1])), lam=lam, lt_beta=lt,
+        k_num=k_num)
+    for name, got, w in zip(("cw_s", "cw_v", "cw_np1"),
+                            (cw_s, cw_v, cw_np1), want):
+        assert np.array_equal(got.numpy()[..., 32:], np.asarray(w)), name
 
 
 def test_keygen_device_fault_raises():
