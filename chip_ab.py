@@ -296,6 +296,85 @@ def case_prefix_eval(torch, dev):
             lambda: (prefix_eval(*args, k=k, negate=False, group="xor"),))
 
 
+def _wide_xor(torch, dev, lam: int, m: int, reps: int):
+    """W1 on one seeded key's B4 trajectories at width lam, n = 128, m
+    shared points, party 0, in place: bytes 32..lam-1 of the shares."""
+    from dcf_tpu_torch.backends.large_lambda import wide_affine_batch_np
+    from dcf_tpu_torch.gen import gen_batch, random_s0s
+    from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image, narrow_walk
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.ops.wide_tail import wide_tail
+    from dcf_tpu_torch.spec import Bound
+
+    rng = np.random.default_rng(SEED)
+    ck = [rng.bytes(32) for _ in range(max(18, 2 * (lam // 16)))]
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17])).to(dev)
+    kb = gen_batch(HirosePrgNp(lam, ck, warn=False),
+                   rng.integers(0, 256, (1, 16), dtype=np.uint8),
+                   rng.integers(0, 256, (1, lam), dtype=np.uint8),
+                   random_s0s(1, lam, rng), Bound.LT_BETA).for_party(0)
+    xs = rng.integers(0, 256, (1, m, 16), dtype=np.uint8)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        kb.s0s[:, 0, :32], kb.cw_s[..., :32], kb.cw_v[..., :32], kb.cw_t,
+        kb.cw_np1[:, :32], xs))
+    y, traj = narrow_walk(aes, *args, b=0, lam=lam)
+    wide = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in wide_affine_batch_np(kb))
+
+    def call():
+        wide_tail(y, traj, *wide)
+        return (y[..., 32:],)
+
+    return f"lam={lam} n=128 K=1 M={m}", reps, call
+
+
+def case_wide_xor(torch, dev):
+    """W1 at BASELINE.json config 4's shape: lam = 256, 2^20 points."""
+    return _wide_xor(torch, dev, 256, 1 << 20, 10)
+
+
+def case_wide_xor_crate(torch, dev):
+    """W1 at the reference crate's large-lambda shape: lam = 16384,
+    10,000 points."""
+    return _wide_xor(torch, dev, 16384, 10_000, 10)
+
+
+def _tree_levels(torch, dev, n: int, k0: int, k1: int, reps: int):
+    """B2 over levels k0..k1-1 of one seeded lam = 16 key (n levels, XOR,
+    party 0) from the host's level-k0 nodes; s, v and t of level k1."""
+    from dcf_tpu_torch.backends.fulldomain import tree_expand_np
+    from dcf_tpu_torch.gen import gen_batch, random_s0s
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.ops.tree_expand import tree_expand
+    from dcf_tpu_torch.ops.walk_eval import aes_image
+    from dcf_tpu_torch.spec import Bound
+
+    rng = np.random.default_rng(SEED)
+    ck = [rng.bytes(32), rng.bytes(32)]
+    prg = HirosePrgNp(16, ck)
+    kb = gen_batch(prg, rng.integers(0, 256, (1, n // 8), dtype=np.uint8),
+                   rng.integers(0, 256, (1, 16), dtype=np.uint8),
+                   random_s0s(1, 16, rng), Bound.LT_BETA).for_party(0)
+    aes = torch.from_numpy(aes_image(ck[0])).to(dev)
+    cws = [torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+           for a in (kb.cw_s, kb.cw_v, kb.cw_t)]
+    top = [torch.from_numpy(a).to(dev) for a in tree_expand_np(prg, kb, 0, k0)]
+    return (f"n={n} levels {k0}-{k1 - 1}", reps,
+            lambda: tree_expand(aes, *cws, *top, k0=k0, k1=k1, group="xor"))
+
+
+def case_tree_expand(torch, dev):
+    """B2 on the flagship prefix path: the k = 21 frontier of a lam = 16,
+    n = 128 key, levels 6-20 from the host's top 6."""
+    return _tree_levels(torch, dev, 128, 6, 21, 10)
+
+
+def case_tree_expand_fd(torch, dev):
+    """B2 on BASELINE.json config 3's full domain: levels 6-22 of an
+    n = 24 key (B2f takes level 23)."""
+    return _tree_levels(torch, dev, 24, 6, 23, 5)
+
+
 # case name -> (the kernel source it builds, its inputs and call)
 CASES = {"keylanes_eval": ("keylanes_eval", case_keylanes_eval),
          "keygen_walk": ("keygen_walk", case_keygen_walk),
@@ -308,7 +387,11 @@ CASES = {"keylanes_eval": ("keylanes_eval", case_keylanes_eval),
          "hybrid_prefix": ("hybrid_prefix", case_hybrid_prefix),
          "evalall_expand": ("evalall_expand", case_evalall_expand),
          "walk_eval": ("walk_eval", case_walk_eval),
-         "prefix_eval": ("prefix_eval", case_prefix_eval)}
+         "prefix_eval": ("prefix_eval", case_prefix_eval),
+         "wide_xor": ("wide_xor", case_wide_xor),
+         "wide_xor_crate": ("wide_xor", case_wide_xor_crate),
+         "tree_expand": ("tree_expand", case_tree_expand),
+         "tree_expand_fd": ("tree_expand", case_tree_expand_fd)}
 
 
 def _package(root: str):

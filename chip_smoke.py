@@ -11,13 +11,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``dcf_tpu_torch/csrc`` with nvcc, one process per source, all at once,
    and print the build seconds and ptxas' register and spill counts (on a
    line of their own, by kernel function, for B8, B4, B1, B3, B6, B5b, G1,
-   B7a and B5a, the kernels on the banked AES);
+   B7a, B5a and B2, the kernels on the banked AES);
 3. hold each kernel byte for byte against its plain PyTorch version on the
    card, at 2^16 points: B1-B3 (B2 from level 6 to 21) over both parties,
    all four output groups, both bounds, and B1 with 3 keys and per-key
-   points; B4 + W1 and B5a + B5b (k = 16, 20) + W1 at lam = 256 over both
-   parties and both bounds, and B4 + W1 with 3 keys; x = alpha and
-   alpha +- 1 planted throughout;
+   points; B2 also in launches of depth 1, 2 and 3 and over spans of 7 and
+   5 levels (cut 1 + 3 + 3 and 2 + 3), four groups, both parties; B4 + W1
+   and B5a + B5b (k = 16, 20) + W1 at lam = 256 over both parties and
+   both bounds, and B4 + W1 with 3 keys; x = alpha and alpha +- 1 planted
+   throughout;
 4. the main paths through the port's ``Dcf`` facade, one key, n = 128,
    2^20 random shared points, XOR group, host keygen: lam = 16 through
    ``walk`` (B1) and ``prefix`` (B2 + B3); lam = 256 (BASELINE.json config
@@ -32,13 +34,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    oracle, and W1 (whose columns tile over the grid here) against its
    plain version;
 6. each kernel held byte for byte against its plain version at its main
-   path's shapes (2^20 points; B2 levels 6 to 21, B5a k = 20), and its
-   time there beside its plain version's and its bound (B5a's also as
-   device and host time a call apart); W1 also beside
+   path's shapes (2^20 points; B2 levels 6 to 20, after two untimed calls;
+   B5a k = 20), and its time there beside its plain version's and its
+   bound (B5a's also as device and host time a call apart); W1 also beside
    ``torch._int_mm``, the library's integer product, whose parity is
-   checked against W1's output; B4, B5b, B1 and B3 also beside the AES
-   lookups their designs compute per lookup their bounds count, on the
-   run's own turns;
+   checked against W1's output, and beside three design figures: the
+   bit walk's shared-memory reads, the int8 tensor-core product's
+   operations and its own table reads; B4, B5b, B1 and B3 also beside the
+   AES lookups their designs compute per lookup their bounds count, on
+   the run's own turns;
 7. the hybrid prefix depth on the card: B5a and B5b called directly at
    k = 16..24 on the lam = 256 main inputs, each result equal to the
    from-root walk's, B5a's device and host time a call, and B5b's time per
@@ -66,14 +70,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     evaluator's default (no level on the host), and at n = 24 once more
     with the top 6 levels on the host;
 12. B6, B2f and P1 against their plain versions at those paths' shapes
-    (n = 24; B6 both parties), their times and bounds; P1 also beside
+    (n = 24; B6 both parties), their times and bounds, and B2 on the full
+    domain's levels 6 to 22, held against its plain version for both
+    bounds' keys and timed after two untimed calls; P1 also beside
     ``torch._int_mm`` on the database unpacked to bits, whose parity is
     checked against P1;
     each B6 launch the paths of phases 10-11 make (a level and 1-3 levels
     deep) and B1 a launch at the per-point full domain's shape (n = 24,
     2^20 points), each beside its bound: with B1 at the walk path's two
-    shapes (phase 6), the script ends by printing launches x (ms - bound)
-    of B1 and B6 on each path;
+    shapes and B2 at the prefix path's (phase 6), the script ends by
+    printing launches x (ms - bound) of B1, B2 and B6 on each path;
 13. the keygen kernels against their plain versions, K = 4096, both
     bounds: G1 (lam = 16) and B7a (lam = 256) at n = 128, B7b (lam = 32)
     at n = 24; W2 on B7a's outputs at lam = 256, K = 4096 and at
@@ -212,7 +218,8 @@ def pair_lookups_computed(bits) -> int:
 
 def ptxas_functions(log: str) -> dict:
     """ptxas' (registers, spill-store bytes) of each kernel function in a
-    build log, by its name (a template's first argument in brackets)."""
+    build log, by its name (a template's integer and bool arguments in
+    brackets)."""
     out = {}
     for m in re.finditer(
             r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores"
@@ -226,8 +233,10 @@ def ptxas_functions(log: str) -> dict:
                 j += 1
             names.append(mangled[j:j + int(mangled[i:j])])
             i = j + int(mangled[i:j])
-        arg = re.match(r"(?:E)?ILi(\d+)E", mangled[i:])
-        name = names[-1] + (f"<{arg.group(1)}>" if arg else "")
+        arg = re.match(r"(?:E)?I((?:L[ib]\d+E)+)E", mangled[i:])
+        name = names[-1] + (
+            "<" + ",".join(re.findall(r"L[ib](\d+)E", arg.group(1))) + ">"
+            if arg else "")
         out[name] = (int(m.group(3)), int(m.group(2)))
     return out
 
@@ -295,9 +304,9 @@ def main() -> int:
     from dcf_tpu_torch.backends.walk_backend import WalkBackend
     from dcf_tpu_torch.gen import gen_batch, random_s0s
     from dcf_tpu_torch.keys import KeyBundle
+    from dcf_tpu_torch.ops._launch import launch_depths
     from dcf_tpu_torch.ops.evalall_expand import (
-        evalall_expand, evalall_expand_level, evalall_expand_level_plain,
-        launch_depths)
+        evalall_expand, evalall_expand_level, evalall_expand_level_plain)
     from dcf_tpu_torch.ops.hybrid_prefix import (
         frontier_launches, hybrid_prefix_eval, hybrid_prefix_eval_plain,
         narrow_frontier, narrow_frontier_plain)
@@ -310,7 +319,7 @@ def main() -> int:
     from dcf_tpu_torch.ops.prg import HirosePrgNp
     from dcf_tpu_torch.ops.tree_expand import (
         tree_expand, tree_expand_final, tree_expand_final_plain,
-        tree_expand_level, tree_expand_level_plain)
+        tree_expand_level_plain, tree_expand_levels)
     from dcf_tpu_torch.ops.walk_eval import (
         aes_image, walk_bits_plain, walk_eval, walk_eval_plain)
     from dcf_tpu_torch.ops.wide_tail import wide_tail, wide_tail_plain
@@ -354,13 +363,16 @@ def main() -> int:
     banked = {"keylanes_eval": "B8", "narrow_walk": "B4",
               "walk_eval": "B1", "prefix_eval": "B3",
               "evalall_expand": "B6", "hybrid_prefix": "B5b",
-              "keygen_walk": "G1, B7a", "hybrid_state": "B5a"}
+              "keygen_walk": "G1, B7a", "hybrid_state": "B5a",
+              "tree_expand": "B2"}
     log("phase 2 the kernels on the banked AES, (registers, spill-store "
         "bytes) by kernel function: " + "; ".join(
             f"{kid} {src} {ptxas_functions(_build.build_log(src))}"
             for src, kid in banked.items())
         + " (keygen_walk's keygen_banked_kernel<0> is G1, <1> B7a; "
-        "keygen_dpf_kernel is B7b on the T-tables)")
+        "keygen_dpf_kernel is B7b on the T-tables; tree_expand's "
+        "tree_expand_kernel<GW> B2, tree_expand_final_kernel B2f on the "
+        "T-tables)")
 
     # -- phase 3: each kernel against its plain version --------------------------
     rng = np.random.default_rng(SEED)
@@ -458,17 +470,26 @@ def main() -> int:
         for b in (0, 1):
             kb = bundle.for_party(b)
             t = on_card(kb)
-            s, v, tt = host_frontier(kb, b)
-            got = tree_expand(aes, t["cw_s"][0], t["cw_v"][0], t["cw_t"][0],
-                              s, v, tt, k0=HOST_LEVELS, k1=k_full,
-                              group=group)
+            cws = (t["cw_s"][0], t["cw_v"][0], t["cw_t"][0])
+            plain = {HOST_LEVELS: host_frontier(kb, b)}  # level -> nodes
             for i in range(HOST_LEVELS, k_full):
-                s, v, tt = tree_expand_level_plain(
-                    aes, t["cw_s"][0, i], t["cw_v"][0, i], t["cw_t"][0, i],
-                    s, v, tt, group=group)
-            for name, g_, w_ in zip("svt", got, (s, v, tt)):
-                same("B2", f"{group} party {b} {name}", g_, w_)
-    log(f"phase 3 B2: levels {HOST_LEVELS}..{k_full - 1} byte-identical to "
+                plain[i + 1] = tree_expand_level_plain(
+                    aes, *(c[i] for c in cws), *plain[i], group=group)
+            # The main span (five launches of 3), spans of 7 and 5 levels
+            # (cut 1 + 3 + 3 and 2 + 3), and single launches of depth 1-3.
+            runs = [(f"levels {HOST_LEVELS}..{k1 - 1}", k1, tree_expand(
+                aes, *cws, *plain[HOST_LEVELS], k0=HOST_LEVELS, k1=k1,
+                group=group)) for k1 in (k_full, HOST_LEVELS + 7,
+                                         HOST_LEVELS + 5)]
+            runs += [(f"one launch {lvl}+{d}", lvl + d, tree_expand_levels(
+                aes, *cws, *plain[lvl], level=lvl, depth=d, group=group))
+                for lvl, d in ((HOST_LEVELS, 1), (HOST_LEVELS, 2),
+                               (HOST_LEVELS, 3), (12, 3))]
+            for what, k1, got in runs:
+                for name, g_, w_ in zip("svt", got, plain[k1]):
+                    same("B2", f"{group} party {b} {what} {name}", g_, w_)
+    log(f"phase 3 B2: levels {HOST_LEVELS}..{k_full - 1}, spans of 7 and 5 "
+        f"levels and single launches of depth 1, 2 and 3 byte-identical to "
         f"the plain version over 4 groups x 2 parties "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -548,7 +569,7 @@ def main() -> int:
         f"W1 with K=3 ({time.perf_counter() - t0:.1f} s)")
 
     # -- phase 4: the main paths through the facade --------------------------------
-    counters = {"B1": walk_eval, "B2": tree_expand_level, "B3": prefix_eval,
+    counters = {"B1": walk_eval, "B2": tree_expand_levels, "B3": prefix_eval,
                 "B4": narrow_walk, "B5a": narrow_frontier,
                 "B5b": hybrid_prefix_eval, "W1": wide_tail,
                 "B6": evalall_expand_level, "B2f": tree_expand_final,
@@ -665,7 +686,7 @@ def main() -> int:
     log(f"phase 5 lam={LAM_CRATE}, {M_CRATE} points (backend "
         f"{dcf.backend_name}, from the root): 0 mismatches, first "
         f"{M_CRATE_ANCHOR} points equal the numpy oracle, W1 over "
-        f"{-(-(LAM_CRATE - 32) // 128)} column tiles byte-identical to its "
+        f"{-(-(LAM_CRATE - 32) // 256)} column tiles byte-identical to its "
         f"plain version; eval_staged median {crate_ms:.3f} ms = "
         f"{M_CRATE / crate_ms * 1e3:,.0f} evals/s over {REPEATS} repeats, "
         f"W1 alone {w1_crate_ms:.3f} ms ({time.perf_counter() - t0:.1f} s) "
@@ -715,8 +736,15 @@ def main() -> int:
     t = on_card(kb)
     s, v, tt = host_frontier(kb, 0)
     targs = (aes, t["cw_s"][0], t["cw_v"][0], t["cw_t"][0])
-    b2_ms, got = cuda_ms(lambda: tree_expand(*targs, s, v, tt, k0=HOST_LEVELS,
-                                             k1=k_full, group="xor"), 10)
+
+    def b2_prefix():
+        return tree_expand(*targs, s, v, tt, k0=HOST_LEVELS, k1=k_full,
+                           group="xor")
+
+    held = b2_prefix()  # two untimed calls, the first's outputs alive, so
+    b2_prefix()  # that no allocation falls into the timed window
+    b2_ms, got = cuda_ms(b2_prefix, 10)
+    del held
 
     def tree_plain():
         st = (s, v, tt)
@@ -734,11 +762,13 @@ def main() -> int:
     b2_lookups = parents * 2 * LOOKUPS_BLOCK
     # The function's bytes: the level-k0 nodes read once, the level-k1
     # nodes written once (33 bytes a node), the CWs and the cipher image.
-    # This design also writes and reads back every level between them
-    # (b2_level_bytes), which a fused build would not have to.
+    # This design also writes and reads back the levels where one launch
+    # ends and the next begins (b2_level_bytes).
     b2_bytes = ((1 << HOST_LEVELS) + (1 << k_full)) * 33 \
         + (k_full - HOST_LEVELS) * 34 + 496
-    b2_level_bytes = 3 * parents * 33 + (k_full - HOST_LEVELS) * (34 + 496)
+    b2_cut = launch_depths(HOST_LEVELS, k_full)
+    b2_level_bytes = sum(((1 << i) + (1 << (i + d))) * 33 + d * 34 + 496
+                         for i, d in b2_cut)
 
     table = table_of(kb, 0, k_full)
     pargs = (aes, table, t["cw_s"], t["cw_v"], t["cw_t"], t["cw_np1"], xs)
@@ -753,7 +783,7 @@ def main() -> int:
     b3_bytes = M_MAIN * N_BYTES + rows * 32 + M_MAIN * 16 \
         + (n - k_full) * 34 + 16 + 496
     log(f"phase 6: B1, B2, B3 byte-identical to their plain versions at the "
-        f"main path's shapes; B2's per-level traffic in this design is "
+        f"main path's shapes; B2's launches {b2_cut} move "
         f"{b2_level_bytes} bytes ({b2_level_bytes / HBM_BYTES_PER_S * 1e3:.4f}"
         f" ms at {HBM_BYTES_PER_S:.3e} B/s), its function's bytes "
         f"{b2_bytes}")
@@ -791,13 +821,18 @@ def main() -> int:
     set_bits = int(unpack_traj_plain(traj, n + 1).sum().item())
     w1_reads = set_bits * (wd // 4)
     w1_bytes = M_MAIN * (4 * nt + wd) + (n + 2) * wd
-    # W1's bound is its bytes.  Two operation counts are printed as design
-    # figures only: the shared-memory words this kernel reads (w1_reads),
-    # and the int8 tensor-core operations of the product with every bit
-    # unpacked to a byte (w1_int8_ops).  Neither is the function's floor:
-    # a b1 MMA (AND + POPC) needs 8 times fewer operand bytes, and its rate
-    # is not in the published table.
+    # W1's bound is its bytes.  Three operation counts are printed as
+    # design figures only: the shared-memory words the first design's bit
+    # walk read (w1_reads, one a set bit and column word), the int8
+    # tensor-core operations of the product with every bit unpacked to a
+    # byte (w1_int8_ops), and the bytes this design's table lookups read
+    # (w1_table_bytes: 16 a point, group of five bits and 16-byte chunk), at
+    # 128 bytes a clock and SM.  None is the function's floor: a b1 MMA
+    # (AND + POPC) needs 8 times fewer operand bytes, and its rate is not
+    # in the published table.
     w1_int8_ops = 2 * M_MAIN * (n + 1) * 8 * wd
+    w1_table_bytes = M_MAIN * -(-(n + 1) // 5) * wd
+    w1_table_ms = w1_table_bytes / (sms * 128 * clock_mhz * 1e6) * 1e3
 
     # The library's product: torch._int_mm (int8 x int8 -> int32) of the
     # unpacked trajectory bits and W's bits (column-major), the inner size
@@ -896,6 +931,8 @@ def main() -> int:
     b5a_row = next(r for r in rows_out if r["name"].startswith("B5a "))
     b5a_row["device_ms_a_call"], b5a_row["host_ms_a_call"] = \
         b5a_dev, b5a_host
+    w1_row = next(r for r in rows_out if r["name"].startswith("W1 "))
+    w1_row["table_read_floor_ms"] = w1_table_ms
     for kid, computed, needed in (("B4", b4_computed, b4_lookups),
                                   ("B5b", b5b_computed, b5b_lookups),
                                   ("B1", b1_computed, b1_lookups),
@@ -904,9 +941,12 @@ def main() -> int:
         row["lookups_computed_per_needed"] = computed / needed
         log(f"phase 6 {kid} design: {computed:.3e} lookups computed, "
             f"{computed / needed:.3f}x the {needed:.3e} its bound counts")
-    log(f"phase 6 W1 design figures: {w1_reads:.3e} shared-memory word "
-        f"reads ({w1_reads / lookups_per_s * 1e3:.3f} ms at "
-        f"{lookups_per_s:.3e}/s); as an int8 tensor-core product "
+    log(f"phase 6 W1 design figures: the bit walk's {w1_reads:.3e} "
+        f"shared-memory word reads ({w1_reads / lookups_per_s * 1e3:.3f} ms "
+        f"at {lookups_per_s:.3e}/s); this design's table reads "
+        f"{w1_table_bytes:.3e} bytes ({w1_table_ms:.3f} ms at "
+        f"{sms * 128 * clock_mhz * 1e6:.3e} B/s); as an int8 tensor-core "
+        f"product "
         f"{w1_int8_ops:.3e} operations ({w1_int8_ops / INT8_OPS_PER_S * 1e3:.3f}"
         f" ms at {INT8_OPS_PER_S:.3e}/s); torch._int_mm "
         f"[{M_MAIN}x{n1p}] x [{n1p}x{8 * wd}] {w1_lib:.3f} ms, its parity "
@@ -1050,6 +1090,7 @@ def main() -> int:
     fck = [frng.bytes(32), frng.bytes(32)]
     fdcf = Dcf(N_FULL // 8, 16, fck, backend="walk")
     tree = TreeFullDomain(16, fck, host_levels=HOST_LEVELS)
+    fd_keys = []  # (bound, party 0's key) for phase 12
     for bnd in Bound:
         gt = bnd is Bound.GT_BETA
         alpha = int(frng.integers(8, (1 << N_FULL) - 8))
@@ -1063,7 +1104,8 @@ def main() -> int:
         clean = tree.check(bundle, alpha, beta, N_FULL, gt)
         ran_tree = take_counts(
             f"full domain tree n={N_FULL}",
-            {"B2": 2 * (N_FULL - 1 - HOST_LEVELS), "B2f": 2})
+            {"B2": 2 * len(launch_depths(HOST_LEVELS, N_FULL - 1)),
+             "B2f": 2})
         tampered = tree.check(bundle, alpha + 7, beta, N_FULL, gt)
         if clean != 0 or tampered != 7:
             raise RuntimeError(
@@ -1091,7 +1133,8 @@ def main() -> int:
             f"parties and the count on the card: tree median "
             f"{tree_ms:.3f} ms of 5, per-point walk median {walk_ms:.3f} ms "
             f"of 3 = {walk_ms / tree_ms:.2f}x the tree [{card}]")
-    fd_inputs = (bundle.for_party(0), tree)
+        fd_keys.append((bnd.name, bundle.for_party(0)))
+    fd_inputs = (fd_keys, tree)
     del bes
 
     # -- phase 10: DPF EvalAll, lam = 32, n = 24, K = 4 ----------------------------------
@@ -1254,7 +1297,7 @@ def main() -> int:
         del db, records
     del evaluator0
 
-    # -- phase 12: B6, B2f and P1 at those paths' shapes ------------------------------------
+    # -- phase 12: B6, B2, B2f and P1 at those paths' shapes --------------------------------
     db, query = pir_inputs
     kb = query.for_party(0)
     cw3 = evaluator._stage_cw(kb)
@@ -1396,12 +1439,39 @@ def main() -> int:
         f"{p1_t_bytes // 8} as packed bits [{card}]")
     del t6, db, a1, a1p
 
-    kb, tree = fd_inputs
-    cw4 = tree._stage_cw(kb)
-    front = tree._frontier(kb, 0, HOST_LEVELS)
-    b2fd_ms, st = cuda_ms(lambda: tree_expand(
-        tree.aes, *cw4[:3], *front, k0=HOST_LEVELS, k1=N_FULL - 1,
-        group="xor"), 5)
+    fd_keys, tree = fd_inputs
+    fd_span = f"levels {HOST_LEVELS}..{N_FULL - 2} of n={N_FULL}"
+
+    def b2_fd_plain(cw, nodes):
+        for i in range(HOST_LEVELS, N_FULL - 1):
+            nodes = tree_expand_level_plain(tree.aes, cw[0][i], cw[1][i],
+                                            cw[2][i], *nodes, group="xor")
+        return nodes
+
+    # B2 over the full-domain path's launches, for each bound's key, held
+    # against its plain version level by level before B2f reads its nodes.
+    for bname, kb in fd_keys:
+        cw4 = tree._stage_cw(kb)
+        front = tree._frontier(kb, 0, HOST_LEVELS)
+        st = tree_expand(tree.aes, *cw4[:3], *front, k0=HOST_LEVELS,
+                         k1=N_FULL - 1, group="xor")
+        for name, g_, w_ in zip("svt", st, b2_fd_plain(cw4, front)):
+            same("B2", f"full domain {fd_span} {bname} party 0 {name}", g_,
+                 w_)
+        del st, g_, w_
+
+    def b2_full_domain():
+        return tree_expand(tree.aes, *cw4[:3], *front, k0=HOST_LEVELS,
+                           k1=N_FULL - 1, group="xor")
+
+    held = b2_full_domain()  # two untimed calls, the first's outputs
+    b2_full_domain()  # alive: levels 21-22 allocate about 400 MB
+    b2fd_ms, st = cuda_ms(b2_full_domain, 5)
+    del held
+    for name, g_, w_ in zip("svt", st, b2_fd_plain(cw4, front)):
+        same("B2", f"full domain {fd_span} {bname} party 0, timed {name}",
+             g_, w_)
+    del g_, w_
     last = (tree.aes, cw4[0][N_FULL - 1], cw4[1][N_FULL - 1],
             cw4[2][N_FULL - 1], cw4[3], *st)
     b2f_ms, yf = cuda_ms(lambda: tree_expand_final(*last), 10)
@@ -1413,11 +1483,43 @@ def main() -> int:
     add_row("phase 12", "B2f", "tree_expand", "dcf_tpu/ops/pallas_tree.py:149",
             b2f_ms, b2f_plain, b2f_lookups, b2f_bytes)
     fd_parents = (1 << (N_FULL - 1)) - (1 << HOST_LEVELS)
+    b2fd_bound = bound(
+        fd_parents * 2 * LOOKUPS_BLOCK,
+        ((1 << HOST_LEVELS) + (1 << (N_FULL - 1))) * 33
+        + (N_FULL - 1 - HOST_LEVELS) * 34 + 496)[0]
+    b2_row = next(r for r in rows_out if r["name"].startswith("B2 "))
+    b2_row["ms_full_domain"], b2_row["bound_ms_full_domain"] = \
+        b2fd_ms, b2fd_bound
+    # Each launch of that span alone, after two untimed calls.
+    b2_by_launch, nodes = {}, front
+    for lvl, d in launch_depths(HOST_LEVELS, N_FULL - 1):
+        def one(lvl=lvl, d=d, nodes=nodes):
+            return tree_expand_levels(tree.aes, *cw4[:3], *nodes, level=lvl,
+                                      depth=d, group="xor")
+
+        nxt = one()
+        one()
+        ms_i, _ = cuda_ms(one, 5)
+        par = 1 << lvl
+        b2_by_launch[f"{lvl}+{d}"] = (ms_i, bound(
+            par * ((1 << d) - 1) * 2 * LOOKUPS_BLOCK,
+            (par + (par << d)) * 33 + d * 34 + 496)[0])
+        nodes = nxt
+    del nodes, nxt, one, _
+    b2_row["ms_by_launch_full_domain"] = {k: m_ for k, (m_, _) in
+                                          b2_by_launch.items()}
+    b2_row["bound_ms_by_launch_full_domain"] = {
+        k: b_ for k, (_, b_) in b2_by_launch.items()}
     log(f"phase 12 B2 on the full-domain path: levels {HOST_LEVELS}.."
-        f"{N_FULL - 2} ({fd_parents} parents) {b2fd_ms:.3f} ms, lookup bound "
-        f"{fd_parents * 2 * LOOKUPS_BLOCK / lookups_per_s * 1e3:.3f} ms; with B2f "
-        f"one party's 2^{N_FULL} leaves take {b2fd_ms + b2f_ms:.3f} ms "
-        f"[{card}]")
+        f"{N_FULL - 2} ({fd_parents} parents, launches "
+        f"{launch_depths(HOST_LEVELS, N_FULL - 1)}) byte-identical to "
+        f"tree_expand_level_plain for {len(fd_keys)} bounds' keys; "
+        f"{b2fd_ms:.3f} ms after "
+        f"two untimed calls, lookup bound {b2fd_bound:.3f} ms; with B2f "
+        f"one party's 2^{N_FULL} leaves take {b2fd_ms + b2f_ms:.3f} ms; a "
+        f"launch, level L + depth d (ms, bound ms): " + ", ".join(
+            f"{k}: {m_:.4f}, {b_:.4f}" for k, (m_, b_) in
+            b2_by_launch.items()) + f" [{card}]")
     del st, yf, yfp, last
     # B1 a launch on the per-point full-domain path: one chunk of 2^20
     # domain values of the n = 24 key (its 32 launches have this shape).
@@ -1844,6 +1946,12 @@ def main() -> int:
         path: k * sum(b6_by_launch[x][0] - b6_by_launch[x][1]
                       for x in path_launches(lo, hi, y_))
         for path, (k, lo, hi, y_) in b6_spans.items()}
+    # B2: a frontier build (levels 6..20) per party on the prefix path, a
+    # full-domain span (levels 6..22) per party in TreeFullDomain.check.
+    b2_row["loss_ms_by_path"] = {
+        "prefix": launches["B2"]["prefix"] // len(b2_cut)
+        * (b2_ms - b2_row["bound_ms"]),
+        f"full domain tree n={N_FULL}": 2 * (b2fd_ms - b2fd_bound)}
     # G1 in runs of 10^6 keys: config 5's chunks hold 10^6 keys, and the
     # keygen shape of phase 14 is one such run.
     g1_row = next(r for r in rows_out if r["name"].startswith("G1 "))
@@ -1852,7 +1960,8 @@ def main() -> int:
         f"keygen K={K_RELU}": g1_ms - g1_row["bound_ms"]}
     log(f"launches x (ms - bound) by path [{card}]: B1 "
         + json.dumps(b1_row["loss_ms_by_path"]) + f" (the walk path's "
-        f"anchors, 1024 points: {b1a_ms:.4f} ms, bound {b1a_bound:.4f}); B6 "
+        f"anchors, 1024 points: {b1a_ms:.4f} ms, bound {b1a_bound:.4f}); B2 "
+        + json.dumps(b2_row["loss_ms_by_path"]) + "; B6 "
         + json.dumps(b6_row["loss_ms_by_path"]) + "; G1, in runs of "
         f"{K_RELU} keys, " + json.dumps(g1_row["loss_ms_by_path"]))
 

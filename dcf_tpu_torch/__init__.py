@@ -11,7 +11,7 @@ oracles, the DCFK wire codec, and hand-written CUDA kernels for the NVIDIA
 H100 (``sm_90a``) with their plain PyTorch versions:
 
     B1   ops.walk_eval      from-root walk       (dcf_tpu/ops/pallas_eval.py)
-    B2   ops.tree_expand    tree level           (dcf_tpu/ops/pallas_tree.py)
+    B2   ops.tree_expand    tree levels          (dcf_tpu/ops/pallas_tree.py)
     B2f  ops.tree_expand    last level + leaves  (dcf_tpu/ops/pallas_tree.py)
     B3   ops.prefix_eval    prefix walk          (dcf_tpu/ops/pallas_prefix.py)
     B4   ops.narrow_walk    narrow walk          (dcf_tpu/ops/pallas_narrow.py)

@@ -3,7 +3,8 @@
 // B1 and B3 (walk_eval.cu, prefix_eval.cu), two points a lane.  The
 // three-slot narrow level of kernels B4 and B5b (narrow_walk.cu,
 // hybrid_prefix.cu) and the DPF node of kernel B6 (evalall_expand.cu) run
-// on it too (narrow_walk.cuh).
+// on it too (narrow_walk.cuh), and so does the lam = 16 tree node of
+// kernel B2 (tree_expand.cu), up to three levels a thread (tree_subtree).
 //
 // Why: the T-tables of dcf_walk.cuh are uint32_t te[4][256] in shared
 // memory, so entry x sits in bank x mod 32.  Each round does 16 lookups
@@ -465,6 +466,82 @@ DCF_HD void walk_row(KlState& p, const uint8_t* row) {
   load16(row + 16, p.v);
   p.t = (p.s[3] >> 24) & 1u;
   p.s[3] &= kMaskBit;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel B2 (tree_expand.cu): breadth-first levels of one key's lam = 16
+// tree, any group.  Every parent expands into both children, so every lane
+// computes E(s) and E(~s) in full and no vote is needed.
+// ---------------------------------------------------------------------------
+
+// 16 bytes at p (16-byte aligned on the card) from four little-endian
+// words.
+DCF_HD void store16(uint8_t* p, const uint32_t w[4]) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+#else
+  for (int q = 0; q < 4; ++q)
+    for (int j = 0; j < 4; ++j) p[4 * q + j] = (uint8_t)(w[q] >> (8 * j));
+#endif
+}
+
+struct TreeNode {
+  uint32_t s[4], v[4], t;
+};
+
+// A parent into its two children (tree_node of dcf_walk.cuh on the banked
+// AES): E(s) and E(~s) in lockstep under one cipher.
+template <int GW>
+DCF_HD void tree_node_banked(const BkLane& t, const RoundKey* rk,
+                             const LevelCw& w, const TreeNode& p,
+                             TreeNode c[2]) {
+  uint32_t x[2][4];
+  for (int q = 0; q < 4; ++q) {
+    x[0][q] = p.s[q];
+    x[1][q] = ~p.s[q];
+  }
+  const RoundKey* const rks[2] = {rk, rk};
+  bk_encrypt<2>(t, rks, x);
+  Children h;
+  hirose_children(p.s, x[0], x[1], h);
+  tree_children<GW>(h, w, p.v, p.t, c[0].s, c[0].v, c[0].t, c[1].s, c[1].v,
+                    c[1].t);
+}
+
+// B2's per-thread body: the parent p expanded D levels in registers, w[0..D)
+// the correction words of its level and the D - 1 below.  The 2^D nodes
+// of the last go to rows pos + stride * r of s_out, v_out ([rows, 16]) and
+// t_out ([rows]), r their walk directions LSB first: with pos the parent's
+// index j and stride the level's N parents, the rows D launches of one
+// level each would fill ([lefts ; rights] a level).  One call site of
+// tree_node_banked a level: the two children in a rolled loop.
+template <int GW, int D>
+DCF_HD void tree_subtree(const BkLane& t, const RoundKey* rk,
+                         const LevelCw* w, const TreeNode& p, uint8_t* s_out,
+                         uint8_t* v_out, uint8_t* t_out, size_t pos,
+                         size_t stride) {
+  TreeNode c[2];
+  tree_node_banked<GW>(t, rk, w[0], p, c);
+#if defined(__CUDACC__)
+#pragma unroll 1
+#endif
+  for (int d = 0; d < 2; ++d) {
+    TreeNode cd;
+    for (int q = 0; q < 4; ++q) {
+      cd.s[q] = d ? c[1].s[q] : c[0].s[q];
+      cd.v[q] = d ? c[1].v[q] : c[0].v[q];
+    }
+    cd.t = d ? c[1].t : c[0].t;
+    const size_t at = pos + (size_t)d * stride;
+    if constexpr (D == 1) {
+      store16(s_out + 16 * at, cd.s);
+      store16(v_out + 16 * at, cd.v);
+      t_out[at] = (uint8_t)cd.t;
+    } else {
+      tree_subtree<GW, D - 1>(t, rk, w + 1, cd, s_out, v_out, t_out, at,
+                              2 * stride);
+    }
+  }
 }
 
 #if defined(__CUDACC__)

@@ -1,10 +1,11 @@
-// Per-thread DCF arithmetic at lam = 16 on four 1 KB T-tables: the bodies
-// of kernels B2 and B2f (its AES also serves the two-cipher kernels of
-// narrow_walk.cuh and keygen_walk.cuh), and the group algebra and walk
-// bits that the banked walks of aes_banked.cuh share:
+// Per-thread DCF arithmetic at lam = 16 on four 1 KB T-tables: the body
+// of kernel B2f (its AES also serves the two-cipher kernels of
+// narrow_walk.cuh and keygen_walk.cuh), and the Hirose children, the tree
+// node's algebra, the group algebra and walk bits that the banked bodies
+// of aes_banked.cuh share (kernel B2's among them):
 //
-//   B2  tree_expand.cu  replaces dcf_tpu/ops/pallas_tree.py::_expand_level
-//                       and the leaf finalize of its tree_expand_device
+//   B2f tree_expand.cu  replaces the leaf finalize of
+//                       dcf_tpu/ops/pallas_tree.py::tree_expand_device
 //
 // walk_point and prefix_point walk one point on these tables, from the
 // root or from a frontier row; no kernel runs them (B1 and B3 walk on the
@@ -160,16 +161,15 @@ struct Children {
   uint32_t tl, tr;
 };
 
-DCF_HD void hirose_expand(const AesTables& a, const uint32_t s[4],
-                          Children& c) {
-  uint32_t sp[4], el[4], er[4];
-  for (int q = 0; q < 4; ++q) sp[q] = ~s[q];
-  aes256_encrypt2(a, s, sp, el, er);
+// The children from the two encryptions el = E(s) and er = E(~s), however
+// they were computed (here, or on the banked AES of aes_banked.cuh).
+DCF_HD void hirose_children(const uint32_t s[4], const uint32_t el[4],
+                            const uint32_t er[4], Children& c) {
   for (int q = 0; q < 4; ++q) {
     c.sl[q] = el[q] ^ s[q];
-    c.vl[q] = er[q] ^ sp[q];
+    c.vl[q] = er[q] ^ ~s[q];
     c.sr[q] = s[q];
-    c.vr[q] = sp[q];
+    c.vr[q] = ~s[q];
   }
   c.tl = c.sl[0] & 1u;
   c.tr = c.vl[0] & 1u;
@@ -177,6 +177,14 @@ DCF_HD void hirose_expand(const AesTables& a, const uint32_t s[4],
   c.vl[3] &= kMaskBit;
   c.sr[3] &= kMaskBit;
   c.vr[3] &= kMaskBit;
+}
+
+DCF_HD void hirose_expand(const AesTables& a, const uint32_t s[4],
+                          Children& c) {
+  uint32_t sp[4], el[4], er[4];
+  for (int q = 0; q < 4; ++q) sp[q] = ~s[q];
+  aes256_encrypt2(a, s, sp, el, er);
+  hirose_children(s, el, er, c);
 }
 
 // Group add on one word of little-endian lanes: XOR (GW = 0) or lane-wise
@@ -279,15 +287,13 @@ DCF_HD void prefix_point(const AesTables& a, const LevelCw* cw, int n, int k,
   finalize<GW>(s, t, v, np1, negate, y);
 }
 
-// B2's per-thread body: one parent node into its left and right children,
-// correction words applied and v pushed down both branches.
+// A tree node's children from its Hirose children c: the correction words
+// applied where the parent's t is set, and v pushed down both branches.
 template <int GW>
-DCF_HD void tree_node(const AesTables& a, const LevelCw& w,
-                      const uint32_t s[4], const uint32_t v[4], uint32_t t,
-                      uint32_t sl[4], uint32_t vl[4], uint32_t& tl,
-                      uint32_t sr[4], uint32_t vr[4], uint32_t& tr) {
-  Children c;
-  hirose_expand(a, s, c);
+DCF_HD void tree_children(const Children& c, const LevelCw& w,
+                          const uint32_t v[4], uint32_t t, uint32_t sl[4],
+                          uint32_t vl[4], uint32_t& tl, uint32_t sr[4],
+                          uint32_t vr[4], uint32_t& tr) {
   const uint32_t g = 0u - t;
   for (int q = 0; q < 4; ++q) {
     const uint32_t csg = w.s[q] & g;
@@ -299,6 +305,18 @@ DCF_HD void tree_node(const AesTables& a, const LevelCw& w,
   }
   tl = c.tl ^ (t & w.t);
   tr = c.tr ^ (t & (w.t >> 1));
+}
+
+// One parent node into its two children on these tables (B2f's level; B2
+// runs the same algebra on the banked AES, aes_banked.cuh::tree_subtree).
+template <int GW>
+DCF_HD void tree_node(const AesTables& a, const LevelCw& w,
+                      const uint32_t s[4], const uint32_t v[4], uint32_t t,
+                      uint32_t sl[4], uint32_t vl[4], uint32_t& tl,
+                      uint32_t sr[4], uint32_t vr[4], uint32_t& tr) {
+  Children c;
+  hirose_expand(a, s, c);
+  tree_children<GW>(c, w, v, t, sl, vl, tl, sr, vr, tr);
 }
 
 // The last level of a full-domain expansion (XOR group): one parent node

@@ -498,29 +498,88 @@ DCF_HD void frontier_subtree(const BkLane& t, const RoundKey* rk0,
   }
 }
 
-DCF_HD int lowest_set_bit(uint32_t x) {
+// ---------------------------------------------------------------------------
+// Kernel W1: the wide tail y[32:] = const ^ XOR over j < n1 of t_j * W[j],
+// by the method of four Russians.  The n1 trajectory bits fall into
+// wide_groups(n1) groups of kWideBits (the last may hold fewer); a table
+// holds, for each group g and each value of its bits, the XOR of the rows
+// of W that the value selects (rows 5g .. 5g + 4 below n1, const folded
+// into group 0), so an output chunk of 16 bytes is one table read a group,
+// with no data-dependent loop.  The table is laid out [group][value]
+// [column]: entry (g, val) of column chunk c at 16-byte unit
+// (kWideVals g + val) * cols + c.  Five bits a group (26 reads at n = 128,
+// a 186 KB table at lam = 256) ran 26% faster than four (33 reads, 118 KB;
+// NVIDIA H100 80GB HBM3, 700 W, chip_ab.py): the reads bound the kernel.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideBits = 5;  // trajectory bits a table group
+constexpr int kWideVals = 1 << kWideBits;
+
+DCF_HD int wide_groups(int n1) { return (n1 + kWideBits - 1) / kWideBits; }
+
+// Table entry (g, val) of one 16-byte column chunk: w_col and cst_col are
+// that chunk of the key's W (rows wd bytes apart) and const.
+DCF_HD void wide_table_entry(const uint8_t* w_col, const uint8_t* cst_col,
+                             size_t wd, int n1, int g, int val,
+                             uint32_t out[4]) {
+  uint32_t acc[4] = {0u, 0u, 0u, 0u};
+  if (g == 0) load16(cst_col, acc);
+  for (int b = 0; b < kWideBits; ++b) {
+    const int row = kWideBits * g + b;
+    if (((val >> b) & 1) && row < n1) {
+      uint32_t r[4];
+      load16(w_col + (size_t)row * wd, r);
+      for (int q = 0; q < 4; ++q) acc[q] ^= r[q];
+    }
+  }
+  for (int q = 0; q < 4; ++q) out[q] = acc[q];
+}
+
+// The kWideBits bits at bit `off` of the 64-bit word (hi, lo).
+DCF_HD uint32_t wide_field(uint32_t lo, uint32_t hi, int off) {
 #if defined(__CUDA_ARCH__)
-  return __ffs(x) - 1;
+  return __funnelshift_r(lo, hi, off) & (kWideVals - 1);
 #else
-  return __builtin_ctz(x);
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> off) & (kWideVals - 1);
 #endif
 }
 
-// W1's per-(point, column word) body: c ^ XOR of the words w_col[k *
-// stride] for every trajectory bit k < n1 that is set.  The loop runs once
-// per set bit, so the work follows the data.
-DCF_HD uint32_t wide_word(const uint32_t* traj, int n1, const uint32_t* w_col,
-                          int stride, uint32_t c) {
-  for (int w0 = 0; w0 < n1; w0 += 32) {
-    uint32_t bits = traj[w0 >> 5];
-    if (n1 - w0 < 32) bits &= (1u << (n1 - w0)) - 1u;
-    while (bits) {
-      const int j = lowest_set_bit(bits);
-      bits &= bits - 1u;
-      c ^= w_col[(size_t)(w0 + j) * stride];
+// W1's per-(point, chunk) body: the XOR over the groups of the table
+// entries that the point's trajectory (traj: bit j at bit j % 32 of word
+// j / 32) selects; tab is the chunk's column of a table of `cols` columns.
+// A batch's trajectory words are loaded before its lookups, so their
+// latencies overlap; trajectory bits at or past n1 select nothing.
+DCF_HD void wide_chunk(const uint32_t* traj, int n1, const uint32_t* tab,
+                       int cols, uint32_t out[4]) {
+  const int groups = wide_groups(n1);
+  const int tw = (n1 + 31) >> 5;
+  uint32_t acc[4] = {0u, 0u, 0u, 0u};
+  // Batches of 32 groups: 160 bits, five words and the next one.
+  for (int g0 = 0; g0 < groups; g0 += 32) {
+    const int w0 = g0 * kWideBits / 32;
+    uint32_t words[6];
+#if defined(__CUDACC__)
+#pragma unroll
+#endif
+    for (int i = 0; i < 6; ++i) words[i] = w0 + i < tw ? traj[w0 + i] : 0u;
+#if defined(__CUDACC__)
+#pragma unroll
+#endif
+    for (int j = 0; j < 32; ++j) {
+      const int g = g0 + j;
+      if (g < groups) {
+        const int bit = kWideBits * j;
+        const uint32_t val =
+            wide_field(words[bit >> 5], words[(bit >> 5) + 1], bit & 31);
+        uint32_t e[4];
+        load16(reinterpret_cast<const uint8_t*>(
+                   tab + 4 * ((size_t)(kWideVals * g + val) * cols)),
+               e);
+        for (int q = 0; q < 4; ++q) acc[q] ^= e[q];
+      }
     }
   }
-  return c;
+  for (int q = 0; q < 4; ++q) out[q] = acc[q];
 }
 
 #if defined(__CUDACC__)

@@ -1,31 +1,60 @@
-// Kernel B2: one breadth-first level of the GGM tree, lam = 16.
+// Kernel B2: breadth-first levels of the GGM tree, lam = 16, one to three
+// levels a launch; and B2f, the last level with the leaf finalize.
 //
-// Replaces dcf_tpu/ops/pallas_tree.py::_expand_level (its _expand_kernel),
-// which expands a tile of parent nodes packed 32 per int32 lane word.  The
-// prefix backend launches it once per level, k0..k-1, to build the
-// frontier that kernel B3 gathers from, and the full-domain evaluator once
-// per level k0..n-2.  Its last level, n-1, is the second kernel here (B2f):
-// it replaces the leaf finalize of tree_expand_device in the same file,
-// y = v ^ s ^ t * cw_np1 (XOR group), and writes only the 16-byte leaf
-// shares, so the leaf level's s, v and t (33 bytes a leaf) are never
-// written and read back.
-//
-// Bound on the H100: operations, the shared-memory AES lookups (2 blocks x
-// 14 rounds x 16 per parent).  The bytes per parent (33 in, 66 out) are
-// small beside 448 lookups.  Design: one thread per parent node, its
-// (s, v, t) in registers; the level's correction word is read once per
-// block into shared memory.  The outputs keep the TPU kernel's order: the
-// left children fill positions [0, N) and the right children [N, 2N), so
+// B2 replaces dcf_tpu/ops/pallas_tree.py::_expand_level (its
+// _expand_kernel), which expands a tile of parent nodes packed 32 per int32
+// lane word, one level a call (tree_expand_raw repeats it).  The prefix
+// backend runs it over levels k0..k-1 to build the frontier that kernel B3
+// gathers from, and the full-domain evaluator over levels k0..n-2.  A
+// launch of D levels turns N parents (s, v, t) into the 2^D N nodes of
+// level + D, stored as D one-level launches would leave them: per level
+// the left children in [0, N) and the right in [N, 2N), so the node of
+// parent j reached by the directions r (LSB first) lands at j + N r, and
 // the leaves of a multi-level expansion come out in bitreverse order.
+//
+// Bound on the H100: operations, the AES lookups a parent needs (E(s) and
+// E(~s), 2 x 14 rounds x 16); its bytes (33 in, 66 out) are small beside
+// 448 lookups.  The first design (one thread a parent on the 1 KB T-tables
+// of dcf_walk.cuh, one level a launch) reached 11-19% of that bound: the
+// tables put about 3.3 lanes' lookups into one bank, every level was
+// written and read back, and the prefix path's 15 small launches cost more
+// host time than the card took.  This design is kernel B6's
+// (evalall_expand.cu) carried to the lam = 16 node:
+//
+//   - the banked AES of aes_banked.cuh (one wavefront a warp's lookups),
+//     E(s) and E(~s) in lockstep (tree_node_banked); every lane expands
+//     its parent fully, so a warp's lanes do the same work;
+//   - a persistent grid: 512-thread blocks fill the 64 KB table, the 15
+//     round keys and the launch's D correction words once, then stride over
+//     the launch's parents;
+//   - up to three levels a launch in registers (tree_subtree<GW, D>): the
+//     levels between are neither written nor read back.  The ops wrapper
+//     cuts a tree's levels into such launches, the deepest last
+//     (ops._launch.launch_depths): the prefix path's levels 6..20
+//     in five launches, the full domain's 6..22 in six.
+//
+// B2f (tree_expand_final_kernel) replaces the leaf finalize of
+// tree_expand_device in the same file, y = v ^ s ^ t * cw_np1 (XOR
+// group), and writes only the 16-byte leaf shares, so the leaf level's s,
+// v and t (33 bytes a leaf) are never written and read back.  It still
+// runs one thread a parent on the T-tables (dcf_walk.cuh::tree_leaves).
 
 #include <cuda_runtime.h>
 
-#include "dcf_walk.cuh"
+#include "aes_banked.cuh"
 
 namespace {
 
-template <int GW>
-__global__ void __launch_bounds__(dcf::kThreads)
+constexpr int kBlock = 512;
+// Shared layout: the banked table, then the round keys (16 rows; every
+// lane reads the same row, a broadcast).
+constexpr size_t kSmem =
+    sizeof(uint32_t) * dcf::kBankedWords + sizeof(dcf::RoundKey) * 16;
+
+// Levels level .. level + D - 1 of one key: cw_s / cw_v / cw_t point at
+// level's correction words.
+template <int GW, int D>
+__global__ void __launch_bounds__(kBlock, 1)
     tree_expand_kernel(const uint8_t* __restrict__ sbox,
                        const uint8_t* __restrict__ rk,
                        const uint8_t* __restrict__ cw_s,
@@ -36,29 +65,29 @@ __global__ void __launch_bounds__(dcf::kThreads)
                        const uint8_t* __restrict__ t_in,
                        uint8_t* __restrict__ s_out,
                        uint8_t* __restrict__ v_out,
-                       uint8_t* __restrict__ t_out, int n_par) {
-  __shared__ dcf::AesTables aes;
-  __shared__ dcf::LevelCw cw[1];
-  dcf::fill_aes_tables(aes, sbox, rk);
-  if (threadIdx.x == 0) dcf::level_cw_entry(cw, cw_s, cw_v, cw_t, 0);
+                       uint8_t* __restrict__ t_out, long long n_par) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  __shared__ dcf::LevelCw cw[D];
+  uint32_t* te = reinterpret_cast<uint32_t*>(dyn_smem);
+  dcf::RoundKey* rks =
+      reinterpret_cast<dcf::RoundKey*>(te + dcf::kBankedWords);
+  dcf::fill_banked_table(te, sbox);
+  dcf::fill_round_keys(rks, rk);
+  if (threadIdx.x < D)
+    dcf::level_cw_entry(cw, cw_s, cw_v, cw_t, (int)threadIdx.x);
   __syncthreads();
 
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_par) return;
-  const uint4 si = reinterpret_cast<const uint4*>(s_in)[j];
-  const uint4 vi = reinterpret_cast<const uint4*>(v_in)[j];
-  const uint32_t s[4] = {si.x, si.y, si.z, si.w};
-  const uint32_t v[4] = {vi.x, vi.y, vi.z, vi.w};
-  uint32_t sl[4], vl[4], sr[4], vr[4], tl, tr;
-  dcf::tree_node<GW>(aes, cw[0], s, v, t_in[j] & 1u, sl, vl, tl, sr, vr, tr);
-  uint4* so = reinterpret_cast<uint4*>(s_out);
-  uint4* vo = reinterpret_cast<uint4*>(v_out);
-  so[j] = make_uint4(sl[0], sl[1], sl[2], sl[3]);
-  so[n_par + j] = make_uint4(sr[0], sr[1], sr[2], sr[3]);
-  vo[j] = make_uint4(vl[0], vl[1], vl[2], vl[3]);
-  vo[n_par + j] = make_uint4(vr[0], vr[1], vr[2], vr[3]);
-  t_out[j] = (uint8_t)tl;
-  t_out[n_par + j] = (uint8_t)tr;
+  const dcf::BkLane lane = dcf::bk_lane(te, threadIdx.x & 31);
+  const long long stride = (long long)gridDim.x * kBlock;
+  for (long long j = (long long)blockIdx.x * kBlock + threadIdx.x; j < n_par;
+       j += stride) {
+    dcf::TreeNode p;
+    dcf::load16(s_in + 16 * j, p.s);
+    dcf::load16(v_in + 16 * j, p.v);
+    p.t = t_in[j] & 1u;
+    dcf::tree_subtree<GW, D>(lane, rks, cw, p, s_out, v_out, t_out,
+                             (size_t)j, (size_t)n_par);
+  }
 }
 
 __global__ void __launch_bounds__(dcf::kThreads)
@@ -93,41 +122,78 @@ __global__ void __launch_bounds__(dcf::kThreads)
   yo[(size_t)n_par + j] = make_uint4(yr[0], yr[1], yr[2], yr[3]);
 }
 
-template <int GW>
+template <int GW, int D>
 cudaError_t launch(const uint8_t* sbox, const uint8_t* rk,
                    const uint8_t* cw_s, const uint8_t* cw_v,
                    const uint8_t* cw_t, const uint8_t* s_in,
                    const uint8_t* v_in, const uint8_t* t_in, uint8_t* s_out,
                    uint8_t* v_out, uint8_t* t_out, int n_par,
                    cudaStream_t stream) {
-  const int blocks = (n_par + dcf::kThreads - 1) / dcf::kThreads;
-  tree_expand_kernel<GW><<<blocks, dcf::kThreads, 0, stream>>>(
-      sbox, rk, cw_s, cw_v, cw_t, s_in, v_in, t_in, s_out, v_out, t_out,
-      n_par);
+  cudaError_t e = cudaFuncSetAttribute(
+      tree_expand_kernel<GW, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, tree_expand_kernel<GW, D>, kBlock, kSmem);
+  if (e != cudaSuccess) return e;
+  const long long need = ((long long)n_par + kBlock - 1) / kBlock;
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  tree_expand_kernel<GW, D>
+      <<<(unsigned)(need < most ? need : most), kBlock, kSmem, stream>>>(
+          sbox, rk, cw_s, cw_v, cw_t, s_in, v_in, t_in, s_out, v_out, t_out,
+          n_par);
   return cudaGetLastError();
+}
+
+template <int GW>
+cudaError_t launch_depth(int depth, const uint8_t* sbox, const uint8_t* rk,
+                         const uint8_t* cw_s, const uint8_t* cw_v,
+                         const uint8_t* cw_t, const uint8_t* s_in,
+                         const uint8_t* v_in, const uint8_t* t_in,
+                         uint8_t* s_out, uint8_t* v_out, uint8_t* t_out,
+                         int n_par, cudaStream_t stream) {
+#define DCF_ARGS                                                             \
+  sbox, rk, cw_s, cw_v, cw_t, s_in, v_in, t_in, s_out, v_out, t_out, n_par, \
+      stream
+  switch (depth) {
+    case 1: return launch<GW, 1>(DCF_ARGS);
+    case 2: return launch<GW, 2>(DCF_ARGS);
+    case 3: return launch<GW, 3>(DCF_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
+#undef DCF_ARGS
 }
 
 }  // namespace
 
-// C entry point, bound through ctypes.  cw_s/cw_v point at this level's
-// 16-byte correction words, cw_t at its two t bits.  Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int dcf_tree_expand_level(const void* sbox, const void* rk,
-                                     const void* cw_s, const void* cw_v,
-                                     const void* cw_t, const void* s_in,
-                                     const void* v_in, const void* t_in,
-                                     void* s_out, void* v_out, void* t_out,
-                                     int n_par, int gw, void* stream) {
+// C entry point of B2, bound through ctypes: levels level .. level +
+// depth - 1 (depth 1-3) of one key from n_par parents.  cw_s/cw_v point at
+// the first level's 16-byte correction words, the next levels' following
+// (rows of 16), cw_t at its two t bits (rows of 2); s_out/v_out
+// [2^depth n_par, 16], t_out [2^depth n_par].  Returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int dcf_tree_expand_levels(const void* sbox, const void* rk,
+                                      const void* cw_s, const void* cw_v,
+                                      const void* cw_t, const void* s_in,
+                                      const void* v_in, const void* t_in,
+                                      void* s_out, void* v_out, void* t_out,
+                                      int n_par, int gw, int depth,
+                                      void* stream) {
+  if (n_par < 1) return (int)cudaErrorInvalidValue;
 #define DCF_ARGS                                                             \
-  (const uint8_t*)sbox, (const uint8_t*)rk, (const uint8_t*)cw_s,            \
+  depth, (const uint8_t*)sbox, (const uint8_t*)rk, (const uint8_t*)cw_s,     \
       (const uint8_t*)cw_v, (const uint8_t*)cw_t, (const uint8_t*)s_in,      \
       (const uint8_t*)v_in, (const uint8_t*)t_in, (uint8_t*)s_out,           \
       (uint8_t*)v_out, (uint8_t*)t_out, n_par, (cudaStream_t)stream
   switch (gw) {
-    case 0: return (int)launch<0>(DCF_ARGS);
-    case 8: return (int)launch<8>(DCF_ARGS);
-    case 16: return (int)launch<16>(DCF_ARGS);
-    case 32: return (int)launch<32>(DCF_ARGS);
+    case 0: return (int)launch_depth<0>(DCF_ARGS);
+    case 8: return (int)launch_depth<8>(DCF_ARGS);
+    case 16: return (int)launch_depth<16>(DCF_ARGS);
+    case 32: return (int)launch_depth<32>(DCF_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DCF_ARGS

@@ -6,6 +6,8 @@ C entry point through ``_build.load`` and calls it on the device's current
 stream through ``launch_checked``, which raises if the entry point
 reports a CUDA error.  ``key_slices`` cuts a launch whose key index is
 ``gridDim.y`` (kernels B1-B6) into launches of at most 65,535 keys.
+``launch_depths`` cuts a span of tree levels into launches of at most
+``MAX_DEPTH`` levels (kernels B2, B5a and B6).
 """
 
 from __future__ import annotations
@@ -14,9 +16,14 @@ import torch
 
 from dcf_tpu_torch.errors import BackendUnavailableError, ShapeError
 
-__all__ = ["MAX_GRID_Y", "check_u8", "key_slices", "launch_checked"]
+__all__ = ["MAX_DEPTH", "MAX_GRID_Y", "check_u8", "key_slices",
+           "launch_checked", "launch_depths"]
 
 MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y
+# Levels one launch of kernel B2 or B6 expands: the depths 1..3 that the
+# switches of their C entry points (csrc/tree_expand.cu and
+# csrc/evalall_expand.cu) instantiate.
+MAX_DEPTH = 3
 
 
 def check_u8(name: str, t: torch.Tensor, shape: tuple,
@@ -54,3 +61,13 @@ def key_slices(k_num: int, limit: int = MAX_GRID_Y) -> list[tuple[int, int]]:
     if limit < 1:
         raise ValueError(f"a slice holds at least one key, got {limit}")
     return [(k0, min(limit, k_num - k0)) for k0 in range(0, k_num, limit)]
+
+
+def launch_depths(k0: int, k1: int,
+                  most: int = MAX_DEPTH) -> list[tuple[int, int]]:
+    """``(first level, depth)`` of the launches that expand levels
+    k0..k1-1 (kernels B2 and B6; kernel B5a's with ``most=2``): ``most``
+    levels each, the remainder in the first launch, so the large last
+    levels always share one."""
+    first = (k1 - k0) % most or most
+    return [(k0, first)] + [(i, most) for i in range(k0 + first, k1, most)]

@@ -48,15 +48,18 @@ import torch
 
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import ShapeError
-from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
+from dcf_tpu_torch.ops._launch import (
+    MAX_DEPTH,
+    check_u8,
+    key_slices,
+    launch_checked,
+    launch_depths,
+)
 from dcf_tpu_torch.ops.narrow_walk import NARROW, NARROW_AES_BYTES, _ciphers
 from dcf_tpu_torch.ops.walk_eval import aes256_encrypt_plain
 
-__all__ = ["MAX_DEPTH", "launch_depths", "evalall_expand_level_plain",
+__all__ = ["evalall_expand_level_plain",
            "evalall_expand_level", "evalall_expand"]
-
-MAX_DEPTH = 3  # levels one launch of kernel B6 expands
-
 
 def evalall_expand_level_plain(aes, cw_s, cw_t, s, t, *, level: int,
                                cw_np1=None, depth: int = 1,
@@ -166,16 +169,6 @@ def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None,
 
 
 evalall_expand_level.launches = 0  # kernel B6 launches in this process
-
-
-def launch_depths(k0: int, k1: int,
-                  most: int = MAX_DEPTH) -> list[tuple[int, int]]:
-    """``(first level, depth)`` of the launches that expand levels
-    k0..k1-1 (kernel B6's; kernel B5a's with ``most=2``): ``most`` levels
-    each, the remainder in the first launch, so the large last levels
-    always share one."""
-    first = (k1 - k0) % most or most
-    return [(k0, first)] + [(i, most) for i in range(k0 + first, k1, most)]
 
 
 def evalall_expand(aes, cw_s, cw_t, cw_np1, s, t, *, k0: int, k1: int,

@@ -24,7 +24,7 @@ so depth i's nodes are rows [0, 2^i) of a key's range.  Kernel B5a
 (``narrow_frontier``, ``csrc/hybrid_state.cu``) expands each parent once,
 into both children: the top ``TOP_LEVELS`` levels in one launch, a level
 at a time, then launches of one or two levels, the second kept in
-registers (``ops.evalall_expand.launch_depths`` with ``most=2`` cuts
+registers (``ops._launch.launch_depths`` with ``most=2`` cuts
 them), all from one call of its entry point; B5b (``hybrid_prefix_eval``,
 ``csrc/hybrid_prefix.cu``) gathers inside the kernel.  Both launch their
 kernels for tensors on the card and run their plain versions for tensors
@@ -40,8 +40,12 @@ import torch
 
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import ShapeError
-from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
-from dcf_tpu_torch.ops.evalall_expand import launch_depths
+from dcf_tpu_torch.ops._launch import (
+    check_u8,
+    key_slices,
+    launch_checked,
+    launch_depths,
+)
 from dcf_tpu_torch.ops.narrow_walk import (
     NARROW,
     check_narrow_image,

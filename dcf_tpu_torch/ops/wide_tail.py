@@ -15,10 +15,17 @@ and reads the packed bits as they are.  (``torch._int_mm`` would need
 every bit unpacked to an int8, a 4-byte sum per output bit and a parity
 pass; ``chip_smoke.py`` times it beside W1.)
 
+The kernel (``csrc/wide_xor.cu``) uses the method of four Russians: the
+trajectory's bits in groups of five, a shared table per group of the 32
+XORs of W's rows that the group's bits can select (const folded into the
+first group), so each 16 bytes of a share are one table read a group, 26
+at n = 128.  A block builds the table of a column tile (up to 256 bytes of
+a row, the whole 224 at lam = 256) once and strides over the points.
+
 ``wide_tail`` writes bytes 32..lam-1 of the share tensor ``y`` in place
-(no concatenation) and returns it: the CUDA kernel (``csrc/wide_xor.cu``)
-for tensors on the card, ``wide_tail_plain`` -- the same XOR of masked
-rows, one row at a time -- for tensors on the CPU.
+(no concatenation) and returns it: the CUDA kernel for tensors on the
+card, ``wide_tail_plain`` -- the same XOR of masked rows, one row at a
+time -- for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -29,13 +36,10 @@ import torch
 
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import ShapeError
-from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
+from dcf_tpu_torch.ops._launch import check_u8, launch_checked
 from dcf_tpu_torch.ops.narrow_walk import NARROW, traj_bytes, unpack_traj_plain
 
 __all__ = ["wide_tail_plain", "wide_tail"]
-
-_SMEM_MAX = 227 * 1024  # shared memory one block may use on the H100
-_TILE_BYTES = 32 * 4    # one tile row: 32 column words
 
 
 def wide_tail_plain(y: torch.Tensor, traj: torch.Tensor, const: torch.Tensor,
@@ -69,29 +73,21 @@ def wide_tail(y: torch.Tensor, traj: torch.Tensor, const: torch.Tensor,
     wd = lam - NARROW
     check_u8("y", y, (k_num, m, lam), device, align=16)
     check_u8("traj", traj, (k_num, m, traj_bytes(n1)), device, align=4)
-    check_u8("const", const, (k_num, wd), device, align=4)
-    check_u8("w", w, (k_num, n1, wd), device, align=4)
-    if lam < 48 or lam % 16:
-        raise ShapeError(f"bad wide tail geometry: lam={lam}")
+    check_u8("const", const, (k_num, wd), device, align=16)
+    check_u8("w", w, (k_num, n1, wd), device, align=16)
+    if lam < 48 or lam % 16 or n1 < 1:
+        raise ShapeError(f"bad wide tail geometry: lam={lam}, n+1={n1}")
     if device.type == "cpu":
         return wide_tail_plain(y, traj, const, w)
     if device.type != "cuda":
         raise ShapeError(f"wide_tail runs on cuda or cpu, not {device}")
-    if -(-m // 512) > 65535:
-        raise ShapeError(f"{m} points exceed the grid")
-    if n1 * _TILE_BYTES > _SMEM_MAX:
-        raise ShapeError(f"a {n1}-row tile of W exceeds shared memory")
-    if m == 0:
+    if m == 0 or k_num == 0:
         return y
     fn = _build.load("wide_xor", "dcf_wide_xor", _ARGTYPES)
-    nt = traj.shape[2]
-    for k0, kk in key_slices(k_num):
-        launch_checked("wide_xor", fn, device, traj.data_ptr() + k0 * m * nt,
-                       w.data_ptr() + k0 * n1 * wd,
-                       const.data_ptr() + k0 * wd,
-                       y.data_ptr() + k0 * m * lam, kk, n1, nt // 4, wd // 4,
-                       m, lam)
-        wide_tail.launches += 1
+    launch_checked("wide_xor", fn, device, traj.data_ptr(), w.data_ptr(),
+                   const.data_ptr(), y.data_ptr(), k_num, n1,
+                   traj.shape[2] // 4, wd // 4, m, lam)
+    wide_tail.launches += 1
     return y
 
 

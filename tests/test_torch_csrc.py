@@ -1,13 +1,14 @@
 """The CUDA kernels' per-thread arithmetic, checked on the CPU.
 
-``dcf_tpu_torch/csrc/dcf_walk.cuh`` holds the bodies of kernels B1-B3 as
-plain C++ over uint32_t (T-table AES-256, the Hirose step, the SWAR group
-adds, the walk, the frontier gather index and the tree node), and
-``csrc/narrow_walk.cuh`` that of the large-lambda kernel W1 (the wide
-XOR) and of the full-domain kernel B2f (``tree_leaves`` in
-``dcf_walk.cuh``).  ``csrc/aes_banked.cuh`` holds the bank-conflict-free
+``dcf_tpu_torch/csrc/dcf_walk.cuh`` holds the T-table bodies of kernels
+B1, B3 and B2f as plain C++ over uint32_t (T-table AES-256, the Hirose
+step, the SWAR group adds, the walk, the frontier gather index, the tree
+node and ``tree_leaves``), and ``csrc/narrow_walk.cuh`` that of the
+large-lambda kernel W1 (its table of XORs of W's rows and the lookups).
+``csrc/aes_banked.cuh`` holds the bank-conflict-free
 AES core (T0 and T2 replicated over 32 lanes) with kernel B8's
-keys-in-lanes body and the two-points-a-lane walk of kernels B1 and B3;
+keys-in-lanes body, the two-points-a-lane walk of kernels B1 and B3 and
+the tree node of kernel B2, up to three levels a thread;
 ``narrow_walk.cuh`` the bodies on it of kernels B4 and B5b (the
 three-slot narrow level, from the root or from a frontier row), B5a (a
 frontier node into both children, up to three levels a thread, in place)
@@ -123,29 +124,6 @@ static void prefix(const uint8_t* sbox, const uint8_t* rk,
   }
 }
 
-template <int GW>
-static void tree(const uint8_t* sbox, const uint8_t* rk, const uint8_t* cw_s,
-                 const uint8_t* cw_v, const uint8_t* cw_t, const uint8_t* s_in,
-                 const uint8_t* v_in, const uint8_t* t_in, uint8_t* s_out,
-                 uint8_t* v_out, uint8_t* t_out, int n_par) {
-  AesTables a;
-  tables(a, sbox, rk);
-  LevelCw cw[1];
-  level_cw_entry(cw, cw_s, cw_v, cw_t, 0);
-  for (int j = 0; j < n_par; ++j) {
-    uint32_t s[4], v[4], sl[4], vl[4], sr[4], vr[4], tl, tr;
-    memcpy(s, s_in + 16 * j, 16);
-    memcpy(v, v_in + 16 * j, 16);
-    tree_node<GW>(a, cw[0], s, v, t_in[j] & 1u, sl, vl, tl, sr, vr, tr);
-    memcpy(s_out + 16 * j, sl, 16);
-    memcpy(s_out + 16 * (n_par + j), sr, 16);
-    memcpy(v_out + 16 * j, vl, 16);
-    memcpy(v_out + 16 * (n_par + j), vr, 16);
-    t_out[j] = (uint8_t)tl;
-    t_out[n_par + j] = (uint8_t)tr;
-  }
-}
-
 #define DISPATCH(f, ...)                      \
   switch (gw) {                               \
     case 0: f<0>(__VA_ARGS__); break;         \
@@ -168,13 +146,6 @@ void host_prefix(const uint8_t* sbox, const uint8_t* rk, const uint8_t* table,
                  int n, int k, int m, int negate, int gw) {
   DISPATCH(prefix, sbox, rk, table, cw_s, cw_v, cw_t, cw_np1, xs, y, K, n, k,
            m, negate)
-}
-void host_tree(const uint8_t* sbox, const uint8_t* rk, const uint8_t* cw_s,
-               const uint8_t* cw_v, const uint8_t* cw_t, const uint8_t* s_in,
-               const uint8_t* v_in, const uint8_t* t_in, uint8_t* s_out,
-               uint8_t* v_out, uint8_t* t_out, int n_par, int gw) {
-  DISPATCH(tree, sbox, rk, cw_s, cw_v, cw_t, s_in, v_in, t_in, s_out, v_out,
-           t_out, n_par)
 }
 }
 """
@@ -215,14 +186,44 @@ void host_tree_final(const uint8_t* sbox, const uint8_t* rk,
   }
 }
 
-void host_wide(const uint32_t* traj, const uint32_t* w, const uint32_t* cst,
-               uint32_t* y, int K, int n1, int tw, int wdw, int m) {
+// Kernel W1 over K keys and m points as its blocks run it: for each key
+// and column tile of `cols` 16-byte chunks among tiles [t0, t1), the
+// tile's table built entry by entry, then every (point, chunk) of the tile
+// looked up.  y [K, m, 16 chunks] holds the wide part alone.
+void host_wide_tiles(const uint32_t* traj, const uint8_t* w,
+                     const uint8_t* cst, uint8_t* y, int K, int n1, int tw,
+                     int chunks, int m, int cols, int t0, int t1) {
+  const int groups = wide_groups(n1);
+  const size_t wd = 16 * (size_t)chunks;
+  std::vector<uint32_t> tab((size_t)groups * kWideVals * cols * 4);
   for (int key = 0; key < K; ++key)
-    for (int pt = 0; pt < m; ++pt)
-      for (int c = 0; c < wdw; ++c)
-        y[((size_t)key * m + pt) * wdw + c] = wide_word(
-            traj + ((size_t)key * m + pt) * tw, n1,
-            w + (size_t)key * n1 * wdw + c, wdw, cst[(size_t)key * wdw + c]);
+    for (int tile = t0; tile < t1; ++tile) {
+      const int c0 = tile * cols;
+      for (int e = 0; e < groups * kWideVals * cols; ++e) {
+        const int col = e % cols, gn = e / cols;
+        uint32_t out[4] = {0u, 0u, 0u, 0u};
+        if (c0 + col < chunks)
+          wide_table_entry(w + (size_t)key * n1 * wd + 16 * (c0 + col),
+                           cst + (size_t)key * wd + 16 * (c0 + col), wd, n1,
+                           gn / kWideVals, gn % kWideVals, out);
+        memcpy(&tab[4 * (size_t)e], out, 16);
+      }
+      for (int pt = 0; pt < m; ++pt)
+        for (int c = 0; c < cols && c0 + c < chunks; ++c) {
+          const size_t row = (size_t)key * m + pt;
+          uint32_t out[4];
+          wide_chunk(traj + row * tw, n1, tab.data() + 4 * c, cols, out);
+          memcpy(y + row * wd + 16 * (c0 + c), out, 16);
+        }
+    }
+}
+
+// ... over every column tile, 16 chunks a tile, as the kernel cuts them.
+void host_wide(const uint32_t* traj, const uint8_t* w, const uint8_t* cst,
+               uint8_t* y, int K, int n1, int tw, int wdw, int m) {
+  const int chunks = wdw / 4, cols = chunks < 16 ? chunks : 16;
+  host_wide_tiles(traj, w, cst, y, K, n1, tw, chunks, m, cols, 0,
+                  (chunks + cols - 1) / cols);
 }
 }
 """
@@ -433,6 +434,62 @@ void host_narrow(const uint8_t* sbox, const uint8_t* rk0,
       memcpy(y + row * 32, out, 32);
     }
   }
+}
+}
+"""
+
+
+_TREE_HARNESS = r"""
+// Kernel B2: levels level .. level + depth - 1 of one key (its rows cw_s /
+// cw_v [n, 16], cw_t [n, 2]) from n_par parents, parent j on lane j % 32
+// of the banked AES, as a launch of that depth runs them.
+template <int GW>
+static void tree_levels(const uint8_t* sbox, const uint8_t* rk,
+                        const uint8_t* cw_s, const uint8_t* cw_v,
+                        const uint8_t* cw_t, const uint8_t* s_in,
+                        const uint8_t* v_in, const uint8_t* t_in,
+                        uint8_t* s_out, uint8_t* v_out, uint8_t* t_out,
+                        int n_par, int level, int depth) {
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey rks[15];
+  round_keys(rks, rk);
+  LevelCw cw[3];
+  for (int l = 0; l < depth; ++l)
+    level_cw_entry(cw, cw_s + 16 * level, cw_v + 16 * level,
+                   cw_t + 2 * level, l);
+  for (int j = 0; j < n_par; ++j) {
+    TreeNode p;
+    load16(s_in + 16 * (size_t)j, p.s);
+    load16(v_in + 16 * (size_t)j, p.v);
+    p.t = t_in[j] & 1u;
+    const BkLane lane = bk_lane(te.data(), j % kLanes);
+#define TREE_ARGS lane, rks, cw, p, s_out, v_out, t_out, (size_t)j, (size_t)n_par
+    if (depth == 1) tree_subtree<GW, 1>(TREE_ARGS);
+    else if (depth == 2) tree_subtree<GW, 2>(TREE_ARGS);
+    else tree_subtree<GW, 3>(TREE_ARGS);
+#undef TREE_ARGS
+  }
+}
+
+extern "C" {
+void host_tree_levels(const uint8_t* sbox, const uint8_t* rk,
+                      const uint8_t* cw_s, const uint8_t* cw_v,
+                      const uint8_t* cw_t, const uint8_t* s_in,
+                      const uint8_t* v_in, const uint8_t* t_in,
+                      uint8_t* s_out, uint8_t* v_out, uint8_t* t_out,
+                      int n_par, int level, int depth, int gw) {
+  DISPATCH(tree_levels, sbox, rk, cw_s, cw_v, cw_t, s_in, v_in, t_in, s_out,
+           v_out, t_out, n_par, level, depth)
+}
+
+// One level: cw_s / cw_v / cw_t point at that level's correction words.
+void host_tree(const uint8_t* sbox, const uint8_t* rk, const uint8_t* cw_s,
+               const uint8_t* cw_v, const uint8_t* cw_t, const uint8_t* s_in,
+               const uint8_t* v_in, const uint8_t* t_in, uint8_t* s_out,
+               uint8_t* v_out, uint8_t* t_out, int n_par, int gw) {
+  host_tree_levels(sbox, rk, cw_s, cw_v, cw_t, s_in, v_in, t_in, s_out,
+                   v_out, t_out, n_par, 0, 1, gw);
 }
 }
 """
@@ -676,7 +733,8 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc")
     src = d / "harness.cpp"
     src.write_text(_HARNESS + _NARROW_HARNESS + _BANKED_HARNESS
-                   + _KEYGEN_HARNESS + _BANKED_NARROW_HARNESS + _PAIR_HARNESS)
+                   + _KEYGEN_HARNESS + _TREE_HARNESS + _BANKED_NARROW_HARNESS
+                   + _PAIR_HARNESS)
     out = d / "libharness.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
@@ -776,6 +834,54 @@ def test_tree_and_prefix_bodies_match_oracle(lib, group):
 
 
 
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("group", GROUPS)
+def test_tree_subtree_body_matches_oracle(lib, group, depth):
+    """B2's banked body expanding ``depth`` levels in registers (parent j
+    on lane j % 32), from the host expansion at every level L with
+    L + depth <= n = 8: the 2^depth N nodes land at rows j + N r (r the
+    directions, LSB first), equal to tree_expand_np at depth L + depth and
+    to ``depth`` levels of tree_expand_level_plain; both bounds, both
+    parties."""
+    from dcf_tpu_torch.ops.tree_expand import tree_expand_level_plain
+    from dcf_tpu_torch.ops.walk_eval import aes_image
+
+    gw = GROUP_WIDTH.get(group, 0)
+    n = 8
+    for bound in Bound:
+        seed = (240 + 8 * depth + 2 * GROUPS.index(group)
+                + (bound == Bound.GT_BETA))
+        _, prg, rk, _, bundle = _setup(seed, 1, n // 8, group, bound)
+        aes = torch.from_numpy(aes_image(
+            np.random.default_rng(seed).bytes(32)))  # _setup's cipher 0
+        for b in (0, 1):
+            kb = bundle.for_party(b)
+            cws = [np.ascontiguousarray(a[0]) for a in (kb.cw_s, kb.cw_v,
+                                                        kb.cw_t)]
+            for lvl in range(0, n - depth + 1):
+                s, v, t = tree_expand_np(prg, kb, b, lvl)
+                n_out = s.shape[0] << depth
+                so = np.zeros((n_out, 16), np.uint8)
+                vo = np.zeros((n_out, 16), np.uint8)
+                to = np.full(n_out, 7, np.uint8)
+                lib.host_tree_levels(
+                    _p(SBOX_NP), _p(rk), *(_p(a) for a in cws),
+                    _p(np.ascontiguousarray(s)), _p(np.ascontiguousarray(v)),
+                    _p(np.ascontiguousarray(t)), _p(so), _p(vo), _p(to),
+                    s.shape[0], lvl, depth, gw)
+                for got, want in zip((so, vo, to),
+                                     tree_expand_np(prg, kb, b, lvl + depth)):
+                    assert np.array_equal(got, want), (bound, b, lvl)
+                st = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                           for a in (s, v, t))
+                for i in range(lvl, lvl + depth):
+                    st = tree_expand_level_plain(
+                        aes, *(torch.from_numpy(a[i]) for a in cws), *st,
+                        group=group)
+                for got, want in zip((so, vo, to), st):
+                    assert np.array_equal(got, want.numpy()), (bound, b, lvl)
+
+
 def _large_setup(seed, lam, k_num, n_bytes, bound):
     """A lam >= 48 bundle from the port's keygen, with x = alpha and
     alpha +- 1 planted among the points (per key)."""
@@ -848,6 +954,79 @@ def test_narrow_walk_and_wide_bodies_match_oracle(lib, lam, n_bytes):
             got = np.concatenate([y32, _wide(lib, kb, traj, m)], axis=-1)
             assert np.array_equal(got, eval_batch_np(prg, b, kb, xs)), \
                 (bound, b)
+
+
+def _random_traj(rng, k_num, m, n1):
+    """Random packed trajectories uint8 [K, m, traj_bytes(n1)], the bits
+    past n1 random too: the table body must not read them."""
+    from dcf_tpu_torch.ops.narrow_walk import traj_bytes
+
+    return rng.integers(0, 256, (k_num, m, traj_bytes(n1)), dtype=np.uint8)
+
+
+def _wide_want(traj, const, w):
+    """y[32:] = const ^ XOR of the rows of w whose trajectory bit is set
+    (numpy), and the same through ``wide_tail_plain``."""
+    from dcf_tpu_torch.ops.wide_tail import wide_tail_plain
+
+    k_num, n1, wd = w.shape
+    bits = _traj_bits(traj.view(np.uint32), n1)
+    want = np.broadcast_to(const[:, None, :],
+                           (k_num, traj.shape[1], wd)).copy()
+    for j in range(n1):
+        want ^= w[:, j, None, :] * bits[:, :, j, None]
+    y = torch.zeros((k_num, traj.shape[1], 32 + wd), dtype=torch.uint8)
+    plain = wide_tail_plain(y, *(torch.from_numpy(np.ascontiguousarray(a))
+                                 for a in (traj, const, w)))
+    assert np.array_equal(plain[..., 32:].numpy(), want)
+    return want
+
+
+@pytest.mark.parametrize("k_num", [1, 3])
+@pytest.mark.parametrize("n_bytes", [2, 4, 5, 16])
+@pytest.mark.parametrize("lam", [48, 144, 256])
+def test_wide_table_body_matches_oracle(lib, lam, n_bytes, k_num):
+    """W1's table build and lookup (``wide_table_entry``, ``wide_chunk``)
+    over every column tile, on the const and W of real keys
+    (``wide_affine_batch_np``) and random trajectories with random bits
+    past n + 1, against the XOR of the selected rows and
+    ``wide_tail_plain``.  n + 1 = 17, 33, 41, 129: the last group of five
+    holds two, three, one and four bits, and the trajectory crosses one,
+    one and four word boundaries, groups straddling them."""
+    n1 = 8 * n_bytes + 1
+    ck, _, bundle, _, _ = _large_setup(400 + lam + n_bytes + k_num, lam,
+                                       k_num, n_bytes, Bound.LT_BETA)
+    const, w = wide_affine_batch_np(bundle.for_party(1))
+    rng = np.random.default_rng(lam + n_bytes)
+    m = 37
+    traj = _random_traj(rng, k_num, m, n1)
+    y = np.zeros((k_num, m, lam - 32), np.uint8)
+    lib.host_wide(_p(traj), _p(np.ascontiguousarray(w)),
+                  _p(np.ascontiguousarray(const)), _p(y), k_num, n1,
+                  traj.shape[-1] // 4, (lam - 32) // 4, m)
+    assert np.array_equal(y, _wide_want(traj, const, w))
+
+
+@pytest.mark.parametrize("tile", [0, 63])
+def test_wide_table_body_crate_tile(lib, tile):
+    """W1's body at the reference crate's lam = 16384 (1022 chunks of 16
+    bytes, tiles of 16): the first column tile and the last, partial one
+    (14 chunks), K = 2, n + 1 = 129, random const and W, against
+    ``wide_tail_plain`` on those columns."""
+    lam, n1, k_num, m, cols = 16384, 129, 2, 9, 16
+    wd = lam - 32
+    rng = np.random.default_rng(410 + tile)
+    const = rng.integers(0, 256, (k_num, wd), dtype=np.uint8)
+    w = rng.integers(0, 256, (k_num, n1, wd), dtype=np.uint8)
+    traj = _random_traj(rng, k_num, m, n1)
+    y = np.zeros((k_num, m, wd), np.uint8)
+    lib.host_wide_tiles(_p(traj), _p(w), _p(const), _p(y), k_num, n1,
+                        traj.shape[-1] // 4, wd // 16, m, cols, tile,
+                        tile + 1)
+    cut = slice(16 * cols * tile, min(wd, 16 * cols * (tile + 1)))
+    want = _wide_want(traj, const, w)
+    assert np.array_equal(y[..., cut], want[..., cut])
+    assert not y[..., :cut.start].any() and not y[..., cut.stop:].any()
 
 
 def _host_frontier(lib, ck, s0, cs, cv, ct, k, b):

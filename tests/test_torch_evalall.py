@@ -30,12 +30,11 @@ from dcf_tpu_torch.backends.evalall import (
 )
 from dcf_tpu_torch.errors import BackendUnavailableError, ShapeError
 from dcf_tpu_torch.gen import random_s0s
+from dcf_tpu_torch.ops._launch import MAX_DEPTH, launch_depths
 from dcf_tpu_torch.ops.evalall_expand import (
-    MAX_DEPTH,
     evalall_expand,
     evalall_expand_level,
     evalall_expand_level_plain,
-    launch_depths,
 )
 from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
 from dcf_tpu_torch.ops.prg import HirosePrgNp as TPrg

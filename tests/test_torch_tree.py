@@ -29,12 +29,14 @@ from dcf_tpu.utils.bits import (
 from dcf_tpu_torch.backends.fulldomain import tree_expand_np as t_tree_np
 from dcf_tpu_torch.errors import DcfError, ShapeError
 from dcf_tpu_torch.keys import KeyBundle
+from dcf_tpu_torch.ops._launch import launch_depths
 from dcf_tpu_torch.ops.prefix_eval import frontier_table
 from dcf_tpu_torch.ops.prg import HirosePrgNp as TPrg
 from dcf_tpu_torch.ops.tree_expand import (
     tree_expand,
     tree_expand_level,
     tree_expand_level_plain,
+    tree_expand_levels,
 )
 from dcf_tpu_torch.ops.walk_eval import aes_image
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -97,6 +99,74 @@ def test_tree_expand_matches_pallas_and_host(group):
         assert np.array_equal(gt.numpy(), ht)
 
 
+# The cuts of the flagship prefix path (levels 6..20: five launches of
+# three levels) and of the full domain's B2 span (6..22: two, then five of
+# three), and the spans below that share their shapes: all threes, a
+# first launch of two, a first launch of one.
+PREFIX_CUT = [(6, 3), (9, 3), (12, 3), (15, 3), (18, 3)]
+FULL_DOMAIN_CUT = [(6, 2), (8, 3), (11, 3), (14, 3), (17, 3), (20, 3)]
+
+
+@pytest.mark.parametrize("k0,k1", [(5, 11), (5, 10), (5, 9)])
+@pytest.mark.parametrize("group", ("xor", "add16"))
+def test_tree_expand_launch_cut_matches_pallas(monkeypatch, group, k0, k1):
+    """``tree_expand`` through the wrapper's depth cut (on the CPU each
+    launch runs the plain version level by level) against ``dcf_tpu``'s
+    host expansion for both parties and its ``tree_expand_raw`` in
+    interpret mode for one (party k1 % 2), byte-exact: spans cut 3 + 3
+    (the shape of levels 6..20's cut), 2 + 3 (of 6..22's) and 1 + 3."""
+    from dcf_tpu_torch.ops import tree_expand as mod
+
+    assert launch_depths(6, 21) == PREFIX_CUT
+    assert launch_depths(6, 23) == FULL_DOMAIN_CUT
+    calls = []
+    levels = mod.tree_expand_levels
+
+    def spy(*args, level, depth, group):
+        calls.append((level, depth))
+        return levels(*args, level=level, depth=depth, group=group)
+
+    monkeypatch.setattr(mod, "tree_expand_levels", spy)
+    rng = np.random.default_rng(95 + k1 + GROUPS.index(group))
+    ck = [rng.bytes(32), rng.bytes(32)]
+    jb = j_gen_batch(JPrg(16, ck),
+                     rng.integers(0, 256, (1, 2), dtype=np.uint8),
+                     rng.integers(0, 256, (1, 16), dtype=np.uint8),
+                     random_s0s(1, 16, rng), jspec.Bound.GT_BETA,
+                     group=group)
+    tb = KeyBundle.from_arrays(jb.s0s, jb.cw_s, jb.cw_v, jb.cw_t, jb.cw_np1,
+                               group=group)
+    rk = jnp.asarray(round_key_masks_bitmajor(ck[0]))
+    aes = torch.from_numpy(aes_image(ck[0]))
+    for b in (0, 1):
+        jkb, tkb = jb.for_party(b), tb.for_party(b)
+        s, v, t = t_tree_np(TPrg(16, ck), tkb, b, k0)
+        calls.clear()
+        gs, gv, gt = tree_expand(
+            aes, torch.from_numpy(tkb.cw_s[0]), torch.from_numpy(tkb.cw_v[0]),
+            torch.from_numpy(tkb.cw_t[0]), torch.from_numpy(s),
+            torch.from_numpy(v), torch.from_numpy(t), k0=k0, k1=k1,
+            group=group)
+        assert calls == launch_depths(k0, k1)
+        assert [d for _, d in calls] in ([3, 3], [2, 3], [1, 3])
+        for got, want in zip((gs, gv, gt),
+                             j_tree_np(JPrg(16, ck), jkb, b, k1)):
+            assert np.array_equal(got.numpy(), want), b
+        if b != k1 % 2:
+            continue
+        js, jv, jt = tree_expand_raw(
+            rk, jnp.asarray(bitmajor_plane_masks(jkb.cw_s[0])[..., None]),
+            jnp.asarray(bitmajor_plane_masks(jkb.cw_v[0])[..., None]),
+            jnp.asarray(jkb.cw_t[0].astype(np.int32) * -1),
+            _to_planes(s), _to_planes(v),
+            jnp.asarray(pack_lanes(t[None]).view(np.int32)),
+            k0=k0, k1=k1, interpret=True, group=group)
+        assert np.array_equal(gs.numpy(), _from_planes(js)), b
+        assert np.array_equal(gv.numpy(), _from_planes(jv)), b
+        assert np.array_equal(
+            gt.numpy(), unpack_lanes(np.asarray(jt).view(np.uint32))[0]), b
+
+
 def test_tree_level_wrapper_and_frontier_stash():
     rng = np.random.default_rng(90)
     aes = torch.from_numpy(aes_image(rng.bytes(32)))
@@ -107,9 +177,9 @@ def test_tree_level_wrapper_and_frontier_stash():
               for _ in range(2))
     cs[15] &= 0xFE  # a real seed CW is a XOR of masked PRG outputs
     ct = torch.tensor([1, 0], dtype=torch.uint8)
-    before = tree_expand_level.launches
+    before = tree_expand_levels.launches
     got = tree_expand_level(aes, cs, cv, ct, s, v, t, group="add16")
-    assert tree_expand_level.launches == before  # CPU: the plain version
+    assert tree_expand_levels.launches == before  # CPU: the plain version
     want = tree_expand_level_plain(aes, cs, cv, ct, s, v, t, group="add16")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
