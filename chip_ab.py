@@ -215,7 +215,7 @@ def case_hybrid_state(torch, dev):
             lambda: narrow_frontier(aes, s0, cw_s, cw_v, cw_t, k=k, b=0))
 
 
-def case_evalall_expand(torch, dev):
+def case_evalall_expand(torch, dev, want_y: bool = True):
     """B6 at the DPF EvalAll and PIR shape: K = 4 lam = 32 DPF keys,
     n = 24, party 0, levels 6-23 from the host's level-6 frontier (the
     smoke's phase 12); the leaf shares and t bytes."""
@@ -237,8 +237,19 @@ def case_evalall_expand(torch, dev):
     aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17])).to(dev)
     on = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         kb.cw_s, kb.cw_t, kb.cw_np1, *dpf_tree_expand_np(prg, kb, 0, k0))]
+    if not want_y:  # the selection alone
+        return (f"K={k_num} n={n} levels {k0}-{n - 1} t only", 5,
+                lambda: evalall_expand(aes, *on, k0=k0, k1=n,
+                                       want_y=False)[1:])
     return (f"K={k_num} n={n} levels {k0}-{n - 1}", 5,
             lambda: evalall_expand(aes, *on, k0=k0, k1=n))
+
+
+def case_evalall_expand_t(torch, dev):
+    """B6 as a PIR server runs it: ``case_evalall_expand``'s tree, the
+    last launch writing the leaves' t bits alone (packed words since
+    PR 11, t bytes before); the selection."""
+    return case_evalall_expand(torch, dev, want_y=False)
 
 
 def _flagship(torch, dev):
@@ -371,8 +382,92 @@ def case_tree_expand(torch, dev):
 
 def case_tree_expand_fd(torch, dev):
     """B2 on BASELINE.json config 3's full domain: levels 6-22 of an
-    n = 24 key (B2f takes level 23)."""
+    n = 24 key, as the path ran them before PR 11 (B2f then took level
+    23; since, B2 runs 6-20 and B2f 21-23)."""
     return _tree_levels(torch, dev, 24, 6, 23, 5)
+
+
+def _tree_key(torch, dev, n: int, k0: int):
+    """One seeded lam = 16 XOR key of n levels (party 0, LT_BETA) on the
+    card: the aes image, cw_s, cw_v, cw_t [n, ...], cw_np1 [16] and the
+    host's level-k0 nodes."""
+    from dcf_tpu_torch.backends.fulldomain import tree_expand_np
+    from dcf_tpu_torch.gen import gen_batch, random_s0s
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.ops.walk_eval import aes_image
+    from dcf_tpu_torch.spec import Bound
+
+    rng = np.random.default_rng(SEED)
+    ck = [rng.bytes(32), rng.bytes(32)]
+    prg = HirosePrgNp(16, ck)
+    kb = gen_batch(prg, rng.integers(0, 256, (1, n // 8), dtype=np.uint8),
+                   rng.integers(0, 256, (1, 16), dtype=np.uint8),
+                   random_s0s(1, 16, rng), Bound.LT_BETA).for_party(0)
+    aes = torch.from_numpy(aes_image(ck[0])).to(dev)
+    cws = [torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+           for a in (kb.cw_s, kb.cw_v, kb.cw_t, kb.cw_np1)]
+    top = [torch.from_numpy(a).to(dev) for a in tree_expand_np(prg, kb, 0, k0)]
+    return aes, cws, top
+
+
+def case_tree_expand_final(torch, dev):
+    """B2f on BASELINE.json config 3's full domain: level 23 of an n = 24
+    key and the leaf finalize, from the level-23 nodes that B2 builds
+    (levels 6-22, outside the timed call); the 2^24 leaf shares.  The
+    one-level launch every tree has (the path's since PR 11 takes levels
+    21-23: ``tree_expand_device``)."""
+    from dcf_tpu_torch.ops.tree_expand import tree_expand, tree_expand_final
+
+    n, k0 = 24, 6
+    aes, (cw_s, cw_v, cw_t, np1), top = _tree_key(torch, dev, n, k0)
+    nodes = tree_expand(aes, cw_s, cw_v, cw_t, *top, k0=k0, k1=n - 1,
+                        group="xor")
+    return (f"n={n} level {n - 1}", 10,
+            lambda: (tree_expand_final(aes, cw_s[n - 1], cw_v[n - 1],
+                                       cw_t[n - 1], np1, *nodes),))
+
+
+def case_tree_expand_device(torch, dev):
+    """The full-domain expansion of config 3 on the card, B2 and B2f as
+    ``tree_expand_device`` cuts them: levels 6-23 of an n = 24 key from
+    the host's top 6; the 2^24 leaf shares."""
+    from dcf_tpu_torch.ops.tree_expand import tree_expand_device
+
+    n, k0 = 24, 6
+    aes, cws, top = _tree_key(torch, dev, n, k0)
+    return (f"n={n} levels {k0}-{n - 1}", 5,
+            lambda: (tree_expand_device(aes, *cws, *top, k0=k0, n=n),))
+
+
+def case_pir_answer(torch, dev):
+    """P1 at the PIR path's top shape: K = 4 queries over 2^24 records of
+    32 bytes, each party-0 selection share made by the tree's own B6
+    (levels 6-23 from the host's level-6 frontier, t alone), so each tree
+    reads the selection in the form its B6 writes and its P1 takes (t
+    bytes or packed words); the K answer shares."""
+    from dcf_tpu_torch.backends.evalall import dpf_tree_expand_np
+    from dcf_tpu_torch.gen import random_s0s
+    from dcf_tpu_torch.ops.evalall_expand import evalall_expand
+    from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
+    from dcf_tpu_torch.ops.pir_answer import pir_answer
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
+
+    rng = np.random.default_rng(SEED)
+    k_num, n, k0, r = 4, 24, 6, 32
+    ck = [rng.bytes(32) for _ in range(18)]
+    prg = HirosePrgNp(32, ck, warn=False)
+    kb = dpf_gen_batch(prg, rng.integers(0, 256, (k_num, n // 8),
+                                         dtype=np.uint8),
+                       rng.integers(0, 256, (k_num, 32), dtype=np.uint8),
+                       random_s0s(k_num, 32, rng)).for_party(0)
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17])).to(dev)
+    on = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        kb.cw_s, kb.cw_t, kb.cw_np1, *dpf_tree_expand_np(prg, kb, 0, k0))]
+    _, sel = evalall_expand(aes, *on, k0=k0, k1=n, want_y=False)
+    db = torch.from_numpy(rng.integers(0, 256, (1 << n, r),
+                                       dtype=np.uint8)).to(dev)
+    return (f"K={k_num} N=2^{n} R={r}", 10, lambda: (pir_answer(sel, db),))
 
 
 # case name -> (the kernel source it builds, its inputs and call)
@@ -386,12 +481,16 @@ CASES = {"keylanes_eval": ("keylanes_eval", case_keylanes_eval),
          "narrow_walk": ("narrow_walk", case_narrow_walk),
          "hybrid_prefix": ("hybrid_prefix", case_hybrid_prefix),
          "evalall_expand": ("evalall_expand", case_evalall_expand),
+         "evalall_expand_t": ("evalall_expand", case_evalall_expand_t),
          "walk_eval": ("walk_eval", case_walk_eval),
          "prefix_eval": ("prefix_eval", case_prefix_eval),
          "wide_xor": ("wide_xor", case_wide_xor),
          "wide_xor_crate": ("wide_xor", case_wide_xor_crate),
          "tree_expand": ("tree_expand", case_tree_expand),
-         "tree_expand_fd": ("tree_expand", case_tree_expand_fd)}
+         "tree_expand_fd": ("tree_expand", case_tree_expand_fd),
+         "tree_expand_final": ("tree_expand", case_tree_expand_final),
+         "tree_expand_device": ("tree_expand", case_tree_expand_device),
+         "pir_answer": ("pir_answer", case_pir_answer)}
 
 
 def _package(root: str):

@@ -51,8 +51,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (K = 3, from level 6, the leaf correction, both parties: one level a
    launch to full depth and to the prefix depth 13, and 1-3 levels a
    launch as ``evalall_expand`` cuts them, to full depth and to 14, the
-   last launch also writing t alone, as for PIR), B2f (both bounds, both
-   parties) and P1 (K = 3, 32-byte records, B6's own t bytes);
+   last launch also writing t alone, packed, as for PIR; and t alone from
+   the roots to depths 1-8), B2f (both bounds, both parties, the last 1,
+   2 and 3 levels a launch) and P1 (K = 3, 32-byte records, B6's own
+   packed words; and K = 1, 5, 9 at R = 4, 36, 528);
 9. full-domain evaluation, lam = 16, n = 24 (BASELINE.json config 3), both
    bounds: ``TreeFullDomain.check`` (B2 + B2f) gives 0, and 7 for
    alpha + 7; beside it the per-point ``full_domain_check_device`` over two
@@ -70,11 +72,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     evaluator's default (no level on the host), and at n = 24 once more
     with the top 6 levels on the host;
 12. B6, B2f and P1 against their plain versions at those paths' shapes
-    (n = 24; B6 both parties), their times and bounds, and B2 on the full
-    domain's levels 6 to 22, held against its plain version for both
-    bounds' keys and timed after two untimed calls; P1 also beside
-    ``torch._int_mm`` on the database unpacked to bits, whose parity is
-    checked against P1;
+    (n = 24; B6 both parties, and its t-only words; P1 on those words;
+    B2f's launch as ``tree_expand_device`` makes it, the last
+    ``FINAL_LEVELS`` levels), their times and bounds, and B2 on the full
+    domain's levels from 6 to B2f's, held against its plain version for
+    both bounds' keys and timed after two untimed calls (B2f and P1 too);
+    P1 also beside
+    ``torch._int_mm`` on the selection and the database unpacked to bits,
+    whose parity is checked against P1;
     each B6 launch the paths of phases 10-11 make (a level and 1-3 levels
     deep) and B1 a launch at the per-point full domain's shape (n = 24,
     2^20 points), each beside its bound: with B1 at the walk path's two
@@ -315,11 +320,12 @@ def main() -> int:
         unpack_traj_plain)
     from dcf_tpu_torch.ops.prefix_eval import (
         frontier_index_plain, frontier_table, prefix_eval, prefix_eval_plain)
-    from dcf_tpu_torch.ops.pir_answer import pir_answer, pir_answer_plain
+    from dcf_tpu_torch.ops.pir_answer import (
+        pack_selection, pir_answer, pir_answer_plain, unpack_selection)
     from dcf_tpu_torch.ops.prg import HirosePrgNp
     from dcf_tpu_torch.ops.tree_expand import (
-        tree_expand, tree_expand_final, tree_expand_final_plain,
-        tree_expand_level_plain, tree_expand_levels)
+        FINAL_LEVELS, tree_expand, tree_expand_final,
+        tree_expand_final_plain, tree_expand_level_plain, tree_expand_levels)
     from dcf_tpu_torch.ops.walk_eval import (
         aes_image, walk_bits_plain, walk_eval, walk_eval_plain)
     from dcf_tpu_torch.ops.wide_tail import wide_tail, wide_tail_plain
@@ -364,15 +370,14 @@ def main() -> int:
               "walk_eval": "B1", "prefix_eval": "B3",
               "evalall_expand": "B6", "hybrid_prefix": "B5b",
               "keygen_walk": "G1, B7a", "hybrid_state": "B5a",
-              "tree_expand": "B2"}
+              "tree_expand": "B2, B2f"}
     log("phase 2 the kernels on the banked AES, (registers, spill-store "
         "bytes) by kernel function: " + "; ".join(
             f"{kid} {src} {ptxas_functions(_build.build_log(src))}"
             for src, kid in banked.items())
         + " (keygen_walk's keygen_banked_kernel<0> is G1, <1> B7a; "
         "keygen_dpf_kernel is B7b on the T-tables; tree_expand's "
-        "tree_expand_kernel<GW> B2, tree_expand_final_kernel B2f on the "
-        "T-tables)")
+        "tree_expand_kernel<GW,D,0> B2, <0,D,1> B2f)")
 
     # -- phase 3: each kernel against its plain version --------------------------
     rng = np.random.default_rng(SEED)
@@ -996,7 +1001,7 @@ def main() -> int:
         rng.integers(0, 256, (3, N_CHECK // 8), dtype=np.uint8),
         rng.integers(0, 256, (3, 32), dtype=np.uint8), rng=rng)
     dcw = to_dev(dbundle.cw_s, dbundle.cw_t, dbundle.cw_np1)
-    t_leaves = {}
+    t_words = {}
     for b in (0, 1):
         # One level a launch to full depth and to the prefix depth 13, and
         # the launches evalall_expand makes to depths 16 and 14 (depths 1,
@@ -1018,16 +1023,34 @@ def main() -> int:
                         f"{i}..{i + d - 1}")
                 same("B6", what + " s", got[0], want[0])
                 same("B6", what + " t", got[1], want[1])
-                if np1 is not None:  # the PIR selection: t alone
+                if np1 is not None:  # the PIR selection: t alone, packed
                     no_y = evalall_expand_level(
                         daes, dcw[0], dcw[1], *st, level=i, depth=d,
                         cw_np1=np1, want_y=False)
                     if no_y[0] is not None:
                         raise RuntimeError("B6: want_y=False returned y")
-                    same("B6", what + " t without y", no_y[1], want[1])
+                    same("B6", what + " t words without y", no_y[1],
+                         evalall_expand_level_plain(
+                             daes, dcw[0], dcw[1], *st, level=i, depth=d,
+                             cw_np1=np1, want_y=False)[1])
+                    if depth == N_CHECK:
+                        t_words[b] = no_y[1]
                 st = got
-            if depth == N_CHECK:
-                t_leaves[b] = st[1]
+        # The t-only tree from the roots to depths 1-8: its last launch
+        # has fewer than 32 parents a key up to depth 7 (each set bit an
+        # atomicOr into a word that directions share), 32 at depth 8 (a
+        # ballot a word).
+        root = to_dev(*dpf_tree_expand_np(dprg, dbundle.for_party(b), b, 0))
+        for k1 in range(1, 9):
+            got = evalall_expand(daes, *dcw, *root, k0=0, k1=k1, want_y=False)
+            st = root
+            for i, d in launch_depths(0, k1):
+                st = evalall_expand_level_plain(
+                    daes, dcw[0], dcw[1], *st, level=i, depth=d,
+                    cw_np1=dcw[2] if i + d == k1 else None,
+                    want_y=i + d < k1)
+            same("B6", f"n={N_CHECK} K=3 party {b} levels 0..{k1 - 1} t "
+                 "words without y", got[1], st[1])
     for bnd in Bound:
         kb2 = gen_batch(
             prg, rng.integers(0, 256, (1, N_CHECK // 8), dtype=np.uint8),
@@ -1035,27 +1058,42 @@ def main() -> int:
             random_s0s(1, 16, rng), bnd)
         c = to_dev(kb2.cw_s[0], kb2.cw_v[0], kb2.cw_t[0], kb2.cw_np1[0])
         for b in (0, 1):
-            st = to_dev(*tree_expand_np(prg, kb2.for_party(b), b,
-                                        HOST_LEVELS))
-            st = tree_expand(aes, c[0], c[1], c[2], *st, k0=HOST_LEVELS,
-                             k1=N_CHECK - 1, group="xor")
-            last = (aes, c[0][N_CHECK - 1], c[1][N_CHECK - 1],
-                    c[2][N_CHECK - 1], c[3], *st)
-            same("B2f", f"n={N_CHECK} {bnd.name} party {b}",
-                 tree_expand_final(*last), tree_expand_final_plain(*last))
+            # The leaf launch of the last 1, 2 and 3 levels (FINAL_LEVELS
+            # picks the full domain's).
+            for fl in range(1, 4):
+                st = to_dev(*tree_expand_np(prg, kb2.for_party(b), b,
+                                            HOST_LEVELS))
+                st = tree_expand(aes, c[0], c[1], c[2], *st,
+                                 k0=HOST_LEVELS, k1=N_CHECK - fl,
+                                 group="xor")
+                last = (aes, *(x[N_CHECK - fl:] for x in c[:3]), c[3], *st)
+                same("B2f", f"n={N_CHECK} {bnd.name} party {b} last {fl} "
+                     "levels", tree_expand_final(*last),
+                     tree_expand_final_plain(*last))
     db_chk = torch.from_numpy(rng.integers(
         0, 256, (1 << N_CHECK, RECORD_BYTES), dtype=np.uint8)).to(dev)
     for b in (0, 1):
         same("P1", f"n={N_CHECK} K=3 R={RECORD_BYTES} party {b}",
-             pir_answer(t_leaves[b], db_chk),
-             pir_answer_plain(t_leaves[b], db_chk))
-    del db_chk, t_leaves, st, got, want
+             pir_answer(t_words[b], db_chk),
+             pir_answer_plain(t_words[b], db_chk))
+    # P1's 4-byte chunks (R = 4, 36), column groups past 32 chunks
+    # (R = 528), K past a pass of 4 and of 8 keys, a last tile past N.
+    for k_num, n_rows, r in ((1, 1000, 4), (5, 4096, 36), (9, 4096, 528)):
+        dbx = torch.from_numpy(rng.integers(0, 256, (n_rows, r),
+                                            dtype=np.uint8)).to(dev)
+        wx = pack_selection(torch.from_numpy(rng.integers(
+            0, 2, (k_num, n_rows), dtype=np.uint8)).to(dev))
+        same("P1", f"K={k_num} N={n_rows} R={r}", pir_answer(wx, dbx),
+             pir_answer_plain(wx, dbx))
+    del db_chk, dbx, wx, t_words, st, got, want
     log(f"phase 8 B6, B2f, P1: byte-identical to their plain versions at "
         f"n={N_CHECK} (B6 K=3, levels {HOST_LEVELS}.. with the leaf "
         f"correction, one level a launch to depths {N_CHECK} and 13 and "
         f"1-3 levels a launch to depths {N_CHECK} and 14, the last also "
-        f"without y, 2 parties; B2f 2 bounds x 2 parties; P1 K=3, "
-        f"{RECORD_BYTES}-byte records, B6's t bytes) "
+        f"without y, its t bits packed, and t alone from the roots to "
+        f"depths 1-8, 2 parties; B2f 2 bounds x 2 parties x the last 1-3 "
+        f"levels a launch; P1 K=3, {RECORD_BYTES}-byte records, B6's "
+        f"packed words, and K=1, 5, 9 at R=4, 36, 528) "
         f"({time.perf_counter() - t0:.1f} s)")
 
     def reset_counts() -> None:
@@ -1099,12 +1137,14 @@ def main() -> int:
             alpha.to_bytes(N_FULL // 8, "big"), dtype=np.uint8)[None].copy(),
             beta, rng=frng, bound=bnd)
         beta = beta[0].tobytes()
-        # One check is both parties: levels k0..n-2 by B2, the last by B2f.
+        # One check is both parties: B2 for levels k0.. above the last
+        # FINAL_LEVELS, one B2f launch for those.
         reset_counts()
         clean = tree.check(bundle, alpha, beta, N_FULL, gt)
         ran_tree = take_counts(
             f"full domain tree n={N_FULL}",
-            {"B2": 2 * len(launch_depths(HOST_LEVELS, N_FULL - 1)),
+            {"B2": 2 * len(launch_depths(HOST_LEVELS,
+                                         N_FULL - FINAL_LEVELS)),
              "B2f": 2})
         tampered = tree.check(bundle, alpha + 7, beta, N_FULL, gt)
         if clean != 0 or tampered != 7:
@@ -1315,7 +1355,13 @@ def main() -> int:
     b6_plain, (y6p, t6p) = cuda_ms(b6_plain_fn, 1)
     same("B6", f"main shape K={K_DPF} n={N_FULL} party 0 y", y6, y6p)
     same("B6", f"main shape K={K_DPF} n={N_FULL} party 0 t", t6, t6p)
-    del y6, y6p, t6p
+    # The PIR selection: the same tree, its last launch writing the t bits
+    # alone, packed; P1 below reads these words.
+    _, w6 = evalall_expand(evaluator.aes, *cw3, *front, k0=HOST_LEVELS,
+                           k1=N_FULL, want_y=False)
+    same("B6", f"main shape K={K_DPF} n={N_FULL} party 0 t words without y",
+         w6, pack_selection(t6p))
+    del y6, y6p, t6, t6p
     torch.cuda.empty_cache()
     front1 = evaluator._frontier(query.for_party(1), 1, HOST_LEVELS)
     got = evalall_expand(evaluator.aes, *cw3, *front1, k0=HOST_LEVELS,
@@ -1402,14 +1448,14 @@ def main() -> int:
             f"{launch_name(*x)}: {m_:.4f}, {b_:.4f}"
             for x, (m_, b_) in b6_by_launch.items()) + f" [{card}]")
 
-    p1_ms, a1 = cuda_ms(lambda: pir_answer(t6, db.rows), 10)
-    p1_plain, a1p = cuda_ms(lambda: pir_answer_plain(t6, db.rows), 1)
+    pir_answer(w6, db.rows)  # two untimed calls, as chip_ab.py's turns
+    pir_answer(w6, db.rows)
+    p1_ms, a1 = cuda_ms(lambda: pir_answer(w6, db.rows), 10)
+    p1_plain, a1p = cuda_ms(lambda: pir_answer_plain(w6, db.rows), 1)
     same("P1", f"main shape K={K_DPF} n={N_FULL} R={RECORD_BYTES}", a1, a1p)
-    # The function's bytes: the database, one selection bit a (key,
-    # record) and the answers.  This design reads t as a byte a leaf
-    # (p1_t_bytes), 8 times that.
-    p1_t_bytes = t6.numel()
-    p1_bytes = db.rows.numel() + p1_t_bytes // 8 + a1.numel()
+    # The function's bytes: the database, the packed selection words (one
+    # bit a key and record) and the answers.
+    p1_bytes = db.rows.numel() + 4 * w6.numel() + a1.numel()
     # The library's product: torch._int_mm (int8 x int8 -> int32) of the t
     # bits, padded to 32 rows (it wants more than 16), and the database
     # unpacked to one int8 per bit, column-major: 8 times the database's
@@ -1417,7 +1463,7 @@ def main() -> int:
     shifts = torch.arange(8, device=dev, dtype=torch.uint8)
     n_rec = db.num_records
     t8 = torch.zeros((32, n_rec), dtype=torch.int8, device=dev)
-    t8[:K_DPF] = t6
+    t8[:K_DPF] = unpack_selection(w6, n_rec)
     db8 = torch.empty((8 * RECORD_BYTES, n_rec), dtype=torch.int8, device=dev)
     step = 1 << 20
     for lo in range(0, n_rec, step):
@@ -1435,15 +1481,16 @@ def main() -> int:
     log(f"phase 12 P1: torch._int_mm [32x{n_rec}] x [{n_rec}x"
         f"{8 * RECORD_BYTES}] on the database unpacked to "
         f"{8 * db.rows.numel()} bytes {p1_lib:.3f} ms, its parity equal to "
-        f"P1's answer; P1 reads t as {p1_t_bytes} bytes in this design, "
-        f"{p1_t_bytes // 8} as packed bits [{card}]")
-    del t6, db, a1, a1p
+        f"P1's answer; P1 reads the selection as {4 * w6.numel()} bytes "
+        f"of packed words [{card}]")
+    del w6, db, a1, a1p
 
     fd_keys, tree = fd_inputs
-    fd_span = f"levels {HOST_LEVELS}..{N_FULL - 2} of n={N_FULL}"
+    fd_end = N_FULL - FINAL_LEVELS  # B2 to here, B2f the rest
+    fd_span = f"levels {HOST_LEVELS}..{fd_end - 1} of n={N_FULL}"
 
     def b2_fd_plain(cw, nodes):
-        for i in range(HOST_LEVELS, N_FULL - 1):
+        for i in range(HOST_LEVELS, fd_end):
             nodes = tree_expand_level_plain(tree.aes, cw[0][i], cw[1][i],
                                             cw[2][i], *nodes, group="xor")
         return nodes
@@ -1454,7 +1501,7 @@ def main() -> int:
         cw4 = tree._stage_cw(kb)
         front = tree._frontier(kb, 0, HOST_LEVELS)
         st = tree_expand(tree.aes, *cw4[:3], *front, k0=HOST_LEVELS,
-                         k1=N_FULL - 1, group="xor")
+                         k1=fd_end, group="xor")
         for name, g_, w_ in zip("svt", st, b2_fd_plain(cw4, front)):
             same("B2", f"full domain {fd_span} {bname} party 0 {name}", g_,
                  w_)
@@ -1462,7 +1509,7 @@ def main() -> int:
 
     def b2_full_domain():
         return tree_expand(tree.aes, *cw4[:3], *front, k0=HOST_LEVELS,
-                           k1=N_FULL - 1, group="xor")
+                           k1=fd_end, group="xor")
 
     held = b2_full_domain()  # two untimed calls, the first's outputs
     b2_full_domain()  # alive: levels 21-22 allocate about 400 MB
@@ -1472,27 +1519,32 @@ def main() -> int:
         same("B2", f"full domain {fd_span} {bname} party 0, timed {name}",
              g_, w_)
     del g_, w_
-    last = (tree.aes, cw4[0][N_FULL - 1], cw4[1][N_FULL - 1],
-            cw4[2][N_FULL - 1], cw4[3], *st)
+    # B2f's launch: the last FINAL_LEVELS levels from B2's nodes, as
+    # tree_expand_device makes it; its bound counts every parent of them.
+    last = (tree.aes, *(x[fd_end:] for x in cw4[:3]), cw4[3], *st)
+    tree_expand_final(*last)  # two untimed calls: the leaves' 256 MiB
+    tree_expand_final(*last)
     b2f_ms, yf = cuda_ms(lambda: tree_expand_final(*last), 10)
     b2f_plain, yfp = cuda_ms(lambda: tree_expand_final_plain(*last), 1)
-    same("B2f", f"main shape, level {N_FULL - 1} of n={N_FULL}", yf, yfp)
-    b2f_parents = 1 << (N_FULL - 1)
+    same("B2f", f"main shape, levels {fd_end}..{N_FULL - 1} of n={N_FULL}",
+         yf, yfp)
+    b2f_parents = (1 << N_FULL) - (1 << fd_end)
     b2f_lookups = b2f_parents * 2 * LOOKUPS_BLOCK
-    b2f_bytes = b2f_parents * 33 + 2 * b2f_parents * 16 + 34 + 16 + 496
+    b2f_bytes = (1 << fd_end) * 33 + (1 << N_FULL) * 16 \
+        + FINAL_LEVELS * 34 + 16 + 496
     add_row("phase 12", "B2f", "tree_expand", "dcf_tpu/ops/pallas_tree.py:149",
             b2f_ms, b2f_plain, b2f_lookups, b2f_bytes)
-    fd_parents = (1 << (N_FULL - 1)) - (1 << HOST_LEVELS)
+    fd_parents = (1 << fd_end) - (1 << HOST_LEVELS)
     b2fd_bound = bound(
         fd_parents * 2 * LOOKUPS_BLOCK,
-        ((1 << HOST_LEVELS) + (1 << (N_FULL - 1))) * 33
-        + (N_FULL - 1 - HOST_LEVELS) * 34 + 496)[0]
+        ((1 << HOST_LEVELS) + (1 << fd_end)) * 33
+        + (fd_end - HOST_LEVELS) * 34 + 496)[0]
     b2_row = next(r for r in rows_out if r["name"].startswith("B2 "))
     b2_row["ms_full_domain"], b2_row["bound_ms_full_domain"] = \
         b2fd_ms, b2fd_bound
     # Each launch of that span alone, after two untimed calls.
     b2_by_launch, nodes = {}, front
-    for lvl, d in launch_depths(HOST_LEVELS, N_FULL - 1):
+    for lvl, d in launch_depths(HOST_LEVELS, fd_end):
         def one(lvl=lvl, d=d, nodes=nodes):
             return tree_expand_levels(tree.aes, *cw4[:3], *nodes, level=lvl,
                                       depth=d, group="xor")
@@ -1511,8 +1563,8 @@ def main() -> int:
     b2_row["bound_ms_by_launch_full_domain"] = {
         k: b_ for k, (_, b_) in b2_by_launch.items()}
     log(f"phase 12 B2 on the full-domain path: levels {HOST_LEVELS}.."
-        f"{N_FULL - 2} ({fd_parents} parents, launches "
-        f"{launch_depths(HOST_LEVELS, N_FULL - 1)}) byte-identical to "
+        f"{fd_end - 1} ({fd_parents} parents, launches "
+        f"{launch_depths(HOST_LEVELS, fd_end)}) byte-identical to "
         f"tree_expand_level_plain for {len(fd_keys)} bounds' keys; "
         f"{b2fd_ms:.3f} ms after "
         f"two untimed calls, lookup bound {b2fd_bound:.3f} ms; with B2f "
@@ -1947,7 +1999,8 @@ def main() -> int:
                       for x in path_launches(lo, hi, y_))
         for path, (k, lo, hi, y_) in b6_spans.items()}
     # B2: a frontier build (levels 6..20) per party on the prefix path, a
-    # full-domain span (levels 6..22) per party in TreeFullDomain.check.
+    # full-domain span (levels 6..fd_end - 1) per party in
+    # TreeFullDomain.check.
     b2_row["loss_ms_by_path"] = {
         "prefix": launches["B2"]["prefix"] // len(b2_cut)
         * (b2_ms - b2_row["bound_ms"]),

@@ -37,7 +37,7 @@ KERNELS = ("walk_eval", "tree_expand", "prefix_eval", "narrow_walk",
            "wide_xor", "hybrid_state", "hybrid_prefix", "evalall_expand",
            "pir_answer", "keygen_walk", "keygen_wide", "keylanes_eval")
 _HEADERS = ("dcf_walk.cuh", "narrow_walk.cuh", "keygen_walk.cuh",
-            "aes_banked.cuh")
+            "aes_banked.cuh", "pir_answer.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -9,7 +9,7 @@ correction on the last one.  PRG work
 drops from n * 2^n per-point walks to about 2^(n+1) level-order calls per
 key, which is what makes 2-server PIR economic: every query touches the
 whole database, so the cost per leaf is the cost of a query
-(``workloads.pir`` reads ``eval_party``'s leaf t bytes as the
+(``workloads.pir`` reads ``eval_party``'s leaf t bits, packed, as the
 selection-vector share).
 
 Leaves come out in bitreverse_n order (each level stores [lefts ;
@@ -94,8 +94,8 @@ class DpfEvalAll(StagedFrontierCache):
     The DPF twin of ``fulldomain.TreeFullDomain``: kernel B6 expands each
     key's tree level by level, finalizing in its last launch; the top
     ``host_levels`` levels may instead be expanded on the host.
-    ``eval_party`` returns the leaf shares and the leaf t bytes, the PIR
-    selection-vector share.  Repeated calls on the same bundle object
+    ``eval_party`` returns the leaf shares and the leaf t bytes, or the t
+    bits alone, packed: the PIR selection-vector share.  Repeated calls on the same bundle object
     reuse the shipped CW image and frontiers (``StagedFrontierCache``; the
     PIR server's resident key).
 
@@ -144,8 +144,10 @@ class DpfEvalAll(StagedFrontierCache):
         [K, 2^n_bits, 32], t uint8 [K, 2^n_bits])``, bitreverse_n order.
         ``bundle`` must be party-restricted (``for_party(b)``).
         ``staged_cw`` / ``frontier`` reuse earlier ``_stage_cw`` /
-        ``_frontier`` results.  ``want_y=False`` returns ``(None, t)``
-        and writes no leaf share (the PIR server's selection).
+        ``_frontier`` results.  ``want_y=False`` returns ``(None,
+        t_words)`` and writes no leaf share: the t bits packed, int32
+        [K, ceil(2^n_bits / 32)] (the PIR server's selection, the
+        reference's ``t_words``).
 
         ``n_bits < bundle.n_bits`` is a prefix evaluation: the walk stops
         at depth ``n_bits``, where the t bytes are the one-hot share of

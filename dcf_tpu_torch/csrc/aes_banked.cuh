@@ -4,7 +4,8 @@
 // three-slot narrow level of kernels B4 and B5b (narrow_walk.cu,
 // hybrid_prefix.cu) and the DPF node of kernel B6 (evalall_expand.cu) run
 // on it too (narrow_walk.cuh), and so does the lam = 16 tree node of
-// kernel B2 (tree_expand.cu), up to three levels a thread (tree_subtree).
+// kernel B2 (tree_expand.cu), up to three levels a thread (tree_subtree),
+// and with the leaf finalize on its last level, kernel B2f.
 //
 // Why: the T-tables of dcf_walk.cuh are uint32_t te[4][256] in shared
 // memory, so entry x sits in bank x mod 32.  Each round does 16 lookups
@@ -513,13 +514,16 @@ DCF_HD void tree_node_banked(const BkLane& t, const RoundKey* rk,
 // of the last go to rows pos + stride * r of s_out, v_out ([rows, 16]) and
 // t_out ([rows]), r their walk directions LSB first: with pos the parent's
 // index j and stride the level's N parents, the rows D launches of one
-// level each would fill ([lefts ; rights] a level).  One call site of
-// tree_node_banked a level: the two children in a rolled loop.
-template <int GW, int D>
+// level each would fill ([lefts ; rights] a level).  FINAL (B2f): the last
+// level is the tree's, and only the leaf shares y = v + s + t * cw_np1 (np1,
+// the group's finalize) go to s_out; v_out and t_out are not written.  One
+// call site of tree_node_banked a level: the two children in a rolled
+// loop.
+template <int GW, int D, bool FINAL = false>
 DCF_HD void tree_subtree(const BkLane& t, const RoundKey* rk,
                          const LevelCw* w, const TreeNode& p, uint8_t* s_out,
                          uint8_t* v_out, uint8_t* t_out, size_t pos,
-                         size_t stride) {
+                         size_t stride, const uint32_t* np1 = nullptr) {
   TreeNode c[2];
   tree_node_banked<GW>(t, rk, w[0], p, c);
 #if defined(__CUDACC__)
@@ -533,13 +537,17 @@ DCF_HD void tree_subtree(const BkLane& t, const RoundKey* rk,
     }
     cd.t = d ? c[1].t : c[0].t;
     const size_t at = pos + (size_t)d * stride;
-    if constexpr (D == 1) {
+    if constexpr (D == 1 && FINAL) {
+      uint32_t y[4];
+      finalize<GW>(cd.s, cd.t, cd.v, np1, false, y);
+      store16(s_out + 16 * at, y);
+    } else if constexpr (D == 1) {
       store16(s_out + 16 * at, cd.s);
       store16(v_out + 16 * at, cd.v);
       t_out[at] = (uint8_t)cd.t;
     } else {
-      tree_subtree<GW, D - 1>(t, rk, w + 1, cd, s_out, v_out, t_out, at,
-                              2 * stride);
+      tree_subtree<GW, D - 1, FINAL>(t, rk, w + 1, cd, s_out, v_out, t_out,
+                                     at, 2 * stride, np1);
     }
   }
 }

@@ -1,16 +1,13 @@
-// Per-thread DCF arithmetic at lam = 16 on four 1 KB T-tables: the body
-// of kernel B2f (its AES also serves the two-cipher kernels of
-// narrow_walk.cuh and keygen_walk.cuh), and the Hirose children, the tree
-// node's algebra, the group algebra and walk bits that the banked bodies
-// of aes_banked.cuh share (kernel B2's among them):
+// Per-thread DCF arithmetic at lam = 16 on four 1 KB T-tables (their AES
+// serves the T-table kernel B7b of keygen_walk.cuh), and the Hirose
+// children, the tree node's algebra, the group algebra, the finalize and
+// walk bits that the banked bodies of aes_banked.cuh share (kernels B2's
+// and B2f's among them).
 //
-//   B2f tree_expand.cu  replaces the leaf finalize of
-//                       dcf_tpu/ops/pallas_tree.py::tree_expand_device
-//
-// walk_point and prefix_point walk one point on these tables, from the
-// root or from a frontier row; no kernel runs them (B1 and B3 walk on the
-// banked AES of aes_banked.cuh), and the host tests hold them, and with
-// them this file's Hirose step and group algebra, to the numpy oracle.
+// walk_point, prefix_point and tree_leaves (B2f's first body) run on these
+// tables; no kernel runs them (B1, B3 and B2f run on the banked AES of
+// aes_banked.cuh), and the host tests hold them, and with them this file's
+// Hirose step and group algebra, to the numpy oracle.
 //
 // The TPU kernels run a bitsliced AES (128 one-bit planes, 32 points per
 // int32 lane word) because the TPU has no byte gather.  A Hopper SM has
@@ -307,8 +304,9 @@ DCF_HD void tree_children(const Children& c, const LevelCw& w,
   tr = c.tr ^ (t & (w.t >> 1));
 }
 
-// One parent node into its two children on these tables (B2f's level; B2
-// runs the same algebra on the banked AES, aes_banked.cuh::tree_subtree).
+// One parent node into its two children on these tables (B2 and B2f run
+// the same algebra on the banked AES, aes_banked.cuh::tree_subtree; this
+// form stays the host tests' second reference).
 template <int GW>
 DCF_HD void tree_node(const AesTables& a, const LevelCw& w,
                       const uint32_t s[4], const uint32_t v[4], uint32_t t,
@@ -320,7 +318,8 @@ DCF_HD void tree_node(const AesTables& a, const LevelCw& w,
 }
 
 // The last level of a full-domain expansion (XOR group): one parent node
-// into the two leaf shares y = v ^ s ^ t * cw_np1 of its children.
+// into the two leaf shares y = v ^ s ^ t * cw_np1 of its children (B2f's
+// first, T-table body; the host tests hold the banked one against it).
 DCF_HD void tree_leaves(const AesTables& a, const LevelCw& w,
                         const uint32_t np1[4], const uint32_t s[4],
                         const uint32_t v[4], uint32_t t, uint32_t yl[4],

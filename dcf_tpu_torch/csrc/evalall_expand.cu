@@ -39,12 +39,18 @@
 //     every level: 6.6 GB at n = 24, K = 4 from level 6, against 2.8 GB
 //     at three (chip_smoke.py, phase 12).  The ops wrapper cuts a tree
 //     into such launches, the deepest last (launch_depths);
-//   - the last launch may store the leaves' t bytes alone (Y false, a PIR
-//     selection).  Nothing then reads block 1 of a node inside the
-//     launch, and the compiler drops cipher 17: a parent costs E0(s_b0)
-//     and the t bit of E0(~s_b0), and one on the last level the two t
-//     bits (at n = 24, K = 4, the last launch 3.3 ms against 5.4 with y,
-//     NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py).
+//   - the last launch may store the leaves' t bits alone (Y false, a PIR
+//     selection), packed 32 a word as kernel P1 reads them: a thread keeps
+//     its parent's 2^D leaf bits in a register, then a warp's 32
+//     consecutive parents give one word a direction through a ballot,
+//     which lane r stores (an atomicOr a set bit where a key's parents are
+//     not a multiple of 32).  A ballot and a store at each leaf inside the
+//     recursion instead cost the launch 10% (NVIDIA H100 80GB HBM3, 700 W,
+//     PERF.md).  Nothing then reads block 1 of a node
+//     inside the launch, and the compiler drops cipher 17: a parent costs
+//     E0(s_b0) and the t bit of E0(~s_b0), and one on the last level the
+//     two t bits (at n = 24, K = 4, the last launch 3.3 ms against 5.4
+//     with y, NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py).
 //
 // Offsets are 64-bit (K * 2N * 32 reaches 2^31 at n = 24, K = 4).
 
@@ -61,8 +67,10 @@ constexpr size_t kSmem =
     sizeof(uint32_t) * dcf::kBankedWords + sizeof(dcf::RoundKey) * 32;
 
 // D levels a launch (D = 1: one level), FINAL: the last one of the tree,
-// Y: s_out is written (else only t_out, on a FINAL launch).
-template <int D, bool FINAL, bool Y>
+// Y: s_out is written (else only t_out, on a FINAL launch, as packed
+// words: WW where the parents of a key are a multiple of 32, a ballot a
+// word; else an atomicOr a set bit).
+template <int D, bool FINAL, bool Y, bool WW = false>
 __global__ void __launch_bounds__(kBlock, 1)
     evalall_expand_kernel(const uint8_t* __restrict__ sbox,
                           const uint8_t* __restrict__ rk0,
@@ -110,13 +118,42 @@ __global__ void __launch_bounds__(kBlock, 1)
     const uint4 lo = si[0], hi = si[1];
     const uint32_t s[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
     const size_t out = (size_t)key * ((size_t)n_par << D);
-    dcf::dpf_subtree<D, Y>(lane, rks0, rks17, w, FINAL ? np1 : nullptr, s,
-                           t_in[g] & 1u, Y ? s_out + out * 32 : nullptr,
-                           t_out + out, (size_t)j, (size_t)n_par);
+    if constexpr (Y) {
+      dcf::dpf_subtree<D, Y>(lane, rks0, rks17, w, FINAL ? np1 : nullptr, s,
+                             t_in[g] & 1u, s_out + out * 32, t_out + out,
+                             (size_t)j, (size_t)n_par);
+    } else {
+      // Bit r of tb: the leaf of directions r, at row j + N r of the key.
+      uint32_t tb = 0u;
+      dcf::dpf_subtree<D, Y>(lane, rks0, rks17, w, nullptr, s, t_in[g] & 1u,
+                             nullptr, nullptr, 0, 1, &tb);
+      uint32_t* const kw = reinterpret_cast<uint32_t*>(t_out) +
+                           (size_t)key * ((((size_t)n_par << D) + 31) >> 5);
+      if constexpr (WW) {
+        // The grid stride and a key's parents are multiples of 32, so the
+        // warp's lanes hold 32 consecutive parents of one key from a
+        // 32-aligned one: direction r's word is a ballot; lane r stores it.
+        const int l = threadIdx.x & 31;
+        uint32_t mine = 0u;
+#pragma unroll
+        for (int r = 0; r < (1 << D); ++r) {
+          const uint32_t word = __ballot_sync(0xFFFFFFFFu, (tb >> r) & 1u);
+          mine = l == r ? word : mine;
+        }
+        if (l < (1 << D))
+          kw[((size_t)j - l + (size_t)n_par * l) >> 5] = mine;
+      } else {
+#pragma unroll
+        for (int r = 0; r < (1 << D); ++r) {
+          const size_t at = (size_t)j + (size_t)n_par * r;
+          if ((tb >> r) & 1u) atomicOr(kw + (at >> 5), 1u << (at & 31));
+        }
+      }
+    }
   }
 }
 
-template <int D, bool FINAL, bool Y>
+template <int D, bool FINAL, bool Y, bool WW = false>
 cudaError_t launch(const uint8_t* sbox, const uint8_t* rk0,
                    const uint8_t* rk17, const uint8_t* cw_s,
                    const uint8_t* cw_t, const uint8_t* cw_np1,
@@ -125,7 +162,7 @@ cudaError_t launch(const uint8_t* sbox, const uint8_t* rk0,
                    cudaStream_t stream) {
   if (k_num < 1 || n_par < 1) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
-      evalall_expand_kernel<D, FINAL, Y>,
+      evalall_expand_kernel<D, FINAL, Y, WW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
@@ -133,12 +170,12 @@ cudaError_t launch(const uint8_t* sbox, const uint8_t* rk0,
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, evalall_expand_kernel<D, FINAL, Y>, kBlock, kSmem);
+      &per_sm, evalall_expand_kernel<D, FINAL, Y, WW>, kBlock, kSmem);
   if (e != cudaSuccess) return e;
   const long long total = (long long)k_num * n_par;
   const long long need = (total + kBlock - 1) / kBlock;
   const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  evalall_expand_kernel<D, FINAL, Y>
+  evalall_expand_kernel<D, FINAL, Y, WW>
       <<<(unsigned)(need < most ? need : most), kBlock, kSmem, stream>>>(
           sbox, rk0, rk17, cw_s, cw_t, cw_np1, s_in, t_in, s_out, t_out,
           n_par, n, level, total);
@@ -160,7 +197,8 @@ cudaError_t launch_depth(bool final, bool y, const uint8_t* sbox,
       n_par, n, level, stream
   if (!final) return launch<D, false, true>(DCF_ARGS);
   if (y) return launch<D, true, true>(DCF_ARGS);
-  return launch<D, true, false>(DCF_ARGS);
+  if (n_par % 32 == 0) return launch<D, true, false, true>(DCF_ARGS);
+  return launch<D, true, false, false>(DCF_ARGS);
 #undef DCF_ARGS
 }
 
@@ -169,9 +207,11 @@ cudaError_t launch_depth(bool final, bool y, const uint8_t* sbox,
 // C entry points, bound through ctypes.  cw_s [K, n, 32] and cw_t
 // [K, n, 2] are the keys' whole correction-word arrays; final != 0 writes
 // leaf shares (cw_np1 [K, 32] applied) into s_out, or, with s_out null,
-// only the leaves' t bytes (a PIR selection share).  Levels level ..
-// level+depth-1 (depth 1-3) in one launch: s_out [K, 2^depth N, 32],
-// t_out [K, 2^depth N] as depth launches of one level would leave them.
+// only the leaves' t bits (a PIR selection share) as packed words, t_out
+// uint32 [K, ceil(2^depth N / 32)], zeroed by the caller unless N is a
+// multiple of 32.  Levels level .. level+depth-1 (depth 1-3) in one
+// launch: s_out [K, 2^depth N, 32], t_out [K, 2^depth N] as depth
+// launches of one level would leave them.
 // Each returns the cudaError_t of the launch (0 on success).
 extern "C" int dcf_evalall_expand_levels(const void* sbox, const void* rk0,
                                          const void* rk17, const void* cw_s,

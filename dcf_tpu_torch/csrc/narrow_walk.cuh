@@ -313,17 +313,18 @@ DCF_HD void store32(uint8_t* p, const uint32_t w[8]) {
 // stride the level's N parents, the rows D level-order launches of one
 // level each would fill ([lefts ; rights] per level).  With np1 (not
 // null) the stored nodes are leaf shares y = s ^ t * cw_np1; with Y false
-// only their t bits are stored (s_out is not read).  One call site of
-// dpf_node_banked per level: the two children of a node are expanded in a
-// rolled loop.  Y is a template argument: a run-time test of s_out cost
-// the launches that write y about 10% (NVIDIA H100 80GB HBM3, 700 W,
-// PERF.md).
+// only their t bits are kept, each at bit `at` (its row) of *t_bits
+// (s_out and t_out are not read; with pos 0 and stride 1, bit r holds the
+// node of directions r, which the caller packs).  One call site of dpf_node_banked per level:
+// the two children of a node are expanded in a rolled loop.  Y is a
+// template argument: a run-time test of s_out cost the launches that write
+// y about 10% (NVIDIA H100 80GB HBM3, 700 W, PERF.md).
 template <int D, bool Y = true>
 DCF_HD void dpf_subtree(const BkLane& t, const RoundKey* rk0,
                         const RoundKey* rk17, const DpfCw* w,
                         const uint32_t* np1, const uint32_t s[8], uint32_t tt,
                         uint8_t* s_out, uint8_t* t_out, size_t pos,
-                        size_t stride) {
+                        size_t stride, uint32_t* t_bits = nullptr) {
   uint32_t c[2][8], ct[2];
   dpf_node_banked(t, rk0, rk17, w[0], s, tt, c[0], ct[0], c[1], ct[1]);
 #if defined(__CUDACC__)
@@ -338,11 +339,13 @@ DCF_HD void dpf_subtree(const BkLane& t, const RoundKey* rk0,
       if constexpr (Y) {
         if (np1) dpf_leaf(cs, ctd, np1);
         store32(s_out + at * 32, cs);
+        t_out[at] = (uint8_t)ctd;
+      } else {
+        *t_bits |= ctd << at;
       }
-      t_out[at] = (uint8_t)ctd;
     } else {
       dpf_subtree<D - 1, Y>(t, rk0, rk17, w + 1, np1, cs, ctd, s_out, t_out,
-                            at, 2 * stride);
+                            at, 2 * stride, t_bits);
     }
   }
 }

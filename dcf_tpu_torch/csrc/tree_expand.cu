@@ -31,13 +31,22 @@
 //     levels between are neither written nor read back.  The ops wrapper
 //     cuts a tree's levels into such launches, the deepest last
 //     (ops._launch.launch_depths): the prefix path's levels 6..20
-//     in five launches, the full domain's 6..22 in six.
+//     in five launches, and so the full domain's above B2f's launch.
 //
-// B2f (tree_expand_final_kernel) replaces the leaf finalize of
-// tree_expand_device in the same file, y = v ^ s ^ t * cw_np1 (XOR
-// group), and writes only the 16-byte leaf shares, so the leaf level's s,
-// v and t (33 bytes a leaf) are never written and read back.  It still
-// runs one thread a parent on the T-tables (dcf_walk.cuh::tree_leaves).
+// B2f replaces the leaf finalize of tree_expand_device in the same file,
+// y = v ^ s ^ t * cw_np1 (XOR group), and writes only the 16-byte leaf
+// shares, so the leaf level's s, v and t (33 bytes a leaf) are never
+// written and read back.  Its first design ran one thread a parent on the
+// T-tables of dcf_walk.cuh (tree_leaves) at 31% of its bound (NVIDIA H100
+// 80GB HBM3, 700 W power limit, chip_smoke.py).  It is now this kernel's
+// FINAL instantiation: the same banked node, persistent grid and
+// correction words in shared memory, with cw_np1 there too, and the leaf
+// finalize as the terminal case of tree_subtree, which stores y alone.  A
+// FINAL launch may also take the levels above the leaves (up to three in
+// all), so that the last parents of the tree stay in registers: the full
+// domain's takes three (ops.tree_expand.FINAL_LEVELS; at n = 24 levels
+// 21-23 from 2^21 parents), so the 2^23 parents of the last level, 33
+// bytes each, are neither written nor read back.
 
 #include <cuda_runtime.h>
 
@@ -52,14 +61,16 @@ constexpr size_t kSmem =
     sizeof(uint32_t) * dcf::kBankedWords + sizeof(dcf::RoundKey) * 16;
 
 // Levels level .. level + D - 1 of one key: cw_s / cw_v / cw_t point at
-// level's correction words.
-template <int GW, int D>
+// level's correction words.  FINAL: the last of them is the tree's, and
+// s_out gets the leaf shares (cw_np1 applied; v_out, t_out unused).
+template <int GW, int D, bool FINAL = false>
 __global__ void __launch_bounds__(kBlock, 1)
     tree_expand_kernel(const uint8_t* __restrict__ sbox,
                        const uint8_t* __restrict__ rk,
                        const uint8_t* __restrict__ cw_s,
                        const uint8_t* __restrict__ cw_v,
                        const uint8_t* __restrict__ cw_t,
+                       const uint8_t* __restrict__ cw_np1,
                        const uint8_t* __restrict__ s_in,
                        const uint8_t* __restrict__ v_in,
                        const uint8_t* __restrict__ t_in,
@@ -68,6 +79,7 @@ __global__ void __launch_bounds__(kBlock, 1)
                        uint8_t* __restrict__ t_out, long long n_par) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   __shared__ dcf::LevelCw cw[D];
+  __shared__ uint32_t np1[4];
   uint32_t* te = reinterpret_cast<uint32_t*>(dyn_smem);
   dcf::RoundKey* rks =
       reinterpret_cast<dcf::RoundKey*>(te + dcf::kBankedWords);
@@ -75,6 +87,8 @@ __global__ void __launch_bounds__(kBlock, 1)
   dcf::fill_round_keys(rks, rk);
   if (threadIdx.x < D)
     dcf::level_cw_entry(cw, cw_s, cw_v, cw_t, (int)threadIdx.x);
+  if (FINAL && threadIdx.x < 4)
+    np1[threadIdx.x] = dcf::le32(cw_np1 + 4 * threadIdx.x);
   __syncthreads();
 
   const dcf::BkLane lane = dcf::bk_lane(te, threadIdx.x & 31);
@@ -85,84 +99,51 @@ __global__ void __launch_bounds__(kBlock, 1)
     dcf::load16(s_in + 16 * j, p.s);
     dcf::load16(v_in + 16 * j, p.v);
     p.t = t_in[j] & 1u;
-    dcf::tree_subtree<GW, D>(lane, rks, cw, p, s_out, v_out, t_out,
-                             (size_t)j, (size_t)n_par);
+    dcf::tree_subtree<GW, D, FINAL>(lane, rks, cw, p, s_out, v_out, t_out,
+                                    (size_t)j, (size_t)n_par, np1);
   }
 }
 
-__global__ void __launch_bounds__(dcf::kThreads)
-    tree_expand_final_kernel(const uint8_t* __restrict__ sbox,
-                             const uint8_t* __restrict__ rk,
-                             const uint8_t* __restrict__ cw_s,
-                             const uint8_t* __restrict__ cw_v,
-                             const uint8_t* __restrict__ cw_t,
-                             const uint8_t* __restrict__ cw_np1,
-                             const uint8_t* __restrict__ s_in,
-                             const uint8_t* __restrict__ v_in,
-                             const uint8_t* __restrict__ t_in,
-                             uint8_t* __restrict__ y_out, int n_par) {
-  __shared__ dcf::AesTables aes;
-  __shared__ dcf::LevelCw cw[1];
-  __shared__ uint32_t np1[4];
-  dcf::fill_aes_tables(aes, sbox, rk);
-  if (threadIdx.x == 0) dcf::level_cw_entry(cw, cw_s, cw_v, cw_t, 0);
-  if (threadIdx.x < 4) np1[threadIdx.x] = dcf::le32(cw_np1 + 4 * threadIdx.x);
-  __syncthreads();
-
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_par) return;
-  const uint4 si = reinterpret_cast<const uint4*>(s_in)[j];
-  const uint4 vi = reinterpret_cast<const uint4*>(v_in)[j];
-  const uint32_t s[4] = {si.x, si.y, si.z, si.w};
-  const uint32_t v[4] = {vi.x, vi.y, vi.z, vi.w};
-  uint32_t yl[4], yr[4];
-  dcf::tree_leaves(aes, cw[0], np1, s, v, t_in[j] & 1u, yl, yr);
-  uint4* yo = reinterpret_cast<uint4*>(y_out);
-  yo[j] = make_uint4(yl[0], yl[1], yl[2], yl[3]);
-  yo[(size_t)n_par + j] = make_uint4(yr[0], yr[1], yr[2], yr[3]);
-}
-
-template <int GW, int D>
+template <int GW, int D, bool FINAL>
 cudaError_t launch(const uint8_t* sbox, const uint8_t* rk,
                    const uint8_t* cw_s, const uint8_t* cw_v,
-                   const uint8_t* cw_t, const uint8_t* s_in,
-                   const uint8_t* v_in, const uint8_t* t_in, uint8_t* s_out,
-                   uint8_t* v_out, uint8_t* t_out, int n_par,
-                   cudaStream_t stream) {
+                   const uint8_t* cw_t, const uint8_t* cw_np1,
+                   const uint8_t* s_in, const uint8_t* v_in,
+                   const uint8_t* t_in, uint8_t* s_out, uint8_t* v_out,
+                   uint8_t* t_out, int n_par, cudaStream_t stream) {
+  auto kernel = tree_expand_kernel<GW, D, FINAL>;
   cudaError_t e = cudaFuncSetAttribute(
-      tree_expand_kernel<GW, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, tree_expand_kernel<GW, D>, kBlock, kSmem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock,
+                                                    kSmem);
   if (e != cudaSuccess) return e;
   const long long need = ((long long)n_par + kBlock - 1) / kBlock;
   const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  tree_expand_kernel<GW, D>
-      <<<(unsigned)(need < most ? need : most), kBlock, kSmem, stream>>>(
-          sbox, rk, cw_s, cw_v, cw_t, s_in, v_in, t_in, s_out, v_out, t_out,
-          n_par);
+  kernel<<<(unsigned)(need < most ? need : most), kBlock, kSmem, stream>>>(
+      sbox, rk, cw_s, cw_v, cw_t, cw_np1, s_in, v_in, t_in, s_out, v_out,
+      t_out, n_par);
   return cudaGetLastError();
 }
 
-template <int GW>
+template <int GW, bool FINAL>
 cudaError_t launch_depth(int depth, const uint8_t* sbox, const uint8_t* rk,
                          const uint8_t* cw_s, const uint8_t* cw_v,
-                         const uint8_t* cw_t, const uint8_t* s_in,
-                         const uint8_t* v_in, const uint8_t* t_in,
-                         uint8_t* s_out, uint8_t* v_out, uint8_t* t_out,
-                         int n_par, cudaStream_t stream) {
+                         const uint8_t* cw_t, const uint8_t* cw_np1,
+                         const uint8_t* s_in, const uint8_t* v_in,
+                         const uint8_t* t_in, uint8_t* s_out, uint8_t* v_out,
+                         uint8_t* t_out, int n_par, cudaStream_t stream) {
 #define DCF_ARGS                                                             \
-  sbox, rk, cw_s, cw_v, cw_t, s_in, v_in, t_in, s_out, v_out, t_out, n_par, \
-      stream
+  sbox, rk, cw_s, cw_v, cw_t, cw_np1, s_in, v_in, t_in, s_out, v_out, t_out, \
+      n_par, stream
   switch (depth) {
-    case 1: return launch<GW, 1>(DCF_ARGS);
-    case 2: return launch<GW, 2>(DCF_ARGS);
-    case 3: return launch<GW, 3>(DCF_ARGS);
+    case 1: return launch<GW, 1, FINAL>(DCF_ARGS);
+    case 2: return launch<GW, 2, FINAL>(DCF_ARGS);
+    case 3: return launch<GW, 3, FINAL>(DCF_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef DCF_ARGS
@@ -186,34 +167,33 @@ extern "C" int dcf_tree_expand_levels(const void* sbox, const void* rk,
   if (n_par < 1) return (int)cudaErrorInvalidValue;
 #define DCF_ARGS                                                             \
   depth, (const uint8_t*)sbox, (const uint8_t*)rk, (const uint8_t*)cw_s,     \
-      (const uint8_t*)cw_v, (const uint8_t*)cw_t, (const uint8_t*)s_in,      \
-      (const uint8_t*)v_in, (const uint8_t*)t_in, (uint8_t*)s_out,           \
-      (uint8_t*)v_out, (uint8_t*)t_out, n_par, (cudaStream_t)stream
+      (const uint8_t*)cw_v, (const uint8_t*)cw_t, nullptr,                   \
+      (const uint8_t*)s_in, (const uint8_t*)v_in, (const uint8_t*)t_in,      \
+      (uint8_t*)s_out, (uint8_t*)v_out, (uint8_t*)t_out, n_par,              \
+      (cudaStream_t)stream
   switch (gw) {
-    case 0: return (int)launch_depth<0>(DCF_ARGS);
-    case 8: return (int)launch_depth<8>(DCF_ARGS);
-    case 16: return (int)launch_depth<16>(DCF_ARGS);
-    case 32: return (int)launch_depth<32>(DCF_ARGS);
+    case 0: return (int)launch_depth<0, false>(DCF_ARGS);
+    case 8: return (int)launch_depth<8, false>(DCF_ARGS);
+    case 16: return (int)launch_depth<16, false>(DCF_ARGS);
+    case 32: return (int)launch_depth<32, false>(DCF_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DCF_ARGS
 }
 
-// C entry point of the last level (B2f), XOR group: cw_s/cw_v/cw_t point
-// at level n-1's correction words, cw_np1 at the 16-byte leaf correction;
-// y_out [2 * n_par, 16] gets the leaf shares, lefts then rights.
-extern "C" int dcf_tree_expand_final(const void* sbox, const void* rk,
-                                     const void* cw_s, const void* cw_v,
-                                     const void* cw_t, const void* cw_np1,
-                                     const void* s_in, const void* v_in,
-                                     const void* t_in, void* y_out,
-                                     int n_par, void* stream) {
-  const int blocks = (n_par + dcf::kThreads - 1) / dcf::kThreads;
-  tree_expand_final_kernel<<<blocks, dcf::kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const uint8_t*)sbox, (const uint8_t*)rk, (const uint8_t*)cw_s,
+// C entry point of B2f, XOR group: levels level .. level + depth - 1
+// (depth 1-3), the last of them the tree's, from n_par parents.  cw_s /
+// cw_v / cw_t as for B2, cw_np1 the 16-byte leaf correction; y_out
+// [2^depth n_par, 16] gets the leaf shares, in the rows B2's launches
+// and a last level would leave them (lefts then rights a level).
+extern "C" int dcf_tree_expand_final_levels(
+    const void* sbox, const void* rk, const void* cw_s, const void* cw_v,
+    const void* cw_t, const void* cw_np1, const void* s_in, const void* v_in,
+    const void* t_in, void* y_out, int n_par, int depth, void* stream) {
+  if (n_par < 1) return (int)cudaErrorInvalidValue;
+  return (int)launch_depth<0, true>(
+      depth, (const uint8_t*)sbox, (const uint8_t*)rk, (const uint8_t*)cw_s,
       (const uint8_t*)cw_v, (const uint8_t*)cw_t, (const uint8_t*)cw_np1,
       (const uint8_t*)s_in, (const uint8_t*)v_in, (const uint8_t*)t_in,
-      (uint8_t*)y_out, n_par);
-  return (int)cudaGetLastError();
+      (uint8_t*)y_out, nullptr, nullptr, n_par, (cudaStream_t)stream);
 }

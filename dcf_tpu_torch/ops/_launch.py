@@ -1,7 +1,8 @@
 """The launch protocol shared by the kernels' wrappers.
 
 A wrapper checks every tensor it hands a kernel (``check_u8``: uint8,
-shape, device, contiguity and, on the card, alignment), loads the kernel's
+shape, device, contiguity and, on the card, alignment; ``check_words``
+the same for packed int32 bit words), loads the kernel's
 C entry point through ``_build.load`` and calls it on the device's current
 stream through ``launch_checked``, which raises if the entry point
 reports a CUDA error.  ``key_slices`` cuts a launch whose key index is
@@ -16,8 +17,8 @@ import torch
 
 from dcf_tpu_torch.errors import BackendUnavailableError, ShapeError
 
-__all__ = ["MAX_DEPTH", "MAX_GRID_Y", "check_u8", "key_slices",
-           "launch_checked", "launch_depths"]
+__all__ = ["MAX_DEPTH", "MAX_GRID_Y", "check_u8", "check_words",
+           "key_slices", "launch_checked", "launch_depths"]
 
 MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y
 # Levels one launch of kernel B2 or B6 expands: the depths 1..3 that the
@@ -30,8 +31,20 @@ def check_u8(name: str, t: torch.Tensor, shape: tuple,
              device: torch.device, align: int = 1) -> None:
     """Raise ``ShapeError`` unless ``t`` is a contiguous uint8 tensor of
     ``shape`` on ``device`` (and, on the card, ``align``-byte aligned)."""
-    if not isinstance(t, torch.Tensor) or t.dtype != torch.uint8:
-        raise ShapeError(f"{name} must be a uint8 tensor")
+    _check(name, t, torch.uint8, shape, device, align)
+
+
+def check_words(name: str, t: torch.Tensor, shape: tuple,
+                device: torch.device) -> None:
+    """``check_u8`` for packed bit words: a contiguous int32 tensor (the
+    words' uint32 bit patterns) of ``shape`` on ``device``."""
+    _check(name, t, torch.int32, shape, device, 4)
+
+
+def _check(name, t, dtype, shape, device, align) -> None:
+    if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+        raise ShapeError(
+            f"{name} must be a {str(dtype).removeprefix('torch.')} tensor")
     if tuple(t.shape) != tuple(shape):
         raise ShapeError(f"{name} has shape {tuple(t.shape)}, want {shape}")
     if t.device != device:

@@ -17,16 +17,18 @@ levels the leaf at position p is the node whose walk directions are the
 bits of p, LSB first: position p holds domain point bitreverse(p), as
 from kernel B2.
 
-Layout: s uint8 [K, N, 32], t uint8 [K, N] with one byte (0/1) per node.
-The t bytes of the last level are the PIR selection-vector share that
-kernel P1 (``ops.pir_answer``) reads, and ``Dcf.eval_all`` returns them
-as they are.
+Layout: s uint8 [K, N, 32], t uint8 [K, N] with one byte (0/1) per node;
+``Dcf.eval_all`` returns the last level's t bytes as they are.
 
 With ``cw_np1`` the level is the last one and writes the leaf shares
 y = s ^ t * cw_np1 in place of the children's seeds, or, with
-``want_y=False``, only the leaves' t bytes (a PIR server reads nothing
-else: at 2^24 leaves and K = 4 that saves writing 2 GiB, and the launch
-computes no cipher-17 block, since t never depends on one).  One launch may
+``want_y=False``, only the leaves' t bits, packed: int32 [K, ceil(2^d N /
+32)], bit i of word w the leaf at position 32 w + i (``pir_answer``'s
+``pack_selection`` layout, the reference's ``t_words``).  That is the PIR
+selection-vector share kernel P1 (``ops.pir_answer``) reads, and a PIR
+server reads nothing else: at 2^24 leaves and K = 4 it saves writing
+2 GiB of y and 56 MiB of t bytes, and the launch computes no cipher-17
+block, since t never depends on one.  One launch may
 expand up to ``MAX_DEPTH`` levels, the levels between them kept in
 registers: its nodes land in the rows that launches of one level each
 would fill, so only the launches' count and the traffic between them
@@ -56,6 +58,7 @@ from dcf_tpu_torch.ops._launch import (
     launch_depths,
 )
 from dcf_tpu_torch.ops.narrow_walk import NARROW, NARROW_AES_BYTES, _ciphers
+from dcf_tpu_torch.ops.pir_answer import pack_selection
 from dcf_tpu_torch.ops.walk_eval import aes256_encrypt_plain
 
 __all__ = ["evalall_expand_level_plain",
@@ -70,7 +73,7 @@ def evalall_expand_level_plain(aes, cw_s, cw_t, s, t, *, level: int,
         s, t = _level_plain(aes, cw_s, cw_t, s, t, level=i, cw_np1=None)
     y, t = _level_plain(aes, cw_s, cw_t, s, t, level=level + depth - 1,
                         cw_np1=cw_np1)
-    return (y if want_y else None), t
+    return (y, t) if want_y else (None, pack_selection(t))
 
 
 def _level_plain(aes, cw_s, cw_t, s, t, *, level: int, cw_np1):
@@ -110,9 +113,9 @@ def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None,
     (first) level; s uint8 [K, N, 32], t uint8 [K, N] (0/1).  Returns (s2
     [K, 2^d N, 32], t2 [K, 2^d N]).  With cw_np1 uint8 [K, 32] the last
     level expanded is the tree's last: s2 holds the leaf shares
-    y = s ^ t * cw_np1, or is None with ``want_y=False`` (only t2 is
-    written).  The card launches kernel B6, the CPU runs
-    ``evalall_expand_level_plain``."""
+    y = s ^ t * cw_np1, or is None with ``want_y=False``, and t2 is then
+    the leaves' t bits packed, int32 [K, ceil(2^d N / 32)].  The card
+    launches kernel B6, the CPU runs ``evalall_expand_level_plain``."""
     device = s.device
     if s.dim() != 3 or cw_s.dim() != 3:
         raise ShapeError("s must be [K, N, 32] and cw_s [K, n, 32]")
@@ -142,7 +145,11 @@ def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None,
     n_out = n_par << depth
     s2 = torch.empty((k_num, n_out, NARROW), dtype=torch.uint8,
                      device=device) if want_y else None
-    t2 = torch.empty((k_num, n_out), dtype=torch.uint8, device=device)
+    if want_y:
+        t2 = torch.empty((k_num, n_out), dtype=torch.uint8, device=device)
+    else:  # packed words; a ballot writes each whole where N % 32 == 0
+        t2 = (torch.empty if n_par % 32 == 0 else torch.zeros)(
+            (k_num, -(-n_out // 32)), dtype=torch.int32, device=device)
     if depth == 1:
         fn = _build.load("evalall_expand", "dcf_evalall_expand_level",
                          _ARGTYPES)
@@ -162,7 +169,8 @@ def evalall_expand_level(aes, cw_s, cw_t, s, t, *, level: int, cw_np1=None,
                        t.data_ptr() + k0 * n_par,
                        s2.data_ptr() + k0 * n_out * NARROW
                        if want_y else 0,
-                       t2.data_ptr() + k0 * n_out, kk, n_par, n, *levels,
+                       t2.data_ptr() + k0 * t2.shape[1] * t2.element_size(),
+                       kk, n_par, n, *levels,
                        int(cw_np1 is not None))
         evalall_expand_level.launches += 1
     return s2, t2
@@ -181,7 +189,8 @@ def evalall_expand(aes, cw_s, cw_t, cw_np1, s, t, *, k0: int, k1: int,
     order.  y is the leaf share only at full depth, k1 = n; at a prefix
     depth the correction lands on inner seeds and only t means something
     (the one-hot share of alpha's top k1 bits).  With ``want_y=False`` y
-    is None: the last launch writes the t bytes alone."""
+    is None: the last launch writes the t bits alone, packed (int32
+    [K, ceil(2^k1 / 32)])."""
     if not 0 <= k0 < k1 <= cw_s.shape[1] or s.shape[1] != 1 << k0:
         raise ShapeError(
             f"evalall_expand wants 2^k0 nodes and 0 <= k0 < k1 <= n = "

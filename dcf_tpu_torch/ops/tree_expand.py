@@ -18,10 +18,12 @@ last (``ops._launch.launch_depths``), and ``tree_expand_level`` is
 the one-level entry.  ``tree_expand_levels.launches`` counts every launch of
 kernel B2, of any depth.
 
-The full-domain evaluator (``tree_expand_device``) runs levels k0..n-2
-through B2 and the last level through B2f (``tree_expand_final``), which
-turns each parent straight into the two leaf shares y = v ^ s ^ t * cw_np1
-of its children (XOR group): the leaf level's s, v and t are never stored.
+The full-domain evaluator (``tree_expand_device``) runs the levels above
+the last ``FINAL_LEVELS`` through B2 and those through B2f
+(``tree_expand_final``), the same kernel with the leaf finalize as the
+last level of its launch: each parent on the tree's last level turns
+straight into the two leaf shares y = v ^ s ^ t * cw_np1 of its children
+(XOR group), so the leaf level's s, v and t are never stored.
 
 The wrappers launch their CUDA kernels for tensors on the card and run
 their plain versions for tensors on the CPU.
@@ -70,14 +72,27 @@ def tree_expand_level_plain(aes, cw_s, cw_v, cw_t, s, v, t, *, group: str):
 
 def tree_expand_final_plain(aes, cw_s, cw_v, cw_t, cw_np1, s, v, t):
     """Plain PyTorch version of kernel B2f (same arguments as
-    ``tree_expand_final``)."""
-    s2, v2, t2 = tree_expand_level_plain(aes, cw_s, cw_v, cw_t, s, v, t,
-                                         group="xor")
-    return v2 ^ s2 ^ (cw_np1 & (t2.unsqueeze(-1) * 0xFF))
+    ``tree_expand_final``): ``tree_expand_level_plain`` level by level,
+    then the leaf finalize."""
+    if cw_s.dim() == 1:
+        cw_s, cw_v, cw_t = cw_s[None], cw_v[None], cw_t[None]
+    for i in range(cw_s.shape[0]):
+        s, v, t = tree_expand_level_plain(aes, cw_s[i], cw_v[i], cw_t[i], s,
+                                          v, t, group="xor")
+    return v ^ s ^ (cw_np1 & (t.unsqueeze(-1) * 0xFF))
 
 
 _ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_FINAL_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+_FINAL_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p]
+# Levels of the full domain's last launch, the B2f one (1..MAX_DEPTH): the
+# tree's last level and the levels above it, kept in registers.  Three
+# (B2f from 2^21 parents at n = 24, B2 over levels 6..20 in five launches)
+# ran the full domain 2-4% faster than one (B2 over 6..22 in six
+# launches, then B2f from 2^23 parents), whose level-23 parents went
+# through HBM (NVIDIA H100 80GB HBM3, 700 W, chip_ab.py
+# tree_expand_device, PERF.md).
+FINAL_LEVELS = 3
 
 
 def _check_nodes(aes, s, v, t) -> int:
@@ -166,8 +181,7 @@ def tree_expand(aes, cw_s, cw_v, cw_t, s, v, t, *, k0: int, k1: int,
     cw_s/cw_v uint8 [n, 16], cw_t uint8 [n, 2] of one key; (s, v, t) the
     level-k0 nodes in bitreverse order.  Returns the level-k1 nodes, also
     in bitreverse order: one launch of kernel B2 per
-    ``launch_depths(k0, k1)`` entry (levels 6..20 in five, 6..22 in
-    six)."""
+    ``launch_depths(k0, k1)`` entry (levels 6..20 in five)."""
     if k1 <= k0:
         return s, v, t
     for i, depth in launch_depths(k0, k1):
@@ -177,29 +191,43 @@ def tree_expand(aes, cw_s, cw_v, cw_t, s, v, t, *, k0: int, k1: int,
 
 
 def tree_expand_final(aes, cw_s, cw_v, cw_t, cw_np1, s, v, t):
-    """The last tree level and the leaf finalize in one (XOR group): N
-    parents -> 2N leaf shares y = v ^ s ^ t * cw_np1, uint8 [2N, 16],
-    [lefts ; rights].
+    """The tree's last level and the leaf finalize in one launch (XOR
+    group): N parents -> 2N leaf shares y = v ^ s ^ t * cw_np1, uint8
+    [2N, 16], [lefts ; rights]; or, with cw_s / cw_v uint8 [d, 16] and
+    cw_t uint8 [d, 2], the tree's last d levels (d <= MAX_DEPTH), the
+    levels above the leaves kept in registers: N parents -> 2^d N leaf
+    shares in the rows d launches of one level would fill.
 
     Arguments as ``tree_expand_level`` (the last level's correction
-    words) plus cw_np1 uint8 [16].  The card launches kernel B2f, the CPU
-    runs ``tree_expand_final_plain``."""
+    words, or the last d levels') plus cw_np1 uint8 [16].  The card
+    launches kernel B2f, the CPU runs ``tree_expand_final_plain``."""
     device = s.device
-    _check_level_cws(cw_s, cw_v, cw_t, device)
+    if cw_s.dim() == 1:
+        _check_level_cws(cw_s, cw_v, cw_t, device)
+        depth = 1
+    else:
+        depth = cw_s.shape[0]
+        check_u8("cw_s", cw_s, (depth, 16), device)
+        check_u8("cw_v", cw_v, (depth, 16), device)
+        check_u8("cw_t", cw_t, (depth, 2), device)
     n_par = _check_nodes(aes, s, v, t)
     check_u8("cw_np1", cw_np1, (16,), device)
+    if not 1 <= depth <= MAX_DEPTH or n_par << depth >= 1 << 31:
+        raise ShapeError(f"bad leaf launch: {depth} levels from {n_par} "
+                         "parents")
     if device.type == "cpu":
         return tree_expand_final_plain(aes, cw_s, cw_v, cw_t, cw_np1, s, v,
                                        t)
     if device.type != "cuda":
         raise ShapeError(f"tree_expand_final runs on cuda or cpu, not {device}")
-    y = torch.empty((2 * n_par, 16), dtype=torch.uint8, device=device)
-    fn = _build.load("tree_expand", "dcf_tree_expand_final", _FINAL_ARGTYPES)
+    y = torch.empty((n_par << depth, 16), dtype=torch.uint8, device=device)
+    fn = _build.load("tree_expand", "dcf_tree_expand_final_levels",
+                     _FINAL_ARGTYPES)
     a = aes.data_ptr()
     launch_checked("tree_expand_final", fn, device, a, a + 256,
                    cw_s.data_ptr(), cw_v.data_ptr(), cw_t.data_ptr(),
                    cw_np1.data_ptr(), s.data_ptr(), v.data_ptr(),
-                   t.data_ptr(), y.data_ptr(), n_par)
+                   t.data_ptr(), y.data_ptr(), n_par, depth)
     tree_expand_final.launches += 1
     return y
 
@@ -212,14 +240,16 @@ def tree_expand_device(aes, cw_s, cw_v, cw_t, cw_np1, s, v, t, *, k0: int,
     """Expand levels k0..n-1 of one XOR-group key and finalize the leaves:
     cw_s/cw_v uint8 [n, 16], cw_t uint8 [n, 2], cw_np1 uint8 [16];
     (s, v, t) the level-k0 nodes in bitreverse order, k0 < n.  Returns the
-    leaf shares uint8 [2^n, 16] in bitreverse_n order: kernel B2 for
-    levels k0..n-2, kernel B2f for level n-1."""
+    leaf shares uint8 [2^n, 16] in bitreverse_n order: kernel B2 for the
+    levels above the last ``FINAL_LEVELS`` (at most n - k0), kernel B2f
+    for those."""
     if not 0 <= k0 < n or cw_s.shape[0] != n or s.shape[0] != 1 << k0:
         raise ShapeError(
             f"tree_expand_device wants 2^k0 nodes and 0 <= k0 < n = "
             f"{cw_s.shape[0]} levels, got k0={k0}, n={n}, "
             f"{s.shape[0]} nodes")
-    s, v, t = tree_expand(aes, cw_s, cw_v, cw_t, s, v, t, k0=k0, k1=n - 1,
+    last = n - min(FINAL_LEVELS, n - k0)
+    s, v, t = tree_expand(aes, cw_s, cw_v, cw_t, s, v, t, k0=k0, k1=last,
                           group="xor")
-    return tree_expand_final(aes, cw_s[n - 1], cw_v[n - 1], cw_t[n - 1],
+    return tree_expand_final(aes, cw_s[last:], cw_v[last:], cw_t[last:],
                              cw_np1, s, v, t)

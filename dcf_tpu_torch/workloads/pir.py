@@ -13,10 +13,12 @@ the EvalAll kernel's cost per leaf is the cost of a query.
 
 Layout: ``PirDatabase`` keeps the records as bytes in bitreverse_n order,
 the order EvalAll emits leaves in, uint8 [2^n, record_bytes] on the
-device.  Leaf position p of the t bytes and database row p refer to the
-same domain point, so the inner product (kernel P1, ``ops.pir_answer``)
-is the XOR of the rows whose t bit is set, with no gather anywhere, and
-the hit at position bitreverse_n(alpha) selects exactly ``db[alpha]``.
+device.  A selection share is the leaves' t bits packed as the reference
+packs them, int32 [K, ceil(2^n / 32)], bit p % 32 of word p // 32 the
+leaf at position p.  That position and database row p refer to the same
+domain point, so the inner product (kernel P1, ``ops.pir_answer``) is
+the XOR of the rows whose t bit is set, with no gather anywhere, and the
+hit at position bitreverse_n(alpha) selects exactly ``db[alpha]``.
 
 Serving: ``PirServer`` snapshots DPF bundles from a registry, keeps the
 staged key image and the selection shares resident across queries, and
@@ -53,7 +55,8 @@ class PirDatabase:
     caller passed is not retained.
 
     ``record_bytes`` must be a multiple of 4 (kernel P1 reads 4-byte
-    words); pad the records otherwise.
+    words, or 16-byte ones where it is a multiple of 16); pad the
+    records otherwise.
     """
 
     def __init__(self, records: np.ndarray, n_bits: int, device=None):
@@ -87,19 +90,22 @@ class PirDatabase:
                 f"record_bytes={self.record_bytes})")
 
 
-def pir_answer_share(t: torch.Tensor, db: PirDatabase) -> np.ndarray:
+def pir_answer_share(t_words: torch.Tensor, db: PirDatabase) -> np.ndarray:
     """One party's answer shares from its selection-vector shares.
 
-    ``t``: the leaf t bytes uint8 [K, 2^n] that ``DpfEvalAll.eval_party``
-    returns (bitreverse order, as the database's rows), on the database's
-    device.  The inner product over GF(2) runs there (kernel P1); only
-    the K x record_bytes answer comes back.  uint8 [K, record_bytes].
+    ``t_words``: the leaf t bits packed, int32 [K, ceil(2^n / 32)], that
+    ``DpfEvalAll.eval_party(..., want_y=False)`` returns (bitreverse
+    order, as the database's rows), on the database's device.  The inner
+    product over GF(2) runs there (kernel P1); only the K x record_bytes
+    answer comes back.  uint8 [K, record_bytes].
     """
-    if t.dim() != 2 or t.shape[1] != db.num_records:
+    words = -(-db.num_records // 32)
+    if t_words.dim() != 2 or t_words.shape[1] != words:
         raise ShapeError(
-            f"selection share of shape {tuple(t.shape)} does not cover "
-            f"the database's {db.num_records} records")
-    return pir_answer(t, db.rows).cpu().numpy()
+            f"selection share of shape {tuple(t_words.shape)} does not "
+            f"cover the database's {db.num_records} records ({words} "
+            "packed words a key)")
+    return pir_answer(t_words, db.rows).cpu().numpy()
 
 
 def pir_query_bundle(prg, indices, n_bits: int, s0s: np.ndarray,
@@ -161,8 +167,10 @@ class PirServer:
 
     A PIR query has no input points, the key is the query, so the server
     keeps a full-domain evaluator (``backends.evalall.DpfEvalAll``) and
-    caches each key's selection shares per (key_id, party, generation):
-    repeated queries under the same key run only the inner product again.
+    caches each key's selection shares per (key_id, party, generation),
+    as packed words (8 MiB for K = 4 keys at 2^24 records, as the
+    reference caches its ``t_words``): repeated queries under the same
+    key run only the inner product again.
     The ``serve.eval`` fault seam fires per attempt with a bounded retry;
     a faulted attempt evicts the selection cache entry and the
     evaluator's staged image before the retry starts again from the
@@ -178,7 +186,7 @@ class PirServer:
         self.registry = registry
         self.retries = int(retries)
         self.eval_faults = 0  # attempts lost behind the serve.eval seam
-        self._sel: dict = {}  # (key_id, b) -> (generation, t)
+        self._sel: dict = {}  # (key_id, b) -> (generation, t_words)
 
     def _selection(self, key_id: str, b: int, bundle: DpfBundle,
                    generation: int) -> torch.Tensor:
@@ -187,10 +195,10 @@ class PirServer:
             return ent[1]
         staged_cw, fronts, parts = self.evaluator._staged_for(
             bundle, self.db.n_bits)
-        _, t = self.evaluator.eval_party(
+        _, t_words = self.evaluator.eval_party(
             b, parts[b], self.db.n_bits, staged_cw, fronts[b], want_y=False)
-        self._sel[(key_id, b)] = (generation, t)
-        return t
+        self._sel[(key_id, b)] = (generation, t_words)
+        return t_words
 
     def answer(self, key_id: str, b: int) -> np.ndarray:
         """Party ``b``'s answer shares for the K queries registered under
@@ -213,8 +221,8 @@ class PirServer:
         for _attempt in range(self.retries + 1):
             try:
                 fire("serve.eval", key_id, bundle.num_keys)
-                t = self._selection(key_id, b, bundle, generation)
-                return pir_answer_share(t, self.db)
+                t_words = self._selection(key_id, b, bundle, generation)
+                return pir_answer_share(t_words, self.db)
             except Exception as e:  # counted and bounded: the retry
                 # follows, and exhaustion re-raises the last error
                 last = e

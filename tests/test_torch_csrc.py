@@ -483,6 +483,39 @@ void host_tree_levels(const uint8_t* sbox, const uint8_t* rk,
            v_out, t_out, n_par, level, depth)
 }
 
+// Kernel B2f: the tree's last `depth` levels (1-3; rows cw_s / cw_v
+// [depth, 16], cw_t [depth, 2]) from n_par parents, parent j on lane
+// j % 32, as its launch runs them: y_out [2^depth n_par, 16] the leaf
+// shares (XOR group) in the rows of depth one-level launches.
+void host_tree_final_levels(const uint8_t* sbox, const uint8_t* rk,
+                            const uint8_t* cw_s, const uint8_t* cw_v,
+                            const uint8_t* cw_t, const uint8_t* cw_np1,
+                            const uint8_t* s_in, const uint8_t* v_in,
+                            const uint8_t* t_in, uint8_t* y_out, int n_par,
+                            int depth) {
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey rks[15];
+  round_keys(rks, rk);
+  LevelCw cw[3];
+  for (int l = 0; l < depth; ++l) level_cw_entry(cw, cw_s, cw_v, cw_t, l);
+  uint32_t np1[4];
+  for (int q = 0; q < 4; ++q) np1[q] = le32(cw_np1 + 4 * q);
+  for (int j = 0; j < n_par; ++j) {
+    TreeNode p;
+    load16(s_in + 16 * (size_t)j, p.s);
+    load16(v_in + 16 * (size_t)j, p.v);
+    p.t = t_in[j] & 1u;
+    const BkLane lane = bk_lane(te.data(), j % kLanes);
+#define LEAF_ARGS lane, rks, cw, p, y_out, nullptr, nullptr, (size_t)j, \
+      (size_t)n_par, np1
+    if (depth == 1) tree_subtree<0, 1, true>(LEAF_ARGS);
+    else if (depth == 2) tree_subtree<0, 2, true>(LEAF_ARGS);
+    else tree_subtree<0, 3, true>(LEAF_ARGS);
+#undef LEAF_ARGS
+  }
+}
+
 // One level: cw_s / cw_v / cw_t point at that level's correction words.
 void host_tree(const uint8_t* sbox, const uint8_t* rk, const uint8_t* cw_s,
                const uint8_t* cw_v, const uint8_t* cw_t, const uint8_t* s_in,
@@ -584,8 +617,10 @@ void host_hybrid_prefix(const uint8_t* sbox, const uint8_t* rk0,
 
 // Kernel B6 over K keys: [K, N, 32] parents at level `level` ->
 // [K, 2^depth N, 32] nodes of level level + depth (depth 1-3), parent j on
-// lane j % 32, leaf correction applied when np1 is not null; the t bytes
-// alone when s_out is null.
+// lane j % 32, leaf correction applied when np1 is not null; the t bits
+// alone when s_out is null, a parent's 2^depth leaf bits in one word
+// (pos 0, stride 1) that the kernel then packs, here set into t_out as
+// zeroed uint32 words [K, ceil(2^depth N / 32)] one bit at a time.
 void host_dpf_levels(const uint8_t* sbox, const uint8_t* rk0,
                      const uint8_t* rk17, const uint8_t* cw_s,
                      const uint8_t* cw_t, const uint8_t* np1,
@@ -606,6 +641,8 @@ void host_dpf_levels(const uint8_t* sbox, const uint8_t* rk0,
     uint32_t fw[8];
     if (np1) words8(np1 + key * 32, fw);
     const size_t out = (size_t)key * ((size_t)n_par << depth);
+    uint32_t* const kw = reinterpret_cast<uint32_t*>(t_out) +
+                         (size_t)key * ((((size_t)n_par << depth) + 31) / 32);
     for (int j = 0; j < n_par; ++j) {
       const size_t in = (size_t)key * n_par + j;
       uint32_t s[8];
@@ -614,15 +651,23 @@ void host_dpf_levels(const uint8_t* sbox, const uint8_t* rk0,
       np1 ? fw : nullptr, s, t_in[in] & 1u,                                \
       s_out ? s_out + out * 32 : nullptr, t_out + out, (size_t)j,          \
       (size_t)n_par
+#define DPF_T_ARGS bk_lane(te.data(), j % kLanes), k0, k17, w, nullptr, s, \
+      t_in[in] & 1u, nullptr, nullptr, 0, 1, &tb
       if (s_out) {
         if (depth == 1) dpf_subtree<1>(DPF_ARGS);
         else if (depth == 2) dpf_subtree<2>(DPF_ARGS);
         else dpf_subtree<3>(DPF_ARGS);
       } else {
-        if (depth == 1) dpf_subtree<1, false>(DPF_ARGS);
-        else if (depth == 2) dpf_subtree<2, false>(DPF_ARGS);
-        else dpf_subtree<3, false>(DPF_ARGS);
+        uint32_t tb = 0u;
+        if (depth == 1) dpf_subtree<1, false>(DPF_T_ARGS);
+        else if (depth == 2) dpf_subtree<2, false>(DPF_T_ARGS);
+        else dpf_subtree<3, false>(DPF_T_ARGS);
+        for (int r = 0; r < (1 << depth); ++r) {
+          const size_t at = (size_t)j + (size_t)n_par * r;
+          kw[at / 32] |= ((tb >> r) & 1u) << (at % 32);
+        }
       }
+#undef DPF_T_ARGS
 #undef DPF_ARGS
     }
   }
@@ -725,6 +770,80 @@ void host_pair_walk(const uint8_t* sbox, const uint8_t* rk, const uint8_t* s0,
 """
 
 
+_PIR_HARNESS = r"""
+#include "pir_answer.cuh"
+
+// Kernel P1 as its warps run it: for each column group of TPR lanes and
+// each tile of 32 rows, the K selection words of the tile, then every
+// lane's passes folded into that lane's accumulators (pir_row_in_tile,
+// pir_fold); the lanes of a column XORed together last, as the shuffles
+// and the block fold do.  out [K, R] zeroed; KK keys a pass.
+template <int VEC, int TPR, int KK>
+static void pir_lanes(const uint32_t* t_words, const uint8_t* db,
+                      uint8_t* out, int k_num, long long n_rows, int cols) {
+  constexpr int W = VEC / 4;
+  const long long n_words = (n_rows + 31) / 32;
+  for (int key0 = 0; key0 < k_num; key0 += KK)
+    for (int g = 0; g * TPR < cols; ++g) {
+      std::vector<uint32_t> acc(32 * KK * W, 0u);
+      for (long long tile = 0; tile < n_words; ++tile) {
+        uint32_t w[KK];
+        for (int k = 0; k < KK; ++k)
+          w[k] = key0 + k < k_num ? t_words[(key0 + k) * n_words + tile] : 0u;
+        for (int lane = 0; lane < 32; ++lane) {
+          const int col = g * TPR + lane % TPR;
+          for (int p = 0; p < TPR; ++p) {
+            const int pos = pir_row_in_tile<TPR>(lane, p);
+            const long long row = tile * 32 + pos;
+            if (col >= cols || row >= n_rows) continue;
+            uint32_t x[W];
+            memcpy(x, db + row * cols * VEC + (size_t)col * VEC, VEC);
+            pir_fold<KK, W>(
+                reinterpret_cast<uint32_t(*)[W]>(&acc[(size_t)lane * KK * W]),
+                w, pos, x);
+          }
+        }
+      }
+      for (int lane = 0; lane < 32; ++lane) {
+        const int col = g * TPR + lane % TPR;
+        for (int k = 0; k < KK && key0 + k < k_num && col < cols; ++k)
+          for (int q = 0; q < W; ++q) {
+            const uint32_t v = acc[((size_t)lane * KK + k) * W + q];
+            uint8_t* o = out + (size_t)(key0 + k) * cols * VEC + col * VEC + 4 * q;
+            for (int j = 0; j < 4; ++j) o[j] ^= (uint8_t)(v >> (8 * j));
+          }
+      }
+    }
+}
+
+template <int VEC, int KK>
+static void pir_cols(const uint32_t* t_words, const uint8_t* db, uint8_t* out,
+                     int k_num, long long n_rows, int cols) {
+  if (cols <= 1) pir_lanes<VEC, 1, KK>(t_words, db, out, k_num, n_rows, cols);
+  else if (cols <= 2) pir_lanes<VEC, 2, KK>(t_words, db, out, k_num, n_rows, cols);
+  else if (cols <= 4) pir_lanes<VEC, 4, KK>(t_words, db, out, k_num, n_rows, cols);
+  else if (cols <= 8) pir_lanes<VEC, 8, KK>(t_words, db, out, k_num, n_rows, cols);
+  else if (cols <= 16) pir_lanes<VEC, 16, KK>(t_words, db, out, k_num, n_rows, cols);
+  else pir_lanes<VEC, 32, KK>(t_words, db, out, k_num, n_rows, cols);
+}
+
+extern "C" {
+// P1's lanes as its C entry point dispatches them: 16-byte chunks where
+// r % 16 == 0, else 4-byte ones; 4 keys a pass up to K = 4, else 8.
+void host_pir_answer(const uint32_t* t_words, const uint8_t* db,
+                     uint8_t* out, int k_num, long long n_rows, int r) {
+  if (r % 16 == 0) {
+    if (k_num <= 4) pir_cols<16, 4>(t_words, db, out, k_num, n_rows, r / 16);
+    else pir_cols<16, 8>(t_words, db, out, k_num, n_rows, r / 16);
+  } else {
+    if (k_num <= 4) pir_cols<4, 4>(t_words, db, out, k_num, n_rows, r / 4);
+    else pir_cols<4, 8>(t_words, db, out, k_num, n_rows, r / 4);
+  }
+}
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
@@ -734,7 +853,7 @@ def lib(tmp_path_factory):
     src = d / "harness.cpp"
     src.write_text(_HARNESS + _NARROW_HARNESS + _BANKED_HARNESS
                    + _KEYGEN_HARNESS + _TREE_HARNESS + _BANKED_NARROW_HARNESS
-                   + _PAIR_HARNESS)
+                   + _PAIR_HARNESS + _PIR_HARNESS)
     out = d / "libharness.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
@@ -1142,6 +1261,16 @@ def test_dpf_node_body_matches_oracle(lib, k_num):
                 s, t = so, to
 
 
+def _pack_bits(bits: np.ndarray) -> np.ndarray:
+    """uint8 0/1 [K, N] -> uint32 [K, ceil(N / 32)], bit i of word w the
+    entry 32 w + i (the reference's pack_lanes, N padded with zeros)."""
+    k_num, n = bits.shape
+    padded = np.zeros((k_num, -(-n // 32) * 32), np.uint32)
+    padded[:, :n] = bits & 1
+    return np.bitwise_or.reduce(
+        padded.reshape(k_num, -1, 32) << np.arange(32, dtype=np.uint32), -1)
+
+
 @pytest.mark.parametrize("depth", [1, 2, 3])
 def test_dpf_subtree_body_matches_oracle(lib, depth):
     """B6's banked body expanding ``depth`` levels in registers (parent j
@@ -1181,15 +1310,16 @@ def test_dpf_subtree_body_matches_oracle(lib, depth):
                 want_s = dpf_finalize_np(kb, want_s, want_t)
             assert np.array_equal(so, want_s), (b, lvl)
             assert np.array_equal(to, want_t), (b, lvl)
-            if last:  # the PIR selection: the leaves' t bytes alone
-                to[:] = 0
+            if last:  # the PIR selection: the leaves' t bits alone, packed
+                words = np.zeros((k_num, -(-(n_par << depth) // 32)),
+                                 np.uint32)
                 lib.host_dpf_levels(
                     _p(SBOX_NP), _p(rk(ck[0])), _p(rk(ck[17])),
                     _p(kb.cw_s), _p(kb.cw_t), _p(kb.cw_np1),
                     _p(np.ascontiguousarray(s)),
-                    _p(np.ascontiguousarray(t)), None, _p(to), k_num,
+                    _p(np.ascontiguousarray(t)), None, _p(words), k_num,
                     n_par, n, lvl, depth)
-                assert np.array_equal(to, want_t), (b, lvl)
+                assert np.array_equal(words, _pack_bits(want_t)), (b, lvl)
 
 
 @pytest.mark.parametrize("bound", list(Bound))
@@ -1216,6 +1346,61 @@ def test_tree_leaves_body_matches_oracle(lib, bound):
             _p(np.ascontiguousarray(s)), _p(np.ascontiguousarray(v)),
             _p(np.ascontiguousarray(t)), _p(y), s.shape[0])
         assert np.array_equal(y, eval_batch_np(prg, b, kb, xs)[0]), b
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("bound", list(Bound))
+def test_banked_tree_leaves_body_matches_oracle(lib, bound, depth):
+    """B2f's banked body (tree_subtree's FINAL case, parent j on lane
+    j % 32): the last ``depth`` levels of an n = 16 XOR key from the host
+    expansion at depth 16 - depth, both parties, against the leaf shares
+    of the numpy tree expansion to depth 16 (which
+    ``test_tree_leaves_body_matches_oracle`` ties to the per-point
+    oracle), and at depth 1 against the T-table body
+    (``host_tree_final``)."""
+    rng, prg, rk, alphas, bundle = _setup(360, 1, 2, "xor", bound)
+    n, top = 16, 16 - depth
+    cw = [np.ascontiguousarray(a[0, top:n])
+          for a in (bundle.cw_s, bundle.cw_v, bundle.cw_t)]
+    for b in (0, 1):
+        kb = bundle.for_party(b)
+        s, v, t = (np.ascontiguousarray(a)
+                   for a in tree_expand_np(prg, kb, b, top))
+        np1 = np.ascontiguousarray(kb.cw_np1[0])
+        y = np.zeros((1 << n, 16), np.uint8)
+        lib.host_tree_final_levels(
+            _p(SBOX_NP), _p(rk), *(_p(a) for a in cw), _p(np1), _p(s),
+            _p(v), _p(t), _p(y), s.shape[0], depth)
+        ls, lv, lt = tree_expand_np(prg, kb, b, n)
+        assert np.array_equal(y, lv ^ ls ^ (np1 & (lt[:, None] * 0xFF))), b
+        if depth == 1:
+            y1 = np.zeros_like(y)
+            lib.host_tree_final(
+                _p(SBOX_NP), _p(rk), *(_p(a) for a in cw), _p(np1), _p(s),
+                _p(v), _p(t), _p(y1), s.shape[0])
+            assert np.array_equal(y, y1), b
+
+
+@pytest.mark.parametrize("r,k_num,n_rows", [
+    (4, 1, 1), (4, 3, 100), (8, 4, 64), (32, 4, 1024), (36, 9, 512),
+    (48, 5, 96), (528, 2, 40), (1024, 1, 33)])
+def test_pir_fold_body_matches_numpy(lib, r, k_num, n_rows):
+    """P1's lanes (pir_answer.cuh: a lane's rows of a 32-row tile, the
+    fold under one selection word a key and tile) as the kernel's warps
+    and its dispatch run them, 16-byte chunks where R % 16 == 0, column
+    groups past 32 chunks (R = 528, 1024), a tile past the last row,
+    K past a pass of 4 or 8 keys: the XOR of the selected rows."""
+    rng = np.random.default_rng(380 + r + k_num)
+    db = rng.integers(0, 256, (n_rows, r), dtype=np.uint8)
+    sel = rng.integers(0, 2, (k_num, n_rows), dtype=np.uint8)
+    out = np.zeros((k_num, r), np.uint8)
+    lib.host_pir_answer(_p(_pack_bits(sel)), _p(db), _p(out), k_num,
+                        ctypes.c_longlong(n_rows), r)
+    want = np.zeros((k_num, r), np.uint8)
+    for k in range(k_num):
+        for row in np.flatnonzero(sel[k]):
+            want[k] ^= db[row]
+    assert np.array_equal(out, want)
 
 
 def _keygen_body(lib, mode, ck, alphas, betas, s0s, lt=True):

@@ -37,6 +37,7 @@ from dcf_tpu_torch.ops.evalall_expand import (
     evalall_expand_level_plain,
 )
 from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
+from dcf_tpu_torch.ops.pir_answer import pack_selection
 from dcf_tpu_torch.ops.prg import HirosePrgNp as TPrg
 from dcf_tpu_torch.protocols.dpf import DpfBundle, dpf_eval_points
 from tests.torch_threads import one_torch_thread  # noqa: F401
@@ -117,6 +118,56 @@ def test_eval_party_matches_pallas_interpret(prgs, j_eval, t_eval, n_key,
         assert np.array_equal(sel[k], want), k
 
 
+@pytest.fixture(scope="module")
+def j_t_words(prgs, j_eval):
+    """The reference's selection words at depth n, t int32 [K, 1, 2^n / 32]
+    from ``dcf_tpu``'s ``DpfEvalAll.eval_party`` (interpret mode), for
+    both parties of three keys of a byte-granular domain above n,
+    computed once per n."""
+    made = {}
+
+    def get(n):
+        if n not in made:
+            jb, tb, _ = _bundles(prgs, 530 + n, [0x00, 0xFF, 0x6B],
+                                 8 * ((n + 7) // 8))
+            made[n] = tb, [np.asarray(j_eval.eval_party(
+                b, jb.for_party(b), n)[2]) for b in (0, 1)]
+        return made[n]
+
+    return get
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("n", [5, 10])
+def test_t_only_words_match_dcf_tpu_t_words(prgs, ck, j_t_words, n, depth):
+    """B6's t-only last launch (its plain version here) of ``depth``
+    levels, from the host expansion at n - depth, and
+    ``evalall_expand(..., want_y=False)`` from the roots: int32 [K,
+    2^n / 32] words equal, as uint32 bit patterns, the reference's
+    ``t_words`` (bit i of word w the leaf at 32 w + i), both parties."""
+    tb, want = j_t_words(n)
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17]))
+    for b in (0, 1):
+        kb = tb.for_party(b)
+        cw_s, cw_t, cw_np1 = (torch.from_numpy(a)
+                              for a in (kb.cw_s, kb.cw_t, kb.cw_np1))
+        s, t = (torch.from_numpy(a)
+                for a in dpf_tree_expand_np(prgs[1], kb, b, n - depth))
+        y, words = evalall_expand_level(aes, cw_s, cw_t, s, t,
+                                        level=n - depth, depth=depth,
+                                        cw_np1=cw_np1, want_y=False)
+        assert y is None and words.dtype == torch.int32
+        assert words.shape == (3, (1 << n) // 32)
+        assert np.array_equal(words.numpy().view(np.uint32),
+                              want[b][:, 0].view(np.uint32)), b
+        s0, t0 = (torch.from_numpy(a)
+                  for a in dpf_tree_expand_np(prgs[1], kb, b, 0))
+        y, words = evalall_expand(aes, cw_s, cw_t, cw_np1, s0, t0, k0=0,
+                                  k1=n, want_y=False)
+        assert y is None
+        assert np.array_equal(words.numpy(), want[b][:, 0]), b
+
+
 @pytest.mark.parametrize("k_num", [1, 3])
 def test_plain_level_matches_host_expansion_every_level(prgs, ck, k_num):
     """One plain B6 level at a time from the root against both packages'
@@ -148,7 +199,7 @@ def test_plain_level_matches_host_expansion_every_level(prgs, ck, k_num):
 def test_host_levels_do_not_change_the_leaves(prgs, ck, t_eval, host_levels):
     """Any split between the host's levels and the kernel's gives the
     same leaves (there is no 5-level floor in the byte layout), and the
-    same t bytes without y (``want_y=False``, the PIR selection)."""
+    same t bits without y, packed (``want_y=False``, the PIR selection)."""
     _, tb, _ = _bundles(prgs, 520, [0x4D, 0xE2], 8)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -160,8 +211,9 @@ def test_host_levels_do_not_change_the_leaves(prgs, ck, t_eval, host_levels):
             want = t_eval.eval_party(b, kb, depth)
             assert torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                                  want[1])
-            y, t = ev.eval_party(b, kb, depth, want_y=False)
-            assert y is None and torch.equal(t, want[1])
+            y, t_words = ev.eval_party(b, kb, depth, want_y=False)
+            assert y is None
+            assert torch.equal(t_words, pack_selection(want[1]))
     with pytest.raises(ValueError):
         DpfEvalAll(LAM, ck, host_levels=-1, device="cpu")
 
@@ -269,7 +321,7 @@ def test_level_wrapper_depth_equals_levels_one_at_a_time(prgs, ck, depth):
     """``evalall_expand_level`` at depth d (its plain version on the CPU)
     equals d calls of one level, with and without the leaf correction,
     both parties; with the correction and ``want_y=False`` it returns the
-    t bytes alone (only the tree's last level may leave y out)."""
+    t bits alone, packed (only the tree's last level may leave y out)."""
     _, tb, _ = _bundles(prgs, 590 + depth, [0x5A, 0xC3], 8)
     aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17]))
     for b in (0, 1):
@@ -292,7 +344,8 @@ def test_level_wrapper_depth_equals_levels_one_at_a_time(prgs, ck, depth):
         y, t_only = evalall_expand_level(aes, cw_s, cw_t, s, t,
                                          level=8 - depth, cw_np1=cw_np1,
                                          depth=depth, want_y=False)
-        assert y is None and torch.equal(t_only, want[1]), b
+        assert y is None, b
+        assert torch.equal(t_only, pack_selection(want[1])), b
         with pytest.raises(ShapeError):
             evalall_expand_level(aes, cw_s, cw_t, s, t, level=8 - depth,
                                  depth=depth, want_y=False)

@@ -119,6 +119,48 @@ def test_tree_expand_device_matches_pallas_interpret(bound, k0):
 
 
 @pytest.mark.parametrize("bound", BOUNDS)
+def test_leaf_launch_of_one_to_three_levels_matches_pallas_interpret(
+        bound, monkeypatch):
+    """B2f's launch may take the tree's last 1-3 levels
+    (``FINAL_LEVELS``): ``tree_expand_device`` from k0 = 3 of an n = 8
+    key gives the Pallas tree kernel's leaves at each cut, both parties,
+    and ``tree_expand_final`` on the last d levels' correction words
+    equals d - 1 levels of B2 and one of B2f."""
+    import dcf_tpu_torch.ops.tree_expand as te
+
+    n, k0 = 8, 3
+    ck, _, jb, tb = _setup(610, 0x3C, n, bound)
+    rk = jnp.asarray(round_key_masks_bitmajor(ck[0]))
+    aes = torch.from_numpy(aes_image(ck[0]))
+    for b in (0, 1):
+        jkb, tkb = jb.for_party(b), tb.for_party(b)
+        s, v, t = tree_expand_np(TPrg(16, ck), tkb, b, 5)
+        want = _leaf_bytes(j_tree_device(
+            rk, jnp.asarray(bitmajor_plane_masks(jkb.cw_s[0])[..., None]),
+            jnp.asarray(bitmajor_plane_masks(jkb.cw_v[0])[..., None]),
+            jnp.asarray(jkb.cw_t[0].astype(np.int32) * -1),
+            jnp.asarray(bitmajor_plane_masks(jkb.cw_np1[0])[:, None]),
+            _planes(s), _planes(v),
+            jnp.asarray(pack_lanes(t[None]).view(np.int32)),
+            k0=5, n=n, interpret=True))
+        cws = [torch.from_numpy(np.ascontiguousarray(a[0])) for a in (
+            tkb.cw_s, tkb.cw_v, tkb.cw_t, tkb.cw_np1)]
+        top = [torch.from_numpy(a)
+               for a in tree_expand_np(TPrg(16, ck), tkb, b, k0)]
+        for levels in (1, 2, 3):
+            monkeypatch.setattr(te, "FINAL_LEVELS", levels)
+            got = tree_expand_device(aes, *cws, *top, k0=k0, n=n)
+            assert np.array_equal(got.numpy(), want), (b, levels)
+            nodes = te.tree_expand(aes, *cws[:3], *top, k0=k0,
+                                   k1=n - levels, group="xor")
+            last = [c[n - levels:] for c in cws[:3]]
+            assert torch.equal(
+                tree_expand_final(aes, *last, cws[3], *nodes), got)
+            assert torch.equal(
+                tree_expand_final_plain(aes, *last, cws[3], *nodes), got)
+
+
+@pytest.mark.parametrize("bound", BOUNDS)
 def test_tree_fulldomain_matches_dcf_tpu_n8(bound):
     """Leaves and check counts of both evaluators on one key (the JAX one
     through its kernel in interpret mode)."""
@@ -205,6 +247,9 @@ def test_final_level_wrapper_runs_the_plain_version_on_the_cpu():
     assert got.shape == (16, 16)
     with pytest.raises(ShapeError):
         tree_expand_final(aes, cs, cv, ct, np1[:8], s, v, t)
+    with pytest.raises(ShapeError):  # at most MAX_DEPTH levels a launch
+        tree_expand_final(aes, cs.repeat(4, 1), cv.repeat(4, 1),
+                          ct.repeat(4, 1), np1, s, v, t)
     with pytest.raises(ShapeError):
         tree_expand_device(aes, cs[None], cv[None], ct[None], np1, s, v, t,
                            k0=3, n=3)

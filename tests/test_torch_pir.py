@@ -1,6 +1,7 @@
 """The port's 2-server PIR path on the CPU against dcf_tpu's:
 ``pir_answer_share`` (kernel P1's plain version) on the same database and
-selection shares, ``pir_query_bundle`` byte-identical, and the slice as a
+selection shares (packed lane words, as both packages keep them),
+``pir_query_bundle`` byte-identical, and the slice as a
 whole: ``Dcf.pir_query`` -> ``PirServer.answer`` for both parties ->
 ``pir_reconstruct`` returns the records, at byte and non-byte domains,
 with each party's answer share equal to the JAX server's (whose EvalAll
@@ -27,7 +28,12 @@ from dcf_tpu_torch import Dcf
 from dcf_tpu_torch.backends.evalall import DpfEvalAll
 from dcf_tpu_torch.errors import ShapeError
 from dcf_tpu_torch.gen import gen_batch, random_s0s
-from dcf_tpu_torch.ops.pir_answer import pir_answer, pir_answer_plain
+from dcf_tpu_torch.ops.pir_answer import (
+    pack_selection,
+    pir_answer,
+    pir_answer_plain,
+    unpack_selection,
+)
 from dcf_tpu_torch.ops.prg import HirosePrgNp as TPrg
 from dcf_tpu_torch.protocols.dpf import decode_proto_frame
 from dcf_tpu_torch.spec import Bound
@@ -86,25 +92,25 @@ def _records(rng, n_bits, record_bytes=8):
 @pytest.mark.parametrize("n_bits,record_bytes,k_num",
                          [(5, 4, 1), (8, 8, 3), (10, 32, 4), (9, 36, 9)])
 def test_pir_answer_share_matches_dcf_tpu(n_bits, record_bytes, k_num):
-    """The same database and the same selection shares through both
-    packages' inner products (bytes in leaf order here, packed lane words
-    over bit planes there)."""
+    """The same database and the same selection shares, packed lane words
+    int32 [K, 2^n / 32], through both packages' inner products (record
+    bytes in leaf order here, bit planes there)."""
     rng = np.random.default_rng(700 + n_bits)
     records = _records(rng, n_bits, record_bytes)
     t = rng.integers(0, 2, (k_num, 1 << n_bits), dtype=np.uint8)
-    want = j_pir_answer_share(
-        pack_lanes(t[:, None, :]).view(np.int32),
-        JPirDatabase(records, n_bits))
+    words = pack_lanes(t[:, None, :]).view(np.int32)
+    want = j_pir_answer_share(words, JPirDatabase(records, n_bits))
     db = PirDatabase(records, n_bits, device="cpu")
-    tt = torch.from_numpy(t)
+    tw = torch.from_numpy(np.ascontiguousarray(words[:, 0]))
+    assert torch.equal(tw, pack_selection(torch.from_numpy(t)))
     before = pir_answer.launches
-    got = pir_answer_share(tt, db)
+    got = pir_answer_share(tw, db)
     assert pir_answer.launches == before  # CPU: the plain version
     assert got.dtype == np.uint8 and np.array_equal(got, want)
-    assert torch.equal(pir_answer(tt, db.rows), pir_answer_plain(tt, db.rows))
+    assert torch.equal(pir_answer(tw, db.rows), pir_answer_plain(tw, db.rows))
     # A one-hot selection returns that row of the leaf-ordered database.
-    one = torch.zeros((1, 1 << n_bits), dtype=torch.uint8)
-    one[0, 3] = 1
+    one = torch.zeros((1, (1 << n_bits) // 32), dtype=torch.int32)
+    one[0, 0] = 1 << 3
     assert np.array_equal(pir_answer_share(one, db)[0], db.rows[3].numpy())
 
 
@@ -164,6 +170,37 @@ def test_slice_end_to_end_matches_dcf_tpu(ck, evaluators, n_bits):
     assert server._sel[("q", 0)][1] is not cached
     t_eval.invalidate()
     j_eval.invalidate()
+
+
+@pytest.mark.parametrize("n_bits", [8, 3])
+def test_server_caches_packed_selection_words(ck, evaluators, n_bits):
+    """``PirServer``'s cache entry is the packed selection, int32
+    [K, ceil(2^n / 32)] (one word at n = 3, the bits past the domain
+    zero), one-hot across the parties at each key's leaf; the records
+    reconstruct from it."""
+    rng = np.random.default_rng(750 + n_bits)
+    records = _records(rng, n_bits)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        client = Dcf(1, LAM, ck, device="cpu")
+    idx = [0, (1 << n_bits) - 1, 5]
+    registry = Registry()
+    registry.register("q", client.pir_query(idx, rng=rng,
+                                            n_bits=n_bits).to_bytes())
+    server = PirServer(evaluators[1],
+                       PirDatabase(records, n_bits, device="cpu"), registry)
+    shares = [server.answer("q", b) for b in (0, 1)]
+    assert np.array_equal(pir_reconstruct(*shares), records[idx])
+    sel = [server._sel[("q", b)][1] for b in (0, 1)]
+    for words in sel:
+        assert words.dtype == torch.int32
+        assert tuple(words.shape) == (len(idx), -(-(1 << n_bits) // 32))
+    both = unpack_selection(sel[0] ^ sel[1], 32 * sel[0].shape[1])
+    hits = [int(format(i, f"0{n_bits}b")[::-1], 2) for i in idx]
+    want = torch.zeros_like(both)
+    want[torch.arange(len(idx)), hits] = 1
+    assert torch.equal(both, want)
+    evaluators[1].invalidate()
 
 
 def test_facade_pir_query_domain_contract(ck):
@@ -263,6 +300,8 @@ def test_server_and_database_refusals(prgs, evaluators, ck):
         PirServer(evaluators[1], db9, registry, retries=-1)
     with pytest.raises(ShapeError, match="does not cover"):
         pir_answer_share(torch.zeros((1, 256), dtype=torch.uint8), db9)
+    with pytest.raises(ShapeError, match="int32"):  # bytes, not words
+        pir_answer_share(torch.zeros((1, 16), dtype=torch.uint8), db9)
     with pytest.raises(ShapeError):
         pir_reconstruct(np.zeros((2, 4), np.uint8), np.zeros((3, 4), np.uint8))
     with pytest.raises(ShapeError):
