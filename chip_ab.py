@@ -148,6 +148,24 @@ def case_keygen_wide_crate(torch, dev):
     return _keygen_wide(torch, dev, 16384, 64, 10)
 
 
+def case_keygen_dpf(torch, dev):
+    """B7b at the PIR path's keygen shape: 2^16 lam = 32 DPF keys,
+    n = 24; every byte of the keys."""
+    from dcf_tpu_torch.gen import random_s0s
+    from dcf_tpu_torch.ops.keygen_walk import keygen_dpf
+    from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
+
+    rng = np.random.default_rng(SEED)
+    k_num, n = 1 << 16, 24
+    ck = [rng.bytes(32) for _ in range(18)]
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17])).to(dev)
+    ins = tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 256, (k_num, n // 8), dtype=np.uint8),
+        rng.integers(0, 256, (k_num, 32), dtype=np.uint8),
+        random_s0s(k_num, 32, rng)))
+    return f"K={k_num} n={n} lam=32", 20, lambda: keygen_dpf(aes, *ins)
+
+
 def _config4(torch, dev):
     """BASELINE.json config 4's inputs on the card: one lam = 256 key
     (n = 128, party 0's narrow arrays) and 2^20 random shared points."""
@@ -477,6 +495,7 @@ CASES = {"keylanes_eval": ("keylanes_eval", case_keylanes_eval),
          "keygen_wide": ("keygen_wide", case_keygen_wide),
          "keygen_narrow_crate": ("keygen_walk", case_keygen_narrow_crate),
          "keygen_wide_crate": ("keygen_wide", case_keygen_wide_crate),
+         "keygen_dpf": ("keygen_walk", case_keygen_dpf),
          "hybrid_state": ("hybrid_state", case_hybrid_state),
          "narrow_walk": ("narrow_walk", case_narrow_walk),
          "hybrid_prefix": ("hybrid_prefix", case_hybrid_prefix),

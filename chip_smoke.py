@@ -11,7 +11,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``dcf_tpu_torch/csrc`` with nvcc, one process per source, all at once,
    and print the build seconds and ptxas' register and spill counts (on a
    line of their own, by kernel function, for B8, B4, B1, B3, B6, B5b, G1,
-   B7a, B5a and B2, the kernels on the banked AES);
+   B7a, B7b, B5a, B2 and B2f, the kernels on the banked AES);
 3. hold each kernel byte for byte against its plain PyTorch version on the
    card, at 2^16 points: B1-B3 (B2 from level 6 to 21) over both parties,
    all four output groups, both bounds, and B1 with 3 keys and per-key
@@ -96,7 +96,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     against the numpy ``gen_batch`` / ``dpf_gen_batch``: G1 at 10^6 keys;
     B7a and W2, its wide tail, at lam = 256, K = 2^16 and at
     lam = 16384, K = 64 (all 64 keys; B7a there also against its plain
-    version), every byte of the keys; B7b at n = 24, K = 2^16;
+    version), every byte of the keys; B7b at n = 24, K = 2^16 (after two
+    untimed calls);
 15. B8 against its plain version, both bounds, both parties: at
     K = 1024 keys x 1024 points, at K = 4099 x 1000 (a group of 3 keys
     past the last full one, and points that do not divide among a block's
@@ -114,7 +115,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     oracle; wall time and evals/s; B8 timed on the first chunk's inputs.
     The keygen rows' plain times are taken at the check shapes (phase 13,
     and K = 64 at lam = 16384), B8's at K = 1024 x 1024: the rows say so
-    in ``shape`` and ``plain_shape``.  W2's rows are bound by bytes.
+    in ``shape`` and ``plain_shape``.  W2's rows are bound by bytes;
+17. ``bench_torch.run()``, the port's bench line, at full size (the
+    prefix path, 2^20 points, its full two-party check and its 4096-point
+    anchor against the C++ core: a parity failure fails the smoke), its
+    JSON line logged; then the C++ core's ``NativeDcf.gen_batch`` against
+    the numpy ``gen_batch``, 64 keys at lam = 16 and 256, both bounds.
 
 Launches are counted per path: the counts are set to 0 just before one
 run of a path and read just after it, before any timed repeat, and held
@@ -369,15 +375,14 @@ def main() -> int:
     banked = {"keylanes_eval": "B8", "narrow_walk": "B4",
               "walk_eval": "B1", "prefix_eval": "B3",
               "evalall_expand": "B6", "hybrid_prefix": "B5b",
-              "keygen_walk": "G1, B7a", "hybrid_state": "B5a",
+              "keygen_walk": "G1, B7a, B7b", "hybrid_state": "B5a",
               "tree_expand": "B2, B2f"}
     log("phase 2 the kernels on the banked AES, (registers, spill-store "
         "bytes) by kernel function: " + "; ".join(
             f"{kid} {src} {ptxas_functions(_build.build_log(src))}"
             for src, kid in banked.items())
-        + " (keygen_walk's keygen_banked_kernel<0> is G1, <1> B7a; "
-        "keygen_dpf_kernel is B7b on the T-tables; tree_expand's "
-        "tree_expand_kernel<GW,D,0> B2, <0,D,1> B2f)")
+        + " (keygen_walk's keygen_banked_kernel<0> is G1, <1> B7a, <2> "
+        "B7b; tree_expand's tree_expand_kernel<GW,D,0> B2, <0,D,1> B2f)")
 
     # -- phase 3: each kernel against its plain version --------------------------
     rng = np.random.default_rng(SEED)
@@ -1753,6 +1758,9 @@ def main() -> int:
         del ins, out
 
     ins = key_inputs(K_WIDE_KEYGEN, N_DPF_KEYGEN // 8, 32)
+    held = keygen_dpf(n_aes, *ins)  # two calls' keys allocated first
+    keygen_dpf(n_aes, *ins)
+    del held
     b7b_ms, out = cuda_ms(lambda: keygen_dpf(n_aes, *ins), 5)
     anchor("B7b", f"n={N_DPF_KEYGEN} K={K_WIDE_KEYGEN}", dict(zip(
         ("cw_s", "cw_t", "cw_np1"), host(*(o[:K_ANCHOR] for o in out)))),
@@ -1985,6 +1993,47 @@ def main() -> int:
             "dcf_tpu/ops/pallas_keylanes.py:113", b8_ms, b8_plain,
             b8_lookups, b8_bytes, shape=f"K={hi0} M={M_RELU} n={n}",
             plain_shape=f"K={K_B8_CHECK} M={M_RELU}")
+
+    # -- phase 17: the bench line, and the C++ core's keys -------------------------------
+    # bench_torch.py's run at full size on the card (the prefix path, 2^20
+    # points, its two parity gates); its launches are held to be on B2 and
+    # B3 but are no path's count (a timed loop).  Then the C++ core's keys
+    # against the numpy gen_batch on this machine.
+    t0 = time.perf_counter()
+    import bench_torch
+    from dcf_tpu_torch.native import NativeDcf
+
+    reset_counts()
+    line = bench_torch.run()
+    ran = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    if set(ran) != {"B2", "B3"}:
+        raise RuntimeError(f"bench_torch launched {ran}, want B2 and B3 "
+                           "alone")
+    log("phase 17 bench_torch line: " + json.dumps(line))
+    nrng = np.random.default_rng(SEED + 7)
+    for lam in (16, LAM_WIDE):
+        nck = [nrng.bytes(32) for _ in range(max(2, 2 * (lam // 16)))]
+        core = NativeDcf(lam, nck)
+        kprg = HirosePrgNp(lam, nck, warn=False)
+        for bnd in Bound:
+            a, bt, s0 = (nrng.integers(0, 256, (K_RELU_ANCHOR, N_BYTES),
+                                       dtype=np.uint8),
+                         nrng.integers(0, 256, (K_RELU_ANCHOR, lam),
+                                       dtype=np.uint8),
+                         random_s0s(K_RELU_ANCHOR, lam, nrng))
+            got = core.gen_batch(a, bt, s0, bnd)
+            want = gen_batch(kprg, a, bt, s0, bnd)
+            for field in ("cw_s", "cw_v", "cw_t", "cw_np1"):
+                if not np.array_equal(getattr(got, field),
+                                      getattr(want, field)):
+                    raise RuntimeError(
+                        f"NativeDcf.gen_batch lam={lam} {bnd.name}: {field} "
+                        "differs from the numpy gen_batch")
+    log(f"phase 17 bench_torch: parity gates passed, {line['value']:,.1f} "
+        f"evals/s = {line['vs_baseline']}x the pinned CPU rate, launches "
+        f"{ran}; NativeDcf.gen_batch (AES-NI={core.has_aesni}) equals the "
+        f"numpy gen_batch, {K_RELU_ANCHOR} keys at lam=16 and {LAM_WIDE}, 2 "
+        f"bounds ({time.perf_counter() - t0:.1f} s) [{card}]")
 
     # launches x (time - bound) of B1 and B6 on each path, from their
     # per-launch times at each path's shapes (phases 6 and 12).

@@ -21,6 +21,11 @@ H100 (``sm_90a``) with their plain PyTorch versions:
     B6   ops.evalall_expand DPF tree level       (dcf_tpu/ops/pallas_evalall.py)
     P1   ops.pir_answer     PIR inner product    (dcf_tpu/workloads/pir.py)
 
+and the keygen kernels G1, B7a, B7b and W2 (``ops.keygen_walk``).  Its
+own copy of the C++ host core (``native``, built with g++ at first use)
+serves ``Dcf(..., backend="cpu")`` and anchors the bench line
+(``bench_torch.py`` at the repository root).
+
 It imports torch and numpy, never jax and never dcf_tpu.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 """
@@ -30,6 +35,7 @@ from dcf_tpu_torch.errors import (
     BackendUnavailableError,
     DcfError,
     KeyFormatError,
+    NativeBuildError,
     ShapeError,
     StaleStateError,
 )
@@ -50,4 +56,5 @@ __all__ = [
     "ShapeError",
     "BackendUnavailableError",
     "StaleStateError",
+    "NativeBuildError",
 ]

@@ -30,11 +30,15 @@ Backends (``backend=``):
              few points (the secure-ReLU shape); one two-party key image
              serves both parties (backends.keylanes_backend)
     numpy    the host oracle (backends.numpy_backend)
+    cpu      the C++ host core (``native.NativeDcf``: AES-NI, threaded),
+             XOR group: keygen and evaluation on the host; without a
+             working g++ build it raises ``NativeBuildError``
 
 lam = 32 serves the DPF methods (full-domain evaluation on kernel B6)
-under ``auto`` and ``numpy``.  DCF ``gen`` and ``eval`` run there only on
-the host, under an explicit ``backend="numpy"`` (the numpy keygen walk
-and oracle); under ``auto`` they raise, as does the rest of 16 < lam < 48:
+under ``auto``, ``numpy`` and ``cpu``.  DCF ``gen`` and ``eval`` run there
+only on the host, under an explicit ``backend="numpy"`` (the numpy keygen
+walk and oracle) or ``backend="cpu"`` (the C++ core); under ``auto`` they
+raise, as does the rest of 16 < lam < 48:
 the JAX package runs DCF batch eval in that band on its bitsliced
 backend, which has no kernel here yet (ROADMAP.md A7).
 
@@ -83,12 +87,11 @@ from dcf_tpu_torch.spec import (
 
 __all__ = ["Dcf"]
 
-_BACKENDS = ("numpy", "walk", "prefix", "hybrid", "keylanes")
+_BACKENDS = ("numpy", "cpu", "walk", "prefix", "hybrid", "keylanes")
 
 # Backend names of the JAX facade that this package does not carry yet,
 # with the ROADMAP.md item that ports them.
 _LATER = {
-    "cpu": "queue A11 (the native C++ core)",
     "jax": "queue A11 (the byte-level walk)",
     "bitsliced": "queue A7 (the off-card bitsliced walk)",
     "pallas": "none: its kernel is ported as backend 'walk'",
@@ -125,12 +128,13 @@ class Dcf:
                 "(ROADMAP.md A7)")
         if lam == DPF_DEVICE_LAM:
             # The DPF width: dpf / eval_all / pir_query only.
-            if backend not in ("auto", "numpy"):
+            if backend not in ("auto", "numpy", "cpu"):
                 raise ValueError(
                     f"lam={lam} serves the DPF methods (dpf, eval_all, "
                     f"pir_query); it has no {backend!r} backend: DCF batch "
                     "eval at 16 < lam < 48 is not ported (ROADMAP.md A7)")
-            name = "numpy"  # DCF keys only if asked for (backend_requested)
+            # DCF keys only if asked for (backend_requested)
+            name = "cpu" if backend == "cpu" else "numpy"
         else:
             name = backend if backend != "auto" else (
                 "walk" if lam == 16 else "hybrid")
@@ -149,7 +153,7 @@ class Dcf:
                 f"the hybrid (large-lambda) backend wants lam >= 48 (got "
                 f"{lam}); use walk or prefix")
         self._backend_opts = dict(backend_opts or {})
-        if self._backend_opts and name in ("numpy", "keylanes"):
+        if self._backend_opts and name in ("numpy", "cpu", "keylanes"):
             raise ValueError(
                 f"backend_opts {sorted(self._backend_opts)} do not apply to "
                 f"the {name} backend"
@@ -168,8 +172,9 @@ class Dcf:
         self.lam = lam
         self.cipher_keys = list(cipher_keys)
         self.backend_name = name
-        # The name asked for: at lam = 32 both auto and numpy run the DPF
-        # methods, but only an explicit numpy serves DCF keys (on the host).
+        # The name asked for: at lam = 32 auto, numpy and cpu run the DPF
+        # methods, but only an explicit numpy or cpu serves DCF keys (on
+        # the host).
         self.backend_requested = backend
         self.device = resolve_device(device)
         # The facade is the API edge: the contract warning fires once here;
@@ -178,20 +183,26 @@ class Dcf:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", ReferenceContractWarning)
             self._prg = HirosePrgNp(lam, self.cipher_keys)
+            self._native = None
+            if name == "cpu":
+                from dcf_tpu_torch.native import NativeDcf
+
+                self._native = NativeDcf(lam, self.cipher_keys)
         # One backend per party, each holding its own shipped key image.
         self._eval_backends: dict = {}
         self._shipped_bundle: dict = {}
         self._dpf_evalall = None  # built by the first eval_all on the device
 
     def _refuse_dcf_at_dpf_width(self, what: str) -> None:
-        if self.lam == DPF_DEVICE_LAM and self.backend_requested != "numpy":
+        if self.lam == DPF_DEVICE_LAM \
+                and self.backend_requested not in ("numpy", "cpu"):
             raise ValueError(
                 f"{what} at lam={self.lam} with backend="
                 f"{self.backend_requested!r} is not ported: the JAX package "
                 "runs DCF keys of 16 < lam < 48 on its bitsliced backend, "
-                "which has no kernel (ROADMAP.md A7); backend='numpy' runs "
-                "them on the host, and this width serves dpf, eval_all and "
-                "pir_query")
+                "which has no kernel (ROADMAP.md A7); backend='numpy' or "
+                "'cpu' runs them on the host, and this width serves dpf, "
+                "eval_all and pir_query")
 
     @staticmethod
     def _keygen_on_device(device, kernel: bool, why: str) -> bool:
@@ -221,8 +232,12 @@ class Dcf:
         groups take the host walk, as no keygen kernel has their algebra.
         ``device=False`` names the host walk, ``device=True`` the kernel
         (an additive group then raises).  The bytes are the same.  At
-        lam = 32 (``backend="numpy"`` only) keygen is the host walk: no
-        kernel has the DCF algebra at that width."""
+        lam = 32 (``backend="numpy"`` or ``"cpu"`` only) keygen is on the
+        host: no kernel has the DCF algebra at that width.  Under
+        ``backend="cpu"`` keygen stays on the host unless ``device=True``
+        names the kernel: XOR keys on the C++ core (``NativeDcf.
+        gen_batch``), additive groups on the numpy walk, as ``dcf_tpu``
+        routes them."""
         self._refuse_dcf_at_dpf_width("gen")
         if self.lam == DPF_DEVICE_LAM:
             why = (f"no keygen kernel has the DCF algebra at lam={self.lam} "
@@ -233,7 +248,8 @@ class Dcf:
                    f"{group!r} (in this package or in dcf_tpu); call gen() "
                    "with device=None or False for the host walk")
         on_device = self._keygen_on_device(
-            device, group == "xor" and self.lam != DPF_DEVICE_LAM, why)
+            False if self._native is not None and device is None else device,
+            group == "xor" and self.lam != DPF_DEVICE_LAM, why)
         alphas = np.asarray(alphas, dtype=np.uint8)
         betas = np.asarray(betas, dtype=np.uint8)
         if alphas.ndim != 2 or alphas.shape[1] != self.n_bytes:
@@ -242,14 +258,17 @@ class Dcf:
         if on_device:
             return gen_on_device(self.lam, self.cipher_keys, alphas, betas,
                                  s0s, bound, device=self.device)
+        if self._native is not None and group == "xor":
+            return self._native.gen_batch(alphas, betas, s0s, bound)
         return gen_batch(self._prg, alphas, betas, s0s, bound, group=group)
 
     def eval_backend(self, b: int = 0):
         """The backend instance serving party ``b`` (the one two-party
         instance for keylanes), constructed if absent (``None`` for
-        numpy).  The way to the staged API (``stage`` / ``eval_staged`` /
-        ``staged_to_bytes``) once ``eval`` has shipped the key image."""
-        if self.backend_name == "numpy":
+        numpy and cpu).  The way to the staged API (``stage`` /
+        ``eval_staged`` / ``staged_to_bytes``) once ``eval`` has shipped
+        the key image."""
+        if self.backend_name in ("numpy", "cpu"):
             return None
         slot = "kl" if self.backend_name == "keylanes" else int(b)
         be = self._eval_backends.get(slot)
@@ -286,7 +305,7 @@ class Dcf:
 
     def eval(self, b: int, bundle: KeyBundle, xs: np.ndarray) -> np.ndarray:
         """Party ``b`` batch evaluation: xs uint8 [M, n_bytes] (shared) or
-        [K, M, n_bytes] (per key; walk and numpy only).  Returns uint8
+        [K, M, n_bytes] (per key; walk, numpy and cpu only).  Returns uint8
         [K, M, lam]; reconstruct with the bundle's group add of both
         parties' outputs.
 
@@ -308,6 +327,12 @@ class Dcf:
                 self._shipped_bundle["kl"] = bundle
             return be.eval(int(b), xs)
         kb = bundle.for_party(b) if bundle.s0s.shape[1] == 2 else bundle
+        if self.backend_name == "cpu":
+            if kb.group != "xor":
+                raise ShapeError(
+                    f"the cpu (native) backend is XOR-only; bundle has "
+                    f"group {kb.group!r} — use numpy/bitsliced/pallas")
+            return self._native.eval(b, kb, xs)
         if self.backend_name == "numpy":
             from dcf_tpu_torch.backends.numpy_backend import eval_batch_np
 

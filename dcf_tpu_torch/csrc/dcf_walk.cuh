@@ -1,13 +1,13 @@
-// Per-thread DCF arithmetic at lam = 16 on four 1 KB T-tables (their AES
-// serves the T-table kernel B7b of keygen_walk.cuh), and the Hirose
-// children, the tree node's algebra, the group algebra, the finalize and
-// walk bits that the banked bodies of aes_banked.cuh share (kernels B2's
-// and B2f's among them).
+// Per-thread DCF arithmetic at lam = 16 on four 1 KB T-tables, and the
+// Hirose children, the tree node's algebra, the group algebra, the
+// finalize and walk bits that the banked bodies of aes_banked.cuh share
+// (kernels B2's and B2f's among them).
 //
 // walk_point, prefix_point and tree_leaves (B2f's first body) run on these
-// tables; no kernel runs them (B1, B3 and B2f run on the banked AES of
-// aes_banked.cuh), and the host tests hold them, and with them this file's
-// Hirose step and group algebra, to the numpy oracle.
+// tables; no kernel runs them (every kernel runs on the banked AES of
+// aes_banked.cuh, B7b since it left them last), and the host tests hold
+// them, and with them this file's Hirose step and group algebra, to the
+// numpy oracle: a second reference beside the banked bodies.
 //
 // The TPU kernels run a bitsliced AES (128 one-bit planes, 32 points per
 // int32 lane word) because the TPU has no byte gather.  A Hopper SM has
@@ -41,8 +41,6 @@ namespace dcf {
 // 8*lam-1, which the reference masks in all four outputs.
 constexpr uint32_t kMaskBit = 0xFEFFFFFFu;
 
-// Threads per block of every kernel in this package.
-constexpr int kThreads = 256;
 
 struct AesTables {
   uint32_t te[4][256];  // te[r][x]: S-box and MixColumns of a byte at row r
@@ -329,24 +327,5 @@ DCF_HD void tree_leaves(const AesTables& a, const LevelCw& w,
   finalize<0>(sl, tl, vl, np1, false, yl);
   finalize<0>(sr, tr, vr, np1, false, yr);
 }
-
-#if defined(__CUDACC__)
-// Block-cooperative fills of the shared tables; the caller syncs.
-__device__ __forceinline__ void fill_aes_tables(AesTables& a,
-                                                const uint8_t* sbox,
-                                                const uint8_t* rk) {
-  for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    aes_table_entry(a, sbox, i);
-  for (int i = threadIdx.x; i < 60; i += blockDim.x) a.rk[i] = le32(rk + 4 * i);
-}
-
-__device__ __forceinline__ void fill_level_cws(LevelCw* cw,
-                                               const uint8_t* cw_s,
-                                               const uint8_t* cw_v,
-                                               const uint8_t* cw_t, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    level_cw_entry(cw, cw_s, cw_v, cw_t, i);
-}
-#endif
 
 }  // namespace dcf

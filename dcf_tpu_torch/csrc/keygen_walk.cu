@@ -10,24 +10,31 @@
 //
 // Bound on the H100: operations, the shared-memory table lookups of
 // AES-256, 14 rounds x 16 lookups a block: per key and level 2 parties x 2
-// blocks (G1), x 4 (B7a), x 3 (B7b).  The bytes are the inputs (alpha, beta,
-// two seeds) and the correction words written once, 34 bytes a level at
-// lam = 16 (4.35 GB for 10^6 keys at n = 128, about a tenth of G1's lookup
-// time at 3.35 TB/s).  One thread walks one key's n levels with both
+// blocks (G1), x 4 (B7a), x 2 blocks and a t bit (B7b: 224 + 224 + 197
+// lookups, the bit needing 12 full rounds and 5 lookups).  The bytes are
+// the inputs (alpha, beta, two seeds) and the correction words written
+// once, 34 bytes a level at lam = 16 (4.35 GB for 10^6 keys at n = 128,
+// about a tenth of G1's lookup time at 3.35 TB/s).  One thread walks one key's n levels with both
 // parties' state in registers (keygen_walk.cuh); keys lie on the grid's x
 // axis (no 65,535 limit) and every offset is 64-bit.  Each level's
 // correction words go out as 16-byte stores, one row per thread.
 //
-// G1 and B7a run on the banked AES of aes_banked.cuh (64 KB in dynamic
+// The three run on the banked AES of aes_banked.cuh (64 KB in dynamic
 // shared memory, one wavefront a warp's lookups), every lane doing the
 // same work, as in kernel B8: G1 both parties' four blocks of a level in
 // lockstep (KgBanked16), B7a a party's four, one party after the other
-// (KgBankedNarrow).  On the four 1 KB T-tables of dcf_walk.cuh, where
-// about 3.3 lanes' lookups fall into one bank, G1 reached 29% of its
-// bound and B7a 26%; on the banked AES G1 76% (18.1 ms for 10^6 keys at
-// n = 128) and B7a 71% (2.51 ms at lam = 256, K = 2^16; NVIDIA H100 80GB
-// HBM3, 700 W power limit, chip_smoke.py and chip_ab.py).  In turns
-// (chip_ab.py): for G1 four blocks in lockstep beat two and two, also at
+// (KgBankedNarrow), B7b B6's masked step (KgBankedDpf), both parties'
+// four blocks and two t bits in lockstep.  On the four 1 KB
+// T-tables of dcf_walk.cuh, where about 3.3 lanes' lookups fall into one
+// bank, G1 reached 29% of its bound, B7a 26% and B7b 28%; on the banked
+// AES G1 76% (18.1 ms for 10^6 keys at n = 128), B7a 71% (2.51 ms at
+// lam = 256, K = 2^16) and B7b 71-72% (0.34 ms at n = 24, K = 2^16,
+// 0.84-0.86 ms on the T-tables; NVIDIA H100 80GB HBM3, 700 W power limit,
+// chip_smoke.py and chip_ab.py).  In turns (chip_ab.py): for B7b both
+// parties' blocks in lockstep beat one party after the other by 1-2%,
+// and 512-thread blocks beat 256 (0.341 against 0.355 ms: with one
+// thread a key, 2^16 keys leave 512 threads on the busiest SM either
+// way); for G1 four blocks in lockstep beat two and two, also at
 // 768 threads a block, and a key's alpha read a byte each 8 levels with a
 // level's t bits in one store beat a byte load and two stores a level
 // (B7a stores a level's two trajectory bytes in one store too); for B7a
@@ -36,8 +43,7 @@
 // lam = 16384, K = 64, where 64 threads wait on latency; streaming stores
 // of the correction words changed neither.  Their grid is persistent: as
 // many 512-thread blocks as fit on the card, never more than the keys
-// need, fill the table once and take keys in a stride loop.  B7b still
-// runs on the T-tables (KgTables), a 256-thread block a 256 keys.
+// need, fill the table once and take keys in a stride loop.
 
 #include <cuda_runtime.h>
 
@@ -45,10 +51,10 @@
 
 namespace {
 
-constexpr int kBlock = 512;  // G1 and B7a
+constexpr int kBlock = 512;
 
-// G1's and B7a's shared layout: the banked table, then cipher 0's round
-// keys and, for B7a, cipher 17's.
+// The shared layout: the banked table, then cipher 0's round keys and,
+// for B7a and B7b, cipher 17's.
 template <int MODE>
 constexpr size_t kSmem =
     sizeof(uint32_t) * dcf::kBankedWords +
@@ -68,7 +74,8 @@ __device__ __forceinline__ void key_rows(
       cw_t + rows * 2, cw_np1 + key * lam, traj ? traj + rows * 2 : nullptr);
 }
 
-// G1 (MODE kKgDcf16, lam = 16, no traj) and B7a (kKgNarrow).
+// G1 (MODE kKgDcf16, lam = 16, no traj), B7a (kKgNarrow) and B7b
+// (kKgDpf32, lam = 32, no cw_v, no traj).
 template <int MODE>
 __global__ void __launch_bounds__(kBlock, 1)
     keygen_banked_kernel(const uint8_t* __restrict__ sbox,
@@ -89,7 +96,7 @@ __global__ void __launch_bounds__(kBlock, 1)
       reinterpret_cast<dcf::RoundKey*>(te + dcf::kBankedWords);
   dcf::fill_banked_table(te, sbox);
   dcf::fill_round_keys(rks, rk0);
-  if constexpr (MODE == dcf::kKgNarrow) dcf::fill_round_keys(rks + 16, rk17);
+  if constexpr (MODE != dcf::kKgDcf16) dcf::fill_round_keys(rks + 16, rk17);
   __syncthreads();
 
   const dcf::BkLane lane = dcf::bk_lane(te, threadIdx.x & 31);
@@ -99,30 +106,14 @@ __global__ void __launch_bounds__(kBlock, 1)
     if constexpr (MODE == dcf::kKgDcf16)
       key_rows<MODE>(dcf::KgBanked16{lane, rks}, key, alphas, betas, s0s,
                      cw_s, cw_v, cw_t, cw_np1, nullptr, n, 16, lt);
-    else
+    else if constexpr (MODE == dcf::kKgNarrow)
       key_rows<MODE>(dcf::KgBankedNarrow{lane, rks, rks + 16}, key, alphas,
                      betas, s0s, cw_s, cw_v, cw_t, cw_np1, traj, n, lam, lt);
+    else
+      key_rows<MODE>(dcf::KgBankedDpf{lane, rks, rks + 16}, key, alphas,
+                     betas, s0s, cw_s, nullptr, cw_t, cw_np1, nullptr, n, 32,
+                     lt);
   }
-}
-
-// B7b on the T-tables, one thread a key.
-__global__ void __launch_bounds__(dcf::kThreads)
-    keygen_dpf_kernel(const uint8_t* __restrict__ sbox,
-                      const uint8_t* __restrict__ rk0,
-                      const uint8_t* __restrict__ rk17,
-                      const uint8_t* __restrict__ alphas,
-                      const uint8_t* __restrict__ betas,
-                      const uint8_t* __restrict__ s0s,
-                      uint8_t* __restrict__ cw_s, uint8_t* __restrict__ cw_t,
-                      uint8_t* __restrict__ cw_np1, long long k_num, int n) {
-  __shared__ dcf::NarrowTables tab;
-  dcf::fill_narrow_tables(tab, sbox, rk0, rk17);
-  __syncthreads();
-
-  const size_t key = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (key >= (size_t)k_num) return;
-  key_rows<dcf::kKgDpf32>(dcf::KgTables{tab}, key, alphas, betas, s0s, cw_s,
-                          nullptr, cw_t, cw_np1, nullptr, n, 32, 1);
 }
 
 template <int MODE>
@@ -176,16 +167,7 @@ extern "C" int dcf_keygen_walk(const void* sbox, const void* rk0,
   switch (mode) {
     case dcf::kKgDcf16: return (int)launch_banked<dcf::kKgDcf16>(DCF_ARGS);
     case dcf::kKgNarrow: return (int)launch_banked<dcf::kKgNarrow>(DCF_ARGS);
-    case dcf::kKgDpf32: {
-      const long long blocks = (k_num + dcf::kThreads - 1) / dcf::kThreads;
-      keygen_dpf_kernel<<<(unsigned)blocks, dcf::kThreads, 0,
-                          (cudaStream_t)stream>>>(
-          (const uint8_t*)sbox, (const uint8_t*)rk0, (const uint8_t*)rk17,
-          (const uint8_t*)alphas, (const uint8_t*)betas,
-          (const uint8_t*)s0s, (uint8_t*)cw_s, (uint8_t*)cw_t,
-          (uint8_t*)cw_np1, k_num, n);
-      return (int)cudaGetLastError();
-    }
+    case dcf::kKgDpf32: return (int)launch_banked<dcf::kKgDpf32>(DCF_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DCF_ARGS

@@ -37,11 +37,13 @@
 //        narrow_children).  It also writes both
 //        parties' t at the entry of every level, the trajectories the wide
 //        tail is computed from.
-//   B7b  KgTables, on the T-tables of dcf_walk.cuh: the masked lam = 32 DPF
-//        step of B6's node: E0(s_b0), E0(~s_b0), E17(s_b1), three blocks a
-//        party (E17(~s_b1) feeds only v, which a DPF has not); bit 0 of
-//        byte 31 cleared in block 1 of both children.  No v column:
-//        cw_np1 = s_a ^ s_b ^ beta.
+//   B7b  KgBankedDpf: the masked lam = 32 DPF step of B6's node
+//        (dpf_step_in and dpf_children of narrow_walk.cuh), uncorrected:
+//        E0(s_b0) and E17(s_b1) in full and E0(~s_b0) to its t bit
+//        (E17(~s_b1) feeds only v, which a DPF has not), both parties'
+//        blocks in lockstep on the banked AES; bit 0 of byte 31 cleared in
+//        block 1 of both children.  No v column: cw_np1 = s_a ^ s_b ^
+//        beta.
 //
 // Beyond byte 32 the Hirose PRG of lam >= 48 copies its input, so the wide
 // part of B7a's keys is a GF(2) recursion over alpha's bits and the two
@@ -143,33 +145,39 @@ DCF_HD void kg_expand(const KgBankedNarrow& e, const uint32_t sa[8],
   narrow_children(sb, x, eb);
 }
 
-// B7b's expansion: dpf_node's masked lam = 32 step, seeds only.
-DCF_HD void kg_expand_dpf(const NarrowTables& T, const uint32_t s[8],
-                          StepChildren<8>& c) {
-  uint32_t sp[4], e0[4], e0p[4], e1[4];
-  for (int q = 0; q < 4; ++q) sp[q] = ~s[q];
-  aes256_encrypt3_rk(T.a, T.a.rk, T.rk17, s, sp, s + 4, e0, e0p, e1);
-  c.tl = (e0[0] ^ s[0]) & 1u;
-  c.tr = (e0p[0] ^ sp[0]) & 1u;
-  for (int q = 0; q < 4; ++q) {
-    const uint32_t m = q == 3 ? kMaskBit : 0xFFFFFFFFu;
-    c.sl[q] = e0[q] ^ s[q];
-    c.sr[q] = s[q];
-    c.sl[4 + q] = s[4 + q] & m;
-    c.sr[4 + q] = (e1[q] ^ s[4 + q]) & m;
-  }
-}
-
-// B7b's expansion: the T-tables, one party after the other.
-struct KgTables {
-  const NarrowTables& T;
+// B7b's expansion: the lane's view t of the banked AES, cipher 0's and
+// cipher 17's round keys.
+struct KgBankedDpf {
+  BkLane t;
+  const RoundKey* rk0;
+  const RoundKey* rk17;
 };
 
-DCF_HD void kg_expand(const KgTables& e, const uint32_t sa[8],
+// Both parties' masked lam = 32 DPF steps, uncorrected (B6's step:
+// dpf_step_in and dpf_children of narrow_walk.cuh): both parties' four
+// blocks and two t bits in lockstep (bk_encrypt<4, 2>; a party's two
+// blocks and t bit, one party after the other, as B6's dpf_step_banked
+// runs them, took 0.341-0.342 ms against 0.336-0.339 at n = 24, K = 2^16,
+// both at 127 registers, in turns).  Every lane does the same work: no
+// vote.
+DCF_HD void kg_expand(const KgBankedDpf& e, const uint32_t sa[8],
                       const uint32_t sb[8], StepChildren<8>& ea,
                       StepChildren<8>& eb) {
-  kg_expand_dpf(e.T, sa, ea);
-  kg_expand_dpf(e.T, sb, eb);
+  uint32_t xa[3][4], xb[3][4], x[6][4], bit[2];
+  dpf_step_in(sa, xa);
+  dpf_step_in(sb, xb);
+  for (int q = 0; q < 4; ++q) {
+    x[0][q] = xa[0][q];
+    x[1][q] = xa[1][q];
+    x[2][q] = xb[0][q];
+    x[3][q] = xb[1][q];
+    x[4][q] = xa[2][q];
+    x[5][q] = xb[2][q];
+  }
+  const RoundKey* const rk[6] = {e.rk0, e.rk17, e.rk0, e.rk17, e.rk0, e.rk0};
+  bk_encrypt<4, 2>(e.t, rk, x, bit);
+  dpf_children(sa, x, bit[0], ea.sl, ea.tl, ea.sr, ea.tr);
+  dpf_children(sb, x + 2, bit[1], eb.sl, eb.tl, eb.sr, eb.tr);
 }
 
 // One keygen level from both parties' expansions.  a is alpha's walk bit:
@@ -239,7 +247,7 @@ DCF_HD void kg_store2(uint8_t* p, uint32_t b0, uint32_t b1) {
 }
 
 // The whole keygen of one key, n levels, both parties' seeds expanded at
-// each level by `expand` (KgBanked16, KgBankedNarrow or KgTables).  alpha:
+// each level by `expand` (KgBanked16, KgBankedNarrow or KgBankedDpf).  alpha:
 // n/8 bytes, read a byte each 8 levels; beta: the key's beta row; s0a /
 // s0b: the parties' root seeds.  Rows of lam bytes: cw_s (and cw_v) [n][lam],
 // cw_np1 [lam], of which the first 4 * W bytes are written; cw_t [n][2]

@@ -28,7 +28,9 @@
 // The kernels run it on the banked AES of aes_banked.cuh: B4 and B5b as
 // three slots a level (narrow_level_banked), B5a both children of a
 // frontier node at once (frontier_expand), B6 its DPF node
-// (dpf_node_banked).
+// (dpf_node_banked: the masked lam = 32 step dpf_step_banked, then the
+// level's correction; keygen_walk.cuh's B7b runs the same step's pieces
+// on both parties' seeds at once).
 //
 // A trajectory is a bit string, bit i = t_i, packed into little-endian
 // uint32 words (bit i is bit i % 32 of word i / 32, which is also bit i % 8
@@ -43,8 +45,10 @@
 
 namespace dcf {
 
-// Shared tables of the narrow walk: the T-tables, the S-box and cipher 0's
-// round keys (a.rk), and cipher 17's round keys.
+// The T-tables, the S-box and cipher 0's round keys (a.rk), and cipher
+// 17's round keys: no kernel reads them since every narrow kernel runs on
+// the banked AES; with aes256_encrypt3_rk the host tests' second
+// reference for the lam = 32 DPF step.
 struct NarrowTables {
   AesTables a;
   uint32_t rk17[60];
@@ -257,8 +261,7 @@ DCF_HD void dpf_leaf(uint32_t s[8], uint32_t t, const uint32_t np1[8]) {
   for (int q = 0; q < 8; ++q) s[q] ^= np1[q] & g;
 }
 
-// One parent node of the lam = 32 DPF tree into its two children, seed
-// correction gated by t, on the banked AES.  The masked Hirose step:
+// The masked lam = 32 Hirose step of a DPF (no value half), uncorrected:
 //
 //   s_l = (E0(s_b0) ^ s_b0, s_b1)    s_r = (s_b0, E17(s_b1) ^ s_b1)
 //
@@ -266,31 +269,61 @@ DCF_HD void dpf_leaf(uint32_t s[8], uint32_t t, const uint32_t np1[8]) {
 // children (block 0 is never masked), and t_l / t_r bit 0 of byte 0 of
 // E0(s_b0) ^ s_b0 and E0(~s_b0) ^ ~s_b0.  E17(~s_b1) feeds only the value
 // half, which a DPF has not, and of E0(~s_b0) only t_r is read: two full
-// blocks and one t bit in lockstep (bk_encrypt<2, 1>, 224 + 224 + 197
-// lookups).  Every lane does the same work, so a warp needs no vote.
-DCF_HD void dpf_node_banked(const BkLane& t, const RoundKey* rk0,
-                            const RoundKey* rk17, const DpfCw& w,
-                            const uint32_t s[8], uint32_t tt, uint32_t sl[8],
-                            uint32_t& tl, uint32_t sr[8], uint32_t& tr) {
-  uint32_t x[3][4], bit[1];
+// blocks and one t bit.  dpf_step_in lays out seed s's three blocks, to
+// be encrypted under {rk0, rk17, rk0}, the third to its t bit alone;
+// dpf_children makes the children from them (x[0] and x[1] encrypted,
+// bit0 bit 0 of E0(~s_b0)).
+DCF_HD void dpf_step_in(const uint32_t s[8], uint32_t (*x)[4]) {
   for (int q = 0; q < 4; ++q) {
     x[0][q] = s[q];
     x[1][q] = s[4 + q];
     x[2][q] = ~s[q];
   }
-  const RoundKey* const rk[3] = {rk0, rk17, rk0};
-  bk_encrypt<2, 1>(t, rk, x, bit);
-  const uint32_t g = 0u - tt;
-  tl = ((x[0][0] ^ s[0]) & 1u) ^ (tt & w.t);
-  tr = (bit[0] ^ (~s[0] & 1u)) ^ (tt & (w.t >> 1));
+}
+
+DCF_HD void dpf_children(const uint32_t s[8], const uint32_t (*x)[4],
+                         uint32_t bit0, uint32_t sl[8], uint32_t& tl,
+                         uint32_t sr[8], uint32_t& tr) {
+  tl = (x[0][0] ^ s[0]) & 1u;
+  tr = (bit0 ^ ~s[0]) & 1u;
   for (int q = 0; q < 4; ++q) {
     const uint32_t m = q == 3 ? kMaskBit : 0xFFFFFFFFu;
-    const uint32_t c0 = w.s[q] & g;
-    const uint32_t c1 = w.s[4 + q] & g;
-    sl[q] = x[0][q] ^ s[q] ^ c0;
-    sr[q] = s[q] ^ c0;
-    sl[4 + q] = (s[4 + q] & m) ^ c1;
-    sr[4 + q] = ((x[1][q] ^ s[4 + q]) & m) ^ c1;
+    sl[q] = x[0][q] ^ s[q];
+    sr[q] = s[q];
+    sl[4 + q] = s[4 + q] & m;
+    sr[4 + q] = (x[1][q] ^ s[4 + q]) & m;
+  }
+}
+
+// The step of one seed on the banked AES: its two blocks and one t bit in
+// lockstep (bk_encrypt<2, 1>, 224 + 224 + 197 lookups).  Every lane does
+// the same work, so a warp needs no vote.  Kernel B6's node runs it;
+// kernel B7b's keygen level runs two seeds' dpf_step_in and dpf_children
+// around one bk_encrypt<4, 2>.
+DCF_HD void dpf_step_banked(const BkLane& t, const RoundKey* rk0,
+                            const RoundKey* rk17, const uint32_t s[8],
+                            uint32_t sl[8], uint32_t& tl, uint32_t sr[8],
+                            uint32_t& tr) {
+  uint32_t x[3][4], bit[1];
+  dpf_step_in(s, x);
+  const RoundKey* const rk[3] = {rk0, rk17, rk0};
+  bk_encrypt<2, 1>(t, rk, x, bit);
+  dpf_children(s, x, bit[0], sl, tl, sr, tr);
+}
+
+// One parent node (s, tt) of the lam = 32 DPF tree into its two children:
+// the step, then the level's seed and t correction gated by tt.
+DCF_HD void dpf_node_banked(const BkLane& t, const RoundKey* rk0,
+                            const RoundKey* rk17, const DpfCw& w,
+                            const uint32_t s[8], uint32_t tt, uint32_t sl[8],
+                            uint32_t& tl, uint32_t sr[8], uint32_t& tr) {
+  dpf_step_banked(t, rk0, rk17, s, sl, tl, sr, tr);
+  const uint32_t g = 0u - tt;
+  tl ^= tt & w.t;
+  tr ^= tt & (w.t >> 1);
+  for (int q = 0; q < 8; ++q) {
+    sl[q] ^= w.s[q] & g;
+    sr[q] ^= w.s[q] & g;
   }
 }
 
@@ -586,16 +619,7 @@ DCF_HD void wide_chunk(const uint32_t* traj, int n1, const uint32_t* tab,
 }
 
 #if defined(__CUDACC__)
-// Block-cooperative fills of the shared narrow tables; the caller syncs.
-__device__ __forceinline__ void fill_narrow_tables(NarrowTables& t,
-                                                   const uint8_t* sbox,
-                                                   const uint8_t* rk0,
-                                                   const uint8_t* rk17) {
-  fill_aes_tables(t.a, sbox, rk0);
-  for (int i = threadIdx.x; i < 60; i += blockDim.x)
-    t.rk17[i] = le32(rk17 + 4 * i);
-}
-
+// Block-cooperative fill of a launch's narrow CWs; the caller syncs.
 __device__ __forceinline__ void fill_narrow_cws(NarrowCw* cw,
                                                 const uint8_t* cw_s,
                                                 const uint8_t* cw_v,

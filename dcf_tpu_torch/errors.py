@@ -1,9 +1,9 @@
 """Typed error taxonomy of the PyTorch port.
 
-Counterpart of ``dcf_tpu/errors.py`` (the classes at its lines 91-115),
-with the same class names and bases so that a caller's ``except`` clauses
-carry over between the two packages.  Each class also inherits the
-builtin exception a plain check would raise (``ValueError`` /
+Counterpart of ``dcf_tpu/errors.py`` (the classes at its lines 91-118 and
+289-303), with the same class names and bases so that a caller's
+``except`` clauses carry over between the two packages.  Each class also
+inherits the builtin exception a plain check would raise (``ValueError`` /
 ``RuntimeError``), so ``except ValueError`` call sites keep working.
 
     DcfError
@@ -11,6 +11,9 @@ builtin exception a plain check would raise (``ValueError`` /
       +-- ShapeError              (ValueError)   array shape/dtype contract
       +-- BackendUnavailableError (RuntimeError) no backend or device can serve
       +-- StaleStateError         (RuntimeError) staged state outlived its bundle
+      +-- NativeBuildError        (RuntimeError) C++ core build/load failed
+
+    BackendFallbackWarning (UserWarning)  a slower, bit-exact path serves
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ __all__ = [
     "ShapeError",
     "BackendUnavailableError",
     "StaleStateError",
+    "NativeBuildError",
+    "BackendFallbackWarning",
 ]
 
 
@@ -48,3 +53,27 @@ class StaleStateError(DcfError, RuntimeError):
     staged points were cut for a bundle geometry the backend no longer
     holds (re-stage), or no bundle was shipped (``eval`` before
     ``put_bundle``)."""
+
+
+class NativeBuildError(DcfError, RuntimeError):
+    """The C++ host core (``dcf_tpu_torch.native``) failed to build or
+    load."""
+
+
+class BackendFallbackWarning(UserWarning):
+    """The framework degraded to a slower-but-correct path.
+
+    Structured: ``failed`` (what was tried), ``fallback`` (what now
+    serves), ``cause`` (the triggering exception, possibly None).
+    """
+
+    def __init__(self, failed: str, fallback: str,
+                 cause: BaseException | None = None):
+        self.failed = failed
+        self.fallback = fallback
+        self.cause = cause
+        detail = (f" ({type(cause).__name__}: {cause})"
+                  if cause is not None else "")
+        super().__init__(
+            f"backend {failed!r} unavailable{detail}; falling back to "
+            f"{fallback!r}")

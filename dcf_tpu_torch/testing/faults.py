@@ -40,6 +40,10 @@ POINTS = (
     "keygen.device",  # keygen on the device, before its kernels run
     #                   (gen.gen_on_device, protocols.dpf.dpf_gen_on_device;
     #                   handler args: number of keys, lam)
+    "native.build",  # one build of the C++ core (native.build; handler
+    #                  args: portable)
+    "native.load",  # loading a built C++ core (native.load; handler args:
+    #                 portable)
 )
 
 _ACTIVE: dict[str, Callable] = {}

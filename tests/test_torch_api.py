@@ -78,14 +78,16 @@ def test_gen_matches_dcf_tpu_and_bundle_ships_once():
 @pytest.mark.parametrize("name", ["cpu", "jax", "bitsliced", "pallas",
                                   "keylanes", "hybrid", "nope"])
 def test_unported_backends_raise(name):
-    """Every JAX backend name but hybrid and keylanes is not in the
-    package; hybrid is, for lam >= 48 only, and keylanes for lam = 16
-    only."""
+    """Every JAX backend name but hybrid, keylanes and cpu is not in the
+    package; hybrid is, for lam >= 48 only, keylanes for lam = 16 only,
+    and cpu (the C++ core) takes no backend_opts, as in dcf_tpu."""
     lam = 48 if name == "keylanes" else 16
-    match = {"hybrid": "lam >= 48", "keylanes": "lam=16 only"}.get(
-        name, "not in this package")
+    match = {"hybrid": "lam >= 48", "keylanes": "lam=16 only",
+             "cpu": "do not apply"}.get(name, "not in this package")
+    opts = {"threads": 1} if name == "cpu" else None
     with pytest.raises(ValueError, match=match):
-        Dcf(2, lam, [b"k" * 32] * 2, backend=name, device="cpu")
+        Dcf(2, lam, [b"k" * 32] * 2, backend=name, backend_opts=opts,
+            device="cpu")
 
 
 @pytest.mark.parametrize("lam", [32, 48, 128])

@@ -13,8 +13,9 @@ the tree node of kernel B2, up to three levels a thread;
 three-slot narrow level, from the root or from a frontier row), B5a (a
 frontier node into both children, up to three levels a thread, in place)
 and B6 (the masked lam = 32 DPF node, up to three levels a thread, and
-its leaf correction); ``keygen_walk.cuh`` the keygen of kernels G1 and
-B7a (on the banked AES) and B7b, and W2's wide-tail column.  The banked bodies' tests run the lanes of
+its leaf correction, and the masked step it shares with kernel B7b);
+``keygen_walk.cuh`` the keygen of kernels G1, B7a and B7b on the banked
+AES, and W2's wide-tail column.  The banked bodies' tests run the lanes of
 a warp in a loop, the warp's votes taken over all lanes first.  This test
 compiles the headers with the host C++ compiler into a small library
 that runs each body over every (key, point) or node in a loop, and holds
@@ -232,15 +233,13 @@ _KEYGEN_HARNESS = r"""
 #include "keygen_walk.cuh"
 
 extern "C" {
-// Kernels G1 (mode 0) and B7a (1), key j on lane j % 32 of the banked
-// AES, and B7b (2), one key after another.
+// Kernels G1 (mode 0), B7a (1) and B7b (2), key j on lane j % 32 of the
+// banked AES.
 void host_keygen(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
                  const uint8_t* alphas, const uint8_t* betas,
                  const uint8_t* s0s, uint8_t* cw_s, uint8_t* cw_v,
                  uint8_t* cw_t, uint8_t* cw_np1, uint8_t* traj, int K, int n,
                  int lam, int lt, int mode) {
-  NarrowTables t;
-  narrow_tables(t, sbox, rk0, rk17);
   std::vector<uint32_t> te;
   banked_table(te, sbox);
   RoundKey rks[15], rks17[15];
@@ -260,8 +259,58 @@ void host_keygen(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
     else if (mode == 1)
       keygen_key<kKgNarrow>(KgBankedNarrow{lane, rks, rks17}, KG_ARGS);
     else
-      keygen_key<kKgDpf32>(KgTables{t}, KG_ARGS);
+      keygen_key<kKgDpf32>(KgBankedDpf{lane, rks, rks17}, KG_ARGS);
 #undef KG_ARGS
+  }
+}
+
+// The masked lam = 32 DPF step of N seeds, seed j on lane j % 32, three
+// ways: dpf_step_banked (the step B6 and B7b share, uncorrected) into
+// step_s / step_t, dpf_node_banked under the one CW (cw_s [32], cw_t [2])
+// and the seed's t_in into node_s / node_t, and the three blocks on the
+// T-tables (aes256_encrypt3_rk, E0(~s_b0) in full) into tab_s / tab_t.
+// Children [N, 2, 32] (left, right) and their t bits [N, 2].
+void host_dpf_step(const uint8_t* sbox, const uint8_t* rk0,
+                   const uint8_t* rk17, const uint8_t* cw_s,
+                   const uint8_t* cw_t, const uint8_t* seeds,
+                   const uint8_t* t_in, uint8_t* step_s, uint8_t* step_t,
+                   uint8_t* node_s, uint8_t* node_t, uint8_t* tab_s,
+                   uint8_t* tab_t, int N) {
+  NarrowTables tab;
+  narrow_tables(tab, sbox, rk0, rk17);
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey k0[15], k17[15];
+  round_keys(k0, rk0);
+  round_keys(k17, rk17);
+  DpfCw w;
+  dpf_cw_entry(w, cw_s, cw_t);
+  for (int j = 0; j < N; ++j) {
+    uint32_t s[8], c[2][8], ct[2];
+    words8(seeds + 32 * (size_t)j, s);
+    const BkLane lane = bk_lane(te.data(), j % kLanes);
+    dpf_step_banked(lane, k0, k17, s, c[0], ct[0], c[1], ct[1]);
+    memcpy(step_s + 64 * (size_t)j, c, 64);
+    step_t[2 * j] = (uint8_t)ct[0];
+    step_t[2 * j + 1] = (uint8_t)ct[1];
+    dpf_node_banked(lane, k0, k17, w, s, t_in[j] & 1u, c[0], ct[0], c[1],
+                    ct[1]);
+    memcpy(node_s + 64 * (size_t)j, c, 64);
+    node_t[2 * j] = (uint8_t)ct[0];
+    node_t[2 * j + 1] = (uint8_t)ct[1];
+    uint32_t sp[4], e0[4], e0p[4], e1[4];
+    for (int q = 0; q < 4; ++q) sp[q] = ~s[q];
+    aes256_encrypt3_rk(tab.a, tab.a.rk, tab.rk17, s, sp, s + 4, e0, e0p, e1);
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t m = q == 3 ? kMaskBit : 0xFFFFFFFFu;
+      c[0][q] = e0[q] ^ s[q];
+      c[1][q] = s[q];
+      c[0][4 + q] = s[4 + q] & m;
+      c[1][4 + q] = (e1[q] ^ s[4 + q]) & m;
+    }
+    memcpy(tab_s + 64 * (size_t)j, c, 64);
+    tab_t[2 * j] = (uint8_t)((e0[0] ^ s[0]) & 1u);
+    tab_t[2 * j + 1] = (uint8_t)((e0p[0] ^ sp[0]) & 1u);
   }
 }
 
@@ -1536,7 +1585,8 @@ def test_banked_narrow_keygen_body_at_full_depth(lib):
 
 @pytest.mark.parametrize("k_num", [1, 8])
 def test_dpf_keygen_body_matches_dpf_gen_batch(lib, k_num):
-    """B7b's body gives dpf_gen_batch's lam = 32 keys byte for byte."""
+    """B7b's banked body gives dpf_gen_batch's lam = 32 keys byte for
+    byte."""
     from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
 
     rng = np.random.default_rng(390 + k_num)
@@ -1549,6 +1599,64 @@ def test_dpf_keygen_body_matches_dpf_gen_batch(lib, k_num):
     assert np.array_equal(cw_s, want.cw_s)
     assert np.array_equal(cw_t, want.cw_t)
     assert np.array_equal(cw_np1, want.cw_np1)
+
+
+@pytest.mark.parametrize("n", [8, 24])
+@pytest.mark.parametrize("k_num", [1, 33])
+def test_banked_dpf_keygen_body_at_depths(lib, k_num, n):
+    """B7b's banked body (KgBankedDpf, key j on lane j % 32) at n = 8 and
+    at the PIR path's n = 24, over one key and over lanes 0-31 and a
+    partial warp: dpf_gen_batch's keys byte for byte, alpha = 0 and the
+    all-ones alpha among them."""
+    from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
+
+    rng = np.random.default_rng(392 + k_num + n)
+    ck = [rng.bytes(32) for _ in range(18)]
+    alphas = rng.integers(0, 256, (k_num, n // 8), dtype=np.uint8)
+    if k_num > 2:
+        alphas[1], alphas[2] = 0, 0xFF
+    betas = rng.integers(0, 256, (k_num, 32), dtype=np.uint8)
+    s0s = random_s0s(k_num, 32, rng)
+    cw_s, _, cw_t, cw_np1, _ = _keygen_body(lib, 2, ck, alphas, betas, s0s)
+    want = dpf_gen_batch(HirosePrgNp(32, ck, warn=False), alphas, betas, s0s)
+    assert np.array_equal(cw_s, want.cw_s)
+    assert np.array_equal(cw_t, want.cw_t)
+    assert np.array_equal(cw_np1, want.cw_np1)
+
+
+@pytest.mark.parametrize("n_seeds", [1, 37])
+def test_dpf_step_body_matches_node_and_tables(lib, n_seeds):
+    """The masked lam = 32 step that B6's node and B7b's level share
+    (``dpf_step_banked``), seed j on lane j % 32: its children equal the
+    numpy PRG's masked (s_l, t_l, s_r, t_r) and the same step on the
+    T-tables (``aes256_encrypt3_rk``), and ``dpf_node_banked``'s children
+    are exactly the step's with the CW XORed in where t is 1, byte for
+    byte."""
+    rng = np.random.default_rng(396 + n_seeds)
+    ck = [rng.bytes(32) for _ in range(18)]
+    seeds = rng.integers(0, 256, (n_seeds, 32), dtype=np.uint8)
+    t_in = rng.integers(0, 2, n_seeds, dtype=np.uint8)
+    t_in[0] = 1
+    cw_s = rng.integers(0, 256, 32, dtype=np.uint8)
+    cw_t = rng.integers(0, 2, 2, dtype=np.uint8)
+    out = {name: np.zeros(shape, np.uint8) for name, shape in (
+        ("step_s", (n_seeds, 2, 32)), ("step_t", (n_seeds, 2)),
+        ("node_s", (n_seeds, 2, 32)), ("node_t", (n_seeds, 2)),
+        ("tab_s", (n_seeds, 2, 32)), ("tab_t", (n_seeds, 2)))}
+    lib.host_dpf_step(
+        _p(SBOX_NP), _p(expand_key_np(ck[0])), _p(expand_key_np(ck[17])),
+        _p(cw_s), _p(cw_t), _p(seeds), _p(t_in),
+        *(_p(out[k]) for k in ("step_s", "step_t", "node_s", "node_t",
+                               "tab_s", "tab_t")), n_seeds)
+    prg = HirosePrgNp(32, ck, warn=False).gen(seeds)
+    assert np.array_equal(out["step_s"], np.stack([prg.s_l, prg.s_r], 1))
+    assert np.array_equal(out["step_t"], np.stack([prg.t_l, prg.t_r], 1))
+    assert np.array_equal(out["tab_s"], out["step_s"])
+    assert np.array_equal(out["tab_t"], out["step_t"])
+    g = t_in[:, None].astype(bool)
+    assert np.array_equal(out["node_s"], out["step_s"]
+                          ^ np.where(g[..., None], cw_s, 0).astype(np.uint8))
+    assert np.array_equal(out["node_t"], out["step_t"] ^ (g * cw_t))
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])

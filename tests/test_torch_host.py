@@ -210,13 +210,15 @@ def test_prepare_batch_pads_and_promotes():
 
 def _port_sources():
     files = sorted((REPO / "dcf_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_ab.py",
+                    REPO / "bench_torch.py"]
 
 
 def test_port_imports_neither_jax_nor_dcf_tpu():
-    """AST scan of every module of the port, chip_smoke.py and chip_ab.py: no
-    ``import jax``/``from jax`` and nothing of ``dcf_tpu`` (whose
-    ``__init__`` imports jax)."""
+    """AST scan of every module of the port (its C++ core's loader
+    included), chip_smoke.py, chip_ab.py and bench_torch.py: no ``import
+    jax``/``from jax`` and nothing of ``dcf_tpu`` (whose ``__init__``
+    imports jax)."""
     files = _port_sources()
     assert len(files) > 15
     scanned = {str(f.relative_to(REPO)) for f in files}
@@ -225,8 +227,9 @@ def test_port_imports_neither_jax_nor_dcf_tpu():
                 "ops/evalall_expand.py", "ops/pir_answer.py",
                 "ops/keygen_walk.py", "ops/keylanes_eval.py",
                 "backends/device_gen.py", "backends/keylanes_backend.py",
-                "protocols/combine.py"):
+                "protocols/combine.py", "native/__init__.py"):
         assert f"dcf_tpu_torch/{sub}" in scanned
+    assert "bench_torch.py" in scanned
     banned = ("jax", "jaxlib", "dcf_tpu")
     offenders = []
     for path in files:
