@@ -120,11 +120,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     prefix path, 2^20 points, its full two-party check and its 4096-point
     anchor against the C++ core: a parity failure fails the smoke), its
     JSON line logged; then the C++ core's ``NativeDcf.gen_batch`` against
-    the numpy ``gen_batch``, 64 keys at lam = 16 and 256, both bounds.
+    the numpy ``gen_batch``, 64 keys at lam = 16 and 256, both bounds;
+18. the interval protocols and fixed-point gates (``protocols``): B1 at
+    n = 8 and 16 and B2 + B3 at n = 16 (k = 8) and n = 128 (k = 17), each
+    with K = 16 keys at shared points (the 2m bound keys of an 8-interval
+    MIC), in xor, add16 and add32, both bounds and parties, x = alpha and
+    alpha +- 1 planted, against their plain versions at 2^16 points, and
+    ``PrefixBackend``'s own depth, B2 launches and cached frontier; MIC
+    at mic_bench's shape (n = 128, 8 intervals from a seed, one wrapping,
+    one with q = 2^128, 2^20 shared points, XOR, and the same intervals
+    in add16 at 2^20 - 5 points): ``Dcf.mic(device=True)`` (G1) against
+    the host walk's frame, ``walk`` and ``prefix``, both parties,
+    ``eval_mic`` and ``MicEvaluator`` (the pair combine on the card, an
+    XOR or a lane add) giving the same bytes, ``mic_oracle`` on the
+    first 2^16 points, a count of every point on the card against an
+    indicator computed there from the points' bytes (0), party 0's times
+    and the staged combine's; the gates at gate_bench's shape (n = 16, f = 8,
+    add16, 8 sigmoid pieces, 2^20 masked inputs): sign, truncation (its
+    low half on an n = 8 walk) and sigmoid on ``walk``, sign and sigmoid
+    on ``prefix``, every output against its oracle, party 0's times; then
+    B1, B2, B3 and G1 at those paths' shapes, timed, held against their
+    plain versions, and added to the kernels' line.
 
 Launches are counted per path: the counts are set to 0 just before one
 run of a path and read just after it, before any timed repeat, and held
-against the number that run must make (phases 9-11 and 16; phase 4's run
+against the number that run must make (phases 9-11, 16 and 18; phase 4's run
 is both parties' anchor and staged evaluations).  The next to last line is one JSON
 object with every kernel's numbers, ``launches`` the sum over those single
 runs and ``launches_by_path`` each of them; the last line is
@@ -194,6 +214,7 @@ K_CRATE_KEYGEN = 64  # B7a's and W2's timed shape at lam = 16384
 K_B8_CHECK = 1024  # B8 kernel-vs-plain keys, at M_RELU points
 K_B8_TAIL, M_B8_TAIL = 4099, 1000  # B8 with a partial group and odd points
 K_B8_DEEP, M_B8_DEEP, N_B8_DEEP = 100, 40, 256  # B8 past its staged levels
+K_MIC = 16  # the 2m bound keys of an 8-interval MIC, packed on the K axis
 K_CAP = 65537  # B1 beyond the 65,535-block grid axis ...
 M_CAP = 64  # ... at these points
 
@@ -346,6 +367,12 @@ def main() -> int:
     from dcf_tpu_torch.ops.keylanes_eval import (
         keylanes_eval, keylanes_eval_plain)
     from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
+    from dcf_tpu_torch.backends.prefix_backend import PrefixBackend
+    from dcf_tpu_torch.protocols import MicEvaluator, mic_oracle
+    from dcf_tpu_torch.protocols import fixedpoint as fp
+    from dcf_tpu_torch.protocols.combine import staged_pair_combine
+    from dcf_tpu_torch.protocols.keygen import interval_session_material
+    from dcf_tpu_torch.utils.groups import group_width, np_group_add
     from dcf_tpu_torch.workloads.core import (
         full_domain_check_device, secure_relu_check_device)
     from dcf_tpu_torch.workloads.pir import (
@@ -2034,6 +2061,448 @@ def main() -> int:
         f"{ran}; NativeDcf.gen_batch (AES-NI={core.has_aesni}) equals the "
         f"numpy gen_batch, {K_RELU_ANCHOR} keys at lam=16 and {LAM_WIDE}, 2 "
         f"bounds ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # -- phase 18: the interval protocols and fixed-point gates on the card ------------
+    # Part 1 holds the kernels against their plain versions at the protocol
+    # shapes (16 keys packed on the K axis, n = 8, 16 and 128), so that a
+    # shape fault shows as a kernel mismatch before any protocol runs.
+    t0 = time.perf_counter()
+    prng = np.random.default_rng(SEED + 8)
+    pck = [prng.bytes(32), prng.bytes(32)]
+    pprg = HirosePrgNp(16, pck)
+    paes = torch.from_numpy(aes_image(pck[0])).to(dev)
+    pgroups = ("xor", "add16", "add32")
+
+    def proto_keys(n_bytes: int, group: str, bnd: Bound):
+        alphas = prng.integers(0, 256, (K_MIC, n_bytes), dtype=np.uint8)
+        return alphas, gen_batch(
+            pprg, alphas, prng.integers(0, 256, (K_MIC, 16), dtype=np.uint8),
+            random_s0s(K_MIC, 16, prng), bnd, group=group)
+
+    def planted_all(alphas: np.ndarray, m: int) -> torch.Tensor:
+        """Staged points [1, m, nb]: x = alpha - 1, alpha, alpha + 1 of
+        every key first, then random ones."""
+        nb = alphas.shape[1]
+        xs = prng.integers(0, 256, (m, nb), dtype=np.uint8)
+        vals = [int.from_bytes(a.tobytes(), "big") + d
+                for a in alphas for d in (-1, 0, 1)]
+        for j, x in enumerate(vals):
+            xs[j] = np.frombuffer((x % (1 << 8 * nb)).to_bytes(nb, "big"),
+                                  dtype=np.uint8)
+        return torch.from_numpy(xs[None]).to(dev)
+
+    def host_frontiers(kprg, kb: KeyBundle, b: int) -> list:
+        """Each key's level-6 nodes for party b (the host levels)."""
+        return [tuple(torch.from_numpy(a).to(dev) for a in tree_expand_np(
+            kprg, KeyBundle(s0s=kb.s0s[i:i + 1], cw_s=kb.cw_s[i:i + 1],
+                            cw_v=kb.cw_v[i:i + 1], cw_t=kb.cw_t[i:i + 1],
+                            cw_np1=kb.cw_np1[i:i + 1], group=kb.group),
+            b, HOST_LEVELS)) for i in range(kb.num_keys)]
+
+    def stacked_table(k_aes, t: dict, tops: list, k: int, group: str,
+                      kernel: bool) -> torch.Tensor:
+        """The keys' frontier tables at depth k, stacked: B2's launches
+        as ``tree_expand`` cuts them, or its plain version a level at a
+        time."""
+        tables = []
+        for i, nodes in enumerate(tops):
+            cws = (t["cw_s"][i], t["cw_v"][i], t["cw_t"][i])
+            if kernel:
+                nodes = tree_expand(k_aes, *cws, *nodes, k0=HOST_LEVELS,
+                                    k1=k, group=group)
+            else:
+                for lvl in range(HOST_LEVELS, k):
+                    nodes = tree_expand_level_plain(
+                        k_aes, *(c[lvl] for c in cws), *nodes, group=group)
+            tables.append(frontier_table(*nodes))
+        return torch.cat(tables)
+
+    for n_bytes in (1, 2):
+        for group in pgroups:
+            for bnd in Bound:
+                alphas, bundle = proto_keys(n_bytes, group, bnd)
+                xs = planted_all(alphas, M_CHECK)
+                for b in (0, 1):
+                    t = on_card(bundle.for_party(b))
+                    args = (paes, t["s0"], t["cw_s"], t["cw_v"], t["cw_t"],
+                            t["cw_np1"], xs)
+                    same("B1", f"n={8 * n_bytes} K={K_MIC} {group} "
+                         f"{bnd.name} party {b}",
+                         walk_eval(*args, b=b, group=group),
+                         walk_eval_plain(*args, b=b, group=group))
+    b2_cuts = {}
+    for n_bytes, k in ((2, 8), (N_BYTES, 17)):
+        for group in pgroups:
+            for bnd in Bound:
+                alphas, bundle = proto_keys(n_bytes, group, bnd)
+                xs = planted_all(alphas, M_CHECK)
+                for b in (0, 1):
+                    kb = bundle.for_party(b)
+                    t = on_card(kb)
+                    tops = host_frontiers(pprg, kb, b)
+                    what = (f"n={8 * n_bytes} K={K_MIC} k={k} {group} "
+                            f"{bnd.name} party {b}")
+                    table = stacked_table(paes, t, tops, k, group, True)
+                    same("B2", what, table,
+                         stacked_table(paes, t, tops, k, group, False))
+                    pargs = (paes, table, t["cw_s"], t["cw_v"], t["cw_t"],
+                             t["cw_np1"], xs)
+                    neg = bool(b) and group != "xor"
+                    same("B3", what,
+                         prefix_eval(*pargs, k=k, negate=neg, group=group),
+                         prefix_eval_plain(*pargs, k=k, negate=neg,
+                                           group=group))
+                if group != "xor" or bnd is not Bound.LT_BETA:
+                    continue
+                # The backend's own depth, launches and cached frontier
+                # agree with the k held above.
+                be = PrefixBackend(16, pck, device=dev)
+                be.put_bundle(bundle.for_party(1))
+                reset_counts()
+                cached = be._frontier_tables(1)
+                b2_cuts[k] = tree_expand_levels.launches
+                want_b2 = K_MIC * len(launch_depths(HOST_LEVELS, k))
+                if be._k() != k or b2_cuts[k] != want_b2 \
+                        or not torch.equal(cached, table):
+                    raise RuntimeError(
+                        f"PrefixBackend at n={8 * n_bytes}, K={K_MIC}: "
+                        f"k={be._k()} (want {k}), {b2_cuts[k]} B2 launches "
+                        f"(want {want_b2}), cached frontier equal: "
+                        f"{torch.equal(cached, table)}")
+    log(f"phase 18 B1 at n=8 and 16, B2 + B3 at n=16 (k=8) and n=128 "
+        f"(k=17), K={K_MIC} keys with shared points, {len(pgroups)} groups "
+        f"x 2 bounds x 2 parties at {M_CHECK} points: byte-identical to "
+        f"their plain versions; PrefixBackend's depth, cached frontier and "
+        f"B2 launches a party agree ({b2_cuts}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # Part 2: MIC at mic_bench's shape, 8 intervals (16 keys), n = 128,
+    # 2^20 shared points: keygen on the card (G1) against the host walk,
+    # then walk and prefix, both parties, the facade and the staged
+    # evaluator, held against each other, the oracle and a count on the
+    # card.
+    t0 = time.perf_counter()
+    mrng = np.random.default_rng(SEED + 9)
+    mck = [mrng.bytes(32), mrng.bytes(32)]
+    top = 1 << (8 * N_BYTES)
+    cuts = sorted({int.from_bytes(mrng.bytes(16), "big")
+                   for _ in range(14)})
+    intervals = [(cuts[2 * i], cuts[2 * i + 1]) for i in range(6)]
+    intervals += [(cuts[13], cuts[12]), (cuts[12], top)]  # wrap, q = N
+    m_int = len(intervals)
+    betas = mrng.integers(0, 256, (m_int, 16), dtype=np.uint8)
+    xs_np = mrng.integers(0, 256, (M_MAIN, N_BYTES), dtype=np.uint8)
+    edges = sorted({(x + d) % top for pq in intervals for x in pq
+                    for d in (-1, 0)})
+    for j, x in enumerate(edges):
+        xs_np[j] = np.frombuffer(x.to_bytes(N_BYTES, "big"), dtype=np.uint8)
+    dcf_w = Dcf(N_BYTES, 16, mck, backend="walk")
+    dcf_p = Dcf(N_BYTES, 16, mck, backend="prefix")
+    reset_counts()
+    pb = dcf_w.mic(intervals, betas, rng=np.random.default_rng(SEED + 10),
+                   device=True)
+    torch.cuda.synchronize()
+    take_counts("mic_keygen", {"G1": 1})
+    pb_host = dcf_w.mic(intervals, betas,
+                        rng=np.random.default_rng(SEED + 10), device=False)
+    if pb.to_bytes() != pb_host.to_bytes():
+        raise RuntimeError("Dcf.mic(device=True): the G1 bundle's frame "
+                           "differs from the host walk's")
+    # The same intervals and betas in add16: the lane-add combine on the
+    # card.  2^20 - 5 points, not a whole number of point tiles, so pad
+    # points are combined and then dropped.
+    pb16 = dcf_w.mic(intervals, betas, rng=np.random.default_rng(SEED + 12),
+                     group="add16")
+    m16 = M_MAIN - 5
+    first = M_CHECK
+    want_first = mic_oracle(xs_np[:first], intervals, betas)
+
+    def mic_count(ys: list, masks: list, staged: dict, gw: int) -> int:
+        """Staged points whose reconstruction from both parties' combined
+        shares (uint8 [m, M_pad, 16] on the card) and combine masks
+        (uint8 [m, 16]), in the group of lane width ``gw`` (0 = XOR),
+        differs from beta_i 1[x in interval_i], over the real points."""
+        def lanes(a: torch.Tensor) -> torch.Tensor:
+            """uint8 [..., 16] -> int64 little-endian gw-bit lanes."""
+            w = gw // 8
+            v = a.long().unflatten(-1, (-1, w))
+            return (v << (8 * torch.arange(w, device=dev))).sum(-1)
+
+        x = staged["xs"]
+        ms = [torch.from_numpy(mk).to(dev)[:, None, :] for mk in masks]
+        if gw == 0:
+            recon = (ys[0] ^ ms[0] ^ ys[1] ^ ms[1]).long()
+        else:
+            recon = sum(lanes(a) for a in (*ys, *ms)) & ((1 << gw) - 1)
+        recon = recon[:, :staged["m"]]
+        bt = torch.from_numpy(betas).to(dev)
+        bt = bt.long() if gw == 0 else lanes(bt)
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def below(v: int) -> torch.Tensor:
+            """1[x < v] of the staged points, from their big-endian bytes
+            compared a byte at a time, most significant first."""
+            if v == top:
+                return torch.ones(x.shape[1], dtype=torch.bool, device=dev)
+            lt = torch.zeros(x.shape[1], dtype=torch.bool, device=dev)
+            eq = torch.ones_like(lt)
+            for j, a_j in enumerate(v.to_bytes(N_BYTES, "big")):
+                col = x[0, :, j]
+                lt |= eq & (col < a_j)
+                eq &= col == a_j
+            return lt
+
+        for i, (p, q) in enumerate(intervals):
+            lp, lq = below(p), below(q)
+            inside = (~lp & lq) if p <= q else (~lp | lq)
+            inside = inside[:staged["m"]]
+            want = torch.where(inside[:, None], bt[i],
+                               torch.zeros_like(bt[i]))
+            bad += (recon[i] != want).any(-1).sum()
+        return int(bad)
+
+    mic_out, mic_ms, mic_counts, mic_parts = {}, {}, {}, {}
+    mic_launches = {"walk": {"B1": 2}, "prefix": {
+        "B2": 2 * K_MIC * len(launch_depths(HOST_LEVELS, 17)), "B3": 2}}
+    for name, dcf, kpb, where, mp in (
+            ("mic_walk", dcf_w, pb, "walk", M_MAIN),
+            ("mic_prefix", dcf_p, pb, "prefix", M_MAIN),
+            ("mic_add16_walk", dcf_w, pb16, "walk", m16),
+            ("mic_add16_prefix", dcf_p, pb16, "prefix", m16)):
+        group = kpb.group
+        gw = group_width(group)
+        xs_run = xs_np[:mp]
+        reset_counts()
+        evs = [MicEvaluator(dcf, kpb, b) for b in (0, 1)]
+        ys = [ev.eval(xs_run) for ev in evs]
+        torch.cuda.synchronize()
+        take_counts(name, mic_launches[where])
+        for b in (0, 1):
+            if not np.array_equal(dcf.eval_mic(b, kpb, xs_run), ys[b]):
+                raise RuntimeError(f"{name}: party {b}'s facade eval_mic "
+                                   "differs from MicEvaluator")
+        if not np.array_equal(
+                np_group_add(ys[0], ys[1], group)[:, :first], want_first):
+            raise RuntimeError(f"{name}: the reconstruction differs from "
+                               f"mic_oracle on the first {first} points")
+        mic_out[name] = ys
+        staged = evs[0].backend.stage(xs_run)
+        dev_ys = [staged_pair_combine(ev.backend.eval_staged(b, staged),
+                                      group) for b, ev in enumerate(evs)]
+        mic_counts[name] = mic_count(
+            dev_ys, [kpb.masks_for(b) for b in (0, 1)], staged, gw)
+        if mic_counts[name]:
+            raise RuntimeError(f"{name}: {mic_counts[name]} (interval, "
+                               f"point) pairs of {mp} points differ on "
+                               "the card")
+        be0 = evs[0].backend
+        y_dev = be0.eval_staged(0, staged)
+        comb_ms, y_comb = cuda_ms(lambda: staged_pair_combine(y_dev, group),
+                                  10)
+        y_host = be0.staged_to_bytes(y_comb, mp)
+        mic_ms[name] = (wall_ms(lambda: evs[0].eval(xs_run), REPEATS),
+                        wall_ms(lambda: dcf.eval_mic(0, kpb, xs_run),
+                                REPEATS),
+                        comb_ms, mp)
+        # Where MicEvaluator.eval's time goes: staging the points, the
+        # kernels, the combine, the fetch and the host mask.
+        mic_parts[name] = {
+            "stage": wall_ms(lambda: be0.stage(xs_run), 5),
+            "eval_staged": cuda_ms(lambda: be0.eval_staged(0, staged),
+                                   5)[0],
+            "combine": comb_ms,
+            "fetch": wall_ms(lambda: be0.staged_to_bytes(y_comb, mp), 5),
+            "host mask": wall_ms(lambda: np_group_add(
+                y_host, kpb.masks_for(0)[:, None, :], group), 5)}
+        del staged, dev_ys, y_dev, y_comb, y_host
+    for w_, p_ in (("mic_walk", "mic_prefix"),
+                   ("mic_add16_walk", "mic_add16_prefix")):
+        if not all(np.array_equal(a, c) for a, c in zip(
+                mic_out[w_], mic_out[p_])):
+            raise RuntimeError(f"MIC: the {w_} and {p_} paths differ")
+    del mic_out
+    log(f"phase 18 MIC (mic_bench's shape): lam=16, n=128, m={m_int} "
+        f"intervals ({K_MIC} keys, one wraparound, one with q=2^128), "
+        f"{M_MAIN} shared points in XOR and {m16} in add16: "
+        f"Dcf.mic(device=True) (G1) frame "
+        f"equals the host walk's; walk and prefix, both parties, eval_mic "
+        f"and MicEvaluator give the same bytes; the first {first} points "
+        f"equal mic_oracle; 0 mismatches over all points on the card "
+        f"({mic_counts}); party 0, median of {REPEATS}: " + "; ".join(
+            f"{nm} MicEvaluator.eval {ev_ms:.1f} ms = "
+            f"{mp / ev_ms * 1e3:,.0f} points/s, eval_mic {fa_ms:.1f} ms "
+            f"= {mp / fa_ms * 1e3:,.0f} points/s, staged combine "
+            f"{c_ms:.3f} ms (CUDA events)"
+            for nm, (ev_ms, fa_ms, c_ms, mp) in mic_ms.items())
+        + "; MicEvaluator.eval's parts, ms (host clock, eval_staged and "
+        "the combine by CUDA events): " + json.dumps(
+            {nm: {k: round(v, 3) for k, v in parts.items()}
+             for nm, parts in mic_parts.items()})
+        + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # Part 3: the gates at gate_bench's shape, a 16-bit domain, f = 8,
+    # add16, m = 8 sigmoid pieces, 2^20 masked inputs (one activation
+    # layer), every output held against its oracle.
+    t0 = time.perf_counter()
+    grng = np.random.default_rng(SEED + 11)
+    gck = [grng.bytes(32), grng.bytes(32)]
+    g_w = Dcf(2, 16, gck, backend="walk")
+    g_p = Dcf(2, 16, gck, backend="prefix")
+    g_low = Dcf(1, 16, gck, backend="walk")
+    gn = 1 << 16
+    x_hat = grng.integers(0, gn, M_MAIN, dtype=np.int64)
+    x_hat[:8] = [0, 1, gn - 1, gn // 2, gn // 2 - 1, 255, 256, 257]
+    r_sign, r_trunc, r_sig = (int(v) for v in grng.integers(0, gn, 3))
+    gates = {}  # name -> (party gates, share fn, oracle, facades)
+    for fac, where in ((g_w, "walk"), (g_p, "prefix")):
+        sg = fp.gen_sign_gate(fac, r_sign, grng, "add16")
+        gates[f"sign {where}"] = (
+            [sg.for_party(b) for b in (0, 1)],
+            lambda b, g, f=fac: fp.eval_sign_share(f, b, g, x_hat),
+            fp.sign_oracle((x_hat - r_sign) % gn, 16))
+        if fac is g_w:
+            tg = fp.gen_trunc_gate(fac, g_low, r_trunc, 8, grng, "add16")
+            gates["trunc walk"] = (
+                [tg.for_party(b) for b in (0, 1)],
+                lambda b, g: fp.eval_trunc_share(g_w, g_low, b, g, x_hat),
+                fp.trunc_oracle(x_hat, r_trunc, 8, 16))
+        sig = fp.gen_sigmoid_gate(fac, r_sig, grng, "add16", f=8, m=8)
+        gates[f"sigmoid {where}"] = (
+            [sig.for_party(b) for b in (0, 1)],
+            lambda b, g, f=fac: fp.eval_sigmoid_share(f, b, g, x_hat),
+            fp.sigmoid_fixed_oracle((x_hat - r_sig) % gn, sig.cuts,
+                                    sig.values))
+    gate_ms, gate_eval_ms = {}, {}
+    for path, where, want_launches in (
+            ("gates_walk", "walk", {"B1": 8}),
+            ("gates_prefix", "prefix",
+             {"B2": 2 * (2 + 2 * 8) * len(launch_depths(HOST_LEVELS, 8)),
+              "B3": 4})):
+        reset_counts()
+        outs = {}
+        for name, (gp, share, _) in gates.items():
+            if name.endswith(where):
+                outs[name] = [share(b, gp[b]) for b in (0, 1)]
+        torch.cuda.synchronize()
+        take_counts(path, want_launches)
+        for name, ys in outs.items():
+            got = fp.gate_reconstruct(ys[0], ys[1], "add16")
+            bad = int((got != gates[name][2]).sum())
+            if bad:
+                raise RuntimeError(f"gate {name}: {bad} of {M_MAIN} inputs "
+                                   "differ from the oracle")
+            gp, share, _ = gates[name]
+            share(0, gp[0])  # ships this gate's keys to party 0's slot
+            gate_ms[name] = wall_ms(lambda: share(0, gp[0]), REPEATS)
+            if not name.startswith("trunc"):
+                # The facade's eval alone (staging, the kernels and the
+                # fetch of the 2m keys' shares); the rest is host numpy.
+                fac = g_w if name.endswith("walk") else g_p
+                gate_eval_ms[name] = wall_ms(lambda: fac.eval(
+                    0, gp[0].pb.keys, fp.points_of(x_hat, 2)), REPEATS)
+    log(f"phase 18 gates (gate_bench's shape): lam=16, n=16, f=8, add16, "
+        f"m=8 sigmoid pieces, {M_MAIN} masked inputs: sign, trunc (its low "
+        f"half on an n=8 walk) and sigmoid on walk, sign and sigmoid on "
+        f"prefix equal sign_oracle / trunc_oracle / sigmoid_fixed_oracle on "
+        f"every input; party 0's share, median of {REPEATS}: " + "; ".join(
+            f"{nm} {ms:.1f} ms = {M_MAIN / ms * 1e3:,.0f} points/s"
+            + (f" (the facade's eval {gate_eval_ms[nm]:.1f} ms of it)"
+               if nm in gate_eval_ms else "")
+            for nm, ms in gate_ms.items())
+        + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # The kernels at these paths' shapes, each held against its plain
+    # version there (its plain time at the 2^16-point check shape).
+    t0 = time.perf_counter()
+    kb_mic = pb.keys.for_party(0)
+    sig_w = gates["sigmoid walk"][0][0].pb.keys
+    trunc_low = gates["trunc walk"][0][0].pb_low.keys
+    xs_mic = torch.from_numpy(xs_np[None]).to(dev)
+    xs16 = torch.from_numpy(fp.points_of(x_hat, 2)[None]).to(dev)
+    xs8 = torch.from_numpy(fp.points_of(x_hat, 1)[None]).to(dev)
+    walk_cases = (
+        (f" MIC K={K_MIC} n=128", kb_mic, xs_mic, mck),
+        (f" sigmoid K={K_MIC} n=16 add16", sig_w, xs16, gck),
+        (" trunc low K=2 n=8 add16", trunc_low, xs8, gck))
+    for label, kb, xs_d, key in walk_cases:
+        t = on_card(kb)
+        k_aes = torch.from_numpy(aes_image(key[0])).to(dev)
+        args = (k_aes, t["s0"], t["cw_s"], t["cw_v"], t["cw_t"],
+                t["cw_np1"])
+        nn = kb.n_bits
+        walk_eval(*args, xs_d, b=0, group=kb.group)
+        ms, got = cuda_ms(lambda: walk_eval(*args, xs_d, b=0,
+                                            group=kb.group), 10)
+        xc = xs_d[:, :M_CHECK].contiguous()
+        plain, want = cuda_ms(lambda: walk_eval_plain(
+            *args, xc, b=0, group=kb.group), 1)
+        same("B1", label, got[:, :M_CHECK], want)
+        add_row("phase 18", "B1", "walk_eval",
+                "dcf_tpu/ops/pallas_eval.py:164", ms, plain,
+                kb.num_keys * walk_lookups(xs_d, 0, nn, *lam16_turns),
+                M_MAIN * (nn // 8) + kb.num_keys * (
+                    M_MAIN * 16 + nn * 34 + 32) + 496, label=label,
+                shape=f"K={kb.num_keys} M={M_MAIN} n={nn} {kb.group}",
+                plain_shape=f"M={M_CHECK}")
+    prefix_cases = ((f" MIC K={K_MIC} k=17", kb_mic, xs_mic, mck, 17),
+                    (f" sigmoid K={K_MIC} n=16 k=8 add16", sig_w, xs16, gck,
+                     8))
+    for label, kb, xs_d, key, k in prefix_cases:
+        t = on_card(kb)
+        k_aes = torch.from_numpy(aes_image(key[0])).to(dev)
+        tops = host_frontiers(HirosePrgNp(16, key), kb, 0)
+
+        def build(kernel: bool):
+            return stacked_table(k_aes, t, tops, k, kb.group, kernel)
+
+        build(True), build(True)
+        b2ms, table = cuda_ms(lambda: build(True), 5)
+        b2plain, table_p = cuda_ms(lambda: build(False), 1)
+        same("B2", label, table, table_p)
+        parents = kb.num_keys * ((1 << k) - (1 << HOST_LEVELS))
+        add_row("phase 18", "B2", "tree_expand",
+                "dcf_tpu/ops/pallas_tree.py:92", b2ms, b2plain,
+                parents * 2 * LOOKUPS_BLOCK,
+                kb.num_keys * (((1 << HOST_LEVELS) + (1 << k)) * 33
+                               + (k - HOST_LEVELS) * 34) + 496, label=label,
+                shape=f"K={kb.num_keys} levels {HOST_LEVELS}..{k - 1} "
+                f"{kb.group}, a party's frontier, "
+                f"{K_MIC * len(launch_depths(HOST_LEVELS, k))} launches")
+        pargs = (k_aes, table, t["cw_s"], t["cw_v"], t["cw_t"],
+                 t["cw_np1"])
+        nn = kb.n_bits
+        ms, got = cuda_ms(lambda: prefix_eval(
+            *pargs, xs_d, k=k, negate=False, group=kb.group), 10)
+        xc = xs_d[:, :M_CHECK].contiguous()
+        plain, want = cuda_ms(lambda: prefix_eval_plain(
+            *pargs, xc, k=k, negate=False, group=kb.group), 1)
+        same("B3", label, got[:, :M_CHECK], want)
+        add_row("phase 18", "B3", "prefix_eval",
+                "dcf_tpu/ops/pallas_prefix.py:125", ms, plain,
+                kb.num_keys * walk_lookups(xs_d, k, nn, *lam16_turns),
+                M_MAIN * (nn // 8) + table.numel() + kb.num_keys * (
+                    M_MAIN * 16 + (nn - k) * 34 + 16) + 496, label=label,
+                shape=f"K={kb.num_keys} M={M_MAIN} n={nn} k={k} {kb.group}",
+                plain_shape=f"M={M_CHECK}")
+        del table, table_p, got, want
+    mic_alphas, mic_key_betas, _ = interval_session_material(
+        intervals, betas, N_BYTES)
+    g_ins = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in (mic_alphas, mic_key_betas, pb.keys.s0s))
+    m_aes = torch.from_numpy(aes_image(mck[0])).to(dev)
+    keygen_dcf16(m_aes, *g_ins, lt=True), keygen_dcf16(m_aes, *g_ins, lt=True)
+    g1m_ms, out = cuda_ms(lambda: keygen_dcf16(m_aes, *g_ins, lt=True), 10)
+    g1m_plain, want = cuda_ms(lambda: keygen_walk_plain(
+        m_aes, *g_ins, mode=MODE_G1, lt=True), 1)
+    for name, g_, w_ in zip(("cw_s", "cw_v", "cw_t", "cw_np1"), out, want):
+        same("G1", f"MIC K={K_MIC} {name}", g_, w_)
+    add_row("phase 18", "G1", "keygen_walk",
+            "dcf_tpu/backends/device_gen.py:70", g1m_ms, g1m_plain,
+            K_MIC * 128 * 2 * 2 * LOOKUPS_BLOCK,
+            K_MIC * (N_BYTES + 16 + 32) + K_MIC * (128 * 34 + 16),
+            label=f" MIC K={K_MIC}", shape=f"K={K_MIC} n=128 lam=16")
+    log(f"phase 18: B1, B2, B3 and G1 at the protocol paths' shapes "
+        f"byte-identical to their plain versions ({time.perf_counter() - t0:.1f} s)")
 
     # launches x (time - bound) of B1 and B6 on each path, from their
     # per-launch times at each path's shapes (phases 6 and 12).

@@ -14,6 +14,13 @@ its lines 979-1080):
     >>> q = dpf.pir_query([17, 4711])                        # 2 queries
     >>> y, t = dpf.eval_all(0, q)                            # kernel B6
 
+and the interval protocols (``Dcf.interval`` / ``mic`` / ``piecewise`` and
+``eval_interval`` / ``eval_mic`` / ``eval_piecewise``, its lines 860-975;
+``protocols``):
+
+    >>> pb = dcf.mic([(10, 200), (60000, 300)], betas)       # 4 keys, K-packed
+    >>> y0 = dcf.eval_mic(0, pb, xs)                         # uint8 [2, M, lam]
+
 Backends (``backend=``):
 
     auto     walk for lam = 16, hybrid for lam >= 48
@@ -57,8 +64,12 @@ routes those.
 ``device=False`` always names the host walk; ``device=True`` names the
 kernel and raises where there is none.
 
+The protocol keygen methods take ``device=False`` by default, as in
+``dcf_tpu``: the host walk.  ``device=True`` runs kernel G1 for XOR keys at
+lam = 16 and raises where no kernel has the algebra (additive groups).
+
 Not in this package yet (see ROADMAP.md): the other JAX backends,
-``mesh=``, the interval protocol methods, and ``serve``.
+``mesh=``, and ``serve``.
 """
 
 from __future__ import annotations
@@ -79,6 +90,8 @@ from dcf_tpu_torch.protocols.dpf import (
     dpf_gen_batch,
     dpf_gen_on_device,
 )
+from dcf_tpu_torch.protocols.keygen import ProtocolBundle, gen_interval_bundle
+from dcf_tpu_torch.protocols.piecewise import partition_intervals
 from dcf_tpu_torch.spec import (
     Bound,
     ReferenceContractWarning,
@@ -273,35 +286,43 @@ class Dcf:
         slot = "kl" if self.backend_name == "keylanes" else int(b)
         be = self._eval_backends.get(slot)
         if be is None:
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore", ReferenceContractWarning)
-                if self.backend_name == "walk":
-                    from dcf_tpu_torch.backends.walk_backend import WalkBackend
-
-                    be = WalkBackend(self.lam, self.cipher_keys,
-                                     device=self.device, **self._backend_opts)
-                elif self.backend_name == "keylanes":
-                    from dcf_tpu_torch.backends.keylanes_backend import (
-                        KeyLanesBackend)
-
-                    be = KeyLanesBackend(self.lam, self.cipher_keys,
-                                         device=self.device)
-                elif self.backend_name == "prefix":
-                    from dcf_tpu_torch.backends.prefix_backend import (
-                        PrefixBackend)
-
-                    be = PrefixBackend(self.lam, self.cipher_keys,
-                                       device=self.device,
-                                       **self._backend_opts)
-                else:
-                    from dcf_tpu_torch.backends.large_lambda import (
-                        LargeLambdaBackend)
-
-                    be = LargeLambdaBackend(self.lam, self.cipher_keys,
-                                            device=self.device,
-                                            **self._backend_opts)
-            self._eval_backends[slot] = be
+            be = self._eval_backends[slot] = self.new_eval_backend()
         return be
+
+    def new_eval_backend(self):
+        """A fresh backend instance of this facade's selection, holding
+        its own device key image (``None`` for numpy and cpu, which
+        evaluate on the host in ``eval``).  ``protocols.MicEvaluator``
+        keeps one per (bundle, party), so many protocol bundles stay on
+        the card at once without taking the facade's per-party slots."""
+        if self.backend_name in ("numpy", "cpu"):
+            return None
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", ReferenceContractWarning)
+            if self.backend_name == "walk":
+                from dcf_tpu_torch.backends.walk_backend import WalkBackend
+
+                return WalkBackend(self.lam, self.cipher_keys,
+                                   device=self.device, **self._backend_opts)
+            if self.backend_name == "keylanes":
+                from dcf_tpu_torch.backends.keylanes_backend import (
+                    KeyLanesBackend)
+
+                return KeyLanesBackend(self.lam, self.cipher_keys,
+                                       device=self.device)
+            if self.backend_name == "prefix":
+                from dcf_tpu_torch.backends.prefix_backend import (
+                    PrefixBackend)
+
+                return PrefixBackend(self.lam, self.cipher_keys,
+                                     device=self.device,
+                                     **self._backend_opts)
+            from dcf_tpu_torch.backends.large_lambda import (
+                LargeLambdaBackend)
+
+            return LargeLambdaBackend(self.lam, self.cipher_keys,
+                                      device=self.device,
+                                      **self._backend_opts)
 
     def eval(self, b: int, bundle: KeyBundle, xs: np.ndarray) -> np.ndarray:
         """Party ``b`` batch evaluation: xs uint8 [M, n_bytes] (shared) or
@@ -461,3 +482,104 @@ class Dcf:
                 f"{self.n_bytes}")
         return self.dpf(pir_query_alphas(indices, n_bits), s0s=s0s, rng=rng,
                         device=device)
+
+    # -- protocols: IC / MIC / piecewise (``protocols``) ---------------------
+
+    def _protocol_gen(self, rng, device: bool = False, group: str = "xor"):
+        """The K-batched keygen closure ``gen_interval_bundle`` calls: this
+        facade's ``gen`` with the protocol's rng, device and group."""
+        def gen_fn(alphas, betas, bound: Bound):
+            return self.gen(alphas, betas, bound=bound, rng=rng,
+                            device=device, group=group)
+
+        return gen_fn
+
+    def interval(self, p: int, q: int, beta: np.ndarray,
+                 bound: Bound = Bound.LT_BETA,
+                 rng: np.random.Generator | None = None,
+                 device: bool = False, group: str = "xor") -> ProtocolBundle:
+        """Keys for interval containment ``1_{p <= x < q} * beta``.
+
+        ``p`` / ``q``: ints in ``[0, 2^n_bits]`` (``q = 2^n_bits`` makes
+        ``[p, N)`` expressible); ``p > q`` is the wraparound interval
+        ``[p, N) ∪ [0, q)`` and ``p == q`` is empty.  ``beta``: uint8
+        [lam].  Returns a two-party ``protocols.ProtocolBundle`` packing
+        the two bound keys on the K axis: ship ``pb.for_party(b)`` and
+        evaluate with :meth:`eval_interval`; group-add both parties'
+        outputs to reconstruct (XOR in the default group).  ``bound``
+        picks the DCF bound family that realizes the keys (same
+        reconstruction either way); ``group`` the output group, where
+        the additive groups give arithmetic shares of the indicator (the
+        fixed-point gates' building block).  ``device``: as for
+        :meth:`mic`."""
+        beta = np.asarray(beta, dtype=np.uint8).reshape(1, -1)
+        return gen_interval_bundle(
+            self._protocol_gen(rng, device, group), [(p, q)], beta,
+            self.n_bytes, bound, group)
+
+    def mic(self, intervals, betas: np.ndarray,
+            bound: Bound = Bound.LT_BETA,
+            rng: np.random.Generator | None = None,
+            device: bool = False, group: str = "xor") -> ProtocolBundle:
+        """Keys for multiple interval containment over ``m`` intervals.
+
+        ``intervals``: a sequence of ``(p, q)`` int pairs (the convention
+        of :meth:`interval`; each output row is independent, so overlap
+        is merely redundant); ``betas``: uint8 [m, lam].  The 2m
+        interval-bound DCF keys pack into one K-axis bundle, evaluated
+        with :meth:`eval_mic` (facade path) or ``protocols.MicEvaluator``
+        (staged, the combine on the card).  Reconstruction: group-add
+        both parties' [m, M, lam] outputs.  ``device=False`` (the
+        default) runs the host walk; ``device=True`` runs the 2m-key
+        keygen on the card (kernel G1, XOR keys at lam = 16, byte-
+        identical to the host walk) and raises where no kernel has the
+        algebra."""
+        return gen_interval_bundle(
+            self._protocol_gen(rng, device, group), intervals,
+            np.asarray(betas, dtype=np.uint8), self.n_bytes, bound,
+            group)
+
+    def piecewise(self, cuts, values: np.ndarray,
+                  rng: np.random.Generator | None = None,
+                  device: bool = False, group: str = "xor") -> ProtocolBundle:
+        """Keys for a piecewise-constant function (spline lookup table).
+
+        ``cuts``: strictly increasing breakpoints in ``[0, 2^n_bits)``
+        (the last piece wraps around the domain top; with ``cuts[0] ==
+        0`` that is the standard table over [0, N)); ``values``: uint8
+        [m, lam], piece i's output.  Builds the MIC over the induced
+        partition; :meth:`eval_piecewise` group-reduces the per-piece
+        rows to one [M, lam] share per party.  In an additive ``group``
+        the result is an arithmetic share of the piece value: the spline
+        sigmoid gate (``protocols.fixedpoint``) is a client of this."""
+        intervals = partition_intervals(list(cuts), 8 * self.n_bytes)
+        return gen_interval_bundle(
+            self._protocol_gen(rng, device, group), intervals,
+            np.asarray(values, dtype=np.uint8), self.n_bytes,
+            Bound.LT_BETA, group)
+
+    def eval_interval(self, b: int, pb: ProtocolBundle,
+                      xs: np.ndarray) -> np.ndarray:
+        """Party ``b``'s IC share uint8 [M, lam] (see :meth:`interval`)."""
+        from dcf_tpu_torch.protocols.ic import eval_interval
+
+        return eval_interval(self, b, pb, np.asarray(xs, dtype=np.uint8))
+
+    def eval_mic(self, b: int, pb: ProtocolBundle,
+                 xs: np.ndarray) -> np.ndarray:
+        """Party ``b``'s per-interval MIC shares uint8 [m, M, lam] (see
+        :meth:`mic`): the 2m keys evaluate as one K-packed batch on this
+        facade's backend, then the pair-combine and the public-correction
+        mask apply (``protocols.combine``, fault seam
+        ``protocols.combine``)."""
+        from dcf_tpu_torch.protocols.mic import eval_mic
+
+        return eval_mic(self, b, pb, np.asarray(xs, dtype=np.uint8))
+
+    def eval_piecewise(self, b: int, pb: ProtocolBundle,
+                       xs: np.ndarray) -> np.ndarray:
+        """Party ``b``'s piecewise-lookup share uint8 [M, lam] (see
+        :meth:`piecewise`)."""
+        from dcf_tpu_torch.protocols.piecewise import eval_piecewise
+
+        return eval_piecewise(self, b, pb, np.asarray(xs, dtype=np.uint8))

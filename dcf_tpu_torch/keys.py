@@ -34,9 +34,10 @@ the JAX package's frames in both directions):
     end-4   4               crc32 of all prior bytes (version >= 2)
 
 XOR bundles write version 2, additive bundles version 4; versions 1 (no
-CRC trailer) and 3 with proto = 0 are still read.  A version-3 frame with
-proto != 0 belongs to a protocol decoder (``protocols.dpf`` for proto = 2)
-and is refused here.  Decoding is strict: the header is checked field by
+CRC trailer) and 3 with proto = 0 are still read.  A version-3 or -4
+frame with proto != 0 belongs to a protocol decoder
+(``protocols.ProtocolBundle`` for proto = 1, ``protocols.dpf`` for
+proto = 2) and is refused here.  Decoding is strict: the header is checked field by
 field, every section must fit, the size must match exactly, and any
 violation raises ``KeyFormatError`` naming the field.
 """
@@ -50,6 +51,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from dcf_tpu_torch import spec
 from dcf_tpu_torch.errors import KeyFormatError, ShapeError
 from dcf_tpu_torch.spec import (
     GROUP_CODE,
@@ -213,6 +215,60 @@ class KeyBundle:
             group=self.group,
         )
 
+    def level_major(self) -> dict[str, np.ndarray]:
+        """The arrays with the level axis leading: contiguous ``s0``
+        [K, lam] (party-restricted bundles only), ``cw_s`` / ``cw_v``
+        [n, K, lam], ``cw_t`` [n, K, 2], ``cw_np1`` [K, lam]."""
+        if self.s0s.shape[1] != 1:
+            raise ShapeError("level_major requires a party-restricted bundle")
+        return dict(
+            s0=np.ascontiguousarray(self.s0s[:, 0, :]),
+            cw_s=np.ascontiguousarray(self.cw_s.transpose(1, 0, 2)),
+            cw_v=np.ascontiguousarray(self.cw_v.transpose(1, 0, 2)),
+            cw_t=np.ascontiguousarray(self.cw_t.transpose(1, 0, 2)),
+            cw_np1=np.ascontiguousarray(self.cw_np1),
+        )
+
+    # -- golden-model interop ------------------------------------------------
+
+    @classmethod
+    def from_shares(cls, shares: list[spec.Share],
+                    group: str = "xor") -> "KeyBundle":
+        """Stack ``spec.Share`` keys (all of one geometry) into a bundle."""
+        k = len(shares)
+        n = len(shares[0].cws)
+        lam = len(shares[0].cw_np1)
+        p = len(shares[0].s0s)
+        s0s = np.zeros((k, p, lam), dtype=np.uint8)
+        cw_s = np.zeros((k, n, lam), dtype=np.uint8)
+        cw_v = np.zeros((k, n, lam), dtype=np.uint8)
+        cw_t = np.zeros((k, n, 2), dtype=np.uint8)
+        cw_np1 = np.zeros((k, lam), dtype=np.uint8)
+        for i, sh in enumerate(shares):
+            for j, s0 in enumerate(sh.s0s):
+                s0s[i, j] = np.frombuffer(s0, dtype=np.uint8)
+            for j, cw in enumerate(sh.cws):
+                cw_s[i, j] = np.frombuffer(cw.s, dtype=np.uint8)
+                cw_v[i, j] = np.frombuffer(cw.v, dtype=np.uint8)
+                cw_t[i, j] = (cw.tl, cw.tr)
+            cw_np1[i] = np.frombuffer(sh.cw_np1, dtype=np.uint8)
+        return cls(s0s, cw_s, cw_v, cw_t, cw_np1, group)
+
+    def to_shares(self) -> list[spec.Share]:
+        """The bundle's keys as ``spec.Share`` objects."""
+        out = []
+        for i in range(self.num_keys):
+            cws = tuple(
+                spec.Cw(s=self.cw_s[i, j].tobytes(),
+                        v=self.cw_v[i, j].tobytes(),
+                        tl=bool(self.cw_t[i, j, 0]),
+                        tr=bool(self.cw_t[i, j, 1]))
+                for j in range(self.n_bits))
+            out.append(spec.Share(
+                s0s=tuple(s.tobytes() for s in self.s0s[i]), cws=cws,
+                cw_np1=self.cw_np1[i].tobytes()))
+        return out
+
     # -- codec ---------------------------------------------------------------
 
     def to_bytes(self) -> bytes:
@@ -260,7 +316,8 @@ class KeyBundle:
             if proto != 0:
                 raise KeyFormatError(
                     f"frame carries protocol section {proto}; decode with "
-                    "a protocol bundle reader: reading it as a plain "
+                    "the dcf_tpu_torch.protocols bundle readers "
+                    "(ProtocolBundle.from_bytes): reading it as a plain "
                     "bundle would misparse the sections")
             if group_code not in GROUP_FROM_CODE:
                 raise KeyFormatError(
@@ -292,9 +349,9 @@ class KeyBundle:
             if proto != 0:
                 raise KeyFormatError(
                     f"frame carries protocol section {proto} (interval "
-                    "combine masks); a plain reader would silently drop "
-                    "the public correction, and the interval protocols "
-                    "are not in this package yet (ROADMAP.md slice 7)")
+                    "combine masks); decode with dcf_tpu_torch.protocols."
+                    "ProtocolBundle.from_bytes: reading it as a plain "
+                    "bundle would silently drop the public correction")
         elif version not in (1, _VERSION):
             raise KeyFormatError(
                 f"unsupported version {version} (this reader handles "
@@ -322,3 +379,26 @@ class KeyBundle:
         except ShapeError as e:
             raise KeyFormatError(
                 f"header fields do not describe a bundle: {e}") from None
+
+    def save(self, path: str) -> None:
+        """Write the bundle: an ``.npz`` of the arrays and the group code,
+        or any other path as a DCFK frame."""
+        if path.endswith(".npz"):
+            np.savez(path, s0s=self.s0s, cw_s=self.cw_s, cw_v=self.cw_v,
+                     cw_t=self.cw_t, cw_np1=self.cw_np1,
+                     group=np.uint16(GROUP_CODE[self.group]))
+        else:
+            with open(path, "wb") as fh:
+                fh.write(self.to_bytes())
+
+    @classmethod
+    def load(cls, path: str) -> "KeyBundle":
+        """Read a bundle written by ``save`` (either package's)."""
+        if path.endswith(".npz"):
+            z = np.load(path)
+            group = (GROUP_FROM_CODE[int(z["group"])]
+                     if "group" in z.files else "xor")
+            return cls(z["s0s"], z["cw_s"], z["cw_v"], z["cw_t"],
+                       z["cw_np1"], group)
+        with open(path, "rb") as fh:
+            return cls.from_bytes(fh.read())

@@ -45,6 +45,7 @@ from dcf_tpu_torch.keys import (
     _decode_sections,
 )
 from dcf_tpu_torch.ops.prg import HirosePrgNp
+from dcf_tpu_torch.protocols.keygen import PROTO_MIC, ProtocolBundle
 
 __all__ = [
     "DPF_DEVICE_LAM",
@@ -58,9 +59,8 @@ __all__ = [
 ]
 
 #: proto header value of DPF frames.  0 = plain DCF (KeyBundle), 1 = the
-#: interval-containment family (PROTO_MIC).
+#: interval-containment family (``keygen.PROTO_MIC``).
 PROTO_DPF = 2
-PROTO_MIC = 1
 
 #: the width of the full-domain kernel: two 16-byte AES blocks.
 DPF_DEVICE_LAM = 32
@@ -194,9 +194,8 @@ class DpfBundle:
         _check_v3_header(data)
         _, p, k, n, lam, proto = struct.unpack_from(_HEADER3, data, 4)
         if proto != PROTO_DPF:
-            pointer = ("a ProtocolBundle reader (interval protocols, "
-                       "ROADMAP.md slice 7)" if proto != 0
-                       else "KeyBundle.from_bytes")
+            pointer = ("dcf_tpu_torch.protocols.ProtocolBundle.from_bytes"
+                       if proto != 0 else "KeyBundle.from_bytes")
             raise KeyFormatError(
                 f"proto field {proto} is not the point-function family "
                 f"({PROTO_DPF}); decode with {pointer}")
@@ -224,19 +223,16 @@ class DpfBundle:
 
 
 def decode_proto_frame(data: bytes):
-    """Dispatch a typed DCFK v3 frame off the header's proto field:
-    ``PROTO_DPF`` decodes to a ``DpfBundle``; a ``PROTO_MIC`` frame is
-    refused, since the interval protocols are not in this package yet
-    (ROADMAP.md slice 7).  Plain frames (v1/v2, or v3 with proto = 0) are
-    refused with a pointer at ``KeyBundle.from_bytes``."""
+    """Dispatch a typed DCFK v3 frame to its decoder off the header's
+    proto field: ``PROTO_MIC`` -> ``ProtocolBundle``, ``PROTO_DPF`` ->
+    ``DpfBundle``.  Plain frames (v1/v2, or v3 with proto = 0) are refused
+    with a pointer at ``KeyBundle.from_bytes``."""
     _check_v3_header(data)
     proto = struct.unpack_from(_HEADER3, data, 4)[5]
+    if proto == PROTO_MIC:
+        return ProtocolBundle.from_bytes(data)
     if proto == PROTO_DPF:
         return DpfBundle.from_bytes(data)
-    if proto == PROTO_MIC:
-        raise KeyFormatError(
-            f"proto field {PROTO_MIC} is an interval-protocol (MIC) frame; "
-            "its decoder is not in this package yet (ROADMAP.md slice 7)")
     if proto == 0:
         raise KeyFormatError(
             "proto field 0 is a plain frame; decode with "

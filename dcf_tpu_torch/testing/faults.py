@@ -44,6 +44,9 @@ POINTS = (
     #                  args: portable)
     "native.load",  # loading a built C++ core (native.load; handler args:
     #                 portable)
+    "protocols.combine",  # one pairwise share combine (protocols.combine;
+    #                       handler args: intervals m, points, -1 on the
+    #                       staged combine on the device)
 )
 
 _ACTIVE: dict[str, Callable] = {}

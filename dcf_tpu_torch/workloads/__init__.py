@@ -3,8 +3,10 @@
 ``workloads.core`` holds BASELINE.json config 3 (the per-point full-domain
 check) and config 5 (secure ReLU: many keys at few shared points, keygen,
 evaluation and check on the device); ``workloads.pir`` the 2-server PIR
-workload built on the DPF EvalAll backend.  The gate suite of
-``dcf_tpu/workloads`` waits for the protocol layer (ROADMAP.md slice 7).
+workload built on the DPF EvalAll backend.  ``dcf_tpu``'s served gate
+suite (``workloads.gates.GateServer``) is a client of its serving tier and
+waits for that tier's port (ROADMAP.md); the gates themselves are in
+``protocols.fixedpoint``.
 """
 
 from dcf_tpu_torch.workloads.core import (  # noqa: F401

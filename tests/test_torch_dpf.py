@@ -21,6 +21,7 @@ from dcf_tpu.ops.prg import HirosePrgNp as JPrg
 from dcf_tpu.protocols.dpf import DpfBundle as JDpfBundle
 from dcf_tpu.protocols.dpf import dpf_eval_points as j_dpf_eval_points
 from dcf_tpu.protocols.dpf import dpf_gen_batch as j_dpf_gen_batch
+from dcf_tpu.protocols.keygen import ProtocolBundle as JProtocolBundle
 from dcf_tpu.protocols.keygen import gen_interval_bundle
 
 from dcf_tpu_torch import spec as tspec
@@ -197,7 +198,9 @@ def frames():
 
 def test_cross_reader_refusals(frames):
     """Each reader refuses the other families' frames with a pointer at
-    the right decoder, as dcf_tpu's readers do."""
+    the right decoder, as dcf_tpu's readers do; ``decode_proto_frame``
+    decodes dcf_tpu's MIC frame to a ``ProtocolBundle`` that re-encodes
+    to the same bytes and equals dcf_tpu's."""
     with pytest.raises(KeyFormatError, match="DpfBundle"):
         KeyBundle.from_bytes(frames["dpf"])
     with pytest.raises(JKeyFormatError, match="DpfBundle"):
@@ -210,8 +213,13 @@ def test_cross_reader_refusals(frames):
         DpfBundle.from_bytes(_reframe(frames["v2"], 3))
     with pytest.raises(KeyFormatError, match="ProtocolBundle"):
         DpfBundle.from_bytes(frames["mic"])
-    with pytest.raises(KeyFormatError, match="slice 7"):
-        decode_proto_frame(frames["mic"])
+    mic = decode_proto_frame(frames["mic"])
+    assert mic.to_bytes() == frames["mic"]
+    jmic = JProtocolBundle.from_bytes(frames["mic"])
+    assert mic.bound.value == jmic.bound.value and mic.group == jmic.group
+    for f in KEY_FIELDS:
+        assert np.array_equal(getattr(mic.keys, f), getattr(jmic.keys, f)), f
+    assert np.array_equal(mic.combine_masks, jmic.combine_masks)
     with pytest.raises(KeyFormatError, match="KeyBundle.from_bytes"):
         decode_proto_frame(frames["v2"])
     with pytest.raises(KeyFormatError, match="plain frame"):

@@ -227,7 +227,11 @@ def test_port_imports_neither_jax_nor_dcf_tpu():
                 "ops/evalall_expand.py", "ops/pir_answer.py",
                 "ops/keygen_walk.py", "ops/keylanes_eval.py",
                 "backends/device_gen.py", "backends/keylanes_backend.py",
-                "protocols/combine.py", "native/__init__.py"):
+                "protocols/combine.py", "native/__init__.py",
+                "protocols/oracle.py", "protocols/keygen.py",
+                "protocols/ic.py", "protocols/mic.py",
+                "protocols/piecewise.py", "protocols/fixedpoint.py",
+                "protocols/__init__.py", "spec.py", "keys.py", "api.py"):
         assert f"dcf_tpu_torch/{sub}" in scanned
     assert "bench_torch.py" in scanned
     banned = ("jax", "jaxlib", "dcf_tpu")
