@@ -5,15 +5,18 @@ of the repository, in turns, on one GPU.
     python3 chip_ab.py _archive/other walk_eval prefix_eval
 
 Each NAME is a case of ``CASES``: the kernel source of
-``dcf_tpu_torch._build.KERNELS`` it builds (``keygen_walk`` holds G1, B7a
-and B7b), its inputs at the main path's shape, made from a seed, and the
+``dcf_tpu_torch._build.KERNELS`` it builds (``keygen_walk`` holds G1, B7a,
+B7b and G2), its inputs at the main path's shape, made from a seed, and the
 call of its wrapper.  A turn is a process of its own that imports the
 package of one tree, so the wrapper of that tree launches the kernel of
 that tree, built from its sources into its own gitignored
 ``dcf_tpu_torch/_build/``: any checkout whose wrapper takes the same
 arguments can be compared, also one that computes the function with torch
 ops where this tree has a kernel (its build skips the sources it does
-not have).  Both trees are built first, at the same time.
+not have).  A tree with no such wrapper at all (one from before the
+kernel's slice) cannot run the case: time it against a copy of this
+tree, whose turns give the call's noise.  Both trees are built first, at
+the same time.
 The turns run other, this, this, other.  A turn calls the wrapper once
 untimed, then twice more with the first's outputs alive, so that no
 allocation falls into the timed calls, then times it with
@@ -164,6 +167,49 @@ def case_keygen_dpf(torch, dev):
         rng.integers(0, 256, (k_num, 32), dtype=np.uint8),
         random_s0s(k_num, 32, rng)))
     return f"K={k_num} n={n} lam=32", 20, lambda: keygen_dpf(aes, *ins)
+
+
+def case_keygen_dcf32(torch, dev):
+    """G2 at the lam = 32 keygen shape: 2^16 lam = 32 DCF keys, n = 128,
+    LT_BETA; every byte of the keys."""
+    from dcf_tpu_torch.gen import random_s0s
+    from dcf_tpu_torch.ops.keygen_walk import keygen_dcf32
+    from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
+
+    rng = np.random.default_rng(SEED)
+    k_num = 1 << 16
+    ck = [rng.bytes(32) for _ in range(18)]
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17])).to(dev)
+    ins = tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 256, (k_num, 16), dtype=np.uint8),
+        rng.integers(0, 256, (k_num, 32), dtype=np.uint8),
+        random_s0s(k_num, 32, rng)))
+    return (f"K={k_num} n=128 lam=32", 20,
+            lambda: keygen_dcf32(aes, *ins, lt=True))
+
+
+def case_walk32_eval(torch, dev):
+    """E1 at the lam = 32 main path's shape: one key, n = 128, 2^20
+    shared points, party 0, XOR."""
+    from dcf_tpu_torch.gen import gen_batch, random_s0s
+    from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.ops.walk32_eval import walk32_eval
+    from dcf_tpu_torch.spec import Bound
+
+    rng = np.random.default_rng(SEED)
+    m = 1 << 20
+    ck = [rng.bytes(32) for _ in range(18)]
+    aes = torch.from_numpy(narrow_aes_image(ck[0], ck[17])).to(dev)
+    kb = gen_batch(HirosePrgNp(32, ck, warn=False),
+                   rng.integers(0, 256, (1, 16), dtype=np.uint8),
+                   rng.integers(0, 256, (1, 32), dtype=np.uint8),
+                   random_s0s(1, 32, rng), Bound.LT_BETA).for_party(0)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        kb.s0s[:, 0], kb.cw_s, kb.cw_v, kb.cw_t, kb.cw_np1,
+        rng.integers(0, 256, (1, m, 16), dtype=np.uint8)))
+    return (f"lam=32 n=128 K=1 M={m}", 10,
+            lambda: (walk32_eval(aes, *args, b=0, group="xor"),))
 
 
 def _config4(torch, dev):
@@ -496,12 +542,14 @@ CASES = {"keylanes_eval": ("keylanes_eval", case_keylanes_eval),
          "keygen_narrow_crate": ("keygen_walk", case_keygen_narrow_crate),
          "keygen_wide_crate": ("keygen_wide", case_keygen_wide_crate),
          "keygen_dpf": ("keygen_walk", case_keygen_dpf),
+         "keygen_dcf32": ("keygen_walk", case_keygen_dcf32),
          "hybrid_state": ("hybrid_state", case_hybrid_state),
          "narrow_walk": ("narrow_walk", case_narrow_walk),
          "hybrid_prefix": ("hybrid_prefix", case_hybrid_prefix),
          "evalall_expand": ("evalall_expand", case_evalall_expand),
          "evalall_expand_t": ("evalall_expand", case_evalall_expand_t),
          "walk_eval": ("walk_eval", case_walk_eval),
+         "walk32_eval": ("walk32_eval", case_walk32_eval),
          "prefix_eval": ("prefix_eval", case_prefix_eval),
          "wide_xor": ("wide_xor", case_wide_xor),
          "wide_xor_crate": ("wide_xor", case_wide_xor_crate),

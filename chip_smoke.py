@@ -7,11 +7,12 @@ Run from the repository root, with no arguments:
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel (B1-B8, B2f, G1, W1, W2, P1: twelve sources) from
+2. build every kernel (B1-B8, B2f, G1, G2, W1, W2, P1, E1: thirteen
+   sources) from
    ``dcf_tpu_torch/csrc`` with nvcc, one process per source, all at once,
    and print the build seconds and ptxas' register and spill counts (on a
    line of their own, by kernel function, for B8, B4, B1, B3, B6, B5b, G1,
-   B7a, B7b, B5a, B2 and B2f, the kernels on the banked AES);
+   B7a, B7b, B5a, B2, B2f, E1 and G2, the kernels on the banked AES);
 3. hold each kernel byte for byte against its plain PyTorch version on the
    card, at 2^16 points: B1-B3 (B2 from level 6 to 21) over both parties,
    all four output groups, both bounds, and B1 with 3 keys and per-key
@@ -140,11 +141,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     low half on an n = 8 walk) and sigmoid on ``walk``, sign and sigmoid
     on ``prefix``, every output against its oracle, party 0's times; then
     B1, B2, B3 and G1 at those paths' shapes, timed, held against their
-    plain versions, and added to the kernels' line.
+    plain versions, and added to the kernels' line;
+19. DCF at lam = 32 on the card: E1 against its plain version at 2^16
+    points, n = 16 and 128, all four groups, both bounds and parties, 3
+    keys at shared and at per-key points, x = alpha and alpha +- 1
+    planted, root seeds with the PRG's masked bit set; G2 against its
+    plain version at K = 4096, n = 128, both bounds, every byte; the
+    facade ``Dcf(16, 32)`` (``auto`` = ``walk``), one key, n = 128, 2^20
+    random shared points, in XOR (keys from G2) and add32 (host keys):
+    both parties over the same staged points, 0 mismatches on the card,
+    the first 1024 points against the numpy oracle, the keys against
+    ``gen_batch``, the median ``eval_staged`` time; E1 at that shape
+    beside its bound, its plain version and B4's time in this run; G2 at
+    K = 2^16, n = 128 after two untimed calls, its first 1024 keys
+    against ``gen_batch``; the per-point full domain at n = 24 over two
+    lam = 32 ``WalkBackend``s, both bounds: 0, and 7 for alpha + 7; MIC
+    at n = 128, 8 intervals, 2^16 shared points: ``Dcf.mic(device=True)``
+    (G2) against the host walk's frame, ``MicEvaluator`` on lam = 32
+    walk backends in XOR and add32 against ``mic_oracle``.
 
 Launches are counted per path: the counts are set to 0 just before one
 run of a path and read just after it, before any timed repeat, and held
-against the number that run must make (phases 9-11, 16 and 18; phase 4's run
+against the number that run must make (phases 9-11, 16, 18 and 19; phase 4's run
 is both parties' anchor and staged evaluations).  The next to last line is one JSON
 object with every kernel's numbers, ``launches`` the sum over those single
 runs and ``launches_by_path`` each of them; the last line is
@@ -343,8 +361,8 @@ def main() -> int:
         frontier_launches, hybrid_prefix_eval, hybrid_prefix_eval_plain,
         narrow_frontier, narrow_frontier_plain)
     from dcf_tpu_torch.ops.narrow_walk import (
-        NARROW, narrow_aes_image, narrow_walk, narrow_walk_plain,
-        unpack_traj_plain)
+        NARROW, NARROW_AES_BYTES, narrow_aes_image, narrow_walk,
+        narrow_walk_plain, unpack_traj_plain)
     from dcf_tpu_torch.ops.prefix_eval import (
         frontier_index_plain, frontier_table, prefix_eval, prefix_eval_plain)
     from dcf_tpu_torch.ops.pir_answer import (
@@ -353,6 +371,7 @@ def main() -> int:
     from dcf_tpu_torch.ops.tree_expand import (
         FINAL_LEVELS, tree_expand, tree_expand_final,
         tree_expand_final_plain, tree_expand_level_plain, tree_expand_levels)
+    from dcf_tpu_torch.ops.walk32_eval import walk32_eval, walk32_eval_plain
     from dcf_tpu_torch.ops.walk_eval import (
         aes_image, walk_bits_plain, walk_eval, walk_eval_plain)
     from dcf_tpu_torch.ops.wide_tail import wide_tail, wide_tail_plain
@@ -361,8 +380,8 @@ def main() -> int:
     from dcf_tpu_torch.spec import GROUPS
     from dcf_tpu_torch.backends._common import points_mismatch_count
     from dcf_tpu_torch.ops.keygen_walk import (
-        MODE_B7A, MODE_B7B, MODE_G1, keygen_dcf16, keygen_dpf,
-        keygen_narrow, keygen_walk_plain, keygen_wide_tail,
+        MODE_B7A, MODE_B7B, MODE_G1, MODE_G2, keygen_dcf16, keygen_dcf32,
+        keygen_dpf, keygen_narrow, keygen_walk_plain, keygen_wide_tail,
         keygen_wide_tail_plain)
     from dcf_tpu_torch.ops.keylanes_eval import (
         keylanes_eval, keylanes_eval_plain)
@@ -402,14 +421,15 @@ def main() -> int:
     banked = {"keylanes_eval": "B8", "narrow_walk": "B4",
               "walk_eval": "B1", "prefix_eval": "B3",
               "evalall_expand": "B6", "hybrid_prefix": "B5b",
-              "keygen_walk": "G1, B7a, B7b", "hybrid_state": "B5a",
-              "tree_expand": "B2, B2f"}
+              "keygen_walk": "G1, B7a, B7b, G2", "hybrid_state": "B5a",
+              "tree_expand": "B2, B2f", "walk32_eval": "E1"}
     log("phase 2 the kernels on the banked AES, (registers, spill-store "
         "bytes) by kernel function: " + "; ".join(
             f"{kid} {src} {ptxas_functions(_build.build_log(src))}"
             for src, kid in banked.items())
         + " (keygen_walk's keygen_banked_kernel<0> is G1, <1> B7a, <2> "
-        "B7b; tree_expand's tree_expand_kernel<GW,D,0> B2, <0,D,1> B2f)")
+        "B7b, <3> G2; tree_expand's tree_expand_kernel<GW,D,0> B2, <0,D,1> "
+        "B2f; walk32_eval_kernel<GW> E1)")
 
     # -- phase 3: each kernel against its plain version --------------------------
     rng = np.random.default_rng(SEED)
@@ -418,7 +438,7 @@ def main() -> int:
     aes = torch.from_numpy(aes_image(ck[0])).to(dev)
     max_err = {k: 0 for k in ("B1", "B2", "B3", "B4", "B5a", "B5b", "W1",
                               "B6", "B2f", "P1", "G1", "B7a", "B7b", "B8",
-                              "W2")}
+                              "W2", "E1", "G2")}
 
     def same(kernel: str, what: str, got, want) -> None:
         err = int((got.int() - want.int()).abs().max().item()) \
@@ -612,7 +632,8 @@ def main() -> int:
                 "B6": evalall_expand_level, "B2f": tree_expand_final,
                 "P1": pir_answer, "G1": keygen_dcf16, "B7a": keygen_narrow,
                 "B7b": keygen_dpf, "B8": keylanes_eval,
-                "W2": keygen_wide_tail}
+                "W2": keygen_wide_tail, "E1": walk32_eval,
+                "G2": keygen_dcf32}
     launches = {k: {} for k in counters}  # kernel -> {path: launches}
     main_ms = {}
     main_inputs = {}
@@ -2503,6 +2524,250 @@ def main() -> int:
             label=f" MIC K={K_MIC}", shape=f"K={K_MIC} n=128 lam=16")
     log(f"phase 18: B1, B2, B3 and G1 at the protocol paths' shapes "
         f"byte-identical to their plain versions ({time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 19: DCF at lam = 32 on the card (E1, G2) ---------------------------------
+    # E1 and G2 against their plain versions; then the facade at lam = 32
+    # (auto = walk) on the main path's shape in XOR and add32, G2 timed,
+    # the per-point full domain over two lam = 32 WalkBackends, and MIC on
+    # them.  Root seeds of every key but the first have the PRG's masked
+    # bit (bit 0 of byte 31, in block 1) set.
+    t0 = time.perf_counter()
+    wrng = np.random.default_rng(SEED + 13)
+    wck = [wrng.bytes(32) for _ in range(18)]
+    w_prg = HirosePrgNp(32, wck, warn=False)
+    w_aes = torch.from_numpy(narrow_aes_image(wck[0], wck[17])).to(dev)
+
+    def keys32(k_num: int, n_bytes: int, group: str, bnd: Bound):
+        alphas = wrng.integers(0, 256, (k_num, n_bytes), dtype=np.uint8)
+        s0s = random_s0s(k_num, 32, wrng)
+        s0s[1:, :, 31] |= 1
+        return alphas, gen_batch(
+            w_prg, alphas, wrng.integers(0, 256, (k_num, 32), dtype=np.uint8),
+            s0s, bnd, group=group)
+
+    def planted32(alphas: np.ndarray, rows: int, m: int) -> torch.Tensor:
+        """uint8 [rows, m, nb] random points on the card with x = alpha
+        and alpha +- 1 of every key planted in every row."""
+        nb = alphas.shape[1]
+        xs = wrng.integers(0, 256, (rows, m, nb), dtype=np.uint8)
+        for j, a in enumerate(alphas):
+            a = int.from_bytes(a.tobytes(), "big")
+            for d in (-1, 0, 1):
+                xs[:, 3 * j + d + 1] = np.frombuffer(
+                    ((a + d) % (1 << 8 * nb)).to_bytes(nb, "big"), np.uint8)
+        return torch.from_numpy(xs).to(dev)
+
+    for n_bytes in (2, N_BYTES):
+        for group in GROUPS:
+            for bnd in Bound:
+                alphas, kb = keys32(3, n_bytes, group, bnd)
+                for rows in (1, 3):  # shared points, per-key points
+                    xs_c = planted32(alphas, rows, M_CHECK)
+                    for b in (0, 1):
+                        t = on_card(kb.for_party(b), NARROW)
+                        args = (w_aes, t["s0"], t["cw_s"], t["cw_v"],
+                                t["cw_t"], t["cw_np1"], xs_c)
+                        same("E1", f"n={8 * n_bytes} {group} {bnd.name} "
+                             f"Kx={rows} b={b}",
+                             walk32_eval(*args, b=b, group=group),
+                             walk32_eval_plain(*args, b=b, group=group))
+    for bnd in Bound:
+        lt = bnd is Bound.LT_BETA
+        ins = key_inputs(K_KEYGEN_CHECK, N_BYTES, 32)
+        got = keygen_dcf32(w_aes, *ins, lt=lt)
+        g2_plain, want = cuda_ms(lambda: keygen_walk_plain(
+            w_aes, *ins, mode=MODE_G2, lt=lt), 1)
+        if lt:
+            kg_plain_g2 = g2_plain
+        for name, g_, w_ in zip(("cw_s", "cw_v", "cw_t", "cw_np1"), got,
+                                want):
+            same("G2", f"K={K_KEYGEN_CHECK} {bnd.name} {name}", g_, w_)
+    del got, want, ins
+    log(f"phase 19 E1: byte-identical to its plain version at {M_CHECK} "
+        "points, n=16 and 128, 4 groups x 2 bounds x 2 parties, 3 keys at "
+        "shared and at per-key points, x = alpha and alpha +- 1 planted, "
+        "the masked bit set in the root seeds; G2: byte-identical at "
+        f"K={K_KEYGEN_CHECK}, n=128, 2 bounds, every byte of cw_s, cw_v, "
+        f"cw_t and cw_np1 ({time.perf_counter() - t0:.1f} s)")
+
+    # The main path at lam = 32 through the facade.
+    t0 = time.perf_counter()
+    w32_ms, w32_main = {}, {}
+    xs_w = wrng.integers(0, 256, (M_MAIN, N_BYTES), dtype=np.uint8)
+    for group in ("xor", "add32"):
+        name = f"lam32 walk {group}"
+        alphas = wrng.integers(0, 256, (1, N_BYTES), dtype=np.uint8)
+        betas = wrng.integers(0, 256, (1, 32), dtype=np.uint8)
+        dcf32 = Dcf(N_BYTES, 32, wck)
+        if dcf32.backend_name != "walk":
+            raise RuntimeError(f"Dcf(lam=32) picked {dcf32.backend_name}")
+        reset_counts()
+        bundle = dcf32.gen(alphas, betas, rng=wrng, group=group)
+        anchors = [dcf32.eval(b, bundle, xs_w[:M_ANCHOR]) for b in (0, 1)]
+        bes = [dcf32.eval_backend(b) for b in (0, 1)]
+        staged = bes[0].stage(xs_w)
+        ys = [bes[b].eval_staged(b, staged) for b in (0, 1)]
+        torch.cuda.synchronize()
+        take_counts(name, {"E1": 4, **({"G2": 1} if group == "xor" else {})})
+        mism = int(bes[0].points_mismatch_count(
+            ys[0], ys[1], alphas[0].tobytes(), betas[0].tobytes(), staged))
+        if mism != 0:
+            raise RuntimeError(f"{name}: {mism} two-party mismatches over "
+                               f"{M_MAIN} points")
+        host_kb = gen_batch(w_prg, alphas, betas, bundle.s0s,
+                            Bound.LT_BETA, group=group)
+        if host_kb.to_bytes() != bundle.to_bytes():
+            raise RuntimeError(f"{name}: Dcf.gen differs from gen_batch")
+        for b in (0, 1):
+            want = eval_batch_np(w_prg, b, bundle.for_party(b),
+                                 xs_w[:M_ANCHOR])
+            if not (np.array_equal(anchors[b], want) and np.array_equal(
+                    bes[b].staged_to_bytes(ys[b], M_ANCHOR), want)):
+                raise RuntimeError(f"{name}: party {b} differs from the "
+                                   f"numpy oracle on the first {M_ANCHOR} "
+                                   "points")
+            if tuple(ys[b].shape) != (1, M_MAIN, 32):
+                raise RuntimeError(f"{name}: shares of shape "
+                                   f"{tuple(ys[b].shape)}")
+        w32_ms[group] = wall_ms(lambda: bes[0].eval_staged(0, staged),
+                                REPEATS)
+        w32_main[group] = (bundle.for_party(0), staged["xs"])
+        log(f"phase 19 {name} (Dcf(n=128, lam=32), backend "
+            f"{dcf32.backend_name}): 0 mismatches over {M_MAIN} points (two "
+            f"parties, on the card); the first {M_ANCHOR} points equal the "
+            f"numpy oracle; the keys equal gen_batch's; eval_staged median "
+            f"{w32_ms[group]:.3f} ms = {M_MAIN / w32_ms[group] * 1e3:,.0f} "
+            f"evals/s over {REPEATS} repeats [{card}]")
+        del bes, staged, ys
+
+    # E1 at the path's shape (one key, 2^20 points, n = 128, party 0),
+    # beside its plain version there and B4's time in this run (phase 6).
+    kb0, xs0 = w32_main["xor"]
+    t = on_card(kb0, NARROW)
+    e1_args = (w_aes, t["s0"], t["cw_s"], t["cw_v"], t["cw_t"],
+               t["cw_np1"], xs0)
+    walk32_eval(*e1_args, b=0, group="xor")
+    e1_ms, got = cuda_ms(lambda: walk32_eval(*e1_args, b=0, group="xor"), 10)
+    e1_plain, want = cuda_ms(lambda: walk32_eval_plain(
+        *e1_args, b=0, group="xor"), 1)
+    same("E1", f"M={M_MAIN} n=128 xor", got, want)
+    kb_a, xs_a = w32_main["add32"]
+    t = on_card(kb_a, NARROW)
+    a_args = (w_aes, t["s0"], t["cw_s"], t["cw_v"], t["cw_t"], t["cw_np1"],
+              xs_a)
+    e1_add_ms, _ = cuda_ms(lambda: walk32_eval(*a_args, b=1, group="add32"),
+                           10)
+    del got, want
+    e1_lookups = walk_lookups(xs0, 0, 128, *narrow_turns)
+    e1_bytes = M_MAIN * (N_BYTES + NARROW) + 128 * (2 * NARROW + 2) \
+        + 2 * NARROW + NARROW_AES_BYTES
+
+    # G2 at K = 2^16, n = 128, after two untimed calls.
+    ins = key_inputs(K_WIDE_KEYGEN, N_BYTES, 32)
+    held = keygen_dcf32(w_aes, *ins, lt=True)
+    keygen_dcf32(w_aes, *ins, lt=True)
+    del held
+    g2_ms, out = cuda_ms(lambda: keygen_dcf32(w_aes, *ins, lt=True), 5)
+    anchor("G2", f"K={K_WIDE_KEYGEN}", dict(zip(
+        ("cw_s", "cw_v", "cw_t", "cw_np1"),
+        host(*(o[:K_ANCHOR] for o in out)))),
+        gen_batch(w_prg, *host(*(a[:K_ANCHOR] for a in ins)),
+                  Bound.LT_BETA))
+    # A party's level needs E0 and E17 on (s, ~s): four blocks.
+    g2_lookups = K_WIDE_KEYGEN * 128 * 2 * 4 * LOOKUPS_BLOCK
+    g2_bytes = K_WIDE_KEYGEN * (N_BYTES + 3 * 32) \
+        + K_WIDE_KEYGEN * (128 * 66 + 32)
+    del ins, out
+    log(f"phase 19 E1 at one key, n=128, {M_MAIN} points: {e1_ms:.3f} ms in "
+        f"XOR, {e1_add_ms:.3f} ms in add32 (party 1), B4 at lam=256 in "
+        f"this run {b4_ms:.3f} ms; G2 K={K_WIDE_KEYGEN} n=128: "
+        f"{g2_ms:.3f} ms, the first {K_ANCHOR} keys equal gen_batch "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # The per-point full domain at lam = 32 (config 3's n = 24).
+    t0 = time.perf_counter()
+    fdcf32 = Dcf(N_FULL // 8, 32, wck)
+    for bnd in Bound:
+        gt = bnd is Bound.GT_BETA
+        alpha = int(wrng.integers(8, (1 << N_FULL) - 8))
+        beta = wrng.integers(0, 256, (1, 32), dtype=np.uint8)
+        bundle = fdcf32.gen(np.frombuffer(
+            alpha.to_bytes(N_FULL // 8, "big"), dtype=np.uint8)[None].copy(),
+            beta, rng=wrng, bound=bnd)
+        bes = [WalkBackend(32, wck) for _ in (0, 1)]
+        for b in (0, 1):
+            bes[b].put_bundle(bundle.for_party(b))
+        beta = beta[0].tobytes()
+        reset_counts()
+        clean = full_domain_check_device(bes[0], bes[1], alpha, beta,
+                                         N_FULL, gt)
+        take_counts(f"full domain walk lam=32 n={N_FULL}",
+                    {"E1": 2 * ((1 << N_FULL) >> 20)})
+        moved = full_domain_check_device(bes[0], bes[1], alpha + 7, beta,
+                                         N_FULL, gt)
+        if clean != 0 or moved != 7:
+            raise RuntimeError(
+                f"full domain lam=32 {bnd.name}: full_domain_check_device "
+                f"gave {clean} (want 0) and {moved} for alpha + 7 (want 7)")
+        fd_ms = wall_ms(lambda: full_domain_check_device(
+            bes[0], bes[1], alpha, beta, N_FULL, gt), 3)
+        log(f"phase 19 full domain lam=32 n={N_FULL} {bnd.name}: "
+            f"full_domain_check_device over two WalkBackends 0 mismatches "
+            f"over 2^{N_FULL} points, 7 for alpha + 7; median {fd_ms:.3f} "
+            f"ms of 3 [{card}]")
+        del bes
+
+    # MIC at lam = 32: 8 intervals from a seed, n = 128, 2^16 shared
+    # points; XOR keys from G2 against the host walk's frame, and the same
+    # intervals in add32 from the host walk; MicEvaluator (the pair
+    # combine on the card) against mic_oracle.
+    top = 1 << (8 * N_BYTES)
+    cuts = sorted({int.from_bytes(wrng.bytes(16), "big") for _ in range(14)})
+    ivs = [(cuts[2 * i], cuts[2 * i + 1]) for i in range(6)]
+    ivs += [(cuts[13], cuts[12]), (cuts[12], top)]
+    mbetas = wrng.integers(0, 256, (len(ivs), 32), dtype=np.uint8)
+    xs_m = wrng.integers(0, 256, (M_CHECK, N_BYTES), dtype=np.uint8)
+    edges = sorted({(x + d) % top for pq in ivs for x in pq for d in (-1, 0)})
+    for j, x in enumerate(edges):
+        xs_m[j] = np.frombuffer(x.to_bytes(N_BYTES, "big"), dtype=np.uint8)
+    mdcf = Dcf(N_BYTES, 32, wck)
+    reset_counts()
+    pb32 = mdcf.mic(ivs, mbetas, rng=np.random.default_rng(SEED + 14),
+                    device=True)
+    torch.cuda.synchronize()
+    take_counts("mic32_keygen", {"G2": 1})
+    if pb32.to_bytes() != mdcf.mic(ivs, mbetas,
+                                   rng=np.random.default_rng(SEED + 14),
+                                   device=False).to_bytes():
+        raise RuntimeError("Dcf.mic(device=True) at lam=32: the G2 "
+                           "bundle's frame differs from the host walk's")
+    want_mic = mic_oracle(xs_m, ivs, mbetas)
+    for name, kpb in (("mic32_walk", pb32), ("mic32_add32_walk", mdcf.mic(
+            ivs, mbetas, rng=np.random.default_rng(SEED + 15),
+            group="add32"))):
+        reset_counts()
+        evs = [MicEvaluator(mdcf, kpb, b) for b in (0, 1)]
+        ys = [ev.eval(xs_m) for ev in evs]
+        torch.cuda.synchronize()
+        take_counts(name, {"E1": 2})
+        if not np.array_equal(np_group_add(ys[0], ys[1], kpb.group),
+                              want_mic):
+            raise RuntimeError(f"{name}: the reconstruction differs from "
+                               f"mic_oracle over {M_CHECK} points")
+    log(f"phase 19 MIC at lam=32: n=128, {len(ivs)} intervals (one "
+        f"wraparound, one with q=2^128), {M_CHECK} shared points: "
+        "Dcf.mic(device=True) (G2) frame equals the host walk's; "
+        "MicEvaluator on lam=32 walk backends, XOR and add32, both parties, "
+        f"equals mic_oracle ({time.perf_counter() - t0:.1f} s) [{card}]")
+    add_row("phase 19", "E1", "walk32_eval",
+            "dcf_tpu/backends/jax_bitsliced.py:98", e1_ms, e1_plain,
+            e1_lookups, e1_bytes, shape=f"K=1 M={M_MAIN} n=128 lam=32 xor",
+            add32_ms=e1_add_ms, b4_ms_this_run=b4_ms)
+    add_row("phase 19", "G2", "keygen_walk",
+            "dcf_tpu/backends/device_gen.py:70", g2_ms,
+            kg_plain_g2, g2_lookups, g2_bytes,
+            shape=f"K={K_WIDE_KEYGEN} n=128 lam=32",
+            plain_shape=f"K={K_KEYGEN_CHECK}")
 
     # launches x (time - bound) of B1 and B6 on each path, from their
     # per-launch times at each path's shapes (phases 6 and 12).

@@ -35,7 +35,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("walk_eval", "tree_expand", "prefix_eval", "narrow_walk",
            "wide_xor", "hybrid_state", "hybrid_prefix", "evalall_expand",
-           "pir_answer", "keygen_walk", "keygen_wide", "keylanes_eval")
+           "pir_answer", "keygen_walk", "keygen_wide", "keylanes_eval",
+           "walk32_eval")
 _HEADERS = ("dcf_walk.cuh", "narrow_walk.cuh", "keygen_walk.cuh",
             "aes_banked.cuh", "pir_answer.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

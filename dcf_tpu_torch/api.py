@@ -23,8 +23,10 @@ and the interval protocols (``Dcf.interval`` / ``mic`` / ``piecewise`` and
 
 Backends (``backend=``):
 
-    auto     walk for lam = 16, hybrid for lam >= 48
-    walk     lam = 16: kernel B1, the from-root walk (backends.walk_backend)
+    auto     walk for lam = 16 and 32, hybrid for lam >= 48
+    walk     the from-root walk (backends.walk_backend): lam = 16 on kernel
+             B1, lam = 32 on kernel E1 (``dcf_tpu``'s bitsliced backend
+             there)
     prefix   lam = 16: kernels B2 + B3, per-key frontier of the top k
              levels, built once per party, then the remaining n - k levels
              per point (backends.prefix_backend; shared points)
@@ -41,13 +43,10 @@ Backends (``backend=``):
              XOR group: keygen and evaluation on the host; without a
              working g++ build it raises ``NativeBuildError``
 
-lam = 32 serves the DPF methods (full-domain evaluation on kernel B6)
-under ``auto``, ``numpy`` and ``cpu``.  DCF ``gen`` and ``eval`` run there
-only on the host, under an explicit ``backend="numpy"`` (the numpy keygen
-walk and oracle) or ``backend="cpu"`` (the C++ core); under ``auto`` they
-raise, as does the rest of 16 < lam < 48:
-the JAX package runs DCF batch eval in that band on its bitsliced
-backend, which has no kernel here yet (ROADMAP.md A7).
+lam = 32 serves DCF keys under ``auto`` = ``walk`` (keygen on kernel G2,
+evaluation on E1), ``numpy`` and ``cpu``, and the DPF methods
+(full-domain evaluation on kernel B6) under any of the three; ``prefix``,
+``keylanes`` and ``hybrid`` refuse it, as ``dcf_tpu``'s do.
 
 Everything runs on the card (``device="cuda"``, the default) unless the
 caller passes ``device="cpu"``, where the kernels' plain PyTorch versions
@@ -57,16 +56,17 @@ canary-driven degrade, so a failing device path surfaces as an error.
 
 Keygen follows the facade's device too: ``gen``, ``dpf`` and ``pir_query``
 take ``device=None`` (the default), which runs a keygen kernel where one
-exists -- G1 for XOR keys at lam = 16, B7a and W2 (the wide tail) at
-lam >= 48, B7b for DPF keys at lam = 32 -- and the numpy host walk where
-none does (additive groups, DPF keys at other widths), as ``dcf_tpu``
-routes those.
+exists -- G1 for XOR keys at lam = 16, G2 at lam = 32, B7a and W2 (the
+wide tail) at lam >= 48, B7b for DPF keys at lam = 32 -- and the numpy
+host walk where none does (additive groups, DPF keys at other widths), as
+``dcf_tpu`` routes those.
 ``device=False`` always names the host walk; ``device=True`` names the
 kernel and raises where there is none.
 
 The protocol keygen methods take ``device=False`` by default, as in
-``dcf_tpu``: the host walk.  ``device=True`` runs kernel G1 for XOR keys at
-lam = 16 and raises where no kernel has the algebra (additive groups).
+``dcf_tpu``: the host walk.  ``device=True`` runs the keygen kernel of the
+width for XOR keys (G1, G2, or B7a and W2) and raises where no kernel has
+the algebra (additive groups).
 
 Not in this package yet (see ROADMAP.md): the other JAX backends,
 ``mesh=``, and ``serve``.
@@ -105,8 +105,9 @@ _BACKENDS = ("numpy", "cpu", "walk", "prefix", "hybrid", "keylanes")
 # Backend names of the JAX facade that this package does not carry yet,
 # with the ROADMAP.md item that ports them.
 _LATER = {
-    "jax": "queue A11 (the byte-level walk)",
-    "bitsliced": "queue A7 (the off-card bitsliced walk)",
+    "jax": "not queued: its byte-level XLA walk has no counterpart; "
+           "backend 'walk' evaluates the same keys",
+    "bitsliced": "none: its lam <= 32 counterpart is backend 'walk'",
     "pallas": "none: its kernel is ported as backend 'walk'",
 }
 
@@ -134,37 +135,26 @@ class Dcf:
             raise ValueError("n_bytes must be >= 1")
         if lam < 16 or lam % 16:
             raise ValueError(f"lam must be a multiple of 16 bytes, got {lam}")
-        if 16 < lam < 48 and lam != DPF_DEVICE_LAM:
-            raise ValueError(
-                f"lam={lam} is not ported: the JAX package runs 16 < lam < "
-                "48 on its bitsliced backend, which has no kernel "
-                "(ROADMAP.md A7)")
-        if lam == DPF_DEVICE_LAM:
-            # The DPF width: dpf / eval_all / pir_query only.
-            if backend not in ("auto", "numpy", "cpu"):
-                raise ValueError(
-                    f"lam={lam} serves the DPF methods (dpf, eval_all, "
-                    f"pir_query); it has no {backend!r} backend: DCF batch "
-                    "eval at 16 < lam < 48 is not ported (ROADMAP.md A7)")
-            # DCF keys only if asked for (backend_requested)
-            name = "cpu" if backend == "cpu" else "numpy"
-        else:
-            name = backend if backend != "auto" else (
-                "walk" if lam == 16 else "hybrid")
+        name = backend if backend != "auto" else (
+            "walk" if lam <= 32 else "hybrid")
         if name not in _BACKENDS:
             later = _LATER.get(name)
             raise ValueError(
                 f"backend {name!r} is not in this package; it has "
                 f"{', '.join(_BACKENDS)} and auto"
                 + (f" (ROADMAP.md: {later})" if later else ""))
-        if name in ("walk", "prefix", "keylanes") and lam != 16:
+        if name in ("prefix", "keylanes") and lam != 16:
             raise ValueError(
                 f"the {name} backend supports lam=16 only (got {lam}); use "
-                "hybrid")
+                + ("walk" if lam == 32 else "hybrid"))
+        if name == "walk" and lam > 32:
+            raise ValueError(
+                f"the walk backend supports lam=16 and lam=32 (got {lam}); "
+                "use hybrid")
         if name == "hybrid" and lam < 48:
             raise ValueError(
                 f"the hybrid (large-lambda) backend wants lam >= 48 (got "
-                f"{lam}); use walk or prefix")
+                f"{lam}); use walk" + (" or prefix" if lam == 16 else ""))
         self._backend_opts = dict(backend_opts or {})
         if self._backend_opts and name in ("numpy", "cpu", "keylanes"):
             raise ValueError(
@@ -185,10 +175,6 @@ class Dcf:
         self.lam = lam
         self.cipher_keys = list(cipher_keys)
         self.backend_name = name
-        # The name asked for: at lam = 32 auto, numpy and cpu run the DPF
-        # methods, but only an explicit numpy or cpu serves DCF keys (on
-        # the host).
-        self.backend_requested = backend
         self.device = resolve_device(device)
         # The facade is the API edge: the contract warning fires once here;
         # the nested constructions below are silenced.
@@ -205,17 +191,6 @@ class Dcf:
         self._eval_backends: dict = {}
         self._shipped_bundle: dict = {}
         self._dpf_evalall = None  # built by the first eval_all on the device
-
-    def _refuse_dcf_at_dpf_width(self, what: str) -> None:
-        if self.lam == DPF_DEVICE_LAM \
-                and self.backend_requested not in ("numpy", "cpu"):
-            raise ValueError(
-                f"{what} at lam={self.lam} with backend="
-                f"{self.backend_requested!r} is not ported: the JAX package "
-                "runs DCF keys of 16 < lam < 48 on its bitsliced backend, "
-                "which has no kernel (ROADMAP.md A7); backend='numpy' or "
-                "'cpu' runs them on the host, and this width serves dpf, "
-                "eval_all and pir_query")
 
     @staticmethod
     def _keygen_on_device(device, kernel: bool, why: str) -> bool:
@@ -240,29 +215,22 @@ class Dcf:
         output group (xor, add8, add16, add32).
 
         XOR keys run on the facade's device by default (``gen.
-        gen_on_device``: kernel G1 at lam = 16, B7a and W2 (the wide tail) at
-        lam >= 48, their plain versions under ``device="cpu"``); additive
-        groups take the host walk, as no keygen kernel has their algebra.
-        ``device=False`` names the host walk, ``device=True`` the kernel
-        (an additive group then raises).  The bytes are the same.  At
-        lam = 32 (``backend="numpy"`` or ``"cpu"`` only) keygen is on the
-        host: no kernel has the DCF algebra at that width.  Under
+        gen_on_device``: kernel G1 at lam = 16, G2 at lam = 32, B7a and W2
+        (the wide tail) at lam >= 48, their plain versions under
+        ``device="cpu"``); additive groups take the host walk, as no keygen
+        kernel has their algebra.  ``device=False`` names the host walk,
+        ``device=True`` the kernel (an additive group then raises).  The
+        bytes are the same.  Under
         ``backend="cpu"`` keygen stays on the host unless ``device=True``
         names the kernel: XOR keys on the C++ core (``NativeDcf.
         gen_batch``), additive groups on the numpy walk, as ``dcf_tpu``
         routes them."""
-        self._refuse_dcf_at_dpf_width("gen")
-        if self.lam == DPF_DEVICE_LAM:
-            why = (f"no keygen kernel has the DCF algebra at lam={self.lam} "
-                   "(ROADMAP.md A7); call gen() with device=None or False "
-                   "for the host walk")
-        else:
-            why = (f"no keygen kernel has the additive algebra of group "
-                   f"{group!r} (in this package or in dcf_tpu); call gen() "
-                   "with device=None or False for the host walk")
         on_device = self._keygen_on_device(
             False if self._native is not None and device is None else device,
-            group == "xor" and self.lam != DPF_DEVICE_LAM, why)
+            group == "xor",
+            f"no keygen kernel has the additive algebra of group {group!r} "
+            "(in this package or in dcf_tpu); call gen() with device=None "
+            "or False for the host walk")
         alphas = np.asarray(alphas, dtype=np.uint8)
         betas = np.asarray(betas, dtype=np.uint8)
         if alphas.ndim != 2 or alphas.shape[1] != self.n_bytes:
@@ -333,7 +301,6 @@ class Dcf:
         ``bundle`` may be the two-party bundle (restricted to party ``b``
         here; its key image is shipped once per party and reused while
         the caller passes the same object) or ``bundle.for_party(b)``."""
-        self._refuse_dcf_at_dpf_width("eval")
         xs = np.asarray(xs, dtype=np.uint8)
         if self.backend_name == "keylanes":
             # One two-party image serves both parties (the correction
@@ -531,9 +498,9 @@ class Dcf:
         (staged, the combine on the card).  Reconstruction: group-add
         both parties' [m, M, lam] outputs.  ``device=False`` (the
         default) runs the host walk; ``device=True`` runs the 2m-key
-        keygen on the card (kernel G1, XOR keys at lam = 16, byte-
-        identical to the host walk) and raises where no kernel has the
-        algebra."""
+        keygen on the card (XOR keys: kernel G1 at lam = 16, G2 at
+        lam = 32, byte-identical to the host walk) and raises where no
+        kernel has the algebra."""
         return gen_interval_bundle(
             self._protocol_gen(rng, device, group), intervals,
             np.asarray(betas, dtype=np.uint8), self.n_bytes, bound,

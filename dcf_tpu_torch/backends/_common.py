@@ -126,9 +126,10 @@ def points_mismatch_count(y0: torch.Tensor, y1: torch.Tensor, alpha, beta,
 def xor_mismatch_count(y0: torch.Tensor, y1: torch.Tensor,
                        inside: torch.Tensor, beta: bytes) -> torch.Tensor:
     """The full-domain verifiers' count: the rows of y0 ^ y1 (uint8
-    [M, 16]) that differ from ``beta`` where ``inside`` (bool [M]) holds
-    and from zero elsewhere.  A device int64 scalar."""
-    recon = (y0 ^ y1).view(torch.int64)  # [M, 2]
+    [M, lam], lam a multiple of 8: 16 or 32 on the per-point walk) that
+    differ from ``beta`` where ``inside`` (bool [M]) holds and from zero
+    elsewhere.  A device int64 scalar."""
+    recon = (y0 ^ y1).view(torch.int64)  # [M, lam / 8]
     want = torch.from_numpy(np.frombuffer(beta, dtype=np.uint8).copy()).to(
         y0.device).view(torch.int64)
     bad = torch.where(inside, (recon != want).any(-1), (recon != 0).any(-1))

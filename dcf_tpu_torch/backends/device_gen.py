@@ -1,5 +1,5 @@
-"""Key generation on the card: DCF keys at lam = 16 and lam >= 48, DPF keys
-at lam = 32.
+"""Key generation on the card: DCF keys at lam = 16, 32 and >= 48, DPF
+keys at lam = 32.
 
 Counterparts of ``dcf_tpu/backends/device_gen.py`` (``DeviceKeyGen``, the
 keys-in-lanes generator) and of the generator classes of
@@ -7,8 +7,10 @@ keys-in-lanes generator) and of the generator classes of
 ``PallasDpfKeyGen``):
 
     DeviceKeyGen  lam = 16   kernel G1; ``gen`` leaves the key image on the
-                             device, both parties' seeds included, in the
+                  and 32     device, both parties' seeds included, in the
                              layout ``backends.keylanes_backend`` reads
+                             (at lam = 32, kernel G2: B7a's expansion
+                             with the lam = 32 PRG's mask, no trajectory)
     HybridKeyGen  lam >= 48  kernel B7a (the narrow 32 bytes and both
                              trajectories), then kernel W2, the GF(2) wide
                              tail (``ops.keygen_walk.keygen_wide_tail``),
@@ -41,6 +43,7 @@ from dcf_tpu_torch.gen import _check_gen_inputs
 from dcf_tpu_torch.keys import KeyBundle
 from dcf_tpu_torch.ops.keygen_walk import (
     keygen_dcf16,
+    keygen_dcf32,
     keygen_dpf,
     keygen_narrow,
     keygen_wide_tail,
@@ -66,26 +69,30 @@ class _KeyGen:
 
 
 class DeviceKeyGen(_KeyGen):
-    """DCF keys at lam = 16 on kernel G1, left on the device."""
+    """DCF keys at lam = 16 (kernel G1) and lam = 32 (kernel G2), left on
+    the device."""
 
     def __init__(self, lam: int, cipher_keys: Sequence[bytes], device=None):
-        if lam != 16:
+        if lam not in (16, NARROW):
             raise ValueError(
-                f"DeviceKeyGen makes lam=16 keys (got {lam}); lam >= 48 is "
-                "HybridKeyGen's, 16 < lam < 48 is not ported (ROADMAP.md A7)")
+                f"DeviceKeyGen makes lam=16 and lam={NARROW} keys (got "
+                f"{lam}); lam >= 48 is HybridKeyGen's")
         used = hirose_used_cipher_indices(lam, len(cipher_keys), warn=False)
         self.lam = lam
         self.device = resolve_device(device)
-        self.aes = to_device(aes_image(cipher_keys[used[0]]), self.device)
+        image = (aes_image(cipher_keys[used[0]]) if lam == 16 else
+                 narrow_aes_image(*(cipher_keys[i] for i in used)))
+        self.aes = to_device(image, self.device)
+        self._keygen = keygen_dcf16 if lam == 16 else keygen_dcf32
 
     def gen(self, alphas: np.ndarray, betas: np.ndarray, s0s: np.ndarray,
             bound: Bound) -> dict:
-        """alphas uint8 [K, n_bytes], betas uint8 [K, 16], s0s uint8
-        [K, 2, 16].  Returns the device key image: s0s [K, 2, 16] (both
-        parties), cw_s / cw_v [K, n, 16], cw_t [K, n, 2], cw_np1 [K, 16]
+        """alphas uint8 [K, n_bytes], betas uint8 [K, lam], s0s uint8
+        [K, 2, lam].  Returns the device key image: s0s [K, 2, lam] (both
+        parties), cw_s / cw_v [K, n, lam], cw_t [K, n, 2], cw_np1 [K, lam]
         and num_keys, the arrays of the two-party ``KeyBundle``."""
         a, bt, s = self._ship(alphas, betas, s0s)
-        cw_s, cw_v, cw_t, cw_np1 = keygen_dcf16(
+        cw_s, cw_v, cw_t, cw_np1 = self._keygen(
             self.aes, a, bt, s, lt=bound is Bound.LT_BETA)
         return dict(s0s=s, cw_s=cw_s, cw_v=cw_v, cw_t=cw_t, cw_np1=cw_np1,
                     num_keys=a.shape[0])

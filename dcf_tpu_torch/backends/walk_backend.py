@@ -1,20 +1,26 @@
-"""WalkBackend: DCF evaluation on kernel B1, the from-root walk (lam = 16).
+"""WalkBackend: DCF evaluation on the from-root walk kernels, B1 at
+lam = 16 and E1 at lam = 32.
 
-Counterpart of ``PallasBackend`` in ``dcf_tpu/backends/pallas_backend.py``,
-with the same staged API: ``put_bundle`` ships the key image once,
-``stage`` ships the points, ``eval_staged`` returns the shares on the
-device, ``staged_to_bytes`` brings them to the host, ``eval`` does all of
-it bytes-in/bytes-out, and ``points_mismatch_count`` checks a two-party
-reconstruction on the device.  ``stage_range`` and ``mismatch_count`` are
-the per-point full-domain pair: consecutive points made on the device,
-checked there against the plain comparison.
+At lam = 16 the counterpart of ``PallasBackend`` in
+``dcf_tpu/backends/pallas_backend.py``; at lam = 32 the counterpart of
+``BitslicedBackend`` in ``dcf_tpu/backends/jax_bitsliced.py`` (its XLA
+``eval_core_bitsliced``, which ``dcf_tpu``'s facade picks for
+16 < lam < 48).  Both have the same staged API: ``put_bundle`` ships the
+key image once, ``stage`` ships the points, ``eval_staged`` returns the
+shares on the device, ``staged_to_bytes`` brings them to the host,
+``eval`` does all of it bytes-in/bytes-out, and ``points_mismatch_count``
+checks a two-party reconstruction on the device.  ``stage_range`` and
+``mismatch_count`` are the per-point full-domain pair: consecutive points
+made on the device, checked there against the plain comparison.
 
 The key image is the bundle's own uint8 arrays (no plane layout), the
 staged points are uint8 [Kx, M_pad, n/8], and the shares are uint8
-[K, M_pad, 16].  Points pad to whole warps of 32; the pad points are
-genuine evaluations of x = 0 and are dropped at ``staged_to_bytes``.
-The backend runs on the card unless it is built with ``device="cpu"``,
-where the kernel's plain PyTorch version runs instead.
+[K, M_pad, lam].  The cipher image is cipher 0's at lam = 16
+(``aes_image``), ciphers 0's and 17's at lam = 32 (``narrow_aes_image``).
+Points pad to whole warps of 32; the pad points are genuine evaluations
+of x = 0 and are dropped at ``staged_to_bytes``.  The backend runs on the
+card unless it is built with ``device="cpu"``, where the kernel's plain
+PyTorch version runs instead.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from dcf_tpu_torch.backends._common import (
 )
 from dcf_tpu_torch.errors import ShapeError, StaleStateError
 from dcf_tpu_torch.keys import KeyBundle
+from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
+from dcf_tpu_torch.ops.walk32_eval import walk32_eval
 from dcf_tpu_torch.ops.walk_eval import aes_image, walk_eval
 from dcf_tpu_torch.spec import hirose_used_cipher_indices
 
@@ -41,18 +49,21 @@ POINT_TILE = 32  # points pad to a multiple of one warp
 
 
 class WalkBackend:
-    """DCF evaluator running the from-root walk kernel (lam = 16)."""
+    """DCF evaluator running the from-root walk kernel (B1 at lam = 16, E1
+    at lam = 32)."""
 
     def __init__(self, lam: int, cipher_keys: Sequence[bytes], device=None):
-        if lam != 16:
+        if lam not in (16, 32):
             raise ValueError(
-                f"WalkBackend supports lam=16 only (got {lam}); larger lam "
-                "waits for slice 3 (large lambda) in ROADMAP.md")
+                f"WalkBackend supports lam=16 and lam=32 (got {lam}); "
+                "lam >= 48 is the hybrid backend's (LargeLambdaBackend)")
         used = hirose_used_cipher_indices(lam, len(cipher_keys))
         self.lam = lam
         self.device = resolve_device(device)
-        self.aes = torch.from_numpy(aes_image(cipher_keys[used[0]])).to(
-            self.device)
+        image = (aes_image(cipher_keys[used[0]]) if lam == 16 else
+                 narrow_aes_image(*(cipher_keys[i] for i in used)))
+        self.aes = torch.from_numpy(image).to(self.device)
+        self._walk = walk_eval if lam == 16 else walk32_eval
         self._bundle_dev = None
         self._group = "xor"
 
@@ -132,15 +143,15 @@ class WalkBackend:
 
     def eval_staged(self, b: int, staged: dict) -> torch.Tensor:
         """Party ``b`` eval on staged points; returns the device-resident
-        shares uint8 [K, M_pad, 16] (asynchronous on the card)."""
+        shares uint8 [K, M_pad, lam] (asynchronous on the card)."""
         self._dims()
         dev = self._bundle_dev
-        return walk_eval(self.aes, dev["s0"], dev["cw_s"], dev["cw_v"],
-                         dev["cw_t"], dev["cw_np1"], staged["xs"], b=int(b),
-                         group=self._group)
+        return self._walk(self.aes, dev["s0"], dev["cw_s"], dev["cw_v"],
+                          dev["cw_t"], dev["cw_np1"], staged["xs"], b=int(b),
+                          group=self._group)
 
     def staged_to_bytes(self, y: torch.Tensor, m: int) -> np.ndarray:
-        """``eval_staged`` output -> uint8 [K, m, 16] on the host."""
+        """``eval_staged`` output -> uint8 [K, m, lam] on the host."""
         return y[:, :m].cpu().numpy()
 
     def eval(self, b: int, xs, bundle: KeyBundle | None = None) -> np.ndarray:

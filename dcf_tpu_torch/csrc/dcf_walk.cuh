@@ -236,12 +236,13 @@ DCF_HD void walk_levels(const AesTables& a, const LevelCw* cw, int n_levels,
   }
 }
 
-// y = v + s + t*cw_np1 in the group; party 1 of an additive group negates.
-template <int GW>
-DCF_HD void finalize(const uint32_t s[4], uint32_t t, const uint32_t v[4],
-                     const uint32_t np1[4], bool negate, uint32_t y[4]) {
+// y = v + s + t*cw_np1 in the group over W words (4 at lam = 16, 8 for
+// kernel E1's lam = 32); party 1 of an additive group negates.
+template <int GW, int W = 4>
+DCF_HD void finalize(const uint32_t s[W], uint32_t t, const uint32_t v[W],
+                     const uint32_t np1[W], bool negate, uint32_t y[W]) {
   const uint32_t g = 0u - t;
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < W; ++q) {
     const uint32_t r = gadd<GW>(v[q], gadd<GW>(s[q], np1[q] & g));
     y[q] = negate ? gneg<GW>(r) : r;
   }

@@ -1,4 +1,4 @@
-// Kernels G1, B7a and B7b: DCF and DPF key generation, one thread per key.
+// Kernels G1, B7a, B7b and G2: DCF and DPF key generation, one thread per key.
 //
 // G1   replaces the XLA level scan dcf_tpu/backends/device_gen.py::_gen_core
 //      (lam = 16), which the JAX package runs over keys packed 32 to a
@@ -6,12 +6,14 @@
 // B7a  replaces dcf_tpu/ops/pallas_keygen.py::dcf_keygen_walk_pallas, the
 //      narrow 32 bytes of a lam >= 48 key and both parties' trajectories;
 // B7b  replaces dcf_tpu/ops/pallas_keygen.py::dpf_keygen_walk_pallas, the
-//      lam = 32 DPF key.
+//      lam = 32 DPF key;
+// G2   replaces the XLA level scan dcf_tpu/backends/device_gen.py::_gen_core
+//      at lam = 32, the lam = 32 DCF key (XOR group).
 //
 // Bound on the H100: operations, the shared-memory table lookups of
 // AES-256, 14 rounds x 16 lookups a block: per key and level 2 parties x 2
-// blocks (G1), x 4 (B7a), x 2 blocks and a t bit (B7b: 224 + 224 + 197
-// lookups, the bit needing 12 full rounds and 5 lookups).  The bytes are
+// blocks (G1), x 4 (B7a and G2), x 2 blocks and a t bit (B7b: 224 + 224 +
+// 197 lookups, the bit needing 12 full rounds and 5 lookups).  The bytes are
 // the inputs (alpha, beta, two seeds) and the correction words written
 // once, 34 bytes a level at lam = 16 (4.35 GB for 10^6 keys at n = 128,
 // about a tenth of G1's lookup time at 3.35 TB/s).  One thread walks one key's n levels with both
@@ -24,7 +26,8 @@
 // same work, as in kernel B8: G1 both parties' four blocks of a level in
 // lockstep (KgBanked16), B7a a party's four, one party after the other
 // (KgBankedNarrow), B7b B6's masked step (KgBankedDpf), both parties'
-// four blocks and two t bits in lockstep.  On the four 1 KB
+// four blocks and two t bits in lockstep, G2 B7a's expansion with the
+// lam = 32 mask (KgBankedDcf32).  On the four 1 KB
 // T-tables of dcf_walk.cuh, where about 3.3 lanes' lookups fall into one
 // bank, G1 reached 29% of its bound, B7a 26% and B7b 28%; on the banked
 // AES G1 76% (18.1 ms for 10^6 keys at n = 128), B7a 71% (2.51 ms at
@@ -54,7 +57,7 @@ namespace {
 constexpr int kBlock = 512;
 
 // The shared layout: the banked table, then cipher 0's round keys and,
-// for B7a and B7b, cipher 17's.
+// for B7a, B7b and G2, cipher 17's.
 template <int MODE>
 constexpr size_t kSmem =
     sizeof(uint32_t) * dcf::kBankedWords +
@@ -74,8 +77,9 @@ __device__ __forceinline__ void key_rows(
       cw_t + rows * 2, cw_np1 + key * lam, traj ? traj + rows * 2 : nullptr);
 }
 
-// G1 (MODE kKgDcf16, lam = 16, no traj), B7a (kKgNarrow) and B7b
-// (kKgDpf32, lam = 32, no cw_v, no traj).
+// G1 (MODE kKgDcf16, lam = 16, no traj), B7a (kKgNarrow), B7b
+// (kKgDpf32, lam = 32, no cw_v, no traj) and G2 (kKgDcf32, lam = 32, no
+// traj).
 template <int MODE>
 __global__ void __launch_bounds__(kBlock, 1)
     keygen_banked_kernel(const uint8_t* __restrict__ sbox,
@@ -109,9 +113,13 @@ __global__ void __launch_bounds__(kBlock, 1)
     else if constexpr (MODE == dcf::kKgNarrow)
       key_rows<MODE>(dcf::KgBankedNarrow{lane, rks, rks + 16}, key, alphas,
                      betas, s0s, cw_s, cw_v, cw_t, cw_np1, traj, n, lam, lt);
-    else
+    else if constexpr (MODE == dcf::kKgDpf32)
       key_rows<MODE>(dcf::KgBankedDpf{lane, rks, rks + 16}, key, alphas,
                      betas, s0s, cw_s, nullptr, cw_t, cw_np1, nullptr, n, 32,
+                     lt);
+    else
+      key_rows<MODE>(dcf::KgBankedDcf32{{lane, rks, rks + 16}}, key, alphas,
+                     betas, s0s, cw_s, cw_v, cw_t, cw_np1, nullptr, n, 32,
                      lt);
   }
 }
@@ -149,7 +157,7 @@ cudaError_t launch_banked(const uint8_t* sbox, const uint8_t* rk0,
 // C entry point, bound through ctypes.  Returns the cudaError_t of the
 // launch (0 on success).  mode: 0 = G1 (lam = 16; rk17 unused), 1 = B7a
 // (writes the narrow 32 bytes of each lam-byte row and traj), 2 = B7b
-// (lam = 32; no cw_v, no traj, lt unused).  alphas [K, n/8], betas
+// (lam = 32; no cw_v, no traj, lt unused), 3 = G2 (lam = 32; no traj).  alphas [K, n/8], betas
 // [K, lam], s0s [K, 2, lam]; cw_s / cw_v [K, n, lam], cw_t [K, n, 2],
 // cw_np1 [K, lam], traj [K, n, 2] bytes.
 extern "C" int dcf_keygen_walk(const void* sbox, const void* rk0,
@@ -168,6 +176,7 @@ extern "C" int dcf_keygen_walk(const void* sbox, const void* rk0,
     case dcf::kKgDcf16: return (int)launch_banked<dcf::kKgDcf16>(DCF_ARGS);
     case dcf::kKgNarrow: return (int)launch_banked<dcf::kKgNarrow>(DCF_ARGS);
     case dcf::kKgDpf32: return (int)launch_banked<dcf::kKgDpf32>(DCF_ARGS);
+    case dcf::kKgDcf32: return (int)launch_banked<dcf::kKgDcf32>(DCF_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DCF_ARGS

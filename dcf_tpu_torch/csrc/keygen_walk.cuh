@@ -8,6 +8,8 @@
 //                   (the 32-byte narrow part of a lam >= 48 key)
 //   B7b  kKgDpf32   replaces dcf_tpu/ops/pallas_keygen.py::dpf_keygen_walk_pallas
 //                   (lam = 32 DPF keys)
+//   G2   kKgDcf32   replaces the XLA level scan of
+//                   dcf_tpu/backends/device_gen.py::_gen_core (lam = 32)
 //   W2   wide_tail_column replaces the XLA lax.scan of
 //                   dcf_tpu/ops/pallas_keygen.py::_keygen_wide_tail
 //                   (bytes 32..lam-1 of a lam >= 48 key)
@@ -24,7 +26,7 @@
 //
 // The level loop (keygen_key), the level's algebra (keygen_level) and the
 // stores are one copy; the expansion of both parties' seeds at a level is
-// keygen_key's policy argument, with the table it reads:
+// keygen_key's policy argument, with the table it reads (four modes):
 //
 //   G1   KgBanked16: one Hirose block a party, E(s) and E(~s) under cipher
 //        0, both parties' four blocks in lockstep on the banked AES of
@@ -44,6 +46,11 @@
 //        blocks in lockstep on the banked AES; bit 0 of byte 31 cleared in
 //        block 1 of both children.  No v column: cw_np1 = s_a ^ s_b ^
 //        beta.
+//   G2   KgBankedDcf32: B7a's expansion (E0 and E17 on (s, ~s), a party's
+//        four blocks in lockstep), then the lam = 32 PRG's mask, bit 0 of
+//        byte 31 cleared in all four children (block 1's word 3), after
+//        the t bits are read.  No trajectory; cw_np1 = s_a ^ s_b ^ v_alpha
+//        over the 32 bytes, as at lam = 16.
 //
 // Beyond byte 32 the Hirose PRG of lam >= 48 copies its input, so the wide
 // part of B7a's keys is a GF(2) recursion over alpha's bits and the two
@@ -60,7 +67,7 @@
 
 namespace dcf {
 
-enum KgMode { kKgDcf16 = 0, kKgNarrow = 1, kKgDpf32 = 2 };
+enum KgMode { kKgDcf16 = 0, kKgNarrow = 1, kKgDpf32 = 2, kKgDcf32 = 3 };
 
 // Words a party's seed has in each mode, and whether the key has a v column.
 template <int MODE>
@@ -143,6 +150,30 @@ DCF_HD void kg_expand(const KgBankedNarrow& e, const uint32_t sa[8],
   narrow_step_in(sb, x);
   bk_encrypt<4>(e.t, rks, x);
   narrow_children(sb, x, eb);
+}
+
+// G2's expansion: B7a's, masked.
+struct KgBankedDcf32 {
+  KgBankedNarrow narrow;
+};
+
+// Both parties' lam = 32 Hirose steps, uncorrected: the narrow step of
+// B7a, then bit 0 of byte 31 (word 7, kMaskBit) cleared in the four
+// children of each party, as kg_hirose masks bit 0 of byte 15 at
+// lam = 16; the t bits come from word 0, before the mask.
+DCF_HD void kg_mask32(StepChildren<8>& c) {
+  c.sl[7] &= kMaskBit;
+  c.vl[7] &= kMaskBit;
+  c.sr[7] &= kMaskBit;
+  c.vr[7] &= kMaskBit;
+}
+
+DCF_HD void kg_expand(const KgBankedDcf32& e, const uint32_t sa[8],
+                      const uint32_t sb[8], StepChildren<8>& ea,
+                      StepChildren<8>& eb) {
+  kg_expand(e.narrow, sa, sb, ea, eb);
+  kg_mask32(ea);
+  kg_mask32(eb);
 }
 
 // B7b's expansion: the lane's view t of the banked AES, cipher 0's and
@@ -247,7 +278,8 @@ DCF_HD void kg_store2(uint8_t* p, uint32_t b0, uint32_t b1) {
 }
 
 // The whole keygen of one key, n levels, both parties' seeds expanded at
-// each level by `expand` (KgBanked16, KgBankedNarrow or KgBankedDpf).  alpha:
+// each level by `expand` (KgBanked16, KgBankedNarrow, KgBankedDpf or
+// KgBankedDcf32).  alpha:
 // n/8 bytes, read a byte each 8 levels; beta: the key's beta row; s0a /
 // s0b: the parties' root seeds.  Rows of lam bytes: cw_s (and cw_v) [n][lam],
 // cw_np1 [lam], of which the first 4 * W bytes are written; cw_t [n][2]

@@ -1,6 +1,6 @@
 // Per-thread arithmetic of the two-cipher (32-byte) Hirose step, shared by
-// the four Hopper kernels of the large-lambda hybrid (lam >= 48) and by the
-// full-domain DPF kernel (lam = 32):
+// the four Hopper kernels of the large-lambda hybrid (lam >= 48), by the
+// full-domain DPF kernel (lam = 32) and by the lam = 32 DCF walk:
 //
 //   B4   narrow_walk.cu    replaces dcf_tpu/ops/pallas_narrow.py::dcf_narrow_walk_pallas
 //   B5a  hybrid_state.cu   replaces dcf_tpu/ops/pallas_hybrid_prefix.py::narrow_state_walk_pallas
@@ -8,6 +8,9 @@
 //   W1   wide_xor.cu       replaces the XLA int8 dot_general of
 //                          dcf_tpu/backends/large_lambda.py::_wide_tail
 //   B6   evalall_expand.cu replaces dcf_tpu/ops/pallas_evalall.py::_expand_level
+//   E1   walk32_eval.cu    replaces the XLA lax.scan of
+//                          dcf_tpu/backends/jax_bitsliced.py::eval_core_bitsliced
+//                          at lam = 32
 //
 // For lam >= 48 the Hirose PRG encrypts only its first two 16-byte blocks
 // (cipher 0 on block 0, cipher 17 on block 1); every other block is a
@@ -25,8 +28,9 @@
 //
 // and t_l / t_r are bit 0 of byte 0 of cipher 0's two outputs.  The state
 // is eight little-endian uint32 words per 32 bytes (block 0 in words 0-3).
-// The kernels run it on the banked AES of aes_banked.cuh: B4 and B5b as
-// three slots a level (narrow_level_banked), B5a both children of a
+// The kernels run it on the banked AES of aes_banked.cuh: B4, B5b and E1
+// (masked, with the group's v) as three slots a level
+// (narrow_level_banked), B5a both children of a
 // frontier node at once (frontier_expand), B6 its DPF node
 // (dpf_node_banked: the masked lam = 32 step dpf_step_banked, then the
 // level's correction; keygen_walk.cuh's B7b runs the same step's pieces
@@ -100,6 +104,14 @@ DCF_HD void narrow_finalize(const NarrowState& st, const uint32_t np1[8],
 // lane of the warp turns right), so a mixed warp computes 3 blocks, not 4,
 // and an all-left warp 2.  rk0 and rk17 sit in different banks, so slot B's
 // two round keys are one broadcast wavefront.
+//
+// B4 and B5b run it unmasked in the XOR group (the defaults).  Kernel E1,
+// the lam = 32 DCF walk, runs it with MASK, the lam = 32 PRG's output bit
+// 8*lam-1 (bit 0 of byte 31: word 3 of block 1, kMaskBit) cleared in the
+// child's s and v, the copied halves included, before the level's
+// correction enters (t_l and t_r are read before it), and v accumulated
+// in the group of lane width GW (gadd of dcf_walk.cuh, unsigned).
+template <int GW = 0, bool MASK = false>
 DCF_HD void narrow_level_banked(const BkLane& t, const RoundKey* rk0,
                                 const RoundKey* rk17, const NarrowCw& w,
                                 uint32_t xbit, bool any_right,
@@ -131,12 +143,13 @@ DCF_HD void narrow_level_banked(const BkLane& t, const RoundKey* rk0,
   for (int q = 0; q < 4; ++q) {
     // Left child: s = (fb, sb), v = (fa, ~sb); right: s = (sa, fb),
     // v = (~sa, fc).
+    const uint32_t m = MASK && q == 3 ? kMaskBit : 0xFFFFFFFFu;
     const uint32_t s0 = (st.s[q] & xm) | (fb[q] & ~xm);
-    const uint32_t s1 = (fb[q] & xm) | (st.s[4 + q] & ~xm);
+    const uint32_t s1 = ((fb[q] & xm) | (st.s[4 + q] & ~xm)) & m;
     const uint32_t v0 = (na[q] & xm) | (fa[q] & ~xm);
-    const uint32_t v1 = (fc[q] & xm) | (nb[q] & ~xm);
-    st.v[q] ^= v0 ^ (w.v[q] & g);
-    st.v[4 + q] ^= v1 ^ (w.v[4 + q] & g);
+    const uint32_t v1 = ((fc[q] & xm) | (nb[q] & ~xm)) & m;
+    st.v[q] = gadd<GW>(st.v[q], gadd<GW>(v0, w.v[q] & g));
+    st.v[4 + q] = gadd<GW>(st.v[4 + q], gadd<GW>(v1, w.v[4 + q] & g));
     st.s[q] = s0 ^ (w.s[q] & g);
     st.s[4 + q] = s1 ^ (w.s[4 + q] & g);
   }
@@ -207,6 +220,28 @@ DCF_HD uint32_t narrow_row(NarrowState& st, const uint32_t row[16],
   }
   st.t = (word >> k) & 1u;
   return word & ((1u << k) - 1u);
+}
+
+// Kernel E1's per-thread body: party b's lam = 32 DCF walk of one point x
+// under one key (seed s0, the n levels' CWs cw, cw_np1 np1) from the root,
+// each level narrow_level_banked masked and accumulating in the group of
+// lane width GW, then y = v + s + t * cw_np1 over the 32 bytes, negated
+// for party 1 of an additive group.  No trajectory: at lam = 32 the PRG
+// has no wide part.  vote(i, xbit) says whether slot C runs at level i.
+template <int GW, typename Vote>
+DCF_HD void walk32_point_banked(const BkLane& t, const RoundKey* rk0,
+                                const RoundKey* rk17, const NarrowCw* cw,
+                                int n, const uint32_t s0[8], uint32_t b,
+                                const uint32_t np1[8], const uint8_t* x,
+                                Vote vote, uint32_t y[8]) {
+  NarrowState st;
+  narrow_root(st, s0, b);
+  for (int i = 0; i < n; ++i) {
+    const uint32_t xbit = walk_bit(x, i);
+    narrow_level_banked<GW, true>(t, rk0, rk17, cw[i], xbit, vote(i, xbit),
+                                  st);
+  }
+  finalize<GW, 8>(st.s, st.t, st.v, np1, b && GW > 0, y);
 }
 
 // AES-256 of three blocks in lockstep, three independent lookup chains:

@@ -4,7 +4,7 @@ Counterpart of ``random_s0s``, ``gen_batch`` and ``gen_on_device`` in
 ``dcf_tpu/gen.py`` (its lines 60-190 and 230-357).  ``gen_batch`` processes
 K comparison functions level by level with one batched PRG call per party
 per level; ``gen_on_device`` runs the same walk on the card (kernel G1 at
-lam = 16, kernels B7a and W2, the wide tail, at lam >= 48,
+lam = 16, G2 at lam = 32, kernels B7a and W2, the wide tail, at lam >= 48,
 ``backends.device_gen``) and gives the same bytes.
 """
 
@@ -165,9 +165,9 @@ def gen_on_device(
     versions run).  Returns the two-party ``KeyBundle``, byte-identical to
     ``gen_batch`` on the same ``(alphas, betas, s0s, bound)``.
 
-    lam = 16 runs kernel G1 (``backends.device_gen.DeviceKeyGen``), lam >=
-    48 kernels B7a and W2 (``HybridKeyGen``); 16 < lam < 48 raises
-    (ROADMAP.md A7).  An additive ``group`` takes ``gen_batch`` on the
+    lam = 16 runs kernel G1 and lam = 32 kernel G2
+    (``backends.device_gen.DeviceKeyGen``), lam >= 48 kernels B7a and W2
+    (``HybridKeyGen``).  An additive ``group`` takes ``gen_batch`` on the
     host: no keygen kernel, in this package or in ``dcf_tpu``, has the
     signed lane algebra, and ``dcf_tpu`` routes it the same way.  A device
     failure raises (the ``keygen.device`` fault point sits in front of the
@@ -180,13 +180,8 @@ def gen_on_device(
     from dcf_tpu_torch.backends.device_gen import DeviceKeyGen, HybridKeyGen
     from dcf_tpu_torch.testing.faults import fire
 
-    if 16 < lam < 48:
-        raise ValueError(
-            f"keygen on the device at lam={lam} is not ported: the JAX "
-            "package runs 16 < lam < 48 on its bitsliced generator, which "
-            "has no kernel (ROADMAP.md A7)")
     fire("keygen.device", alphas.shape[0], lam)
-    if lam == 16:
+    if lam < 48:
         kg = DeviceKeyGen(lam, cipher_keys, device=device)
         return kg.to_host_bundle(kg.gen(alphas, betas, s0s, bound))
     return HybridKeyGen(lam, cipher_keys, device=device).gen(

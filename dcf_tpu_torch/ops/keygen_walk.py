@@ -1,8 +1,9 @@
-"""Kernels G1, B7a and B7b, DCF and DPF key generation on the card, kernel
-W2, B7a's wide tail, and their plain versions.
+"""Kernels G1, G2, B7a and B7b, DCF and DPF key generation on the card,
+kernel W2, B7a's wide tail, and their plain versions.
 
 Counterparts of ``dcf_tpu/backends/device_gen.py`` (``_gen_core``, the XLA
-level scan at lam < 48: G1 here, lam = 16), ``dcf_tpu/ops/pallas_keygen.py``
+level scan at lam < 48: G1 here at lam = 16, G2 at lam = 32),
+``dcf_tpu/ops/pallas_keygen.py``
 (``dcf_keygen_walk_pallas``, B7a: the narrow 32 bytes of a lam >= 48 key;
 ``dpf_keygen_walk_pallas``, B7b: lam = 32 DPF keys) and its
 ``_keygen_wide_tail`` (the XLA scan over bytes 32..lam-1: W2 here).  The
@@ -19,7 +20,7 @@ uint8 [K, lam], and for B7a the trajectories uint8 [K, n, 2]: party 0's
 and party 1's t at the entry of each level.  B7a writes the first 32 bytes
 of each cw row; ``keygen_wide_tail`` the rest, in place.
 
-``keygen_dcf16``, ``keygen_narrow``, ``keygen_dpf`` and
+``keygen_dcf16``, ``keygen_dcf32``, ``keygen_narrow``, ``keygen_dpf`` and
 ``keygen_wide_tail`` launch their kernel for tensors on the card and run
 their plain version for tensors on the CPU: ``keygen_walk_plain`` (the
 same walk in plain PyTorch ops over the AES and Hirose pieces of
@@ -45,11 +46,12 @@ from dcf_tpu_torch.ops.walk_eval import (
     walk_bits_plain,
 )
 
-__all__ = ["MODE_G1", "MODE_B7A", "MODE_B7B", "keygen_walk_plain",
-           "keygen_wide_tail_plain", "keygen_dcf16", "keygen_narrow",
-           "keygen_dpf", "keygen_wide_tail"]
+__all__ = ["MODE_G1", "MODE_B7A", "MODE_B7B", "MODE_G2",
+           "keygen_walk_plain", "keygen_wide_tail_plain", "keygen_dcf16",
+           "keygen_dcf32", "keygen_narrow", "keygen_dpf", "keygen_wide_tail"]
 
-MODE_G1, MODE_B7A, MODE_B7B = 0, 1, 2  # csrc/keygen_walk.cuh's KgMode
+# csrc/keygen_walk.cuh's KgMode
+MODE_G1, MODE_B7A, MODE_B7B, MODE_G2 = 0, 1, 2, 3
 
 
 # --------------------------------------------------------------------------
@@ -68,21 +70,24 @@ def _expand_plain(aes, s, mode: int):
     e0 = aes256_encrypt_plain(aes0, torch.stack([sa, spa]))
     es0, ev0 = e0[0] ^ sa, e0[1] ^ spa
     tl, tr = es0[..., 0] & 1, ev0[..., 0] & 1
-    if mode == MODE_B7A:  # the unmasked narrow step
-        e1 = aes256_encrypt_plain(aes17, torch.stack([sb, spb]))
-        es1, ev1 = e1[0] ^ sb, e1[1] ^ spb
-        return (torch.cat([es0, sb], -1), torch.cat([sa, es1], -1),
-                torch.cat([ev0, spb], -1), torch.cat([spa, ev1], -1), tl, tr)
     mask = torch.as_tensor(_BYTE15_MASK, device=s.device)  # block 1 only
-    es1 = aes256_encrypt_plain(aes17, sb) ^ sb
-    return (torch.cat([es0, sb & mask], -1), torch.cat([sa, es1 & mask], -1),
-            None, None, tl, tr)
+    if mode == MODE_B7B:
+        es1 = aes256_encrypt_plain(aes17, sb) ^ sb
+        return (torch.cat([es0, sb & mask], -1),
+                torch.cat([sa, es1 & mask], -1), None, None, tl, tr)
+    e1 = aes256_encrypt_plain(aes17, torch.stack([sb, spb]))
+    es1, ev1 = e1[0] ^ sb, e1[1] ^ spb
+    if mode == MODE_G2:  # the lam = 32 PRG masks block 1 of its children
+        sb, spb, es1, ev1 = (x & mask for x in (sb, spb, es1, ev1))
+    return (torch.cat([es0, sb], -1), torch.cat([sa, es1], -1),
+            torch.cat([ev0, spb], -1), torch.cat([spa, ev1], -1), tl, tr)
 
 
 def keygen_walk_plain(aes, alphas, betas, s0s, *, mode: int, lt: bool = True):
-    """Plain PyTorch version of kernels G1 (``mode=MODE_G1``), B7a and B7b:
-    the outputs of ``keygen_dcf16``, ``keygen_narrow`` and ``keygen_dpf``
-    (bytes 32.. of B7a's rows zero).  ``lt``: the bound is LT_BETA."""
+    """Plain PyTorch version of kernels G1 (``mode=MODE_G1``), B7a, B7b and
+    G2: the outputs of ``keygen_dcf16``, ``keygen_narrow``, ``keygen_dpf``
+    and ``keygen_dcf32`` (bytes 32.. of B7a's rows zero).  ``lt``: the
+    bound is LT_BETA."""
     k_num, n = alphas.shape[0], 8 * alphas.shape[1]
     lam = betas.shape[1]
     w = 16 if mode == MODE_G1 else NARROW
@@ -130,7 +135,7 @@ def keygen_walk_plain(aes, alphas, betas, s0s, *, mode: int, lt: bool = True):
         cw_t[:, i, 0], cw_t[:, i, 1] = tl_cw, tr_cw
     cw_np1 = zeros(k_num, lam)
     cw_np1[:, :w] = sa ^ sb ^ (va if has_v else beta)
-    if mode == MODE_G1:
+    if mode in (MODE_G1, MODE_G2):
         return cw_s, cw_v, cw_t, cw_np1
     if mode == MODE_B7A:
         return cw_s, cw_v, cw_t, cw_np1, traj
@@ -238,6 +243,23 @@ def keygen_dcf16(aes, alphas, betas, s0s, *, lt: bool = True):
 
 
 keygen_dcf16.launches = 0  # kernel G1 launches in this process
+
+
+def keygen_dcf32(aes, alphas, betas, s0s, *, lt: bool = True):
+    """K DCF keys at lam = 32, XOR group: (cw_s, cw_v [K, n, 32], cw_t
+    [K, n, 2], cw_np1 [K, 32]).  aes uint8 [736]
+    (``ops.narrow_walk.narrow_aes_image``).  The card launches kernel G2,
+    the CPU runs ``keygen_walk_plain``."""
+    device, k_num, n, lam = _check(aes, alphas, betas, s0s, NARROW_AES_BYTES,
+                                   lambda lam: lam == NARROW)
+    if device.type == "cpu":
+        return keygen_walk_plain(aes, alphas, betas, s0s, mode=MODE_G2, lt=lt)
+    out = _launch(aes, alphas, betas, s0s, device, k_num, n, lam, MODE_G2, lt)
+    keygen_dcf32.launches += 1
+    return out[:4]
+
+
+keygen_dcf32.launches = 0  # kernel G2 launches in this process
 
 
 def keygen_narrow(aes, alphas, betas, s0s, *, lt: bool = True):

@@ -44,7 +44,11 @@ from dcf_tpu_torch import _build
 from dcf_tpu_torch.errors import ShapeError
 from dcf_tpu_torch.ops._launch import check_u8, key_slices, launch_checked
 from dcf_tpu_torch.ops.aes import SBOX_NP, expand_key_np
-from dcf_tpu_torch.ops.walk_eval import aes256_encrypt_plain, walk_bits_plain
+from dcf_tpu_torch.ops.walk_eval import (
+    aes256_encrypt_plain,
+    group_add_plain,
+    walk_bits_plain,
+)
 
 __all__ = [
     "NARROW",
@@ -99,14 +103,21 @@ def _ciphers(aes: torch.Tensor):
     return aes[:496], torch.cat([aes[:256], aes[496:]])
 
 
-def narrow_levels_plain(aes, s, t, v, cw_s, cw_v, cw_t, x_bits):
+def narrow_levels_plain(aes, s, t, v, cw_s, cw_v, cw_t, x_bits, *,
+                        gw: int = 0, masked: bool = False):
     """Walk the levels of ``cw_*`` from the narrow carry (s, t, v).
 
     s/v: uint8 [K, M, 32]; t: uint8 [K, M] in {0, 1}; cw_s/cw_v: uint8
     [K, L, 32]; cw_t: uint8 [K, L, 2]; x_bits: uint8 [1 or K, M, L].
     Returns (s, t, v, gates uint8 [K, M, L]), gates[..., i] the t that
-    gated level i."""
+    gated level i.  The narrow walk of lam >= 48 is unmasked and XOR
+    (the defaults); the lam = 32 walk (kernel E1) clears the PRG's bit
+    8*lam-1, bit 0 of byte 31, in the children before the correction
+    (``masked``) and accumulates v in the group of lane width ``gw``."""
     aes0, aes17 = _ciphers(aes)
+    mask = torch.full((NARROW,), 0xFF, dtype=torch.uint8, device=s.device)
+    if masked:
+        mask[NARROW - 1] = 0xFE
     gates = []
     for i in range(cw_s.shape[1]):
         gates.append(t)
@@ -125,8 +136,9 @@ def narrow_levels_plain(aes, s, t, v, cw_s, cw_v, cw_t, x_bits):
         tr = (ev0[..., 0] & 1) ^ (t & cw_t[:, i, 1, None])
         xb = x_bits[:, :, i].bool()
         xm = xb.unsqueeze(-1)
-        v = v ^ torch.where(xm, vr, vl) ^ (cw_v[:, i, None, :] & g)
-        s = torch.where(xm, sr, sl) ^ (cw_s[:, i, None, :] & g)
+        v = group_add_plain(v, group_add_plain(
+            torch.where(xm, vr, vl) & mask, cw_v[:, i, None, :] & g, gw), gw)
+        s = (torch.where(xm, sr, sl) & mask) ^ (cw_s[:, i, None, :] & g)
         t = torch.where(xb, tr, tl)
     gates = (torch.stack(gates, -1) if gates
              else t.new_zeros(*t.shape, 0))

@@ -367,8 +367,8 @@ def gen_interval_bundle(
     ``gen_fn(alphas, betas, bound) -> KeyBundle`` is any K-batched DCF
     keygen — the facade's host path (the C++ core under
     ``backend="cpu"``, else ``gen.gen_batch``) or the walk on the card
-    (``gen.gen_on_device``, kernel G1, what ``Dcf.mic(..., device=True)``
-    passes: the m-interval MIC's 2m bound keys are exactly the K-packed
+    (``gen.gen_on_device``, kernel G1 at lam = 16 and G2 at lam = 32, what
+    ``Dcf.mic(..., device=True)`` passes: the m-interval MIC's 2m bound keys are exactly the K-packed
     shape the keygen kernel scales with).  The 2m bound keys land in ONE K-packed
     bundle: interval i's shares are keys 2i (lower) and 2i+1 (upper),
     both carrying ``betas[i]`` (up to the additive sign fold — see

@@ -18,6 +18,7 @@ from dcf_tpu.gen import gen_batch as j_gen_batch
 from dcf_tpu.ops.prg import HirosePrgNp as JPrg
 
 from dcf_tpu_torch import BackendUnavailableError, Bound, Dcf
+from dcf_tpu_torch.gen import gen_on_device
 from dcf_tpu_torch.utils.groups import np_group_add
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -92,26 +93,24 @@ def test_unported_backends_raise(name):
 
 @pytest.mark.parametrize("lam", [32, 48, 128])
 def test_other_lam_raises(lam):
-    """walk and prefix are lam = 16 kernels; 16 < lam < 48 has no DCF
-    kernel (ROADMAP A7); auto takes hybrid from lam = 48 on, and at
-    lam = 32 builds a facade for the DPF methods whose gen and eval
-    raise."""
+    """walk is the lam = 16 and lam = 32 kernel walk (B1, E1), prefix and
+    keylanes lam = 16 kernels; auto takes walk up to lam = 32 and hybrid
+    from lam = 48 on.  At lam = 32 the refusals name walk, above it
+    hybrid."""
     ck = [b"k" * 32] * 18
-    for name in ("walk", "prefix", "auto"):
-        if name == "auto" and lam >= 48:
-            assert Dcf(2, lam, ck, device="cpu").backend_name == "hybrid"
-            continue
-        if name == "auto":
-            dcf = Dcf(2, lam, ck, device="cpu")
-            with pytest.raises(ValueError, match="A7"):
-                dcf.gen(np.zeros((1, 2), np.uint8),
-                        np.zeros((1, lam), np.uint8))
-            with pytest.raises(ValueError, match="A7"):
-                dcf.eval(0, dcf.dpf(np.zeros((1, 2), np.uint8)),
-                         np.zeros((1, 2), np.uint8))
-            continue
-        with pytest.raises(ValueError,
-                           match="lam=16 only" if lam >= 48 else "A7"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        auto = Dcf(2, lam, ck, device="cpu")
+        assert auto.backend_name == ("walk" if lam == 32 else "hybrid")
+        if lam == 32:
+            assert Dcf(2, lam, ck, backend="walk",
+                       device="cpu").backend_name == "walk"
+        else:
+            with pytest.raises(ValueError, match="lam=16 and lam=32"):
+                Dcf(2, lam, ck, backend="walk", device="cpu")
+    use = "walk" if lam == 32 else "hybrid"
+    for name in ("prefix", "keylanes"):
+        with pytest.raises(ValueError, match=f"lam=16 only.*use {use}"):
             Dcf(2, lam, ck, backend=name, device="cpu")
 
 
@@ -162,16 +161,21 @@ def test_lam32_numpy_backend_matches_dcf_tpu(group, bound):
 
 
 def test_lam32_keygen_routing(monkeypatch):
-    """At lam = 32 no kernel has the DCF algebra: gen(device=None) runs
-    the host walk (the kernel path is never entered), device=True raises
-    naming A7, device=False gives the same bytes; backend="auto" still
-    refuses DCF gen and eval, naming A7, while serving the DPF methods."""
+    """At lam = 32 DCF keys take kernel G2: gen(device=None) under auto
+    (= walk) enters the kernel path, device=True too, device=False is the
+    host walk with the same bytes, an additive group the host walk; the
+    shares of auto's eval (kernel E1's plain version here) equal the numpy
+    backend's; the DPF methods are still served, and prefix, keylanes and
+    hybrid refuse the width, naming walk."""
     import dcf_tpu_torch.api as api
 
-    def no_kernel(*a, **k):
-        raise AssertionError("the keygen kernel path ran at lam = 32")
+    entered = []
 
-    monkeypatch.setattr(api, "gen_on_device", no_kernel)
+    def spy(*a, **k):
+        entered.append(a[0])
+        return gen_on_device(*a, **k)
+
+    monkeypatch.setattr(api, "gen_on_device", spy)
     rng = np.random.default_rng(190)
     ck = [rng.bytes(32) for _ in range(18)]
     alphas = rng.integers(0, 256, (2, 2), dtype=np.uint8)
@@ -179,20 +183,25 @@ def test_lam32_keygen_routing(monkeypatch):
     s0s = rng.integers(0, 256, (2, 2, 32), dtype=np.uint8)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        dcf = Dcf(2, 32, ck, backend="numpy", device="cpu")
+        host = Dcf(2, 32, ck, backend="numpy", device="cpu")
         auto = Dcf(2, 32, ck, device="cpu")
-    assert dcf.backend_requested == "numpy" and auto.backend_requested \
-        == "auto"
-    host = dcf.gen(alphas, betas, s0s=s0s)
-    assert host.to_bytes() == dcf.gen(alphas, betas, s0s=s0s,
-                                      device=False).to_bytes()
-    with pytest.raises(ValueError, match="A7"):
-        dcf.gen(alphas, betas, s0s=s0s, device=True)
-    with pytest.raises(ValueError, match="A7"):
-        auto.gen(alphas, betas, s0s=s0s)
-    with pytest.raises(ValueError, match="A7"):
-        auto.eval(0, host, alphas)
+    assert host.backend_name == "numpy" and auto.backend_name == "walk"
+    kernel = auto.gen(alphas, betas, s0s=s0s)
+    assert entered == [32]
+    assert kernel.to_bytes() == auto.gen(alphas, betas, s0s=s0s,
+                                         device=False).to_bytes()
+    assert kernel.to_bytes() == host.gen(alphas, betas, s0s=s0s,
+                                         device=True).to_bytes()
+    assert entered == [32, 32]
+    auto.gen(alphas, betas, s0s=s0s, group="add16")  # the host walk
+    assert entered == [32, 32]
+    for b in (0, 1):
+        assert np.array_equal(auto.eval(b, kernel, alphas),
+                              host.eval(b, kernel, alphas))
     assert auto.dpf(alphas, s0s=s0s, device=False).num_keys == 2
+    for name in ("prefix", "keylanes", "hybrid"):
+        with pytest.raises(ValueError, match="use walk"):
+            Dcf(2, 32, ck, backend=name, device="cpu")
 
 
 def test_facade_argument_contract():

@@ -233,8 +233,8 @@ _KEYGEN_HARNESS = r"""
 #include "keygen_walk.cuh"
 
 extern "C" {
-// Kernels G1 (mode 0), B7a (1) and B7b (2), key j on lane j % 32 of the
-// banked AES.
+// Kernels G1 (mode 0), B7a (1), B7b (2) and G2 (3), key j on lane j % 32
+// of the banked AES.
 void host_keygen(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
                  const uint8_t* alphas, const uint8_t* betas,
                  const uint8_t* s0s, uint8_t* cw_s, uint8_t* cw_v,
@@ -258,8 +258,10 @@ void host_keygen(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
       keygen_key<kKgDcf16>(KgBanked16{lane, rks}, KG_ARGS);
     else if (mode == 1)
       keygen_key<kKgNarrow>(KgBankedNarrow{lane, rks, rks17}, KG_ARGS);
-    else
+    else if (mode == 2)
       keygen_key<kKgDpf32>(KgBankedDpf{lane, rks, rks17}, KG_ARGS);
+    else
+      keygen_key<kKgDcf32>(KgBankedDcf32{{lane, rks, rks17}}, KG_ARGS);
 #undef KG_ARGS
   }
 }
@@ -819,6 +821,60 @@ void host_pair_walk(const uint8_t* sbox, const uint8_t* rk, const uint8_t* s0,
 """
 
 
+_WALK32_HARNESS = r"""
+// Kernel E1: the points of one key on lane pt % 32 of warp pt / 32 (shared
+// by all keys, or the key's own with per_key), slot C run at a level where
+// any point of the warp turns right; all3 runs it at every level.
+template <int GW>
+static void walk32(const uint8_t* sbox, const uint8_t* rk0,
+                   const uint8_t* rk17, const uint8_t* s0,
+                   const uint8_t* cw_s, const uint8_t* cw_v,
+                   const uint8_t* cw_t, const uint8_t* np1, const uint8_t* xs,
+                   uint8_t* y, int K, int n, int m, int per_key, int b,
+                   int all3) {
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey k0[15], k17[15];
+  round_keys(k0, rk0);
+  round_keys(k17, rk17);
+  std::vector<NarrowCw> cw(n);
+  for (int key = 0; key < K; ++key) {
+    const uint8_t* xk = xs + (per_key ? (size_t)key * m : 0) * (n / 8);
+    std::vector<uint8_t> any((size_t)(m / kLanes + 1) * n, (uint8_t)all3);
+    for (int pt = 0; pt < m; ++pt)
+      for (int i = 0; i < n; ++i)
+        any[(size_t)(pt / kLanes) * n + i] |=
+            walk_bit(xk + (size_t)pt * (n / 8), i);
+    for (int i = 0; i < n; ++i)
+      narrow_cw_entry(cw.data(), cw_s + (size_t)key * n * 32,
+                      cw_v + (size_t)key * n * 32, cw_t + (size_t)key * n * 2,
+                      i);
+    uint32_t sw[8], fw[8], out[8];
+    words8(s0 + key * 32, sw);
+    words8(np1 + key * 32, fw);
+    for (int pt = 0; pt < m; ++pt) {
+      walk32_point_banked<GW>(
+          bk_lane(te.data(), pt % kLanes), k0, k17, cw.data(), n, sw,
+          (uint32_t)b, fw, xk + (size_t)pt * (n / 8),
+          LevelVote{any.data() + (size_t)(pt / kLanes) * n}, out);
+      memcpy(y + ((size_t)key * m + pt) * 32, out, 32);
+    }
+  }
+}
+
+extern "C" {
+void host_walk32(const uint8_t* sbox, const uint8_t* rk0, const uint8_t* rk17,
+                 const uint8_t* s0, const uint8_t* cw_s, const uint8_t* cw_v,
+                 const uint8_t* cw_t, const uint8_t* np1, const uint8_t* xs,
+                 uint8_t* y, int K, int n, int m, int per_key, int b, int gw,
+                 int all3) {
+  DISPATCH(walk32, sbox, rk0, rk17, s0, cw_s, cw_v, cw_t, np1, xs, y, K, n,
+           m, per_key, b, all3)
+}
+}
+"""
+
+
 _PIR_HARNESS = r"""
 #include "pir_answer.cuh"
 
@@ -902,7 +958,7 @@ def lib(tmp_path_factory):
     src = d / "harness.cpp"
     src.write_text(_HARNESS + _NARROW_HARNESS + _BANKED_HARNESS
                    + _KEYGEN_HARNESS + _TREE_HARNESS + _BANKED_NARROW_HARNESS
-                   + _PAIR_HARNESS + _PIR_HARNESS)
+                   + _PAIR_HARNESS + _PIR_HARNESS + _WALK32_HARNESS)
     out = d / "libharness.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
@@ -1453,7 +1509,8 @@ def test_pir_fold_body_matches_numpy(lib, r, k_num, n_rows):
 
 
 def _keygen_body(lib, mode, ck, alphas, betas, s0s, lt=True):
-    """Run kernel G1's (mode 0), B7a's (1) or B7b's (2) body over K keys."""
+    """Run kernel G1's (mode 0), B7a's (1), B7b's (2) or G2's (3) body over
+    K keys."""
     k_num, n, lam = alphas.shape[0], 8 * alphas.shape[1], betas.shape[1]
     cw_s = np.zeros((k_num, n, lam), np.uint8)
     cw_v = np.zeros((k_num, n, lam), np.uint8) if mode != 2 else None
@@ -1622,6 +1679,90 @@ def test_banked_dpf_keygen_body_at_depths(lib, k_num, n):
     assert np.array_equal(cw_s, want.cw_s)
     assert np.array_equal(cw_t, want.cw_t)
     assert np.array_equal(cw_np1, want.cw_np1)
+
+
+@pytest.mark.parametrize("n,k_num", [(16, 1), (16, 33), (128, 33)])
+def test_dcf32_keygen_body_matches_gen_batch(lib, n, k_num):
+    """G2's banked body (KgBankedDcf32: B7a's expansion with the lam = 32
+    mask, key j on lane j % 32) gives gen_batch's lam = 32 XOR keys byte
+    for byte, both bounds, at n = 16 and at the main path's n = 128, over
+    one key and over lanes 0-31 and a partial warp; alpha = 0 and the
+    all-ones alpha among them, and root seeds with the mask bit (bit 0 of
+    byte 31) set."""
+    rng = np.random.default_rng(1400 + n + k_num)
+    ck = [rng.bytes(32) for _ in range(18)]
+    prg = HirosePrgNp(32, ck, warn=False)
+    alphas = rng.integers(0, 256, (k_num, n // 8), dtype=np.uint8)
+    if k_num > 2:
+        alphas[1], alphas[2] = 0, 0xFF
+    betas = rng.integers(0, 256, (k_num, 32), dtype=np.uint8)
+    s0s = random_s0s(k_num, 32, rng)
+    s0s[::2, :, 31] |= 1
+    for bound in Bound:
+        cw_s, cw_v, cw_t, cw_np1, _ = _keygen_body(
+            lib, 3, ck, alphas, betas, s0s, bound is Bound.LT_BETA)
+        want = gen_batch(prg, alphas, betas, s0s, bound)
+        for name, got in (("cw_s", cw_s), ("cw_v", cw_v), ("cw_t", cw_t),
+                          ("cw_np1", cw_np1)):
+            assert np.array_equal(got, getattr(want, name)), (bound, name)
+
+
+def _walk32_body(lib, ck, kb, xs, b, all3=0):
+    """Run kernel E1's body for party b of bundle kb (party-restricted) at
+    points xs uint8 [M, nb] (shared) or [K, M, nb] (per key)."""
+    k_num, n = kb.cw_s.shape[:2]
+    m = xs.shape[-2]
+    y = np.zeros((k_num, m, 32), np.uint8)
+    lib.host_walk32(
+        _p(SBOX_NP), _p(expand_key_np(ck[0])), _p(expand_key_np(ck[17])),
+        *(_p(np.ascontiguousarray(a)) for a in (
+            kb.s0s[:, 0], kb.cw_s, kb.cw_v, kb.cw_t, kb.cw_np1)),
+        _p(np.ascontiguousarray(xs)), _p(y), k_num, n, m, int(xs.ndim == 3),
+        b, GROUP_WIDTH.get(kb.group, 0), all3)
+    return y
+
+
+@pytest.mark.parametrize("n_bytes", [2, 16])
+@pytest.mark.parametrize("group", GROUPS)
+def test_walk32_body_matches_oracle(lib, group, n_bytes):
+    """E1's body (walk32_point_banked: B4's three-slot level masked, v in
+    the group, point pt on lane pt % 32, slot C by its warp's vote) against
+    the numpy oracle at lam = 32: both bounds, both parties, shared and
+    per-key points, x = alpha and alpha +- 1 planted, root seeds with the
+    mask bit (bit 0 of byte 31) set; at n = 16 bits slot C also forced at
+    every level and a warp whose points share their first byte (levels
+    where every lane turns left)."""
+    k_num = 3
+    rng = np.random.default_rng(1450 + 2 * GROUPS.index(group) + n_bytes)
+    ck = [rng.bytes(32) for _ in range(18)]
+    prg = HirosePrgNp(32, ck, warn=False)
+    for bound in Bound:
+        alphas = rng.integers(0, 256, (k_num, n_bytes), dtype=np.uint8)
+        s0s = random_s0s(k_num, 32, rng)
+        s0s[1:, :, 31] |= 1
+        bundle = gen_batch(prg, alphas,
+                           rng.integers(0, 256, (k_num, 32), dtype=np.uint8),
+                           s0s, bound, group=group)
+        xs = rng.integers(0, 256, (40, n_bytes), dtype=np.uint8)
+        top = 1 << (8 * n_bytes)
+        for j, a in enumerate(alphas):
+            a = int.from_bytes(a.tobytes(), "big")
+            for d in (-1, 0, 1):
+                xs[3 * j + d + 1] = np.frombuffer(
+                    ((a + d) % top).to_bytes(n_bytes, "big"), np.uint8)
+        per_key = rng.integers(0, 256, (k_num, 33, n_bytes), dtype=np.uint8)
+        per_key[:, 0] = alphas
+        cases = [(xs, 0), (per_key, 0)]
+        if n_bytes == 2:
+            same_top = xs.copy()
+            same_top[:32, 0] = 0x5A
+            cases += [(xs, 1), (same_top, 0)]
+        for b in (0, 1):
+            kb = bundle.for_party(b)
+            for pts, all3 in cases:
+                got = _walk32_body(lib, ck, kb, pts, b, all3)
+                want = eval_batch_np(prg, b, kb, pts)
+                assert np.array_equal(got, want), (bound, b, pts.ndim, all3)
 
 
 @pytest.mark.parametrize("n_seeds", [1, 37])

@@ -1,9 +1,9 @@
-"""Keygen on the device (kernels G1, B7a and B7b through their plain
+"""Keygen on the device (kernels G1, G2, B7a and B7b through their plain
 versions on the CPU) against dcf_tpu, byte for byte.
 
 The sweep holds ``gen.gen_on_device`` / ``protocols.dpf.dpf_gen_on_device``
 to ``dcf_tpu``'s host ``gen_batch`` / ``dpf_gen_batch`` as DCFK frames, at
-n = 16, K in {1, 3, 8, 33}, both bounds, lam in {16, 48, 256} and DPF
+n = 16, K in {1, 3, 8, 33}, both bounds, lam in {16, 32, 48, 256} and DPF
 lam = 32 (the JAX package's own tests pin those to its device kernels).
 One tiny run each holds the port against ``dcf_tpu``'s ``DeviceKeyGen`` on
 XLA-CPU and its ``PallasKeyGen`` / ``PallasDpfKeyGen`` in interpret mode,
@@ -66,7 +66,7 @@ def _jprg(lam, ck):
 
 @pytest.mark.parametrize("k_num", [1, 3, 8, 33])
 @pytest.mark.parametrize("bound", list(Bound))
-@pytest.mark.parametrize("lam", [16, 48, 256])
+@pytest.mark.parametrize("lam", [16, 32, 48, 256])
 def test_gen_on_device_frames_match_dcf_tpu(lam, bound, k_num):
     rng = np.random.default_rng(800 + lam + 7 * k_num + len(bound.name))
     ck = _ck(rng, lam)
@@ -192,10 +192,11 @@ def test_keygen_device_fault_raises():
 
 def test_facade_keygen_routing():
     """``device=None`` takes a keygen kernel where one exists (XOR at
-    lam = 16 and >= 48, DPF at lam = 32; its plain version on a CPU
+    lam = 16, 32 and >= 48, DPF at lam = 32; its plain version on a CPU
     facade, seen through the armed fault point) and the host walk where
     none does; ``device=False`` is the host walk; ``device=True`` without
-    a kernel raises.  16 < lam < 48 raises for DCF keys (ROADMAP A7)."""
+    a kernel raises.  At lam = 32 DCF keys take kernel G2, with the host
+    walk's bytes."""
     rng = np.random.default_rng(890)
     ck = _ck(rng, 48)
     with warnings.catch_warnings():
@@ -208,7 +209,7 @@ def test_facade_keygen_routing():
         return rng.integers(0, 256, (2, lam), dtype=np.uint8)
 
     with faults.inject("keygen.device"):
-        for dcf in (d16, d48):
+        for dcf in (d16, d32, d48):
             with pytest.raises(faults.InjectedFault):
                 dcf.gen(a, beta(dcf.lam), rng=rng)
             dcf.gen(a, beta(dcf.lam), rng=rng, device=False)
@@ -226,9 +227,9 @@ def test_facade_keygen_routing():
                  lambda: d48.pir_query([3], rng=rng, device=True)):
         with pytest.raises(ValueError, match="lam=32 only"):
             call()
-    with pytest.raises(ValueError, match="A7"):
-        gen_on_device(32, ck, a, beta(32), random_s0s(2, 32, rng),
-                      Bound.LT_BETA, device="cpu")
-    s0s = random_s0s(2, 32, rng)
+    s0s, b32 = random_s0s(2, 32, rng), beta(32)
+    assert d32.gen(a, b32, s0s=s0s).to_bytes() == gen_on_device(
+        32, ck, a, b32, s0s, Bound.LT_BETA, device="cpu").to_bytes() \
+        == d32.gen(a, b32, s0s=s0s, device=False).to_bytes()
     assert d32.pir_query([3, 9], s0s=s0s).to_bytes() == d32.pir_query(
         [3, 9], s0s=s0s, device=False).to_bytes()

@@ -189,9 +189,8 @@ def test_carried_bundle_takes_any_lam(lam):
 
 
 def test_facade_routing():
-    """auto is walk at lam = 16 and hybrid at lam >= 48; DCF keys at
-    16 < lam < 48 (lam = 32, which constructs for the DPF methods alone)
-    and the other mismatches raise, naming why."""
+    """auto is walk at lam = 16 and 32 and hybrid at lam >= 48; hybrid
+    at lam = 32 and the other mismatches raise, naming why."""
     ck = [bytes([i]) * 32 for i in range(32)]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -203,13 +202,14 @@ def test_facade_routing():
         dcf = Dcf(2, 256, ck, backend_opts={"prefix_levels": 6},
                   device="cpu")
         assert dcf.eval_backend(1).prefix_levels == 6
-        with pytest.raises(ValueError, match="A7"):
+        with pytest.raises(ValueError, match="lam >= 48.*use walk"):
             Dcf(2, 32, ck, backend="hybrid", device="cpu")
-        with pytest.raises(ValueError, match="A7"):
-            Dcf(2, 32, ck, device="cpu").gen(
-                np.zeros((1, 2), np.uint8), np.zeros((1, 32), np.uint8))
-        for name in ("walk", "prefix"):
-            with pytest.raises(ValueError, match="lam=16 only"):
+        assert Dcf(2, 32, ck, device="cpu").gen(
+            np.zeros((1, 2), np.uint8), np.zeros((1, 32), np.uint8),
+            rng=np.random.default_rng(0)).lam == 32
+        for name, match in (("walk", "lam=16 and lam=32"),
+                            ("prefix", "lam=16 only")):
+            with pytest.raises(ValueError, match=f"{match}.*use hybrid"):
                 Dcf(2, 256, ck, backend=name, device="cpu")
         with pytest.raises(ValueError, match="lam >= 48"):
             Dcf(2, 16, ck, backend="hybrid", device="cpu")

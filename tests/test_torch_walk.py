@@ -164,8 +164,8 @@ def test_walk_backend_contract():
         be.eval(0, np.zeros((4, 2), np.uint8))
     with pytest.raises(ShapeError):
         be.put_bundle(tb)  # not party-restricted
-    with pytest.raises(ValueError):
-        WalkBackend(32, ck * 9, device="cpu")
+    with pytest.raises(ValueError, match="hybrid"):
+        WalkBackend(48, ck * 9, device="cpu")
     be.put_bundle(tb.for_party(0))
     assert be.eval(0, np.zeros((0, 2), np.uint8)).shape == (1, 0, 16)
     with pytest.raises(ShapeError):
