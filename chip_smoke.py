@@ -158,11 +158,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     lam = 32 ``WalkBackend``s, both bounds: 0, and 7 for alpha + 7; MIC
     at n = 128, 8 intervals, 2^16 shared points: ``Dcf.mic(device=True)``
     (G2) against the host walk's frame, ``MicEvaluator`` on lam = 32
-    walk backends in XOR and add32 against ``mic_oracle``.
+    walk backends in XOR and add32 against ``mic_oracle``;
+20. the serving tier (``serving_phase``): ``Dcf.serve`` at serve_bench's
+    shape (``dcf_tpu/cli.py:918-1130``: n = 128, lam = 16, 3 single-key
+    bundles from the C++ core, max_batch 2^17, max_delay 5 ms) on
+    ``prefix`` and ``walk``: a parity gate (512 points a bundle, both
+    parties through the service, against the C++ core), the batch-shape
+    ladder, a 10 s closed loop of 4 clients with requests of 3/8 to 1/2
+    of max_batch (reconciled against the service's metrics, 0 failed),
+    its evals/s, p50/p99, occupancy, ``serve_stage_s`` / ``serve_eval_s``
+    and ``serve_vs_staged`` against one staged 2^17-point batch; the
+    frontier cache under churn (serve_bench --skew 1.1: 8 bundles on
+    ``prefix`` at k = 21, max_batch 2^10, the budget at 80% of the
+    party-0 working set, a cached and a cold leg interleaved in 3
+    segments each): hit rate >= 0.5, ``cached_vs_cold`` printed;
+    ``device_image_bytes`` plus the frontier cache against
+    ``torch.cuda.memory_allocated``'s delta of one staging (walk,
+    prefix), within 512 B a tensor; a lam = 16 key-factory pool (G1) and
+    a claimed key served, and a claim from an empty pool minted by one
+    G1 launch; durable keys restored by a new service, byte
+    for byte; lam = 256 ``hybrid`` with ``prefix_levels=20`` (B5a + B5b
+    + W1 through the frontier cache), ``keylanes`` with 1024 keys (B8),
+    ``attach_pir`` over 2^20 32-byte records (B6 + P1) and the
+    ``GateServer``'s sign and truncation at gate_bench's shape (2^16
+    masked inputs) against their oracles; paths ``serve_prefix``,
+    ``serve_walk``, ``serve_keyfactory``, ``serve_keyfactory_miss``,
+    ``serve_hybrid_prefix``,
+    ``serve_keylanes``, ``serve_pir`` and ``serve_gates_walk`` in
+    ``launches_by_path``, each one ``pump()``-driven run.
 
 Launches are counted per path: the counts are set to 0 just before one
 run of a path and read just after it, before any timed repeat, and held
-against the number that run must make (phases 9-11, 16, 18 and 19; phase 4's run
+against the number that run must make (phases 9-11, 16 and 18-20; phase 4's run
 is both parties' anchor and staged evaluations).  The next to last line is one JSON
 object with every kernel's numbers, ``launches`` the sum over those single
 runs and ``launches_by_path`` each of them; the last line is
@@ -179,6 +206,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -235,6 +263,22 @@ K_B8_DEEP, M_B8_DEEP, N_B8_DEEP = 100, 40, 256  # B8 past its staged levels
 K_MIC = 16  # the 2m bound keys of an 8-interval MIC, packed on the K axis
 K_CAP = 65537  # B1 beyond the 65,535-block grid axis ...
 M_CAP = 64  # ... at these points
+SERVE_MAX_BATCH = 1 << 17  # serve_bench's defaults (dcf_tpu/cli.py)
+SERVE_DELAY_MS = 5.0
+SERVE_BUNDLES = 3
+SERVE_DURATION_S = 10.0  # each closed loop
+SERVE_CONCURRENCY = 4
+SERVE_PARITY = 512  # points per bundle in the parity gate
+SKEW = 1.1  # serve_bench --skew 1.1: Zipf key choice ...
+SKEW_BUNDLES = 8
+SKEW_MAX_BATCH = 1 << 10
+SKEW_SEGMENTS = 3  # ... cached and cold legs interleaved, 3 segments each
+SKEW_SEGMENT_S = 2.0
+SKEW_PARITY = 128
+GATE_INPUTS = 1 << 16  # masked inputs of the served gates
+PIR_SERVE_BITS = 20  # 2^20 32-byte records behind attach_pir
+K_KEYLANES_SERVE = 1024
+M_SERVE_SMALL = 4096  # points a party of the hybrid case
 
 
 def log(msg: str) -> None:
@@ -329,6 +373,468 @@ def cuda_ms(fn, reps: int):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def serving_phase(card: str, reset_counts, take_counts) -> dict:
+    """Phase 20: the serving tier (``dcf_tpu_torch.serve``) on the card.
+
+    ``reset_counts`` / ``take_counts(path, want)`` are main's launch
+    counters: each ``serve_*`` path is one deterministic run driven by
+    ``pump()`` (or, for the gate server, one request a component on
+    started services) between them.  Every check raises.  Returns the
+    numbers the phase logged."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dcf_tpu_torch import Bound, Dcf
+    from dcf_tpu_torch.gen import random_s0s
+    from dcf_tpu_torch.native import NativeDcf
+    from dcf_tpu_torch.ops._launch import launch_depths
+    from dcf_tpu_torch.ops.hybrid_prefix import frontier_launches
+    from dcf_tpu_torch.protocols import fixedpoint as fp
+    from dcf_tpu_torch.protocols import mic_oracle
+    from dcf_tpu_torch.serve import PoolSpec
+    from dcf_tpu_torch.serve.batcher import next_pow2
+    from dcf_tpu_torch.serve.loadgen import (
+        closed_loop, reconcile_against_rollup)
+    from dcf_tpu_torch.serve.registry import device_image_bytes
+    from dcf_tpu_torch.workloads import GateServer
+    from dcf_tpu_torch.workloads.pir import PirDatabase, pir_reconstruct
+
+    srng = np.random.default_rng(SEED + 20)
+    ck = [srng.bytes(32), srng.bytes(32)]
+    native = NativeDcf(16, ck)
+    out = {}
+
+    def gen_keys(n: int) -> dict:
+        """serve_bench's bundles: single keys from the C++ core."""
+        keys = {}
+        for i in range(n):
+            alphas = srng.integers(0, 256, (1, N_BYTES), dtype=np.uint8)
+            betas = srng.integers(0, 256, (1, 16), dtype=np.uint8)
+            keys[f"key-{i}"] = native.gen_batch(
+                alphas, betas, random_s0s(1, 16, srng), Bound.LT_BETA)
+        return keys
+
+    def both(svc, key_id, xs):
+        futs = [svc.submit(key_id, xs, b=b) for b in (0, 1)]
+        svc.pump()
+        return [f.result(60) for f in futs]
+
+    def parity(svc, keys, points, path=None, want=None) -> None:
+        """Every bundle, both parties through the service, the XOR
+        reconstruction against the C++ core; the first bundle's run is
+        the counted one when ``path`` is given."""
+        xs = srng.integers(0, 256, (points, N_BYTES), dtype=np.uint8)
+        bad = 0
+        for j, (name, kb) in enumerate(keys.items()):
+            if path and j == 0:
+                reset_counts()
+            y0, y1 = both(svc, name, xs)
+            if path and j == 0:
+                torch.cuda.synchronize()
+                take_counts(path, want)
+            ref = native.eval(0, kb, xs) ^ native.eval(1, kb, xs)
+            bad += int(((y0 ^ y1) != ref).any(-1).sum())
+        if bad:
+            raise RuntimeError(f"serving parity: {bad} of {len(keys)} x "
+                               f"{points} reconstructions differ from the "
+                               "C++ core")
+
+    def hist_mean(snap, name):
+        return snap[f"{name}_sum"] / max(snap[f"{name}_count"], 1)
+
+    def occupancy_mean(snap):
+        return hist_mean(snap, "serve_batch_occupancy")
+
+    b2_party = len(launch_depths(HOST_LEVELS, 21))  # the prefix depth
+
+    # Case 1: closed loop at serve_bench's shape on prefix and walk.
+    min_req, max_req = SERVE_MAX_BATCH * 3 // 8, SERVE_MAX_BATCH // 2
+    for backend, want in (
+            ("prefix", {"B2": 2 * b2_party, "B3": 2}),
+            ("walk", {"B1": 2})):
+        t0 = time.perf_counter()
+        dcf = Dcf(N_BYTES, 16, ck, backend=backend)
+        svc = dcf.serve(max_batch=SERVE_MAX_BATCH,
+                        max_delay_ms=SERVE_DELAY_MS)
+        keys = gen_keys(SERVE_BUNDLES)
+        for name, kb in keys.items():
+            svc.register_key(name, kb)
+        parity(svc, keys, SERVE_PARITY, f"serve_{backend}", want)
+        xs_warm = srng.integers(0, 256, (SERVE_MAX_BATCH, N_BYTES),
+                                dtype=np.uint8)
+        m = next_pow2(min_req)
+        while m <= SERVE_MAX_BATCH:  # the batch-shape ladder
+            svc.submit("key-0", xs_warm[:m])
+            svc.pump()
+            m *= 2
+        before = svc.metrics_snapshot()
+        with svc:
+            res = closed_loop(svc, sorted(keys), duration_s=SERVE_DURATION_S,
+                              concurrency=SERVE_CONCURRENCY,
+                              min_points=min_req, max_points=max_req,
+                              seed=SEED)
+        snap = svc.metrics_snapshot()
+        rec = reconcile_against_rollup(res, before, snap)
+        if res.requests_failed or not rec["reconciled"] or not res.points_ok:
+            raise RuntimeError(
+                f"serving {backend}: {res.requests_failed} failed requests, "
+                f"{res.requests_ok} ok, reconciliation {rec}")
+        # The staged path of the same backend: one max_batch batch.
+        be = dcf.new_eval_backend()
+        be.put_bundle(keys["key-0"].for_party(0))
+        staged = be.stage(xs_warm)
+        be.eval_staged(0, staged)
+        staged_ms, _ = cuda_ms(lambda: be.eval_staged(0, staged), REPEATS)
+        staged_rate = SERVE_MAX_BATCH / staged_ms * 1e3
+        q = res.latency_quantiles()
+        d_snap = {k: snap[k] - before.get(k, 0) for k in (
+            "serve_stage_s_sum", "serve_stage_s_count", "serve_eval_s_sum",
+            "serve_eval_s_count", "serve_batch_occupancy_sum",
+            "serve_batch_occupancy_count", "serve_batches_total")}
+        out[f"closed loop {backend}"] = row = {
+            "evals_per_s": res.throughput, "requests_ok": res.requests_ok,
+            "requests_failed": res.requests_failed,
+            "requests_shed": res.requests_shed,
+            "p50_ms": q["p50_s"] * 1e3, "p99_ms": q["p99_s"] * 1e3,
+            "occupancy_mean": d_snap["serve_batch_occupancy_sum"]
+            / max(d_snap["serve_batch_occupancy_count"], 1),
+            "batches": d_snap["serve_batches_total"],
+            "stage_ms_mean": d_snap["serve_stage_s_sum"]
+            / max(d_snap["serve_stage_s_count"], 1) * 1e3,
+            "eval_ms_mean": d_snap["serve_eval_s_sum"]
+            / max(d_snap["serve_eval_s_count"], 1) * 1e3,
+            "staged_ms": staged_ms, "staged_evals_per_s": staged_rate,
+            "serve_vs_staged": res.throughput / staged_rate,
+            "reconciled": rec["reconciled"]}
+        for h in ("serve_stage_s", "serve_eval_s"):
+            # The run's histogram: cumulative counts at or below each
+            # bound (seconds), this loop's batches only.
+            row[h] = dict(zip(
+                [str(x) for x in snap[f"{h}_bounds"]] + ["inf"],
+                [n - n0 for n, n0 in zip(snap[f"{h}_buckets"],
+                                         before[f"{h}_buckets"])]))
+        log(f"phase 20 closed loop {backend}: Dcf(16, 16), "
+            f"serve(max_batch={SERVE_MAX_BATCH}, max_delay_ms="
+            f"{SERVE_DELAY_MS}), {SERVE_BUNDLES} C++-core bundles, parity "
+            f"{SERVE_PARITY} points a bundle, both parties, 0 mismatches "
+            f"against the C++ core; {SERVE_CONCURRENCY} clients x "
+            f"{SERVE_DURATION_S} s, requests of {min_req}-{max_req} points: "
+            f"{res.throughput:,.1f} evals/s, {res.requests_ok} requests ok, "
+            f"0 failed, {res.requests_shed} shed, p50 {row['p50_ms']:.2f} "
+            f"ms, p99 {row['p99_ms']:.2f} ms, {row['batches']} batches, "
+            f"mean occupancy {row['occupancy_mean']:.3f}, mean "
+            f"serve_stage_s {row['stage_ms_mean']:.2f} ms, mean "
+            f"serve_eval_s {row['eval_ms_mean']:.2f} ms (cumulative "
+            f"histograms, s: stage {row['serve_stage_s']}, eval "
+            f"{row['serve_eval_s']}); staged path "
+            f"(eval_staged of one {SERVE_MAX_BATCH}-point batch, CUDA "
+            f"events) {staged_ms:.3f} ms = {staged_rate:,.0f} evals/s, "
+            f"serve_vs_staged {row['serve_vs_staged']:.3f}; reconciled "
+            f"against the metrics ({time.perf_counter() - t0:.1f} s) "
+            f"[{card}]")
+        del svc, be, staged, dcf
+
+    # Case 2: the frontier cache under churn (serve_bench --skew 1.1).
+    t0 = time.perf_counter()
+    dcf = Dcf(N_BYTES, 16, ck, backend="prefix")
+    keys = gen_keys(SKEW_BUNDLES)
+    legs = {}
+    for leg, cache in (("cached", True), ("cold", False)):
+        svc = dcf.serve(max_batch=SKEW_MAX_BATCH, max_delay_ms=SERVE_DELAY_MS,
+                        frontier_cache=cache)
+        for name, kb in keys.items():
+            svc.register_key(name, kb)
+        parity(svc, keys, SKEW_PARITY)
+        legs[leg] = svc
+    res_img = legs["cached"].registry.resident("key-0", 0)
+    fc = legs["cached"].frontier_cache
+    per_frontier = fc.total_bytes() // max(len(fc.lru_entries()), 1)
+    budget = max(1, (device_image_bytes(res_img) + per_frontier)
+                 * SKEW_BUNDLES * 4 // 5)
+    for svc in legs.values():
+        svc.registry.device_bytes_budget = budget
+    runs = {"cached": [], "cold": []}
+    snaps0 = {leg: svc.metrics_snapshot() for leg, svc in legs.items()}
+    lo, hi = SKEW_MAX_BATCH * 3 // 8, SKEW_MAX_BATCH // 2
+    with legs["cached"], legs["cold"]:
+        for i in range(2 * SKEW_SEGMENTS):
+            leg = "cached" if i % 2 == 0 else "cold"
+            runs[leg].append(closed_loop(
+                legs[leg], sorted(keys), duration_s=SKEW_SEGMENT_S,
+                concurrency=SERVE_CONCURRENCY, min_points=lo, max_points=hi,
+                seed=SEED + i // 2, skew=SKEW))
+    rate = {leg: sum(r.points_ok for r in rs) / sum(r.duration_s
+                                                     for r in rs)
+            for leg, rs in runs.items()}
+    failed = sum(r.requests_failed for rs in runs.values() for r in rs)
+    snap = legs["cached"].metrics_snapshot()
+    hits = snap["serve_frontier_hits_total"] \
+        - snaps0["cached"]["serve_frontier_hits_total"]
+    misses = snap["serve_frontier_misses_total"] \
+        - snaps0["cached"]["serve_frontier_misses_total"]
+    hit_rate = hits / max(hits + misses, 1)
+    cold_stagings = legs["cold"].metrics_snapshot()[
+        "serve_key_stagings_total"] - snaps0["cold"][
+        "serve_key_stagings_total"]
+    out["frontier churn"] = {
+        "hit_rate": hit_rate, "hits": hits, "misses": misses,
+        "cached_evals_per_s": rate["cached"],
+        "cold_evals_per_s": rate["cold"],
+        "cached_vs_cold": rate["cached"] / rate["cold"],
+        "budget_bytes": budget,
+        "evictions": snap["serve_evictions_total"],
+        "frontier_evictions": snap["serve_frontier_evictions_total"],
+        "cold_stagings": cold_stagings}
+    if failed or hit_rate < 0.5:
+        raise RuntimeError(f"frontier churn: {failed} failed requests, hit "
+                           f"rate {hit_rate:.3f} (want >= 0.5)")
+    log(f"phase 20 frontier cache under churn (serve_bench --skew {SKEW}): "
+        f"prefix at k=21, {SKEW_BUNDLES} bundles, max_batch "
+        f"{SKEW_MAX_BATCH}, budget {budget:,} B (80% of the party-0 working "
+        f"set), cached and cold legs interleaved, {SKEW_SEGMENTS} x "
+        f"{SKEW_SEGMENT_S} s each: hit rate {hit_rate:.3f} ({hits} hits, "
+        f"{misses} misses), cached {rate['cached']:,.0f} evals/s, cold "
+        f"{rate['cold']:,.0f}, cached_vs_cold "
+        f"{rate['cached'] / rate['cold']:.3f} (not gated: a timing ratio); "
+        f"{snap['serve_evictions_total']} residency and "
+        f"{snap['serve_frontier_evictions_total']} frontier evictions, "
+        f"cold leg {cold_stagings} stagings, 0 failed "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    del legs, svc, res_img, fc, dcf
+
+    # Case 3: the registry's byte count against the allocator's.
+    t0 = time.perf_counter()
+    kb = gen_keys(1)["key-0"]
+    img = {}
+    for backend in ("walk", "prefix"):
+        svc = Dcf(N_BYTES, 16, ck, backend=backend).serve()
+        svc.register_key("k", kb)
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        be = svc.registry.resident("k", 0)
+        torch.cuda.synchronize()
+        delta = torch.cuda.memory_allocated() - a0
+        tensors = [be.aes, *be._bundle_dev.values()]
+        if svc.frontier_cache is not None:
+            tensors += [e.tables for e in svc.frontier_cache._entries.values()]
+        counted = device_image_bytes(be) + svc.frontier_cache.total_bytes()
+        if sum(t.nbytes for t in tensors) != counted or not (
+                counted <= delta <= counted + 512 * len(tensors)):
+            raise RuntimeError(
+                f"device_image_bytes {backend}: counted {counted} B, the "
+                f"staging allocated {delta} B over {len(tensors)} tensors")
+        img[backend] = (counted, delta, len(tensors))
+        del svc, be
+    out["image bytes"] = img
+    log("phase 20 device_image_bytes (+ the frontier cache's bytes) against "
+        "torch.cuda.memory_allocated's delta of one staging, within 512 B a "
+        "tensor: " + "; ".join(f"{k} {c:,} B counted, {d:,} B allocated, "
+                               f"{n} tensors" for k, (c, d, n) in img.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+
+    # Case 4: the key factory mints on the card (G1), a claim serves.
+    t0 = time.perf_counter()
+    svc = Dcf(N_BYTES, 16, ck, backend="walk").serve()
+    alphas = srng.integers(0, 256, (1, N_BYTES), dtype=np.uint8)
+    betas = srng.integers(0, 256, (1, 16), dtype=np.uint8)
+    svc.add_pool(PoolSpec(name="relu", alphas=alphas, betas=betas,
+                          target_depth=8, low_water=2, refill_batch=8))
+    xs = srng.integers(0, 256, (M_ANCHOR, N_BYTES), dtype=np.uint8)
+    xs[0] = alphas[0]
+    reset_counts()
+    report = svc.keyfactory.pump()
+    kb = svc.register_key("sess", pool="relu")
+    y0, y1 = both(svc, "sess", xs)
+    torch.cuda.synchronize()
+    take_counts("serve_keyfactory", {"G1": 1, "B1": 2})
+    inside = np.array([x.tobytes() < alphas[0].tobytes() for x in xs])
+    want = np.where(inside[:, None], betas, 0).astype(np.uint8)
+    ref = native.eval(0, kb, xs) ^ native.eval(1, kb, xs)
+    if report.minted != {"relu": 8} or not np.array_equal((y0 ^ y1)[0], want) \
+            or not np.array_equal(y0 ^ y1, ref):
+        raise RuntimeError(f"key factory: minted {report.minted}; the "
+                           "claimed key does not reconstruct its function")
+    # An empty pool's claim mints synchronously, on the card too.
+    svc.add_pool(PoolSpec(name="miss", alphas=alphas, betas=betas,
+                          target_depth=8, low_water=0, refill_batch=8))
+    reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        kb = svc.register_key("miss", pool="miss")
+    y0, y1 = both(svc, "miss", xs)
+    torch.cuda.synchronize()
+    take_counts("serve_keyfactory_miss", {"G1": 1, "B1": 2})
+    ref = native.eval(0, kb, xs) ^ native.eval(1, kb, xs)
+    if svc.metrics_snapshot()["keyfactory_pool_misses_total"] != 1 \
+            or not caught or not np.array_equal((y0 ^ y1)[0], want) \
+            or not np.array_equal(y0 ^ y1, ref):
+        raise RuntimeError("key factory: the empty pool's synchronous "
+                           "mint does not reconstruct its function")
+    log(f"phase 20 key factory: a lam=16 pool refilled by G1 (8 sessions "
+        f"in one launch), one claim registered and served to both parties "
+        f"at {M_ANCHOR} points, and a claim from an empty pool minted by "
+        f"one G1 launch: equal to the pool's function and to the C++ "
+        f"core ({time.perf_counter() - t0:.1f} s)")
+    del svc
+
+    # Case 5: durable keys survive the service.
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="dcf-store-")
+    try:
+        dcf = Dcf(N_BYTES, 16, ck, backend="prefix")
+        kb = gen_keys(1)["key-0"]
+        top = 1 << 8 * N_BYTES
+        ivs = [(top // 5, top // 3), (5, top - 1)]
+        mbetas = srng.integers(0, 256, (2, 16), dtype=np.uint8)
+        pb = dcf.mic(ivs, mbetas, rng=srng, device=True)
+        xs = srng.integers(0, 256, (M_ANCHOR, N_BYTES), dtype=np.uint8)
+        first = dcf.serve(store_dir=store)
+        first.register_key("k", kb, durable=True)
+        first.register_key("m", pb, durable=True)
+        before = {k: both(first, k, xs) for k in ("k", "m")}
+        first.close()
+        second = Dcf(N_BYTES, 16, ck, backend="prefix").serve(
+            store_dir=store)
+        report = second.restore_keys()
+        after = {k: both(second, k, xs) for k in ("k", "m")}
+        if report.restored != {"k": 1, "m": 2} or report.quarantined \
+                or any(not np.array_equal(a, b) for k in before
+                       for a, b in zip(before[k], after[k])) \
+                or not np.array_equal(before["m"][0] ^ before["m"][1],
+                                      mic_oracle(xs, ivs, mbetas)):
+            raise RuntimeError(f"durable restore: {report}; the restored "
+                               "service's shares differ from the first's")
+        del first, second
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    log(f"phase 20 durability: a plain and a MIC key registered durable on "
+        f"prefix, the service closed, a new one restored them "
+        f"({report.restored}) and served both parties' shares byte for "
+        f"byte equal to the first's ({time.perf_counter() - t0:.1f} s)")
+
+    # Case 6a: lam = 256, hybrid with prefix_levels=20 (B5a + B5b + W1).
+    t0 = time.perf_counter()
+    hck = [srng.bytes(32) for _ in range(32)]
+    hdcf = Dcf(N_BYTES, LAM_WIDE, hck, backend="hybrid",
+               backend_opts={"prefix_levels": K_HYBRID})
+    hkb = hdcf.gen(srng.integers(0, 256, (1, N_BYTES), dtype=np.uint8),
+                   srng.integers(0, 256, (1, LAM_WIDE), dtype=np.uint8),
+                   rng=srng)
+    svc = hdcf.serve(max_batch=M_SERVE_SMALL)
+    svc.register_key("h", hkb)
+    xs = srng.integers(0, 256, (M_SERVE_SMALL, N_BYTES), dtype=np.uint8)
+    reset_counts()
+    y0, y1 = both(svc, "h", xs)
+    torch.cuda.synchronize()
+    b5a_party = 1 + len(frontier_launches(K_HYBRID)[1])
+    take_counts("serve_hybrid_prefix",
+                {"B5a": 2 * b5a_party, "B5b": 2, "W1": 2})
+    hnative = NativeDcf(LAM_WIDE, hck)
+    snap = svc.metrics_snapshot()
+    if not (np.array_equal(y0, hnative.eval(0, hkb, xs))
+            and np.array_equal(y1, hnative.eval(1, hkb, xs))) \
+            or snap["serve_frontier_misses_total"] != 2 \
+            or snap["serve_frontier_hits_total"] != 2:
+        raise RuntimeError("served hybrid: shares differ from the C++ core, "
+                           "or the frontier cache was not consulted")
+    log(f"phase 20 hybrid lam={LAM_WIDE} prefix_levels={K_HYBRID}: "
+        f"{M_SERVE_SMALL} points a party through the service equal the C++ "
+        f"core; the frontier cache built both parties' frontiers at stage "
+        f"time (2 misses) and the evals gathered from it (2 hits) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del svc, hdcf
+
+    # Case 6b: keylanes, one two-party image of 1024 keys (B8).
+    t0 = time.perf_counter()
+    kdcf = Dcf(N_BYTES, 16, ck, backend="keylanes")
+    ka = srng.integers(0, 256, (K_KEYLANES_SERVE, N_BYTES), dtype=np.uint8)
+    kbeta = srng.integers(0, 256, (K_KEYLANES_SERVE, 16), dtype=np.uint8)
+    kkb = kdcf.gen(ka, kbeta, rng=srng)
+    svc = kdcf.serve(max_batch=M_RELU)
+    svc.register_key("relu", kkb)
+    xs = srng.integers(0, 256, (M_RELU, N_BYTES), dtype=np.uint8)
+    xs[:3] = ka[:3]
+    reset_counts()
+    y0, y1 = both(svc, "relu", xs)
+    torch.cuda.synchronize()
+    take_counts("serve_keylanes", {"B8": 2})
+    lt = np.zeros((K_KEYLANES_SERVE, M_RELU), dtype=bool)
+    eq = np.ones_like(lt)
+    for j in range(N_BYTES):
+        xj, aj = xs[None, :, j], ka[:, j, None]
+        lt |= eq & (xj < aj)
+        eq &= xj == aj
+    want = np.where(lt[..., None], kbeta[:, None, :], 0).astype(np.uint8)
+    bad = int(((y0 ^ y1) != want).any(-1).sum())
+    if bad:
+        raise RuntimeError(f"served keylanes: {bad} mismatches")
+    log(f"phase 20 keylanes: K={K_KEYLANES_SERVE} keys (G1) in one "
+        f"two-party image, {M_RELU} shared points, both parties through the "
+        f"service: 0 mismatches ({time.perf_counter() - t0:.1f} s)")
+    del svc, kdcf
+
+    # Case 6c: PIR through attach_pir (B6 + P1).
+    t0 = time.perf_counter()
+    pck = [srng.bytes(32) for _ in range(18)]
+    pdcf = Dcf((PIR_SERVE_BITS + 7) // 8, 32, pck)
+    records = srng.integers(0, 256, (1 << PIR_SERVE_BITS, RECORD_BYTES),
+                            dtype=np.uint8)
+    svc = pdcf.serve()
+    svc.attach_pir(PirDatabase(records, PIR_SERVE_BITS))
+    idx = [0, (1 << PIR_SERVE_BITS) - 1] + [
+        int(i) for i in srng.integers(0, 1 << PIR_SERVE_BITS, K_DPF - 2)]
+    svc.register_key("q", pdcf.pir_query(idx, rng=srng,
+                                         n_bits=PIR_SERVE_BITS))
+    reset_counts()
+    a0, a1 = (svc.submit("q", np.zeros((1, pdcf.n_bytes), np.uint8),
+                         b=b).result(60) for b in (0, 1))
+    torch.cuda.synchronize()
+    take_counts("serve_pir", {
+        "B6": 2 * len(launch_depths(0, PIR_SERVE_BITS)), "P1": 2})
+    if not np.array_equal(pir_reconstruct(a0[:, 0], a1[:, 0]),
+                          records[idx]):
+        raise RuntimeError("served PIR: the records do not reconstruct")
+    log(f"phase 20 PIR through attach_pir: 2^{PIR_SERVE_BITS} records x "
+        f"{RECORD_BYTES} B, K={K_DPF} queries (records {idx}) reconstruct "
+        f"bit-exactly from both parties' served answers "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del svc, pdcf, records
+
+    # Case 6d: the gate server at gate_bench's shape (n = 16, f = 8, add16).
+    t0 = time.perf_counter()
+    g_w = Dcf(2, 16, ck, backend="walk")
+    g_low = Dcf(1, 16, ck, backend="walk")
+    svcs = [f.serve(max_batch=GATE_INPUTS).start() for f in (g_w, g_low)]
+    try:
+        gs = GateServer(*svcs)
+        r_sign, r_trunc = (int(v) for v in srng.integers(0, 1 << 16, 2))
+        gs.register("sign", fp.gen_sign_gate(g_w, r_sign, srng, "add16"))
+        gs.register("trunc", fp.gen_trunc_gate(g_w, g_low, r_trunc, 8, srng,
+                                               "add16"))
+        x_hat = srng.integers(0, 1 << 16, GATE_INPUTS, dtype=np.int64)
+        x_hat[:4] = [0, 1, (1 << 16) - 1, 1 << 15]
+        reset_counts()
+        sign = fp.decode_lanes(gs.reconstruct("sign", x_hat), "add16")
+        trunc = fp.decode_lanes(gs.reconstruct("trunc", x_hat), "add16")
+        torch.cuda.synchronize()
+        take_counts("serve_gates_walk", {"B1": 2 + 4})
+        if not (np.array_equal(sign, fp.sign_oracle(
+                (x_hat - r_sign) % (1 << 16), 16))
+                and np.array_equal(trunc, fp.trunc_oracle(
+                    x_hat, r_trunc, 8, 16))):
+            raise RuntimeError("served gates differ from their oracles")
+    finally:
+        for s in svcs:
+            s.close()
+    log(f"phase 20 GateServer (gate_bench's shape: n=16, f=8, add16) on "
+        f"walk: sign and truncation of {GATE_INPUTS} masked inputs through "
+        f"two started services equal sign_oracle and trunc_oracle "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return out
 
 
 def main() -> int:
@@ -2768,6 +3274,13 @@ def main() -> int:
             kg_plain_g2, g2_lookups, g2_bytes,
             shape=f"K={K_WIDE_KEYGEN} n=128 lam=32",
             plain_shape=f"K={K_KEYGEN_CHECK}")
+
+    # -- phase 20: the serving tier on the card --------------------------------------
+    t0 = time.perf_counter()
+    serving = serving_phase(card, reset_counts, take_counts)
+    log(f"phase 20 serving: " + json.dumps(
+        {k: v for k, v in serving.items() if k != "image bytes"})
+        + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
 
     # launches x (time - bound) of B1 and B6 on each path, from their
     # per-launch times at each path's shapes (phases 6 and 12).

@@ -26,11 +26,15 @@ own copy of the C++ host core (``native``, built with g++ at first use)
 serves ``Dcf(..., backend="cpu")`` and anchors the bench line
 (``bench_torch.py`` at the repository root).
 
+The in-process serving tier (``serve``, ``Dcf.serve``: micro-batched
+requests from many threads, resident key images, admission control,
+breakers, a durable key store and keygen pools) runs them online.
+
 It imports torch and numpy, never jax and never dcf_tpu.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 """
 
-from dcf_tpu_torch.api import Dcf
+from dcf_tpu_torch.api import Dcf, reset_backend_health
 from dcf_tpu_torch.errors import (
     BackendUnavailableError,
     DcfError,
@@ -46,6 +50,7 @@ from dcf_tpu_torch.spec import Bound
 
 __all__ = [
     "Dcf",
+    "reset_backend_health",
     "Bound",
     "KeyBundle",
     "DpfBundle",

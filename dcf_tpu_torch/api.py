@@ -68,13 +68,29 @@ The protocol keygen methods take ``device=False`` by default, as in
 width for XOR keys (G1, G2, or B7a and W2) and raises where no kernel has
 the algebra (additive groups).
 
-Not in this package yet (see ROADMAP.md): the other JAX backends,
-``mesh=``, and ``serve``.
+Serving (``Dcf.serve``, ``dcf_tpu_torch.serve``): an online service over
+this facade -- ragged point batches from any thread, coalesced into
+padded batches on the facade's device, hot key images kept resident:
+
+    >>> svc = dcf.serve(max_batch=1 << 14, max_delay_ms=2.0)
+    >>> svc.register_key("model/relu-7", bundle)
+    >>> with svc:                       # worker thread
+    ...     y0 = svc.submit("model/relu-7", xs, b=0).result()
+
+``reset_backend_health`` (module function or method) is the shared
+invalidation path: it drops the cached backend state of every live
+facade and service (their residencies and frontier caches).  The port
+keeps no health verdicts, so that is all it does: the next eval
+re-stages on a fresh instance of the same backend.
+
+Not in this package yet (see ROADMAP.md): the other JAX backends and
+``mesh=``.
 """
 
 from __future__ import annotations
 
 import warnings
+import weakref
 from typing import Sequence
 
 import numpy as np
@@ -98,7 +114,7 @@ from dcf_tpu_torch.spec import (
     hirose_used_cipher_indices,
 )
 
-__all__ = ["Dcf"]
+__all__ = ["Dcf", "reset_backend_health", "register_reset_listener"]
 
 _BACKENDS = ("numpy", "cpu", "walk", "prefix", "hybrid", "keylanes")
 
@@ -123,6 +139,34 @@ _HYBRID_JAX_OPTS = {
     "host_levels": "the hybrid frontier is built on the device (kernel "
                    "B5a); use prefix_levels",
 }
+
+
+# The one invalidation path for cached backend state, as in ``dcf_tpu``
+# (its api.py:258-285): every live Dcf (its eval backends and shipped
+# bundles) and every serving tier's DcfService (its device residencies
+# and frontier cache) registers here, weakly, and gets
+# ``_on_backend_health_reset()`` when ``reset_backend_health`` runs.
+_RESET_LISTENERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def register_reset_listener(obj) -> None:
+    """Subscribe ``obj`` (held weakly) to backend-health resets; it must
+    define ``_on_backend_health_reset()``, which drops any cached state
+    tied to a backend instance (staged images, backend instances).
+    ``Dcf`` instances and ``serve.DcfService`` register themselves."""
+    _RESET_LISTENERS.add(obj)
+
+
+def reset_backend_health() -> None:
+    """Invalidate every registered holder of backend-derived cached
+    state: live facades drop their backend instances and re-ship on
+    their next eval, and serving tiers evict their device-resident key
+    images and cached frontiers.  ``dcf_tpu``'s function also forgets
+    its canary verdicts; the port has no canary and no fallback chain,
+    so there is nothing else to forget, and a re-staged key runs on the
+    same backend as before."""
+    for obj in list(_RESET_LISTENERS):
+        obj._on_backend_health_reset()
 
 
 class Dcf:
@@ -191,6 +235,49 @@ class Dcf:
         self._eval_backends: dict = {}
         self._shipped_bundle: dict = {}
         self._dpf_evalall = None  # built by the first eval_all on the device
+        register_reset_listener(self)
+
+    # -- backend-health invalidation (the one shared path) -------------------
+
+    def _on_backend_health_reset(self) -> None:
+        """Drop every backend-derived cache this facade holds; the next
+        eval builds and ships afresh, on the same backend."""
+        self._eval_backends.clear()
+        self._shipped_bundle.clear()
+        self._dpf_evalall = None
+
+    def reset_backend_health(self) -> None:
+        """Instance spelling of :func:`reset_backend_health`: invalidates
+        every registered cache holder, this facade's backend slots and
+        every serving tier's residencies included."""
+        reset_backend_health()
+
+    def serve(self, config=None, **knobs):
+        """An online evaluation service over this facade, on its device
+        (``dcf_tpu_torch.serve``; ``dcf_tpu``'s ``Dcf.serve``, its
+        api.py:732-852):
+
+            >>> svc = dcf.serve(max_batch=1 << 14, max_delay_ms=2.0,
+            ...                 device_bytes_budget=256 << 20)
+            >>> svc.register_key("model/relu-7", bundle)
+            >>> with svc:                       # worker thread
+            ...     y0 = svc.submit("model/relu-7", xs, b=0).result()
+
+        Pass a ``serve.ServeConfig`` or its fields as keywords; see
+        ``dcf_tpu_torch/serve/service.py`` for the knobs (micro-batch
+        coalescing, LRU device residency, the frontier cache, admission
+        control, circuit breakers and brownout, the durable store, the
+        key factory's pools).  ``submit(..., priority=)`` takes
+        CRITICAL / NORMAL / BATCH; classes decide who is shed under
+        overload, never dispatch order.  A retry after a failed batch
+        re-stages on the same backend: nothing demotes."""
+        from dcf_tpu_torch.serve import DcfService, ServeConfig
+
+        if config is not None and knobs:
+            raise ValueError("pass either config= or individual knobs")
+        if config is None:
+            config = ServeConfig(**knobs)
+        return DcfService(self, config)
 
     @staticmethod
     def _keygen_on_device(device, kernel: bool, why: str) -> bool:

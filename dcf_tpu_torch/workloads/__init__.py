@@ -3,10 +3,9 @@
 ``workloads.core`` holds BASELINE.json config 3 (the per-point full-domain
 check) and config 5 (secure ReLU: many keys at few shared points, keygen,
 evaluation and check on the device); ``workloads.pir`` the 2-server PIR
-workload built on the DPF EvalAll backend.  ``dcf_tpu``'s served gate
-suite (``workloads.gates.GateServer``) is a client of its serving tier and
-waits for that tier's port (ROADMAP.md); the gates themselves are in
-``protocols.fixedpoint``.
+workload built on the DPF EvalAll backend; ``workloads.gates`` the served
+fixed-point gates (``GateServer``: the gates of ``protocols.fixedpoint``
+registered with, and evaluated through, a ``serve.DcfService``).
 """
 
 from dcf_tpu_torch.workloads.core import (  # noqa: F401
@@ -16,6 +15,7 @@ from dcf_tpu_torch.workloads.core import (  # noqa: F401
     secure_relu_check_device,
     secure_relu_eval,
 )
+from dcf_tpu_torch.workloads.gates import GateServer  # noqa: F401
 from dcf_tpu_torch.workloads.pir import (  # noqa: F401
     PirDatabase,
     PirServer,
@@ -25,6 +25,7 @@ from dcf_tpu_torch.workloads.pir import (  # noqa: F401
 )
 
 __all__ = [
+    "GateServer",
     "PirDatabase",
     "PirServer",
     "domain_points",
