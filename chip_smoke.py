@@ -185,11 +185,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     ``serve_walk``, ``serve_keyfactory``, ``serve_keyfactory_miss``,
     ``serve_hybrid_prefix``,
     ``serve_keylanes``, ``serve_pir`` and ``serve_gates_walk`` in
-    ``launches_by_path``, each one ``pump()``-driven run.
+    ``launches_by_path``, each one ``pump()``-driven run;
+21. the network edge and the pod router (``edge_pod_phase``).  (a) The
+    edge at edge_bench's shape (``dcf_tpu/cli.py:1440-1500``: ``Dcf(16,
+    16)``, 3 C++-core bundles, max_batch 2^14, requests of 3/8 to 1/2 of
+    it, 8 connections, tenants gold (CRITICAL), silver (NORMAL) and
+    bronze (BATCH at 2^14 points/s, burst 2^13)) on ``prefix`` and
+    ``walk``: the two-party reconstruction of 256 points a bundle over
+    the wire against the C++ core; interleaved closed loops in process
+    and over the wire on the same service (2 segments of each), their
+    evals/s, p50/p99 and ``wire_vs_inprocess`` (reported beside
+    ``dcf_tpu``'s 0.8 gate, not gated); a bronze burst whose every
+    refusal carries ``retry_after_s``; on ``prefix`` a TLS leg with
+    parity and an open loop at half the wire leg's request rate,
+    reconciled against the service's metrics.  (b) The pod at
+    pod_bench's shape: 3 shards (``prefix``, max_batch 2^10) behind their
+    own ``EdgeServer``s on the card, a ``DcfRouter`` with one replica,
+    keys registered through it; routed two-party shares through the
+    router's door against the C++ core; a closed loop through the door
+    beside one solo shard (``pod_vs_solo``, not gated); co-evaluation
+    (``set_mesh`` over the 3 shards, 2^10-point batches) equal to
+    route-mode; and a failover loop in which one shard's ``EdgeServer``
+    closes: its CRITICAL traffic is served by the replica and served +
+    refused typed = sent.  Every leg without an injected fault reads 0
+    on ``edge_connection_errors_total``, ``edge_wire_errors_total``,
+    ``router_mesh_degraded_total`` and each shard's
+    ``router_suspected_total``.  Paths ``edge_prefix``, ``edge_walk``,
+    ``pod_prefix`` and ``pod_mesh`` in ``launches_by_path``, each one
+    ``pump()``-driven run.
 
 Launches are counted per path: the counts are set to 0 just before one
 run of a path and read just after it, before any timed repeat, and held
-against the number that run must make (phases 9-11, 16 and 18-20; phase 4's run
+against the number that run must make (phases 9-11, 16 and 18-21; phase 4's run
 is both parties' anchor and staged evaluations).  The next to last line is one JSON
 object with every kernel's numbers, ``launches`` the sum over those single
 runs and ``launches_by_path`` each of them; the last line is
@@ -279,6 +306,17 @@ GATE_INPUTS = 1 << 16  # masked inputs of the served gates
 PIR_SERVE_BITS = 20  # 2^20 32-byte records behind attach_pir
 K_KEYLANES_SERVE = 1024
 M_SERVE_SMALL = 4096  # points a party of the hybrid case
+EDGE_MAX_BATCH = 1 << 14  # edge_bench's defaults (dcf_tpu/cli.py)
+EDGE_CONNS = 8
+EDGE_PARITY = 256  # points per bundle in the wire parity gates
+EDGE_SEGMENTS = 2  # in-process and wire closed loops, interleaved ...
+EDGE_SEGMENT_S = 1.5  # ... this long each
+EDGE_OPEN_S = 2.0  # the open-loop leg
+WIRE_GATE = 0.8  # dcf_tpu's edge_bench gate on wire_vs_inprocess
+POD_SHARDS = 3  # pod_bench's shape
+POD_MAX_BATCH = 1 << 10
+POD_LOOP_S = 3.0  # each closed loop, pod and solo
+POD_FAILOVER_S = (1.0, 2.0)  # the failover loop: before and after the kill
 
 
 def log(msg: str) -> None:
@@ -834,6 +872,444 @@ def serving_phase(card: str, reset_counts, take_counts) -> dict:
         f"walk: sign and truncation of {GATE_INPUTS} masked inputs through "
         f"two started services equal sign_oracle and trunc_oracle "
         f"({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def edge_pod_phase(card: str, reset_counts, take_counts) -> dict:
+    """Phase 21: the network edge and the pod router
+    (``dcf_tpu_torch.serve.edge``, ``router``) on the card.
+
+    ``reset_counts`` / ``take_counts(path, want)`` are main's launch
+    counters: each counted path is one run whose service is driven by
+    ``pump()`` here, after its requests crossed the wire.  Every check
+    raises.  Returns the numbers the phase logged."""
+    import threading
+
+    import torch
+
+    from dcf_tpu_torch import Bound, Dcf
+    from dcf_tpu_torch.errors import DcfError, QueueFullError
+    from dcf_tpu_torch.gen import random_s0s
+    from dcf_tpu_torch.native import NativeDcf
+    from dcf_tpu_torch.ops._launch import launch_depths
+    from dcf_tpu_torch.serve import (
+        DcfRouter, EdgeClient, EdgeServer, ShardMap, ShardSpec, TenantSpec,
+        rollup_snapshots)
+    from dcf_tpu_torch.serve.batcher import next_pow2
+    from dcf_tpu_torch.serve.loadgen import (
+        LoadgenResult, closed_loop, open_loop, reconcile_against_rollup)
+
+    srng = np.random.default_rng(SEED + 21)
+    ck = [srng.bytes(32), srng.bytes(32)]
+    native = NativeDcf(16, ck)
+    tls_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "tls")
+    b2_party = len(launch_depths(HOST_LEVELS, 21))  # the prefix depth
+    out = {}
+
+    def gen_keys(n: int, prefix: str) -> dict:
+        """edge_bench's bundles: single keys from the C++ core."""
+        keys = {}
+        for i in range(n):
+            alphas = srng.integers(0, 256, (1, N_BYTES), dtype=np.uint8)
+            betas = srng.integers(0, 256, (1, 16), dtype=np.uint8)
+            keys[f"{prefix}-{i}"] = native.gen_batch(
+                alphas, betas, random_s0s(1, 16, srng), Bound.LT_BETA)
+        return keys
+
+    def wait_queued(svc, points: int) -> None:
+        deadline = time.perf_counter() + 60
+        while svc.queue.points < points:
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"{points} points never reached the "
+                                   f"queue ({svc.queue.points})")
+            time.sleep(0.001)
+
+    def check_pair(y0, y1, kb, xs, what: str) -> None:
+        ref = native.eval(0, kb, xs) ^ native.eval(1, kb, xs)
+        bad = int(((y0 ^ y1) != ref).any(-1).sum())
+        if bad:
+            raise RuntimeError(f"{what}: {bad} of {xs.shape[0]} two-party "
+                               "reconstructions differ from the C++ core")
+
+    def wire_pair(client, name, kb, points: int, what: str) -> None:
+        xs = srng.integers(0, 256, (points, N_BYTES), dtype=np.uint8)
+        y0, y1 = (client.evaluate(name, xs, b=b, timeout=60) for b in (0, 1))
+        check_pair(y0, y1, kb, xs, what)
+
+    def fault_free(snaps, what: str, shards=()) -> None:
+        """The fault counters of a leg without an injected fault."""
+        bad = {}
+        for snap in snaps:
+            names = ["edge_connection_errors_total", "edge_wire_errors_total",
+                     "router_mesh_degraded_total"] + [
+                f"router_suspected_total{{shard={h}}}" for h in shards]
+            bad.update({k: snap[k] for k in names if snap.get(k, 0)})
+        if bad:
+            raise RuntimeError(f"{what}: fault counters moved {bad}")
+
+    def merged(runs) -> LoadgenResult:
+        res = LoadgenResult(duration_s=sum(r.duration_s for r in runs))
+        for r in runs:
+            res.requests_ok += r.requests_ok
+            res.points_ok += r.points_ok
+            res.requests_failed += r.requests_failed
+            res.requests_shed += r.requests_shed
+            res.latencies_s += r.latencies_s
+        return res
+
+    def rate_row(res: LoadgenResult) -> dict:
+        q = res.latency_quantiles()
+        return {"evals_per_s": res.throughput,
+                "requests_ok": res.requests_ok,
+                "requests_shed": res.requests_shed,
+                "p50_ms": q["p50_s"] * 1e3, "p99_ms": q["p99_s"] * 1e3}
+
+    def loop(svc, snap_fn, keys, **kw) -> LoadgenResult:
+        """One closed loop, held to 0 failed and reconciled."""
+        before = snap_fn()
+        res = closed_loop(svc, sorted(keys), **kw)
+        rec = reconcile_against_rollup(res, before, snap_fn())
+        if res.requests_failed or not res.points_ok or not rec["reconciled"]:
+            raise RuntimeError(f"closed loop: {res.requests_failed} failed, "
+                               f"{res.requests_ok} ok, reconciliation {rec}")
+        return res
+
+    # (a) The edge at edge_bench's shape, on prefix and walk.
+    min_req, max_req = EDGE_MAX_BATCH * 3 // 8, EDGE_MAX_BATCH // 2
+    tenants = (TenantSpec("gold", "critical"), TenantSpec("silver", "normal"),
+               TenantSpec("bronze", "batch",
+                          points_per_sec=float(EDGE_MAX_BATCH),
+                          burst_points=EDGE_MAX_BATCH // 2))
+    for backend, want in (("prefix", {"B2": 2 * b2_party, "B3": 2}),
+                          ("walk", {"B1": 2})):
+        t0 = time.perf_counter()
+        svc = Dcf(N_BYTES, 16, ck, backend=backend).serve(
+            max_batch=EDGE_MAX_BATCH, max_delay_ms=SERVE_DELAY_MS,
+            tenants=tenants)
+        keys = gen_keys(SERVE_BUNDLES, "key")
+        for name, kb in keys.items():
+            svc.register_key(name, kb)
+        edge = EdgeServer(svc).start()
+        addr = edge.address
+        # The counted run: key-0's two parties over the wire, the service
+        # pumped here once both requests are queued.
+        xs = srng.integers(0, 256, (EDGE_PARITY, N_BYTES), dtype=np.uint8)
+        with EdgeClient(*addr, n_bytes=N_BYTES, tenant="silver") as c:
+            reset_counts()
+            futs = [c.submit("key-0", xs, b=b) for b in (0, 1)]
+            wait_queued(svc, 2 * EDGE_PARITY)
+            svc.pump()
+            torch.cuda.synchronize()
+            take_counts(f"edge_{backend}", want)
+            check_pair(*(f.result(60) for f in futs), keys["key-0"], xs,
+                       f"edge {backend} wire parity")
+        xs_warm = srng.integers(0, 256, (EDGE_MAX_BATCH, N_BYTES),
+                                dtype=np.uint8)
+        m = next_pow2(min_req)
+        while m <= EDGE_MAX_BATCH:  # the batch-shape ladder
+            svc.submit("key-0", xs_warm[:m])
+            svc.pump()
+            m *= 2
+        svc.start()
+        clients = [EdgeClient(*addr, n_bytes=N_BYTES, tenant="silver")
+                   for _ in range(EDGE_CONNS)]
+        for name, kb in keys.items():
+            wire_pair(clients[0], name, kb, EDGE_PARITY,
+                      f"edge {backend} wire parity {name}")
+        runs = {"inproc": [], "wire": []}
+        for i in range(2 * EDGE_SEGMENTS):
+            leg = "wire" if i % 2 else "inproc"
+            runs[leg].append(loop(
+                svc, svc.metrics_snapshot, keys,
+                duration_s=EDGE_SEGMENT_S, concurrency=EDGE_CONNS,
+                min_points=min_req, max_points=max_req, seed=SEED + i // 2,
+                clients=clients if leg == "wire" else None))
+        res_in, res_wire = merged(runs["inproc"]), merged(runs["wire"])
+        fault_free([svc.metrics_snapshot()], f"edge {backend} closed loops")
+        row = {"inproc": rate_row(res_in), "wire": rate_row(res_wire),
+               "wire_vs_inprocess": res_wire.throughput / res_in.throughput}
+        row["wire_gate_met"] = row["wire_vs_inprocess"] >= WIRE_GATE
+        # The bronze burst: pipelined on one connection, inside one refill
+        # window of the BATCH tenant's bucket.
+        xs_burst = srng.integers(0, 256, (EDGE_MAX_BATCH // 2, N_BYTES),
+                                 dtype=np.uint8)
+        with EdgeClient(*addr, n_bytes=N_BYTES, tenant="bronze") as bronze:
+            burst = [bronze.submit("key-0", xs_burst) for _ in range(6)]
+            refused = hinted = 0
+            for f in burst:
+                try:
+                    f.result(60)
+                except QueueFullError as e:
+                    refused += 1
+                    hinted += e.retry_after_s is not None
+        if not refused or hinted != refused:
+            raise RuntimeError(f"edge {backend} bronze burst: {refused} "
+                               f"refusals, {hinted} with retry_after_s")
+        row["bronze_refused"], row["bronze_hinted"] = refused, hinted
+        if backend == "prefix":
+            tls = EdgeServer(svc, tls_cert=os.path.join(tls_dir, "server.pem"),
+                             tls_key=os.path.join(tls_dir, "server.key")
+                             ).start()
+            with EdgeClient(*tls.address, n_bytes=N_BYTES, tenant="silver",
+                            tls=True, tls_ca=os.path.join(tls_dir, "ca.pem")
+                            ) as c:
+                for name, kb in keys.items():
+                    wire_pair(c, name, kb, EDGE_PARITY,
+                              f"edge TLS parity {name}")
+            tls.close()
+            wire_rps = res_wire.requests_ok / res_wire.duration_s
+            before = svc.metrics_snapshot()
+            res_open = open_loop(
+                clients[0], sorted(keys), rate_rps=0.5 * wire_rps,
+                duration_s=EDGE_OPEN_S, min_points=min_req,
+                max_points=max_req, seed=SEED + 17)
+            rec = reconcile_against_rollup(res_open, before,
+                                           svc.metrics_snapshot())
+            if res_open.failed or not res_open.ok or not rec["reconciled"]:
+                raise RuntimeError(f"edge open loop: {res_open.failed} "
+                                   f"failed, {res_open.ok} ok, {rec}")
+            q = res_open.latency_quantiles()
+            row["open_loop"] = {
+                "offered_rps": res_open.offered_rps, "sent": res_open.sent,
+                "ok": res_open.ok, "shed": res_open.shed,
+                "expired": res_open.expired, "p50_ms": q["p50_s"] * 1e3,
+                "p99_ms": q["p99_s"] * 1e3, "reconciled": rec["reconciled"]}
+        for c in clients:
+            c.close()
+        edge.close()
+        svc.close()
+        fault_free([svc.metrics_snapshot()], f"edge {backend}")
+        row["seconds"] = time.perf_counter() - t0
+        out[f"edge {backend}"] = row
+        log(f"phase 21 edge {backend}: Dcf(16, 16), serve(max_batch="
+            f"{EDGE_MAX_BATCH}), {SERVE_BUNDLES} C++-core bundles, wire parity "
+            f"{EDGE_PARITY} points a bundle, two-party, 0 mismatches"
+            + (" (and over TLS)" if backend == "prefix" else "")
+            + f"; {EDGE_CONNS} clients, {EDGE_SEGMENTS} x {EDGE_SEGMENT_S} s a "
+            f"leg, requests of {min_req}-{max_req} points: in process "
+            f"{row['inproc']['evals_per_s']:,.1f} evals/s (p50 "
+            f"{row['inproc']['p50_ms']:.2f} ms, p99 "
+            f"{row['inproc']['p99_ms']:.2f} ms), over the wire "
+            f"{row['wire']['evals_per_s']:,.1f} evals/s (p50 "
+            f"{row['wire']['p50_ms']:.2f} ms, p99 {row['wire']['p99_ms']:.2f}"
+            f" ms), wire_vs_inprocess {row['wire_vs_inprocess']:.3f} "
+            f"(dcf_tpu's gate {WIRE_GATE}: "
+            f"{'met' if row['wire_gate_met'] else 'not met'}); bronze burst "
+            f"{refused} refusals, {hinted} hinted"
+            + (f"; open loop {json.dumps(row['open_loop'])}"
+               if backend == "prefix" else "")
+            + f"; 0 connection and wire errors ({row['seconds']:.1f} s) "
+            f"[{card}]")
+
+    # (b) The pod at pod_bench's shape: 3 prefix shards on the card.
+    t0 = time.perf_counter()
+    pmin, pmax = POD_MAX_BATCH * 3 // 8, POD_MAX_BATCH // 2
+    svcs, edges, specs = [], [], []
+    for i in range(POD_SHARDS):
+        svc = Dcf(N_BYTES, 16, ck, backend="prefix").serve(
+            max_batch=POD_MAX_BATCH, max_delay_ms=SERVE_DELAY_MS)
+        edge = EdgeServer(svc).start()
+        svcs.append(svc)
+        edges.append(edge)
+        specs.append(ShardSpec(f"shard-{i}", *edge.address))
+    ring = ShardMap(specs)
+    host_ids = ring.host_ids()
+
+    def svc_of(host_id: str):
+        return svcs[host_ids.index(host_id)]
+
+    def pod_snaps() -> list:
+        return [s.metrics_snapshot() for s in svcs] + [
+            router.metrics_snapshot()]
+
+    def rollup() -> dict:
+        return rollup_snapshots([s.metrics_snapshot() for s in svcs])
+
+    router = DcfRouter(ring, n_bytes=N_BYTES, replicas=1,
+                       co_eval_min_points=POD_MAX_BATCH)
+    keys = gen_keys(SERVE_BUNDLES, "pod")
+    for name, kb in keys.items():
+        gen = router.register_key(name, kb)
+        for h in ring.placement_ids(name, 1):
+            if svc_of(h).replication_digest().get(name) != gen:
+                raise RuntimeError(f"pod: {name} not on {h} at generation "
+                                   f"{gen}")
+    router.start()
+    door = router.address
+    xs = srng.integers(0, 256, (EDGE_PARITY, N_BYTES), dtype=np.uint8)
+    owner = svc_of(ring.owner("pod-0").host_id)
+    with EdgeClient(*door, n_bytes=N_BYTES) as c:
+        reset_counts()
+        futs = [c.submit("pod-0", xs, b=b) for b in (0, 1)]
+        wait_queued(owner, 2 * EDGE_PARITY)
+        owner.pump()
+        torch.cuda.synchronize()
+        take_counts("pod_prefix", {"B2": 2 * b2_party, "B3": 2})
+        check_pair(*(f.result(60) for f in futs), keys["pod-0"], xs,
+                   "pod routed parity")
+    # Co-evaluation, counted: one 2^10-point batch a party scattered over
+    # the 3 shards, each pumped here once its slices are queued.
+    group = router.set_mesh()
+    kb_mesh = gen_keys(1, "mesh")["mesh-0"]
+    router.register_mesh_key("mesh-0", kb_mesh)
+    plan = group.plan(POD_MAX_BATCH)
+    xs = srng.integers(0, 256, (POD_MAX_BATCH, N_BYTES), dtype=np.uint8)
+    reset_counts()
+    futs = [router.submit("mesh-0", xs, b=b) for b in (0, 1)]
+    for sl in plan:
+        wait_queued(svc_of(sl.host_id), 2 * sl.count)
+    for sl in plan:
+        svc_of(sl.host_id).pump()
+    torch.cuda.synchronize()
+    take_counts("pod_mesh", {"B2": 2 * len(plan) * b2_party,
+                             "B3": 2 * len(plan)})
+    y_mesh = [f.result(60) for f in futs]
+    check_pair(*y_mesh, kb_mesh, xs, "pod co-evaluation")
+    for s in svcs:
+        s.start()
+    router.co_eval = "never"
+    y_route = [router.evaluate("mesh-0", xs, b=b, timeout=60)
+               for b in (0, 1)]
+    router.co_eval = "auto"
+    if not all(np.array_equal(a, r) for a, r in zip(y_mesh, y_route)):
+        raise RuntimeError("pod: co-evaluated shares differ from route-mode's")
+    co_ms = {}
+    for mode in ("auto", "never"):  # co-evaluated, then routed: timed
+        router.co_eval = mode
+        t1 = time.perf_counter()
+        for b in (0, 1, 0, 1):
+            router.evaluate("mesh-0", xs, b=b, timeout=60)
+        co_ms[mode] = (time.perf_counter() - t1) / 4 * 1e3
+    router.co_eval = "auto"
+    snap = router.metrics_snapshot()
+    if snap["router_co_evals_total"] != 6:
+        raise RuntimeError(f"pod: {snap['router_co_evals_total']} "
+                           "co-evaluations, expected 6")
+    with EdgeClient(*door, n_bytes=N_BYTES) as c:
+        for name, kb in keys.items():
+            wire_pair(c, name, kb, EDGE_PARITY, f"pod door parity {name}")
+    door_clients = [EdgeClient(*door, n_bytes=N_BYTES)
+                    for _ in range(EDGE_CONNS)]
+    res_pod = loop(router, rollup, keys, duration_s=POD_LOOP_S,
+                   concurrency=EDGE_CONNS, min_points=pmin, max_points=pmax,
+                   seed=SEED + 21, clients=door_clients)
+    for c in door_clients:
+        c.close()
+    fault_free(pod_snaps(), "pod closed loop and co-evaluation", host_ids)
+    router.health.pump()
+    loads = {h: (None if s is None else s.queue_points / s.queue_limit)
+             for h, s in router.health.loads().items()}
+    if set(router.health.states().values()) != {"up"}:
+        raise RuntimeError(f"pod: health {router.health.states()}")
+    # One solo shard at the same shape, its own edge, the same loop.
+    solo = Dcf(N_BYTES, 16, ck, backend="prefix").serve(
+        max_batch=POD_MAX_BATCH, max_delay_ms=SERVE_DELAY_MS)
+    for name, kb in keys.items():
+        solo.register_key(name, kb)
+    solo.start()
+    solo_edge = EdgeServer(solo).start()
+    solo_clients = [EdgeClient(*solo_edge.address, n_bytes=N_BYTES)
+                    for _ in range(EDGE_CONNS)]
+    res_solo = loop(solo, solo.metrics_snapshot, keys, duration_s=POD_LOOP_S,
+                    concurrency=EDGE_CONNS, min_points=pmin, max_points=pmax,
+                    seed=SEED + 21, clients=solo_clients)
+    for c in solo_clients:
+        c.close()
+    solo_edge.close()
+    solo.close()
+    fault_free([solo.metrics_snapshot()], "solo shard")
+    # Failover: one shard's edge closes in the middle of a loop of mixed
+    # CRITICAL / NORMAL requests through the router, its health prober
+    # running.
+    victim = ring.owner("pod-0").host_id
+    tally = {"sent": 0, "served": 0, "refused": 0, "untyped": 0,
+             "mismatch": 0, "critical_failover_served": 0}
+    lock = threading.Lock()
+    stop = threading.Event()
+    killed = threading.Event()
+
+    def client(i: int) -> None:
+        crng = np.random.default_rng(SEED + 210 + i)
+        names = sorted(keys)
+        while not stop.is_set():
+            name = names[int(crng.integers(0, len(names)))]
+            pri = "critical" if crng.random() < 0.5 else "normal"
+            b = int(crng.integers(0, 2))
+            pts = crng.integers(0, 256, (int(crng.integers(pmin, pmax + 1)),
+                                         N_BYTES), dtype=np.uint8)
+            after = killed.is_set()
+            with lock:
+                tally["sent"] += 1
+            try:
+                y = router.evaluate(name, pts, b=b, timeout=60, priority=pri)
+            except DcfError as e:
+                with lock:
+                    tally["refused" if e.retry_after_s is not None
+                          else "untyped"] += 1
+                continue
+            except Exception:  # counted: the check below fails on any
+                with lock:
+                    tally["untyped"] += 1
+                continue
+            ok = np.array_equal(y, native.eval(b, keys[name], pts))
+            with lock:
+                tally["served" if ok else "mismatch"] += 1
+                if ok and after and pri == "critical" and \
+                        ring.owner(name).host_id == victim:
+                    tally["critical_failover_served"] += 1
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(4)]
+    router.start_health()  # the prober walks the dead shard DOWN
+    for t in threads:
+        t.start()
+    time.sleep(POD_FAILOVER_S[0])
+    edges[host_ids.index(victim)].close()
+    killed.set()
+    time.sleep(POD_FAILOVER_S[1])
+    stop.set()
+    for t in threads:
+        t.join(120)
+    snap = router.metrics_snapshot()
+    tally["router_failovers_total"] = snap["router_failovers_total"]
+    tally["router_promoted_forwards_total"] = snap[
+        "router_promoted_forwards_total"]
+    tally["victim_health"] = router.health.state(victim)
+    if (tally["untyped"] or tally["mismatch"]
+            or tally["served"] + tally["refused"] != tally["sent"]
+            or not tally["critical_failover_served"]
+            or not (tally["router_failovers_total"]
+                    + tally["router_promoted_forwards_total"])
+            or any(t.is_alive() for t in threads)):
+        raise RuntimeError(f"pod failover: {tally}")
+    router.close()
+    for e in edges:
+        e.close()
+    for s in svcs:
+        s.close()
+    pod_rate = res_pod.throughput
+    out["pod"] = row = {
+        "pod": rate_row(res_pod), "solo": rate_row(res_solo),
+        "pod_vs_solo": pod_rate / res_solo.throughput,
+        "co_eval_ms": co_ms["auto"], "route_ms": co_ms["never"],
+        "queue_fraction_after_loop": loads, "failover": tally,
+        "seconds": time.perf_counter() - t0}
+    log(f"phase 21 pod: {POD_SHARDS} prefix shards (max_batch "
+        f"{POD_MAX_BATCH}) behind their own EdgeServers, DcfRouter with 1 "
+        f"replica, {SERVE_BUNDLES} keys registered through it on owner and "
+        f"replica; door parity {EDGE_PARITY} points a key, two-party, 0 "
+        f"mismatches; co-evaluation of {POD_MAX_BATCH}-point batches over "
+        f"{len(plan)} shards equal to route-mode ({co_ms['auto']:.2f} ms a "
+        f"batch, routed {co_ms['never']:.2f} ms); closed loop through the "
+        f"door, {EDGE_CONNS} clients x {POD_LOOP_S} s, requests of "
+        f"{pmin}-{pmax} points: {pod_rate:,.1f} evals/s (p50 "
+        f"{row['pod']['p50_ms']:.2f} ms, p99 {row['pod']['p99_ms']:.2f} ms); "
+        f"one solo shard {res_solo.throughput:,.1f} evals/s: pod_vs_solo "
+        f"{row['pod_vs_solo']:.3f}; 0 connection, wire, suspect and degrade "
+        f"counts; failover (edge of {victim} closed after "
+        f"{POD_FAILOVER_S[0]} s): {json.dumps(tally)} "
+        f"({row['seconds']:.1f} s) [{card}]")
     return out
 
 
@@ -3280,6 +3756,12 @@ def main() -> int:
     serving = serving_phase(card, reset_counts, take_counts)
     log(f"phase 20 serving: " + json.dumps(
         {k: v for k, v in serving.items() if k != "image bytes"})
+        + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # -- phase 21: the network edge and the pod router on the card ------------------
+    t0 = time.perf_counter()
+    edge_pod = edge_pod_phase(card, reset_counts, take_counts)
+    log("phase 21 edge and pod: " + json.dumps(edge_pod)
         + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
 
     # launches x (time - bound) of B1 and B6 on each path, from their

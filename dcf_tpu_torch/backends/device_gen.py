@@ -27,7 +27,7 @@ give on the same inputs.  They run on the card unless built with
 ``device="cpu"``, where the kernels' plain versions run.  The JAX
 package's ``gen_with_planes``, ``gen_with_planes_pair`` and
 ``staged_planes`` (staged plane images for its hybrid evaluator's key
-factory) are not carried (ROADMAP.md slice 9).
+factory) are not carried (ROADMAP.md, Queue A's serving leftovers).
 """
 
 from __future__ import annotations

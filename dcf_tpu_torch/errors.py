@@ -1,7 +1,6 @@
 """Typed error taxonomy of the PyTorch port.
 
-Counterpart of ``dcf_tpu/errors.py`` (the classes at its lines 91-239 and
-289-303), with the same class names and bases so that a caller's
+Counterpart of ``dcf_tpu/errors.py``, every class of it, with the same class names and bases so that a caller's
 ``except`` clauses carry over between the two packages.  Each class also
 inherits the builtin exception a plain check would raise (``ValueError`` /
 ``RuntimeError``), so ``except ValueError`` call sites keep working.
@@ -18,6 +17,9 @@ inherits the builtin exception a plain check would raise (``ValueError`` /
       +-- KeyQuarantinedError     (RuntimeError) a stored frame was set aside
       +-- BatchTimeoutError       (TimeoutError) a served batch overran
       +-- RingEpochError          (RuntimeError) a stale ring epoch
+      +-- StandbyExhaustedError   (RuntimeError) no standby host to admit
+      +-- LockOrderError          (RuntimeError) a lock-order inversion
+      +-- MeshUnavailableError    (RuntimeError) co-evaluation cannot run
 
     BackendFallbackWarning (UserWarning)  a slower, bit-exact path serves
 """
@@ -37,6 +39,9 @@ __all__ = [
     "KeyQuarantinedError",
     "BatchTimeoutError",
     "RingEpochError",
+    "StandbyExhaustedError",
+    "LockOrderError",
+    "MeshUnavailableError",
     "BackendFallbackWarning",
 ]
 
@@ -161,10 +166,49 @@ class RingEpochError(DcfError, RuntimeError):
     """A frame carried a ring epoch OLDER than one this shard has
     already observed: the sender routed on a stale membership view, and
     the shard refuses it rather than serve a key from two conflicting
-    placements.  ``dcf_tpu``'s pod tier raises it; this package has the
-    type so that callers' ``except`` clauses carry over.
+    placements (``DcfService.check_ring_epoch``; ``E_EPOCH`` on the
+    wire).
 
     ``retry_after_s``: the caller-facing backoff hint."""
+
+    def __init__(self, *args, retry_after_s: float | None = None):
+        super().__init__(*args)
+        self.retry_after_s = retry_after_s
+
+
+class StandbyExhaustedError(DcfError, RuntimeError):
+    """An explicit scale-out found the declared standby pool empty:
+    there is no host to admit.  ``dcf_tpu``'s capacity controller
+    raises it; the port carries the type so that the wire taxonomy is
+    whole (the edge declares it internal-only) and callers' ``except``
+    clauses carry over."""
+
+
+class LockOrderError(DcfError, RuntimeError):
+    """A lock acquisition would close a cycle in the observed
+    lock-order graph (``dcf_tpu.testing.lockwatch``, a test-harness
+    detector).  Carries ``cycle`` (the lock names along the inversion)
+    and ``stacks`` (where each edge was first observed).  It has no
+    wire code: it fires in test harnesses, never at a serving edge."""
+
+    def __init__(self, message: str, *, cycle: tuple = (),
+                 stacks: tuple = ()):
+        super().__init__(message)
+        self.cycle = tuple(cycle)
+        self.stacks = tuple(stacks)
+
+
+class MeshUnavailableError(DcfError, RuntimeError):
+    """The router's co-evaluation tier cannot take this batch: a mesh
+    worker is DOWN or suspect, the mesh group's formation epoch trails
+    the ring, or no group is formed while the caller forced
+    co-evaluation (``co_eval="always"``).  Route-mode still serves:
+    under ``co_eval="auto"`` the router absorbs this error itself and
+    degrades the batch (counted ``router_mesh_degraded_total``, warned
+    ``BackendFallbackWarning``).
+
+    ``retry_after_s``: one health-probe interval.  Crosses the wire as
+    its own code (``E_MESH_UNAVAILABLE``)."""
 
     def __init__(self, *args, retry_after_s: float | None = None):
         super().__init__(*args)

@@ -46,8 +46,8 @@ share paths.  Golden oracles (``sign_oracle`` / ``trunc_oracle`` /
 vectorized; every gate test and the card check of ``chip_smoke.py``
 compare reconstructions against them byte for byte.
 
-The served form (``dcf_tpu``'s ``workloads.gates.GateServer``, a client
-of the serving tier) is not in this package yet.
+The served form is ``workloads.gates.GateServer``, a client of the
+serving tier (``serve.DcfService``).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """dcf_tpu_torch.serve — the online DCF evaluation service, on the card.
 
-Counterpart of ``dcf_tpu/serve``, for its in-process tier: everything
-between "a staged backend that can evaluate one big batch" and "a
-service answering bursty small queries against many long-lived keys":
+Counterpart of ``dcf_tpu/serve``: everything between "a staged backend
+that can evaluate one big batch" and "a pod of services answering
+bursty small queries over the network against many long-lived keys":
 
 - ``serve.batcher``   pure micro-batch planning: coalesce ragged
   requests into padded power-of-two device batches, scatter results
@@ -29,18 +29,33 @@ service answering bursty small queries against many long-lived keys":
 - ``serve.keyfactory`` ahead-of-demand keygen pools minted on the card
   (G1, G2, or B7a + W2) in K-packed batches, claimed by
   ``register_key(key_id, pool=...)``;
-- ``serve.replicate`` the shard side of live replication
-  (``decode_key_frame``, the fenced ``apply_frame``, ``sync_frames``);
+- ``serve.replicate`` live replication: the shard side
+  (``decode_key_frame``, the fenced ``apply_frame``, ``sync_frames``)
+  and the router side (``Replicator``: registration fan-out across the
+  ring, the anti-entropy pull);
+- ``serve.edge``      the network edge: DCFE frames over TCP (plain or
+  stdlib ``ssl``) with a zero-copy ingest into the batcher, tenant
+  classes with per-tenant token buckets, typed wire error frames with
+  retry hints; ``EdgeClient`` and the reconnecting ``EdgeClientPool``;
+- ``serve.shardmap``  the pod's rendezvous ring (``ShardMap``,
+  ``ShardSpec``): which shard owns a key, and its replica;
+- ``serve.health``    the active prober (``HealthProber``): PINGs over
+  the pools, UP -> SUSPECT -> DOWN -> UP with a gated recovery;
+- ``serve.meshgroup`` the co-evaluation group (``MeshGroup``,
+  ``MeshSlice``): 32-aligned slices of one batch, one per worker;
+- ``serve.router``    ``DcfRouter``: DCFE on both sides, forwarding by
+  header decode only, failover to replicas, promotion of DOWN shards,
+  the ring-epoch fence and co-evaluation;
 - ``serve.metrics``   dependency-free counters/gauges/histograms with a
   deterministic snapshot; ``rollup_snapshots`` sums snapshots;
 - ``serve.service``   ``DcfService``: the worker loop tying it together,
   with a dispatch-ahead pipeline and the ``serve.stage``/``serve.eval``
   fault seams;
-- ``serve.loadgen``   the closed-loop load generator.
+- ``serve.loadgen``   the closed-loop (optionally one edge client per
+  thread) and open-loop (Poisson) load generators.
 
-Not carried yet (ROADMAP.md): ``dcf_tpu``'s network edge, router,
-health prober, capacity controller, membership, shard map, mesh group
-and the router-side ``Replicator``.
+Not carried yet (ROADMAP.md): ``dcf_tpu``'s capacity controller and
+membership controller.
 
 Entry point: ``Dcf.serve(...)`` (see ``dcf_tpu_torch.api``).
 """
@@ -51,14 +66,26 @@ from dcf_tpu_torch.serve.admission import (  # noqa: F401
     TenantSpec,
 )
 from dcf_tpu_torch.serve.breaker import BreakerBoard  # noqa: F401
+from dcf_tpu_torch.serve.edge import (  # noqa: F401
+    EdgeClient,
+    EdgeClientPool,
+    EdgeServer,
+)
 from dcf_tpu_torch.serve.frontier_cache import FrontierCache  # noqa: F401
+from dcf_tpu_torch.serve.health import HealthEvent, HealthProber  # noqa: F401
 from dcf_tpu_torch.serve.keyfactory import KeyFactory, PoolSpec  # noqa: F401
+from dcf_tpu_torch.serve.meshgroup import MeshGroup, MeshSlice  # noqa: F401
 from dcf_tpu_torch.serve.metrics import Metrics, rollup_snapshots  # noqa: F401
 from dcf_tpu_torch.serve.registry import KeyRegistry  # noqa: F401
+from dcf_tpu_torch.serve.replicate import Replicator  # noqa: F401
+from dcf_tpu_torch.serve.router import DcfRouter  # noqa: F401
 from dcf_tpu_torch.serve.service import DcfService, ServeConfig  # noqa: F401
+from dcf_tpu_torch.serve.shardmap import ShardMap, ShardSpec  # noqa: F401
 from dcf_tpu_torch.serve.store import KeyStore, RestoreReport  # noqa: F401
 
 __all__ = ["DcfService", "ServeConfig", "ServeFuture", "Priority",
-           "TenantSpec", "BreakerBoard", "FrontierCache", "KeyFactory",
-           "Metrics", "KeyRegistry", "KeyStore", "PoolSpec",
-           "RestoreReport", "rollup_snapshots"]
+           "TenantSpec", "EdgeServer", "EdgeClient", "EdgeClientPool",
+           "BreakerBoard", "DcfRouter", "FrontierCache", "HealthEvent",
+           "HealthProber", "KeyFactory", "Metrics", "KeyRegistry",
+           "KeyStore", "MeshGroup", "MeshSlice", "PoolSpec", "Replicator",
+           "RestoreReport", "ShardMap", "ShardSpec", "rollup_snapshots"]

@@ -1,12 +1,16 @@
-"""Closed-loop load generator for the serving layer.
+"""Closed- and open-loop load generators for the serving layer.
 
-Counterpart of ``dcf_tpu/serve/loadgen.py``'s closed loop, line for
-line (host code: the clients' key choices and request sizes draw from
-one seeded generator in the same order as ``dcf_tpu``'s, so a seed gives
-both packages the same request sequence).  ``chip_smoke.py`` phase 20
-runs ``closed_loop`` on the card and ``reconcile_against_rollup`` on its
-metrics.  ``dcf_tpu``'s open-loop, ramp and session-churn modes are not
-carried yet (ROADMAP.md).
+Counterpart of ``dcf_tpu/serve/loadgen.py``'s ``closed_loop`` and
+``open_loop``, line for line (host code: key choices, request sizes and
+arrival gaps draw from seeded generators in the same order as
+``dcf_tpu``'s, so a seed gives both packages the same request
+sequence).  ``chip_smoke.py`` phases 20 and 21 run them on the card and
+``reconcile_against_rollup`` on their metrics.  ``dcf_tpu``'s ramp and
+session-churn modes are not carried yet (ROADMAP.md).
+
+A submit target is anything with ``submit`` and ``n_bytes``: a
+``DcfService``, an ``EdgeClient`` / ``EdgeClientPool`` (the wire) or a
+``DcfRouter`` (the pod).
 
 Closed-loop means each client thread keeps exactly one request in
 flight: submit -> wait -> submit.  Offered load therefore tracks service
@@ -36,7 +40,8 @@ import numpy as np
 from dcf_tpu_torch.serve.admission import parse_priority
 from dcf_tpu_torch.utils.benchtime import monotonic
 
-__all__ = ["LoadgenResult", "closed_loop", "reconcile_against_rollup"]
+__all__ = ["LoadgenResult", "closed_loop", "OpenLoopResult", "open_loop",
+           "reconcile_against_rollup"]
 
 
 @dataclass
@@ -67,21 +72,80 @@ class LoadgenResult:
         return self.points_ok / self.duration_s if self.duration_s else 0.0
 
     def latency_quantiles(self) -> dict:
-        """p50 / p90 / p99 of the completed requests' latencies."""
-        if not self.latencies_s:
-            return {}
-        arr = np.sort(np.asarray(self.latencies_s))
-
-        def q(p):
-            return float(arr[min(int(p * len(arr)), len(arr) - 1)])
-
-        return {"p50_s": round(q(0.50), 6), "p90_s": round(q(0.90), 6),
-                "p99_s": round(q(0.99), 6)}
+        return _quantiles(self.latencies_s)
 
 
-def reconcile_against_rollup(res: LoadgenResult, rollup_before: dict,
+@dataclass
+class OpenLoopResult:
+    """One open-loop (Poisson-arrival) run.
+
+    ``sent`` counts submits the service ACCEPTED (they reached the
+    queue); ``shed`` counts typed refusals at submit (``shed_hinted``
+    of which carried a ``retry_after_s``); accepted requests complete
+    as ``ok`` / ``expired`` (``DeadlineExceededError``) / ``failed``
+    (``failed`` also absorbs any non-shed submit-time error, so every
+    arrival lands in exactly one bucket:
+    ``attempts == shed + ok + expired + failed`` after the drain).
+    The counts reconcile against the service's
+    ``serve_requests_total`` / ``serve_shed_total`` /
+    ``serve_deadline_expired_total``.
+
+    ``latencies_s`` measure from each request's SCHEDULED arrival to
+    completion — the anti-coordinated-omission definition: a request
+    delayed by the queue (or by the generator catching up after a
+    stall) is charged that delay, so ``p99`` reflects what an
+    independent caller would have seen at this offered rate."""
+
+    duration_s: float
+    offered_rps: float
+    sent: int = 0
+    shed: int = 0
+    shed_hinted: int = 0
+    ok: int = 0
+    expired: int = 0
+    failed: int = 0
+    points_ok: int = 0
+    latencies_s: list = field(default_factory=list)
+    by_class: dict = field(default_factory=dict)
+
+    def _count(self, priority: str, outcome: str) -> None:
+        cls = self.by_class.setdefault(
+            priority, {"ok": 0, "shed": 0, "expired": 0, "failed": 0})
+        cls[outcome] += 1
+
+    @property
+    def attempts(self) -> int:
+        """Every scheduled arrival (exact after the drain: each lands
+        in exactly one of shed/ok/expired/failed)."""
+        return self.shed + self.ok + self.expired + self.failed
+
+    @property
+    def throughput(self) -> float:
+        """Completed evals/s: points of OK requests per second."""
+        return self.points_ok / self.duration_s if self.duration_s \
+            else 0.0
+
+    def latency_quantiles(self) -> dict:
+        return _quantiles(self.latencies_s)
+
+
+def _quantiles(values) -> dict:
+    """p50 / p90 / p99 of the completed requests' latencies, the one
+    extraction both result types report."""
+    if not values:
+        return {}
+    arr = np.sort(np.asarray(values))
+
+    def q(p):
+        return float(arr[min(int(p * len(arr)), len(arr) - 1)])
+
+    return {"p50_s": round(q(0.50), 6), "p90_s": round(q(0.90), 6),
+            "p99_s": round(q(0.99), 6)}
+
+
+def reconcile_against_rollup(res, rollup_before: dict,
                              rollup_after: dict) -> dict:
-    """Reconcile one closed-loop result against a metrics rollup
+    """Reconcile one loadgen result against a metrics rollup
     (``serve.metrics.rollup_snapshots`` of the services' snapshots, or
     one service's snapshot).
 
@@ -92,7 +156,13 @@ def reconcile_against_rollup(res: LoadgenResult, rollup_before: dict,
     under ``"reconciled"``.  What is compared: per-class shed counts
     (submit-time sheds AND evictions both land in
     ``serve_shed_by_class_total`` — admission counts evictions as sheds
-    delivered late)."""
+    delivered late) for both result types; open-loop results
+    additionally reconcile ``sent`` against ``serve_requests_total`` and
+    ``expired`` against ``serve_deadline_expired_total``.  Edge-tier
+    refusals that never reach a shard queue (tenant token buckets, the
+    router's suspect refusals) are OUTSIDE this ledger: they are counted
+    by the tier that refused (``edge_tenant_refusals_total``,
+    ``router_suspect_refusals_total``)."""
 
     def delta(name: str) -> int:
         return (rollup_after.get(name, 0) - rollup_before.get(name, 0))
@@ -105,6 +175,13 @@ def reconcile_against_rollup(res: LoadgenResult, rollup_before: dict,
         pod = delta(f"serve_shed_by_class_total{{priority={pr}}}")
         out[f"shed_{pr}"] = {"client": client, "pod": pod}
         ok = ok and client == pod
+    if isinstance(res, OpenLoopResult):
+        out["sent"] = {"client": res.sent,
+                       "pod": delta("serve_requests_total")}
+        out["expired"] = {"client": res.expired,
+                          "pod": delta("serve_deadline_expired_total")}
+        ok = (ok and out["sent"]["client"] == out["sent"]["pod"]
+              and out["expired"]["client"] == out["expired"]["pod"])
     out["reconciled"] = ok
     return out
 
@@ -154,7 +231,7 @@ def closed_loop(service, key_ids, *, duration_s: float, concurrency: int,
                 min_points: int, max_points: int, seed: int = 2026,
                 party: int = 0, clock=monotonic,
                 priority_mix: dict | None = None,
-                skew: float = 0.0) -> LoadgenResult:
+                skew: float = 0.0, clients=None) -> LoadgenResult:
     """Drive ``service`` with ``concurrency`` closed-loop clients for
     ``duration_s`` seconds of wall time; returns the aggregated result.
     The service must be started (worker thread running).
@@ -167,7 +244,12 @@ def closed_loop(service, key_ids, *, duration_s: float, concurrency: int,
     s > 0 weights rank r (the r-th entry of ``key_ids``) by 1/r^s,
     normalized.  Must be finite and >= 0 (the CLI benches validate the
     ``--skew`` flag before spending warmup time; this is the API-edge
-    backstop)."""
+    backstop).
+
+    ``clients``: one submit target PER THREAD — the wire mode.  Pass a
+    list of ``concurrency`` connected ``EdgeClient``s so each
+    closed-loop client drives its own TCP connection (the in-process
+    default shares the one ``service``)."""
     import math
 
     if not math.isfinite(skew) or skew < 0:
@@ -199,13 +281,20 @@ def closed_loop(service, key_ids, *, duration_s: float, concurrency: int,
         weights = [priority_mix[p] / total for p in priorities]
     else:
         priorities, weights = ["normal"], [1.0]
+    if clients is not None and len(clients) != concurrency:
+        # api-edge: loadgen config contract at the harness edge — a
+        # short list would silently drop offered load
+        raise ValueError(
+            f"clients must hold one target per thread "
+            f"({concurrency}), got {len(clients)}")
     res = LoadgenResult(duration_s=0.0)
     lock = threading.Lock()
     stop = threading.Event()
     threads = [
         threading.Thread(
             target=_client,
-            args=(service, list(key_ids), stop, res, lock,
+            args=(clients[i] if clients is not None else service,
+                  list(key_ids), stop, res, lock,
                   np.random.default_rng(seed + 7 * i), min_points,
                   max_points, party, clock, priorities, weights,
                   key_probs),
@@ -223,3 +312,186 @@ def closed_loop(service, key_ids, *, duration_s: float, concurrency: int,
         t.join()
     res.duration_s = clock() - t0
     return res
+
+
+def _open_collector(out_q, res: OpenLoopResult, lock: threading.Lock,
+                    clock) -> None:
+    from dcf_tpu_torch.errors import DeadlineExceededError, QueueFullError
+
+    while True:
+        item = out_q.get()
+        if item is None:
+            return
+        fut, t_sched, m, pr = item
+        try:
+            fut.result()
+        except QueueFullError as e:
+            # Refusals delivered through the future are sheds.  Two
+            # flavors: the WIRE path's submit-time refusal (the server
+            # shed BEFORE acceptance, after the local submit already
+            # succeeded) retracts the ``sent`` — "sent" must mean "the
+            # SERVICE accepted it" on both paths or the
+            # serve_requests_total reconciliation breaks — while an
+            # EVICTION (``e.evicted``) was accepted and counted before
+            # losing its room, so its ``sent`` stands.
+            with lock:
+                if not getattr(e, "evicted", False):
+                    res.sent -= 1
+                res.shed += 1
+                if getattr(e, "retry_after_s", None) is not None:
+                    res.shed_hinted += 1
+                res._count(pr, "shed")
+            continue
+        except DeadlineExceededError:
+            with lock:
+                res.expired += 1
+                res._count(pr, "expired")
+            continue
+        except Exception:  # fallback-ok: a collector must survive ANY
+            # delivered failure (typed DcfErrors and the raw backend
+            # exception a retries-exhausted batch passes through) —
+            # a dead collector would wedge the drain.
+            with lock:
+                res.failed += 1
+                res._count(pr, "failed")
+            continue
+        dt = clock() - t_sched
+        with lock:
+            res.ok += 1
+            res.points_ok += m
+            res.latencies_s.append(max(dt, 0.0))
+            res._count(pr, "ok")
+
+
+
+
+def open_loop(service, key_ids, *, rate_rps: float, duration_s: float,
+              min_points: int, max_points: int, seed: int = 2026,
+              party: int = 0, clock=monotonic,
+              priority_mix: dict | None = None, skew: float = 0.0,
+              deadline_ms: float | None = None,
+              collectors: int = 4) -> OpenLoopResult:
+    """Offer ``rate_rps`` requests/s of Poisson arrivals to ``service``
+    (a ``DcfService``, an ``EdgeClient`` or a ``DcfRouter`` — anything
+    with ``submit``) for ``duration_s`` seconds, independent of
+    completions, and return the ``OpenLoopResult``.  The service must
+    be started.
+
+    Arrivals are a seeded renewal process: inter-arrival gaps are
+    exponential draws from ONE rng, so the whole arrival schedule (and
+    every per-request key/size/priority draw) replays exactly per
+    seed.  One scheduler thread submits on schedule; ``collectors``
+    threads drain the futures so a slow completion never back-pressures
+    the arrival process (that back-pressure is exactly the closed-loop
+    artifact this mode exists to remove).  The run always DRAINS: every
+    accepted future is collected before returning, however late.
+
+    ``deadline_ms`` is attached to every request — under overload the
+    service converts queue delay into typed ``DeadlineExceededError``
+    expiries, which the result counts separately from failures."""
+    import math
+    import queue as _queue
+
+    if not rate_rps > 0 or not math.isfinite(rate_rps):
+        # api-edge: loadgen config contract at the harness edge
+        raise ValueError(
+            f"rate_rps must be finite and > 0, got {rate_rps}")
+    if not (duration_s > 0 and math.isfinite(duration_s)):
+        # api-edge: loadgen config contract at the harness edge
+        raise ValueError(
+            f"duration_s must be finite and > 0, got {duration_s}")
+    if min_points < 1 or min_points > max_points:
+        # api-edge: loadgen config contract at the harness edge
+        raise ValueError(
+            f"bad request-size range [{min_points}, {max_points}]")
+    if not math.isfinite(skew) or skew < 0:
+        # api-edge: same contract as closed_loop
+        raise ValueError(f"skew must be finite and >= 0, got {skew}")
+    from dcf_tpu_torch.errors import QueueFullError
+
+    key_ids = list(key_ids)
+    key_probs = None
+    if skew > 0:
+        ranks = np.arange(1, len(key_ids) + 1, dtype=np.float64)
+        w = ranks ** -float(skew)
+        key_probs = w / w.sum()
+    if priority_mix:
+        priorities = sorted(priority_mix)
+        for p in priorities:
+            parse_priority(p)  # typos die here, not per-arrival
+        total = float(sum(priority_mix.values()))
+        if total <= 0 or min(priority_mix.values()) < 0:
+            # api-edge: same contract as closed_loop
+            raise ValueError(
+                f"priority_mix weights must be >= 0 and sum > 0, "
+                f"got {priority_mix}")
+        weights = [priority_mix[p] / total for p in priorities]
+    else:
+        priorities, weights = ["normal"], [1.0]
+
+    nb = service.n_bytes
+    rng = np.random.default_rng(seed)
+    res = OpenLoopResult(duration_s=0.0, offered_rps=float(rate_rps))
+    lock = threading.Lock()
+    out_q: _queue.Queue = _queue.Queue()
+    pool = [threading.Thread(target=_open_collector,
+                             args=(out_q, res, lock, clock),
+                             name=f"openloop-collect-{i}", daemon=True)
+            for i in range(max(collectors, 1))]
+    for t in pool:
+        t.start()
+    # Purely a wait primitive (never set): the run is NOT cancellable
+    # — the arrival schedule is the load definition and only the
+    # schedule check ends the loop.
+    sleeper = threading.Event()
+    t0 = clock()
+    t_next, t_end = t0, t0 + float(duration_s)
+    # The scheduler loops on the clock by design: the arrival SCHEDULE
+    # is the load definition, and latency is measured from it.
+    while True:
+        t_next += float(rng.exponential(1.0 / rate_rps))
+        if t_next >= t_end:
+            break
+        wait = t_next - clock()
+        if wait > 0:
+            sleeper.wait(wait)
+        m = int(rng.integers(min_points, max_points + 1))
+        if key_probs is None:
+            key_id = key_ids[int(rng.integers(0, len(key_ids)))]
+        else:
+            key_id = key_ids[int(
+                rng.choice(len(key_ids), p=key_probs))]
+        pr = priorities[int(rng.choice(len(priorities), p=weights))]
+        xs = rng.integers(0, 256, (m, nb), dtype=np.uint8)
+        try:
+            fut = service.submit(
+                key_id, xs, b=party,
+                deadline_ms=deadline_ms, priority=pr)
+        except QueueFullError as e:
+            with lock:
+                res.shed += 1
+                if getattr(e, "retry_after_s", None) is not None:
+                    res.shed_hinted += 1
+                res._count(pr, "shed")
+            continue
+        except Exception:  # fallback-ok: the scheduler must
+            # survive ANY submit-time failure (e.g. a hot-swapped
+            # key) — a dead scheduler silently truncates the
+            # offered load.
+            with lock:
+                res.failed += 1
+                res._count(pr, "failed")
+            continue
+        with lock:
+            res.sent += 1
+        out_q.put((fut, t_next, m, pr))
+    # Drain: every accepted future completes (the service's contract),
+    # so the collectors empty the queue and exit on their sentinels.
+    for _ in pool:
+        out_q.put(None)
+    for t in pool:
+        t.join()
+    res.duration_s = clock() - t0
+    return res
+
+

@@ -1,9 +1,8 @@
-"""Live-key replication: the shard side of the monotonic-generation
-fence.
+"""Live-key replication and partition-tolerant anti-entropy.
 
-Counterpart of ``dcf_tpu/serve/replicate.py``, its shard-side functions
-(lines 61-165), which ``DcfService.register_frame`` /
-``apply_replica_frame`` / ``sync_frames`` call:
+Counterpart of ``dcf_tpu/serve/replicate.py``.  The shard side, which
+``DcfService.register_frame`` / ``apply_replica_frame`` /
+``sync_frames`` call:
 
 * ``decode_key_frame``: one DCFK frame off the wire -> the registrable
   object, through the port's codecs (``KeyBundle`` v2/v4, or the v3
@@ -16,9 +15,23 @@ Counterpart of ``dcf_tpu/serve/replicate.py``, its shard-side functions
 * ``sync_frames``: the anti-entropy serve half, the frames strictly
   newer than a peer's ``{key_id: generation}`` digest.
 
-The router-side ``Replicator`` (registration fan-out over a shard ring,
-the anti-entropy pull) drives edge client pools over a ``ShardMap``; it
-waits for the port of the router, edge and shard map (ROADMAP.md).
+The router side, ``Replicator``, drives the router's edge client pools
+over its ``ShardMap``:
+
+* **Registration fan-out** (``Replicator.register``): a key registered
+  through the pod tier travels as a DCFE REGISTER frame (the raw DCFK
+  bytes, by reference), first to its ring OWNER, which MINTS the
+  generation, then to each replica with the owner's generation
+  preserved.  A replica forward that fails is counted, never fatal:
+  the registration is acked once the owner holds it, and anti-entropy
+  converges the replica when it next heals.
+* **Anti-entropy** (``Replicator.anti_entropy``): a partition-healed
+  shard exchanges ``{key_id: generation}`` digests with its peers
+  (DIGEST/SYNC frames: generations first, key material only for the
+  strictly-newer set) and pulls exactly the frames it is behind on,
+  filtered to the keys the ring places on it.  The router runs it as
+  the health prober's recovery gate: a DOWN shard is re-admitted only
+  after the pass completes.
 
 Secret hygiene: the frame bytes handled here are key material; this
 module logs names, generations and counts only.
@@ -26,7 +39,11 @@ module logs names, generations and counts only.
 
 from __future__ import annotations
 
-from dcf_tpu_torch.errors import ShapeError, StaleStateError
+from dcf_tpu_torch.errors import (
+    BackendUnavailableError,
+    ShapeError,
+    StaleStateError,
+)
 from dcf_tpu_torch.keys import KeyBundle
 from dcf_tpu_torch.serve.metrics import Metrics
 
@@ -104,6 +121,13 @@ def apply_frame(registry, key_id: str, frame, generation: int,
 SYNC_MAX_BYTES = 32 << 20
 
 
+#: Digest sentinel meaning "never send this key" (u64 max on the
+#: wire): the anti-entropy puller marks keys the ring does NOT place
+#: on its target, so unplaced key material never moves — filtering
+#: happens at the SENDER, not after the bytes crossed.
+DIGEST_SUPPRESS = (1 << 64) - 1
+
+
 def sync_frames(registry, digest: dict,
                 max_bytes: int = SYNC_MAX_BYTES) -> list:
     """The anti-entropy serve half: keys whose generation is STRICTLY
@@ -133,3 +157,168 @@ def sync_frames(registry, digest: dict,
         total += len(frame_bytes)
     return entries
 
+
+class Replicator:
+    """Router-side registration fan-out + anti-entropy orchestration
+    (see the module docstring).
+
+    ``pools``: the router's live ``{host_id: EdgeClientPool}`` mapping
+    (shared, not copied — ring membership changes show up here).
+    ``ring``: zero-arg callable returning the current ``ShardMap``
+    (the router swaps its map atomically; the replicator must read the
+    same reference).  ``replicas``: ranking successors that hold each
+    key (the router's own knob).
+    """
+
+    def __init__(self, pools: dict, ring, *, replicas: int = 1,
+                 metrics: Metrics | None = None,
+                 timeout_s: float = 30.0, epoch_source=None):
+        self._pools = pools
+        self._ring = ring
+        self._replicas = int(replicas)
+        self._timeout_s = float(timeout_s)
+        # Zero-arg callable returning the router's current ring epoch — forwarded REGISTER frames then carry it, so a
+        # stale router's registrations are fenced E_EPOCH at the shard
+        # instead of landing on a placement the pod has moved past.
+        # None = unfenced (epoch 0 on the wire).
+        self._epoch_source = epoch_source
+        m = metrics if metrics is not None else Metrics()
+        self._c_registered = m.counter("router_registered_total")
+        self._c_replicated = m.counter("router_replicated_total")
+        self._c_repl_failures = m.counter(
+            "router_replicate_failures_total")
+        self._c_fenced = m.counter("router_replica_fenced_total")
+        self._c_ae_runs = m.counter("router_anti_entropy_runs_total")
+        self._c_ae_frames = m.counter(
+            "router_anti_entropy_frames_total")
+        self._c_ae_fenced = m.counter(
+            "router_anti_entropy_fenced_total")
+
+    def register(self, key_id: str, frame, *, proto: bool = False,
+                 timeout: float | None = None) -> int:
+        """Fan one registration out across the ring: the OWNER mints
+        the generation (a failed owner forward fails the registration
+        — there is no ack without an owner); each replica applies with
+        that generation preserved.  A replica forward that dies
+        (transport, fence) is counted and skipped — anti-entropy
+        converges it on the replica's next recovery."""
+        timeout = self._timeout_s if timeout is None else timeout
+        epoch = (int(self._epoch_source())
+                 if self._epoch_source is not None else 0)
+        placed = self._ring().placement(key_id, self._replicas)
+        owner = placed[0]
+        # .get, never [] — a registration racing a ``set_ring``
+        # membership swap must fail TYPED (owner) or heal later
+        # (replica), not crash the caller with a bare KeyError (the
+        # router's own submit paths guard the identical race).
+        owner_pool = self._pools.get(owner.host_id)
+        if owner_pool is None:
+            raise BackendUnavailableError(
+                f"owner shard {owner.host_id!r} for {key_id!r} has no "
+                "link (ring membership changed mid-registration)")
+        gen = owner_pool.register_frame(
+            key_id, frame, generation=0, proto=proto, timeout=timeout,
+            epoch=epoch)
+        self._c_registered.inc()
+        for rep in placed[1:]:
+            pool = self._pools.get(rep.host_id)
+            if pool is None:
+                self._c_repl_failures.inc()  # left the ring mid-
+                # flight: the new ring's anti-entropy owns convergence
+                continue
+            try:
+                pool.register_frame(
+                    key_id, frame, generation=gen, proto=proto,
+                    timeout=timeout, epoch=epoch)
+                self._c_replicated.inc()
+            except StaleStateError:
+                # The replica already holds a NEWER generation — the
+                # fence held against a racing re-registration; the
+                # newer key wins by design.
+                self._c_fenced.inc()
+            except Exception:  # fallback-ok: replica darkness must not
+                # fail an owner-acked registration — counted, healed by
+                # the anti-entropy pass on recovery
+                self._c_repl_failures.inc()
+        return int(gen)
+
+    def anti_entropy(self, target_host_id: str, *, peer_ok=None,
+                     timeout: float | None = None) -> int:
+        """Converge ``target_host_id`` with its ring peers: pull the
+        target's digest, ask each reachable peer for strictly-newer
+        frames, and forward to the target exactly those the ring
+        places on it.  Returns the number of frames applied.
+
+        A PEER that fails the exchange raises — the caller (the health
+        prober's recovery gate) must keep the target DOWN rather than
+        re-admit a shard that could not see part of the ring: serving
+        a stale generation would be the silent-wrong-answer partition
+        bug this pass exists to close.  ``peer_ok(host_id)`` excludes
+        peers the caller already knows are down (their absence is
+        accounted by THEIR health state, not this pass)."""
+        timeout = self._timeout_s if timeout is None else timeout
+        ring = self._ring()
+        target_pool = self._pools.get(target_host_id)
+        if target_pool is None:
+            raise BackendUnavailableError(
+                f"shard {target_host_id!r} has no link (left the "
+                "ring); nothing to converge")
+        digest = target_pool.pull_digest(timeout)
+        self._c_ae_runs.inc()
+        pulled = 0
+        for peer_id in ring.host_ids():
+            if peer_id == target_host_id:
+                continue
+            if peer_ok is not None and not peer_ok(peer_id):
+                continue
+            peer_pool = self._pools.get(peer_id)
+            if peer_pool is None:
+                continue  # left the ring mid-pass: its keys moved
+            # Sender-side placement filtering: pull the peer's digest
+            # (names + generations, NO key material) and SUPPRESS
+            # every key the ring does not place on the target — the
+            # peer then never serializes those frames, so unplaced
+            # key material never crosses the wire only to be dropped.
+            peer_digest = peer_pool.pull_digest(timeout)
+            want = dict(digest)
+            for key_id in peer_digest:
+                if target_host_id not in ring.placement_ids(
+                        key_id, self._replicas):
+                    want[key_id] = DIGEST_SUPPRESS
+            # Iterate: each SYNC response is CAPPED (SYNC_MAX_BYTES);
+            # applying a chunk advances ``want``, so the next request
+            # returns the next chunk — an arbitrarily large backlog
+            # streams in bounded frames instead of one response the
+            # puller's frame bound would reject (which would wedge
+            # recovery exactly when the backlog is largest).
+            while True:
+                entries = peer_pool.sync_newer(want, timeout)
+                if not entries:
+                    break
+                for key_id, gen, proto, frame in entries:
+                    if gen <= int(want.get(key_id, 0)):
+                        continue  # belt: the server already filtered
+                    try:
+                        target_pool.register_frame(
+                            key_id, frame, generation=gen,
+                            proto=proto, timeout=timeout)
+                    except StaleStateError:
+                        # The target pulled this key from an earlier
+                        # peer at a newer generation, or re-registered
+                        # it since the digest — the fence held;
+                        # convergence is per-key monotone either way.
+                        self._c_ae_fenced.inc()
+                    else:
+                        digest[key_id] = gen
+                        pulled += 1
+                        self._c_ae_frames.inc()
+                    # Advance past this key EITHER way: a fenced key
+                    # is one the target already holds at >= gen, and
+                    # not advancing would make the peer resend it in
+                    # every chunk forever (a livelock, not a heal).
+                    want[key_id] = max(int(want.get(key_id, 0)), gen)
+        return pulled
+
+    def __repr__(self) -> str:
+        return (f"Replicator(hosts={sorted(self._pools)}, "
+                f"replicas={self._replicas})")

@@ -101,9 +101,9 @@ Load-bearing knobs (``ServeConfig``):
   then costs a pool pop, not an n-level GGM keygen walk.
 * ``tenants`` / ``tls_cert`` / ``tls_key`` / ``tls_client_ca`` — the
   network edge's tenant table (``admission.TenantSpec``) and TLS
-  material, validated here as in ``dcf_tpu``.  Only an edge server
-  consults them, and the port has none yet (ROADMAP.md); in-process
-  submits are unaffected.
+  material, validated here as in ``dcf_tpu``.  Only the network edge
+  (``serve.edge.EdgeServer``) consults them; in-process submits are
+  unaffected.
 
 Pipelining: within a batch run, host->device staging of batch N+1
 can overlap the (async) device eval of batch N — the worker dispatches
@@ -138,6 +138,7 @@ from dcf_tpu_torch.errors import (
     BatchTimeoutError,
     CircuitOpenError,
     DeadlineExceededError,
+    RingEpochError,
     ShapeError,
 )
 from dcf_tpu_torch.protocols import ProtocolBundle
@@ -374,10 +375,15 @@ class DcfService:
         self._brownout_lock = threading.Lock()
         self._pressure_since: float | None = None
         self._calm_since: float | None = None
+        # Ring-epoch fence state: the highest membership epoch this
+        # shard has observed on a fenced frame; frames carrying an
+        # older one are refused typed (check_ring_epoch).
+        self._epoch_lock = threading.Lock()
+        self._ring_epoch = 0
         # PIR answering context: None until
         # attach_pir; guarded-by: _pir_lock (the PirServer's selection
         # cache and evaluator residency are not themselves locked, and
-        # submits may come from any thread).
+        # edge reader threads submit concurrently).
         self._pir_lock = threading.Lock()
         self._pir = None
         m = self.metrics
@@ -389,11 +395,8 @@ class DcfService:
         self._c_batch_timeouts = m.counter("serve_batch_timeouts_total")
         self._c_deadline = m.counter("serve_deadline_expired_total")
         self._c_pir = m.counter("serve_pir_answers_total")
-        # Registered, never moved: dcf_tpu's ring-epoch fence serves
-        # its router, which the port does not carry yet; the names keep
-        # the two packages' snapshots key for key.
-        m.counter("serve_epoch_fenced_total")
-        m.gauge("serve_ring_epoch")
+        self._c_epoch_fenced = m.counter("serve_epoch_fenced_total")
+        self._g_ring_epoch = m.gauge("serve_ring_epoch")
         self._h_occupancy = m.histogram("serve_batch_occupancy",
                                         OCCUPANCY_BOUNDS)
         self._h_stage = m.histogram("serve_stage_s")
@@ -596,12 +599,65 @@ class DcfService:
         anti-entropy pull (``serve.replicate.sync_frames``)."""
         return replicate.sync_frames(self.registry, digest)
 
+    # -- ring-epoch fence -----------------------------------------------------
+
+    @property
+    def ring_epoch(self) -> int:
+        """The highest ring epoch this shard has observed (0 = never
+        fenced — a solo service, or one no router with an epoch has
+        reached)."""
+        return self._ring_epoch
+
+    def check_ring_epoch(self, epoch: int, adopt: bool = True) -> int:
+        """Adopt-or-refuse one fenced frame's ring epoch (the edge's
+        REQUEST, PING and REGISTER handlers call it).
+
+        Monotonic-max adoption, the generation fence's discipline
+        lifted to membership: a NEWER epoch is adopted (the first
+        fenced frame after a membership commit teaches this shard the
+        new epoch — probes disseminate it within about one interval),
+        an EQUAL one passes, and an OLDER one is refused typed
+        ``RingEpochError`` (``E_EPOCH`` on the wire, counted
+        ``serve_epoch_fenced_total``) — a router still routing on a
+        pre-change ring is structurally unable to serve or register
+        against a conflicting placement.  Epoch 0 (unfenced) is a
+        no-op pass.  Returns the current epoch.
+
+        ``adopt=False`` runs the refuse-if-older half WITHOUT raising
+        the observed maximum: the edge's REQUEST path checks the fence
+        before tenant admission (a stale router must not burn a token
+        on a structurally-refused forward) but must not let an
+        UNADMITTED sender teach this shard an arbitrary epoch — one
+        forged frame with a huge epoch would otherwise fence out the
+        real router (adoption happens post-admission; PING/REGISTER
+        stay adopt-on-sight — they are router/operator verbs under the
+        TLS client-pinning trust story, not the tenant table)."""
+        epoch = int(epoch)
+        if epoch <= 0:
+            return self._ring_epoch
+        with self._epoch_lock:
+            if epoch > self._ring_epoch:
+                if adopt:
+                    self._ring_epoch = epoch
+                    self._g_ring_epoch.set(epoch)
+            elif epoch < self._ring_epoch:
+                self._c_epoch_fenced.inc()
+                raise RingEpochError(
+                    f"frame carries ring epoch {epoch} but this shard "
+                    f"has observed epoch {self._ring_epoch}: the "
+                    "sender's membership view is stale — refresh the "
+                    "ring before retrying",
+                    retry_after_s=1.0)
+            return self._ring_epoch
+
     # -- submission ---------------------------------------------------------
 
     @property
     def n_bytes(self) -> int:
-        """The service's packed point width in bytes (the loadgen reads
-        it without reaching into the facade)."""
+        """The service's packed point width in bytes — the one shape
+        fact every submit target shares (``EdgeClient`` carries it,
+        the pod router carries its own), so the edge, the loadgen and
+        the router read it without reaching into the facade."""
         return self._dcf.n_bytes
 
     def submit(self, key_id: str, xs: np.ndarray, b: int = 0,
@@ -1243,3 +1299,27 @@ class DcfService:
     def metrics_snapshot(self) -> dict:
         """Deterministic point-in-time metrics dict (see serve.metrics)."""
         return self.metrics.snapshot()
+
+    def load_report(self):
+        """This shard's demand signals as one ``edge.LoadSample``,
+        served over the PING/PONG round trip (a ``want_load`` probe's
+        PONG appends it — see ``serve.edge``).  Queue points and the
+        brownout latch are instantaneous; the shed / tenant-refusal /
+        key-factory-pool-miss fields are the CUMULATIVE counters.
+        Cheap by design: reads three existing instruments, never
+        snapshots."""
+        from dcf_tpu_torch.serve.edge import LoadSample
+
+        # Refresh the brownout gate first: on a FULLY quiet service the
+        # worker sits in its condvar wait and never pumps, so the latch
+        # set during a surge would otherwise read "browned out" forever.
+        self._update_brownout(self._clock())
+        m = self.metrics
+        return LoadSample(
+            queue_points=self.queue.points,
+            queue_limit=self.config.max_queued_points,
+            brownout=self.queue.brownout,
+            shed_total=m.counter("serve_shed_total").value,
+            refusals_total=m.counter("edge_refused_total").value,
+            pool_misses=m.counter(
+                "keyfactory_pool_misses_total").value)

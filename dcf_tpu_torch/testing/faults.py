@@ -22,9 +22,9 @@ take; ``Schedule`` / ``inject_schedule`` (fail the first N fires, then
 recover); ``flaky(rate, seed)``; ``latency(clock, s)``, the slow-backend
 seam that advances a ``FakeClock`` instead of sleeping;
 ``torn_write(nbytes)`` for the durable store's ``store.write`` /
-``store.manifest`` seams (a partial frame made durable); ``partition``
-(a handler for a network seam: the port has none yet, ROADMAP.md); and
-``corrupt``, the one-byte DCFK mutator.
+``store.manifest`` seams (a partial frame made durable); ``partition``,
+the handler of the edge's ``net.partition`` seam; and ``corrupt``, the
+one-byte DCFK mutator.
 """
 
 from __future__ import annotations
@@ -70,6 +70,24 @@ POINTS = (
     "protocols.combine",  # one pairwise share combine (protocols.combine;
     #                       handler args: intervals m, points, -1 on the
     #                       staged combine on the device)
+    "edge.accept",  # the network edge's accept loop (serve/edge.py, before
+    #                 each accept(); no handler args.  A raising handler
+    #                 models a transient accept failure: the loop counts
+    #                 it, edge_accept_errors_total, and keeps accepting)
+    "edge.read",  # one socket read on an edge connection (serve/edge.py;
+    #               handler args: peer tag, bytes wanted.  A raising
+    #               handler kills that one connection, typed; latency(clock,
+    #               s) here is the slow-client seam)
+    "mesh.collective",  # one co-evaluated router batch, before any slice
+    #                     is scattered (serve/router.py; handler args: batch
+    #                     points, worker count.  A raising handler models a
+    #                     mesh that cannot form: the batch degrades to
+    #                     route-mode, or MeshUnavailableError when the caller
+    #                     forced co-evaluation)
+    "net.partition",  # one dial or frame send of a tagged EdgeClient
+    #                   (serve/edge.py; handler args: local tag, peer tag.
+    #                   ``partition({...})`` is the canonical handler: its
+    #                   OSError is contained as transport death)
 )
 
 _ACTIVE: dict[str, Callable] = {}
@@ -240,7 +258,7 @@ def torn_write(nbytes: int) -> Callable:
 
 def partition(pairs, *, clock: Callable[[], float] | None = None,
               window: tuple[float, float] | None = None) -> Callable:
-    """Handler factory for a ``net.partition`` seam: deny
+    """Handler factory for the ``net.partition`` seam: deny
     every frame between the named host pairs.  ``pairs`` is an iterable
     of ``(a, b)`` tag pairs, symmetric — ``("router", "shard-0")`` cuts
     both directions of that link.  The handler raises ``OSError`` (what

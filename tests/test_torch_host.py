@@ -231,7 +231,11 @@ def test_port_imports_neither_jax_nor_dcf_tpu():
                 "protocols/oracle.py", "protocols/keygen.py",
                 "protocols/ic.py", "protocols/mic.py",
                 "protocols/piecewise.py", "protocols/fixedpoint.py",
-                "protocols/__init__.py", "spec.py", "keys.py", "api.py"):
+                "protocols/__init__.py", "spec.py", "keys.py", "api.py",
+                "serve/edge.py", "serve/router.py", "serve/health.py",
+                "serve/shardmap.py", "serve/meshgroup.py",
+                "serve/replicate.py", "serve/loadgen.py",
+                "serve/service.py", "errors.py"):
         assert f"dcf_tpu_torch/{sub}" in scanned
     assert "bench_torch.py" in scanned
     banned = ("jax", "jaxlib", "dcf_tpu")
@@ -266,3 +270,41 @@ def test_chip_ab_cases_are_built_kernels():
     assert chip_ab.CASES
     assert {src for src, _ in chip_ab.CASES.values()} <= set(_build.KERNELS)
     assert all(callable(case) for _, case in chip_ab.CASES.values())
+
+
+def _public_names(module) -> set:
+    """A package's top-level names: what ``__all__`` lists, or else
+    every public non-module attribute, plus ``__version__``."""
+    import inspect
+
+    names = set(getattr(module, "__all__", ()))
+    if not names:
+        names = {n for n, v in vars(module).items()
+                 if not n.startswith("_") and not inspect.ismodule(v)}
+    if hasattr(module, "__version__"):
+        names.add("__version__")
+    return names
+
+
+#: ``dcf_tpu.serve`` names whose modules are still queued (ROADMAP.md).
+SERVE_QUEUED = {"CapacityController", "CapacityEvent", "CapacityVerdict",
+                "MembershipController", "MembershipEvent"}
+
+
+def test_top_level_and_serve_names_include_dcf_tpus():
+    """A caller that swaps ``import dcf_tpu`` for ``import
+    dcf_tpu_torch`` finds every top-level name, and every
+    ``dcf_tpu.serve`` name but those of modules still queued; each
+    exported name resolves."""
+    import dcf_tpu
+    import dcf_tpu.serve as jserve
+
+    import dcf_tpu_torch
+    import dcf_tpu_torch.serve as tserve
+
+    assert _public_names(dcf_tpu) - _public_names(dcf_tpu_torch) == set()
+    assert dcf_tpu_torch.__version__ == dcf_tpu.__version__
+    assert set(jserve.__all__) - set(tserve.__all__) == SERVE_QUEUED
+    for mod in (dcf_tpu_torch, tserve):
+        for name in mod.__all__:
+            assert getattr(mod, name) is not None, name
