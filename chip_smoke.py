@@ -212,11 +212,51 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     ``router_mesh_degraded_total`` and each shard's
     ``router_suspected_total``.  Paths ``edge_prefix``, ``edge_walk``,
     ``pod_prefix`` and ``pod_mesh`` in ``launches_by_path``, each one
-    ``pump()``-driven run.
+    ``pump()``-driven run;
+22. the pod's control plane and the lam >= 48 handoff
+    (``control_plane_phase``).  (a) Membership, ``pod_bench --churn``'s
+    scenario in process: 4 ``prefix`` shards behind their own
+    ``EdgeServer``s, a ``DcfRouter`` (one replica, prober every 0.25 s),
+    a started ``MembershipController`` (eject grace 1.0 s, cut from
+    ``dcf_tpu``'s 3.0 for time; drain grace 0.5 s; min_hosts 2), 12 keys
+    registered through the router, half of them also durable in
+    ``KeyStore``s; 3 clients of mixed CRITICAL / NORMAL requests
+    throughout.  One shard's edge closes: the eject commits after the
+    grace, and the DIGEST verb shows its keys on their new placement; the
+    shard comes back empty behind a new edge and ``join`` warms it before
+    admitting it; a second shard drains.  Gates: served + refused typed =
+    sent, 0 mismatches against the C++ core, zero lost keys, zero
+    generation regressions, strictly increasing epochs, a doctored
+    stale-epoch frame refused ``E_EPOCH``.  (b) Capacity, ``pod_bench
+    --surge``'s scenario in process: 3 ``prefix`` shards and a standby
+    (admission bound 4096 points), a ``CapacityController`` configured as
+    ``dcf_tpu/cli.py:4666-4672``, a 2 s calibrating closed loop, then
+    ``open_loop_ramp`` with Zipf skew 1.1 at 1.5x the calibrated rate for
+    3 s, 2.5x for 6 s and 0 for 2 s, the controller pumped on the main
+    thread with a CRITICAL heartbeat: scale-out within 30 s, scale-in back
+    to 3 hosts, 0 CRITICAL sheds, every key two-party equal after the
+    shrink, and a forced oscillation through ``capacity.decide`` with the
+    ring epoch unmoved.  (c) ``session_churn`` for 3 s over a lam = 16
+    pool refilled by G1 on a started ``walk`` service, every session's
+    shares held to its function.  (d) A lam = 256 ``hybrid`` service
+    (``prefix_levels=20``) whose pool B7a + W2 refill: a claimed key
+    stages from its device planes (the registry's
+    ``stagings_from_planes``), byte-equal to the same bundle staged from
+    the host and to the C++ core; register-to-first-share with and
+    without the planes.  On every leg the fault counters read 0
+    (``edge_connection_errors_total``, ``edge_wire_errors_total``,
+    ``router_mesh_degraded_total``, ``membership_change_failures_total``,
+    ``capacity_scale_failures_total``, ``serve_batch_failures_total``,
+    ``serve_retries_total``, and each shard's ``router_suspected_total``
+    but the victim's; under the surge's deliberate overload a shard's
+    suspicions must each be one of its own full-queue refusals).  Paths
+    ``membership_prefix``, ``capacity_prefix``, ``churn_keyfactory`` and
+    ``serve_handoff`` in ``launches_by_path``, each one run with no other
+    traffic.
 
 Launches are counted per path: the counts are set to 0 just before one
 run of a path and read just after it, before any timed repeat, and held
-against the number that run must make (phases 9-11, 16 and 18-21; phase 4's run
+against the number that run must make (phases 9-11, 16 and 18-22; phase 4's run
 is both parties' anchor and staged evaluations).  The next to last line is one JSON
 object with every kernel's numbers, ``launches`` the sum over those single
 runs and ``launches_by_path`` each of them; the last line is
@@ -317,6 +357,18 @@ POD_SHARDS = 3  # pod_bench's shape
 POD_MAX_BATCH = 1 << 10
 POD_LOOP_S = 3.0  # each closed loop, pod and solo
 POD_FAILOVER_S = (1.0, 2.0)  # the failover loop: before and after the kill
+MEMBER_SHARDS = 4  # phase 22 (a): pod_bench --churn's pod, in process
+MEMBER_KEYS = 12  # half of them durable in KeyStores
+PROBE_INTERVAL_S = 0.25  # the router's prober (dcf_tpu/cli.py:6015)
+EJECT_GRACE_S = 1.0  # dcf_tpu's default is 3.0: cut for time
+DRAIN_GRACE_S = 0.5
+CAP_SHARDS = 3  # phase 22 (b): pod_bench --surge's pod, plus one standby
+CAP_KEYS = 8
+CAP_QUEUE_POINTS = 4096  # the surge's small admission bound (cli.py:4538)
+CAP_REACTION_S = 30.0  # dcf_tpu's scale-out reaction bound
+CHURN_POOL = 64  # phase 22 (c): the lam = 16 pool's depth
+CHURN_S = 3.0
+CHURN_CONCURRENCY = 4
 
 
 def log(msg: str) -> None:
@@ -1312,6 +1364,734 @@ def edge_pod_phase(card: str, reset_counts, take_counts) -> dict:
         f"({row['seconds']:.1f} s) [{card}]")
     return out
 
+
+def control_plane_phase(card: str, reset_counts, take_counts) -> dict:
+    """Phase 22: the pod's control plane (``dcf_tpu_torch.serve.
+    membership``, ``capacity``, ``loadgen``'s ramp and session churn) and
+    the key factory's staged-plane handoff at lam = 256, on the card.
+
+    ``reset_counts`` / ``take_counts(path, want)`` are main's launch
+    counters: each counted path is one run with no other traffic.  Every
+    check raises.  Returns the numbers the phase logged."""
+    import shutil
+    import socket
+    import struct
+    import tempfile
+    import threading
+
+    import torch
+
+    from dcf_tpu_torch import Bound, Dcf
+    from dcf_tpu_torch.errors import DcfError
+    from dcf_tpu_torch.gen import random_s0s
+    from dcf_tpu_torch.native import NativeDcf
+    from dcf_tpu_torch.ops._launch import launch_depths
+    from dcf_tpu_torch.ops.hybrid_prefix import frontier_launches
+    from dcf_tpu_torch.serve import (
+        CapacityController, DcfRouter, EdgeClient, EdgeServer, KeyStore,
+        MembershipController, PoolSpec, ShardMap, ShardSpec,
+        rollup_snapshots)
+    from dcf_tpu_torch.serve.capacity import IDLE, PRESSURE, ForcedVerdict
+    from dcf_tpu_torch.serve.edge import (
+        E_EPOCH, decode_response, encode_request)
+    from dcf_tpu_torch.serve.loadgen import (
+        closed_loop, open_loop_ramp, session_churn)
+    from dcf_tpu_torch.serve.metrics import labeled
+    from dcf_tpu_torch.testing import faults
+
+    srng = np.random.default_rng(SEED + 22)
+    ck = [srng.bytes(32), srng.bytes(32)]
+    native = NativeDcf(16, ck)
+    b2_party = len(launch_depths(HOST_LEVELS, 21))  # the prefix depth
+    pmin, pmax = POD_MAX_BATCH * 3 // 8, POD_MAX_BATCH // 2
+    out = {}
+
+    def gen_keys(n: int, prefix: str) -> dict:
+        keys = {}
+        for i in range(n):
+            alphas = srng.integers(0, 256, (1, N_BYTES), dtype=np.uint8)
+            betas = srng.integers(0, 256, (1, 16), dtype=np.uint8)
+            keys[f"{prefix}-{i}"] = native.gen_batch(
+                alphas, betas, random_s0s(1, 16, srng), Bound.LT_BETA)
+        return keys
+
+    def check_pair(y0, y1, kb, xs, what: str) -> None:
+        ref = native.eval(0, kb, xs) ^ native.eval(1, kb, xs)
+        bad = int(((y0 ^ y1) != ref).any(-1).sum())
+        if bad:
+            raise RuntimeError(f"{what}: {bad} of {xs.shape[0]} two-party "
+                               "reconstructions differ from the C++ core")
+
+    def routed_parity(router, keys, what: str) -> None:
+        xs = srng.integers(0, 256, (64, N_BYTES), dtype=np.uint8)
+        for name, kb in sorted(keys.items()):
+            check_pair(*(router.evaluate(name, xs, b=b, timeout=60)
+                         for b in (0, 1)), kb, xs, f"{what} {name}")
+
+    def fault_free(router, svcs, what: str, shards=(),
+                   overload: bool = False) -> dict:
+        """The fault counters of a leg: none may have moved, a failing
+        or retried batch on a shard included.  Under a deliberate
+        overload (``overload``) a shard that refuses a request at a full
+        queue is marked suspect by the router's design (``E_QUEUE_FULL``
+        indicts the shard); there each shard's suspicions must be
+        accounted for by its own submit-time refusals instead.  Returns
+        the suspicions by shard."""
+        names = ["edge_connection_errors_total", "edge_wire_errors_total",
+                 "router_mesh_degraded_total",
+                 "membership_change_failures_total",
+                 "capacity_scale_failures_total",
+                 "serve_batch_failures_total", "serve_retries_total"]
+        rsnap = router.metrics_snapshot()
+        bad = {}
+        for snap in [rsnap] + [svc.metrics_snapshot()
+                               for svc in svcs.values()]:
+            bad.update({k: snap[k] for k in names if snap.get(k, 0)})
+        suspected = {h: rsnap.get(f"router_suspected_total{{shard={h}}}", 0)
+                     for h in shards}
+        for h, n in suspected.items():
+            snap = svcs[h].metrics_snapshot()
+            refused = snap.get("serve_shed_total", 0) \
+                - snap.get("serve_queue_evicted_total", 0)
+            if n and (not overload or n > refused):
+                bad[f"router_suspected_total{{shard={h}}}"] = (n, refused)
+        if bad:
+            raise RuntimeError(f"{what}: fault counters moved {bad}")
+        return suspected
+
+    def wire_digest(addr) -> dict:
+        with EdgeClient(*addr, n_bytes=N_BYTES) as c:
+            return c.pull_digest(60)
+
+    def peer_epoch(addr) -> int:
+        with EdgeClient(*addr, n_bytes=N_BYTES) as c:
+            return c.ping_epoch(60)
+
+    def stale_frame_refused(addr, name: str, epoch: int) -> None:
+        """A doctored REQUEST one epoch behind dies E_EPOCH."""
+        xs = srng.integers(0, 256, (2, N_BYTES), dtype=np.uint8)
+        wire = encode_request(7, "default", name, 0, 1, None, xs.tobytes(),
+                              N_BYTES, 2, epoch=epoch)
+        s = socket.create_connection(addr, timeout=60)
+        data = b""
+        try:
+            s.sendall(wire)
+            s.shutdown(socket.SHUT_WR)
+            while True:
+                chunk = s.recv(1 << 16)
+                if not chunk:
+                    break
+                data += chunk
+        finally:
+            s.close()
+        (body_len,) = struct.unpack_from("<I", data, 0)
+        frame = decode_response(data[4:4 + body_len])
+        if frame[:3] != ("error", 7, E_EPOCH):
+            raise RuntimeError(f"a stale-epoch frame (epoch {epoch}) to "
+                               f"{addr} was answered {frame[:3]}")
+
+    def counted_route(router, path: str) -> None:
+        """One fresh key through the router, both parties, the only
+        traffic: its owner stages it (B2 a party) and evaluates (B3)."""
+        kb = gen_keys(1, f"count-{path}")[f"count-{path}-0"]
+        name = f"count-{path}"
+        router.register_key(name, kb)
+        xs = srng.integers(0, 256, (pmax, N_BYTES), dtype=np.uint8)
+        torch.cuda.synchronize()
+        reset_counts()
+        ys = [router.evaluate(name, xs, b=b, timeout=60) for b in (0, 1)]
+        torch.cuda.synchronize()
+        take_counts(path, {"B2": 2 * b2_party, "B3": 2})
+        check_pair(*ys, kb, xs, f"{path} counted run")
+
+    def prefix_shard(**knobs):
+        return Dcf(N_BYTES, 16, ck, backend="prefix").serve(
+            max_batch=POD_MAX_BATCH, max_delay_ms=SERVE_DELAY_MS, **knobs)
+
+    def provision(router, stores, keys: dict, durable: set) -> dict:
+        """Keys registered through the router (owner mints, the REGISTER
+        fan-out reaches the replica); the durable ones also published in
+        their placement's stores at the same generation."""
+        gens = {}
+        for name, kb in sorted(keys.items()):
+            gens[name] = router.register_key(name, kb)
+            if name in durable:
+                owner, replica = [s.host_id for s in
+                                  router.map.placement(name, 1)]
+                stores[owner].put(name, kb, generation=gens[name])
+                stores[owner].replicate_to(stores[replica], name)
+        return gens
+
+    tmp = tempfile.mkdtemp(prefix="dcf-pod-")
+    try:
+        # (a) Membership: pod_bench --churn's scenario, in process.
+        t0 = time.perf_counter()
+        svcs, edges, stores, specs = {}, {}, {}, []
+        for i in range(MEMBER_SHARDS):
+            h = f"shard-{i}"
+            svcs[h] = prefix_shard().start()
+            edges[h] = EdgeServer(svcs[h]).start()
+            stores[h] = KeyStore(os.path.join(tmp, "member", h))
+            specs.append(ShardSpec(h, *edges[h].address))
+        router = DcfRouter(ShardMap(specs), n_bytes=N_BYTES, replicas=1,
+                           probe_interval_s=PROBE_INTERVAL_S)
+        keys = gen_keys(MEMBER_KEYS, "pod")
+        durable = set(sorted(keys)[:MEMBER_KEYS // 2])
+        gens = provision(router, stores, keys, durable)
+        routed_parity(router, keys, "membership parity")
+        router.start_health()
+        ctrl = MembershipController(
+            router, stores=stores, eject_grace_s=EJECT_GRACE_S,
+            drain_grace_s=DRAIN_GRACE_S, min_hosts=2,
+            poll_interval_s=0.1).start()
+        victim = router.map.owner("pod-0").host_id
+        second = next(h for h in router.map.host_ids() if h != victim)
+        tally = {"sent": 0, "served": 0, "refused": 0, "untyped": 0,
+                 "mismatch": 0}
+        lock = threading.Lock()
+        stop = threading.Event()
+
+        def client(i: int) -> None:
+            crng = np.random.default_rng(SEED + 220 + i)
+            names = sorted(keys)
+            while not stop.is_set():
+                name = names[int(crng.integers(0, len(names)))]
+                pri = "critical" if crng.random() < 0.5 else "normal"
+                b = int(crng.integers(0, 2))
+                pts = crng.integers(0, 256, (int(crng.integers(
+                    pmin, pmax + 1)), N_BYTES), dtype=np.uint8)
+                with lock:
+                    tally["sent"] += 1
+                try:
+                    y = router.evaluate(name, pts, b=b, timeout=60,
+                                        priority=pri)
+                except DcfError as e:
+                    with lock:
+                        tally["refused" if e.retry_after_s is not None
+                              else "untyped"] += 1
+                    continue
+                except Exception:  # counted: the gate fails on any
+                    with lock:
+                        tally["untyped"] += 1
+                    continue
+                ok = np.array_equal(y, native.eval(b, keys[name], pts))
+                with lock:
+                    tally["served" if ok else "mismatch"] += 1
+
+        def wait_until(pred, what: str, limit_s: float = 60.0) -> float:
+            t1 = time.perf_counter()
+            while not pred():
+                if time.perf_counter() - t1 > limit_s:
+                    raise RuntimeError(f"membership: timed out waiting "
+                                       f"for {what}")
+                time.sleep(0.005)
+            return time.perf_counter()
+
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        held = {name for name in keys
+                if victim in router.map.placement_ids(name, 1)}
+        t_close = time.perf_counter()
+        edges[victim].close()
+        t_commit = wait_until(lambda: victim not in router.map, "the eject")
+        eject_s = t_commit - t_close
+        # Right after the commit, over the DIGEST verb: every key the
+        # victim held is on its new placement at its generation.
+        for name in sorted(held):
+            for h in router.map.placement_ids(name, 1):
+                got = wire_digest(router.map.get(h).address).get(name)
+                if got != gens[name]:
+                    raise RuntimeError(f"eject: {name} on {h} at generation "
+                                       f"{got}, registered {gens[name]}")
+        converge_s = wait_until(lambda: all(
+            peer_epoch(router.map.get(h).address) == router.ring_epoch
+            for h in router.map.host_ids()), "epoch convergence", 10.0) \
+            - t_commit
+        # The victim's process comes back empty behind a new edge; the
+        # join warms it before admitting it.
+        svcs[victim].close()
+        svcs[victim] = prefix_shard().start()
+        edges[victim] = EdgeServer(svcs[victim]).start()
+        t1 = time.perf_counter()
+        ctrl.join(ShardSpec(victim, *edges[victim].address),
+                  store=stores[victim])
+        join_s = time.perf_counter() - t1
+        time.sleep(0.5)
+        t1 = time.perf_counter()
+        ctrl.drain(second)
+        drain_s = time.perf_counter() - t1
+        drain_done_s = wait_until(lambda: not ctrl.draining(),
+                                  "the drain's forget") - t1
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join(120)
+        events = ctrl.events()
+        ctrl.close()
+        kinds = [e.kind for e in events]
+        epochs = [e.epoch for e in events if e.kind != "drain-complete"]
+        if kinds != ["eject", "join", "drain", "drain-complete"] \
+                or epochs != sorted(set(epochs)) or epochs[0] < 1:
+            raise RuntimeError(f"membership events {kinds}, epochs {epochs}")
+        if tally["untyped"] or tally["mismatch"] \
+                or tally["served"] + tally["refused"] != tally["sent"] \
+                or any(t.is_alive() for t in threads):
+            raise RuntimeError(f"membership loop: {tally}")
+        for h in (victim, router.map.host_ids()[-1]):
+            stale_frame_refused(router.map.get(h).address, "pod-0",
+                                router.ring_epoch - 1)
+        regressions = 0
+        for h in router.map.host_ids():
+            digest = wire_digest(router.map.get(h).address)
+            regressions += sum(1 for k, g in digest.items()
+                               if g < gens.get(k, 0))
+            for name in keys:
+                if h in router.map.placement_ids(name, 1) \
+                        and digest.get(name) != gens[name]:
+                    raise RuntimeError(f"membership: {h} holds {name} at "
+                                       f"{digest.get(name)}, registered "
+                                       f"{gens[name]}")
+        lost = ctrl.lost_keys(exclude={second})
+        if regressions or lost:
+            raise RuntimeError(f"membership: {regressions} generation "
+                               f"regressions, lost keys {lost}")
+        routed_parity(router, keys, "membership parity after the changes")
+        fault_free(router, svcs, "membership",
+                   [h for h in router.map.host_ids() if h != victim])
+        counted_route(router, "membership_prefix")
+        snap = router.metrics_snapshot()
+        row = {"eject_to_commit_s": eject_s, "epoch_converged_s": converge_s,
+               "join_s": join_s, "drain_s": drain_s,
+               "drain_complete_s": drain_done_s, "loop": tally,
+               "events": [[e.kind, e.host_id, e.epoch, e.migrated]
+                          for e in events],
+               "durable_replications": snap[
+                   "membership_durable_replications_total"],
+               "migrated_frames": snap["membership_migrated_frames_total"],
+               "lost_keys": 0, "generation_regressions": 0,
+               "seconds": time.perf_counter() - t0}
+        out["membership"] = row
+        router.close()
+        for e in edges.values():
+            e.close()
+        for s in svcs.values():
+            s.close()
+        log(f"phase 22 membership: {MEMBER_SHARDS} prefix shards behind their "
+            f"own EdgeServers, DcfRouter (1 replica, prober every "
+            f"{PROBE_INTERVAL_S} s), MembershipController (eject grace "
+            f"{EJECT_GRACE_S} s, drain grace {DRAIN_GRACE_S} s, min_hosts 2), "
+            f"{MEMBER_KEYS} keys ({len(durable)} durable in KeyStores); 3 "
+            f"clients of mixed CRITICAL / NORMAL throughout: edge of {victim} "
+            f"closed -> eject committed in {eject_s:.3f} s (its keys on their "
+            f"new placement at their generations by DIGEST; the pod on the "
+            f"epoch {converge_s:.3f} s later); rejoined warm in "
+            f"{join_s:.3f} s; {second} drained in {drain_s:.3f} s, forgotten "
+            f"{drain_done_s:.3f} s after; events {row['events']}; loop "
+            f"{json.dumps(tally)}; 0 lost keys, 0 generation regressions, "
+            f"stale-epoch frames refused E_EPOCH; fault counters 0 "
+            f"({row['seconds']:.1f} s) [{card}]")
+
+        # (b) Capacity: pod_bench --surge's scenario, in process.
+        t0 = time.perf_counter()
+        svcs, edges, stores = {}, {}, {}
+        for i in range(CAP_SHARDS + 1):
+            h = f"cap-{i}"
+            svcs[h] = prefix_shard(max_queued_points=CAP_QUEUE_POINTS).start()
+            edges[h] = EdgeServer(svcs[h]).start()
+            stores[h] = KeyStore(os.path.join(tmp, "capacity", h))
+        standby = f"cap-{CAP_SHARDS}"
+        ring = ShardMap([ShardSpec(h, *edges[h].address) for h in svcs
+                         if h != standby])
+        router = DcfRouter(ring, n_bytes=N_BYTES, replicas=1,
+                           probe_interval_s=PROBE_INTERVAL_S,
+                           probe_timeout_s=10.0, probe_fail_n=6,
+                           probe_recover_m=1, reconnect_backoff_s=0.02,
+                           max_backoff_s=PROBE_INTERVAL_S)
+        keys = gen_keys(CAP_KEYS, "surge")
+        gens = provision(router, stores, keys, set(keys))
+        mc = MembershipController(router, stores=stores, eject_grace_s=3.0,
+                                  drain_grace_s=DRAIN_GRACE_S, min_hosts=2,
+                                  poll_interval_s=PROBE_INTERVAL_S)
+        tick = PROBE_INTERVAL_S
+        cap = CapacityController(
+            router, mc, standby=[(ShardSpec(standby, *edges[standby].address),
+                                  stores[standby])],
+            interval_s=tick, scale_out_n=2, scale_in_m=3,
+            cooldown_s=max(2 * tick, 1.0), min_hosts=CAP_SHARDS,
+            max_hosts=CAP_SHARDS + 1, queue_pressure_fraction=0.5,
+            queue_idle_fraction=0.05)
+        routed_parity(router, keys, "capacity parity")
+        router.start_health()
+        deadline = time.perf_counter() + 60
+        while set(router.health.states().values()) != {"up"}:
+            if time.perf_counter() > deadline:
+                raise RuntimeError(f"capacity: health "
+                                   f"{router.health.states()}")
+            time.sleep(0.02)
+        cal = closed_loop(router, sorted(keys), duration_s=2.0,
+                          concurrency=EDGE_CONNS, min_points=pmin,
+                          max_points=pmax, seed=SEED + 23)
+        base_rps = max(cal.requests_ok / cal.duration_s, 2.0)
+        segments = [(3.0, 1.5 * base_rps), (6.0, 2.5 * base_rps), (2.0, 0.0)]
+        ramp = {}
+
+        def offer() -> None:
+            ramp["res"] = open_loop_ramp(
+                router, sorted(keys), segments=segments, min_points=pmin,
+                max_points=pmax, seed=SEED + 24, skew=SKEW,
+                deadline_ms=2000.0,
+                priority_mix={"normal": 0.65, "batch": 0.35})
+
+        ramp_thread = threading.Thread(target=offer, daemon=True)
+        hb_rng = np.random.default_rng(SEED + 25)
+        hb, cap_events, hb_refused = [], [], 0
+        t_surge = time.perf_counter()
+        ramp_thread.start()
+        t_out = t_in = None
+        # The reference's bound on the whole cycle (cli.py:4751).
+        cycle_deadline = t_surge + sum(d for d, _ in segments) + 240
+        timeline = []  # one entry a tick, for the failure message
+        n_seen = 0
+        while time.perf_counter() < cycle_deadline:
+            verdict = cap.pump()
+            mc.pump()
+            cap_events += cap.events()
+            timeline.append(
+                f"{time.perf_counter() - t_surge:.2f}:"
+                + (f"{verdict.kind[0]}{verdict.queue_fraction:.2f}"
+                   f"/s{verdict.shed_delta}" if verdict else "frozen")
+                + f"/r{len(router.map)}"
+                + ("" if ramp_thread.is_alive() else "/done"))
+            if ramp_thread.is_alive():
+                name = sorted(keys)[len(hb) % len(keys)]
+                xs_hb = hb_rng.integers(0, 256, (8, N_BYTES), dtype=np.uint8)
+                try:
+                    hb.append((name, xs_hb, *(router.submit(
+                        name, xs_hb, b=b, priority="critical")
+                        for b in (0, 1))))
+                except DcfError as e:
+                    if e.retry_after_s is None:
+                        raise
+                    hb_refused += 1
+            now = time.perf_counter()
+            if t_out is None and any(e.kind == "scale-out"
+                                     for e in cap_events):
+                t_out = now
+            # The ramp's backlog can outlast its quiet segment, and a
+            # slow host lets the pod look idle while the generator still
+            # catches up: the pod may scale in, then out again, before
+            # the load is over.  The cycle ends with the ring back at
+            # its size after the ramp has drained; t_in is the last
+            # scale-in, the one that brought it back.
+            if len(cap_events) > n_seen:
+                n_seen = len(cap_events)
+                if cap_events[-1].kind == "scale-in":
+                    t_in = now
+            if t_out is not None and t_in is not None \
+                    and not ramp_thread.is_alive() and not mc.draining() \
+                    and len(router.map) == CAP_SHARDS:
+                break
+            time.sleep(tick)
+        ramp_thread.join(120)
+        res = ramp.get("res")
+        if res is None or t_out is None or t_in is None \
+                or len(router.map) != CAP_SHARDS:
+            snap = router.metrics_snapshot()
+            skips = {k: v for k, v in snap.items()
+                     if k.startswith("capacity_skips_total")}
+            ramp_seen = None if res is None else {
+                "sent": res.sent, "ok": res.ok, "shed": res.shed,
+                "expired": res.expired, "failed": res.failed,
+                "seconds": res.duration_s, "by_class": res.by_class}
+            raise RuntimeError(
+                f"capacity: scale-out at {t_out}, scale-in at {t_in} "
+                f"(surge at {t_surge}), ring {router.map.host_ids()}, "
+                f"health {router.health.states()}, draining "
+                f"{mc.draining()}, events {cap_events}, skips {skips}, "
+                f"ramp {ramp_seen}; ticks (seconds into the surge: "
+                f"Pressure/Idle/Steady, queue fraction, sheds, ring size) "
+                f"{' '.join(timeline)}")
+        reaction_s = t_out - t_surge
+        if reaction_s > CAP_REACTION_S:
+            raise RuntimeError(f"capacity: scale-out {reaction_s:.2f} s into "
+                               f"the surge, over the {CAP_REACTION_S} s bound")
+        hb_ok = 0
+        for name, xs_hb, f0, f1 in hb:
+            try:
+                y0, y1 = f0.result(120), f1.result(120)
+            except DcfError as e:
+                if e.retry_after_s is None:
+                    raise
+                hb_refused += 1
+                continue
+            check_pair(y0, y1, keys[name], xs_hb, "capacity heartbeat")
+            hb_ok += 1
+        roll = rollup_snapshots([s.metrics_snapshot() for s in svcs.values()])
+        critical_shed = roll.get(labeled("serve_shed_by_class_total",
+                                         priority="critical"), 0)
+        if critical_shed:
+            raise RuntimeError(f"capacity: {critical_shed} CRITICAL sheds")
+        routed_parity(router, keys, "capacity parity after the shrink")
+        for h in router.map.host_ids():
+            digest = wire_digest(router.map.get(h).address)
+            for name in keys:
+                if h in router.map.placement_ids(name, 1) \
+                        and digest.get(name) != gens[name]:
+                    raise RuntimeError(f"capacity: {h} holds {name} at "
+                                       f"{digest.get(name)}")
+        # The oscillation leg: a forced load walk, zero ring churn.
+        epoch0, flips = router.ring_epoch, {"n": 0}
+
+        def oscillate(kind, verdict):
+            flips["n"] += 1
+            raise ForcedVerdict(PRESSURE if flips["n"] % 2 else IDLE)
+
+        with faults.inject("capacity.decide", handler=oscillate):
+            for _ in range(4 * max(cap.scale_out_n, cap.scale_in_m)):
+                cap.pump()
+        if router.ring_epoch != epoch0 or cap.events():
+            raise RuntimeError("capacity: the forced oscillation moved the "
+                               "ring")
+        suspected = fault_free(router, svcs, "capacity",
+                               router.map.host_ids(), overload=True)
+        counted_route(router, "capacity_prefix")
+        snap = router.metrics_snapshot()
+        q = res.latency_quantiles()
+        row = {"calibrated_rps": base_rps,
+               "segments": [[d, r] for d, r in segments],
+               "sent": res.sent, "ok": res.ok, "shed": res.shed,
+               "expired": res.expired, "failed": res.failed,
+               "p50_ms": q.get("p50_s", 0) * 1e3,
+               "p99_ms": q.get("p99_s", 0) * 1e3,
+               "scale_out_s": reaction_s, "scale_in_s": t_in - t_surge,
+               "events": [[e.kind, e.host_id, e.epoch] for e in cap_events],
+               "heartbeats_ok": hb_ok, "heartbeats_refused": hb_refused,
+               "critical_shed": 0,
+               "ticks": snap["capacity_ticks_total"],
+               "pressure_ticks": snap["capacity_pressure_ticks_total"],
+               "idle_ticks": snap["capacity_idle_ticks_total"],
+               "skips": {k.split("=")[1].rstrip("}"): v
+                         for k, v in snap.items()
+                         if k.startswith("capacity_skips_total{")},
+               "oscillation_ticks": flips["n"],
+               "suspect_refusals": snap.get(
+                   "router_suspect_refusals_total", 0),
+               "suspected_at_full_queue": suspected,
+               "seconds": time.perf_counter() - t0}
+        out["capacity"] = row
+        router.close()
+        for e in edges.values():
+            e.close()
+        for s in svcs.values():
+            s.close()
+        log(f"phase 22 capacity: {CAP_SHARDS} prefix shards + 1 standby "
+            f"(max_queued_points {CAP_QUEUE_POINTS}), CapacityController "
+            f"(tick {tick} s, n 2, m 3, cooldown {cap.cooldown_s} s, queue "
+            f"pressure 0.5); calibrated {base_rps:,.1f} requests/s closed "
+            f"loop; open_loop_ramp (Zipf {SKEW}) "
+            f"{[(d, round(r, 1)) for d, r in segments]}: sent {res.sent}, ok "
+            f"{res.ok}, shed {res.shed}, expired {res.expired}, p50 "
+            f"{row['p50_ms']:.2f} ms, p99 {row['p99_ms']:.2f} ms; scale-out "
+            f"{reaction_s:.3f} s into the surge (bound {CAP_REACTION_S} s), "
+            f"back to {CAP_SHARDS} hosts by the scale-in at "
+            f"{row['scale_in_s']:.3f} s, {len(cap_events)} ring changes "
+            f"{row['events']}; {res.failed} requests failed (router "
+            f"refusals at a suspect owner: {row['suspect_refusals']}); "
+            f"{hb_ok} CRITICAL heartbeats served, {hb_refused} refused "
+            f"typed, 0 CRITICAL sheds; every key two-party equal after the "
+            f"shrink; {flips['n']} forced oscillating ticks, epoch unmoved; "
+            f"skips {row['skips']}; suspicions {suspected}, each a shard's "
+            f"own full-queue refusal; no failed batch "
+            f"({row['seconds']:.1f} s) [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) Session churn over a lam = 16 pool refilled by G1.
+    t0 = time.perf_counter()
+    svc = Dcf(N_BYTES, 16, ck, backend="walk").serve(
+        max_batch=POD_MAX_BATCH, max_delay_ms=1.0)
+    alphas = srng.integers(0, 256, (1, N_BYTES), dtype=np.uint8)
+    betas = srng.integers(0, 256, (1, 16), dtype=np.uint8)
+    svc.add_pool(PoolSpec(name="sess", alphas=alphas, betas=betas,
+                          target_depth=CHURN_POOL, low_water=CHURN_POOL // 4,
+                          refill_batch=CHURN_POOL))
+    xs = srng.integers(0, 256, (pmax, N_BYTES), dtype=np.uint8)
+    xs[0] = alphas[0]
+    reset_counts()
+    svc.keyfactory.pump()
+    svc.register_key("first", pool="sess")
+    futs = [svc.submit("first", xs, b=b) for b in (0, 1)]
+    svc.pump()
+    y0, y1 = (f.result(60) for f in futs)
+    torch.cuda.synchronize()
+    take_counts("churn_keyfactory", {"G1": 1, "B1": 2})
+
+    def function(points):
+        inside = np.array([x.tobytes() < alphas[0].tobytes()
+                           for x in points])
+        return np.where(inside[:, None], betas, 0).astype(np.uint8)
+
+    if not np.array_equal((y0 ^ y1)[0], function(xs)):
+        raise RuntimeError("churn: the claimed key does not reconstruct "
+                           "its function")
+    svc.unregister_key("first")
+
+    class Probe:
+        """The service as ``session_churn`` sees it, keeping both
+        parties' futures of each session for the parity gate."""
+
+        n_bytes = N_BYTES
+
+        def __init__(self):
+            self.sessions = {}
+
+        def register_key(self, key_id, pool=None, durable=False):
+            return svc.register_key(key_id, pool=pool, durable=durable)
+
+        def submit(self, key_id, points, b=0):
+            fut = svc.submit(key_id, points, b=b)
+            self.sessions.setdefault(key_id, [points, None, None])[1 + b] = fut
+            return fut
+
+        def unregister_key(self, key_id):
+            svc.unregister_key(key_id)
+
+    probe = Probe()
+    svc.start()
+    snap0 = svc.metrics_snapshot()
+    res = session_churn(probe, pool="sess", duration_s=CHURN_S,
+                        concurrency=CHURN_CONCURRENCY, min_points=pmin,
+                        max_points=pmax, seed=SEED + 26)
+    snap = svc.metrics_snapshot()
+    svc.close()
+    bad = sum(1 for points, f0, f1 in probe.sessions.values()
+              if not np.array_equal((f0.result(60) ^ f1.result(60))[0],
+                                    function(points)))
+    hits = snap["keyfactory_pool_hits_total"] - snap0.get(
+        "keyfactory_pool_hits_total", 0)
+    misses = snap["keyfactory_pool_misses_total"] - snap0.get(
+        "keyfactory_pool_misses_total", 0)
+    if bad or res.sessions_failed or not res.sessions_ok \
+            or hits + misses != res.sessions_ok \
+            or len(probe.sessions) != res.sessions_ok:
+        raise RuntimeError(f"churn: {bad} sessions off their function, "
+                           f"{res.sessions_ok} ok, {res.sessions_failed} "
+                           f"failed, {hits} hits + {misses} misses")
+    rq = res.register_quantiles()
+    sq = res.session_quantiles()
+    out["churn"] = row = {
+        "sessions": res.sessions_ok, "sessions_per_s": res.sessions_per_sec,
+        "register_p50_ms": rq["register_p50_s"] * 1e3,
+        "register_p99_ms": rq["register_p99_s"] * 1e3,
+        "session_p50_ms": sq["session_p50_s"] * 1e3,
+        "session_p99_ms": sq["session_p99_s"] * 1e3,
+        "pool_hit_rate": hits / (hits + misses), "refills": snap[
+            "keyfactory_refills_total"],
+        "seconds": time.perf_counter() - t0}
+    log(f"phase 22 session churn: Dcf(16, 16) walk, a pool of "
+        f"{CHURN_POOL} sessions refilled by G1, {CHURN_CONCURRENCY} clients x "
+        f"{CHURN_S} s, requests of {pmin}-{pmax} points a party: "
+        f"{res.sessions_ok} sessions = {row['sessions_per_s']:,.1f}/s, "
+        f"registration p50 {row['register_p50_ms']:.3f} ms, p99 "
+        f"{row['register_p99_ms']:.3f} ms, session p50 "
+        f"{row['session_p50_ms']:.2f} ms; pool hit rate "
+        f"{row['pool_hit_rate']:.3f} ({hits} hits, {misses} misses, "
+        f"{row['refills']} refills); every session's two shares "
+        f"reconstruct its function ({row['seconds']:.1f} s) [{card}]")
+
+    # (d) The staged-plane handoff: lam = 256 hybrid, prefix_levels=20.
+    t0 = time.perf_counter()
+    hck = [srng.bytes(32) for _ in range(32)]
+    hdcf = Dcf(N_BYTES, LAM_WIDE, hck, backend="hybrid",
+               backend_opts={"prefix_levels": K_HYBRID})
+    svc = hdcf.serve(max_batch=M_SERVE_SMALL)
+    halphas = srng.integers(0, 256, (1, N_BYTES), dtype=np.uint8)
+    hbetas = srng.integers(0, 256, (1, LAM_WIDE), dtype=np.uint8)
+    svc.add_pool(PoolSpec(name="wide", alphas=halphas, betas=hbetas,
+                          target_depth=4, low_water=0, refill_batch=4))
+    xs = srng.integers(0, 256, (M_SERVE_SMALL, N_BYTES), dtype=np.uint8)
+    xs[0] = halphas[0]
+    reg = svc.registry
+    b5a_party = 1 + len(frontier_launches(K_HYBRID)[1])
+
+    def first_share(key_id, **register) -> tuple:
+        """Register, then party 0's share of ``xs``: (seconds, bundle,
+        share)."""
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        kb = svc.register_key(key_id, **register)
+        fut = svc.submit(key_id, xs, b=0)
+        svc.pump()
+        y = fut.result(60)
+        return time.perf_counter() - t1, kb, y
+
+    reset_counts()
+    svc.keyfactory.pump()
+    kb = svc.register_key("w0", pool="wide")
+    futs = [svc.submit("w0", xs, b=b) for b in (0, 1)]
+    svc.pump()
+    ys = [f.result(60) for f in futs]
+    torch.cuda.synchronize()
+    take_counts("serve_handoff", {"B7a": 1, "W2": 1, "B5a": 2 * b5a_party,
+                                  "B5b": 2, "W1": 2})
+    if (reg.stagings_from_planes, reg.stagings_from_bundle) != (2, 0):
+        raise RuntimeError(
+            f"handoff: a claimed lam={LAM_WIDE} key staged "
+            f"{reg.stagings_from_planes} times from its planes and "
+            f"{reg.stagings_from_bundle} from its host bundle (want 2, 0)")
+    svc.register_key("w0-host", kb)
+    futs = [svc.submit("w0-host", xs, b=b) for b in (0, 1)]
+    svc.pump()
+    ys_host = [f.result(60) for f in futs]
+    hnative = NativeDcf(LAM_WIDE, hck)
+    for b in (0, 1):
+        if not (np.array_equal(ys[b], ys_host[b])
+                and np.array_equal(ys[b], hnative.eval(b, kb, xs))):
+            raise RuntimeError(f"handoff: party {b}'s shares from the "
+                               "planes differ from the host bundle's or the "
+                               "C++ core's")
+    if not np.array_equal((ys[0] ^ ys[1])[0],
+                          np.where(np.array([x.tobytes() < halphas[0].tobytes()
+                                             for x in xs])[:, None],
+                                   hbetas, 0).astype(np.uint8)):
+        raise RuntimeError("handoff: the claimed key does not reconstruct "
+                           "its function")
+    times = {"planes": [], "host": []}
+    for i, how in enumerate(("planes", "host", "host", "planes")):
+        if how == "planes":
+            dt, kb_i, y = first_share(f"wp{i}", pool="wide")
+            last = kb_i
+        else:
+            dt, _, y = first_share(f"wh{i}", bundle=last)
+        if not np.array_equal(y, hnative.eval(0, last, xs)):
+            raise RuntimeError(f"handoff: {how} share differs")
+        times[how].append(dt)
+    if reg.stagings_from_planes != 4 or reg.stagings_from_bundle != 4:
+        raise RuntimeError(f"handoff: stagings {reg.stagings_from_planes} "
+                           f"from planes, {reg.stagings_from_bundle} from "
+                           "bundles (want 4, 4)")
+    out["handoff"] = row = {
+        "register_to_first_share_ms_planes": [t * 1e3
+                                              for t in times["planes"]],
+        "register_to_first_share_ms_host": [t * 1e3 for t in times["host"]],
+        "stagings_from_planes": reg.stagings_from_planes,
+        "stagings_from_bundle": reg.stagings_from_bundle,
+        "seconds": time.perf_counter() - t0}
+    svc.close()
+    log(f"phase 22 handoff: Dcf(16, {LAM_WIDE}) hybrid prefix_levels="
+        f"{K_HYBRID}, a pool of 4 refilled by B7a + W2: the claimed key "
+        f"staged from its device planes (2 stagings from planes, 0 from the "
+        f"bundle), its {M_SERVE_SMALL} points a party equal to the same "
+        f"bundle staged from the host and to the C++ core; register to first "
+        f"share (party 0, B5a's frontier included) with planes "
+        f"{', '.join(f'{t:.3f}' for t in row['register_to_first_share_ms_planes'])} "
+        f"ms, from the host bundle "
+        f"{', '.join(f'{t:.3f}' for t in row['register_to_first_share_ms_host'])} "
+        f"ms ({row['seconds']:.1f} s) [{card}]")
+    return out
 
 def main() -> int:
     import torch
@@ -3762,6 +4542,12 @@ def main() -> int:
     t0 = time.perf_counter()
     edge_pod = edge_pod_phase(card, reset_counts, take_counts)
     log("phase 21 edge and pod: " + json.dumps(edge_pod)
+        + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # -- phase 22: the pod's control plane and the lam >= 48 handoff ----------------
+    t0 = time.perf_counter()
+    control = control_plane_phase(card, reset_counts, take_counts)
+    log("phase 22 control plane: " + json.dumps(control)
         + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
 
     # launches x (time - bound) of B1 and B6 on each path, from their

@@ -24,10 +24,14 @@ alphas, betas and root seeds, and the correction words (4.35 GB for 10^6
 keys at n = 128, lam = 16) are born on the device.  Every generator gives
 the bytes the host ``gen.gen_batch`` / ``protocols.dpf.dpf_gen_batch``
 give on the same inputs.  They run on the card unless built with
-``device="cpu"``, where the kernels' plain versions run.  The JAX
-package's ``gen_with_planes``, ``gen_with_planes_pair`` and
-``staged_planes`` (staged plane images for its hybrid evaluator's key
-factory) are not carried (ROADMAP.md, Queue A's serving leftovers).
+``device="cpu"``, where the kernels' plain versions run.
+
+``HybridKeyGen.gen_with_planes_pair`` also hands back both parties'
+narrow arrays as they lie on the device after B7a + W2 (the staged-plane
+handoff of the key factory: ``LargeLambdaBackend.put_bundle(bundle,
+dev_planes=...)`` stages them with no host round trip).  The layout is
+this package's own: the arrays ``put_bundle(bundle)`` would ship from
+the host bundle, byte for byte.
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ class DeviceKeyGen(_KeyGen):
 
     def __init__(self, lam: int, cipher_keys: Sequence[bytes], device=None):
         if lam not in (16, NARROW):
+            # api-edge: constructor lam contract
             raise ValueError(
                 f"DeviceKeyGen makes lam=16 and lam={NARROW} keys (got "
                 f"{lam}); lam >= 48 is HybridKeyGen's")
@@ -110,6 +115,7 @@ class HybridKeyGen(_KeyGen):
 
     def __init__(self, lam: int, cipher_keys: Sequence[bytes], device=None):
         if lam < 48 or lam % 16:
+            # api-edge: constructor lam contract
             raise ValueError(
                 f"HybridKeyGen makes keys of lam >= 48, a multiple of 16 "
                 f"(got {lam}); lam = 16 is DeviceKeyGen's")
@@ -125,13 +131,37 @@ class HybridKeyGen(_KeyGen):
         [K, 2, lam].  Returns the two-party host ``KeyBundle``; the wide
         tail runs on the device after B7a, before the one copy to the
         host."""
+        return DeviceKeyGen.to_host_bundle(
+            self._gen_device(alphas, betas, s0s, bound))
+
+    def _gen_device(self, alphas, betas, s0s, bound: Bound) -> dict:
+        """B7a, then W2: the two-party key image on the device."""
         a, bt, s = self._ship(alphas, betas, s0s)
         lt = bound is Bound.LT_BETA
         cw_s, cw_v, cw_t, cw_np1, traj = keygen_narrow(self.aes, a, bt, s,
                                                        lt=lt)
         keygen_wide_tail(cw_s, cw_v, cw_np1, traj, a, bt, s, lt=lt)
-        return DeviceKeyGen.to_host_bundle(dict(
-            s0s=s, cw_s=cw_s, cw_v=cw_v, cw_t=cw_t, cw_np1=cw_np1))
+        return dict(s0s=s, cw_s=cw_s, cw_v=cw_v, cw_t=cw_t, cw_np1=cw_np1)
+
+    def gen_with_planes_pair(self, alphas: np.ndarray, betas: np.ndarray,
+                             s0s: np.ndarray, bound: Bound
+                             ) -> tuple[KeyBundle, dict]:
+        """``gen`` plus both parties' narrow arrays left on the device:
+        ``(bundle, {party: planes})``, ``planes`` the dict
+        ``LargeLambdaBackend.put_bundle`` stages (``s0`` [K, 32], ``cw_s``
+        / ``cw_v`` [K, n, 32], ``cw_t`` [K, n, 2], ``cw_np1`` [K, 32]).
+        The correction words are the same for both parties: their arrays
+        are shared by identity between the two dicts, so the pair holds
+        one copy of them."""
+        dev = self._gen_device(alphas, betas, s0s, bound)
+        shared = dict(cw_s=dev["cw_s"][..., :NARROW].contiguous(),
+                      cw_v=dev["cw_v"][..., :NARROW].contiguous(),
+                      cw_t=dev["cw_t"].contiguous(),
+                      cw_np1=dev["cw_np1"][:, :NARROW].contiguous())
+        planes = {b: dict(s0=dev["s0s"][:, b, :NARROW].contiguous(),
+                          **shared)
+                  for b in (0, 1)}
+        return DeviceKeyGen.to_host_bundle(dev), planes
 
 
 class DpfKeyGen(_KeyGen):
@@ -139,6 +169,7 @@ class DpfKeyGen(_KeyGen):
 
     def __init__(self, lam: int, cipher_keys: Sequence[bytes], device=None):
         if lam != NARROW:
+            # api-edge: constructor lam contract
             raise ValueError(
                 f"DpfKeyGen makes lam={NARROW} keys (two AES blocks), got "
                 f"{lam}; other widths take the host dpf_gen_batch")

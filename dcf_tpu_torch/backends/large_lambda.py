@@ -81,6 +81,7 @@ def wide_affine_batch_np(bundle: KeyBundle):
     wide recursion on the zero trajectory and the n+1 unit ones at once."""
     lam, n, k_num = bundle.lam, bundle.n_bits, bundle.num_keys
     if lam <= NARROW:
+        # api-edge: the wide part's lam contract
         raise ValueError("wide part needs lam > 32")
     wd = lam - NARROW
     s0w = bundle.s0s[:, 0, NARROW:]
@@ -143,13 +144,19 @@ class LargeLambdaBackend(FrontierConsumerMixin):
     on the card unless built with ``device="cpu"``.
     """
 
+    #: Read by the serving registry: ``put_bundle`` stages the key
+    #: factory's device planes (``dev_planes``).
+    accepts_dev_planes = True
+
     def __init__(self, lam: int, cipher_keys: Sequence[bytes],
                  prefix_levels: int = 0, device=None):
         if lam < 48 or lam % 16:
+            # api-edge: constructor lam contract
             raise ValueError(
                 "LargeLambdaBackend wants lam >= 48 (a multiple of 16); "
                 "lam = 16 has the walk and prefix backends")
         if prefix_levels and prefix_levels < 5:
+            # api-edge: constructor prefix_levels contract
             raise ValueError(
                 "prefix_levels must be 0 (from the root) or >= 5, got "
                 f"{prefix_levels}")
@@ -179,9 +186,17 @@ class LargeLambdaBackend(FrontierConsumerMixin):
         k_cap = HYBRID_MAX_PREFIX_LEVELS - (k_num - 1).bit_length()
         return max(min(self.prefix_levels, n - 8, k_cap), 5)
 
-    def put_bundle(self, bundle: KeyBundle) -> None:
+    def put_bundle(self, bundle: KeyBundle,
+                   dev_planes: dict | None = None) -> None:
         """Ship a party-restricted bundle's narrow arrays to the device.
-        The wide tail's (const, W) follow lazily at the first eval."""
+        The wide tail's (const, W) follow lazily at the first eval.
+
+        ``dev_planes``: this party's narrow arrays already on the device,
+        from the on-device keygen
+        (``HybridKeyGen.gen_with_planes_pair``): they are staged as they
+        are, with no host round trip.  They must be the arrays this
+        method would ship from ``bundle``; only the wide tail still
+        reads the host bundle."""
         if bundle.lam != self.lam:
             raise ShapeError("bundle lam mismatch")
         if bundle.group != "xor":
@@ -201,9 +216,21 @@ class LargeLambdaBackend(FrontierConsumerMixin):
         host = dict(s0=bundle.s0s[:, 0, :NARROW], cw_s=bundle.cw_s[..., :NARROW],
                     cw_v=bundle.cw_v[..., :NARROW], cw_t=bundle.cw_t,
                     cw_np1=bundle.cw_np1[:, :NARROW])
-        self._dev = {
-            name: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-            for name, a in host.items()}
+        if dev_planes is not None:
+            for name, a in host.items():
+                t = dev_planes.get(name)
+                if t is None or tuple(t.shape) != a.shape \
+                        or t.dtype != torch.uint8 \
+                        or t.device.type != self.device.type:
+                    raise ShapeError(
+                        f"dev_planes[{name!r}] is not the bundle's narrow "
+                        f"array {a.shape} uint8 on {self.device}")
+            self._dev = {name: dev_planes[name] for name in host}
+        else:
+            self._dev = {
+                name: torch.from_numpy(np.ascontiguousarray(a)).to(
+                    self.device)
+                for name, a in host.items()}
         self._bundle = bundle
         self._wide = None  # const is this party's: never reuse it
         self.invalidate_frontier()
@@ -249,6 +276,8 @@ class LargeLambdaBackend(FrontierConsumerMixin):
         or the domain).  Same-geometry re-ships stay valid, the other
         party's backend included."""
         if "k" not in staged:
+            # api-edge: documented staged-protocol contract (a dict from
+            # another backend's stage)
             raise ValueError("staged dict is not from a prefix-enabled "
                              "hybrid backend's stage")
         k_now, n_now = self._k(), self._dims()[1]

@@ -178,15 +178,14 @@ class RingEpochError(DcfError, RuntimeError):
 
 class StandbyExhaustedError(DcfError, RuntimeError):
     """An explicit scale-out found the declared standby pool empty:
-    there is no host to admit.  ``dcf_tpu``'s capacity controller
-    raises it; the port carries the type so that the wire taxonomy is
-    whole (the edge declares it internal-only) and callers' ``except``
-    clauses carry over."""
+    there is no host to admit (``serve.capacity.CapacityController.
+    scale_out``).  The edge declares it internal-only: it has no wire
+    code."""
 
 
 class LockOrderError(DcfError, RuntimeError):
     """A lock acquisition would close a cycle in the observed
-    lock-order graph (``dcf_tpu.testing.lockwatch``, a test-harness
+    lock-order graph (``testing.lockwatch``, a test-harness
     detector).  Carries ``cycle`` (the lock names along the inversion)
     and ``stacks`` (where each edge was first observed).  It has no
     wire code: it fires in test harnesses, never at a serving edge."""

@@ -186,3 +186,34 @@ def gen_on_device(
         return kg.to_host_bundle(kg.gen(alphas, betas, s0s, bound))
     return HybridKeyGen(lam, cipher_keys, device=device).gen(
         alphas, betas, s0s, bound)
+
+
+def gen_on_device_with_planes(
+    lam: int,
+    cipher_keys,
+    alphas: np.ndarray,
+    betas: np.ndarray,
+    s0s: np.ndarray,
+    bound: Bound,
+    device=None,
+) -> tuple[KeyBundle, dict | None]:
+    """``gen_on_device`` (XOR group) plus the staged narrow image:
+    ``(bundle, planes)``, ``planes`` ``{party: arrays on the device}``
+    for both parties from the same B7a + W2 run
+    (``backends.device_gen.HybridKeyGen.gen_with_planes_pair``).  The key
+    factory hands the pair to the serving registry, so a claimed key's
+    image stages with no host round trip.
+
+    ``planes`` is None below lam = 48, where no hybrid staged layout
+    exists.  There is no host fallback: a device failure raises, as in
+    ``gen_on_device``."""
+    _check_gen_inputs(alphas, betas, s0s, lam)
+    if lam < 48:
+        return gen_on_device(lam, cipher_keys, alphas, betas, s0s, bound,
+                             device=device), None
+    from dcf_tpu_torch.backends.device_gen import HybridKeyGen
+    from dcf_tpu_torch.testing.faults import fire
+
+    fire("keygen.device", alphas.shape[0], lam)
+    return HybridKeyGen(lam, cipher_keys, device=device
+                        ).gen_with_planes_pair(alphas, betas, s0s, bound)

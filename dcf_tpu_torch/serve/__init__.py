@@ -46,16 +46,21 @@ bursty small queries over the network against many long-lived keys":
 - ``serve.router``    ``DcfRouter``: DCFE on both sides, forwarding by
   header decode only, failover to replicas, promotion of DOWN shards,
   the ring-epoch fence and co-evaluation;
+- ``serve.membership`` the ring's control plane
+  (``MembershipController``): auto-eject after a DOWN grace, warm
+  join, three-phase drain, each committed under a fresh ring epoch
+  after re-replication;
+- ``serve.capacity``  demand-driven autoscaling
+  (``CapacityController``): prober load samples to a hysteresis-damped
+  verdict, scaling through the membership verbs, a standby pool;
 - ``serve.metrics``   dependency-free counters/gauges/histograms with a
   deterministic snapshot; ``rollup_snapshots`` sums snapshots;
 - ``serve.service``   ``DcfService``: the worker loop tying it together,
   with a dispatch-ahead pipeline and the ``serve.stage``/``serve.eval``
   fault seams;
 - ``serve.loadgen``   the closed-loop (optionally one edge client per
-  thread) and open-loop (Poisson) load generators.
-
-Not carried yet (ROADMAP.md): ``dcf_tpu``'s capacity controller and
-membership controller.
+  thread), open-loop (Poisson, a piecewise rate schedule with
+  ``open_loop_ramp``) and session-churn load generators.
 
 Entry point: ``Dcf.serve(...)`` (see ``dcf_tpu_torch.api``).
 """
@@ -66,6 +71,11 @@ from dcf_tpu_torch.serve.admission import (  # noqa: F401
     TenantSpec,
 )
 from dcf_tpu_torch.serve.breaker import BreakerBoard  # noqa: F401
+from dcf_tpu_torch.serve.capacity import (  # noqa: F401
+    CapacityController,
+    CapacityEvent,
+    CapacityVerdict,
+)
 from dcf_tpu_torch.serve.edge import (  # noqa: F401
     EdgeClient,
     EdgeClientPool,
@@ -74,6 +84,10 @@ from dcf_tpu_torch.serve.edge import (  # noqa: F401
 from dcf_tpu_torch.serve.frontier_cache import FrontierCache  # noqa: F401
 from dcf_tpu_torch.serve.health import HealthEvent, HealthProber  # noqa: F401
 from dcf_tpu_torch.serve.keyfactory import KeyFactory, PoolSpec  # noqa: F401
+from dcf_tpu_torch.serve.membership import (  # noqa: F401
+    MembershipController,
+    MembershipEvent,
+)
 from dcf_tpu_torch.serve.meshgroup import MeshGroup, MeshSlice  # noqa: F401
 from dcf_tpu_torch.serve.metrics import Metrics, rollup_snapshots  # noqa: F401
 from dcf_tpu_torch.serve.registry import KeyRegistry  # noqa: F401
@@ -85,7 +99,9 @@ from dcf_tpu_torch.serve.store import KeyStore, RestoreReport  # noqa: F401
 
 __all__ = ["DcfService", "ServeConfig", "ServeFuture", "Priority",
            "TenantSpec", "EdgeServer", "EdgeClient", "EdgeClientPool",
-           "BreakerBoard", "DcfRouter", "FrontierCache", "HealthEvent",
+           "BreakerBoard", "CapacityController", "CapacityEvent",
+           "CapacityVerdict", "DcfRouter", "FrontierCache", "HealthEvent",
            "HealthProber", "KeyFactory", "Metrics", "KeyRegistry",
-           "KeyStore", "MeshGroup", "MeshSlice", "PoolSpec", "Replicator",
+           "KeyStore", "MembershipController", "MembershipEvent",
+           "MeshGroup", "MeshSlice", "PoolSpec", "Replicator",
            "RestoreReport", "ShardMap", "ShardSpec", "rollup_snapshots"]

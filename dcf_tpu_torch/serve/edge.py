@@ -1058,6 +1058,20 @@ class _Conn:
         except queue.Full:
             pass  # the writer is mid-backlog; the closed socket ends it
 
+    def nudge(self) -> None:
+        """The graceful half of a shutdown: queue the writer's end
+        sentinel so it delivers the responses queued before it, then
+        exits.  ``EdgeServer.close(drain_s=)`` nudges every connection
+        before it joins any writer, so the flush has one shared
+        deadline, not one per connection."""
+        try:
+            self._out.put_nowait(None)
+        except queue.Full:
+            pass  # a full backlog still drains; the join bounds it
+
+    def join_writer(self, timeout: float) -> None:
+        self._writer.join(timeout)
+
     def _enqueue(self, item) -> None:
         """Reader-side put honouring the backlog bound: blocks in
         slices so a server/connection close can always free the reader
@@ -1534,6 +1548,7 @@ class EdgeServer:
         self._listener: socket.socket | None = None
         self._acceptor: threading.Thread | None = None
         self._closing = False
+        self._draining = False
         now = self._clock()
         self._tenants = {
             spec.name: _Tenant(spec, self.metrics, now)
@@ -1575,10 +1590,14 @@ class EdgeServer:
             raise StaleStateError("edge server not started")
         return self._listener.getsockname()[:2]
 
-    def close(self) -> None:
-        """Tear the edge down: stop accepting, hang up every
-        connection, join the threads.  Idempotent."""
-        self._closing = True
+    def stop_accepting(self) -> None:
+        """Shut the listener down but leave live connections OPEN: the
+        first half of a graceful shutdown.  New dials are refused, the
+        service drains so queued requests complete, and the writers
+        deliver those responses over the still-open links before
+        ``close()`` tears them down.  Idempotent; ``close()`` calls
+        it."""
+        self._draining = True
         listener = self._listener
         if listener is not None:
             try:
@@ -1588,8 +1607,27 @@ class EdgeServer:
             listener.close()
         if self._acceptor is not None:
             self._acceptor.join(5.0)
+
+    def close(self, drain_s: float = 0.0) -> None:
+        """Tear the edge down: stop accepting, hang up every
+        connection, join the threads.  Idempotent.  ``drain_s`` > 0 is
+        the graceful spelling: after the listener stops, each
+        connection's writer gets up to that long, in all, to flush its
+        queued responses (the futures behind them must already be
+        complete: drain the service first) before the hard close."""
+        self._closing = True
+        self.stop_accepting()
         with self._lock:
             conns = list(self._conns)
+        if drain_s > 0:
+            # Sentinel every writer FIRST, then join against ONE shared
+            # deadline: K peers that stopped reading cost at most
+            # drain_s in all, not K * drain_s.
+            for c in conns:
+                c.nudge()
+            deadline = monotonic() + drain_s
+            for c in conns:
+                c.join_writer(max(0.0, deadline - monotonic()))
         for c in conns:
             c.close()
         for c in conns:
@@ -1620,10 +1658,10 @@ class EdgeServer:
                 fire("edge.accept")
                 sock, addr = self._listener.accept()
             except OSError:
-                # fallback-ok: close() shut the listener down, or a
-                # transient accept failure — the loop survives the
-                # latter and exits on the former.
-                if self._closing:
+                # fallback-ok: close() or stop_accepting() shut the
+                # listener down, or a transient accept failure — the
+                # loop survives the latter and exits on the former.
+                if self._closing or self._draining:
                     return
                 self._c_accept_errors.inc()
                 continue
@@ -1932,6 +1970,14 @@ class EdgeClient:
         self._roundtrip(lambda rid: encode_ping(rid, epoch), timeout)
         return True
 
+    def ping_epoch(self, timeout: float | None = None,
+                   epoch: int = 0) -> int:
+        """PING returning the PEER's current ring epoch (the PONG
+        value): how a membership bench checks that the pod converged
+        on an epoch over the wire.  Failure modes are ``ping``'s."""
+        return int(self._roundtrip(
+            lambda rid: encode_ping(rid, epoch), timeout))
+
     def ping_load(self, timeout: float | None = None,
                   epoch: int = 0) -> tuple:
         """PING asking for the peer's demand signals
@@ -2233,6 +2279,11 @@ class EdgeClientPool:
         and the UP transition clamps the backoff so REQUESTS never
         wait it out; see ``reset_backoff``)."""
         return self._lease().ping(timeout, epoch=epoch)
+
+    def ping_epoch(self, timeout: float | None = None,
+                   epoch: int = 0) -> int:
+        """``EdgeClient.ping_epoch`` through a leased connection."""
+        return self._lease().ping_epoch(timeout, epoch=epoch)
 
     def ping_load(self, timeout: float | None = None,
                   epoch: int = 0) -> tuple:

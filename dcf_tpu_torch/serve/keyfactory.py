@@ -3,11 +3,12 @@
 Counterpart of ``dcf_tpu/serve/keyfactory.py``.  Refills mint through
 the port's ``gen.gen_on_device`` on the facade's device: kernel G1 at
 lam = 16, G2 at lam = 32, B7a + W2 at lam >= 48 (their plain versions
-on a ``device="cpu"`` facade).  The JAX package's staged-plane handoff
-(``gen_on_device_with_planes`` and the registry's
-``put_bundle(dev_planes=...)``, a staging shortcut of its lam >= 48
-hybrid) is not carried: a claimed key stages from its bundle, and the
-bytes served are the same (ROADMAP.md).
+on a ``device="cpu"`` facade).  Behind a lam >= 48 ``hybrid`` facade a
+refill keeps both parties' narrow arrays on the card
+(``gen.gen_on_device_with_planes``) and each pool entry carries its
+slice of them: a claimed key's image stages through
+``put_bundle(bundle, dev_planes=...)`` with no host round trip, and
+the bytes served are the ones its bundle would give.
 
 DCF keygen is the expensive offline phase of the protocol — and for
 fresh-key-per-session traffic the serving tier used to pay it
@@ -74,8 +75,8 @@ provisioning pipeline that moves it off the registration clock:
   ``~pool/...`` frames back into their pools via ``adopt_restored``
   with generations preserved — zero re-keygen for already-published
   pool keys, the durable store's guarantee extended to the un-claimed
-  half of the provisioning pipeline.  Restored entries stage from the
-  host bundle on first use, as every entry does.
+  half of the provisioning pipeline.  Restored entries carry no device
+  planes and stage from the host bundle on first use.
 
 Driving modes mirror ``DcfService``: ``start()`` spawns the worker
 thread (nudged by claims that drop a pool below low water, backstopped
@@ -215,21 +216,24 @@ class PoolSpec:
 
 
 class _Minted:
-    """One pool entry: a pre-minted two-party session key and its
-    durable pool id + generation."""
+    """One pool entry: a pre-minted two-party session key, its narrow
+    arrays on the device (``{party: planes}``, or None), and its durable
+    pool id + generation."""
 
-    __slots__ = ("bundle", "protocol", "pool_id", "generation")
+    __slots__ = ("bundle", "protocol", "planes", "pool_id", "generation")
 
-    def __init__(self, bundle: KeyBundle, protocol, pool_id: str,
+    def __init__(self, bundle: KeyBundle, protocol, planes, pool_id: str,
                  generation: int):
         self.bundle = bundle
         self.protocol = protocol
+        self.planes = planes
         self.pool_id = pool_id
         self.generation = generation
 
     def __repr__(self) -> str:  # never key material — identity only
         return (f"_Minted(pool_id={self.pool_id!r}, "
-                f"gen={self.generation})")
+                f"gen={self.generation}, "
+                f"planes={self.planes is not None})")
 
 
 class _Pool:
@@ -463,17 +467,19 @@ class KeyFactory:
         with self._rng_lock:
             child = self._rng.spawn(1)[0]
         s0s = random_s0s(spec.keys_per_session, self._dcf.lam, child)
-        kb, masks = self._keygen(spec, 1, s0s)
-        return _Minted(kb, _protocol(kb, masks, spec.bound), "", 0)
+        kb, masks, planes = self._keygen(spec, 1, s0s)
+        return _Minted(kb, _protocol(kb, masks, spec.bound), planes, "", 0)
 
     def _keygen(self, spec: PoolSpec, count: int, s0s: np.ndarray):
         """``count`` sessions of ``spec`` as ONE K-packed keygen call:
         ``gen.gen_on_device`` on the facade's device (kernel G1 at
         lam = 16, G2 at 32, B7a + W2 at lam >= 48; their plain versions
         on a ``device="cpu"`` facade), or the facade's host walk where
-        the pool names it (``device=False``).  Returns the bundle and,
-        for a MIC pool, each session's combine masks (else None)."""
-        from dcf_tpu_torch.gen import gen_on_device
+        the pool names it (``device=False``).  Returns the bundle, for a
+        MIC pool each session's combine masks (else None), and, behind a
+        lam >= 48 ``hybrid`` facade, both parties' narrow arrays on the
+        device (else None)."""
+        from dcf_tpu_torch.gen import gen_on_device, gen_on_device_with_planes
         from dcf_tpu_torch.protocols.keygen import interval_session_material
 
         if spec.intervals:
@@ -487,13 +493,24 @@ class KeyFactory:
             alphas, session_betas, masks = spec.alphas, spec.betas, None
         al = np.tile(alphas, (count, 1))
         bt = np.tile(session_betas, (count, 1))
+        planes = None
         if spec.device is False:
             kb = self._dcf.gen(al, bt, s0s=s0s, bound=spec.bound,
                                device=False)
+        elif self._want_planes():
+            kb, planes = gen_on_device_with_planes(
+                self._dcf.lam, self._dcf.cipher_keys, al, bt, s0s,
+                spec.bound, device=self._dcf.device)
         else:
             kb = gen_on_device(self._dcf.lam, self._dcf.cipher_keys, al, bt,
                                s0s, spec.bound, device=self._dcf.device)
-        return kb, masks
+        return kb, masks, planes
+
+    def _want_planes(self) -> bool:
+        """The staged-plane handoff applies where the serving facade
+        stages the hybrid image (lam >= 48): the one backend that stages
+        the keygen's narrow arrays as they are."""
+        return self._dcf.backend_name == "hybrid"
 
     # -- refill -------------------------------------------------------------
 
@@ -571,7 +588,7 @@ class KeyFactory:
         ks = spec.keys_per_session
         with self._rng_lock:
             s0s = random_s0s(count * ks, self._dcf.lam, self._rng)
-        kb_all, masks = self._keygen(spec, count, s0s)
+        kb_all, masks, planes = self._keygen(spec, count, s0s)
         self._c_minted.inc(count * ks)
         gens = self._registry.mint_generations(count)
         with self._lock:
@@ -580,7 +597,11 @@ class KeyFactory:
         entries = []
         for i in range(count):
             kb = _slice_keys(kb_all, i * ks, (i + 1) * ks)
+            entry_planes = (None if planes is None else
+                            _slice_planes_pair(planes, i * ks,
+                                               (i + 1) * ks))
             entries.append(_Minted(kb, _protocol(kb, masks, spec.bound),
+                                   entry_planes,
                                    pool_store_id(spec.name, seq0 + i),
                                    gens[i]))
         if self._store is not None:
@@ -644,7 +665,7 @@ class KeyFactory:
             generation = report.restored.pop(key_id)
             bundle, protocol, _gen = registry.snapshot(key_id)
             registry.unregister(key_id)  # pool supply is not servable
-            minted = _Minted(bundle, protocol, key_id, generation)
+            minted = _Minted(bundle, protocol, None, key_id, generation)
             with self._lock:
                 pool = self._pools.get(name)
                 if pool is None:
@@ -722,3 +743,18 @@ def _slice_keys(kb: KeyBundle, lo: int, hi: int) -> KeyBundle:
         s0s=kb.s0s[lo:hi].copy(), cw_s=kb.cw_s[lo:hi].copy(),
         cw_v=kb.cw_v[lo:hi].copy(), cw_t=kb.cw_t[lo:hi].copy(),
         cw_np1=kb.cw_np1[lo:hi].copy())
+
+
+def _slice_planes_pair(planes: dict, lo: int, hi: int) -> dict:
+    """Rows ``[lo, hi)`` of a both-parties plane pair (every array is
+    key-major), as copies: a pool entry must not pin the whole refill
+    batch's device arrays alive.  ``gen_with_planes_pair`` shares the
+    correction-word arrays between the two party dicts BY IDENTITY; the
+    slice keeps that sharing (detected by identity), so an entry holds
+    one copy of them, not one a party."""
+    shared = {name: arr[lo:hi].clone() for name, arr in planes[0].items()
+              if planes[1].get(name) is arr}
+    return {b: {name: (shared[name] if name in shared
+                       else arr[lo:hi].clone())
+                for name, arr in planes[b].items()}
+            for b in planes}

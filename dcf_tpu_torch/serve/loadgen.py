@@ -1,12 +1,11 @@
-"""Closed- and open-loop load generators for the serving layer.
+"""Closed-loop, open-loop and session-churn load generators for the
+serving layer.
 
-Counterpart of ``dcf_tpu/serve/loadgen.py``'s ``closed_loop`` and
-``open_loop``, line for line (host code: key choices, request sizes and
-arrival gaps draw from seeded generators in the same order as
-``dcf_tpu``'s, so a seed gives both packages the same request
-sequence).  ``chip_smoke.py`` phases 20 and 21 run them on the card and
-``reconcile_against_rollup`` on their metrics.  ``dcf_tpu``'s ramp and
-session-churn modes are not carried yet (ROADMAP.md).
+Counterpart of ``dcf_tpu/serve/loadgen.py``, line for line (host code:
+key choices, request sizes and arrival gaps draw from seeded generators
+in the same order as ``dcf_tpu``'s, so a seed gives both packages the
+same request sequence).  ``chip_smoke.py`` phases 20-22 run them on the
+card and ``reconcile_against_rollup`` on their metrics.
 
 A submit target is anything with ``submit`` and ``n_bytes``: a
 ``DcfService``, an ``EdgeClient`` / ``EdgeClientPool`` (the wire) or a
@@ -28,6 +27,22 @@ batcher exists for.
 Timing uses the SAME injectable clock as the service; this is the one
 measurement harness allowed to loop on the clock, and the loop bound is
 wall duration by design.
+
+``open_loop_ramp`` generalizes the open-loop mode to a piecewise
+offered-rate SCHEDULE: ordered ``(duration_s, rate_rps)`` segments
+driven by one seeded arrival process, so a surge is one load shape —
+ramp up, hold, fall idle — instead of three stitched runs whose seams
+hide the transient.  A zero-rate segment offers nothing but still holds
+the schedule (the window the autoscaler's scale-in hysteresis watches).
+Latency stays anchored to each request's scheduled arrival across
+segment boundaries.  ``open_loop`` is the one-segment case and
+delegates.
+
+``session_churn`` is the fresh-key-per-session mode: each client
+registers a fresh key from a key-factory pool, evaluates one request
+for both parties, and unregisters — the provisioning-bound arrival
+pattern, as opposed to ``closed_loop``'s eval-bound re-use of a static
+key set.
 """
 
 from __future__ import annotations
@@ -40,8 +55,9 @@ import numpy as np
 from dcf_tpu_torch.serve.admission import parse_priority
 from dcf_tpu_torch.utils.benchtime import monotonic
 
-__all__ = ["LoadgenResult", "closed_loop", "OpenLoopResult", "open_loop",
-           "reconcile_against_rollup"]
+__all__ = ["LoadgenResult", "closed_loop", "ChurnResult",
+           "session_churn", "OpenLoopResult", "open_loop",
+           "open_loop_ramp", "reconcile_against_rollup"]
 
 
 @dataclass
@@ -72,7 +88,32 @@ class LoadgenResult:
         return self.points_ok / self.duration_s if self.duration_s else 0.0
 
     def latency_quantiles(self) -> dict:
-        return _quantiles(self.latencies_s)
+        return _quantiles(self.latencies_s, "")
+
+
+@dataclass
+class ChurnResult:
+    """One session-churn run: per-session outcomes plus the two latency
+    populations the key factory exists to separate — registration (pool
+    pop vs synchronous keygen) and the whole session."""
+
+    duration_s: float
+    sessions_ok: int = 0
+    sessions_failed: int = 0
+    points_ok: int = 0
+    register_latencies_s: list = field(default_factory=list)
+    session_latencies_s: list = field(default_factory=list)
+
+    @property
+    def sessions_per_sec(self) -> float:
+        return (self.sessions_ok / self.duration_s if self.duration_s
+                else 0.0)
+
+    def register_quantiles(self) -> dict:
+        return _quantiles(self.register_latencies_s, "register_")
+
+    def session_quantiles(self) -> dict:
+        return _quantiles(self.session_latencies_s, "session_")
 
 
 @dataclass
@@ -107,6 +148,10 @@ class OpenLoopResult:
     points_ok: int = 0
     latencies_s: list = field(default_factory=list)
     by_class: dict = field(default_factory=dict)
+    #: The offered-rate schedule: ``[(duration_s, rate_rps), ...]`` —
+    #: one entry for a plain ``open_loop`` run; ``offered_rps`` is its
+    #: duration-weighted mean.
+    offered_segments: list = field(default_factory=list)
 
     def _count(self, priority: str, outcome: str) -> None:
         cls = self.by_class.setdefault(
@@ -126,12 +171,13 @@ class OpenLoopResult:
             else 0.0
 
     def latency_quantiles(self) -> dict:
-        return _quantiles(self.latencies_s)
+        return _quantiles(self.latencies_s, "")
 
 
-def _quantiles(values) -> dict:
-    """p50 / p90 / p99 of the completed requests' latencies, the one
-    extraction both result types report."""
+def _quantiles(values, prefix: str) -> dict:
+    """The one p50/p90/p99 extraction every result type reports
+    (``prefix`` e.g. ``"register_"``; empty = the plain ``p50_s``
+    keys)."""
     if not values:
         return {}
     arr = np.sort(np.asarray(values))
@@ -139,8 +185,9 @@ def _quantiles(values) -> dict:
     def q(p):
         return float(arr[min(int(p * len(arr)), len(arr) - 1)])
 
-    return {"p50_s": round(q(0.50), 6), "p90_s": round(q(0.90), 6),
-            "p99_s": round(q(0.99), 6)}
+    return {f"{prefix}p50_s": round(q(0.50), 6),
+            f"{prefix}p90_s": round(q(0.90), 6),
+            f"{prefix}p99_s": round(q(0.99), 6)}
 
 
 def reconcile_against_rollup(res, rollup_before: dict,
@@ -314,6 +361,87 @@ def closed_loop(service, key_ids, *, duration_s: float, concurrency: int,
     return res
 
 
+def _session_client(service, pool: str, stop: threading.Event,
+                    res: ChurnResult, lock: threading.Lock,
+                    rng: np.random.Generator, min_points: int,
+                    max_points: int, clock, tid: int,
+                    durable: bool) -> None:
+    nb = service.n_bytes
+    n = 0
+    while not stop.is_set():
+        key_id = f"~sess/{tid}/{n}"
+        n += 1
+        m = int(rng.integers(min_points, max_points + 1))
+        xs = rng.integers(0, 256, (m, nb), dtype=np.uint8)
+        t0 = clock()
+        try:
+            service.register_key(key_id, pool=pool, durable=durable)
+            t_reg = clock()
+            f0 = service.submit(key_id, xs, b=0)
+            f1 = service.submit(key_id, xs, b=1)
+            f0.result()
+            f1.result()
+        except Exception:  # fallback-ok: a churn client must survive
+            # ANY delivered failure (sheds, injected refill/eval faults,
+            # retries-exhausted errors) — a dead client thread silently
+            # halves the offered session arrival
+            with lock:
+                res.sessions_failed += 1
+            try:
+                service.unregister_key(key_id)
+            except Exception:  # fallback-ok: best-effort cleanup of a
+                # session that may never have registered
+                pass
+            continue
+        service.unregister_key(key_id)
+        dt = clock() - t0
+        with lock:
+            res.sessions_ok += 1
+            res.points_ok += 2 * m
+            res.register_latencies_s.append(max(t_reg - t0, 0.0))
+            res.session_latencies_s.append(dt)
+
+
+def session_churn(service, *, pool: str, duration_s: float,
+                  concurrency: int, min_points: int, max_points: int,
+                  seed: int = 2026, clock=monotonic,
+                  durable: bool = False) -> ChurnResult:
+    """Fresh-key-per-session churn: each closed-loop client repeatedly
+    REGISTERS a fresh session key from the key-factory ``pool``
+    (``register_key(key_id, pool=...)``), evaluates one ragged request
+    for BOTH parties, and unregisters — the arrival pattern that
+    provisions keys instead of re-using a static set.  The service must
+    be started.  Same seeding and clock discipline as ``closed_loop``
+    (client i draws from ``seed + 13 * i``)."""
+    if min_points < 1 or min_points > max_points:
+        # api-edge: loadgen config contract at the harness edge
+        raise ValueError(
+            f"bad request-size range [{min_points}, {max_points}]")
+    res = ChurnResult(duration_s=0.0)
+    lock = threading.Lock()
+    stop = threading.Event()
+    threads = [
+        threading.Thread(
+            target=_session_client,
+            args=(service, pool, stop, res, lock,
+                  np.random.default_rng(seed + 13 * i), min_points,
+                  max_points, clock, i, durable),
+            name=f"churn-{i}", daemon=True)
+        for i in range(concurrency)
+    ]
+    t0 = clock()
+    for t in threads:
+        t.start()
+    # The generator loops on the clock by design: duration IS the bound.
+    while clock() - t0 < duration_s:
+        stop.wait(0.05)
+    stop.set()
+    for t in threads:
+        t.join()
+    res.duration_s = clock() - t0
+    return res
+
+
 def _open_collector(out_q, res: OpenLoopResult, lock: threading.Lock,
                     clock) -> None:
     from dcf_tpu_torch.errors import DeadlineExceededError, QueueFullError
@@ -363,8 +491,6 @@ def _open_collector(out_q, res: OpenLoopResult, lock: threading.Lock,
             res._count(pr, "ok")
 
 
-
-
 def open_loop(service, key_ids, *, rate_rps: float, duration_s: float,
               min_points: int, max_points: int, seed: int = 2026,
               party: int = 0, clock=monotonic,
@@ -390,16 +516,50 @@ def open_loop(service, key_ids, *, rate_rps: float, duration_s: float,
     service converts queue delay into typed ``DeadlineExceededError``
     expiries, which the result counts separately from failures."""
     import math
-    import queue as _queue
 
     if not rate_rps > 0 or not math.isfinite(rate_rps):
         # api-edge: loadgen config contract at the harness edge
         raise ValueError(
             f"rate_rps must be finite and > 0, got {rate_rps}")
-    if not (duration_s > 0 and math.isfinite(duration_s)):
+    return open_loop_ramp(
+        service, key_ids, segments=[(duration_s, rate_rps)],
+        min_points=min_points, max_points=max_points, seed=seed,
+        party=party, clock=clock, priority_mix=priority_mix,
+        skew=skew, deadline_ms=deadline_ms, collectors=collectors)
+
+
+def open_loop_ramp(service, key_ids, *, segments, min_points: int,
+                   max_points: int, seed: int = 2026, party: int = 0,
+                   clock=monotonic, priority_mix: dict | None = None,
+                   skew: float = 0.0, deadline_ms: float | None = None,
+                   collectors: int = 4) -> OpenLoopResult:
+    """Offer a piecewise schedule of Poisson arrivals: ``segments`` is
+    an ordered list of ``(duration_s, rate_rps)`` pairs, played
+    back-to-back by ONE seeded arrival process — the surge shape (ramp
+    up -> hold -> fall idle) as a single run, so the transient at each
+    boundary lands in the same coordinated-omission-free latency
+    population.  ``rate_rps`` may be 0: a quiet segment offers nothing
+    but still holds the schedule.  A draw that lands past its segment's
+    end is clamped to the boundary and the next segment's rate takes
+    over there (seeded-deterministic, like everything else here).
+    Everything not named ``segments`` behaves exactly as in
+    ``open_loop`` — which is the one-segment case of this."""
+    import math
+    import queue as _queue
+
+    segs = [(float(d), float(r)) for d, r in segments]
+    if not segs:
         # api-edge: loadgen config contract at the harness edge
-        raise ValueError(
-            f"duration_s must be finite and > 0, got {duration_s}")
+        raise ValueError("segments must be non-empty")
+    for d, r in segs:
+        if not (d > 0 and math.isfinite(d)) \
+                or not (r >= 0 and math.isfinite(r)):
+            # api-edge: loadgen config contract at the harness edge —
+            # a zero-duration or negative-rate segment is a schedule
+            # typo, not a load shape
+            raise ValueError(
+                f"each segment needs duration > 0 and rate >= 0, "
+                f"got ({d}, {r})")
     if min_points < 1 or min_points > max_points:
         # api-edge: loadgen config contract at the harness edge
         raise ValueError(
@@ -431,7 +591,10 @@ def open_loop(service, key_ids, *, rate_rps: float, duration_s: float,
 
     nb = service.n_bytes
     rng = np.random.default_rng(seed)
-    res = OpenLoopResult(duration_s=0.0, offered_rps=float(rate_rps))
+    total_s = sum(d for d, _r in segs)
+    mean_rps = sum(d * r for d, r in segs) / total_s
+    res = OpenLoopResult(duration_s=0.0, offered_rps=mean_rps,
+                         offered_segments=segs)
     lock = threading.Lock()
     out_q: _queue.Queue = _queue.Queue()
     pool = [threading.Thread(target=_open_collector,
@@ -445,46 +608,55 @@ def open_loop(service, key_ids, *, rate_rps: float, duration_s: float,
     # schedule check ends the loop.
     sleeper = threading.Event()
     t0 = clock()
-    t_next, t_end = t0, t0 + float(duration_s)
+    seg_end = t0
     # The scheduler loops on the clock by design: the arrival SCHEDULE
     # is the load definition, and latency is measured from it.
-    while True:
-        t_next += float(rng.exponential(1.0 / rate_rps))
-        if t_next >= t_end:
-            break
-        wait = t_next - clock()
-        if wait > 0:
-            sleeper.wait(wait)
-        m = int(rng.integers(min_points, max_points + 1))
-        if key_probs is None:
-            key_id = key_ids[int(rng.integers(0, len(key_ids)))]
-        else:
-            key_id = key_ids[int(
-                rng.choice(len(key_ids), p=key_probs))]
-        pr = priorities[int(rng.choice(len(priorities), p=weights))]
-        xs = rng.integers(0, 256, (m, nb), dtype=np.uint8)
-        try:
-            fut = service.submit(
-                key_id, xs, b=party,
-                deadline_ms=deadline_ms, priority=pr)
-        except QueueFullError as e:
-            with lock:
-                res.shed += 1
-                if getattr(e, "retry_after_s", None) is not None:
-                    res.shed_hinted += 1
-                res._count(pr, "shed")
+    for seg_s, rate_rps in segs:
+        t_next = seg_end  # a draw past the boundary was clamped here
+        seg_end = seg_end + seg_s
+        if rate_rps == 0:
+            # Quiet segment: offer nothing, hold the schedule.
+            wait = seg_end - clock()
+            if wait > 0:
+                sleeper.wait(wait)
             continue
-        except Exception:  # fallback-ok: the scheduler must
-            # survive ANY submit-time failure (e.g. a hot-swapped
-            # key) — a dead scheduler silently truncates the
-            # offered load.
+        while True:
+            t_next += float(rng.exponential(1.0 / rate_rps))
+            if t_next >= seg_end:
+                break
+            wait = t_next - clock()
+            if wait > 0:
+                sleeper.wait(wait)
+            m = int(rng.integers(min_points, max_points + 1))
+            if key_probs is None:
+                key_id = key_ids[int(rng.integers(0, len(key_ids)))]
+            else:
+                key_id = key_ids[int(
+                    rng.choice(len(key_ids), p=key_probs))]
+            pr = priorities[int(rng.choice(len(priorities), p=weights))]
+            xs = rng.integers(0, 256, (m, nb), dtype=np.uint8)
+            try:
+                fut = service.submit(
+                    key_id, xs, b=party,
+                    deadline_ms=deadline_ms, priority=pr)
+            except QueueFullError as e:
+                with lock:
+                    res.shed += 1
+                    if getattr(e, "retry_after_s", None) is not None:
+                        res.shed_hinted += 1
+                    res._count(pr, "shed")
+                continue
+            except Exception:  # fallback-ok: the scheduler must
+                # survive ANY submit-time failure (e.g. a hot-swapped
+                # key) — a dead scheduler silently truncates the
+                # offered load.
+                with lock:
+                    res.failed += 1
+                    res._count(pr, "failed")
+                continue
             with lock:
-                res.failed += 1
-                res._count(pr, "failed")
-            continue
-        with lock:
-            res.sent += 1
-        out_q.put((fut, t_next, m, pr))
+                res.sent += 1
+            out_q.put((fut, t_next, m, pr))
     # Drain: every accepted future completes (the service's contract),
     # so the collectors empty the queue and exit on their sentinels.
     for _ in pool:
@@ -493,5 +665,3 @@ def open_loop(service, key_ids, *, rate_rps: float, duration_s: float,
         t.join()
     res.duration_s = clock() - t0
     return res
-
-

@@ -4,10 +4,13 @@ Counterpart of ``dcf_tpu/serve/registry.py``.  The residencies are the
 port's backend instances (``Dcf.new_eval_backend``), built in the thread
 that stages them and used by the service's worker thread; their images
 are torch tensors on the facade's device, and ``device_image_bytes``
-counts every tensor an instance holds there (``_IMAGE_ATTRS``).  The
-JAX package's staged-plane handoff from the key factory
-(``put_bundle(dev_planes=...)``) is not carried: the port's backends
-stage from the bundle, and the bytes served are the same.
+counts every tensor an instance holds there (``_IMAGE_ATTRS``).  A key
+the key factory minted on the card at lam >= 48 arrives with both
+parties' narrow arrays still on the card (``dev_planes``); a backend
+that advertises ``accepts_dev_planes`` (the ``hybrid`` family) stages
+them as they are, with no host round trip, and the registry counts
+which way each staging went (``stagings_from_planes`` /
+``stagings_from_bundle``).
 
 Long-lived DCF keys are the defining asset of an online FSS service:
 a bundle is generated once, then answers queries for hours.  The
@@ -99,19 +102,33 @@ class _Entry:
     registered as, or None for a plain DCF key.  The DEVICE image is
     always the inner ``KeyBundle`` (the residency machinery is
     protocol-agnostic); the protocol record tells the service to apply
-    the per-interval share combine when it fetches a batch."""
+    the per-interval share combine when it fetches a batch.
 
-    __slots__ = ("bundle", "generation", "residents", "protocol")
+    ``planes``: ``{party: narrow arrays on the device}`` from the
+    on-device keygen (``gen.gen_on_device_with_planes``), or None.  When
+    present and the backend advertises ``accepts_dev_planes``,
+    ``resident`` stages through ``put_bundle(kb, dev_planes=...)``: the
+    narrow image never crosses to the host and back.  Budget (LRU)
+    evictions keep the planes (a re-stage reuses them); the
+    entry-invalidation hook drops them (hot-swap and unregister
+    supersede the key, and a failure eviction must not re-feed state
+    from the path that just failed)."""
 
-    def __init__(self, bundle: KeyBundle, generation: int, protocol=None):
+    __slots__ = ("bundle", "generation", "residents", "protocol",
+                 "planes")
+
+    def __init__(self, bundle: KeyBundle, generation: int, protocol=None,
+                 planes: dict | None = None):
         self.bundle = bundle
         self.generation = generation
         self.protocol = protocol
+        self.planes = planes
         self.residents: dict = {}  # slot (party int | "kl") -> _Resident
 
     def __repr__(self) -> str:  # never the bundle's bytes — shapes only
         return (f"_Entry(gen={self.generation}, "
                 f"proto={self.protocol is not None}, "
+                f"planes={self.planes is not None}, "
                 f"resident_slots={sorted(map(str, self.residents))})")
 
 
@@ -185,11 +202,18 @@ class KeyRegistry:
         self._g_registered = g("serve_registered_keys")
         self._c_evictions = self._metrics.counter("serve_evictions_total")
         self._c_stagings = self._metrics.counter("serve_key_stagings_total")
+        # Which way each staging went: from an entry's device planes, or
+        # from its host bundle.  Plain attributes, not metric series, so
+        # a snapshot stays key-for-key dcf_tpu's.
+        # guarded-by: _lock
+        self.stagings_from_planes = 0
+        # guarded-by: _lock
+        self.stagings_from_bundle = 0
 
     # -- registration -------------------------------------------------------
 
     def register(self, key_id: str, bundle: KeyBundle,
-                 protocol=None) -> int:
+                 protocol=None, dev_planes: dict | None = None) -> int:
         """Register (or replace) the bundle served under ``key_id``;
         returns the entry's generation (the durable write-through path
         publishes the frame under it).
@@ -202,6 +226,8 @@ class KeyRegistry:
         when ``bundle`` is a protocol key's inner bundle — recorded so
         the service applies the share combine at fetch time
         (``DcfService.register_key`` unwraps and passes both).
+        ``dev_planes``: both parties' narrow arrays on the device, from
+        the on-device keygen — see ``_Entry.planes``.
         """
         if bundle.s0s.shape[1] != 2:
             raise ShapeError(
@@ -218,7 +244,7 @@ class KeyRegistry:
             if prev is not None:
                 self._evict_entry(key_id, prev)
             self._entries[key_id] = _Entry(bundle, self._generation,
-                                           protocol)
+                                           protocol, dev_planes)
             self._g_registered.set(len(self._entries))
             return self._generation
 
@@ -410,7 +436,19 @@ class KeyRegistry:
                 return None
             kb = (entry.bundle if self._shared_image
                   else entry.bundle.for_party(b))
-            be.put_bundle(kb)
+            planes = (entry.planes.get(int(b))
+                      if entry.planes is not None
+                      and not self._shared_image else None)
+            if planes is not None \
+                    and getattr(be, "accepts_dev_planes", False):
+                # The on-device keygen left this party's narrow arrays
+                # on the card: stage them instead of shipping the host
+                # bundle's copy back.
+                be.put_bundle(kb, dev_planes=planes)
+                self.stagings_from_planes += 1
+            else:
+                be.put_bundle(kb)
+                self.stagings_from_bundle += 1
             self._c_stagings.inc()
             res = _Resident(be, device_image_bytes(be), self._ticks.next(),
                             entry.generation)
@@ -543,6 +581,12 @@ class KeyRegistry:
             if hasattr(res.be, "invalidate_frontier"):
                 res.be.invalidate_frontier()
         entry.residents.clear()
+        # Keygen-staged planes die with the entry: a hot-swap/unregister
+        # superseded the key they image, and a failure eviction must not
+        # re-stage from the device state that just failed (the re-stage
+        # then runs from the host bundle).  Budget (LRU) evictions do
+        # NOT route here and keep them.
+        entry.planes = None
         if n:
             self._c_evictions.inc(n)
         if self._frontier_cache is not None:

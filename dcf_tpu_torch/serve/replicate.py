@@ -243,7 +243,8 @@ class Replicator:
         return int(gen)
 
     def anti_entropy(self, target_host_id: str, *, peer_ok=None,
-                     timeout: float | None = None) -> int:
+                     timeout: float | None = None, ring=None,
+                     peers=None) -> int:
         """Converge ``target_host_id`` with its ring peers: pull the
         target's digest, ask each reachable peer for strictly-newer
         frames, and forward to the target exactly those the ring
@@ -255,9 +256,19 @@ class Replicator:
         a stale generation would be the silent-wrong-answer partition
         bug this pass exists to close.  ``peer_ok(host_id)`` excludes
         peers the caller already knows are down (their absence is
-        accounted by THEIR health state, not this pass)."""
+        accounted by THEIR health state, not this pass).
+
+        ``ring`` / ``peers`` (the membership controller's reuse):
+        ``ring`` overrides the live map — the PROSPECTIVE ring for a
+        join's pre-admission warm, the post-eject or post-drain ring for
+        a migration — and decides the placement filter; ``peers``
+        overrides the source host ids consulted (a draining host has
+        left the new ring but is the primary source of its own keys; a
+        joining host is not in the old ring at all).  The defaults are
+        the recovery gate's: the live ring, every OTHER member a
+        peer."""
         timeout = self._timeout_s if timeout is None else timeout
-        ring = self._ring()
+        ring = self._ring() if ring is None else ring
         target_pool = self._pools.get(target_host_id)
         if target_pool is None:
             raise BackendUnavailableError(
@@ -266,7 +277,8 @@ class Replicator:
         digest = target_pool.pull_digest(timeout)
         self._c_ae_runs.inc()
         pulled = 0
-        for peer_id in ring.host_ids():
+        peer_ids = list(peers) if peers is not None else ring.host_ids()
+        for peer_id in peer_ids:
             if peer_id == target_host_id:
                 continue
             if peer_ok is not None and not peer_ok(peer_id):

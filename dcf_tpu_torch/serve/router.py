@@ -495,6 +495,14 @@ class DcfRouter:
             return False
         return True
 
+    def loads(self) -> dict:
+        """The freshest per-shard ``edge.LoadSample`` by host id, as
+        sampled off the prober's PING/PONG round trips.  ``None`` means
+        the shard answers probes but exposes no load surface; absent
+        means it never answered.  The demand feed the capacity
+        controller (``serve.capacity``) aggregates."""
+        return self.health.loads()
+
     def start_health(self) -> "DcfRouter":
         """Start the active prober thread (production mode; tests
         drive ``self.health.pump()`` deterministically instead)."""
@@ -860,10 +868,13 @@ class DcfRouter:
 
     # -- mesh co-evaluation --------------------------------------------
 
-    def set_mesh(self, host_ids=None) -> MeshGroup:
+    def set_mesh(self, host_ids=None, *, epoch: int | None = None
+                 ) -> MeshGroup:
         """Form (or re-form) the co-evaluation mesh group from ring
         members — default: every current member.  The group is fenced
-        at the CURRENT ring epoch: a later ``set_ring`` epoch bump invalidates it, and
+        at the CURRENT ring epoch (or an explicit ``epoch``, for a
+        controller forming the group inside the same membership
+        commit): a later ``set_ring`` epoch bump invalidates it, and
         the next qualifying dispatch degrades to route-mode until the
         group is re-formed — a scatter can never land on an ejected
         host's successor ring by accident."""
@@ -875,7 +886,8 @@ class DcfRouter:
                 raise ValueError(
                     f"mesh worker {host_id!r} is not in the ring "
                     f"({self.map.host_ids()})")
-        group = MeshGroup(ids, epoch=self.ring_epoch)
+        group = MeshGroup(
+            ids, epoch=self.ring_epoch if epoch is None else int(epoch))
         self.mesh_group = group
         self._g_mesh_workers.set(len(group))
         return group
@@ -924,14 +936,17 @@ class DcfRouter:
 
     # -- ring membership (bounded state) -------------------------------
 
-    def set_ring(self, shards, *, epoch: int | None = None) -> None:
+    def set_ring(self, shards, *, epoch: int | None = None,
+                 retain=()) -> None:
         """Swap the shard ring atomically (``ShardMap`` or an iterable
         of ``ShardSpec``).  Removed hosts are FORGOTTEN — pool closed,
         suspect/backoff/health state dropped, labeled metric series
         removed (the ``BreakerBoard.forget`` cardinality discipline:
         host churn must not grow router state or its snapshot without
-        limit).  Added hosts get fresh pools and health targets; a
-        host whose ADDRESS changed (same id) is re-dialed.  In-flight
+        limit).  Added hosts get fresh pools and health targets (a pool
+        installed ahead of time by ``preconnect`` — the membership
+        controller's pre-admission warm — is reused); a host whose
+        ADDRESS changed (same id) is re-dialed.  In-flight
         requests keep the ranking they started with (the old map
         reference stays valid — ``ShardMap`` is immutable).
 
@@ -939,7 +954,11 @@ class DcfRouter:
         committed under — strictly monotonic; subsequent forwards,
         registrations and probes carry it, so shards structurally
         refuse any router still routing on the pre-change ring
-        (``E_EPOCH``).  None leaves the epoch untouched."""
+        (``E_EPOCH``).  None leaves the epoch untouched.  ``retain``:
+        removed host ids whose pool and health state must be KEPT for
+        now — a graceful drain's in-flight window; the membership
+        controller calls ``forget_host`` once the drain grace
+        elapses."""
         new = shards if isinstance(shards, ShardMap) \
             else ShardMap(shards)
         if epoch is not None and epoch <= self.ring_epoch:
@@ -949,6 +968,7 @@ class DcfRouter:
             raise ValueError(
                 f"ring epoch must be strictly monotonic: got {epoch} "
                 f"at current epoch {self.ring_epoch}")
+        retain = frozenset(retain)
         old_ids = {s.host_id: s for s in self.map.hosts()}
         new_ids = {s.host_id: s for s in new.hosts()}
         # Added hosts get their pools BEFORE the map swaps: a submit
@@ -957,7 +977,17 @@ class DcfRouter:
         # window where placement names a host with no pool).
         for host_id, spec in new_ids.items():
             if host_id not in old_ids:
-                self._pools[host_id] = self._make_pool(spec)
+                pool = self._pools.get(host_id)
+                if pool is not None and (pool.host, pool.port) \
+                        != spec.address:
+                    # A retained (drain-grace) or preconnected pool
+                    # wired to a DIFFERENT endpoint than the spec being
+                    # admitted: reusing it would route every forward
+                    # for this host to the old address.  Re-dial.
+                    pool.close()
+                    pool = None
+                if pool is None:  # else: the preconnect's pool
+                    self._pools[host_id] = self._make_pool(spec)
                 self._c_forwards[host_id] = self.metrics.counter(
                     labeled("router_forwards_total", shard=host_id))
                 self._c_suspected[host_id] = self.metrics.counter(
@@ -983,8 +1013,43 @@ class DcfRouter:
             self._g_epoch.set(self.ring_epoch)
         self.map = new  # atomic reference swap
         for host_id in old_ids:
-            if host_id not in new_ids:
+            if host_id not in new_ids and host_id not in retain:
                 self._forget_host(host_id)
+
+    def preconnect(self, spec: ShardSpec) -> EdgeClientPool:
+        """Install (or return) a pool for a host NOT yet in the ring:
+        the membership controller dials a joining host to warm it
+        through the anti-entropy path BEFORE admission, so the first
+        routed request finds a warm shard.  Routing never consults
+        pools of unmapped hosts, so the link is inert until ``set_ring``
+        admits the host (reusing this pool); an aborted join cleans up
+        with ``forget_host``."""
+        pool = self._pools.get(spec.host_id)
+        if pool is not None and (pool.host, pool.port) != spec.address:
+            # A leftover pool (a drain's retained link, or an earlier
+            # preconnect) wired to another endpoint: warming through it
+            # would warm the WRONG process.  Re-dial.
+            pool.close()
+            pool = None
+        if pool is None:
+            pool = self._make_pool(spec)
+            self._pools[spec.host_id] = pool
+        return pool
+
+    def forget_host(self, host_id: str) -> None:
+        """Drop a host's pool, suspicion and health state and its
+        labeled series: the deferred half of a ``set_ring(...,
+        retain=...)`` drain (the pool outlives the swap while in-flight
+        relayed requests complete against it), and the cleanup of an
+        aborted ``preconnect``.  Idempotent; refuses to forget a
+        CURRENT ring member (placement would name a host with no
+        link)."""
+        if host_id in self.map:
+            # api-edge: membership contract
+            raise ValueError(
+                f"host {host_id!r} is still in the ring; swap it out "
+                "with set_ring before forgetting its state")
+        self._forget_host(host_id)
 
     def _forget_host(self, host_id: str) -> None:
         """Drop EVERY piece of per-host router state for a host that

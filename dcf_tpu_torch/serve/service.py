@@ -480,6 +480,7 @@ class DcfService:
         deliberately leaves the previous durable snapshot in the store
         (durability is opt-in per write; a crash then restores the
         last DURABLE generation)."""
+        dev_planes = None
         claimed_pool_id = ""
         if bundle is None:
             if pool is None:
@@ -491,6 +492,7 @@ class DcfService:
             minted = self.keyfactory.claim(pool)
             bundle = (minted.protocol if minted.protocol is not None
                       else minted.bundle)
+            dev_planes = minted.planes
             claimed_pool_id = minted.pool_id  # "" for fallback mints
         elif pool is not None:
             # api-edge: registration contract (an explicit bundle and a
@@ -518,7 +520,8 @@ class DcfService:
                 f"register_key({key_id!r}, durable=True) needs a "
                 "configured store (ServeConfig.store_dir)")
         generation = self.registry.register(key_id, bundle,
-                                            protocol=protocol)
+                                            protocol=protocol,
+                                            dev_planes=dev_planes)
         if durable:
             # A durable POOL claim folds the spent ~pool/ frame's
             # delete into the same manifest flip that publishes the

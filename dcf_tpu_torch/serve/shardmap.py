@@ -114,7 +114,34 @@ class ShardMap:
     def get(self, host_id: str) -> ShardSpec | None:
         return self._by_id.get(host_id)
 
+    def with_host(self, shard: ShardSpec) -> "ShardMap":
+        """A new ring with ``shard`` added (or its address updated —
+        same ``host_id`` replaces the member, which moves no keys)."""
+        kept = [s for s in self._shards if s.host_id != shard.host_id]
+        return ShardMap([*kept, shard])
+
+    def without_host(self, host_id: str) -> "ShardMap":
+        """A new ring with ``host_id`` removed — exactly that host's
+        keys move, each to the host its rendezvous ranking has next."""
+        if host_id not in self._by_id:
+            # api-edge: ring membership contract (removing an unknown
+            # id is a caller bookkeeping bug, not a no-op)
+            raise ValueError(f"host {host_id!r} is not in the ring "
+                             f"({self.host_ids()})")
+        return ShardMap([s for s in self._shards if s.host_id != host_id])
+
     # -- placement -----------------------------------------------------
+
+    def peers(self, host_id: str) -> tuple[ShardSpec, ...]:
+        """Every OTHER member of the ring: the anti-entropy exchange set
+        for ``host_id`` (a healed shard converges with its peers, never
+        with itself).  Raises for an unknown id, as ``without_host``
+        does."""
+        if host_id not in self._by_id:
+            # api-edge: ring membership contract
+            raise ValueError(f"host {host_id!r} is not in the ring "
+                             f"({self.host_ids()})")
+        return tuple(s for s in self._shards if s.host_id != host_id)
 
     def ranked(self, key_id: str) -> list[ShardSpec]:
         """Every host, descending rendezvous score for ``key_id``:
@@ -148,8 +175,9 @@ class ShardMap:
 
     def placement_ids(self, key_id: str, replicas: int = 1) -> set:
         """``placement`` as a host-id SET: the router's mesh
-        registration and the replicator's anti-entropy filter both ask
-        "does host X hold this key?" — one spelling."""
+        registration, the replicator's anti-entropy filter and the
+        membership controller all ask "does host X hold this key?" —
+        one spelling."""
         return {s.host_id for s in self.placement(key_id, replicas)}
 
     def __repr__(self) -> str:

@@ -78,6 +78,22 @@ POINTS = (
     #               handler args: peer tag, bytes wanted.  A raising
     #               handler kills that one connection, typed; latency(clock,
     #               s) here is the slow-client seam)
+    "membership.migrate",  # one live-convergence pass of a ring change
+    #                        (serve/membership.py, before any frame moves;
+    #                        handler args: sorted target host ids, the new
+    #                        ring's size.  A raising handler models a
+    #                        migration source dying mid-change: the eject,
+    #                        join or drain aborts typed and counted,
+    #                        membership_change_failures_total, the ring
+    #                        stays on its last committed epoch, and a later
+    #                        pump retries it)
+    "capacity.decide",  # one capacity-controller tick, after its verdict
+    #                     is computed and before the hysteresis acts on it
+    #                     (serve/capacity.py; handler args: the verdict's
+    #                     kind, the CapacityVerdict.  Raising
+    #                     capacity.ForcedVerdict(kind) forces that kind for
+    #                     the tick; any other raise freezes the tick,
+    #                     counted capacity_skips_total{reason=frozen})
     "mesh.collective",  # one co-evaluated router batch, before any slice
     #                     is scattered (serve/router.py; handler args: batch
     #                     points, worker count.  A raising handler models a

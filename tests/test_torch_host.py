@@ -211,12 +211,13 @@ def test_prepare_batch_pads_and_promotes():
 def _port_sources():
     files = sorted((REPO / "dcf_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py", REPO / "chip_ab.py",
-                    REPO / "bench_torch.py"]
+                    REPO / "chip_phase22.py", REPO / "bench_torch.py"]
 
 
 def test_port_imports_neither_jax_nor_dcf_tpu():
     """AST scan of every module of the port (its C++ core's loader
-    included), chip_smoke.py, chip_ab.py and bench_torch.py: no ``import
+    included), chip_smoke.py, chip_ab.py, chip_phase22.py and
+    bench_torch.py: no ``import
     jax``/``from jax`` and nothing of ``dcf_tpu`` (whose ``__init__``
     imports jax)."""
     files = _port_sources()
@@ -235,7 +236,8 @@ def test_port_imports_neither_jax_nor_dcf_tpu():
                 "serve/edge.py", "serve/router.py", "serve/health.py",
                 "serve/shardmap.py", "serve/meshgroup.py",
                 "serve/replicate.py", "serve/loadgen.py",
-                "serve/service.py", "errors.py"):
+                "serve/service.py", "serve/membership.py",
+                "serve/capacity.py", "testing/lockwatch.py", "errors.py"):
         assert f"dcf_tpu_torch/{sub}" in scanned
     assert "bench_torch.py" in scanned
     banned = ("jax", "jaxlib", "dcf_tpu")
@@ -286,9 +288,9 @@ def _public_names(module) -> set:
     return names
 
 
-#: ``dcf_tpu.serve`` names whose modules are still queued (ROADMAP.md).
-SERVE_QUEUED = {"CapacityController", "CapacityEvent", "CapacityVerdict",
-                "MembershipController", "MembershipEvent"}
+#: ``dcf_tpu.serve`` names whose modules are still queued (ROADMAP.md):
+#: none since the membership and capacity controllers were ported.
+SERVE_QUEUED: set = set()
 
 
 def test_top_level_and_serve_names_include_dcf_tpus():
@@ -308,3 +310,7 @@ def test_top_level_and_serve_names_include_dcf_tpus():
     for mod in (dcf_tpu_torch, tserve):
         for name in mod.__all__:
             assert getattr(mod, name) is not None, name
+    import dcf_tpu_torch.testing as ttesting
+
+    assert set(ttesting.lockwatch.__all__) == {
+        "LockWatch", "WatchedLock", "WatchedRLock", "arm", "disarm"}
