@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -67,46 +66,12 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def card_name(device) -> str:
-    """The card's name and power limit as nvidia-smi gives them, or
-    ``"cpu"``."""
-    if device.type != "cuda":
-        return "cpu"
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
 def pinned_baseline() -> dict:
     """The pinned single-core C++ rate; raises if the file is missing."""
     with open(BASELINE) as f:
         pinned = json.load(f)
     return {"evals_per_sec": float(pinned["evals_per_sec"]),
             "date": pinned["date"]}
-
-
-def time_samples(torch, device, fn, samples: int) -> list[float]:
-    """Seconds of each of ``samples`` calls of ``fn``, the card
-    synchronised before each: CUDA events on the card, the host clock on
-    the CPU."""
-    times = []
-    for _ in range(samples):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            fn()
-            stop.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(stop) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-    return times
 
 
 def run(device: str = "cuda", points: int = M_MAIN,
@@ -118,6 +83,7 @@ def run(device: str = "cuda", points: int = M_MAIN,
     from dcf_tpu_torch.backends._common import resolve_device
     from dcf_tpu_torch.backends.prefix_backend import PrefixBackend
     from dcf_tpu_torch.backends.walk_backend import WalkBackend
+    from dcf_tpu_torch.cli import card_label, device_samples
     from dcf_tpu_torch.gen import random_s0s
     from dcf_tpu_torch.native import NativeDcf
     from dcf_tpu_torch.spec import Bound
@@ -127,7 +93,7 @@ def run(device: str = "cuda", points: int = M_MAIN,
         raise ValueError("points must be a positive multiple of 32")
     dev = resolve_device(device)
     samples = SAMPLES if dev.type == "cuda" else 2
-    card = card_name(dev)
+    card = card_label(dev)
     log(f"device: {card}; torch {torch.__version__}")
     baseline = pinned_baseline()
 
@@ -183,9 +149,8 @@ def run(device: str = "cuda", points: int = M_MAIN,
                           "points")
     del y1, be1
 
-    times = np.array(time_samples(torch, dev,
-                                  lambda: be0.eval_staged(0, staged),
-                                  samples))
+    times = np.array(device_samples(lambda: be0.eval_staged(0, staged),
+                                    samples, dev))
     med = float(np.median(times))
     mad = float(np.median(np.abs(times - med)))
     rate = points / med

@@ -176,31 +176,38 @@ class Dcf:
                  backend: str = "auto", backend_opts: dict | None = None,
                  device=None):
         if n_bytes < 1:
+            # api-edge: constructor argument contract
             raise ValueError("n_bytes must be >= 1")
         if lam < 16 or lam % 16:
+            # api-edge: constructor lam contract (reference parity)
             raise ValueError(f"lam must be a multiple of 16 bytes, got {lam}")
         name = backend if backend != "auto" else (
             "walk" if lam <= 32 else "hybrid")
         if name not in _BACKENDS:
             later = _LATER.get(name)
+            # api-edge: documented backend-name contract at the facade edge
             raise ValueError(
                 f"backend {name!r} is not in this package; it has "
                 f"{', '.join(_BACKENDS)} and auto"
                 + (f" (ROADMAP.md: {later})" if later else ""))
         if name in ("prefix", "keylanes") and lam != 16:
+            # api-edge: documented backend/shape contract at the facade edge
             raise ValueError(
                 f"the {name} backend supports lam=16 only (got {lam}); use "
                 + ("walk" if lam == 32 else "hybrid"))
         if name == "walk" and lam > 32:
+            # api-edge: documented backend/shape contract at the facade edge
             raise ValueError(
                 f"the walk backend supports lam=16 and lam=32 (got {lam}); "
                 "use hybrid")
         if name == "hybrid" and lam < 48:
+            # api-edge: documented backend/shape contract at the facade edge
             raise ValueError(
                 f"the hybrid (large-lambda) backend wants lam >= 48 (got "
                 f"{lam}); use walk" + (" or prefix" if lam == 16 else ""))
         self._backend_opts = dict(backend_opts or {})
         if self._backend_opts and name in ("numpy", "cpu", "keylanes"):
+            # api-edge: documented backend_opts contract at the facade edge
             raise ValueError(
                 f"backend_opts {sorted(self._backend_opts)} do not apply to "
                 f"the {name} backend"
@@ -210,6 +217,7 @@ class Dcf:
         if name == "hybrid":
             for opt in sorted(self._backend_opts):
                 if opt != "prefix_levels":
+                    # api-edge: documented backend_opts contract at the facade edge
                     raise ValueError(
                         f"backend_opts {opt!r} does not apply to the port's "
                         "hybrid backend: "
@@ -274,6 +282,7 @@ class Dcf:
         from dcf_tpu_torch.serve import DcfService, ServeConfig
 
         if config is not None and knobs:
+            # api-edge: either a config object or keywords, not both
             raise ValueError("pass either config= or individual knobs")
         if config is None:
             config = ServeConfig(**knobs)
@@ -287,6 +296,7 @@ class Dcf:
         if device is None:
             return kernel
         if device and not kernel:
+            # api-edge: documented device= keygen route contract
             raise ValueError(why)
         return bool(device)
 
@@ -427,8 +437,11 @@ class Dcf:
         entropy if None)."""
         if s0s is not None:
             return s0s
-        return random_s0s(k_num, self.lam,
-                          rng if rng is not None else np.random.default_rng())
+        return random_s0s(
+            k_num, self.lam,
+            # dcflint: disable=determinism fresh key seeds MUST be
+            # unpredictable (OS entropy); pass rng= to reproduce
+            rng if rng is not None else np.random.default_rng())
 
     def dpf(self, alphas: np.ndarray, betas: np.ndarray | None = None,
             s0s: np.ndarray | None = None,
@@ -499,6 +512,7 @@ class Dcf:
             s, t = dpf_tree_expand_np(self._prg, kb, b, kb.n_bits)
             return dpf_finalize_np(kb, s, t), t
         if self.lam != DPF_DEVICE_LAM:
+            # api-edge: documented eval_all device-width contract
             raise ValueError(
                 f"eval_all has a kernel at lam={DPF_DEVICE_LAM} only (got "
                 f"lam={self.lam}); pass device=False for the host expansion")
@@ -530,6 +544,7 @@ class Dcf:
         n_key = 8 * self.n_bytes
         n_bits = n_key if n_bits is None else int(n_bits)
         if not n_key - 8 < n_bits <= n_key:
+            # api-edge: documented PIR database-domain contract at the facade edge
             raise ValueError(
                 f"a 2^{n_bits}-record database wants keys over "
                 f"{(n_bits + 7) // 8} bytes, this facade has n_bytes="

@@ -25,15 +25,30 @@ __all__ = ["validate_xs", "pad_xs", "prepare_batch", "resolve_device",
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
-    for the CPU.  ``None`` means ``cuda``; a CUDA request on a host
-    without CUDA raises instead of running somewhere else."""
-    dev = torch.device("cuda" if device is None else device)
+    for the CPU.  ``device`` is ``None`` (meaning ``cuda``), ``cuda``,
+    ``cuda:N``, ``cpu`` or a ``torch.device``.  A CUDA device that this
+    host does not have raises ``BackendUnavailableError`` instead of
+    running somewhere else; any other spelling raises ``ValueError``."""
+    try:
+        dev = torch.device("cuda" if device is None else device)
+    except RuntimeError as e:
+        # api-edge: documented device-selection contract of every entry point
+        raise ValueError(f"device must be cuda, cuda:N or cpu, got "
+                         f"{device!r}") from e
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
-    if dev.type == "cuda" and not torch.cuda.is_available():
+        # api-edge: documented device-selection contract of every entry point
+        raise ValueError(f"device must be cuda, cuda:N or cpu, got {dev}")
+    if dev.type == "cpu":
+        return dev
+    if not torch.cuda.is_available():
         raise BackendUnavailableError(
-            "CUDA is not available on this host; pass device='cpu' to run "
-            "the plain PyTorch versions of the kernels")
+            "CUDA is not available on this host; pass device='cpu' (or "
+            "--device cpu) to run the plain PyTorch versions of the "
+            "kernels")
+    if dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise BackendUnavailableError(
+            f"{dev} asked for, but this host has "
+            f"{torch.cuda.device_count()} CUDA device(s)")
     return dev
 
 

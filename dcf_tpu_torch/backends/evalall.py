@@ -112,9 +112,11 @@ class DpfEvalAll(StagedFrontierCache):
     def __init__(self, lam: int, cipher_keys: Sequence[bytes],
                  host_levels: int = 0, device=None):
         if lam != DPF_DEVICE_LAM:
+            # api-edge: constructor lam contract (the two-block narrow width)
             raise ValueError(
                 f"DpfEvalAll supports lam={DPF_DEVICE_LAM} only, got {lam}")
         if host_levels < 0:
+            # api-edge: constructor host_levels contract
             raise ValueError(f"host_levels must be >= 0, got {host_levels}")
         used = hirose_used_cipher_indices(lam, len(cipher_keys))
         self.lam = lam

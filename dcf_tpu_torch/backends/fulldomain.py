@@ -99,9 +99,11 @@ class TreeFullDomain(StagedFrontierCache):
     def __init__(self, lam: int, cipher_keys: Sequence[bytes],
                  host_levels: int = 6, device=None):
         if lam != 16:
+            # api-edge: constructor lam contract
             raise ValueError(f"TreeFullDomain supports lam=16 only, "
                              f"got {lam}")
         if host_levels < 0:
+            # api-edge: constructor host_levels contract
             raise ValueError(f"host_levels must be >= 0, got {host_levels}")
         used = hirose_used_cipher_indices(lam, len(cipher_keys))
         self.lam = lam

@@ -50,6 +50,7 @@ class KeyLanesBackend:
 
     def __init__(self, lam: int, cipher_keys: Sequence[bytes], device=None):
         if lam != 16:
+            # api-edge: constructor lam contract
             raise ValueError(
                 f"KeyLanesBackend supports lam=16 only (got {lam})")
         used = hirose_used_cipher_indices(lam, len(cipher_keys))

@@ -55,9 +55,11 @@ class PrefixBackend(FrontierConsumerMixin, WalkBackend):
                  host_levels: int = 6, device=None):
         super().__init__(lam, cipher_keys, device=device)
         if prefix_levels < host_levels:
+            # api-edge: constructor prefix_levels contract
             raise ValueError(
                 f"prefix_levels must be >= host_levels={host_levels}")
         if host_levels < 5:
+            # api-edge: constructor host_levels contract
             raise ValueError("need at least 5 host levels")
         self.prefix_levels = min(prefix_levels, MAX_PREFIX_LEVELS)
         self.host_levels = host_levels
@@ -126,6 +128,7 @@ class PrefixBackend(FrontierConsumerMixin, WalkBackend):
         a put_bundle that changed k (a different key count) or n would pair
         the points with the wrong frontier depth."""
         if "k" not in staged:
+            # api-edge: documented staged-protocol contract (a non-prefix dict)
             raise ValueError("staged dict is not from a prefix backend's "
                              "stage")
         k_now, n_now = self._k(), self._dims()[1]

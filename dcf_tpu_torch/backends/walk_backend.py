@@ -54,6 +54,7 @@ class WalkBackend:
 
     def __init__(self, lam: int, cipher_keys: Sequence[bytes], device=None):
         if lam not in (16, 32):
+            # api-edge: constructor lam contract
             raise ValueError(
                 f"WalkBackend supports lam=16 and lam=32 (got {lam}); "
                 "lam >= 48 is the hybrid backend's (LargeLambdaBackend)")

@@ -205,6 +205,7 @@ class KeyBundle:
         if self.s0s.shape[1] != 2:
             raise ShapeError("bundle already restricted to one party")
         if b not in (0, 1):
+            # api-edge: documented party-index contract
             raise ValueError(f"party must be 0 or 1, got {b}")
         return KeyBundle(
             s0s=self.s0s[:, b: b + 1].copy(),

@@ -178,6 +178,7 @@ class NativeDcf:
                  num_threads: int | None = None, portable: bool = False):
         hirose_used_cipher_indices(lam, len(cipher_keys))
         if any(len(k) != 32 for k in cipher_keys):
+            # api-edge: constructor cipher-key contract
             raise ValueError("all cipher keys must be 32 bytes (AES-256)")
         self.lam = lam
         self.num_threads = num_threads or os.cpu_count() or 1
@@ -187,6 +188,7 @@ class NativeDcf:
         rc = self._lib.dcf_prg_init(self._prg, lam, keys.ctypes.data,
                                     len(cipher_keys))
         if rc != 0:
+            # api-edge: C-core init rejected the (lam, keys) arguments
             raise ValueError(f"dcf_prg_init failed with code {rc}")
 
     @property

@@ -72,7 +72,7 @@ def key_slices(k_num: int, limit: int = MAX_GRID_Y) -> list[tuple[int, int]]:
     whose key index is ``gridDim.y``, its key arrays offset by the first
     key's rows."""
     if limit < 1:
-        raise ValueError(f"a slice holds at least one key, got {limit}")
+        raise ShapeError(f"a slice holds at least one key, got {limit}")
     return [(k0, min(limit, k_num - k0)) for k0 in range(0, k_num, limit)]
 
 

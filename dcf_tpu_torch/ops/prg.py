@@ -15,6 +15,7 @@ from typing import Sequence
 
 import numpy as np
 
+from dcf_tpu_torch.errors import ShapeError
 from dcf_tpu_torch.ops.aes import aes256_encrypt_np, expand_key_np
 from dcf_tpu_torch.spec import hirose_used_cipher_indices
 
@@ -54,7 +55,7 @@ class HirosePrgNp:
     def gen(self, seeds: np.ndarray) -> PrgOut:
         lam = self.lam
         if seeds.dtype != np.uint8 or seeds.shape[-1] != lam:
-            raise ValueError(f"seeds must be uint8 [..., {lam}]")
+            raise ShapeError(f"seeds must be uint8 [..., {lam}]")
         seed_p = seeds ^ np.uint8(0xFF)
         batch = seeds.shape[:-1]
         buf0 = np.zeros((*batch, 2, lam), dtype=np.uint8)

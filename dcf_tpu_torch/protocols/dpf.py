@@ -166,6 +166,7 @@ class DpfBundle:
         """Restrict to party ``b``'s seed column (the correction words
         are shared by both parties and stay whole)."""
         if b not in (0, 1):
+            # api-edge: documented party-index contract
             raise ValueError(f"party must be 0 or 1, got {b}")
         if self.s0s.shape[1] != 2:
             raise ShapeError("bundle is already party-restricted")
@@ -306,6 +307,7 @@ def dpf_gen_on_device(lam: int, cipher_keys, alphas: np.ndarray,
     from dcf_tpu_torch.testing.faults import fire
 
     if lam != DPF_DEVICE_LAM:
+        # api-edge: documented device-width contract (two AES blocks)
         raise ValueError(
             f"DPF keygen on the device is for lam={DPF_DEVICE_LAM} (two AES "
             f"blocks), got {lam}; other widths take dpf_gen_batch")
@@ -324,6 +326,7 @@ def dpf_eval_points(prg: HirosePrgNp, bundle: DpfBundle, b: int,
     initial t bit either way.
     """
     if b not in (0, 1):
+        # api-edge: documented party-index contract
         raise ValueError(f"party must be 0 or 1, got {b}")
     xs = np.asarray(xs, dtype=np.uint8)
     if xs.ndim != 2 or 8 * xs.shape[1] != bundle.n_bits:

@@ -136,6 +136,7 @@ def interval_bound_alphas(
     pub = np.zeros(m, dtype=np.int8 if signed else np.uint8)
     for i, (p, q) in enumerate(intervals):
         if not (0 <= p <= n_total and 0 <= q <= n_total):
+            # api-edge: documented interval-bound contract
             raise ValueError(
                 f"interval {i} bounds must lie in [0, {n_total}], "
                 f"got ({p}, {q})")
@@ -223,6 +224,7 @@ class ProtocolBundle:
         if self.combine_masks.shape[0] == 1:
             return self.combine_masks[0]
         if b not in (0, 1):
+            # api-edge: documented party-index contract
             raise ValueError(f"party must be 0 or 1, got {b}")
         return self.combine_masks[b]
 

@@ -57,6 +57,7 @@ class MicEvaluator:
 
     def __init__(self, dcf, pb: ProtocolBundle, b: int):
         if b not in (0, 1):
+            # api-edge: documented party-index contract
             raise ValueError(f"party must be 0 or 1, got {b}")
         self._dcf = dcf
         self._pb = pb
@@ -98,5 +99,6 @@ class MicEvaluator:
         group add of this evaluator's shares with ``other``'s (the
         opposite party) — XOR in the default group."""
         if other._b == self._b:
+            # api-edge: documented two-party contract
             raise ValueError("reconstruct_with wants the OPPOSITE party")
         return np_group_add(self.eval(xs), other.eval(xs), self._group)

@@ -63,6 +63,7 @@ def points_to_ints(xs: np.ndarray) -> list[int]:
 
 def _check_bounds(p: int, q: int, n: int) -> None:
     if not (0 <= p <= n and 0 <= q <= n):
+        # api-edge: documented interval-bound contract
         raise ValueError(
             f"interval bounds must lie in [0, {n}], got ({p}, {q})")
 
@@ -90,6 +91,7 @@ def dpf_oracle(xs: np.ndarray, alpha: int, beta: np.ndarray) -> np.ndarray:
     """
     n_total = 1 << (8 * xs.shape[1])
     if not 0 <= alpha < n_total:
+        # api-edge: documented point contract (alpha is a domain value)
         raise ValueError(f"alpha must lie in [0, {n_total}), got {alpha}")
     beta = np.asarray(beta, dtype=np.uint8)
     hit = np.asarray([x == alpha for x in points_to_ints(xs)], dtype=bool)

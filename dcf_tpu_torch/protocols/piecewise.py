@@ -42,12 +42,15 @@ def partition_intervals(cuts: Sequence[int],
     n_total = 1 << n_bits
     m = len(cuts)
     if m == 0:
+        # api-edge: documented breakpoint contract
         raise ValueError("need at least one breakpoint")
     for i, c in enumerate(cuts):
         if not 0 <= c < n_total:
+            # api-edge: documented breakpoint contract
             raise ValueError(
                 f"cut {i} must lie in [0, {n_total}), got {c}")
         if i and c <= cuts[i - 1]:
+            # api-edge: documented breakpoint contract
             raise ValueError(
                 f"cuts must be strictly increasing, got {cuts[i - 1]} "
                 f"then {c}")

@@ -71,9 +71,11 @@ GROUP_WIDTH = {"add8": 8, "add16": 16, "add32": 32}  # lane width, bits
 def check_group(group: str, lam: int) -> None:
     """Validate a group name against a payload width (API edge)."""
     if group not in GROUP_CODE:
+        # api-edge: documented output-group contract
         raise ValueError(
             f"unknown output group {group!r}; expected one of {GROUPS}")
     if group != "xor" and (8 * lam) % GROUP_WIDTH[group] != 0:
+        # api-edge: additive lanes must tile the payload exactly
         raise ValueError(
             f"group {group!r} needs lam*8={8 * lam} divisible by "
             f"{GROUP_WIDTH[group]}")
@@ -165,6 +167,7 @@ _RCON = [0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x40, 0x80, 0x1B, 0x36, 0x6C]
 def aes256_expand_key(key: bytes) -> list[bytes]:
     """Expand a 32-byte AES-256 key into 15 round keys of 16 bytes each."""
     if len(key) != 32:
+        # api-edge: documented AES-256 key contract (reference parity)
         raise ValueError("AES-256 key must be 32 bytes")
     nk, nr = 8, 14
     w = [key[4 * i: 4 * i + 4] for i in range(nk)]
@@ -241,9 +244,11 @@ def hirose_used_cipher_indices(lam: int, num_keys: int,
     (internal constructions, such as the hybrid's narrow sub-walk of a
     larger shape, are not API edges)."""
     if lam % 16 != 0:
+        # api-edge: documented Hirose lam contract (reference parity)
         raise ValueError("lam must be a multiple of 16 bytes")
     used = [17 * k for k in range(min(2, lam // 16))]
     if used and used[-1] >= num_keys:
+        # api-edge: documented cipher-key-count contract (reference parity)
         raise ValueError(
             f"lam={lam} uses cipher indices {used}; got {num_keys} keys")
     if not warn:

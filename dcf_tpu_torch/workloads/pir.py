@@ -66,6 +66,7 @@ class PirDatabase:
                 f"records must be uint8 [num_records, record_bytes], got "
                 f"{records.dtype} {records.shape}")
         if n_bits < 1:
+            # api-edge: database-domain contract (one record per domain value)
             raise ValueError(f"n_bits={n_bits} must be >= 1")
         if records.shape[0] != 1 << n_bits:
             raise ShapeError(
@@ -143,6 +144,7 @@ def pir_query_alphas(indices, n_bits: int) -> np.ndarray:
     pad = n_key - n_bits
     for i in idx:
         if not 0 <= i < (1 << n_bits):
+            # api-edge: query contract at the client edge
             raise ValueError(
                 f"record index {i} outside the 2^{n_bits}-record database")
     return np.array(
@@ -180,6 +182,7 @@ class PirServer:
     def __init__(self, evaluator, db: PirDatabase, registry, *,
                  retries: int = 1):
         if retries < 0:
+            # api-edge: retry contract (0 = single attempt)
             raise ValueError(f"retries must be >= 0, got {retries}")
         self.evaluator = evaluator
         self.db = db
@@ -204,6 +207,7 @@ class PirServer:
         """Party ``b``'s answer shares for the K queries registered under
         ``key_id``: uint8 [K, record_bytes]."""
         if b not in (0, 1):
+            # api-edge: party selector contract at the serve edge
             raise ValueError(f"party must be 0 or 1, got {b}")
         bundle, _protocol, generation = self.registry.snapshot(key_id)
         if not isinstance(bundle, DpfBundle):
@@ -223,8 +227,8 @@ class PirServer:
                 fire("serve.eval", key_id, bundle.num_keys)
                 t_words = self._selection(key_id, b, bundle, generation)
                 return pir_answer_share(t_words, self.db)
-            except Exception as e:  # counted and bounded: the retry
-                # follows, and exhaustion re-raises the last error
+            except Exception as e:  # fallback-ok: counted, bounded
+                # retry below; exhaustion re-raises the last error
                 last = e
                 self.eval_faults += 1
                 self._sel.pop((key_id, b), None)

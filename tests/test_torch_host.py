@@ -211,13 +211,14 @@ def test_prepare_batch_pads_and_promotes():
 def _port_sources():
     files = sorted((REPO / "dcf_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py", REPO / "chip_ab.py",
-                    REPO / "chip_phase22.py", REPO / "bench_torch.py"]
+                    REPO / "chip_phase22.py", REPO / "chip_gates.py",
+                    REPO / "bench_torch.py"]
 
 
 def test_port_imports_neither_jax_nor_dcf_tpu():
     """AST scan of every module of the port (its C++ core's loader
-    included), chip_smoke.py, chip_ab.py, chip_phase22.py and
-    bench_torch.py: no ``import
+    included), chip_smoke.py, chip_ab.py, chip_phase22.py, chip_gates.py
+    and bench_torch.py: no ``import
     jax``/``from jax`` and nothing of ``dcf_tpu`` (whose ``__init__``
     imports jax)."""
     files = _port_sources()
@@ -237,9 +238,10 @@ def test_port_imports_neither_jax_nor_dcf_tpu():
                 "serve/shardmap.py", "serve/meshgroup.py",
                 "serve/replicate.py", "serve/loadgen.py",
                 "serve/service.py", "serve/membership.py",
-                "serve/capacity.py", "testing/lockwatch.py", "errors.py"):
+                "serve/capacity.py", "testing/lockwatch.py", "errors.py",
+                "cli.py", "entry.py", "utils/provision.py"):
         assert f"dcf_tpu_torch/{sub}" in scanned
-    assert "bench_torch.py" in scanned
+    assert "bench_torch.py" in scanned and "chip_gates.py" in scanned
     banned = ("jax", "jaxlib", "dcf_tpu")
     offenders = []
     for path in files:
@@ -314,3 +316,65 @@ def test_top_level_and_serve_names_include_dcf_tpus():
 
     assert set(ttesting.lockwatch.__all__) == {
         "LockWatch", "WatchedLock", "WatchedRLock", "arm", "disarm"}
+
+
+def test_dcflint_reports_no_violations_in_the_port():
+    """``tools.dcflint`` over the port, read-only: typed errors or marked
+    API edges, no unmarked wall-clock reads or OS-entropy seeds, no
+    unmarked blanket handlers."""
+    import subprocess
+    import sys
+
+    out = subprocess.run(
+        [sys.executable, "-m", "tools.dcflint", "dcf_tpu_torch"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "dcflint OK under dcf_tpu_torch" in out.stdout
+
+
+def _repaired_sites():
+    """(name, dcf_tpu call, port call) pairs: one repaired site each of
+    spec.py, api.py, workloads/pir.py and protocols/piecewise.py, fed the
+    same bad input."""
+    import dcf_tpu
+    from dcf_tpu.protocols import piecewise as jpw
+    from dcf_tpu.workloads import pir as jpir
+
+    import dcf_tpu_torch
+    from dcf_tpu_torch.protocols import piecewise as tpw
+    from dcf_tpu_torch.workloads import pir as tpir
+
+    ck = [bytes(32), bytes(32)]
+    rec = np.zeros((32, 32), dtype=np.uint8)
+    return [
+        ("spec.check_group", lambda: jspec.check_group("add7", 16),
+         lambda: tspec.check_group("add7", 16)),
+        ("spec.aes256_expand_key", lambda: jspec.aes256_expand_key(b"x"),
+         lambda: tspec.aes256_expand_key(b"x")),
+        ("api.Dcf n_bytes", lambda: dcf_tpu.Dcf(0, 16, ck),
+         lambda: dcf_tpu_torch.Dcf(0, 16, ck, device="cpu")),
+        ("pir.PirServer party",
+         lambda: jpir.PirServer(None, jpir.PirDatabase(rec, 5),
+                                None).answer("q", 2),
+         lambda: tpir.PirServer(None, tpir.PirDatabase(rec, 5, "cpu"),
+                                None).answer("q", 2)),
+        ("pir.PirServer retries",
+         lambda: jpir.PirServer(None, None, None, retries=-1),
+         lambda: tpir.PirServer(None, None, None, retries=-1)),
+        ("piecewise.cuts", lambda: jpw.partition_intervals([], 16),
+         lambda: tpw.partition_intervals([], 16)),
+        ("piecewise.increasing",
+         lambda: jpw.partition_intervals([5, 3], 16),
+         lambda: tpw.partition_intervals([5, 3], 16)),
+    ]
+
+
+@pytest.mark.parametrize("idx", range(7))
+def test_repaired_sites_raise_dcf_tpus_class(idx):
+    name, ref, port = _repaired_sites()[idx]
+    with pytest.raises(Exception) as want:
+        ref()
+    with pytest.raises(Exception) as got:
+        port()
+    assert type(got.value).__name__ == type(want.value).__name__, name
+    assert isinstance(got.value, ValueError), name
