@@ -276,7 +276,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     ``cli_<name>`` in ``launches_by_path``: a run of fixed repetitions
     makes exactly the launches ``CLI_RUNS`` gives it, a closed-loop
     serving leg at least one launch of each kernel it names (its count
-    follows its duration); ``cli_entry`` exactly one B1 launch.
+    follows its duration); ``cli_entry`` exactly one B1 launch;
+24. the multi-process pod (``pod_phase``): ``python -m dcf_tpu_torch.cli
+    pod_bench --device cuda`` as ``POD_GROUPS`` lists it, each shard a
+    ``serve_host`` process of its own on the card: the plain scenario on
+    ``prefix`` (B2 + B3 in the shards, G1 in the parent) and on the
+    default ``--backend`` (``walk`` on the card, B1; its line must name
+    ``walk``), ``--partition``, ``--flap``, ``--churn``, ``--surge`` and
+    ``--mesh``, at ``dcf_tpu``'s widths with leg lengths cut.  Each run
+    must exit 0 with one line (its own parity, tally, key-loss,
+    generation and epoch gates passed), the card's name on it; the one
+    exception is an exit whose only failure is one of the throughput
+    gates ``POD_REPORTED`` names, which is logged.  Each shard (pid from
+    its ready file) holds the card's device file open while it serves,
+    each shard's final snapshot counts batches (its requests, points and
+    mean occupancy are logged), and no shard outlives its run; a run's
+    directory goes whatever its verdict.  The shards' launches happen in their own
+    processes, outside this script's counters: phase 24 adds no path to
+    ``launches_by_path``.  Each run's line is logged, and its output
+    written to ``chiprun_out/phase24_pod.log``.
 
 Launches are counted per path: the counts are set to 0 just before one
 run of a path and read just after it, before any timed repeat, and held
@@ -2292,6 +2310,361 @@ def cli_phase(card: str, reset_counts, take_at_least, take_counts,
                            "version")
     log(f"phase 23 entry(): fn(*example_args) {tuple(y.shape)} "
         f"{y.dtype} byte-identical to walk_eval_plain [{card}]")
+    return result
+
+
+#: Phase 24's runs of ``python -m dcf_tpu_torch.cli pod_bench`` on the card,
+#: (name, argv), in groups: the runs of a group start together, and a
+#: group starts when the one before it has ended.  The plain scenario on
+#: ``prefix`` and ``--mesh`` run alone (their lines carry the door's rate,
+#: ``pod_vs_single`` and the crossover ladder); the timer-bound scenarios
+#: share the machine, and so do the plain scenario on ``walk`` (at short
+#: legs, so that B1 runs in a shard too) and ``--surge``.  Widths are
+#: dcf_tpu's defaults: Dcf(16, 16) (n = 128), 3 shards, max_batch 2^10,
+#: the default ``--backend`` (``cpu``, which is ``walk`` on the card) in the
+#: ``walk`` run,
+#: requests of 3/8 to 1/2 of it, 8 bundles (plain) or 4 and 4 live ones,
+#: the mesh ladder 128-8192 points.  Cuts from dcf_tpu's defaults: leg
+#: lengths, --duration 30 s to 6 s (plain prefix), 2 s (plain walk) and
+#: 8 s (surge: the ramp at its minimum 3 / 6 / 2 s); --eject-grace 3.0 s
+#: to 1.5 s (churn); the cut windows of --partition and --flap floor at
+#: 10 s whatever --duration says.  The surge's admission bound is 2048
+#: points, not 4096: against shard processes on an H100 the parent's one
+#: generator thread at 2.5x the calibrated rate never fills 4096 (no tick
+#: of pressure, so no scale-out); and it has 8 bundles, not 4:
+#: with key-0..3 the joined standby owns no key of the 4-host ring and
+#: serves nothing.
+POD_GROUPS = (
+    (("prefix", ["--backend", "prefix", "--duration", "6"]),),
+    (("mesh", ["--mesh", "--backend", "prefix"]),),
+    (("partition", ["--partition", "--backend", "prefix"]),
+     ("flap", ["--flap", "--backend", "prefix"]),
+     ("churn", ["--churn", "--backend", "prefix", "--eject-grace", "1.5"])),
+    (("walk", ["--duration", "2"]),
+     ("surge", ["--surge", "--backend", "prefix", "--duration", "8",
+                "--max-queued-points", "2048", "--bundles", "8"])),
+)
+#: dcf_tpu's two throughput gates of pod_bench that phase 24 reports and
+#: does not require, as CLI_REPORTED does for phase 23 (ROADMAP.md Queue A
+#: records them): pod_vs_single >= 2.2 and co-evaluation beating
+#: route-mode by the ladder's top rung, both applied by the bench where the
+#: host has shards + 1 CPUs.  The bench still exits non-zero for them; the
+#: phase accepts that exit only when every failure it names is this gate.
+POD_REPORTED = {"prefix": "the single-shard leg",
+                "walk": "the single-shard leg",
+                "mesh": "co-evaluate never beat route-mode"}
+POD_RUN_TIMEOUT_S = 600
+
+
+class _ShardWatch:
+    """Polls a pod's directory while its ``pod_bench`` runs: every
+    ``ready-<tag>.json`` a shard writes (its pid), whether that process
+    holds the card's device file open (``/proc/<pid>/fd``), and the card's
+    compute processes (``nvidia-smi --query-compute-apps=pid,
+    used_memory``), so that each shard is seen holding a CUDA context
+    while it serves."""
+
+    def __init__(self, root: str):
+        import threading
+
+        self.root = root
+        self.shards: dict = {}  # (tag, pid) -> first seen, s
+        self.on_card: dict = {}  # pid -> largest used_memory seen, MiB
+        self.holds_card: set = set()  # pids with /dev/nvidia<N> open
+        # (ready shards, compute processes listed, their MiB) at the poll
+        # with the most ready shards
+        self.busiest = (0, 0, [])
+        self.polls = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="shard-watch")
+
+    def _poll(self) -> None:
+        ready = 0
+        for fname in os.listdir(self.root):
+            if fname.startswith("ready-") and fname.endswith(".json"):
+                try:
+                    with open(os.path.join(self.root, fname)) as f:
+                        pid = json.load(f)["pid"]
+                except (OSError, ValueError, KeyError):
+                    continue  # mid-rename or just removed: next poll
+                ready += 1
+                self.shards.setdefault((fname[6:-5], pid),
+                                       time.perf_counter())
+                if pid not in self.holds_card and _holds_card(pid):
+                    self.holds_card.add(pid)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60).stdout
+        apps = [[x.strip() for x in line.split(",")]
+                for line in out.strip().splitlines()]
+        if ready > self.busiest[0] or (ready == self.busiest[0]
+                                       and len(apps) > self.busiest[1]):
+            self.busiest = (ready, len(apps),
+                            sorted(int(m) for _p, m in apps if m.isdigit()))
+        for pid, mem in apps:
+            if pid.isdigit() and mem.isdigit():
+                self.on_card[int(pid)] = max(int(mem),
+                                             self.on_card.get(int(pid), 0))
+        self.polls += 1
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self._poll()
+            self._stop.wait(0.5)
+
+    def start(self) -> "_ShardWatch":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(120)
+
+
+def _holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has a card's device file (``/dev/nvidia<N>``)
+    open: the file a CUDA context maps."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            return True
+    return False
+
+
+def _stamped_lines(stream, sink: list) -> None:
+    """Read ``stream`` to EOF into ``sink`` as (seconds, line) pairs."""
+    for line in stream:
+        sink.append((time.perf_counter(), line.rstrip("\n")))
+
+
+def _start_pod_run(name: str, argv: list, repo: str) -> dict:
+    """Start one ``pod_bench`` run on the card in a directory of its own,
+    with its output read and its shards watched."""
+    import tempfile
+    import threading
+
+    root = tempfile.mkdtemp(prefix=f"pod24-{name}-")
+    cmd = [sys.executable, "-m", "dcf_tpu_torch.cli", "pod_bench", *argv,
+           "--device", "cuda", "--store-dir", root]
+    run = {"name": name, "argv": argv, "root": root, "cmd": cmd,
+           "t0": time.perf_counter(), "out": [], "err": []}
+    run["proc"] = subprocess.Popen(cmd, cwd=repo, stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+    run["readers"] = [
+        threading.Thread(target=_stamped_lines, args=(stream, sink),
+                         daemon=True)
+        for stream, sink in ((run["proc"].stdout, run["out"]),
+                             (run["proc"].stderr, run["err"]))]
+    for r in run["readers"]:
+        r.start()
+    run["watch"] = _ShardWatch(root).start()
+    return run
+
+
+def _finish_pod_run(run: dict, card: str, pids_visible: bool,
+                    out_dir: str, beside: list) -> dict:
+    """Wait for a run started by ``_start_pod_run`` and hold it: its exit
+    (only a ``POD_REPORTED`` gate may fail), its one line, every shard on
+    the card and serving, no shard left running.  Its directory goes
+    whatever the verdict.  Returns its numbers."""
+    import shutil
+
+    name, proc, watch = run["name"], run["proc"], run["watch"]
+    try:
+        proc.wait(POD_RUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+        watch.stop()
+        for r in run["readers"]:
+            r.join(60)
+    try:
+        return _hold_pod_run(run, card, pids_visible, out_dir, beside)
+    finally:
+        shutil.rmtree(run["root"], ignore_errors=True)
+
+
+def _hold_pod_run(run: dict, card: str, pids_visible: bool, out_dir: str,
+                  beside: list) -> dict:
+    """The checks of ``_finish_pod_run`` on a run that has ended."""
+    name, proc, watch = run["name"], run["proc"], run["watch"]
+    t0 = run["t0"]
+    secs = time.perf_counter() - t0
+    err_lines, out_lines = run["err"], run["out"]
+    if os.path.isdir(out_dir):
+        with open(os.path.join(out_dir, "phase24_pod.log"), "a") as f:
+            f.write(f"$ {' '.join(run['cmd'])}\n" + "".join(
+                f"{t - t0:8.3f} {line}\n"
+                for t, line in err_lines + out_lines))
+    tail = "\n".join(line for _t, line in err_lines[-40:])
+    # No shard outlives its pod_bench.
+    alive = []
+    for _tag, pid in watch.shards:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            continue
+        alive.append(pid)
+        os.kill(pid, 9)
+    if alive:
+        raise RuntimeError(f"phase 24 {name}: shard processes {alive} "
+                           "outlived pod_bench")
+    verdict = "passed"
+    if proc.returncode != 0:
+        # The bench's exit message, after its shards' last lines:
+        # "pod_bench: <failure>; <failure>".
+        failure = next((line for _t, line in reversed(err_lines)
+                        if line.startswith(("pod_bench:",
+                                            "pod_bench --mesh:"))), "")
+        failures = failure.split(": ", 1)[-1].split("; ")
+        if name not in POD_REPORTED or not failure or not all(
+                POD_REPORTED[name] in f for f in failures):
+            raise RuntimeError(f"phase 24 pod_bench {name}: exit "
+                               f"{proc.returncode}; stderr tail:\n{tail}")
+        verdict = f"reported, not met: {failure}"
+    lines = [json.loads(line) for _t, line in out_lines]
+    if len(lines) != 1:
+        raise RuntimeError(f"phase 24 {name}: {len(lines)} lines; stderr "
+                           f"tail:\n{tail}")
+    rec = lines[0]
+    missing = CLI_KEYS - set(rec)
+    # Every run names its backend but ``walk``, which takes the default:
+    # on the card that is B1's walk, never the host's C++ core.
+    backend = (run["argv"][run["argv"].index("--backend") + 1]
+               if "--backend" in run["argv"] else "walk")
+    if missing or not rec["value"] > 0 or rec["device"] != card \
+            or rec["platform"] != "cuda" or rec["backend"] != backend:
+        raise RuntimeError(f"phase 24 {name}: bad line {rec} (missing "
+                           f"{missing})")
+    if any(rec.get(k) for k in ("soak_mismatches", "soak_unaccounted",
+                                "soak_refused_unhinted")):
+        raise RuntimeError(f"phase 24 {name}: the ledger is not clean: "
+                           f"{rec}")
+    # Each shard: its process held the card while it served, and its final
+    # snapshot counts batches (with its requests, points, points a batch
+    # against max_batch and the mean occupancy of the padded batch, over
+    # the whole run: the reading behind the coalescing window).  nvidia-smi's count of compute processes is logged only:
+    # the runs of a group share the card, and the machine names every
+    # process pid 1, so the count cannot be matched to one run's shards.
+    if not watch.shards:
+        raise RuntimeError(f"phase 24 {name}: no shard ready file seen")
+    shards, batching = {}, {}
+    for tag, pid in sorted(watch.shards):
+        if pid not in watch.holds_card or (
+                pids_visible and pid not in watch.on_card):
+            raise RuntimeError(
+                f"phase 24 {name}: shard {tag} (pid {pid}) never seen "
+                f"holding the card ({watch.polls} polls; device file open: "
+                f"{pid in watch.holds_card}; nvidia-smi pids "
+                f"{sorted(watch.on_card)})")
+        with open(os.path.join(run["root"], f"metrics-{tag}.json")) as f:
+            snap = json.load(f)
+        batches = snap.get("serve_batches_total", 0)
+        if not batches > 0:
+            raise RuntimeError(f"phase 24 {name}: shard {tag} served no "
+                               "batch")
+        shards[f"{tag}:{pid}"] = batches
+        occ_n = snap.get("serve_batch_occupancy_count", 0)
+        batching[tag] = {
+            "requests": snap.get("serve_requests_total", 0),
+            "points": snap.get("serve_points_total", 0),
+            "batches": batches,
+            "points_per_batch": snap.get("serve_points_total", 0) / batches,
+            "mean_occupancy": (snap["serve_batch_occupancy_sum"] / occ_n
+                               if occ_n else None)}
+    ready, apps, mib = watch.busiest
+    stamps = {}
+    for t, line in err_lines:
+        for key, mark in (("kill", "SIGKILL "), ("ejected", "auto-eject OK")):
+            if line.startswith(mark) and key not in stamps:
+                stamps[key] = t
+    entry = {"seconds": round(secs, 1), "gates": verdict,
+             "value": rec["value"], "unit": rec["unit"],
+             "shard_batches": shards, "shard_batching": batching,
+             "compute_apps_with_shards_ready": [apps, ready],
+             "compute_apps_MiB": mib}
+    if beside:
+        entry["beside"] = beside
+    if "kill" in stamps and "ejected" in stamps:
+        # The kill to the eject's log line: DOWN detection, the grace, the
+        # migration, the commit and the survivors' digests.
+        entry["kill_to_eject_logged_s"] = round(
+            stamps["ejected"] - stamps["kill"], 3)
+    for k in ("pod_vs_single", "single_shard_evals_per_sec", "p50_s",
+              "p99_s", "critical_within_s", "soak_sessions_ok",
+              "soak_refused_hinted", "reaction_s", "calibrated_rps",
+              "offered_rps", "capacity_events", "crossover_points",
+              "coeval_vs_route_at_top", "ladder", "promoted_serve_s",
+              "epochs", "membership_events", "cut_s", "soak_wall_s",
+              "pod_critical_shed", "critical_hb_ok", "shed", "failed"):
+        if k in rec:
+            entry[k] = rec[k]
+    log(f"phase 24 pod_bench {name} ({' '.join(run['argv'])}"
+        + (f"; beside {', '.join(beside)}" if beside else "")
+        + f"): gates {verdict}; {rec['value']:,} {rec['unit']}; "
+        f"{len(shards)} shard processes, each holding the card and "
+        f"serving (batches {json.dumps(shards)}; requests, points, "
+        f"batches and mean occupancy {json.dumps(batching)}; nvidia-smi "
+        f"listed {apps} compute processes with {ready} shards of this run "
+        f"ready, MiB {mib}); "
+        f"{secs:.1f} s; the "
+        "shards' launches run in their own processes, outside this "
+        f"script's counters [{card}]")
+    log(f"phase 24 RESULTS {name}: " + json.dumps(rec))
+    return entry
+
+
+def pod_phase(card: str, groups=POD_GROUPS) -> dict:
+    """Phase 24: ``pod_bench``'s scenarios through ``python -m
+    dcf_tpu_torch.cli`` on the card, each shard a process of its own.
+    Raises on any failure but a ``POD_REPORTED`` gate; returns the
+    numbers the phase logged."""
+    import shutil
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(repo, "chiprun_out")
+    if os.path.isdir(out_dir):
+        open(os.path.join(out_dir, "phase24_pod.log"), "w").close()
+    # Does nvidia-smi name this process (a CUDA context since phase 1)?
+    # Where the machine's PID namespace hides it, a shard's pid is held by
+    # its open device file.
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout
+    pids_visible = str(os.getpid()) in {
+        line.split(",")[0].strip() for line in apps.strip().splitlines()}
+    log(f"phase 24: nvidia-smi --query-compute-apps lists {apps.strip()!r}; "
+        f"this process is pid {os.getpid()}, "
+        + ("named there" if pids_visible else
+           "not named there (the machine's PID namespace): a shard's pid is "
+           "held by /proc/<pid>/fd holding /dev/nvidia<N>"))
+    result = {}
+    for group in groups:
+        runs = [_start_pod_run(name, argv, repo) for name, argv in group]
+        names = [r["name"] for r in runs]
+        try:
+            for run in runs:
+                result[run["name"]] = _finish_pod_run(
+                    run, card, pids_visible, out_dir,
+                    [n for n in names if n != run["name"]])
+        finally:
+            for run in runs:
+                if run["proc"].poll() is None:
+                    run["proc"].kill()
+                    run["proc"].wait(60)
+                run["watch"].stop()
+                shutil.rmtree(run["root"], ignore_errors=True)
     return result
 
 
@@ -4771,6 +5144,14 @@ def main() -> int:
     log("phase 23 cli: " + json.dumps(
         {k: v["seconds"] if isinstance(v, dict) else v
          for k, v in cli_res.items()})
+        + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # -- phase 24: the multi-process pod on the card -----------------------------
+    torch.cuda.empty_cache()  # the shard processes share the card
+    t0 = time.perf_counter()
+    pod_res = pod_phase(card)
+    log("phase 24 pod: " + json.dumps(
+        {k: v["seconds"] for k, v in pod_res.items()})
         + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
 
     # launches x (time - bound) of B1 and B6 on each path, from their

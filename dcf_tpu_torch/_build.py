@@ -93,8 +93,12 @@ def build(names=KERNELS) -> float:
     try:
         for name in todo:
             out = _lib_path(name)
+            # Each process writes its own library and log and renames
+            # them into place: concurrent builds of one source (a pod's
+            # shard processes) never share a file.
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            log = open(out.with_suffix(".log"), "w")
+            log = open(out.with_name(f"{out.stem}.{os.getpid()}.log.tmp"),
+                       "w")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                    str(CSRC / f"{name}.cu")]
             procs.append((name, out, tmp, log, subprocess.Popen(
@@ -103,6 +107,7 @@ def build(names=KERNELS) -> float:
         for name, out, tmp, log, proc in procs:
             rc = proc.wait()
             log.close()
+            os.replace(log.name, out.with_suffix(".log"))
             if rc == 0:
                 os.replace(tmp, out)
             else:

@@ -1,5 +1,5 @@
 """Benchmark CLI of the PyTorch/CUDA port: the counterpart of
-``dcf_tpu/cli.py`` for every subcommand that runs in one process.
+``dcf_tpu/cli.py``, every subcommand.
 
 Each bench prints one human line on stderr and one JSON line on stdout,
 parity-gated: a failing gate exits non-zero.  The subcommands, flags,
@@ -18,12 +18,18 @@ defaults and validation messages are ``dcf_tpu``'s:
 - ``keygen_bench``    keygen on the card (B7a + W2) at lam 128 and 256
 - ``pir_bench``       2-server PIR (B6 t-only + P1)
 - ``baseline``        all five BASELINE.json configurations, 8 lines
+- ``serve_host``      one pod shard process: a ``DcfService`` warm-restored
+                      from ``--store-dir`` behind an ``EdgeServer``
+- ``pod_bench``       N ``serve_host`` processes behind a ``DcfRouter``:
+                      the plain scenario, ``--partition`` / ``--flap``,
+                      ``--churn``, ``--surge`` and ``--mesh``
 
 Usage::
 
     python -m dcf_tpu_torch.cli dcf_batch_eval --backend prefix --points 1048576
     python -m dcf_tpu_torch.cli baseline
     python -m dcf_tpu_torch.cli dcf --backend numpy --device cpu
+    python -m dcf_tpu_torch.cli pod_bench --backend prefix --shards 3
 
 Backends: ``cpu`` (the port's C++ core, all threads), ``cpu1`` (one
 thread), ``numpy`` (the oracle), ``walk`` (kernel B1; E1 at lam = 32),
@@ -31,10 +37,13 @@ thread), ``numpy`` (the oracle), ``walk`` (kernel B1; E1 at lam = 32),
 (B8, many keys in lanes), ``hybrid`` (B4 + W1, or B5a + B5b + W1 with
 ``--prefix-levels``; lam >= 48) and ``tree`` (full_domain only).
 ``dcf_tpu``'s ``pallas``, ``jax`` and ``bitsliced`` compute the from-root
-walk, which is ``walk`` here; ``sharded``, ``sharded-pallas`` and
-``--mesh`` wait for the multi-GPU slice, and ``serve_host`` and
-``pod_bench`` for the multi-process pod slice (ROADMAP.md).  Each exits
-non-zero before any work.
+walk, which is ``walk`` here; ``sharded``, ``sharded-pallas`` and a
+device mesh (``--mesh`` on any bench but ``pod_bench``) wait for the
+multi-GPU slice (ROADMAP.md).  Each exits non-zero before any work.
+A pod's shards are processes of their own (``python -m
+dcf_tpu_torch.cli serve_host``, spawned by ``pod_bench`` on its
+``--device``): on the card each holds a CUDA context, and the parent
+builds every kernel before the first spawn.
 
 ``--device`` picks the card (``cuda``, the default) or the CPU, where
 the kernels' plain PyTorch versions run: a rehearsal of the code, whose
@@ -69,8 +78,11 @@ BACKENDS = ("cpu", "cpu1", "numpy", "walk", "prefix", "keylanes")
 WALK_ALIASES = ("pallas", "jax", "bitsliced")
 #: dcf_tpu's mesh-sharded backends: the multi-GPU slice.
 SHARDED = ("sharded", "sharded-pallas")
-#: dcf_tpu's multi-process pod benches: the pod slice.
+#: The multi-process pod benches: a shard process, and the bench that
+#: spawns them.
 POD_BENCHES = ("serve_host", "pod_bench")
+#: The facade backends a shard process serves.
+POD_BACKENDS = ("cpu", "numpy", "walk", "prefix")
 #: The lam = 16 facade backends the serving benches drive.
 SERVE_BACKENDS = ("numpy", "walk", "prefix")
 #: The key count of the pinned keygen denominator (CPU_BASELINE.md).
@@ -2695,6 +2707,2351 @@ def bench_baseline(args) -> None:
         BENCHES[name](a)
 
 
+# -- the multi-process pod: serve_host and pod_bench -------------------------
+
+
+def _pod_backend(args) -> str:
+    """The facade backend a shard process serves: ``numpy``, ``walk`` or
+    ``prefix`` (lam = 16 and 32 as the facade allows them), or ``cpu``.
+    ``cpu``, the global argparse default, is ``dcf_tpu``'s no-TPU
+    serving default, its on-device bitsliced walk: on ``--device cuda``
+    it becomes ``walk`` (B1), as in the serving benches, so a default
+    run on the card serves through the kernel; only on ``--device cpu``
+    does it stay the port's C++ core."""
+    if args.backend not in POD_BACKENDS:
+        raise SystemExit(
+            f"serve_host/pod_bench serve single-device facade backends "
+            f"({'/'.join(POD_BACKENDS)}), got {args.backend!r}")
+    if args.backend == "cpu" and args.device != "cpu":
+        return "walk"
+    return args.backend
+
+
+def _serve_host_facade(args):
+    """The shard facade serve_host and pod_bench share
+    (``dcf_tpu/cli.py:3202-3222``): flagship-shaped by default, cipher
+    keys DERIVED from ``--seed`` — every process in a pod launched with
+    the same seed/lam reconstructs the same cipher keys, which is what
+    lets pod_bench provision bundles in the parent and have every shard
+    serve them.  The device is picked here (``_dev``), after the
+    caller's own flag checks: on the card that builds every kernel, so
+    the parent builds them once before its first spawn and no shard
+    starts an nvcc run of its own."""
+    import dcf_tpu_torch
+
+    lam = args.lam or 16
+    nb = args.domain_bytes or 16
+    backend = _pod_backend(args)
+    dev = _dev(args)
+    opts = None
+    if backend == "prefix" and args.prefix_levels:
+        opts = {"prefix_levels": args.prefix_levels}
+    elif backend == "prefix" and dev.type == "cpu":
+        # The plain frontier build at the default depth 21 takes minutes
+        # a (key, party) on the CPU (serve_bench --skew's clamp).
+        opts = {"prefix_levels": 10}
+        log("no card: clamping the prefix frontier to prefix_levels=10 "
+            "for the plain versions (override with --prefix-levels)")
+    rng = np.random.default_rng(args.seed)
+    ck = _cipher_keys(lam, rng)
+    dcf = dcf_tpu_torch.Dcf(nb, lam, ck, backend=backend, backend_opts=opts,
+                            device=dev)
+    return dcf, lam, nb, backend, rng
+
+
+def bench_serve_host(args) -> None:
+    """One pod shard process (``dcf_tpu/cli.py:3225-3350``): the
+    crash-safe, breaker-guarded single-host serving unit — ``DcfService``
+    warm-started from its durable store + an ``EdgeServer`` — run as a
+    long-lived process a router forwards DCFE frames to.
+
+    Keys are provisioned through the shard's store (``--store-dir``):
+    the operator (or pod_bench) writes DCFK frames there under ring
+    placement — owner AND replica stores, generations preserved via
+    ``KeyStore.replicate_to`` — and this process restores ALL of them
+    at startup (``restore_keys()``), so a replica is warm the moment
+    failover routes to it.  On the card the CUDA context is made before
+    the shard says it is ready.  ``--ready-file`` receives a JSON line
+    with the bound address once serving; ``--metrics-file`` is refreshed
+    (atomic rename) every ~0.5s and at shutdown — the per-host
+    snapshots ``pod_bench`` rolls up into the pod view.  Runs until
+    SIGTERM/SIGINT (or until its parent exits — a shard orphaned by a
+    dead launcher must not linger).  ``--tls-cert``/``--tls-key``
+    (+ ``--tls-client-ca`` to pin the router) arm TLS on the edge
+    socket.  ``--standby`` comes up provisioned-but-idle: it restores
+    nothing, and the graceful join warms it.
+
+    Graceful shutdown: SIGTERM/SIGINT stop the edge (no new frames),
+    DRAIN the service (``close(drain=True)`` — queued requests are
+    served, never failed), write one final metrics snapshot, and remove
+    the ready file before exiting 0 — a PLANNED restart loses no
+    accepted work and un-advertises itself.  SIGKILL remains the crash
+    test: the failover/restore machinery owns that path."""
+    import os
+    import signal
+    import threading
+
+    from dcf_tpu_torch.serve import EdgeServer, RestoreReport
+
+    if not args.store_dir:
+        raise SystemExit(
+            "serve_host needs --store-dir (the shard's durable key "
+            "store; pod provisioning writes frames there)")
+    dcf, lam, nb, backend, _rng = _serve_host_facade(args)
+    knobs = {}
+    if args.max_queued_points:
+        # The surge scenario pins a small admission bound so sustained
+        # overload becomes visible demand (sheds/brownout) within the
+        # bench window instead of an invisible mile-deep queue.
+        knobs["max_queued_points"] = args.max_queued_points
+    svc = dcf.serve(max_batch=args.max_batch or (1 << 10),
+                    max_delay_ms=args.max_delay_ms,
+                    store_dir=args.store_dir,
+                    tls_cert=args.tls_cert, tls_key=args.tls_key,
+                    tls_client_ca=args.tls_client_ca, **knobs)
+    if args.standby:
+        # A standby host is provisioned-but-idle: it serves and probes,
+        # but restores nothing at startup — the graceful join's
+        # warm-before-admit pass ships it exactly the keys its ring
+        # placement owes it WHEN the capacity controller admits it, so a
+        # stale store left from a previous tour never races the
+        # migration.
+        report = RestoreReport()
+        log(f"serve_host[{backend} lam={lam} nb={nb}]: STANDBY "
+            "(restore skipped; the join warms this host)")
+    else:
+        report = svc.restore_keys()
+        log(f"serve_host[{backend} lam={lam} nb={nb}]: restored "
+            f"{len(report.restored)} keys "
+            f"({len(report.quarantined)} quarantined)")
+    if dcf.device.type == "cuda":
+        # The shard's CUDA context, before it says it is ready: the
+        # first routed request must not pay for it.
+        import torch
+
+        torch.zeros(1, device=dcf.device)
+        torch.cuda.synchronize(dcf.device)
+    svc.start()
+    edge = EdgeServer(svc, host=args.bind, port=args.port).start()
+    host, port = edge.address
+    if args.ready_file:
+        _flush_json(args.ready_file, {
+            "host": host, "port": port, "pid": os.getpid(),
+            "restored": len(report.restored),
+            "quarantined": len(report.quarantined),
+            "standby": bool(args.standby)})
+    log(f"serve_host listening on {host}:{port} [{_CARD['label']}]")
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_a: stop.set())
+    ppid = os.getppid()
+    try:
+        while not stop.is_set():
+            stop.wait(0.5)
+            if args.metrics_file:
+                _flush_json(args.metrics_file, svc.metrics_snapshot())
+            if os.getppid() != ppid:
+                log("serve_host: parent exited; shutting down")
+                break
+    finally:
+        # Ordered graceful teardown: listener first (no NEW connections
+        # — live ones stay open so drained responses can still reach
+        # their clients), then drain the service (queued requests
+        # complete; frames arriving mid-drain are refused typed over the
+        # still-open links), then the edge flushes each writer's backlog
+        # before the hard close, and only THEN the final metrics
+        # snapshot — it must include the drained work's counters.
+        edge.stop_accepting()
+        try:
+            svc.close(drain=True)
+        except Exception:  # fallback-ok: a failing drain (dying
+            # store reclaim at shutdown) must not skip the snapshot
+            # or the ready-file removal below
+            log("serve_host: drain raised; exiting anyway")
+        edge.close(drain_s=5.0)
+        if args.metrics_file:
+            try:
+                _flush_json(args.metrics_file, svc.metrics_snapshot())
+            except OSError:
+                pass  # fallback-ok: dying disk at shutdown — the
+                # periodic flush above already published a snapshot
+        if args.ready_file:
+            try:
+                os.unlink(args.ready_file)
+            except OSError:
+                pass  # fallback-ok: never written, or already gone
+    log("serve_host: stopped")
+
+
+def _flush_json(path: str, doc: dict) -> None:
+    """Write ``doc`` to ``path`` by atomic rename: readers only ever see
+    a whole file."""
+    import os
+
+    tmp = f"{path}.tmp"
+    with open(tmp, "w", encoding="utf-8") as fh:
+        json.dump(doc, fh)
+    os.replace(tmp, path)
+
+
+def _pod_rollup(metric_files: list) -> dict:
+    """The pod view: per-host metrics snapshots (the serve_host
+    ``--metrics-file`` JSON dumps) summed via
+    ``serve.metrics.rollup_snapshots``.  Hosts that never wrote one
+    (killed before the first flush) contribute nothing."""
+    from dcf_tpu_torch.serve.metrics import rollup_snapshots
+
+    snaps = []
+    for path in metric_files:
+        try:
+            with open(path, encoding="utf-8") as fh:
+                snaps.append(json.load(fh))
+        except (OSError, ValueError):
+            continue  # fallback-ok: a killed shard's file may be
+            # absent; the rollup is over the hosts that reported
+    return rollup_snapshots(snaps)
+
+
+def _pod_root(args) -> tuple:
+    """(root, keep): the pod's directory — its stores, ready and metrics
+    files — ``--store-dir`` (kept) or a fresh temp dir (removed)."""
+    import os
+    import tempfile
+
+    root = args.store_dir or tempfile.mkdtemp(prefix="dcf-pod-")
+    os.makedirs(root, exist_ok=True)
+    return root, bool(args.store_dir)
+
+
+def _pod_provision(dcf, lam, nb, rng, root, shard_ids,
+                   n_bundles: int, *, solo: bool = False) -> tuple:
+    """The ONE provisioning block every pod scenario starts with: build
+    the rendezvous ring over ``shard_ids``, open one ``KeyStore`` per
+    shard under ``root``, mint ``n_bundles`` two-party bundles (on the
+    facade's device: G1 on the card), and write each durably to its
+    owner's store with ``replicate_to`` copies to its replicas — same
+    bytes, same generation.  ``solo`` adds the single-shard comparison
+    store holding everything (the ``bench_pod`` leg).  Returns
+    ``(ring, stores, bundles, gens)``."""
+    import os
+
+    from dcf_tpu_torch.serve import KeyStore, ShardMap, ShardSpec
+
+    ring = ShardMap([ShardSpec(s) for s in shard_ids])
+    stores = {s: KeyStore(os.path.join(root, s)) for s in shard_ids}
+    if solo:
+        stores["solo"] = KeyStore(os.path.join(root, "solo"))
+    bundles, gens = {}, {}
+    for i in range(n_bundles):
+        name = f"key-{i}"
+        alphas = rng.integers(0, 256, (1, nb), dtype=np.uint8)
+        betas = rng.integers(0, 256, (1, lam), dtype=np.uint8)
+        kb = dcf.gen(alphas, betas, rng=rng)
+        bundles[name], gens[name] = kb, i + 1
+        placed = ring.placement(name, replicas=1)
+        stores[placed[0].host_id].put(name, kb, generation=gens[name])
+        for rep in placed[1:]:
+            stores[placed[0].host_id].replicate_to(
+                stores[rep.host_id], name)
+        if solo:
+            stores["solo"].put(name, kb, generation=gens[name])
+    return ring, stores, bundles, gens
+
+
+def _pod_warmup(rng, nb: int, max_batch: int, plan) -> None:
+    """The ONE warmup ladder every pod scenario runs: every padded pow-2
+    batch shape on every process, both parties — ``plan`` is
+    ``[(target, [key, ...]), ...]`` with one key per shard the ladder
+    must reach — so no soak pays a shard's first staging of a shape."""
+    xs_warm = rng.integers(0, 256, (max_batch, nb), dtype=np.uint8)
+    m = 1
+    while m <= max_batch:
+        for target, keys in plan:
+            for name in keys:
+                target.evaluate(name, xs_warm[:m], b=0, timeout=300)
+                target.evaluate(name, xs_warm[:m], b=1, timeout=300)
+        m *= 2
+
+
+def _pod_spawn(tag: str, store_dir: str, run_dir: str, args,
+               standby: bool = False, extra=()) -> tuple:
+    """Spawn one serve_host subprocess — ``python -m dcf_tpu_torch.cli
+    serve_host`` on the parent's ``--device``, with this package's root
+    first on its import path (a pod launched from an unpacked copy
+    serves that copy) — and return (Popen, ready_path, metrics_path).
+    ``standby``: launch it as a provisioned-but-idle standby host;
+    ``extra``: additional serve_host flags (the surge scenario's queue
+    bound)."""
+    import os
+    import subprocess
+
+    import dcf_tpu_torch
+
+    ready = os.path.join(run_dir, f"ready-{tag}.json")
+    metrics = os.path.join(run_dir, f"metrics-{tag}.json")
+    cmd = [sys.executable, "-m", "dcf_tpu_torch.cli", "serve_host",
+           "--store-dir", store_dir, "--ready-file", ready,
+           "--metrics-file", metrics, "--seed", str(args.seed),
+           "--backend", _pod_backend(args), "--device", args.device,
+           "--max-batch", str(args.max_batch or (1 << 10)),
+           "--max-delay-ms", str(args.max_delay_ms)]
+    if args.lam:
+        cmd += ["--lam", str(args.lam)]
+    if args.domain_bytes:
+        cmd += ["--domain-bytes", str(args.domain_bytes)]
+    if args.prefix_levels:
+        cmd += ["--prefix-levels", str(args.prefix_levels)]
+    if standby:
+        cmd += ["--standby"]
+    cmd += list(extra)
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(
+        dcf_tpu_torch.__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (pkg_root, env.get("PYTHONPATH", "")) if p)
+    proc = subprocess.Popen(cmd, env=env)
+    return proc, ready, metrics
+
+
+def _pod_wait_ready(procs: dict, timeout_s: float = 300.0) -> dict:
+    """Block until every spawned shard wrote its ready file; returns
+    ``{tag: ready_doc}``.  A shard that exits early (or the deadline)
+    is a SystemExit — a half-up pod must not silently bench."""
+    import os
+
+    t0 = time.monotonic()
+    ready: dict = {}
+    while len(ready) < len(procs):
+        for tag, (proc, rpath, _m) in procs.items():
+            if tag in ready:
+                continue
+            if proc.poll() is not None:
+                raise SystemExit(
+                    f"pod_bench: shard {tag} exited rc={proc.returncode} "
+                    "before becoming ready")
+            if os.path.exists(rpath):
+                with open(rpath, encoding="utf-8") as fh:
+                    ready[tag] = json.load(fh)
+        if len(ready) < len(procs):
+            if time.monotonic() - t0 > timeout_s:
+                raise SystemExit(
+                    f"pod_bench: shards not ready after {timeout_s:.0f}s "
+                    f"({sorted(ready)} of {sorted(procs)})")
+            time.sleep(0.2)
+    return ready
+
+
+def _pod_router(specs, nb: int, probe_interval: float,
+                backoff_s: float = 0.02, **kw):
+    """The scenarios' self-healing router: fail-3/recover-2 probes every
+    ``probe_interval`` seconds, reconnect backoff from ``backoff_s``
+    (0.02 s in the self-healing scenarios, the router's 0.05 in the
+    plain one) capped at half a second (``dcf_tpu``'s settings; the
+    surge passes its own probe settings)."""
+    from dcf_tpu_torch.serve import DcfRouter
+
+    opts = dict(probe_interval_s=probe_interval, probe_timeout_s=5.0,
+                probe_fail_n=3, probe_recover_m=2,
+                reconnect_backoff_s=backoff_s,
+                max_backoff_s=max(min(probe_interval, 0.5), backoff_s))
+    opts.update(kw)
+    return DcfRouter(specs, n_bytes=nb, **opts)
+
+
+def _pod_specs(ready: dict, tags) -> tuple:
+    """(ShardSpecs, {tag: (host, port)}) of ``tags`` from their ready
+    documents."""
+    from dcf_tpu_torch.serve import ShardSpec
+
+    specs = [ShardSpec(t, ready[t]["host"], ready[t]["port"]) for t in tags]
+    return specs, {t: (ready[t]["host"], ready[t]["port"]) for t in tags}
+
+
+def _oracle_pair(prg, kb, xs) -> np.ndarray:
+    """Both parties' numpy-oracle shares of ``kb`` at ``xs``, XORed."""
+    from dcf_tpu_torch.backends.numpy_backend import eval_batch_np
+
+    return eval_batch_np(prg, 0, kb.for_party(0), xs) ^ \
+        eval_batch_np(prg, 1, kb.for_party(1), xs)
+
+
+def _oracle_pairs(prg, bundles: dict, xs) -> dict:
+    """``_oracle_pair`` of every bundle at the same ``xs``, as one numpy
+    walk a party over the stacked keys: ``{name: [1, M, lam]}``."""
+    from dcf_tpu_torch.keys import KeyBundle
+
+    names = list(bundles)
+    stacked = KeyBundle(*(np.concatenate([getattr(bundles[n], f)
+                                          for n in names])
+                          for f in ("s0s", "cw_s", "cw_v", "cw_t",
+                                    "cw_np1")),
+                        group=bundles[names[0]].group)
+    both = _oracle_pair(prg, stacked, xs)
+    return {n: both[i:i + 1] for i, n in enumerate(names)}
+
+
+def _routed_pair(target, name: str, xs, **kw) -> np.ndarray:
+    """Both parties' routed shares of key ``name`` at ``xs``, XORed."""
+    return target.evaluate(name, xs, b=0, timeout=300, **kw) ^ \
+        target.evaluate(name, xs, b=1, timeout=300, **kw)
+
+
+def _pod_parity_gate(router, bundles, prg, xs, solo=None) -> None:
+    """Every key, both parties, through ``router`` (and ``solo``, the
+    plain scenario's single-shard router, where given), bit-exact vs the
+    numpy oracle, or SystemExit."""
+    want = _oracle_pairs(prg, bundles, xs)
+    targets = {"pod": router} if solo is None else {"pod": router,
+                                                    "solo": solo}
+    for name in bundles:
+        for via, target in targets.items():
+            if not np.array_equal(_routed_pair(target, name, xs),
+                                  want[name]):
+                where = "" if solo is None else f" via {via}"
+                raise SystemExit(f"pod_bench parity mismatch vs numpy "
+                                 f"oracle on {name}{where}")
+
+
+def _pod_wait_up(router, timeout_s: float = 60.0) -> None:
+    """Start the prober and wait until it sees every shard UP."""
+    from dcf_tpu_torch.serve.health import UP
+
+    router.start_health()
+    deadline = time.monotonic() + timeout_s
+    while any(st != UP for st in router.health.states().values()):
+        if time.monotonic() > deadline:
+            raise SystemExit(
+                f"pod_bench: prober never saw the pod UP "
+                f"({router.health.states()})")
+        time.sleep(0.05)
+
+
+def _pod_teardown(closers, procs: dict, root: str, keep: bool) -> None:
+    """Close the parent's routers and controllers, SIGTERM every shard
+    still running (SIGKILL after 15 s) and reap it, and remove the pod's
+    directory unless it was ``--store-dir``."""
+    import shutil
+
+    for obj in closers:
+        if obj is None:
+            continue
+        try:
+            obj.close()
+        except Exception:  # fallback-ok: best-effort teardown
+            pass
+    for proc, _r, _m in procs.values():
+        if proc.poll() is None:
+            proc.terminate()
+    for proc, _r, _m in procs.values():
+        try:
+            proc.wait(15)
+        except Exception:  # fallback-ok: a shard that ignores SIGTERM
+            # gets the hard kill
+            proc.kill()
+            proc.wait(15)
+    if not keep:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class _PodLedger:
+    """``conns`` closed-loop clients driving mixed CRITICAL/NORMAL
+    two-party sessions through a pod router, every request accounted:
+    completed bit-exact vs the numpy oracle, or refused typed WITH a
+    ``retry_after_s`` hint (the router converts bare transport deaths
+    into hinted ``CircuitOpenError`` refusals precisely so the ledger
+    closes).  Anything else — an unhinted refusal, a mismatch, an
+    untyped error — is counted for the caller's gate.  Client ``i``
+    draws from ``seed + stride * i``; a session picks CRITICAL with
+    probability ``critical`` and 1 to ``max_points`` points.  The key
+    list is taken once, at construction."""
+
+    def __init__(self, router, bundles: dict, prg, nb: int, *,
+                 conns: int, seed: int, stride: int, critical: float,
+                 max_points: int):
+        import threading
+
+        self.stats = {"sessions_ok": 0, "critical_ok": 0, "mismatches": 0,
+                      "refused_hinted": 0, "refused_unhinted": 0,
+                      "unaccounted": 0}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        names = sorted(bundles)
+
+        def client(i: int) -> None:
+            from dcf_tpu_torch.errors import DcfError
+
+            rng = np.random.default_rng(seed + stride * i)
+            while not self._stop.is_set():
+                name = names[int(rng.integers(0, len(names)))]
+                pr = "critical" if rng.random() < critical else "normal"
+                m = int(rng.integers(1, max_points + 1))
+                xs = rng.integers(0, 256, (m, nb), dtype=np.uint8)
+                try:
+                    f0 = router.submit(name, xs, b=0, priority=pr)
+                    f1 = router.submit(name, xs, b=1, priority=pr)
+                    got = f0.result(120) ^ f1.result(120)
+                except DcfError as e:
+                    hinted = getattr(e, "retry_after_s", None) is not None
+                    self._count("refused_hinted" if hinted
+                                else "refused_unhinted")
+                    continue
+                except Exception:  # fallback-ok: the gate's failure arm
+                    # — anything untyped escaping the router is exactly
+                    # what the soak exists to catch, counted and asserted
+                    self._count("unaccounted")
+                    continue
+                if np.array_equal(got, _oracle_pair(prg, bundles[name], xs)):
+                    self._count("sessions_ok",
+                                "critical_ok" if pr == "critical" else None)
+                else:
+                    self._count("mismatches")
+
+        self._threads = [threading.Thread(target=client, args=(i,),
+                                          name=f"pod-soak-{i}", daemon=True)
+                         for i in range(conns)]
+
+    def _count(self, *keys) -> None:
+        with self._lock:
+            for k in keys:
+                if k is not None:
+                    self.stats[k] += 1
+
+    def start(self) -> "_PodLedger":
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self, timeout: float | None = None) -> dict:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout)
+        return self.stats
+
+
+def _ledger_gates(stats: dict, *, min_sessions: int) -> list:
+    """The soak's failures: an unclean ledger, or too few sessions."""
+    failures = []
+    if stats["mismatches"] or stats["unaccounted"] \
+            or stats["refused_unhinted"]:
+        failures.append(
+            f"ledger not clean: {stats['mismatches']} mismatches, "
+            f"{stats['unaccounted']} untyped, "
+            f"{stats['refused_unhinted']} unhinted refusals")
+    if stats["sessions_ok"] < min_sessions or stats["critical_ok"] < 1:
+        failures.append(
+            f"soak delivered only {stats['sessions_ok']} sessions "
+            f"({stats['critical_ok']} CRITICAL)")
+    return failures
+
+
+def _ledger_fields(stats: dict) -> dict:
+    """The soak's counts under the line's ``soak_*`` keys."""
+    return {f"soak_{k}": v for k, v in stats.items()}
+
+
+def _pod_soak(router, bundles, prg, nb, *, duration_s: float,
+              conns: int, seed: int, kill_after_s: float,
+              kill_fn) -> dict:
+    """The kill-a-shard failover soak: a ``_PodLedger`` of ``conns``
+    clients for ``duration_s`` seconds while ``kill_fn`` SIGKILLs one
+    shard ``kill_after_s`` seconds in.  Returns the ledger's counts."""
+    ledger = _PodLedger(router, bundles, prg, nb, conns=conns, seed=seed,
+                        stride=211, critical=0.5, max_points=64).start()
+    t0 = time.monotonic()
+    killed = False
+    while time.monotonic() - t0 < duration_s:
+        if not killed and time.monotonic() - t0 >= kill_after_s:
+            kill_fn()
+            killed = True
+        time.sleep(0.05)
+    return ledger.stop()
+
+
+def _pod_live_register(router, dcf, rng, lam, nb, count: int,
+                       prefix: str = "live-key") -> tuple:
+    """Register ``count`` LIVE (non-durable) keys through the router's
+    REGISTER fan-out: the owner mints each generation, the replicas
+    apply it preserved — the path whose survival the kill and partition
+    soaks gate on.  Returns ``(bundles, generations)``."""
+    live, live_gens = {}, {}
+    for i in range(count):
+        name = f"{prefix}-{i}"
+        alphas = rng.integers(0, 256, (1, nb), dtype=np.uint8)
+        betas = rng.integers(0, 256, (1, lam), dtype=np.uint8)
+        kb = dcf.gen(alphas, betas, rng=rng)
+        live_gens[name] = router.register_key(name, kb)
+        live[name] = kb
+    return live, live_gens
+
+
+def _pod_wire_digest(addr: tuple, nb: int) -> dict:
+    """A shard's live ``{key_id: generation}`` digest over the wire
+    (the DIGEST verb — generations only, no key material moves)."""
+    from dcf_tpu_torch.serve import EdgeClient
+
+    with EdgeClient(addr[0], addr[1], n_bytes=nb) as c:
+        return c.pull_digest(timeout=60)
+
+
+def _group_by_owner(ring, bundles) -> dict:
+    """{owner_host_id: [key, ...]} over the ring's placements."""
+    by_owner: dict = {}
+    for name in bundles:
+        by_owner.setdefault(ring.owner(name).host_id, []).append(name)
+    return by_owner
+
+
+def _pod_line(args, dev, backend: str, metric: str, rate: float,
+              unit: str, extra: dict, argv: str) -> None:
+    """Emit a pod scenario's line: its platform, the repro (this
+    package's module, backend and device) and the unit's disclosure on
+    a CPU run."""
+    platform, interp = _platform(dev)
+    extra["platform"] = platform
+    extra["repro"] = (f"python -m dcf_tpu_torch.cli pod_bench {argv} "
+                      f"--backend {backend} --device {args.device} "
+                      f"--seed {args.seed}")
+    if interp:
+        unit += PLAIN_NOTE
+    _emit("pod_bench", backend, metric, rate, unit, extra_fields=extra)
+
+
+def bench_pod_selfheal(args) -> None:
+    """``pod_bench --partition`` / ``--flap`` (``dcf_tpu/cli.py:3587-
+    4004``): the partition-tolerance scenario.  N shard processes behind
+    the self-healing router; durable keys provisioned through the stores
+    (owner + replica, ``replicate_to``), live keys through the REGISTER
+    fan-out; then a ``net.partition`` window (``--flap``: three windows)
+    cuts the router<->victim link under 3-thread mixed CRITICAL/NORMAL
+    load while the health prober runs.
+
+    Emitted-then-asserted gates:
+
+    * LEDGER: every request reconstructs bit-exact vs the numpy
+      oracle or is refused typed WITH ``retry_after_s`` — zero
+      mismatches, zero untyped, zero unhinted;
+    * PROMOTION: the prober walks the victim to DOWN inside every cut
+      window, and a NORMAL request for a victim-owned key then serves
+      bit-exact from the promoted replica within about one probe
+      interval of the DOWN transition;
+    * HEALING: after every window the victim is re-admitted UP
+      through the anti-entropy gate, its wire digest converges to the
+      owners' generations (including a re-registration minted MID-cut
+      on the reachable side), and generations never regress across
+      cycles;
+    * THE FENCE: a doctored old-generation REGISTER frame sent
+      straight to the victim dies typed ``E_STALE`` and the key keeps
+      serving the newer bits."""
+    import os
+
+    from dcf_tpu_torch.errors import StaleStateError
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.serve import EdgeClient
+    from dcf_tpu_torch.serve.health import DOWN, UP
+    from dcf_tpu_torch.testing import faults
+
+    n_shards = args.shards
+    if n_shards < 2:
+        raise SystemExit(
+            f"--shards must be >= 2 for the partition scenario, "
+            f"got {n_shards}")
+    if args.probe_interval <= 0:
+        raise SystemExit(
+            f"--probe-interval must be > 0, got {args.probe_interval}")
+    if args.live_bundles < 0:
+        raise SystemExit(
+            f"--live-bundles must be >= 0, got {args.live_bundles}")
+    dcf, lam, nb, backend, rng = _serve_host_facade(args)
+    prg = HirosePrgNp(lam, dcf.cipher_keys)
+    n_bundles = args.bundles or 4
+    cycles = 3 if args.flap else 1
+    mode = "flap" if args.flap else "partition"
+
+    root, keep_dirs = _pod_root(args)
+    shard_ids = [f"shard-{i}" for i in range(n_shards)]
+    ring, stores, bundles, gens = _pod_provision(
+        dcf, lam, nb, rng, root, shard_ids, n_bundles)
+    procs: dict = {}
+    router = None
+    try:
+        for tag in shard_ids:
+            procs[tag] = _pod_spawn(tag, os.path.join(root, tag),
+                                    root, args)
+        ready = _pod_wait_ready(procs)
+        pod_specs, addr_of = _pod_specs(ready, shard_ids)
+        router = _pod_router(pod_specs, nb, args.probe_interval)
+        live, live_gens = _pod_live_register(
+            router, dcf, rng, lam, nb, args.live_bundles)
+        bundles.update(live)
+        gens.update(live_gens)
+        log(f"provisioned {n_bundles} durable + {len(live)} live keys "
+            f"over {n_shards} shards")
+
+        xs_gate = rng.integers(0, 256, (64, nb), dtype=np.uint8)
+        _pod_parity_gate(router, bundles, prg, xs_gate)
+        log(f"routed parity vs numpy oracle: OK ({len(bundles)} keys)")
+
+        by_owner = _group_by_owner(ring, bundles)
+        max_batch = args.max_batch or (1 << 10)
+        _pod_warmup(rng, nb, max_batch,
+                    [(router, [keys[0] for keys in by_owner.values()])])
+        log("warmup ladder done (all shards, both parties)")
+        victim = max(by_owner, key=lambda s: len(by_owner[s]))
+        # A key to register MID-cut: its owner stays reachable, its
+        # replica is the cut victim — the heal must converge it.  The
+        # name is always a FRESH one mined from the ring (placement is a
+        # pure function, so the search is deterministic): the soak
+        # clients snapshot their key list before it exists, so no client
+        # ever oracles a key whose bundle this thread is swapping mid-cut.
+        midcut_key = next(
+            f"midcut-key-{i}" for i in range(100000)
+            if ring.placement(f"midcut-key-{i}", replicas=1)[0]
+            .host_id != victim
+            and victim in {s.host_id for s in ring.placement(
+                f"midcut-key-{i}", replicas=1)})
+        victim_key = sorted(by_owner[victim])[0]
+
+        _pod_wait_up(router)
+        # The soak clients (the ledger accumulates across all cycles).
+        ledger = _PodLedger(router, bundles, prg, nb, conns=3,
+                            seed=args.seed, stride=311, critical=0.4,
+                            max_points=32)
+        t_soak0 = time.monotonic()
+        ledger.start()
+        # The cut window must fit several probe ROUNDS even on a loaded
+        # host where a healthy shard's ping can take seconds — a window
+        # shorter than fail_n rounds cannot demonstrate the DOWN walk,
+        # it just measures CPU contention.
+        cut_s = max(float(args.duration) / (3 * cycles),
+                    6 * args.probe_interval, 10.0)
+        down_seen = up_recovered = 0
+        promoted_within: list = []
+        digest_regressions = 0
+        seen_gens: dict = {}
+        try:
+            for _cycle in range(cycles):
+                t0 = time.monotonic()
+                handler = faults.partition(
+                    {(router.local_tag, victim)}, clock=time.monotonic,
+                    window=(t0, t0 + cut_s))
+                with faults.inject("net.partition", handler=handler):
+                    # Wait for the prober to mark the victim DOWN.
+                    while time.monotonic() < t0 + cut_s:
+                        if router.health.state(victim) == DOWN:
+                            break
+                        time.sleep(0.02)
+                    if router.health.state(victim) == DOWN:
+                        down_seen += 1
+                        t_down = time.monotonic()
+                        # Promotion: NORMAL traffic for a victim-owned
+                        # key ROUTES to the replica (the submit returning
+                        # un-refused IS the promotion — the timed claim
+                        # is routing availability, not this host's eval
+                        # speed) and serves bit-exact.
+                        xs = rng.integers(0, 256, (4, nb), dtype=np.uint8)
+                        try:
+                            f0 = router.submit(victim_key, xs, b=0)
+                            routed_s = time.monotonic() - t_down
+                            f1 = router.submit(victim_key, xs, b=1)
+                            got = f0.result(120) ^ f1.result(120)
+                        except Exception:  # fallback-ok: a missing
+                            # promotion fails the promoted_within gate
+                            # below — counted, not fatal here
+                            got = None
+                        if got is not None and np.array_equal(
+                                got, _oracle_pair(prg, bundles[victim_key],
+                                                  xs)):
+                            promoted_within.append(routed_s)
+                    # Mint a NEWER generation on the reachable side
+                    # mid-cut: the heal must converge it.
+                    alphas = rng.integers(0, 256, (1, nb), dtype=np.uint8)
+                    betas = rng.integers(0, 256, (1, lam), dtype=np.uint8)
+                    bundles[midcut_key] = dcf.gen(alphas, betas, rng=rng)
+                    gens[midcut_key] = router.register_key(
+                        midcut_key, bundles[midcut_key])
+                    while time.monotonic() < t0 + cut_s:
+                        time.sleep(0.05)
+                # Healed: the prober must re-admit through the
+                # anti-entropy gate.
+                deadline = time.monotonic() + 60
+                while router.health.state(victim) != UP:
+                    if time.monotonic() > deadline:
+                        break
+                    time.sleep(0.05)
+                if router.health.state(victim) == UP:
+                    up_recovered += 1
+                digest = _pod_wire_digest(addr_of[victim], nb)
+                for k, g in digest.items():
+                    if g < seen_gens.get(k, 0):
+                        digest_regressions += 1
+                    seen_gens[k] = max(g, seen_gens.get(k, 0))
+        finally:
+            stats = ledger.stop(60)
+        soak_wall_s = time.monotonic() - t_soak0
+
+        # Convergence: the victim holds the owners' generations for
+        # every key the ring places on it.
+        digest = _pod_wire_digest(addr_of[victim], nb)
+        converged = all(
+            digest.get(n) == gens[n] for n in sorted(bundles)
+            if victim in {s.host_id
+                          for s in ring.placement(n, replicas=1)})
+        # The fence: a doctored OLD-generation frame at the victim.
+        alphas = rng.integers(0, 256, (1, nb), dtype=np.uint8)
+        betas = rng.integers(0, 256, (1, lam), dtype=np.uint8)
+        doctored = dcf.gen(alphas, betas, rng=rng)
+        fence_held = False
+        with EdgeClient(*addr_of[victim], n_bytes=nb) as c:
+            try:
+                c.register_frame(victim_key, doctored.to_bytes(),
+                                 generation=gens[victim_key])
+            except StaleStateError:
+                fence_held = True
+        xs_post = rng.integers(0, 256, (16, nb), dtype=np.uint8)
+        post_parity = bool(np.array_equal(
+            _routed_pair(router, victim_key, xs_post),
+            _oracle_pair(prg, bundles[victim_key], xs_post)))
+        log(f"soak: {stats}; down_seen={down_seen}/{cycles} "
+            f"up_recovered={up_recovered}/{cycles} "
+            f"converged={converged} fence_held={fence_held}")
+
+        rsnap = router.metrics_snapshot()
+        # The denominator is the MEASURED soak wall time (cut windows
+        # + heal waits), not --duration: the cut floor and the gated
+        # re-admission stretch the run, and sessions/s must not be
+        # inflated by a denominator the soak outlived.
+        rate = stats["sessions_ok"] / max(soak_wall_s, 1e-9)
+        extra = {
+            "mode": mode,
+            "shards": n_shards,
+            "bundles": n_bundles,
+            "live_bundles": len(live),
+            "cycles": cycles,
+            "cut_s": round(cut_s, 3),
+            "soak_wall_s": round(soak_wall_s, 3),
+            "probe_interval_s": args.probe_interval,
+            **_ledger_fields(stats),
+            "down_seen": down_seen,
+            "up_recovered": up_recovered,
+            "promoted_serve_s": [round(s, 3) for s in promoted_within],
+            "digest_converged": converged,
+            "digest_regressions": digest_regressions,
+            "fence_held": fence_held,
+            "post_heal_parity": post_parity,
+            "anti_entropy_runs": rsnap.get(
+                "router_anti_entropy_runs_total", 0),
+            "anti_entropy_frames": rsnap.get(
+                "router_anti_entropy_frames_total", 0),
+            "promoted_forwards": rsnap.get(
+                "router_promoted_forwards_total", 0),
+        }
+        _pod_line(args, dcf.device, backend, "sessions_per_sec", rate,
+                  f"sessions/s ({mode} soak, two-party, mixed priority)",
+                  extra, f"--{mode} --shards {n_shards} "
+                  f"--duration {float(args.duration):g} "
+                  f"--bundles {n_bundles} "
+                  f"--live-bundles {args.live_bundles}")
+
+        failures = _ledger_gates(stats, min_sessions=3)
+        if down_seen < cycles:
+            failures.append(
+                f"prober marked the victim DOWN in only {down_seen} "
+                f"of {cycles} cut windows")
+        if up_recovered < cycles:
+            failures.append(
+                f"victim re-admitted UP after only {up_recovered} of "
+                f"{cycles} heals")
+        if len(promoted_within) < down_seen:
+            failures.append(
+                "a victim-owned key did not serve NORMAL traffic from "
+                "its promoted replica during a cut window")
+        elif promoted_within and max(promoted_within) > max(
+                args.probe_interval, 1.0) + 2.0:
+            failures.append(
+                f"promoted replica took {max(promoted_within):.2f}s "
+                "after DOWN (> one probe interval + slack)")
+        if not converged:
+            failures.append(
+                "the victim's digest did not converge to the owners' "
+                "generations after the heal")
+        if digest_regressions:
+            failures.append(
+                f"{digest_regressions} generation regressions across "
+                "cycles")
+        if not fence_held:
+            failures.append(
+                "a doctored old-generation frame was NOT fenced")
+        if not post_parity:
+            failures.append(
+                "the fenced key stopped serving the newer bits")
+        if extra["anti_entropy_runs"] < cycles:
+            failures.append(
+                f"anti-entropy ran only {extra['anti_entropy_runs']} "
+                f"times for {cycles} heals")
+        if extra["anti_entropy_frames"] < cycles:
+            failures.append(
+                f"anti-entropy pulled only "
+                f"{extra['anti_entropy_frames']} frames — the mid-cut "
+                f"registration ({midcut_key}) did not converge "
+                "through the digest exchange")
+        if failures:
+            raise SystemExit("pod_bench: " + "; ".join(failures))
+    finally:
+        _pod_teardown([router], procs, root, keep_dirs)
+
+
+def bench_pod_churn(args) -> None:
+    """``pod_bench --churn`` (``dcf_tpu/cli.py:4005-4521``): the
+    autonomous-membership scenario — kill -> auto-eject -> re-replication
+    verified -> heal -> graceful re-join, plus a drain leg, under
+    3-thread mixed load with the ledger running throughout.
+
+    Phases:
+
+    1. **provision + spawn** — durable keys ring-placed into owner +
+       replica stores (``KeyStore.replicate_to``), live keys through
+       the REGISTER fan-out, N ``serve_host`` subprocesses behind the
+       self-healing router with a ``MembershipController`` owning the
+       ring (``stores`` handed over for the durable migration half);
+    2. **kill -> auto-eject** — one shard SIGKILLed; the prober walks
+       it DOWN, the controller waits out ``--eject-grace`` and ejects:
+       the ring shrinks, the epoch bumps, and every key the victim
+       held is re-replicated to its new placement BEFORE the commit —
+       verified over the wire DIGEST verb (live registries) and the
+       stores (durable frames), generations preserved;
+    3. **heal -> graceful re-join** — the victim process is respawned
+       on its own store (warm restore) and re-admitted via
+       ``controller.join``: warmed through the anti-entropy SYNC path
+       against the prospective ring first, the epoch bumps again, and
+       its digest converges before the first routed request lands;
+    4. **drain** — a second shard is gracefully decommissioned:
+       frames migrated, ring swapped (epoch bump), in-flight grace
+       held, then the process SIGTERMed — which DRAINS and exits 0
+       with its ready file removed;
+    5. **the epoch fence** — a doctored STALE-epoch REQUEST frame
+       sent straight to a shard dies typed ``E_EPOCH`` with a retry
+       hint, and the key keeps serving the CURRENT ring's bits.
+
+    Emitted-then-asserted gates: ledger clean (every request bit-exact
+    vs the numpy oracle or refused typed WITH ``retry_after_s``), zero
+    generation regressions across every observed digest, zero lost
+    keys (every key still serves bit-exact after all three changes),
+    eject/join/drain all committed with strictly-increasing epochs,
+    the stale-epoch frame fenced, zero quarantines, and the drained
+    shard exited 0."""
+    import os
+    import signal
+    import socket as socket_mod
+    import struct as struct_mod
+
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.serve import (
+        EdgeClient,
+        MembershipController,
+        ShardSpec,
+    )
+    from dcf_tpu_torch.serve.edge import (
+        E_EPOCH,
+        decode_response,
+        encode_request,
+    )
+
+    n_shards = args.shards
+    if n_shards < 3:
+        raise SystemExit(
+            f"--churn needs --shards >= 3 (the auto-eject must leave "
+            f"a replicated ring), got {n_shards}")
+    if args.probe_interval <= 0:
+        raise SystemExit(
+            f"--probe-interval must be > 0, got {args.probe_interval}")
+    if args.eject_grace <= 0:
+        raise SystemExit(
+            f"--eject-grace must be > 0, got {args.eject_grace}")
+    if args.live_bundles < 0:
+        raise SystemExit(
+            f"--live-bundles must be >= 0, got {args.live_bundles}")
+    dcf, lam, nb, backend, rng = _serve_host_facade(args)
+    prg = HirosePrgNp(lam, dcf.cipher_keys)
+    n_bundles = args.bundles or 4
+
+    root, keep_dirs = _pod_root(args)
+    shard_ids = [f"shard-{i}" for i in range(n_shards)]
+    ring, stores, bundles, gens = _pod_provision(
+        dcf, lam, nb, rng, root, shard_ids, n_bundles)
+    procs: dict = {}
+    router = None
+    controller = None
+    try:
+        for tag in shard_ids:
+            procs[tag] = _pod_spawn(tag, os.path.join(root, tag),
+                                    root, args)
+        ready = _pod_wait_ready(procs)
+        pod_specs, addr_of = _pod_specs(ready, shard_ids)
+        router = _pod_router(pod_specs, nb, args.probe_interval)
+        controller = MembershipController(
+            router, stores=stores,
+            eject_grace_s=float(args.eject_grace),
+            drain_grace_s=1.0, min_hosts=2,
+            poll_interval_s=min(args.probe_interval, 0.25))
+        live, live_gens = _pod_live_register(
+            router, dcf, rng, lam, nb, args.live_bundles)
+        bundles.update(live)
+        gens.update(live_gens)
+        log(f"provisioned {n_bundles} durable + {len(live)} live keys "
+            f"over {n_shards} shards")
+
+        # Parity gate + warmup ladder (the soak must measure churn, not
+        # a shard's first staging of a shape).
+        xs_gate = rng.integers(0, 256, (64, nb), dtype=np.uint8)
+        _pod_parity_gate(router, bundles, prg, xs_gate)
+        by_owner = _group_by_owner(ring, bundles)
+        max_batch = args.max_batch or (1 << 10)
+        _pod_warmup(rng, nb, max_batch,
+                    [(router, [keys[0] for keys in by_owner.values()])])
+        log("routed parity + warmup ladder done")
+
+        _pod_wait_up(router)
+        controller.start()
+
+        # The ledger (accumulates across every phase).
+        ledger = _PodLedger(router, bundles, prg, nb, conns=3,
+                            seed=args.seed, stride=401, critical=0.4,
+                            max_points=32)
+        t_soak0 = time.monotonic()
+        ledger.start()
+
+        seen_gens: dict = {}
+        digest_regressions = 0
+
+        def absorb_digest(digest: dict) -> None:
+            nonlocal digest_regressions
+            for k, g in digest.items():
+                if g < seen_gens.get(k, 0):
+                    digest_regressions += 1
+                seen_gens[k] = max(g, seen_gens.get(k, 0))
+
+        failures: list = []
+        # ---- Phase 2: kill -> auto-eject ----------------------------
+        victim = max(by_owner, key=lambda s: (
+            len([n for n in by_owner[s] if n in live]),
+            len(by_owner[s])))
+        victim_keys = sorted(
+            n for n in bundles
+            if victim in ring.placement_ids(n, replicas=1))
+        log(f"SIGKILL {victim} (holds {len(victim_keys)} keys); "
+            f"auto-eject after {args.eject_grace:g}s of DOWN")
+        procs[victim][0].send_signal(signal.SIGKILL)
+        procs[victim][0].wait(30)  # reap before the respawn reuses
+        # the procs slot (a SIGKILLed child exits immediately)
+        deadline = time.monotonic() + 120
+        while victim in router.map:
+            if time.monotonic() > deadline:
+                raise SystemExit(
+                    "pod_bench: the controller never auto-ejected the "
+                    f"killed shard (health={router.health.states()}, "
+                    f"ring={router.map.host_ids()})")
+            time.sleep(0.05)
+        epoch_after_eject = router.ring_epoch
+        eject_ring = router.map
+        if epoch_after_eject < 1:
+            failures.append("eject committed without an epoch bump")
+        # Re-replication verified: every key the victim held is now
+        # placed wholly on survivors — live registries over the wire
+        # DIGEST verb, durable frames in the stores.
+        survivor_digests = {s: _pod_wire_digest(addr_of[s], nb)
+                            for s in eject_ring.host_ids()}
+        for d in survivor_digests.values():
+            absorb_digest(d)
+        for name in victim_keys:
+            for holder in eject_ring.placement_ids(name, replicas=1):
+                if survivor_digests[holder].get(name) != gens[name]:
+                    failures.append(
+                        f"post-eject holder {holder} serves "
+                        f"{name!r} at generation "
+                        f"{survivor_digests[holder].get(name)} "
+                        f"!= provisioned {gens[name]}")
+                if name not in live \
+                        and stores[holder].digest().get(name) \
+                        != gens[name]:
+                    failures.append(
+                        f"post-eject store {holder} lacks durable "
+                        f"{name!r} at generation {gens[name]}")
+        lost = controller.lost_keys(exclude={victim})
+        if lost:
+            failures.append(f"keys lost after eject: {lost}")
+        log(f"auto-eject OK: ring={eject_ring.host_ids()} "
+            f"epoch={epoch_after_eject}")
+
+        # ---- Phase 3: heal -> graceful re-join ----------------------
+        try:
+            os.unlink(procs[victim][1])  # the SIGKILL left the stale
+            # ready file behind; the respawn must publish a fresh one
+        except OSError:
+            pass  # fallback-ok: already gone
+        procs[victim] = _pod_spawn(victim, os.path.join(root, victim),
+                                   root, args)
+        rejoin_ready = _pod_wait_ready({victim: procs[victim]})
+        spec = ShardSpec(victim, rejoin_ready[victim]["host"],
+                         rejoin_ready[victim]["port"])
+        addr_of[victim] = spec.address
+        controller.join(spec)
+        epoch_after_join = router.ring_epoch
+        if epoch_after_join <= epoch_after_eject:
+            failures.append("join committed without an epoch bump")
+        if victim not in router.map:
+            failures.append("join did not admit the healed shard")
+        # Warmed-before-admitted: the rejoined shard's digest holds
+        # every key the ring places on it, generations preserved.
+        victim_digest = _pod_wire_digest(addr_of[victim], nb)
+        absorb_digest(victim_digest)
+        for name in sorted(bundles):
+            placed = router.map.placement_ids(name, replicas=1)
+            if victim in placed \
+                    and victim_digest.get(name) != gens[name]:
+                failures.append(
+                    f"rejoined shard serves {name!r} at generation "
+                    f"{victim_digest.get(name)} != {gens[name]}")
+        log(f"graceful re-join OK: epoch={epoch_after_join}")
+
+        # ---- Phase 4: drain ----------------------------------------
+        drain_host = next(s for s in router.map.host_ids()
+                          if s != victim)
+        controller.drain(drain_host)
+        epoch_after_drain = router.ring_epoch
+        if epoch_after_drain <= epoch_after_join:
+            failures.append("drain committed without an epoch bump")
+        if drain_host in router.map:
+            failures.append("drain left the host in the ring")
+        deadline = time.monotonic() + 60
+        while drain_host in controller.draining():
+            if time.monotonic() > deadline:
+                failures.append(
+                    "the drain grace never completed (forget pending)")
+                break
+            time.sleep(0.05)
+        drain_digests = {s: _pod_wire_digest(addr_of[s], nb)
+                         for s in router.map.host_ids()}
+        for d in drain_digests.values():
+            absorb_digest(d)
+        for name in sorted(bundles):
+            for holder in router.map.placement_ids(name, replicas=1):
+                if drain_digests[holder].get(name) != gens[name]:
+                    failures.append(
+                        f"post-drain holder {holder} serves {name!r} "
+                        f"at {drain_digests[holder].get(name)} != "
+                        f"{gens[name]}")
+        lost = controller.lost_keys(exclude={drain_host})
+        if lost:
+            failures.append(f"keys lost after drain: {lost}")
+        # The drained process: SIGTERM DRAINS and exits 0 with the ready
+        # file removed (the graceful shutdown).
+        procs[drain_host][0].send_signal(signal.SIGTERM)
+        try:
+            rc = procs[drain_host][0].wait(60)
+        except Exception:  # fallback-ok: counted via the gate below
+            rc = None
+        if rc != 0:
+            failures.append(
+                f"drained shard exited rc={rc} on SIGTERM (graceful "
+                "shutdown must exit 0)")
+        if os.path.exists(procs[drain_host][1]):
+            failures.append(
+                "drained shard left its ready file behind")
+        log(f"drain OK: ring={router.map.host_ids()} "
+            f"epoch={epoch_after_drain} drained-exit rc={rc}")
+
+        # ---- Phase 5: the epoch fence ------------------------------
+        fence_target = router.map.host_ids()[0]
+        # Make sure the target has adopted the CURRENT epoch (probes
+        # disseminate it; one fenced ping is deterministic).
+        with EdgeClient(*addr_of[fence_target], n_bytes=nb) as c:
+            shard_epoch = c.ping_epoch(timeout=60,
+                                       epoch=router.ring_epoch)
+        stale = max(router.ring_epoch - 1, 1)
+        fence_key = next(n for n in sorted(bundles)
+                         if router.map.owner(n).host_id == fence_target)
+        xs_f = rng.integers(0, 256, (4, nb), dtype=np.uint8)
+        doctored = encode_request(991, "", fence_key, 0, 255, None,
+                                  xs_f.data, nb, 4, epoch=stale)
+        s = socket_mod.create_connection(addr_of[fence_target], timeout=60)
+        try:
+            s.sendall(doctored)
+            s.shutdown(socket_mod.SHUT_WR)
+            s.settimeout(60)
+            data = b""
+            while True:
+                try:
+                    chunk = s.recv(1 << 16)
+                except OSError:
+                    break
+                if not chunk:
+                    break
+                data += chunk
+        finally:
+            s.close()
+        fence_held = False
+        off = 0
+        while off < len(data):
+            (blen,) = struct_mod.unpack_from("<I", data, off)
+            decoded = decode_response(data[off + 4:off + 4 + blen])
+            if decoded[0] == "error" and decoded[2] == E_EPOCH \
+                    and decoded[3] is not None:
+                fence_held = True
+            off += 4 + blen
+        if shard_epoch != router.ring_epoch:
+            failures.append(
+                f"shard epoch {shard_epoch} never converged to the "
+                f"ring epoch {router.ring_epoch}")
+        if not fence_held:
+            failures.append(
+                "a doctored stale-epoch frame was NOT refused E_EPOCH "
+                "with a retry hint")
+        # ...and the key keeps serving the CURRENT ring's bits.
+        post_parity = bool(np.array_equal(
+            _routed_pair(router, fence_key, xs_f),
+            _oracle_pair(prg, bundles[fence_key], xs_f)))
+        if not post_parity:
+            failures.append(
+                "the fenced key stopped serving the current ring's "
+                "bits")
+
+        stats = ledger.stop(60)
+        soak_wall_s = time.monotonic() - t_soak0
+
+        # Zero lost keys, globally: every key still serves bit-exact on
+        # the final two-host ring.
+        xs_post = rng.integers(0, 256, (8, nb), dtype=np.uint8)
+        want = _oracle_pairs(prg, bundles, xs_post)
+        for name in sorted(bundles):
+            if not np.array_equal(_routed_pair(router, name, xs_post),
+                                  want[name]):
+                failures.append(
+                    f"{name!r} no longer serves bit-exact after the "
+                    "churn (lost or rolled back)")
+        metric_files = [procs[s][2] for s in shard_ids]
+        time.sleep(1.2)
+        roll = _pod_rollup(metric_files)
+        quarantined = roll.get("serve_store_quarantined_total", 0)
+        kinds = [e.kind for e in controller.events()]
+
+        rsnap = router.metrics_snapshot()
+        rate = stats["sessions_ok"] / max(soak_wall_s, 1e-9)
+        extra = {
+            "mode": "churn",
+            "shards": n_shards,
+            "bundles": n_bundles,
+            "live_bundles": len(live),
+            "eject_grace_s": float(args.eject_grace),
+            "probe_interval_s": args.probe_interval,
+            "soak_wall_s": round(soak_wall_s, 3),
+            **_ledger_fields(stats),
+            "epochs": [epoch_after_eject, epoch_after_join,
+                       epoch_after_drain],
+            "membership_events": kinds,
+            "digest_regressions": digest_regressions,
+            "fence_held": fence_held,
+            "post_fence_parity": post_parity,
+            "drained_exit_rc": rc,
+            "migrated_frames": rsnap.get(
+                "membership_migrated_frames_total", 0),
+            "durable_replications": rsnap.get(
+                "membership_durable_replications_total", 0),
+            "lost_keys": rsnap.get("membership_lost_keys_total", 0),
+            "pod_quarantined": quarantined,
+        }
+        _pod_line(args, dcf.device, backend, "sessions_per_sec", rate,
+                  "sessions/s (churn soak, two-party, mixed priority)",
+                  extra, f"--churn --shards {n_shards} "
+                  f"--bundles {n_bundles} "
+                  f"--live-bundles {args.live_bundles} "
+                  f"--eject-grace {float(args.eject_grace):g}")
+
+        failures += _ledger_gates(stats, min_sessions=3)
+        if digest_regressions:
+            failures.append(
+                f"{digest_regressions} generation regressions across "
+                "the churn")
+        for want_kind in ("eject", "join", "drain", "drain-complete"):
+            if want_kind not in kinds:
+                failures.append(
+                    f"no {want_kind!r} membership event was committed")
+        if quarantined:
+            failures.append(
+                f"{quarantined} frames quarantined across the pod")
+        if failures:
+            raise SystemExit("pod_bench: " + "; ".join(failures))
+    finally:
+        _pod_teardown([controller, router], procs, root, keep_dirs)
+
+
+def bench_pod_surge(args) -> None:
+    """``pod_bench --surge`` (``dcf_tpu/cli.py:4522-5027``): the
+    demand-driven autoscaling scenario — a Zipf-skewed open-loop RAMP
+    schedule drives the pod into sustained pressure, the
+    ``CapacityController`` admits a ``serve_host --standby`` process
+    through the graceful join within the reaction bound, the post-surge
+    idle window drains the least-loaded host back to standby, and a
+    scripted oscillating-load leg (the ``capacity.decide`` seam) is
+    pinned to ZERO ring churn.
+
+    Phases:
+
+    1. **provision + spawn** — durable keys ring-placed into the
+       ``--shards`` ring stores; ``--standby-hosts`` extra
+       ``serve_host --standby`` processes come up provisioned-but-idle
+       (no restore: the join's warm-before-admit ships keys when — if
+       — demand admits them); every shard takes a SMALL admission
+       bound (``--max-queued-points``, default 4096 here) so overload
+       becomes visible demand within the bench window;
+    2. **surge** — a seeded open-loop ramp (``ramp up -> hold at a
+       multiple of the calibrated closed-loop capacity -> fall
+       quiet``) with Zipf key skew and a deadline on every request,
+       while the main thread pumps the capacity controller on the
+       injectable-clock tick (the deterministic driving mode — the
+       same controller the ``start()`` worker would tick);
+    3. **scale-out** — sustained pressure (queue fraction / brownout /
+       shed deltas, aggregated via the metrics-rollup path) must admit
+       a standby host within ``--reaction-bound`` seconds of the ramp
+       start: epoch-fenced join, warm-before-admit;
+    4. **scale-in** — the post-surge idle streak must drain the
+       least-loaded host back to the standby pool (durable migration,
+       deferred forget) once the cooldown clears;
+    5. **oscillation** — a seam handler forces
+       pressure/idle/pressure/idle... verdicts inside the hysteresis
+       windows: the ring epoch must not move and zero scaling events
+       may commit (the flap-damping acceptance).
+
+    Emitted-then-asserted gates: scale-out within the reaction bound,
+    scale-in committed (ring back to ``--shards``, standby pool
+    refilled), zero lost keys, zero generation regressions across
+    every observed digest, post-shrink two-party parity vs the numpy
+    oracle on EVERY key, zero CRITICAL sheds across the pod rollup,
+    strictly-increasing epochs across the scaling events, and the
+    oscillation leg's zero-churn pin."""
+    import os
+    import threading
+
+    from dcf_tpu_torch.errors import DcfError
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.serve import (
+        CapacityController,
+        KeyStore,
+        MembershipController,
+        ShardSpec,
+    )
+    from dcf_tpu_torch.serve.capacity import IDLE, PRESSURE, ForcedVerdict
+    from dcf_tpu_torch.serve.loadgen import closed_loop, open_loop_ramp
+    from dcf_tpu_torch.serve.metrics import labeled
+    from dcf_tpu_torch.testing import faults
+
+    n_shards = args.shards
+    if n_shards < 2:
+        raise SystemExit(
+            f"--surge needs --shards >= 2 (scale-in must leave a "
+            f"replicated ring), got {n_shards}")
+    if args.standby_hosts < 1:
+        raise SystemExit(
+            f"--standby-hosts must be >= 1 (a surge with nothing to "
+            f"admit gates nothing), got {args.standby_hosts}")
+    if args.probe_interval <= 0:
+        raise SystemExit(
+            f"--probe-interval must be > 0, got {args.probe_interval}")
+    if args.reaction_bound <= 0:
+        raise SystemExit(
+            f"--reaction-bound must be > 0, got {args.reaction_bound}")
+    _pod_backend(args)
+    n_bundles = args.bundles or 4
+    n_standby = args.standby_hosts
+    max_batch = args.max_batch or (1 << 10)
+    min_req = args.min_req_points or (max_batch * 3 // 8)
+    max_req = args.max_req_points or (max_batch // 2)
+    if not 1 <= min_req <= max_req:
+        raise SystemExit(
+            f"bad request-size range [{min_req}, {max_req}]")
+    qbound = args.max_queued_points or 4096
+    skew = _parse_skew(args.skew) or 1.0
+    dcf, lam, nb, backend, rng = _serve_host_facade(args)
+    prg = HirosePrgNp(lam, dcf.cipher_keys)
+
+    root, keep_dirs = _pod_root(args)
+    shard_ids = [f"shard-{i}" for i in range(n_shards)]
+    standby_ids = [f"standby-{i}" for i in range(n_standby)]
+    ring, stores, bundles, gens = _pod_provision(
+        dcf, lam, nb, rng, root, shard_ids, n_bundles)
+    for tag in standby_ids:
+        # Provisioned-but-empty: the graceful join's warm-before-admit
+        # migration fills it IF demand ever admits the host.
+        stores[tag] = KeyStore(os.path.join(root, tag))
+    procs: dict = {}
+    router = None
+    mc = None
+    cap = None
+    try:
+        qflags = ["--max-queued-points", str(qbound)]
+        for tag in shard_ids:
+            procs[tag] = _pod_spawn(tag, os.path.join(root, tag),
+                                    root, args, extra=qflags)
+        for tag in standby_ids:
+            procs[tag] = _pod_spawn(tag, os.path.join(root, tag),
+                                    root, args, standby=True,
+                                    extra=qflags)
+        ready = _pod_wait_ready(procs)
+        for tag in standby_ids:
+            if not ready[tag].get("standby") \
+                    or ready[tag].get("restored"):
+                raise SystemExit(
+                    f"pod_bench: {tag} did not come up as an empty "
+                    f"standby host ({ready[tag]})")
+        pod_specs, addr_of = _pod_specs(ready, [*shard_ids, *standby_ids])
+        # Condemnation-tolerant prober: the surge INTENDS to starve the
+        # shards, and a shard walked DOWN mid-overload both kills the
+        # demand signal (the router refuses its traffic) and trips the
+        # eject_inflight rail — the scenario under test is capacity,
+        # not death detection (that's --churn).
+        router = _pod_router(pod_specs[:n_shards], nb, args.probe_interval,
+                             probe_timeout_s=10.0, probe_fail_n=6,
+                             probe_recover_m=1)
+        mc = MembershipController(
+            router, stores=stores,
+            eject_grace_s=float(args.eject_grace),
+            drain_grace_s=0.5, min_hosts=2,
+            poll_interval_s=min(args.probe_interval, 0.25))
+        tick = max(args.probe_interval, 0.25)
+        cap = CapacityController(
+            router, mc,
+            standby=[(ShardSpec(t, *addr_of[t]), stores[t])
+                     for t in standby_ids],
+            interval_s=tick, scale_out_n=2, scale_in_m=3,
+            cooldown_s=max(2 * tick, 1.0),
+            min_hosts=n_shards, max_hosts=n_shards + n_standby,
+            queue_pressure_fraction=0.5, queue_idle_fraction=0.05)
+        log(f"pod up: ring={n_shards} standby={n_standby} "
+            f"queue-bound={qbound} pts; capacity tick={tick:g}s "
+            f"n={cap.scale_out_n} m={cap.scale_in_m} "
+            f"cooldown={cap.cooldown_s:g}s")
+
+        # Parity gate + warmup ladder (the surge must measure the
+        # controller, not a shard's first staging of a shape).
+        xs_gate = rng.integers(0, 256, (64, nb), dtype=np.uint8)
+        _pod_parity_gate(router, bundles, prg, xs_gate)
+        by_owner = _group_by_owner(ring, bundles)
+        _pod_warmup(rng, nb, max_batch,
+                    [(router, [keys[0] for keys in by_owner.values()])])
+        _pod_wait_up(router)
+        log("routed parity + warmup ladder done; prober UP")
+
+        # Calibrate the pod's closed-loop capacity, then shape the
+        # surge: ramp to 1.5x, hold at 2.5x (sustained pressure against
+        # the small admission bound), fall quiet.
+        cal = closed_loop(router, sorted(bundles),
+                          duration_s=2.0, concurrency=args.concurrency,
+                          min_points=min_req, max_points=max_req,
+                          seed=args.seed + 3)
+        base_rps = max(cal.requests_ok / max(cal.duration_s, 1e-9), 2.0)
+        ramp_s = max(float(args.duration) / 5, 3.0)
+        hold_s = max(float(args.duration) / 2, 6.0)
+        segments = [(ramp_s, 1.5 * base_rps), (hold_s, 2.5 * base_rps),
+                    (max(float(args.duration) / 6, 2.0), 0.0)]
+        log(f"calibrated {base_rps:,.1f} req/s closed-loop; surge "
+            f"schedule {[(round(d, 1), round(r, 1)) for d, r in segments]}")
+
+        ramp_res: dict = {}
+
+        def offer() -> None:
+            # NORMAL/BATCH carry the overload: a CRITICAL request is
+            # only ever shed when the queue holds too few lower-class
+            # points to evict, so the zero-CRITICAL-shed gate is
+            # exercised by the dedicated heartbeat stream below, not
+            # by drowning CRITICAL in its own flood.
+            ramp_res["res"] = open_loop_ramp(
+                router, sorted(bundles), segments=segments,
+                min_points=min_req, max_points=max_req,
+                seed=args.seed + 17, skew=skew, deadline_ms=2000.0,
+                priority_mix={"normal": 0.65, "batch": 0.35})
+
+        ramp_thread = threading.Thread(target=offer, daemon=True,
+                                       name="surge-ramp")
+        cap_events: list = []
+        hb_keys = sorted(bundles)
+        hb_rng = np.random.default_rng(args.seed + 29)
+        hb_futs: list = []
+        hb_i = 0
+        hb_refused_hinted = hb_refused_unhinted = 0
+        t_surge0 = time.monotonic()
+        ramp_thread.start()
+        t_out = t_in = None
+        # The elastic cycle: pump the controller (and the membership
+        # poller) on the tick until the surge scaled out, the idle
+        # window scaled back in, and the drain grace completed.
+        cycle_deadline = t_surge0 + sum(d for d, _r in segments) + 240
+        while time.monotonic() < cycle_deadline:
+            cap.pump()
+            mc.pump()
+            cap_events += cap.events()
+            if ramp_thread.is_alive():
+                # The CRITICAL heartbeat: one small two-party session
+                # per tick MUST ride out the surge — eviction clears
+                # lower-class room for it, never the other way around.
+                name = hb_keys[hb_i % len(hb_keys)]
+                hb_i += 1
+                xs_hb = hb_rng.integers(0, 256, (8, nb), dtype=np.uint8)
+                try:
+                    f0 = router.submit(name, xs_hb, b=0,
+                                       priority="critical")
+                    f1 = router.submit(name, xs_hb, b=1,
+                                       priority="critical")
+                    hb_futs.append((name, xs_hb, f0, f1))
+                except DcfError as e:
+                    if getattr(e, "retry_after_s", None) is not None:
+                        hb_refused_hinted += 1
+                    else:
+                        hb_refused_unhinted += 1
+            now = time.monotonic()
+            if t_out is None and any(e.kind == "scale-out"
+                                     for e in cap_events):
+                t_out = now
+                log(f"scale-out committed {now - t_surge0:,.1f}s into "
+                    f"the surge (ring={router.map.host_ids()})")
+            if t_in is None and any(e.kind == "scale-in"
+                                    for e in cap_events):
+                t_in = now
+                log(f"scale-in committed {now - t_surge0:,.1f}s in "
+                    f"(ring={router.map.host_ids()})")
+            if t_out is not None and t_in is not None \
+                    and not ramp_thread.is_alive() \
+                    and not mc.draining():
+                break
+            time.sleep(tick)
+        ramp_thread.join()
+        res = ramp_res.get("res")
+        if res is None:
+            raise SystemExit("pod_bench: the surge schedule never "
+                             "completed")
+        cap_events += cap.events()
+        reaction_s = (t_out - t_surge0) if t_out is not None else None
+        drained_ids = {e.host_id for e in cap_events
+                       if e.kind == "scale-in"}
+
+        failures: list = []
+        # Collect the CRITICAL heartbeats: every accepted one must
+        # complete bit-exact vs the oracle, or fail typed WITH a hint
+        # (a membership swap mid-flight is a hinted refusal, not a
+        # loss); anything untyped fails the gate.
+        hb_ok = hb_unaccounted = 0
+        # One oracle walk a party over every heartbeat's points (the
+        # stacked keys at the concatenated points): heartbeat i is key
+        # name's row at points [8 i, 8 i + 8).
+        hb_want = _oracle_pairs(
+            prg, bundles, np.concatenate([h[1] for h in hb_futs])) \
+            if hb_futs else {}
+        for i, (name, xs_hb, f0, f1) in enumerate(hb_futs):
+            try:
+                got = f0.result(120) ^ f1.result(120)
+            except DcfError as e:
+                if getattr(e, "retry_after_s", None) is not None:
+                    hb_refused_hinted += 1
+                else:
+                    hb_refused_unhinted += 1
+                continue
+            except Exception:  # fallback-ok: the gate's failure arm —
+                # an untyped CRITICAL loss is what the stream hunts
+                hb_unaccounted += 1
+                continue
+            if np.array_equal(got, hb_want[name][:, 8 * i:8 * i + 8]):
+                hb_ok += 1
+            else:
+                hb_unaccounted += 1
+        # Zero generation regressions + every placed holder serves the
+        # provisioned generation, over the wire DIGEST verb.
+        seen_gens = dict(gens)
+        digest_regressions = 0
+        for host_id in router.map.host_ids():
+            digest = _pod_wire_digest(addr_of[host_id], nb)
+            for k, g in digest.items():
+                if g < seen_gens.get(k, 0):
+                    digest_regressions += 1
+                seen_gens[k] = max(g, seen_gens.get(k, 0))
+            for name in sorted(bundles):
+                if host_id in router.map.placement_ids(
+                        name, replicas=1) \
+                        and digest.get(name) != gens[name]:
+                    failures.append(
+                        f"post-cycle holder {host_id} serves {name!r} "
+                        f"at generation {digest.get(name)} != "
+                        f"provisioned {gens[name]}")
+        lost = mc.lost_keys(exclude=drained_ids)
+
+        # The oscillation leg: scripted pressure/idle flapping inside
+        # the hysteresis windows must produce ZERO ring churn.
+        osc_epoch0 = router.ring_epoch
+        osc_n = {"n": 0}
+
+        def osc(kind, verdict) -> None:
+            osc_n["n"] += 1
+            raise ForcedVerdict(PRESSURE if osc_n["n"] % 2 else IDLE)
+
+        osc_ticks = 4 * max(cap.scale_out_n, cap.scale_in_m)
+        with faults.inject("capacity.decide", handler=osc):
+            for _ in range(osc_ticks):
+                cap.pump()
+        osc_events = cap.events()
+        osc_epoch_moved = router.ring_epoch != osc_epoch0
+
+        # Post-shrink parity: EVERY key, both parties, vs the oracle.
+        xs_post = rng.integers(0, 256, (8, nb), dtype=np.uint8)
+        post_parity = True
+        want = _oracle_pairs(prg, bundles, xs_post)
+        for name in sorted(bundles):
+            if not np.array_equal(_routed_pair(router, name, xs_post),
+                                  want[name]):
+                post_parity = False
+                failures.append(
+                    f"{name!r} no longer serves bit-exact after the "
+                    "elastic cycle (lost or rolled back)")
+        metric_files = [procs[t][2] for t in [*shard_ids, *standby_ids]]
+        time.sleep(1.2)
+        roll = _pod_rollup(metric_files)
+        critical_shed = roll.get(labeled(
+            "serve_shed_by_class_total", priority="critical"), 0)
+
+        rsnap = router.metrics_snapshot()
+        epochs = [e.epoch for e in cap_events]
+        rate = res.points_ok / max(res.duration_s, 1e-9)
+        extra = {
+            "mode": "surge",
+            "shards": n_shards,
+            "standby_hosts": n_standby,
+            "bundles": n_bundles,
+            "max_queued_points": qbound,
+            "skew": skew,
+            "calibrated_rps": round(base_rps, 1),
+            "segments": [[round(d, 2), round(r, 1)]
+                         for d, r in segments],
+            "offered_rps": round(res.offered_rps, 1),
+            "sent": res.sent,
+            "ok": res.ok,
+            "shed": res.shed,
+            "expired": res.expired,
+            "failed": res.failed,
+            "reaction_s": (None if reaction_s is None
+                           else round(reaction_s, 2)),
+            "reaction_bound_s": float(args.reaction_bound),
+            "capacity_events": [[e.kind, e.host_id, e.epoch]
+                                for e in cap_events],
+            "epochs": epochs,
+            "final_ring": router.map.host_ids(),
+            "standby_after": cap.standby(),
+            "osc_ticks": osc_ticks,
+            "osc_events": len(osc_events),
+            "osc_epoch_moved": osc_epoch_moved,
+            "digest_regressions": digest_regressions,
+            "lost_keys": len(lost),
+            "post_shrink_parity": post_parity,
+            "pod_critical_shed": critical_shed,
+            "critical_hb_ok": hb_ok,
+            "critical_hb_refused_hinted": hb_refused_hinted,
+            "critical_hb_refused_unhinted": hb_refused_unhinted,
+            "critical_hb_unaccounted": hb_unaccounted,
+            "capacity_skips": {
+                k.split("reason=", 1)[1].rstrip("}"): v
+                for k, v in rsnap.items()
+                if k.startswith("capacity_skips_total{")},
+            "scale_failures": rsnap.get(
+                "capacity_scale_failures_total", 0),
+            "probe_interval_s": args.probe_interval,
+        }
+        _pod_line(args, dcf.device, backend, "evals_per_sec", rate,
+                  "evals/s (open-loop Zipf surge through the pod router, "
+                  "party 0)", extra,
+                  f"--surge --shards {n_shards} "
+                  f"--standby-hosts {n_standby} --bundles {n_bundles} "
+                  f"--duration {float(args.duration):g}")
+
+        # Emitted-then-asserted, chaos_bench style.
+        if t_out is None:
+            failures.append(
+                "sustained pressure never admitted a standby host "
+                f"(skips={extra['capacity_skips']})")
+        elif reaction_s > float(args.reaction_bound):
+            failures.append(
+                f"scale-out took {reaction_s:.1f}s from the ramp "
+                f"start (> the {float(args.reaction_bound):g}s "
+                "reaction bound)")
+        if t_in is None:
+            failures.append(
+                "the post-surge idle window never drained a host "
+                "back to standby")
+        if len(router.map) != n_shards:
+            failures.append(
+                f"the ring ended at {len(router.map)} hosts, not the "
+                f"{n_shards} it started with")
+        if len(cap.standby()) != n_standby:
+            failures.append(
+                f"the standby pool ended at {cap.standby()}, not "
+                f"{n_standby} host(s)")
+        if any(b <= a for a, b in zip(epochs, epochs[1:])):
+            failures.append(
+                f"scaling epochs not strictly increasing: {epochs}")
+        if lost:
+            failures.append(f"keys lost across the cycle: {lost}")
+        if digest_regressions:
+            failures.append(
+                f"{digest_regressions} generation regressions across "
+                "the cycle")
+        if critical_shed:
+            failures.append(
+                f"{critical_shed} CRITICAL sheds across the pod "
+                "(CRITICAL must ride out a surge)")
+        if hb_ok < 1 or hb_unaccounted or hb_refused_unhinted:
+            failures.append(
+                f"CRITICAL heartbeat stream not clean through the "
+                f"surge: {hb_ok} bit-exact, {hb_unaccounted} "
+                f"unaccounted, {hb_refused_unhinted} refusals without "
+                "retry_after_s")
+        if osc_events or osc_epoch_moved:
+            failures.append(
+                f"the oscillating-load leg moved the ring: "
+                f"{len(osc_events)} events, epoch_moved="
+                f"{osc_epoch_moved} (flap damping failed)")
+        if res.sent < 10:
+            failures.append(
+                f"the surge offered only {res.sent} requests (the "
+                "schedule never stressed the pod)")
+        if failures:
+            raise SystemExit("pod_bench: " + "; ".join(failures))
+    finally:
+        _pod_teardown([cap, mc, router], procs, root, keep_dirs)
+
+
+def bench_pod_mesh(args) -> None:
+    """``pod_bench --mesh`` (``dcf_tpu/cli.py:5028-5285``): route-mode
+    vs co-evaluate on the SAME pod, recording the dispatch crossover.
+
+    Route-mode sends one batch to one host (its key's owner walks all
+    ``m`` points); co-evaluate scatters the same batch's 32-aligned
+    point slices over EVERY mesh worker through the zero-copy DCFE
+    relay and gathers the share slices back in plan order — the wall
+    clock for one big batch is the slowest slice, not the whole walk.
+    The crossover batch size (where co-evaluate first beats route-mode)
+    is what the router's ``co_eval_min_points`` threshold should be set
+    to on a given pod, so this bench measures and EMITS it.
+
+    Legs, in order:
+
+    1. **provision** — ``--bundles`` two-party bundles written durably
+       to EVERY shard's store (mesh-wide residency: a co-evaluated key
+       must be resident on all workers);
+    2. **spawn** — ``--shards`` serve_host subprocesses warm-restore
+       ALL keys; the parent builds a route-only router
+       (``co_eval="never"``) and a mesh router (``co_eval="always"``,
+       group formed over the full ring) over the identical pod;
+    3. **parity gate** — every key, both parties: the co-evaluated
+       reconstruction is bit-exact vs route-mode AND the numpy oracle
+       (scatter/gather must be invisible in the bytes);
+    4. **crossover ladder** — interleaved route/co-eval segments (one
+       ``--reps``-sampled leg pair per rung) over a geometric batch
+       ladder; per rung the median single-batch wall time becomes
+       evals/s per mode, and the crossover is the smallest rung where
+       co-evaluate wins;
+    5. **health check** — zero ``router_mesh_degraded_total`` (a
+       degrade mid-bench means the ladder silently measured route-mode
+       twice), co_evals accounted.
+
+    The crossover gate applies only when the host offers the pod
+    parallelism co-evaluation exists to exploit (>= shards + 1 CPUs);
+    on a smaller host the measured ladder is EMITTED with the gate
+    recorded environment-gated.  Emits one ``RESULTS_mesh`` line."""
+    import os
+    import statistics
+
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.serve import DcfRouter
+
+    n_shards = args.shards
+    if n_shards < 2:
+        raise SystemExit(
+            f"--mesh needs --shards >= 2 (co-evaluating over one "
+            f"worker IS route-mode), got {n_shards}")
+    _pod_backend(args)
+    n_bundles = args.bundles or 4
+    max_batch = args.max_batch or (1 << 10)
+    base = args.min_req_points or 128
+    top = args.max_req_points or (1 << 13)
+    if not 1 <= base <= top:
+        raise SystemExit(f"bad ladder range [{base}, {top}]")
+    reps = max(args.reps, 3)
+    dcf, lam, nb, backend, rng = _serve_host_facade(args)
+    prg = HirosePrgNp(lam, dcf.cipher_keys)
+
+    root, keep_dirs = _pod_root(args)
+    shard_ids = [f"shard-{i}" for i in range(n_shards)]
+
+    # Leg 1: provision, then replicate every key to EVERY shard.
+    ring, stores, bundles, gens = _pod_provision(
+        dcf, lam, nb, rng, root, shard_ids, n_bundles)
+    for name in bundles:
+        placed = {s.host_id for s in ring.placement(name, replicas=1)}
+        owner = ring.owner(name).host_id
+        for tag in shard_ids:
+            if tag not in placed:
+                stores[owner].replicate_to(stores[tag], name)
+    log(f"provisioned {n_bundles} keys mesh-wide "
+        f"(every key on all {n_shards} shards)")
+
+    procs: dict = {}
+    routers: list = []
+    try:
+        for tag in shard_ids:
+            procs[tag] = _pod_spawn(tag, os.path.join(root, tag),
+                                    root, args)
+        ready = _pod_wait_ready(procs)
+        for tag, doc in ready.items():
+            if doc["restored"] != n_bundles or doc["quarantined"]:
+                raise SystemExit(
+                    f"pod_bench --mesh: shard {tag} restored "
+                    f"{doc['restored']}/{n_bundles} keys "
+                    f"({doc['quarantined']} quarantined)")
+        pod_specs, _addr = _pod_specs(ready, shard_ids)
+        route_router = DcfRouter(pod_specs, n_bytes=nb, co_eval="never")
+        mesh_router = DcfRouter(pod_specs, n_bytes=nb, co_eval="always")
+        mesh_router.set_mesh()
+        routers = [route_router, mesh_router]
+
+        # Leg 3: parity gate (both parties, both modes, numpy oracle).
+        xs_gate = rng.integers(0, 256, (3 * 32 + 7, nb), dtype=np.uint8)
+        oracle = _oracle_pairs(prg, bundles, xs_gate)
+        for name in bundles:
+            want = oracle[name]
+            if not np.array_equal(_routed_pair(mesh_router, name, xs_gate),
+                                  want):
+                raise SystemExit(
+                    f"pod_bench --mesh: co-evaluated parity mismatch "
+                    f"vs numpy oracle on {name}")
+            if not np.array_equal(
+                    _routed_pair(route_router, name, xs_gate), want):
+                raise SystemExit(
+                    f"pod_bench --mesh: route-mode parity mismatch "
+                    f"vs numpy oracle on {name}")
+        log(f"co-evaluated parity vs route-mode + numpy oracle: OK "
+            f"({n_bundles} keys x {xs_gate.shape[0]} pts, two-party)")
+
+        # Warm every padded batch shape on every worker, both dispatch
+        # modes, up to the ladder top (first stagings stay out of the
+        # timed region).
+        rungs = []
+        m = base
+        while m < top:
+            rungs.append(m)
+            m *= 4
+        rungs.append(top)
+        key0 = sorted(bundles)[0]
+        _pod_warmup(rng, nb, top,
+                    [(route_router,
+                      [names[0] for names in _group_by_owner(
+                          ring, bundles).values()]),
+                     (mesh_router, [key0])])
+        log(f"warmup ladder done (route + co-eval, top={top})")
+
+        # Leg 4: the crossover ladder — interleaved route/co-eval
+        # segments per rung, median single-batch wall time.
+        ladder = []
+        crossover = None
+        for m in rungs:
+            xs_m = rng.integers(0, 256, (m, nb), dtype=np.uint8)
+            times: dict = {"route": [], "coeval": []}
+            for rep in range(reps):
+                for leg, target in (("route", route_router),
+                                    ("coeval", mesh_router)):
+                    name = sorted(bundles)[rep % n_bundles]
+                    t0 = time.monotonic()
+                    target.evaluate(name, xs_m, b=0, timeout=300)
+                    times[leg].append(time.monotonic() - t0)
+            route_rate = m / statistics.median(times["route"])
+            coeval_rate = m / statistics.median(times["coeval"])
+            ladder.append({"points": m,
+                           "route_evals_per_sec": round(route_rate, 1),
+                           "coeval_evals_per_sec": round(coeval_rate, 1)})
+            if crossover is None and coeval_rate >= route_rate:
+                crossover = m
+            log(f"ladder m={m}: route {route_rate:,.1f} vs co-eval "
+                f"{coeval_rate:,.1f} evals/s")
+
+        top_rung = ladder[-1]
+        coeval_vs_route = (top_rung["coeval_evals_per_sec"]
+                           / max(top_rung["route_evals_per_sec"], 1e-9))
+        cpus = len(os.sched_getaffinity(0))
+        gate_applies = cpus >= n_shards + 1
+        snap = mesh_router.metrics_snapshot()
+        co_evals = snap.get("router_co_evals_total", 0)
+        degraded = snap.get("router_mesh_degraded_total", 0)
+        log(f"crossover: {crossover} pts "
+            f"(coeval_vs_route@top={coeval_vs_route:.3f}, cpus={cpus}, "
+            f"gate {'applies' if gate_applies else 'environment-gated'})")
+
+        extra = {
+            "mode": "mesh",
+            "shards": n_shards,
+            "bundles": n_bundles,
+            "mesh_workers": len(mesh_router.mesh_group),
+            "ladder": ladder,
+            "crossover_points": crossover,
+            "coeval_vs_route_at_top": round(coeval_vs_route, 3),
+            "co_evals": co_evals,
+            "mesh_degraded": degraded,
+            "reps": reps,
+            "max_batch": max_batch,
+            "crossover_gate": (
+                "applies (co-evaluate must win by the top rung)"
+                if gate_applies else
+                f"environment-gated: {cpus} CPU(s) visible for "
+                f"{n_shards} shard processes + router — the scattered "
+                "slices serialize onto the same core, so co-evaluate "
+                "pays its relay overhead with no parallel payback; "
+                f"the committed repro on a >= {n_shards + 1}-core "
+                "host (or a card) is the gate"),
+        }
+        extra.update(_serve_pinned_ratio(
+            top_rung["coeval_evals_per_sec"], _platform(dcf.device)[0]))
+        _pod_line(args, dcf.device, backend, "evals_per_sec",
+                  top_rung["coeval_evals_per_sec"],
+                  "evals/s (one co-evaluated batch spanning every "
+                  "worker, top rung, party 0)", extra,
+                  f"--mesh --shards {n_shards} --bundles {n_bundles} "
+                  f"--reps {reps} --max-req-points {top}")
+
+        # Emitted-then-asserted.  Warmup co-evals ride on top of the
+        # accounted ones, so the counter may only disagree upward.
+        failures = []
+        if co_evals < 2 * n_bundles + len(rungs) * reps:
+            failures.append(
+                f"router_co_evals_total={co_evals} does not cover the "
+                f"{2 * n_bundles + len(rungs) * reps} accounted "
+                "co-evaluated dispatches")
+        if degraded:
+            failures.append(
+                f"{degraded} co-evaluations degraded to route-mode "
+                "mid-bench (the ladder measured route twice)")
+        if gate_applies and crossover is None:
+            failures.append(
+                f"co-evaluate never beat route-mode by the top rung "
+                f"({top} pts) with {cpus} CPUs for {n_shards} workers")
+        if failures:
+            raise SystemExit("pod_bench --mesh: " + "; ".join(failures))
+    finally:
+        _pod_teardown(routers, procs, root, keep_dirs)
+
+
+def bench_pod(args) -> None:
+    """The pod-scale serving bench (``dcf_tpu/cli.py:5294-5780``): N
+    localhost shard PROCESSES behind the zero-copy DCFE router, vs the
+    same workload on one shard, at the same shape/seeds.  On the card
+    every shard process holds its own CUDA context.
+
+    Legs, in order:
+
+    1. **provision** — ``--bundles`` two-party bundles placed by the
+       rendezvous ring; each key's DCFK frame is written durably to
+       its owner's store and replicated to its replica's
+       (``KeyStore.replicate_to``, generations preserved), plus ALL
+       keys into a solo host's store (the single-shard leg);
+    2. **spawn** — ``--shards`` + 1 ``serve_host`` subprocesses warm-
+       restore their stores and listen; the parent builds one pod
+       router (N-ring) and one solo router (1-ring) so BOTH legs run
+       the identical two-hop wire path;
+    3. **routed parity gate** — every key, both parties, through the
+       pod router and the solo router, bit-exact vs the numpy oracle;
+    4. **throughput** — interleaved closed-loop segments (3 per leg,
+       shared seeds) solo vs pod; the headline is the pod leg, the
+       gate is ``pod_vs_single >= 2.2`` — applied when the host
+       actually offers the pod parallelism (>= shards+1 CPUs); on a
+       smaller host the measured ratio is EMITTED with the gate
+       recorded environment-gated;
+    5. **open-loop reconciliation** — a Poisson leg whose
+       sent/expired/per-class-shed counts reconcile against the POD
+       rollup (``loadgen.reconcile_against_rollup`` over the summed
+       per-host snapshots);
+    6. **kill-a-shard failover soak** — one shard SIGKILLed mid-load;
+       every request completes bit-exact or is refused typed WITH
+       ``retry_after_s``; afterwards every key the victim owned still
+       serves CRITICAL traffic bit-exact from its replica, the
+       replica store holds the provisioned generations, and the pod
+       rollup shows ZERO quarantines.
+
+    ``--live-bundles`` NON-durable keys are registered through the
+    router's REGISTER fan-out on top of the durable ones, the health
+    prober runs through every leg, and the kill soak additionally gates
+    that the victim's live keys serve CRITICAL bit-exact from the
+    promoted replica within about one probe interval of the SIGKILL —
+    zero re-keygen, generations preserved on the replica's live registry
+    (checked over the wire via the DIGEST verb).
+
+    Any non-empty ``--mesh`` runs the co-evaluation crossover scenario
+    instead (``bench_pod_mesh``), ``--surge`` the autoscaling one
+    (``bench_pod_surge``), ``--churn`` the membership one
+    (``bench_pod_churn``), ``--partition`` / ``--flap`` the
+    partition-tolerance one (``bench_pod_selfheal``).
+
+    Emits one ``RESULTS_pod`` line, then applies the exit gates."""
+    if getattr(args, "mesh", ""):
+        if args.surge or args.churn or args.partition or args.flap:
+            raise SystemExit(
+                "--mesh and --surge/--churn/--partition/--flap are "
+                "separate scenarios; pick one")
+        return bench_pod_mesh(args)
+    if args.surge:
+        if args.churn or args.partition or args.flap:
+            raise SystemExit(
+                "--surge and --churn/--partition/--flap are separate "
+                "scenarios; pick one")
+        return bench_pod_surge(args)
+    if args.churn:
+        if args.partition or args.flap:
+            raise SystemExit(
+                "--churn and --partition/--flap are separate "
+                "scenarios; pick one")
+        return bench_pod_churn(args)
+    if args.partition or args.flap:
+        return bench_pod_selfheal(args)
+
+    import os
+    import signal
+
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.serve.loadgen import (
+        closed_loop,
+        open_loop,
+        reconcile_against_rollup,
+    )
+
+    n_shards = args.shards
+    if n_shards < 2:
+        raise SystemExit(
+            f"--shards must be >= 2 (a pod of one is the solo leg), "
+            f"got {n_shards}")
+    if args.probe_interval <= 0:
+        raise SystemExit(
+            f"--probe-interval must be > 0, got {args.probe_interval}")
+    if args.live_bundles < 0:
+        raise SystemExit(
+            f"--live-bundles must be >= 0, got {args.live_bundles}")
+    _pod_backend(args)
+    max_batch = args.max_batch or (1 << 10)
+    min_req = args.min_req_points or (max_batch * 3 // 8)
+    max_req = args.max_req_points or (max_batch // 2)
+    if not 1 <= min_req <= max_req:
+        raise SystemExit(
+            f"bad request-size range [{min_req}, {max_req}]")
+    dcf, lam, nb, backend, rng = _serve_host_facade(args)
+    prg = HirosePrgNp(lam, dcf.cipher_keys)
+    platform = _platform(dcf.device)[0]
+    n_bundles = args.bundles or 8
+    conns = args.concurrency
+
+    root, keep_dirs = _pod_root(args)
+    shard_ids = [f"shard-{i}" for i in range(n_shards)]
+
+    # Leg 1: provision (the shared block — ``solo`` adds the
+    # single-shard comparison store holding everything).
+    ring, stores, bundles, gens = _pod_provision(
+        dcf, lam, nb, rng, root, shard_ids, n_bundles, solo=True)
+    by_owner = _group_by_owner(ring, bundles)
+    log(f"provisioned {n_bundles} keys over {n_shards} shards "
+        f"(+ solo): " + ", ".join(
+            f"{s}:{len(by_owner.get(s, []))}" for s in shard_ids))
+
+    # Leg 2: spawn the shard processes.
+    procs: dict = {}
+    routers: list = []
+    try:
+        for tag in [*shard_ids, "solo"]:
+            procs[tag] = _pod_spawn(tag, os.path.join(root, tag),
+                                    root, args)
+        ready = _pod_wait_ready(procs)
+        for tag, doc in ready.items():
+            want = n_bundles if tag == "solo" else len(
+                {k for k in bundles
+                 if tag in {s.host_id
+                            for s in ring.placement(k, replicas=1)}})
+            if doc["restored"] != want or doc["quarantined"]:
+                raise SystemExit(
+                    f"pod_bench: shard {tag} restored "
+                    f"{doc['restored']}/{want} keys "
+                    f"({doc['quarantined']} quarantined)")
+        pod_specs, addr_of = _pod_specs(ready, shard_ids)
+        router = _pod_router(pod_specs, nb, args.probe_interval,
+                             backoff_s=0.05)
+        solo_specs, _ = _pod_specs(ready, ["solo"])
+        solo = _pod_router(solo_specs, nb, args.probe_interval,
+                           backoff_s=0.05)
+        routers = [router, solo]
+
+        # Live (NON-durable) keys through the REGISTER fan-out — owner
+        # mints, replica applies, generations preserved; registered on
+        # the solo ring too so both throughput legs serve the identical
+        # key set.
+        live, live_gens = _pod_live_register(
+            router, dcf, rng, lam, nb, args.live_bundles)
+        for name, kb in live.items():
+            solo.register_key(name, kb)
+        bundles.update(live)
+        for name in live:
+            by_owner.setdefault(ring.owner(name).host_id, []).append(name)
+        log(f"registered {len(live)} live (non-durable) keys through "
+            "the router fan-out")
+
+        # Leg 3: routed parity gate (both parties, numpy oracle).
+        xs_gate = rng.integers(0, 256, (128, nb), dtype=np.uint8)
+        _pod_parity_gate(router, bundles, prg, xs_gate, solo=solo)
+        log(f"routed parity vs numpy oracle: OK ({n_bundles} keys x "
+            "128 pts, two-party, pod + solo)")
+
+        _pod_warmup(rng, nb, max_batch,
+                    [(router, [names[0] for names in by_owner.values()]),
+                     (solo, ["key-0"])])
+        log("warmup ladder done (all shards + solo, both parties)")
+        router.start_health()  # the control plane runs from here on
+
+        # Leg 4: interleaved solo vs pod closed-loop segments.
+        segs = 3
+        seg_s = max(float(args.duration) / (2 * segs), 1.0)
+        runs: dict = {"solo": [], "pod": []}
+        for i in range(2 * segs):
+            leg = "solo" if i % 2 == 0 else "pod"
+            res = closed_loop(
+                solo if leg == "solo" else router, sorted(bundles),
+                duration_s=seg_s, concurrency=conns,
+                min_points=min_req, max_points=max_req,
+                seed=args.seed + i // 2)
+            runs[leg].append(res)
+        res_solo = _merge_loadgen(runs["solo"])
+        res_pod = _merge_loadgen(runs["pod"])
+        pod_vs_single = res_pod.throughput / max(res_solo.throughput,
+                                                 1e-9)
+        cpus = len(os.sched_getaffinity(0))
+        gate_applies = cpus >= n_shards + 1
+        log(f"throughput: pod {res_pod.throughput:,.1f} vs solo "
+            f"{res_solo.throughput:,.1f} evals/s "
+            f"(pod_vs_single={pod_vs_single:.3f}, cpus={cpus}, "
+            f"gate {'applies' if gate_applies else 'environment-gated'})"
+            f" [{_CARD['label']}]")
+
+        # Leg 5: open-loop reconciliation against the POD rollup.
+        metric_files = [procs[s][2] for s in shard_ids]
+        time.sleep(1.2)  # quiesce past a metrics-flush interval
+        roll_before = _pod_rollup(metric_files)
+        open_rate = max(
+            0.6 * res_pod.requests_ok / max(res_pod.duration_s, 1e-9),
+            1.0)
+        res_open = open_loop(
+            router, sorted(bundles), rate_rps=open_rate,
+            duration_s=min(float(args.duration) / 3, 10.0),
+            min_points=min_req, max_points=max_req,
+            seed=args.seed + 17)
+        time.sleep(1.2)
+        roll_after = _pod_rollup(metric_files)
+        recon = reconcile_against_rollup(res_open, roll_before,
+                                         roll_after)
+        log(f"open-loop @ {open_rate:,.1f} req/s: ok={res_open.ok} "
+            f"shed={res_open.shed} expired={res_open.expired} "
+            f"pod-reconciled={recon['reconciled']}")
+
+        # Leg 6: kill-a-shard failover soak.  The victim owns keys —
+        # preferring a shard that owns LIVE (non-durable) ones, whose
+        # survival on the replica is the acceptance — and its replicas
+        # must pick CRITICAL traffic up.
+        victim = max(by_owner, key=lambda s: (
+            len([n for n in by_owner[s] if n in live]),
+            len(by_owner[s])))
+        victim_keys = sorted(by_owner[victim])
+        victim_live_keys = sorted(n for n in victim_keys if n in live)
+        kill_stats: dict = {"critical_within_s": None}
+        xs_kill = rng.integers(0, 256, (8, nb), dtype=np.uint8)
+        # The oracle's shares before the clock: the window measures the
+        # replica, not the numpy walk.
+        want_kill = (_oracle_pair(prg, live[victim_live_keys[0]], xs_kill)
+                     if victim_live_keys else None)
+
+        def kill_victim() -> None:
+            log(f"soak: SIGKILL {victim} (owner of "
+                f"{len(victim_keys)} keys, {len(victim_live_keys)} "
+                "live)")
+            procs[victim][0].send_signal(signal.SIGKILL)
+            if not victim_live_keys:
+                return
+            # CRITICAL traffic for a victim-owned NON-durable key serves
+            # bit-exact from the replica within about one probe interval
+            # of the kill (per-request failover does not even wait for
+            # the prober's DOWN).
+            name = victim_live_keys[0]
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < 30:
+                try:
+                    got = _routed_pair(router, name, xs_kill,
+                                       priority="critical")
+                except Exception:  # fallback-ok: the window between
+                    # SIGKILL landing and the replica serving IS the
+                    # measurement — keep trying until the deadline
+                    time.sleep(0.02)
+                    continue
+                if np.array_equal(got, want_kill):
+                    kill_stats["critical_within_s"] = \
+                        time.monotonic() - t0
+                return
+
+        soak_s = max(float(args.duration) / 4, 4.0)
+        soak = _pod_soak(router, bundles, prg, nb,
+                         duration_s=soak_s, conns=max(conns, 4),
+                         seed=args.seed, kill_after_s=soak_s / 3,
+                         kill_fn=kill_victim)
+        log(f"soak: {soak} critical_within_s="
+            f"{kill_stats['critical_within_s']}")
+
+        # Post-soak: every victim-owned key still serves CRITICAL
+        # bit-exact from its replica; durable keys' replica STORES hold
+        # the provisioned generation, live keys' replica LIVE registries
+        # hold the owner-minted one (checked over the wire — zero
+        # re-keygen either way: the parity proves the replica serves
+        # the same pre-minted bits).
+        failover_parity = True
+        generations_held = True
+        # By now the prober has marked the victim DOWN, so NORMAL
+        # traffic is served via promotion too — exercised below.
+        deadline = time.monotonic() + 60
+        while router.health.state(victim) != "down" \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        down_observed = router.health.state(victim) == "down"
+        xs_post = rng.integers(0, 256, (16, nb), dtype=np.uint8)
+        want = _oracle_pairs(prg, {n: bundles[n] for n in victim_keys},
+                             xs_post)
+        rep_digests: dict = {}
+        for name in victim_keys:
+            pr = "critical" if name not in live else "normal"
+            failover_parity &= bool(np.array_equal(
+                _routed_pair(router, name, xs_post, priority=pr),
+                want[name]))
+            rep = next(s.host_id
+                       for s in ring.placement(name, replicas=1)[1:])
+            if name in live:
+                if rep not in rep_digests:
+                    rep_digests[rep] = _pod_wire_digest(addr_of[rep], nb)
+                generations_held &= (
+                    rep_digests[rep].get(name) == live_gens[name])
+            else:
+                generations_held &= (
+                    stores[rep].generation_of(name) == gens[name])
+        log(f"post-kill: replica parity={failover_parity}, "
+            f"generations_held={generations_held}, "
+            f"down_observed={down_observed}")
+        time.sleep(1.2)
+        roll_final = _pod_rollup(metric_files)
+        quarantined = roll_final.get("serve_store_quarantined_total", 0)
+
+        rsnap = router.metrics_snapshot()
+        extra = {
+            "shards": n_shards,
+            "bundles": n_bundles,
+            "duration_s": round(res_pod.duration_s
+                                + res_solo.duration_s, 3),
+            "max_batch": max_batch,
+            "req_points": [min_req, max_req],
+            "concurrency": conns,
+            "segments_per_leg": segs,
+            "single_shard_evals_per_sec": round(res_solo.throughput, 1),
+            "pod_vs_single": round(pod_vs_single, 3),
+            "throughput_gate": (
+                "applies (>= 2.2x required)" if gate_applies else
+                f"environment-gated: {cpus} CPU(s) visible for "
+                f"{n_shards} shard processes + router — aggregate "
+                "CPU throughput cannot exceed 1x here; the committed "
+                "repro on a >= "
+                f"{n_shards + 1}-core host (or a card) is the gate"),
+            **res_pod.latency_quantiles(),
+            "open_loop_rate_rps": round(open_rate, 1),
+            "open_loop_ok": res_open.ok,
+            "open_loop_pod_reconciled": recon["reconciled"],
+            **_ledger_fields(soak),
+            "failover_parity": failover_parity,
+            "generations_held": generations_held,
+            "live_bundles": len(live),
+            "victim_live_keys": len(victim_live_keys),
+            "critical_within_s": (
+                None if kill_stats["critical_within_s"] is None
+                else round(kill_stats["critical_within_s"], 3)),
+            "probe_interval_s": args.probe_interval,
+            "down_observed": down_observed,
+            "promoted_forwards": rsnap.get(
+                "router_promoted_forwards_total", 0),
+            "pod_quarantined": quarantined,
+            "router_failovers": rsnap.get("router_failovers_total", 0),
+            "router_suspect_refusals": rsnap.get(
+                "router_suspect_refusals_total", 0),
+            "pod_requests_total": roll_final.get(
+                "serve_requests_total", 0),
+        }
+        extra.update(_serve_pinned_ratio(res_pod.throughput, platform))
+        _pod_line(args, dcf.device, backend, "evals_per_sec",
+                  res_pod.throughput,
+                  "evals/s (closed-loop served through the pod router, "
+                  "party 0)", extra,
+                  f"--shards {n_shards} "
+                  f"--duration {float(args.duration):g} "
+                  f"--max-batch {max_batch} --concurrency {conns}")
+
+        # Emitted-then-asserted, chaos_bench style.
+        failures = []
+        if gate_applies and pod_vs_single < 2.2:
+            failures.append(
+                f"pod served {pod_vs_single:.3f}x the single-shard "
+                "leg at the same shape/seeds (< 2.2 with the host "
+                "parallelism to do better)")
+        if soak["mismatches"] or soak["unaccounted"] \
+                or soak["refused_unhinted"]:
+            failures.append(
+                f"failover soak left requests unaccounted: "
+                f"{soak['mismatches']} mismatches, "
+                f"{soak['unaccounted']} untyped failures, "
+                f"{soak['refused_unhinted']} refusals without "
+                "retry_after_s")
+        if soak["sessions_ok"] < conns or soak["critical_ok"] < 1:
+            failures.append(
+                f"soak delivered only {soak['sessions_ok']} sessions "
+                f"({soak['critical_ok']} CRITICAL)")
+        if not failover_parity:
+            failures.append(
+                "a victim-owned key did not serve bit-exact from its "
+                "replica after the kill")
+        if not generations_held:
+            failures.append(
+                "a replica lost its provisioned generation (store or "
+                "live registry)")
+        if victim_live_keys:
+            within = kill_stats["critical_within_s"]
+            if within is None:
+                failures.append(
+                    "CRITICAL traffic for a victim-owned LIVE key "
+                    "never served from the replica after the kill")
+            elif within > max(2 * args.probe_interval, 3.0):
+                failures.append(
+                    f"CRITICAL live-key failover took {within:.2f}s "
+                    "(> ~one probe interval with scheduling slack)")
+            if not down_observed:
+                failures.append(
+                    "the prober never marked the SIGKILLed victim "
+                    "DOWN")
+        if quarantined:
+            failures.append(
+                f"{quarantined} frames quarantined across the pod")
+        if not recon["reconciled"]:
+            failures.append(
+                f"open-loop counts did not reconcile against the pod "
+                f"rollup ({recon})")
+        if failures:
+            raise SystemExit("pod_bench: " + "; ".join(failures))
+    finally:
+        _pod_teardown(routers, procs, root, keep_dirs)
+
+
 BENCHES = {
     "dcf": bench_dcf,
     "dcf_batch_eval": bench_batch,
@@ -2709,18 +5066,20 @@ BENCHES = {
     "keygen_bench": bench_keygen,
     "pir_bench": bench_pir,
     "keyfactory_bench": bench_keyfactory,
+    "serve_host": bench_serve_host,
+    "pod_bench": bench_pod,
 }
 
 
 def _refuse_later_slices(args) -> None:
     """dcf_tpu's routes the port does not run yet exit non-zero before
-    any work, naming what to use or the slice that brings them."""
-    if args.bench in POD_BENCHES:
-        raise SystemExit(
-            f"{args.bench} spawns shard processes; the port's multi-process "
-            "pod benches (serve_host, pod_bench) come in a later slice "
-            "(ROADMAP.md Queue A)")
-    if args.backend in SHARDED or args.mesh:
+    any work, naming what to use or the slice that brings them.  The pod
+    benches are exempt from the mesh refusal: ``pod_bench --mesh`` is
+    the co-evaluation scenario over shard processes, and their backend
+    check (``_pod_backend``) refuses the sharded backends in
+    ``dcf_tpu``'s words."""
+    if args.bench not in POD_BENCHES and (args.backend in SHARDED
+                                          or args.mesh):
         what = (f"--backend={args.backend}" if args.backend in SHARDED
                 else "--mesh")
         raise SystemExit(
@@ -2733,14 +5092,96 @@ def _refuse_later_slices(args) -> None:
             "TPU; the port's from-root walk kernel is --backend walk")
 
 
+def _add_pod_flags(p) -> None:
+    """serve_host's and pod_bench's own flags, with dcf_tpu's names,
+    defaults and meanings."""
+    p.add_argument("--shards", type=int, default=3,
+                   help="pod_bench: localhost shard processes in the "
+                        "pod ring (>= 2; the solo comparison leg is "
+                        "spawned on top)")
+    p.add_argument("--live-bundles", type=int, default=4,
+                   help="pod_bench: LIVE (non-durable) keys registered "
+                        "through the router's REGISTER fan-out on top "
+                        "of the --bundles durable ones (the kill and "
+                        "partition soaks prove they survive their "
+                        "owner's death on the replica)")
+    p.add_argument("--partition", action="store_true",
+                   help="pod_bench: the partition-tolerance scenario — "
+                        "a net.partition window isolates one shard "
+                        "under load; every request completes bit-exact "
+                        "or is refused typed with retry_after_s, "
+                        "promoted replicas serve, and the anti-entropy "
+                        "gate converges the digest on heal")
+    p.add_argument("--flap", action="store_true",
+                   help="pod_bench: the partition scenario with three "
+                        "cut/heal cycles — generations must be "
+                        "monotone across every flap")
+    p.add_argument("--churn", action="store_true",
+                   help="pod_bench: the autonomous-membership scenario "
+                        "— SIGKILL one shard, auto-eject with every "
+                        "frame re-replicated, a warm re-join, a "
+                        "graceful drain (SIGTERM exits 0), and a "
+                        "stale-epoch frame refused E_EPOCH")
+    p.add_argument("--surge", action="store_true",
+                   help="pod_bench: the demand-driven autoscaling "
+                        "scenario — an open-loop Zipf ramp must admit a "
+                        "--standby host within --reaction-bound "
+                        "seconds, the idle tail drains one back, and an "
+                        "oscillating-load leg is pinned to zero churn")
+    p.add_argument("--standby-hosts", type=int, default=1,
+                   help="pod_bench --surge: provisioned-but-idle "
+                        "serve_host --standby processes declared to "
+                        "the capacity controller's standby pool")
+    p.add_argument("--reaction-bound", type=float, default=30.0,
+                   help="pod_bench --surge: max seconds from the ramp "
+                        "start to the scale-out commit")
+    p.add_argument("--eject-grace", type=float, default=3.0,
+                   help="pod_bench --churn: seconds a shard must stay "
+                        "DOWN before the membership controller "
+                        "auto-ejects it")
+    p.add_argument("--probe-interval", type=float, default=0.25,
+                   help="pod_bench: health-prober probe interval in "
+                        "seconds (fail-3/recover-2 hysteresis rides "
+                        "on it)")
+    p.add_argument("--bind", default="127.0.0.1",
+                   help="serve_host: address to bind the DCFE edge on")
+    p.add_argument("--port", type=int, default=0,
+                   help="serve_host: edge port (0 = pick a free one; "
+                        "the bound port lands in --ready-file)")
+    p.add_argument("--standby", action="store_true",
+                   help="serve_host: come up provisioned but EMPTY — "
+                        "skip the store restore; the capacity "
+                        "controller's graceful join ships keys "
+                        "warm-before-admit")
+    p.add_argument("--max-queued-points", type=int, default=0,
+                   help="serve_host: admission-queue bound in points "
+                        "(0 = the ServeConfig default; pod_bench "
+                        "--surge pins 4096)")
+    p.add_argument("--ready-file", default="",
+                   help="serve_host: write a JSON {host, port, pid, "
+                        "restored, quarantined, standby} document here "
+                        "(atomic rename) once serving")
+    p.add_argument("--metrics-file", default="",
+                   help="serve_host: refresh this JSON metrics snapshot "
+                        "every ~0.5s and at shutdown (atomic rename)")
+    p.add_argument("--tls-cert", default="",
+                   help="serve_host: PEM certificate arming TLS on the "
+                        "edge socket (needs --tls-key)")
+    p.add_argument("--tls-key", default="",
+                   help="serve_host: PEM private key for --tls-cert")
+    p.add_argument("--tls-client-ca", default="",
+                   help="serve_host: PEM CA bundle; when set, only "
+                        "clients presenting a cert signed by it may "
+                        "connect")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="python -m dcf_tpu_torch.cli",
         description="DCF benchmark CLI of the PyTorch/CUDA port "
                     "(reference criterion-bench analogs)",
     )
-    p.add_argument("bench", choices=(*BENCHES, "all", "baseline",
-                                     *POD_BENCHES))
+    p.add_argument("bench", choices=(*BENCHES, "all", "baseline"))
     p.add_argument("--backend", default="cpu",
                    choices=(*BACKENDS, "tree", "hybrid", *WALK_ALIASES,
                             *SHARDED),
@@ -2764,8 +5205,10 @@ def main(argv=None) -> None:
     p.add_argument("--check", action="store_true",
                    help="verify parity vs the C++ core before timing")
     p.add_argument("--mesh", default="", nargs="?", const="pod",
-                   help="a device mesh (dcf_tpu's sharded routes): "
-                        "refused until the multi-GPU slice")
+                   help="bare --mesh on pod_bench runs the co-evaluation "
+                        "crossover scenario; a device mesh KxP "
+                        "(dcf_tpu's sharded routes) is refused until the "
+                        "multi-GPU slice")
     p.add_argument("--profile", default="",
                    help="write a torch.profiler trace of the timed region")
     p.add_argument("--n-bits", type=int, default=0,
@@ -2854,11 +5297,12 @@ def main(argv=None) -> None:
     p.add_argument("--full", action="store_true",
                    help="baseline: run config 5 at the literal 10^6-key "
                         "scale")
-    # serve_host and pod_bench are refused by name before their own
-    # flags (a later slice's) are parsed.
+    # serve_host and pod_bench's own flags are theirs alone: the other
+    # benches refuse them (dcf_tpu's parser takes them everywhere and
+    # ignores them).
     known, _ = p.parse_known_args(argv)
     if known.bench in POD_BENCHES:
-        _refuse_later_slices(known)
+        _add_pod_flags(p)
     args = p.parse_args(argv)
     _refuse_later_slices(args)
     if args.backend == "tree" and args.bench not in ("full_domain",
@@ -2882,9 +5326,14 @@ def main(argv=None) -> None:
         return
     for name in BENCHES if args.bench == "all" else [args.bench]:
         if args.bench == "all" and name in ("serve_bench", "edge_bench",
-                                            "mic_bench", "chaos_bench"):
+                                            "mic_bench", "chaos_bench",
+                                            "pod_bench"):
             log(f"skipping {name} (a timed load test, not a "
                 "criterion analog; run it explicitly)")
+            continue
+        if args.bench == "all" and name == "serve_host":
+            log("skipping serve_host (a long-lived shard process, "
+                "not a bench; run it explicitly)")
             continue
         if args.bench == "all" and name in ("keygen_bench",
                                             "keyfactory_bench",

@@ -150,9 +150,11 @@ def test_flag_validation_matches_dcf_tpu(argv, match, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["serve_host"], "later slice"),
-    (["pod_bench", "--shards=1"], "later slice"),
+    # the pod benches run now, with dcf_tpu's own refusals
+    (["serve_host"], "serve_host needs --store-dir"),
+    (["pod_bench", "--shards=1"], "--shards must be >= 2"),
     (["dcf_batch_eval", "--backend=sharded"], "multi-GPU"),
+    (["secure_relu", "--mesh=4x2"], "multi-GPU"),
     (["secure_relu", "--backend=sharded-pallas", "--mesh=4x2"],
      "multi-GPU"),
     (["full_domain", "--backend=tree", "--mesh=1x4"], "multi-GPU"),
@@ -169,6 +171,71 @@ def test_later_slices_exit_before_work(argv, names, monkeypatch):
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     assert names in str(e.value.code)
+
+
+@pytest.mark.parametrize("argv", [
+    ["pod_bench", "--mesh", "--shards=1"],
+    ["pod_bench", "--mesh=4x2", "--shards=1"],
+    ["pod_bench", "--backend=sharded"],
+])
+def test_pod_bench_mesh_is_not_the_multi_gpu_refusal(argv, monkeypatch):
+    """Any non-empty --mesh on pod_bench is the co-evaluation scenario
+    over shard processes (dcf_tpu's dispatch), and a sharded backend
+    there meets dcf_tpu's facade-backend refusal: neither is refused
+    as multi-GPU."""
+    monkeypatch.setattr(tcli, "_dev", lambda args: pytest.fail("work"))
+    with pytest.raises(SystemExit) as e:
+        tcli.main(argv)
+    assert e.value.code not in (0, None)
+    assert "multi-GPU" not in str(e.value.code), e.value.code
+
+
+class _FacadeBuilt(Exception):
+    pass
+
+
+@pytest.mark.parametrize("argv,device,backend", [
+    (["pod_bench"], "cuda", "walk"),
+    (["serve_host", "--store-dir", "{tmp}"], "cuda", "walk"),
+    (["pod_bench", "--backend", "prefix"], "cuda", "prefix"),
+    (["pod_bench", "--device", "cpu"], "cpu", "cpu"),
+    (["serve_host", "--store-dir", "{tmp}", "--device", "cpu"], "cpu",
+     "cpu"),
+])
+def test_pod_default_backend_runs_the_kernels_on_the_card(
+        argv, device, backend, monkeypatch, tmp_path):
+    """The default ``--backend cpu`` of serve_host / pod_bench is
+    dcf_tpu's on-device walk: on the card a shard's facade is ``walk``
+    (B1), and so is the backend each spawned shard is told; the C++ core
+    serves only under ``--device cpu``."""
+    import argparse
+    import subprocess
+
+    import torch
+
+    built = {}
+
+    def fake_dcf(*a, backend=None, device=None, **kw):
+        built.update(backend=backend, device=device)
+        raise _FacadeBuilt
+
+    monkeypatch.setattr(tcli, "_dev", lambda args: torch.device(device))
+    monkeypatch.setattr(dcf_tpu_torch, "Dcf", fake_dcf)
+    with pytest.raises(_FacadeBuilt):
+        tcli.main([a.replace("{tmp}", str(tmp_path)) for a in argv])
+    assert built == {"backend": backend, "device": torch.device(device)}
+
+    spawned = []
+    monkeypatch.setattr(subprocess, "Popen",
+                        lambda cmd, env=None: spawned.append(cmd))
+    args = argparse.Namespace(
+        seed=0, device=device, max_batch=0, max_delay_ms=5.0, lam=0,
+        domain_bytes=0, prefix_levels=0,
+        backend="prefix" if "prefix" in argv else "cpu")
+    tcli._pod_spawn("s0", str(tmp_path), str(tmp_path), args)
+    cmd = spawned[0]
+    assert cmd[cmd.index("--backend") + 1] == backend
+    assert cmd[cmd.index("--device") + 1] == device
 
 
 @pytest.mark.parametrize("argv", [

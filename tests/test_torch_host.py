@@ -211,14 +211,14 @@ def test_prepare_batch_pads_and_promotes():
 def _port_sources():
     files = sorted((REPO / "dcf_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py", REPO / "chip_ab.py",
-                    REPO / "chip_phase22.py", REPO / "chip_gates.py",
-                    REPO / "bench_torch.py"]
+                    REPO / "chip_phase22.py", REPO / "chip_phase24.py",
+                    REPO / "chip_gates.py", REPO / "bench_torch.py"]
 
 
 def test_port_imports_neither_jax_nor_dcf_tpu():
     """AST scan of every module of the port (its C++ core's loader
-    included), chip_smoke.py, chip_ab.py, chip_phase22.py, chip_gates.py
-    and bench_torch.py: no ``import
+    included), chip_smoke.py, chip_ab.py, chip_phase22.py,
+    chip_phase24.py, chip_gates.py and bench_torch.py: no ``import
     jax``/``from jax`` and nothing of ``dcf_tpu`` (whose ``__init__``
     imports jax)."""
     files = _port_sources()
@@ -242,6 +242,7 @@ def test_port_imports_neither_jax_nor_dcf_tpu():
                 "cli.py", "entry.py", "utils/provision.py"):
         assert f"dcf_tpu_torch/{sub}" in scanned
     assert "bench_torch.py" in scanned and "chip_gates.py" in scanned
+    assert "chip_phase24.py" in scanned
     banned = ("jax", "jaxlib", "dcf_tpu")
     offenders = []
     for path in files:

@@ -77,6 +77,7 @@ from tests.torch_net import (
     points,
     raw_exchange,
     service,
+    wait_for,
 )
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
@@ -717,7 +718,9 @@ def test_unadmitted_request_cannot_adopt_epoch(rng):
 def test_edge_graceful_drain_delivers_queued_responses(rng):
     """``stop_accepting`` refuses new dials with the live links open; a
     request accepted before it completes once the service drains, and
-    ``EdgeServer.close(drain_s=)`` delivers the response."""
+    ``EdgeServer.close(drain_s=)`` delivers the response.  The drain
+    starts once the service has admitted the request: until then it is
+    in the edge's reader, not yet accepted work."""
     svc = service(PORT, max_delay_ms=50.0)
     server = EdgeServer(svc).start()
     addr = server.address
@@ -727,6 +730,8 @@ def test_edge_graceful_drain_delivers_queued_responses(rng):
     try:
         xs = points(rng, 3)
         fut = client.submit("gd-key", xs, b=0)
+        wait_for(lambda: svc.metrics_snapshot()["serve_requests_total"] >= 1,
+                 "the service to admit the request")
         server.stop_accepting()
         with pytest.raises(OSError):
             socket.create_connection(addr, timeout=2)
