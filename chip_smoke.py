@@ -164,7 +164,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     bundles from the C++ core, max_batch 2^17, max_delay 5 ms) on
     ``prefix`` and ``walk``: a parity gate (512 points a bundle, both
     parties through the service, against the C++ core), the batch-shape
-    ladder, a 10 s closed loop of 4 clients with requests of 3/8 to 1/2
+    ladder, a 5 s closed loop of 4 clients with requests of 3/8 to 1/2
     of max_batch (reconciled against the service's metrics, 0 failed),
     its evals/s, p50/p99, occupancy, ``serve_stage_s`` / ``serve_eval_s``
     and ``serve_vs_staged`` against one staged 2^17-point batch; the
@@ -294,11 +294,43 @@ Phases (any failure raises and exits non-zero; nothing is caught):
     directory goes whatever its verdict.  The shards' launches happen in their own
     processes, outside this script's counters: phase 24 adds no path to
     ``launches_by_path``.  Each run's line is logged, and its output
-    written to ``chiprun_out/phase24_pod.log``.
+    written to ``chiprun_out/phase24_pod.log``;
+25. the multi-device tier (``mesh_phase``, ``dcf_tpu_torch.parallel``).
+    (a) ``make_mesh()`` on the card (one position on one H100) and every
+    sharded class at the main paths' widths (n = 128, 2^20 points): the
+    walk at lam = 16 (B1) and 32 (E1) with 4 keys, prefix (B2 + B3, k =
+    21), the hybrid at lam = 256 with 2 keys from the root (B4 + W1) and
+    with ``prefix_levels=20`` (B5a + B5b + W1), config 5's shape on
+    ``ShardedKeyLanesBackend`` (2^18 G1 keys x 1024 points, B8, the
+    moved-alpha control >= 1), the full domain at n = 24 (B2 + B2f) and
+    DPF EvalAll at n = 24, K = 4 (B6); both parties' shares equal to the
+    unsharded backends' in the same call, compared block by block on the
+    card, 0 two-party mismatches, the full-domain counts 0 clean and the
+    unsharded count with a flipped beta bit.  (b) The same at the same
+    widths on virtual meshes over ``cuda:0``, shaped by path as
+    ``dcf_tpu`` does (``MESH_VIRTUAL``: prefix 1 x 4, the keyed walks and
+    keylanes 4 x 1, the hybrids and both full-domain trees 2 x 2).  Each
+    (a) and (b) run is a path of ``launches_by_path`` (``mesh <path>
+    KxP``), its launches exact; each logs one ``eval_staged`` (or check)
+    wall beside the unsharded one.  (c) The pod mesh:
+    ``MeshLargeLambdaBackend`` at lam = 256 over 2^20 points in two
+    processes on the card over ``gloo`` (2^19 points each) and in one
+    process over ``nccl`` (NCCL refuses two ranks on one card), each
+    slice's bytes equal to the unsharded result's by digest, the
+    group-wide count 0 in every process.  (d) The CLI: ``dcf_batch_eval
+    --backend sharded-pallas --check``, ``secure_relu --backend
+    sharded-pallas --mesh 1x1``, ``full_domain --backend tree --mesh
+    1x1``, ``dcf_large_lambda --lam 256 --prefix-levels 20 --mesh 1x1
+    --check``, each exiting 0 with its gates held and its line naming the
+    card (paths ``cli_mesh_<name>``); ``--mesh 2x2`` on one card exits
+    non-zero with "requested 4 devices, have 1"; each run's launches
+    exact.  Last, alone, ``entry.dryrun_multichip(4)`` exits 0: a
+    subprocess runs every sharded class on a 2 x 2 mesh over ``cuda:0``
+    (and a 1 x 4 one for prefix), the kernels themselves.
 
 Launches are counted per path: the counts are set to 0 just before one
 run of a path and read just after it, before any timed repeat, and held
-against the number that run must make (phases 9-11, 16 and 18-23; phase 4's run
+against the number that run must make (phases 9-11, 16, 18-23 and 25; phase 4's run
 is both parties' anchor and staged evaluations).  The next to last line is one JSON
 object with every kernel's numbers, ``launches`` the sum over those single
 runs and ``launches_by_path`` each of them; the last line is
@@ -326,13 +358,13 @@ M_MAIN = 1 << 20  # points of the main path
 M_ANCHOR = 1024  # points held against the numpy oracle
 HOST_LEVELS = 6  # k0 of the frontier
 LAM_WIDE = 256  # BASELINE.json config 4
-K_CHECK = 16  # hybrid frontier depth of the 2^16-point checks
+K_CHECK = 16  # hybrid frontier depth of the kernel-vs-plain checks
 K_HYBRID = 20  # hybrid frontier depth of the main path (the clamp)
 K_SWEEP = range(16, 25)  # hybrid frontier depths timed in phase 7
 LAM_CRATE = 16384  # the reference crate's benches/dcf_large_lambda.rs
 M_CRATE = 10_000
 M_CRATE_ANCHOR = 64
-REPEATS = 10  # timed eval_staged repeats per backend
+REPEATS = 5  # timed repeats per backend (10 before phase 25)
 N_CHECK = 16  # domain bits of the full-domain kernel-vs-plain checks
 N_FULL = 24  # domain bits of the full-domain, DPF and top PIR paths
 K_DPF = 4  # DPF keys (PIR queries) per batch
@@ -367,7 +399,10 @@ K_WIDE_KEYGEN = 1 << 16  # B7a's and W2's timed shape at lam = 256 (B7b's
                          # at n = 24)
 K_CRATE_KEYGEN = 64  # B7a's and W2's timed shape at lam = 16384
 K_B8_CHECK = 1024  # B8 kernel-vs-plain keys, at M_RELU points
-K_B8_TAIL, M_B8_TAIL = 4099, 1000  # B8 with a partial group and odd points
+# B8 with a partial group and points that do not divide among a block's
+# 16 warps.  200 points leave 8 over, as 1000 would, and spare about 22 s
+# of B8's plain version, whose time grows with keys x points here.
+K_B8_TAIL, M_B8_TAIL = 4099, 200
 K_B8_DEEP, M_B8_DEEP, N_B8_DEEP = 100, 40, 256  # B8 past its staged levels
 K_MIC = 16  # the 2m bound keys of an 8-interval MIC, packed on the K axis
 K_CAP = 65537  # B1 beyond the 65,535-block grid axis ...
@@ -375,7 +410,7 @@ M_CAP = 64  # ... at these points
 SERVE_MAX_BATCH = 1 << 17  # serve_bench's defaults (dcf_tpu/cli.py)
 SERVE_DELAY_MS = 5.0
 SERVE_BUNDLES = 3
-SERVE_DURATION_S = 10.0  # each closed loop
+SERVE_DURATION_S = 5.0  # each closed loop (10 s before phase 25)
 SERVE_CONCURRENCY = 4
 SERVE_PARITY = 512  # points per bundle in the parity gate
 SKEW = 1.1  # serve_bench --skew 1.1: Zipf key choice ...
@@ -2163,9 +2198,9 @@ CLI_RUNS = (
                     "--duration", "6"], ("B2", "B3"), 1),
     ("serve_edge", ["serve_bench", "--backend", "prefix", "--edge",
                     "--duration", "3"], ("B2", "B3"), 1),
-    ("edge", ["edge_bench", "--backend", "prefix", "--duration", "6"],
+    ("edge", ["edge_bench", "--backend", "prefix", "--duration", "4"],
      ("B2", "B3"), 1),
-    ("chaos", ["chaos_bench", "--backend", "walk", "--duration", "4"],
+    ("chaos", ["chaos_bench", "--backend", "walk", "--duration", "3"],
      ("B1",), 1),
     ("chaos_restart", ["chaos_bench", "--backend", "walk",
                        "--crash-restart", "--keyfactory", "--duration",
@@ -2325,7 +2360,7 @@ def cli_phase(card: str, reset_counts, take_at_least, take_counts,
 #: ``walk`` run,
 #: requests of 3/8 to 1/2 of it, 8 bundles (plain) or 4 and 4 live ones,
 #: the mesh ladder 128-8192 points.  Cuts from dcf_tpu's defaults: leg
-#: lengths, --duration 30 s to 6 s (plain prefix), 2 s (plain walk) and
+#: lengths, --duration 30 s to 4 s (plain prefix), 2 s (plain walk) and
 #: 8 s (surge: the ramp at its minimum 3 / 6 / 2 s); --eject-grace 3.0 s
 #: to 1.5 s (churn); the cut windows of --partition and --flap floor at
 #: 10 s whatever --duration says.  The surge's admission bound is 2048
@@ -2335,7 +2370,7 @@ def cli_phase(card: str, reset_counts, take_at_least, take_counts,
 #: with key-0..3 the joined standby owns no key of the 4-host ring and
 #: serves nothing.
 POD_GROUPS = (
-    (("prefix", ["--backend", "prefix", "--duration", "6"]),),
+    (("prefix", ["--backend", "prefix", "--duration", "4"]),),
     (("mesh", ["--mesh", "--backend", "prefix"]),),
     (("partition", ["--partition", "--backend", "prefix"]),
      ("flap", ["--flap", "--backend", "prefix"]),
@@ -2665,6 +2700,569 @@ def pod_phase(card: str, groups=POD_GROUPS) -> dict:
                     run["proc"].wait(60)
                 run["watch"].stop()
                 shutil.rmtree(run["root"], ignore_errors=True)
+    return result
+
+
+
+#: Phase 25: the multi-device tier.  (a) every sharded class on the real
+#: mesh (make_mesh(): one position on one H100) at the main paths' full
+#: widths, byte-equal to the unsharded backends in the same call; (b) the
+#: same widths on virtual meshes over one card, shaped by path as
+#: dcf_tpu shapes them (prefix 1 x N, keylanes and the keyed walk N x 1,
+#: the hybrid 2 x 2, the full-domain trees on all positions); (c) the pod
+#: mesh in two processes over gloo and in one over nccl; (d) the CLI's
+#: mesh routes and the dry run.
+MESH_KEYS = 4  # keys of the walk paths (the keyed walk's 4 x 1 shards)
+MESH_HYBRID_KEYS = 2  # keys of the hybrid paths (the 2 x 2 mesh's keys axis)
+MESH_VIRTUAL = {"walk": (4, 1), "walk32": (4, 1), "prefix": (1, 4),
+                "hybrid": (2, 2),
+                "hybrid prefix": (2, 2), "keylanes": (4, 1),
+                "full domain": (2, 2), "dpf": (2, 2)}
+K_MESH_RELU = 1 << 18  # config 5's shape at baseline's default key count
+MESH_WALL_REPS = 3
+POD_NPROC = 2  # processes of the gloo pod mesh, each with half the points
+POD_TIMEOUT_S = 300
+#: The CLI's mesh routes and the launches one run of each makes on the
+#: one card's 1 x 1 mesh, at the CLI's default ``--reps``.  One position
+#: launches what the unsharded route does (phase 23 holds its walk and
+#: hybrid lines to the same B1 and B5a / B5b / W1 counts); the tree's
+#: B2 takes 5 launches (levels 6-20, three a launch) to each B2f.
+MESH_CLI_RUNS = (
+    ("sharded_pallas", ["dcf_batch_eval", "--backend", "sharded-pallas",
+                        "--check"], {"B1": 8}),
+    ("relu_sharded_pallas", ["secure_relu", "--backend", "sharded-pallas",
+                             "--mesh", "1x1"], {"B8": 8}),
+    ("tree_mesh", ["full_domain", "--backend", "tree", "--mesh", "1x1"],
+     {"B2": 40, "B2f": 8}),
+    ("hybrid_prefix_mesh", ["dcf_large_lambda", "--backend", "hybrid",
+                            "--lam", str(LAM_WIDE), "--prefix-levels",
+                            str(K_HYBRID), "--mesh", "1x1", "--check"],
+     {"B5a": 18, "B5b": 8, "W1": 8}),
+)
+
+
+def _pod_material(m: int = M_MAIN, nb: int = N_BYTES):
+    """The pod leg's seeded key (lam = 256, one key, n = 128, the host
+    walk) and its ``m`` shared points: every process makes the same."""
+    from dcf_tpu_torch.gen import gen_batch, random_s0s
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.spec import Bound
+
+    rng = np.random.default_rng(SEED + 25)
+    ck = [rng.bytes(32) for _ in range(2 * (LAM_WIDE // 16))]
+    alphas = rng.integers(0, 256, (1, nb), dtype=np.uint8)
+    betas = rng.integers(0, 256, (1, LAM_WIDE), dtype=np.uint8)
+    bundle = gen_batch(HirosePrgNp(LAM_WIDE, ck, warn=False), alphas, betas,
+                       random_s0s(1, LAM_WIDE, rng), Bound.LT_BETA)
+    xs = rng.integers(0, 256, (m, nb), dtype=np.uint8)
+    return ck, alphas, betas, bundle, xs
+
+
+def _pod_mesh_worker(port: int, nproc: int, pid: int, backend: str,
+                     device: str = "cuda", m: int = M_MAIN,
+                     nb: int = N_BYTES) -> None:
+    """One process of phase 25 (c): joins the group, evaluates its slice
+    of the pod leg's points with ``MeshLargeLambdaBackend`` (B4 + W1),
+    both parties, and prints one JSON line: the group-wide two-party
+    count, the digest of each party's slice bytes, and the seconds of its
+    legs."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from dcf_tpu_torch.parallel import MeshLargeLambdaBackend, make_pod_mesh
+    from dcf_tpu_torch.parallel._compat import distributed_initialize
+
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    distributed_initialize(f"127.0.0.1:{port}", nproc, pid, backend=backend,
+                           timeout_s=120)
+    try:
+        t_init = time.perf_counter() - t0
+        ck, alphas, betas, bundle, xs = _pod_material(m, nb)
+        mesh = make_pod_mesh(device=device)
+        m_local = xs.shape[0] // nproc
+        xs_local = xs[pid * m_local:(pid + 1) * m_local]
+        bes = [MeshLargeLambdaBackend(LAM_WIDE, ck, mesh) for _ in (0, 1)]
+        for b in (0, 1):
+            bes[b].put_bundle(bundle.for_party(b))
+        staged = bes[0].stage(xs_local)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ys = [bes[b].eval_staged(b, staged) for b in (0, 1)]
+        count = int(bes[0].points_mismatch_count(
+            ys[0], ys[1], alphas, betas, staged))
+        t_eval = time.perf_counter() - t1
+        digests = [hashlib.sha256(bes[b].staged_to_bytes(
+            ys[b], staged["m"]).tobytes()).hexdigest() for b in (0, 1)]
+        print(json.dumps({"pid": pid, "backend": backend, "count": count,
+                          "digests": digests, "mesh": mesh.shape,
+                          "device": str(mesh.devices[0, pid]),
+                          "init_s": round(t_init, 3),
+                          "eval_and_count_s": round(t_eval, 3)}),
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def _start_pod_workers(nproc: int, backend: str, repo: str,
+                       device: str = "cuda", m: int = M_MAIN,
+                       nb: int = N_BYTES) -> list:
+    """Start ``nproc`` ``_pod_mesh_worker`` processes, one group on a
+    free loopback port; ``_pod_worker_lines`` collects them."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("DCF_CPU_DEVICES", None)
+    return [subprocess.Popen(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke._pod_mesh_worker("
+         f"{port}, {nproc}, {pid}, {backend!r}, {device!r}, {m}, {nb})"],
+        cwd=repo, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for pid in range(nproc)]
+
+
+def _pod_worker_lines(procs: list) -> list:
+    """Each worker's JSON line; a worker is killed at its time limit, a
+    failed one raises, and none outlives the call."""
+    lines = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=POD_TIMEOUT_S)
+            if p.returncode != 0:
+                raise RuntimeError(f"phase 25 pod worker exit "
+                                   f"{p.returncode}: {err[-3000:]}")
+            lines.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(60)
+    return lines
+
+
+def _instances(mesh) -> int:
+    """Backend instances a sharded class holds on ``mesh``: one a (key
+    shard, distinct device), each building its own frontier."""
+    return len({(i, d) for (i, _j), d in np.ndenumerate(mesh.devices)})
+
+
+def mesh_phase(card: str, reset_counts, take_counts) -> dict:
+    """Phase 25: the multi-device tier (``dcf_tpu_torch.parallel``) on the
+    card, legs (a)-(d).  Raises on any failure; returns the numbers the
+    phase logged.  ``entry.dryrun_multichip(4)`` runs last, alone: its
+    subprocess would share the host and the card with the legs whose
+    walls are logged."""
+    import contextlib
+    import hashlib
+    import io
+
+    import torch
+
+    from dcf_tpu_torch import Bound, cli
+    from dcf_tpu_torch.backends.evalall import DpfEvalAll
+    from dcf_tpu_torch.backends.fulldomain import TreeFullDomain
+    from dcf_tpu_torch.backends.keylanes_backend import KeyLanesBackend
+    from dcf_tpu_torch.backends.large_lambda import LargeLambdaBackend
+    from dcf_tpu_torch.backends.prefix_backend import PrefixBackend
+    from dcf_tpu_torch.backends.walk_backend import WalkBackend
+    from dcf_tpu_torch.gen import gen_batch, gen_on_device, random_s0s
+    from dcf_tpu_torch.ops._launch import launch_depths
+    from dcf_tpu_torch.ops.hybrid_prefix import frontier_launches
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.parallel import (
+        Mesh, ShardedDpfEvalAll, ShardedKeyLanesBackend,
+        ShardedLargeLambdaBackend, ShardedPrefixBackend,
+        ShardedTreeFullDomain, ShardedWalkBackend, make_mesh)
+    from dcf_tpu_torch.entry import dryrun_multichip
+    from dcf_tpu_torch.protocols.dpf import dpf_gen_batch
+
+    dev = torch.device("cuda", 0)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sync = torch.cuda.synchronize
+
+    def wall_ms(fn, reps: int = MESH_WALL_REPS) -> float:
+        times = []
+        for _ in range(reps):
+            sync()
+            t1 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return float(np.median(times))
+
+    real = make_mesh()
+    if real.size != torch.cuda.device_count():
+        raise RuntimeError(f"phase 25: make_mesh() {real} does not cover "
+                           f"the {torch.cuda.device_count()} cards")
+    n_real = real.size
+
+    def virtual(shape):
+        return Mesh([[dev] * shape[1] for _ in range(shape[0])])
+
+    def same_blocks(what: str, y, ref, m: int) -> None:
+        """Every real (key, point) of the sharded result ``y`` equals the
+        unsharded ``ref`` [K, M_pad, lam], compared on the device."""
+        k0 = 0
+        for blks, r in zip(y.blocks, y.rows):
+            p0 = 0
+            for blk in blks:
+                w = min(blk.shape[1], max(0, m - p0))
+                if w and not torch.equal(
+                        blk[:r, :w], ref[k0:k0 + r, p0:p0 + w].to(
+                            blk.device)):
+                    raise RuntimeError(f"phase 25 {what}: a shard differs "
+                                       "from the unsharded result")
+                p0 += blk.shape[1]
+            k0 += r
+        if k0 != ref.shape[0]:
+            raise RuntimeError(f"phase 25 {what}: {k0} keys, want "
+                               f"{ref.shape[0]}")
+
+    rng = np.random.default_rng(SEED + 26)
+    result = {}
+
+    def keys_of(lam, k_num, ck):
+        alphas = rng.integers(0, 256, (k_num, N_BYTES), dtype=np.uint8)
+        betas = rng.integers(0, 256, (k_num, lam), dtype=np.uint8)
+        bundle = gen_batch(HirosePrgNp(lam, ck, warn=False), alphas, betas,
+                           random_s0s(k_num, lam, rng), Bound.LT_BETA)
+        xs = rng.integers(0, 256, (M_MAIN, N_BYTES), dtype=np.uint8)
+        xs[0] = alphas[0]  # x = alpha
+        return alphas, betas, bundle, xs
+
+    def staged_path(name, make_one, make_sharded, bundle, alphas, betas, xs,
+                    want, k_num):
+        """One staged path: the unsharded backends, then the real and the
+        virtual mesh, both parties over one staged batch each, every
+        block equal to the unsharded shares, 0 two-party mismatches; the
+        launches of each mesh run counted; the walls of one eval_staged
+        (party 0) side by side."""
+        ones = [make_one() for _ in (0, 1)]
+        for b in (0, 1):
+            ones[b].put_bundle(bundle.for_party(b))
+        st = ones[0].stage(xs)
+        ref = [ones[b].eval_staged(b, st) for b in (0, 1)]
+        single = k_num == 1
+        a_, b_ = ((alphas[0].tobytes(), betas[0].tobytes()) if single
+                  else (alphas, betas))
+        if int(ones[0].points_mismatch_count(ref[0], ref[1], a_, b_, st)):
+            raise RuntimeError(f"phase 25 {name}: the unsharded path "
+                               "mismatches")
+        res = {"unsharded_ms": wall_ms(lambda: ones[0].eval_staged(0, st))}
+        for tag, mesh in (("real", real),
+                          ("virtual", virtual(MESH_VIRTUAL[name]))):
+            shape = tuple(mesh.devices.shape)
+            bes = [make_sharded(mesh) for _ in (0, 1)]
+            for b in (0, 1):
+                bes[b].put_bundle(bundle.for_party(b))
+            reset_counts()
+            sst = bes[0].stage(xs)
+            ys = [bes[b].eval_staged(b, sst) for b in (0, 1)]
+            mism = int(bes[0].points_mismatch_count(ys[0], ys[1], a_, b_,
+                                                    sst))
+            sync()
+            path = f"mesh {name} {shape[0]}x{shape[1]}"
+            take_counts(path, want(shape, mesh))
+            if mism:
+                raise RuntimeError(f"phase 25 {path}: {mism} two-party "
+                                   "mismatches")
+            for b in (0, 1):
+                same_blocks(f"{path} party {b}", ys[b], ref[b],
+                            xs.shape[0])
+            res[f"{tag} {shape[0]}x{shape[1]}_ms"] = wall_ms(
+                lambda: bes[0].eval_staged(0, sst))
+            del ys, bes, sst
+        log(f"phase 25 {name}: K={k_num}, {xs.shape[0]} points, "
+            f"n={8 * N_BYTES}, "
+            "both parties byte-equal to the unsharded backend on every "
+            "mesh, 0 two-party mismatches; one eval_staged wall (ms, "
+            f"median of {MESH_WALL_REPS}): {json.dumps(res)} [{card}]")
+        del ref, ones
+        torch.cuda.empty_cache()
+        return res
+
+    t0 = time.perf_counter()
+    wck = [rng.bytes(32) for _ in range(2 * (LAM_WIDE // 16))]
+    ck16 = wck[:2]
+    ck32 = wck[:18]
+    # (a) + (b): the walk at lam = 16 and 32 (B1, E1), 4 keys.
+    for name, lam, ck, kid in (("walk", 16, ck16, "B1"),
+                               ("walk32", 32, ck32, "E1")):
+        alphas, betas, bundle, xs = keys_of(lam, MESH_KEYS, ck)
+        result[name] = staged_path(
+            name, lambda: WalkBackend(lam, ck, device=dev),
+            lambda mesh: ShardedWalkBackend(lam, ck, mesh), bundle, alphas,
+            betas, xs, lambda shape, mesh: {kid: 2 * shape[0] * shape[1]},
+            MESH_KEYS)
+    # The prefix walk (B2 + B3), one key, k = 21: one frontier a distinct
+    # device and party.
+    alphas, betas, bundle, xs = keys_of(16, 1, ck16)
+    n_b2 = len(launch_depths(HOST_LEVELS, min(21, 8 * N_BYTES - 8)))
+    result["prefix"] = staged_path(
+        "prefix", lambda: PrefixBackend(16, ck16, device=dev),
+        lambda mesh: ShardedPrefixBackend(16, ck16, mesh), bundle, alphas,
+        betas, xs,
+        lambda shape, mesh: {"B2": 2 * n_b2 * _instances(mesh),
+                             "B3": 2 * shape[0] * shape[1]}, 1)
+    # The hybrid at lam = 256, 2 keys: from the root (B4 + W1) and with
+    # prefix_levels = 20 (B5a + B5b + W1; k shrinks with the keys a
+    # shard holds).
+    alphas, betas, bundle, xs = keys_of(LAM_WIDE, MESH_HYBRID_KEYS, wck)
+    result["hybrid"] = staged_path(
+        "hybrid", lambda: LargeLambdaBackend(LAM_WIDE, wck, device=dev),
+        lambda mesh: ShardedLargeLambdaBackend(LAM_WIDE, wck, mesh), bundle,
+        alphas, betas, xs,
+        lambda shape, mesh: {"B4": 2 * shape[0] * shape[1],
+                             "W1": 2 * shape[0] * shape[1]},
+        MESH_HYBRID_KEYS)
+
+    def b5a_launches(shape, mesh):
+        per = MESH_HYBRID_KEYS // shape[0]
+        k = max(min(K_HYBRID, 8 * N_BYTES - 8,
+                    20 - (per - 1).bit_length()), 5)
+        builds = 2 * _instances(mesh)
+        return {"B5a": builds * (1 + len(frontier_launches(k)[1])),
+                "B5b": 2 * shape[0] * shape[1],
+                "W1": 2 * shape[0] * shape[1]}
+
+    result["hybrid prefix"] = staged_path(
+        "hybrid prefix",
+        lambda: LargeLambdaBackend(LAM_WIDE, wck, prefix_levels=K_HYBRID,
+                                   device=dev),
+        lambda mesh: ShardedLargeLambdaBackend(LAM_WIDE, wck, mesh,
+                                               prefix_levels=K_HYBRID),
+        bundle, alphas, betas, xs, b5a_launches, MESH_HYBRID_KEYS)
+    del bundle, xs
+
+    # Config 5's shape on B8: 2^18 keys (G1) x 1024 points.
+    alphas = rng.integers(0, 256, (K_MESH_RELU, N_BYTES), dtype=np.uint8)
+    betas = rng.integers(0, 256, (K_MESH_RELU, 16), dtype=np.uint8)
+    kl_bundle = gen_on_device(16, ck16, alphas, betas,
+                              random_s0s(K_MESH_RELU, 16, rng),
+                              Bound.LT_BETA, device=dev)
+    xs_kl = rng.integers(0, 256, (M_RELU, N_BYTES), dtype=np.uint8)
+    one = KeyLanesBackend(16, ck16, device=dev)
+    one.put_bundle(kl_bundle)
+    st = one.stage(xs_kl)
+    ref = [one.eval_staged(b, st) for b in (0, 1)]
+    if int(one.relu_mismatch_count(ref[0], ref[1], alphas, betas, st)):
+        raise RuntimeError("phase 25 keylanes: the unsharded path mismatches")
+    kl_res = {"unsharded_ms": wall_ms(lambda: one.eval_staged(0, st), 1)}
+    moved = alphas.copy()
+    moved[0] = 0xFF  # key 0's alpha at the top: its points above alpha count
+    for tag, mesh in (("real", real), ("virtual",
+                                       virtual(MESH_VIRTUAL["keylanes"]))):
+        shape = tuple(mesh.devices.shape)
+        kl = ShardedKeyLanesBackend(16, ck16, mesh)
+        kl.put_bundle(kl_bundle)
+        reset_counts()
+        sst = kl.stage(xs_kl)
+        ys = [kl.eval_staged(b, sst) for b in (0, 1)]
+        mism = int(kl.relu_mismatch_count(ys[0], ys[1], alphas, betas, sst))
+        sync()
+        path = f"mesh keylanes {shape[0]}x{shape[1]}"
+        take_counts(path, {"B8": 2 * shape[0] * shape[1]})
+        control = int(kl.relu_mismatch_count(ys[0], ys[1], moved, betas,
+                                             sst))
+        if mism or control < 1:
+            raise RuntimeError(f"phase 25 {path}: {mism} mismatches (want "
+                               f"0), the moved-alpha control {control} "
+                               "(want >= 1)")
+        for b in (0, 1):
+            same_blocks(f"{path} party {b}", ys[b], ref[b], M_RELU)
+        kl_res[f"{tag} {shape[0]}x{shape[1]}_ms"] = wall_ms(
+            lambda: kl.eval_staged(0, sst), 1)
+        kl_res[f"{tag} moved-alpha control"] = control
+        del ys, kl, sst
+    log(f"phase 25 keylanes: K={K_MESH_RELU} (G1) x {M_RELU} points, both "
+        "parties byte-equal to KeyLanesBackend on every mesh, 0 "
+        "mismatches, the moved-alpha control counted; one eval_staged "
+        f"wall (ms): {json.dumps(kl_res)} [{card}]")
+    result["keylanes"] = kl_res
+    del ref, one, kl_bundle, st
+    torch.cuda.empty_cache()
+
+    # The full-domain tree (B2 + B2f, n = 24) and DPF EvalAll (B6, n = 24,
+    # K = 4): 0 clean, and the unsharded count with a planted beta flip.
+    fd_res = {}
+    alpha = int(rng.integers(0, 1 << N_FULL))
+    beta = rng.integers(0, 256, (1, 16), dtype=np.uint8)
+    fb = gen_batch(HirosePrgNp(16, ck16), np.frombuffer(
+        alpha.to_bytes(N_FULL // 8, "big"), dtype=np.uint8)[None].copy(),
+        beta, random_s0s(1, 16, rng), Bound.LT_BETA)
+    beta = beta[0].tobytes()
+    wrong = bytes(x ^ 0x80 for x in beta)
+    tree = TreeFullDomain(16, ck16, host_levels=HOST_LEVELS, device=dev)
+    want_wrong = tree.check(fb, alpha, wrong, N_FULL)
+    fd_res["unsharded_ms"] = wall_ms(
+        lambda: tree.check_device(fb, alpha, beta, N_FULL))
+    dpf_alphas = [int(a) for a in rng.integers(0, 1 << N_FULL, K_DPF)]
+    dpf_betas = rng.integers(0, 256, (K_DPF, 32), dtype=np.uint8)
+    db = dpf_gen_batch(
+        HirosePrgNp(32, ck32, warn=False),
+        np.array([list(a.to_bytes(N_FULL // 8, "big")) for a in dpf_alphas],
+                 dtype=np.uint8), dpf_betas, random_s0s(K_DPF, 32, rng))
+    bad_betas = dpf_betas.copy()
+    bad_betas[1, 7] ^= 0x01
+    ev = DpfEvalAll(32, ck32, device=dev)
+    dpf_wrong = ev.check(db, dpf_alphas, bad_betas, N_FULL)
+    ev.invalidate()
+    dpf_res = {"unsharded_ms": wall_ms(
+        lambda: ev.check_device(db, dpf_alphas, dpf_betas, N_FULL))}
+    if ev.check(db, dpf_alphas, dpf_betas, N_FULL) or dpf_wrong < 1 \
+            or tree.check(fb, alpha, beta, N_FULL) or want_wrong != alpha:
+        raise RuntimeError("phase 25: the unsharded full-domain checks "
+                           "disagree with the planted counts")
+    for tag, mesh in (("real", real), ("virtual",
+                                       virtual(MESH_VIRTUAL["full domain"]))):
+        shape = tuple(mesh.devices.shape)
+        p_total = shape[0] * shape[1]
+        fd = ShardedTreeFullDomain(16, ck16, mesh)
+        k0 = fd._k0(N_FULL)
+        last = N_FULL - min(3, N_FULL - k0)
+        reset_counts()
+        clean = int(fd.check_device(fb, alpha, beta, N_FULL))
+        sync()
+        path = f"mesh full domain tree {shape[0]}x{shape[1]}"
+        take_counts(path, {"B2": 2 * p_total * len(launch_depths(k0, last)),
+                           "B2f": 2 * p_total})
+        got_wrong = fd.check(fb, alpha, wrong, N_FULL)
+        if clean or got_wrong != want_wrong:
+            raise RuntimeError(f"phase 25 {path}: {clean} clean (want 0), "
+                               f"{got_wrong} planted (want {want_wrong})")
+        fd_res[f"{tag} {shape[0]}x{shape[1]}_ms"] = wall_ms(
+            lambda: fd.check_device(fb, alpha, beta, N_FULL))
+        sev = ShardedDpfEvalAll(32, ck32, mesh)
+        k0 = sev._k0(N_FULL)
+        reset_counts()
+        clean = int(sev.check_device(db, dpf_alphas, dpf_betas, N_FULL))
+        sync()
+        path = f"mesh dpf evalall {shape[0]}x{shape[1]}"
+        take_counts(path, {"B6": 2 * p_total * len(launch_depths(
+            k0, N_FULL))})
+        sev.invalidate()
+        got = sev.check(db, dpf_alphas, bad_betas, N_FULL)
+        if clean or got != dpf_wrong:
+            raise RuntimeError(f"phase 25 {path}: {clean} clean (want 0), "
+                               f"{got} planted (want {dpf_wrong})")
+        sev.invalidate()
+        dpf_res[f"{tag} {shape[0]}x{shape[1]}_ms"] = wall_ms(
+            lambda: sev.check_device(db, dpf_alphas, dpf_betas, N_FULL))
+        del fd, sev
+    log(f"phase 25 full domain: lam=16, n={N_FULL} (B2 + B2f) 0 clean and "
+        f"{want_wrong} with a flipped beta bit on every mesh, the "
+        f"unsharded count; DPF EvalAll lam=32, n={N_FULL}, K={K_DPF} (B6) 0 "
+        f"clean and {dpf_wrong} with a flipped beta bit; check walls (ms): "
+        f"tree {json.dumps(fd_res)}, dpf {json.dumps(dpf_res)} [{card}]")
+    result["full domain"], result["dpf"] = fd_res, dpf_res
+    del tree, ev
+    result["a_b_s"] = round(time.perf_counter() - t0, 1)
+
+    # (c) The pod mesh: two processes over gloo, each half the points, and
+    # one process over nccl; each slice's bytes equal the unsharded
+    # result's (by digest), the group-wide count 0 in every process.
+    t0 = time.perf_counter()
+    ck, alphas, betas, bundle, xs = _pod_material(M_MAIN, N_BYTES)
+    one = LargeLambdaBackend(LAM_WIDE, ck, device=dev)
+    ref = []
+    for b in (0, 1):
+        one.put_bundle(bundle.for_party(b))
+        ref.append(one.staged_to_bytes(one.eval_staged(b, one.stage(xs)),
+                                       xs.shape[0]))
+    pod_res = {}
+    # The gloo pair and the nccl process run at once (three processes on
+    # the card); NCCL needs the card.
+    legs = [(POD_NPROC, "gloo"), (1, "nccl")]
+    started = []
+    try:
+        for nproc, backend in legs:
+            started.append(_start_pod_workers(nproc, backend, repo,
+                                              dev.type, M_MAIN, N_BYTES))
+        outs = [_pod_worker_lines(procs) for procs in started]
+    finally:
+        for procs in started:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(60)
+    for (nproc, backend), lines in zip(legs, outs):
+        m_local = xs.shape[0] // nproc
+        for line in lines:
+            pid = line["pid"]
+            want = [hashlib.sha256(np.ascontiguousarray(
+                r[:, pid * m_local:(pid + 1) * m_local]).tobytes())
+                .hexdigest() for r in ref]
+            if line["count"] != 0 or line["digests"] != want:
+                raise RuntimeError(f"phase 25 pod mesh {backend} process "
+                                   f"{pid}: count {line['count']}, digests "
+                                   "equal to the unsharded slice: "
+                                   f"{line['digests'] == want}")
+        pod_res[f"{backend} x{nproc}"] = [
+            {k: ln[k] for k in ("pid", "device", "init_s",
+                                "eval_and_count_s")} for ln in lines]
+    del ref, one
+    pod_res["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 25 pod mesh: MeshLargeLambdaBackend lam={LAM_WIDE}, "
+        f"{xs.shape[0]} points: {POD_NPROC} processes on the card over gloo "
+        f"({xs.shape[0] // POD_NPROC} points each) and one over nccl, every "
+        "slice's bytes equal to the unsharded result's, the group-wide "
+        f"count 0 in every process: {json.dumps(pod_res)} [{card}]")
+    result["pod"] = pod_res
+
+    # (d) The CLI's mesh routes on the card, each line's own gates held;
+    # a mesh larger than the host exits non-zero with make_mesh's text;
+    # then, alone, the dry run over four positions on the card exits 0.
+    t0 = time.perf_counter()
+    cli_res = {}
+    for name, argv, want in MESH_CLI_RUNS:
+        out, err = io.StringIO(), io.StringIO()
+        t1 = time.perf_counter()
+        reset_counts()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                cli.main(argv)
+            except SystemExit as e:
+                raise RuntimeError(
+                    f"phase 25 cli {' '.join(argv)}: exit {e.code}; stderr "
+                    f"tail:\n{err.getvalue()[-3000:]}") from None
+        ran = take_counts(f"cli_mesh_{name}", want)
+        (rec,) = [json.loads(x) for x in out.getvalue().splitlines()]
+        if not rec["value"] > 0 or rec["device"] != card:
+            raise RuntimeError(f"phase 25 cli {name}: bad line {rec}")
+        cli_res[name] = {"backend": rec["backend"], "value": rec["value"],
+                         "unit": rec["unit"], "launches": ran,
+                         "seconds": round(time.perf_counter() - t1, 1)}
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            cli.main(["full_domain", "--backend", "tree", "--mesh",
+                      f"{2 * n_real}x2"])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    want_text = f"requested {4 * n_real} devices, have {n_real}"
+    if code in (0, None) or want_text not in str(code):
+        raise RuntimeError(f"phase 25 cli --mesh {2 * n_real}x2: exit "
+                           f"{code!r}, want a non-zero exit naming "
+                           f"{want_text!r}")
+    cli_res["oversized_mesh"] = str(code)
+    cli_res["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 25 cli: {json.dumps(cli_res)} [{card}]")
+    t0 = time.perf_counter()
+    dryrun_multichip(4)  # raises RuntimeError if its subprocess fails
+    cli_res["dryrun_multichip_4_s"] = round(time.perf_counter() - t0, 1)
+    log(f"phase 25 dryrun_multichip(4): exit 0 in "
+        f"{cli_res['dryrun_multichip_4_s']} s, four positions over the "
+        f"{n_real} card(s) (its OK lines above) [{card}]")
+    result["cli"] = cli_res
     return result
 
 
@@ -4783,7 +5381,7 @@ def main() -> int:
         + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
 
     # The kernels at these paths' shapes, each held against its plain
-    # version there (its plain time at the 2^16-point check shape).
+    # version there (its plain time at the M_CHECK-point check shape).
     t0 = time.perf_counter()
     kb_mic = pb.keys.for_party(0)
     sig_w = gates["sigmoid walk"][0][0].pb.keys
@@ -5067,7 +5665,7 @@ def main() -> int:
             f"ms of 3 [{card}]")
         del bes
 
-    # MIC at lam = 32: 8 intervals from a seed, n = 128, 2^16 shared
+    # MIC at lam = 32: 8 intervals from a seed, n = 128, M_CHECK shared
     # points; XOR keys from G2 against the host walk's frame, and the same
     # intervals in add32 from the host walk; MicEvaluator (the pair
     # combine on the card) against mic_oracle.
@@ -5152,6 +5750,15 @@ def main() -> int:
     pod_res = pod_phase(card)
     log("phase 24 pod: " + json.dumps(
         {k: v["seconds"] for k, v in pod_res.items()})
+        + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # -- phase 25: the multi-device tier on the card ------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_res = mesh_phase(card, reset_counts, take_counts)
+    log("phase 25 mesh: " + json.dumps(
+        {k: v.get("seconds", v) if isinstance(v, dict) else v
+         for k, v in mesh_res.items() if k in ("a_b_s", "pod", "cli")})
         + f" ({time.perf_counter() - t0:.1f} s) [{card}]")
 
     # launches x (time - bound) of B1 and B6 on each path, from their

@@ -33,7 +33,9 @@ use) serves ``Dcf(..., backend="cpu")`` and anchors the bench line
 The serving tier (``serve``, ``Dcf.serve``: micro-batched requests from
 many threads, resident key images, admission control, breakers, a
 durable key store and keygen pools, the DCFE network edge and the pod
-router over a shard ring) runs them online.
+router over a shard ring) runs them online, and the multi-device tier
+(``parallel``: a device mesh, every backend sharded over it, the pod mesh
+over ``torch.distributed``; ``Dcf(..., mesh=)``) lays a batch over cards.
 
 It imports torch and numpy, never jax and never dcf_tpu.  Entry points
 run on the card unless the caller passes ``device="cpu"``.

@@ -83,8 +83,18 @@ facade and service (their residencies and frontier caches).  The port
 keeps no health verdicts, so that is all it does: the next eval
 re-stages on a fresh instance of the same backend.
 
-Not in this package yet (see ROADMAP.md): the other JAX backends and
-``mesh=``.
+A device mesh (``mesh=``, ``parallel.make_mesh``) shards the batch over
+cards: keys over the mesh's ``keys`` axis, points over ``points``
+(``dcf_tpu``'s api.py:302-332 and :555-593):
+
+    >>> dcf = Dcf(16, 16, keys, mesh=make_mesh())             # every card
+
+``auto`` picks ``walk`` at lam <= 32 and ``hybrid`` at lam >= 48 there,
+``prefix`` and ``keylanes`` take lam = 16, and the host backends (``cpu``,
+``numpy``) have no mesh-sharded variant.  The mesh carries the devices:
+``device=`` beside it must agree with them, and keygen runs on the mesh's
+first device.  ``dcf_tpu``'s JAX backend names (``jax``, ``bitsliced``,
+``pallas``) are not in this package: their from-root walk is ``walk``.
 """
 
 from __future__ import annotations
@@ -94,6 +104,7 @@ import weakref
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from dcf_tpu_torch.backends._common import resolve_device
 from dcf_tpu_torch.errors import ShapeError
@@ -169,12 +180,31 @@ def reset_backend_health() -> None:
         obj._on_backend_health_reset()
 
 
+def _mesh_device(mesh, device):
+    """The facade's device under a mesh: the mesh's first device (keygen
+    runs there).  A ``device`` given beside the mesh must agree with
+    every position's device (the same type, and the same card where it
+    names one)."""
+    devs = list(mesh.devices.reshape(-1))
+    if device is not None:
+        want = torch.device(device)
+        for d in devs:
+            if d.type != want.type or (want.index is not None
+                                       and d.index != want.index):
+                # api-edge: documented mesh/device contract at the
+                # facade edge
+                raise ValueError(
+                    f"device={device!r} does not agree with the mesh's "
+                    f"device {d}; the mesh carries the devices")
+    return resolve_device(devs[0])
+
+
 class Dcf:
     """Runtime-configured DCF over one domain size and one lam."""
 
     def __init__(self, n_bytes: int, lam: int, cipher_keys: Sequence[bytes],
                  backend: str = "auto", backend_opts: dict | None = None,
-                 device=None):
+                 device=None, mesh=None):
         if n_bytes < 1:
             # api-edge: constructor argument contract
             raise ValueError("n_bytes must be >= 1")
@@ -183,6 +213,11 @@ class Dcf:
             raise ValueError(f"lam must be a multiple of 16 bytes, got {lam}")
         name = backend if backend != "auto" else (
             "walk" if lam <= 32 else "hybrid")
+        if mesh is not None and name in ("cpu", "numpy"):
+            # api-edge: documented backend-name contract at the facade edge
+            raise ValueError(
+                f"backend {name!r} has no mesh-sharded variant (cpu/numpy "
+                "are host paths); use walk, prefix, keylanes or hybrid")
         if name not in _BACKENDS:
             later = _LATER.get(name)
             # api-edge: documented backend-name contract at the facade edge
@@ -227,7 +262,9 @@ class Dcf:
         self.lam = lam
         self.cipher_keys = list(cipher_keys)
         self.backend_name = name
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else _mesh_device(mesh, device))
         # The facade is the API edge: the contract warning fires once here;
         # the nested constructions below are silenced.
         hirose_used_cipher_indices(lam, len(self.cipher_keys))
@@ -362,6 +399,8 @@ class Dcf:
         the card at once without taking the facade's per-party slots."""
         if self.backend_name in ("numpy", "cpu"):
             return None
+        if self.mesh is not None:
+            return self._new_sharded_backend()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", ReferenceContractWarning)
             if self.backend_name == "walk":
@@ -388,6 +427,21 @@ class Dcf:
             return LargeLambdaBackend(self.lam, self.cipher_keys,
                                       device=self.device,
                                       **self._backend_opts)
+
+    def _new_sharded_backend(self):
+        """The mesh-sharded counterpart of this facade's backend
+        (``dcf_tpu_torch.parallel``), over ``self.mesh``."""
+        from dcf_tpu_torch import parallel
+
+        cls = {"walk": parallel.ShardedWalkBackend,
+               "prefix": parallel.ShardedPrefixBackend,
+               "keylanes": parallel.ShardedKeyLanesBackend,
+               "hybrid": parallel.ShardedLargeLambdaBackend}[
+                   self.backend_name]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", ReferenceContractWarning)
+            return cls(self.lam, self.cipher_keys, self.mesh,
+                       **self._backend_opts)
 
     def eval(self, b: int, bundle: KeyBundle, xs: np.ndarray) -> np.ndarray:
         """Party ``b`` batch evaluation: xs uint8 [M, n_bytes] (shared) or

@@ -20,7 +20,7 @@ from dcf_tpu_torch.utils.groups import group_width
 
 __all__ = ["validate_xs", "pad_xs", "prepare_batch", "resolve_device",
            "points_mismatch_count", "xor_mismatch_count", "to_device",
-           "bitrev_values", "StagedFrontierCache"]
+           "bitrev_values", "shard_leaf_positions", "StagedFrontierCache"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -156,14 +156,40 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def bitrev_values(n_bits: int, device) -> torch.Tensor:
+def bitrev_values(n_bits: int, device, pos=None) -> torch.Tensor:
     """int64 [2^n_bits]: the domain value of each leaf position,
-    value[p] = bitreverse_n(p), computed on ``device``."""
-    pos = torch.arange(1 << n_bits, dtype=torch.int64, device=device)
+    value[p] = bitreverse_n(p), computed on ``device``; or of the leaf
+    positions ``pos`` (int64) given."""
+    if pos is None:
+        pos = torch.arange(1 << n_bits, dtype=torch.int64, device=device)
     value = torch.zeros_like(pos)
     for k in range(n_bits):
         value |= ((pos >> k) & 1) << (n_bits - 1 - k)
     return value
+
+
+def shard_leaf_positions(n_leaves: int, shard, device) -> torch.Tensor:
+    """int64 [n_leaves]: the global leaf position of each local leaf of
+    a mesh shard of a full-domain tree (``pallas_sharded.py:253-273`` in
+    ``dcf_tpu``).  ``shard`` is (q, log2 P, k0): position q of P expanded
+    the frontier slice [q 2^c, (q + 1) 2^c) of level k0, c = k0 - log2 P,
+    so its local leaf l = e 2^c + fl walked the directions of fl's bits,
+    then q's, then e's: global position fl + q 2^c + e 2^k0."""
+    q, log2p, k0 = shard
+    c = k0 - log2p
+    local = torch.arange(n_leaves, dtype=torch.int64, device=device)
+    return (local & ((1 << c) - 1)) | (q << c) | ((local >> c) << k0)
+
+
+def shard_local_leaf(pos: int, shard):
+    """The local index, in mesh shard ``shard`` (q, log2 P, k0), of the
+    leaf at global position ``pos``, or None where another shard holds
+    it (the inverse of ``shard_leaf_positions``)."""
+    q, log2p, k0 = shard
+    c = k0 - log2p
+    if (pos >> c) & ((1 << log2p) - 1) != q:
+        return None
+    return (pos & ((1 << c) - 1)) | ((pos >> k0) << c)
 
 
 class StagedFrontierCache:

@@ -28,6 +28,7 @@ import torch
 from dcf_tpu_torch.backends._common import (
     StagedFrontierCache,
     resolve_device,
+    shard_local_leaf,
     to_device,
 )
 from dcf_tpu_torch.errors import ShapeError
@@ -196,19 +197,29 @@ class DpfEvalAll(StagedFrontierCache):
 
 
 def dpf_leaf_mismatch_count(y0: torch.Tensor, y1: torch.Tensor, alphas,
-                            betas: np.ndarray, n_bits: int) -> torch.Tensor:
+                            betas: np.ndarray, n_bits: int,
+                            shard=None) -> torch.Tensor:
     """The number of leaves of y0 ^ y1 (uint8 [K, 2^n_bits, 32],
     bitreverse order) that differ from the point function: beta_k at
     position bitreverse_n(alpha_k) of key k, zero everywhere else.  A
-    device int64 scalar."""
+    device int64 scalar.  With ``shard`` (q, log2 P, k0), y0/y1 are a
+    mesh shard's leaves, where key k's hit is the local leaf of that
+    position (``_common.shard_local_leaf``) or, in another shard, none."""
     k_num = y0.shape[0]
     betas = np.asarray(betas, dtype=np.uint8)
     hits = [bitrev(int(a), n_bits) for a in np.asarray(alphas).reshape(-1)]
     if len(hits) != k_num or betas.shape != (k_num, y0.shape[2]):
         raise ShapeError(f"alphas/betas do not fit {k_num} keys")
+    if shard is not None:
+        hits = [shard_local_leaf(p, shard) for p in hits]
+    keyed = [k for k, h in enumerate(hits) if h is not None]
     recon = y0 ^ y1
     nonzero = (recon.view(torch.int64) != 0).any(-1)  # [K, N]
-    keys = torch.arange(k_num, device=y0.device)
-    hit = torch.tensor(hits, dtype=torch.int64, device=y0.device)
-    wrong_hit = (recon[keys, hit] != to_device(betas, y0.device)).any(-1)
+    if not keyed:
+        return nonzero.sum()
+    keys = torch.tensor(keyed, dtype=torch.int64, device=y0.device)
+    hit = torch.tensor([hits[k] for k in keyed], dtype=torch.int64,
+                       device=y0.device)
+    wrong_hit = (recon[keys, hit]
+                 != to_device(betas[keyed], y0.device)).any(-1)
     return nonzero.sum() - nonzero[keys, hit].sum() + wrong_hit.sum()

@@ -26,6 +26,7 @@ import torch
 from dcf_tpu_torch.backends._common import (
     StagedFrontierCache,
     bitrev_values,
+    shard_leaf_positions,
     resolve_device,
     to_device,
     xor_mismatch_count,
@@ -177,12 +178,16 @@ class TreeFullDomain(StagedFrontierCache):
 
 
 def leaf_mismatch_count(y0: torch.Tensor, y1: torch.Tensor, alpha: int,
-                        beta: bytes, n_bits: int,
-                        gt: bool = False) -> torch.Tensor:
+                        beta: bytes, n_bits: int, gt: bool = False,
+                        shard=None) -> torch.Tensor:
     """The number of leaves whose XOR reconstruction differs from ``beta
     if value < alpha else 0`` (``>`` for gt), where the leaf at position p
     of y0/y1 uint8 [2^n_bits, 16] holds domain value bitreverse_n(p).  A
-    device int64 scalar."""
-    value = bitrev_values(n_bits, y0.device)
+    device int64 scalar.  With ``shard`` (q, log2 P, k0), y0/y1 are a
+    mesh shard's leaves and p its leaves' global positions
+    (``_common.shard_leaf_positions``)."""
+    pos = (None if shard is None
+           else shard_leaf_positions(y0.shape[0], shard, y0.device))
+    value = bitrev_values(n_bits, y0.device, pos)
     inside = (value > alpha) if gt else (value < alpha)
     return xor_mismatch_count(y0, y1, inside, beta)

@@ -37,9 +37,17 @@ thread), ``numpy`` (the oracle), ``walk`` (kernel B1; E1 at lam = 32),
 (B8, many keys in lanes), ``hybrid`` (B4 + W1, or B5a + B5b + W1 with
 ``--prefix-levels``; lam >= 48) and ``tree`` (full_domain only).
 ``dcf_tpu``'s ``pallas``, ``jax`` and ``bitsliced`` compute the from-root
-walk, which is ``walk`` here; ``sharded``, ``sharded-pallas`` and a
-device mesh (``--mesh`` on any bench but ``pod_bench``) wait for the
-multi-GPU slice (ROADMAP.md).  Each exits non-zero before any work.
+walk, which is ``walk`` here; each exits non-zero before any work.
+
+A device mesh (``dcf_tpu_torch.parallel``): ``sharded`` and
+``sharded-pallas`` run the sharded walk (B1) over ``--mesh KxP`` (every
+card on the points axis by default); on ``secure_relu`` ``sharded`` is
+the walk over a keys mesh and ``sharded-pallas`` B8 sharded
+(``ShardedKeyLanesBackend``); ``--mesh KxP`` switches ``prefix``,
+``hybrid`` and ``tree`` to their sharded classes.  ``DCF_CPU_DEVICES=N``
+runs the CLI on N CPU positions (``--device cpu`` and a CPU mesh of N
+positions, ``dcf_tpu``'s virtual-device mode).  Bare ``--mesh`` on
+``pod_bench`` is its co-evaluation scenario over shard processes.
 A pod's shards are processes of their own (``python -m
 dcf_tpu_torch.cli serve_host``, spawned by ``pod_bench`` on its
 ``--device``): on the card each holds a CUDA context, and the parent
@@ -97,6 +105,33 @@ _CARD = {"label": "cpu"}
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def _parse_mesh(spec: str):
+    """'4x2' -> (4, 2); '' -> None (auto factorization)."""
+    if not spec:
+        return None
+    try:
+        k, p = spec.lower().split("x")
+        return (int(k), int(p))
+    except ValueError:
+        raise SystemExit(f"--mesh wants KxP (e.g. 4x2), got {spec!r}")
+
+
+def _mesh(args, dev, shape=None):
+    """The run's device mesh over the run's device type: ``shape``, else
+    ``--mesh KxP``, else ``make_mesh``'s factorization of every card (or
+    CPU position).  A mesh the host cannot hold exits non-zero with
+    ``make_mesh``'s text ("requested 4 devices, have 1")."""
+    from dcf_tpu_torch.parallel import make_mesh
+
+    try:
+        mesh = make_mesh(shape=shape or _parse_mesh(args.mesh),
+                         device=dev.type)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh or shape}: {e}")
+    log(f"mesh: {mesh.shape}")
+    return mesh
 
 
 def _cipher_keys(lam: int, rng) -> list[bytes]:
@@ -191,8 +226,14 @@ def _make_evaluator(backend: str, lam: int, cipher_keys, native, args=None,
         from dcf_tpu_torch.backends.large_lambda import LargeLambdaBackend
 
         plev = int(getattr(args, "prefix_levels", 0) or 0) if args else 0
-        be = LargeLambdaBackend(lam, cipher_keys, prefix_levels=plev,
-                                device=dev)
+        if args is not None and getattr(args, "mesh", ""):
+            from dcf_tpu_torch.parallel import ShardedLargeLambdaBackend
+
+            be = ShardedLargeLambdaBackend(lam, cipher_keys, _mesh(args, dev),
+                                           prefix_levels=plev)
+        else:
+            be = LargeLambdaBackend(lam, cipher_keys, prefix_levels=plev,
+                                    device=dev)
     elif backend == "walk":
         from dcf_tpu_torch.backends.walk_backend import WalkBackend
 
@@ -212,7 +253,25 @@ def _make_evaluator(backend: str, lam: int, cipher_keys, native, args=None,
 
         pts = (getattr(args, "points", 0) or 100_000) if args else 100_000
         klev = max(6, min(MAX_PREFIX_LEVELS, pts.bit_length()))
-        be = PrefixBackend(lam, cipher_keys, prefix_levels=klev, device=dev)
+        if args is not None and getattr(args, "mesh", ""):
+            # Single key: a 1xN points mesh (ShardedPrefixBackend).
+            from dcf_tpu_torch.parallel import ShardedPrefixBackend
+
+            be = ShardedPrefixBackend(lam, cipher_keys, _mesh(args, dev),
+                                      prefix_levels=klev)
+        else:
+            be = PrefixBackend(lam, cipher_keys, prefix_levels=klev,
+                               device=dev)
+    elif backend in SHARDED:
+        # dcf_tpu's two sharded routes to the from-root walk (its
+        # bitsliced and Pallas cores) are the one sharded walk here.  The
+        # criterion benches are single-key: every device on points.
+        from dcf_tpu_torch.parallel import ShardedWalkBackend, make_mesh
+
+        shape = _parse_mesh(getattr(args, "mesh", "") if args else "")
+        if shape is None:
+            shape = (1, make_mesh(device=dev.type).size)
+        be = ShardedWalkBackend(lam, cipher_keys, _mesh(args, dev, shape))
     else:
         # api-edge: CLI backend-name contract
         raise ValueError(f"unknown backend {backend!r}")
@@ -446,6 +505,10 @@ def bench_dcf(args) -> None:
     """Single gen + single-point eval latency (benches/dcf.rs analog)."""
     from dcf_tpu_torch.native import NativeDcf
 
+    if args.backend in SHARDED:
+        raise SystemExit(
+            "dcf is a single-point latency bench; sharding one point over "
+            "a mesh is meaningless — use any single-device backend")
     dev = _dev(args)
     lam, nb = 16, 16
     rng = np.random.default_rng(args.seed)
@@ -519,6 +582,8 @@ def bench_batch(args) -> None:
                              args.profile, dev)
         unit = "evals/s"
     name = args.backend if k == 1 else f"{args.backend} (K={k})"
+    if args.mesh:
+        name += f" --mesh={args.mesh}"  # a sharded run must say so
     _emit("dcf_batch_eval", name, "evals_per_sec",
           k * m / dt, unit, dt, mad, len(ss),
           extra_fields=_pinned_ratio(nb, k, k * m / dt))
@@ -541,7 +606,7 @@ def bench_large_lambda(args) -> None:
             f"bench, got {lam}")
     m = args.points or 10_000
     k = args.keys or 1
-    if args.backend in ("prefix", "keylanes", "walk"):
+    if args.backend in ("prefix", "keylanes", "walk", *SHARDED):
         raise SystemExit(f"{args.backend} backend is lam=16 only; "
                          "use hybrid/cpu")
     dev = _dev(args)
@@ -662,16 +727,53 @@ def bench_secure_relu(args) -> None:
               dt, mad, len(ss))
         return
 
-    from dcf_tpu_torch.backends.walk_backend import WalkBackend
+    if args.backend == "sharded-pallas":
+        # B8 sharded over the mesh (the path a pod runs for config 5):
+        # the two-party image ships once, both parties walk it per rep,
+        # the shares stay on the cards.
+        from dcf_tpu_torch.parallel import ShardedKeyLanesBackend
 
-    be0 = WalkBackend(lam, ck, device=dev)
-    be1 = WalkBackend(lam, ck, device=dev)
+        be = ShardedKeyLanesBackend(lam, ck, _mesh(args, dev))
+        be.put_bundle(bundle)
+        staged = be.stage(xs)
+        y0 = be.eval_staged(0, staged)
+        y1 = be.eval_staged(1, staged)
+        mism = int(be.relu_mismatch_count(y0, y1, alphas, betas, staged))
+        if mism:
+            raise SystemExit(f"secure_relu: {mism} reconstruction mismatches")
+        log(f"on-device verification: 0 mismatches of {k * m}")
+
+        def run():
+            be.eval_staged(0, staged)
+            be.eval_staged(1, staged)
+
+        dt, mad, ss = _timed(run, args.reps, args.profile, dev)
+        _emit("secure_relu", "sharded-keylanes-pallas", "evals_per_sec",
+              2 * k * m / dt, "evals/s (staged, results device-resident)",
+              dt, mad, len(ss))
+        return
+
+    if args.backend == "sharded":
+        # The walk over a keys mesh: the one multi-key CLI workload, where
+        # mesh factorizations (8x1 / 4x2 / 2x4) are compared via --mesh.
+        from dcf_tpu_torch.parallel import ShardedWalkBackend
+
+        mesh = _mesh(args, dev)
+        be0 = ShardedWalkBackend(lam, ck, mesh)
+        be1 = ShardedWalkBackend(lam, ck, mesh)
+        name = "sharded"
+    else:
+        from dcf_tpu_torch.backends.walk_backend import WalkBackend
+
+        be0 = WalkBackend(lam, ck, device=dev)
+        be1 = WalkBackend(lam, ck, device=dev)
+        name = "walk"
     secure_relu_eval(be0, be1, bundle, xs)  # warmup
     dt, mad, ss = _timed(
         lambda: secure_relu_eval(be0, be1, bundle, xs), args.reps,
         args.profile, dev)
     # Two parties evaluated -> 2*K*M DCF evals.
-    _emit("secure_relu", "walk", "evals_per_sec",
+    _emit("secure_relu", name, "evals_per_sec",
           2 * k * m / dt, "evals/s", dt, mad, len(ss))
 
 
@@ -715,9 +817,16 @@ def bench_full_domain(args) -> None:
     )
     chunk = min(1 << 20, 1 << n_bits)
     if args.backend == "tree":
-        from dcf_tpu_torch.backends.fulldomain import TreeFullDomain
+        # With --mesh the frontier splits over the mesh and each position
+        # expands and checks its disjoint subtree.
+        if args.mesh:
+            from dcf_tpu_torch.parallel import ShardedTreeFullDomain
 
-        fd = TreeFullDomain(lam, ck, device=dev)
+            fd = ShardedTreeFullDomain(lam, ck, _mesh(args, dev))
+        else:
+            from dcf_tpu_torch.backends.fulldomain import TreeFullDomain
+
+            fd = TreeFullDomain(lam, ck, device=dev)
         if fd.check(bundle, alpha, beta, n_bits):  # warmup + correctness
             raise SystemExit("full_domain: reconstruction mismatches")
         log(f"full domain 2^{n_bits}: 0 mismatches")
@@ -3431,9 +3540,15 @@ def bench_pod_selfheal(args) -> None:
         try:
             for _cycle in range(cycles):
                 t0 = time.monotonic()
+                # The cut's end is set once the mid-cut registration has
+                # been fanned out: cut_s after t0, or later where the
+                # DOWN walk and the promotion outlast cut_s on a loaded
+                # host — a registration after the heal would reach the
+                # victim directly and leave anti-entropy nothing to pull.
+                window = [t0, float("inf")]
                 handler = faults.partition(
                     {(router.local_tag, victim)}, clock=time.monotonic,
-                    window=(t0, t0 + cut_s))
+                    window=window)
                 with faults.inject("net.partition", handler=handler):
                     # Wait for the prober to mark the victim DOWN.
                     while time.monotonic() < t0 + cut_s:
@@ -3469,7 +3584,8 @@ def bench_pod_selfheal(args) -> None:
                     bundles[midcut_key] = dcf.gen(alphas, betas, rng=rng)
                     gens[midcut_key] = router.register_key(
                         midcut_key, bundles[midcut_key])
-                    while time.monotonic() < t0 + cut_s:
+                    window[1] = max(t0 + cut_s, time.monotonic())
+                    while time.monotonic() < window[1]:
                         time.sleep(0.05)
                 # Healed: the prober must re-admit through the
                 # anti-entropy gate.
@@ -5072,24 +5188,31 @@ BENCHES = {
 
 
 def _refuse_later_slices(args) -> None:
-    """dcf_tpu's routes the port does not run yet exit non-zero before
-    any work, naming what to use or the slice that brings them.  The pod
-    benches are exempt from the mesh refusal: ``pod_bench --mesh`` is
-    the co-evaluation scenario over shard processes, and their backend
-    check (``_pod_backend``) refuses the sharded backends in
-    ``dcf_tpu``'s words."""
-    if args.bench not in POD_BENCHES and (args.backend in SHARDED
-                                          or args.mesh):
-        what = (f"--backend={args.backend}" if args.backend in SHARDED
-                else "--mesh")
-        raise SystemExit(
-            f"{what} shards over a device mesh; the port's multi-GPU "
-            "backends come in a later slice (ROADMAP.md Queue A, "
-            "multi-GPU); run on one card")
+    """dcf_tpu's routes the port does not take exit non-zero before any
+    work, naming what to use; a malformed device mesh too (the pod
+    benches' ``--mesh`` is their co-evaluation scenario, not a mesh
+    shape)."""
+    if args.bench not in POD_BENCHES:
+        _parse_mesh(args.mesh)
     if args.backend in WALK_ALIASES:
         raise SystemExit(
             f"--backend={args.backend} is dcf_tpu's from-root walk on the "
             "TPU; the port's from-root walk kernel is --backend walk")
+
+
+def _force_cpu_positions(args) -> None:
+    """``DCF_CPU_DEVICES=N`` runs the CLI on N CPU positions: the device
+    is the CPU (the kernels' plain versions; every line says
+    ``"device": "cpu"``) and a mesh has up to N positions
+    (``parallel.make_mesh``), ``dcf_tpu``'s virtual-device mode."""
+    import os
+
+    from dcf_tpu_torch.parallel.mesh import CPU_DEVICES_ENV
+
+    n = os.environ.get(CPU_DEVICES_ENV)
+    if n:
+        args.device = "cpu"
+        log(f"forced {n} CPU positions ({CPU_DEVICES_ENV})")
 
 
 def _add_pod_flags(p) -> None:
@@ -5205,10 +5328,11 @@ def main(argv=None) -> None:
     p.add_argument("--check", action="store_true",
                    help="verify parity vs the C++ core before timing")
     p.add_argument("--mesh", default="", nargs="?", const="pod",
-                   help="bare --mesh on pod_bench runs the co-evaluation "
-                        "crossover scenario; a device mesh KxP "
-                        "(dcf_tpu's sharded routes) is refused until the "
-                        "multi-GPU slice")
+                   help="mesh shape KxP (e.g. 4x2) for the sharded "
+                        "backends; with --backend=hybrid, prefix or tree "
+                        "it switches to their mesh-sharded variants; bare "
+                        "--mesh on pod_bench runs the co-evaluation "
+                        "crossover scenario")
     p.add_argument("--profile", default="",
                    help="write a torch.profiler trace of the timed region")
     p.add_argument("--n-bits", type=int, default=0,
@@ -5304,6 +5428,7 @@ def main(argv=None) -> None:
     if known.bench in POD_BENCHES:
         _add_pod_flags(p)
     args = p.parse_args(argv)
+    _force_cpu_positions(args)
     _refuse_later_slices(args)
     if args.backend == "tree" and args.bench not in ("full_domain",
                                                      "baseline"):
@@ -5342,8 +5467,12 @@ def main(argv=None) -> None:
                 "own backend routing; run it explicitly)")
             continue
         if args.bench == "all" and name == "dcf_large_lambda" and \
-                args.backend in ("walk", "prefix", "keylanes"):
+                args.backend in ("walk", "prefix", "keylanes", *SHARDED):
             log("skipping dcf_large_lambda (lam=16-only backend)")
+            continue
+        if args.bench == "all" and name == "dcf" and \
+                args.backend in SHARDED:
+            log("skipping dcf (single-point bench, not shardable)")
             continue
         BENCHES[name](args)
 

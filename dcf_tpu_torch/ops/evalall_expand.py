@@ -180,21 +180,26 @@ evalall_expand_level.launches = 0  # kernel B6 launches in this process
 
 
 def evalall_expand(aes, cw_s, cw_t, cw_np1, s, t, *, k0: int, k1: int,
-                   want_y: bool = True):
+                   want_y: bool = True, sliced: bool = False):
     """Expand levels k0..k1-1 of K keys from the level-k0 nodes (s
-    [K, 2^k0, 32], t [K, 2^k0], bitreverse order) and apply the leaf
+    [K, 2^k0, 32], t [K, 2^k0], bitreverse order; with ``sliced``, a
+    mesh shard's contiguous slice of N of them, N a power of two: the
+    kernels take their node count from the frontier they are given) and apply the leaf
     correction on the last one, k0 < k1 <= n: one kernel launch per
     ``launch_depths(k0, k1)`` entry.
-    Returns (y uint8 [K, 2^k1, 32], t uint8 [K, 2^k1]) in bitreverse_k1
-    order.  y is the leaf share only at full depth, k1 = n; at a prefix
+    Returns (y uint8 [K, 2^(k1 - k0) N, 32], t uint8 [K, 2^(k1 - k0) N])
+    in bitreverse_k1 order (N = 2^k0).  y is the leaf share only at full depth, k1 = n; at a prefix
     depth the correction lands on inner seeds and only t means something
     (the one-hot share of alpha's top k1 bits).  With ``want_y=False`` y
     is None: the last launch writes the t bits alone, packed (int32
     [K, ceil(2^k1 / 32)])."""
-    if not 0 <= k0 < k1 <= cw_s.shape[1] or s.shape[1] != 1 << k0:
+    nodes = s.shape[1]
+    if not 0 <= k0 < k1 <= cw_s.shape[1] or nodes < 1 or nodes > 1 << k0 \
+            or nodes & (nodes - 1) or (nodes != 1 << k0 and not sliced):
         raise ShapeError(
-            f"evalall_expand wants 2^k0 nodes and 0 <= k0 < k1 <= n = "
-            f"{cw_s.shape[1]}, got k0={k0}, k1={k1}, {s.shape[1]} nodes")
+            f"evalall_expand wants 2^k0 nodes (or, sliced, a power-of-two "
+            f"slice of them) and 0 <= k0 < k1 <= n = {cw_s.shape[1]}, got "
+            f"k0={k0}, k1={k1}, {nodes} nodes")
     for i, depth in launch_depths(k0, k1):
         last = i + depth == k1
         s, t = evalall_expand_level(

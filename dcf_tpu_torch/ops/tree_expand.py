@@ -236,18 +236,24 @@ tree_expand_final.launches = 0  # kernel B2f launches in this process
 
 
 def tree_expand_device(aes, cw_s, cw_v, cw_t, cw_np1, s, v, t, *, k0: int,
-                       n: int):
+                       n: int, sliced: bool = False):
     """Expand levels k0..n-1 of one XOR-group key and finalize the leaves:
     cw_s/cw_v uint8 [n, 16], cw_t uint8 [n, 2], cw_np1 uint8 [16];
-    (s, v, t) the level-k0 nodes in bitreverse order, k0 < n.  Returns the
-    leaf shares uint8 [2^n, 16] in bitreverse_n order: kernel B2 for the
-    levels above the last ``FINAL_LEVELS`` (at most n - k0), kernel B2f
-    for those."""
-    if not 0 <= k0 < n or cw_s.shape[0] != n or s.shape[0] != 1 << k0:
+    (s, v, t) the level-k0 nodes in bitreverse order, k0 < n: all 2^k0 of
+    them, or with ``sliced`` a mesh shard's contiguous slice of N (a power
+    of two; the kernels take their node count from the frontier they are
+    given).
+    Returns the leaf shares uint8 [2^(n - k0) N, 16], bitreverse_n order
+    for the whole level: kernel B2 for the levels above the last
+    ``FINAL_LEVELS`` (at most n - k0), kernel B2f for those."""
+    nodes = s.shape[0]
+    if not 0 <= k0 < n or cw_s.shape[0] != n or nodes < 1 \
+            or nodes > 1 << k0 or nodes & (nodes - 1) \
+            or (nodes != 1 << k0 and not sliced):
         raise ShapeError(
-            f"tree_expand_device wants 2^k0 nodes and 0 <= k0 < n = "
-            f"{cw_s.shape[0]} levels, got k0={k0}, n={n}, "
-            f"{s.shape[0]} nodes")
+            f"tree_expand_device wants 2^k0 nodes (or, sliced, a "
+            f"power-of-two slice of them) and 0 <= k0 < n = "
+            f"{cw_s.shape[0]} levels, got k0={k0}, n={n}, {nodes} nodes")
     last = n - min(FINAL_LEVELS, n - k0)
     s, v, t = tree_expand(aes, cw_s, cw_v, cw_t, s, v, t, k0=k0, k1=last,
                           group="xor")

@@ -78,8 +78,11 @@ def staged_pair_combine(y_dev, group: str = "xor"):
     backend of the port returns that byte layout, so one slice and group
     add serves them all.  The pad points stay in and are dropped by
     ``staged_to_bytes`` after the combine.  The mask is not applied here:
-    fold it in on the fetched bytes."""
+    fold it in on the fetched bytes.  A mesh-sharded backend's output
+    (``parallel.ShardedTensor``) combines shard by shard."""
     fire("protocols.combine", y_dev.shape[0] // 2, -1)
+    if hasattr(y_dev, "pair_combine"):
+        return y_dev.pair_combine(group)
     return group_add_plain(y_dev[0::2], y_dev[1::2], group_width(group))
 
 

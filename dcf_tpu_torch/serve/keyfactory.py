@@ -509,8 +509,11 @@ class KeyFactory:
     def _want_planes(self) -> bool:
         """The staged-plane handoff applies where the serving facade
         stages the hybrid image (lam >= 48): the one backend that stages
-        the keygen's narrow arrays as they are."""
-        return self._dcf.backend_name == "hybrid"
+        the keygen's narrow arrays as they are.  Not under a mesh
+        (``dcf_tpu/serve/keyfactory.py:612-617``): the sharded hybrid
+        stages from the host bundle."""
+        return (self._dcf.backend_name == "hybrid"
+                and getattr(self._dcf, "mesh", None) is None)
 
     # -- refill -------------------------------------------------------------
 

@@ -86,7 +86,9 @@ def device_image_bytes(be) -> int:
     accounting unit): every tensor under ``_IMAGE_ATTRS``, through the
     ONE byte rule (``tables_nbytes`` — the hybrid's frontier store holds
     (rows, words) TUPLES per party).  A backend that stages nothing (host
-    paths) counts 0."""
+    paths) counts 0; a mesh-sharded backend the sum of its instances'."""
+    if hasattr(be, "shard_backends"):
+        return sum(device_image_bytes(x) for x in be.shard_backends())
     total = 0
     for attr in _IMAGE_ATTRS:
         d = getattr(be, attr, None)

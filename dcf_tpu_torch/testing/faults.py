@@ -100,6 +100,10 @@ POINTS = (
     #                     mesh that cannot form: the batch degrades to
     #                     route-mode, or MeshUnavailableError when the caller
     #                     forced co-evaluation)
+    "mesh.provision",  # device enumeration of a mesh
+    #                    (parallel.mesh.make_mesh / make_pod_mesh; no
+    #                    handler args.  A raising handler models a dead
+    #                    driver: BackendUnavailableError, typed)
     "net.partition",  # one dial or frame send of a tagged EdgeClient
     #                   (serve/edge.py; handler args: local tag, peer tag.
     #                   ``partition({...})`` is the canonical handler: its
@@ -287,7 +291,8 @@ def partition(pairs, *, clock: Callable[[], float] | None = None,
     ``clock`` + ``window=(start, end)``: deny only while
     ``start <= clock() < end`` — the healable-partition window the
     partition/flap soaks drive (heal = the clock leaving the window;
-    no un-arming race with in-flight requests)."""
+    no un-arming race with in-flight requests).  The window is read at
+    every frame, so a list's end may be set while the cut holds."""
     cut = {frozenset(p) for p in pairs}
     if any(len(p) != 2 for p in cut):
         raise ValueError(f"partition pairs must name two hosts: {pairs}")

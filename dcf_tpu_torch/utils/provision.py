@@ -16,8 +16,10 @@ card a run goes to and the CUDA kernels' build directory:
   the counterpart of ``enable_compile_cache``.  The CLI calls it when a
   run picks the card.
 
-``force_cpu_devices`` (JAX's virtual CPU devices for the sharded path) has
-no counterpart yet: it comes with the multi-GPU slice (ROADMAP.md).
+- ``force_cpu_devices(env, n)`` sets ``DCF_CPU_DEVICES`` in a child
+  process's environment: its CLI runs and CPU meshes then have ``n`` CPU
+  positions (``parallel.make_mesh``), the counterpart of JAX's virtual
+  CPU devices for the sharded path.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from __future__ import annotations
 from dcf_tpu_torch import _build
 from dcf_tpu_torch.backends._common import resolve_device as select_device
 
-__all__ = ["select_device", "repo_cache_dir", "enable_kernel_cache"]
+__all__ = ["select_device", "repo_cache_dir", "enable_kernel_cache",
+           "force_cpu_devices"]
 
 
 def repo_cache_dir() -> str:
@@ -41,3 +44,11 @@ def enable_kernel_cache(names=_build.KERNELS) -> float:
     built).  Raises ``BackendUnavailableError`` if nvcc is missing or a
     build fails."""
     return _build.build(tuple(names))
+
+
+def force_cpu_devices(env, n_devices: int) -> None:
+    """Mutate ``env`` so that a process of the port started with it runs
+    on ``n_devices`` CPU positions (``DCF_CPU_DEVICES``)."""
+    from dcf_tpu_torch.parallel.mesh import CPU_DEVICES_ENV
+
+    env[CPU_DEVICES_ENV] = str(int(n_devices))

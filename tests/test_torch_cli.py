@@ -153,11 +153,13 @@ def test_flag_validation_matches_dcf_tpu(argv, match, monkeypatch):
     # the pod benches run now, with dcf_tpu's own refusals
     (["serve_host"], "serve_host needs --store-dir"),
     (["pod_bench", "--shards=1"], "--shards must be >= 2"),
-    (["dcf_batch_eval", "--backend=sharded"], "multi-GPU"),
-    (["secure_relu", "--mesh=4x2"], "multi-GPU"),
-    (["secure_relu", "--backend=sharded-pallas", "--mesh=4x2"],
-     "multi-GPU"),
-    (["full_domain", "--backend=tree", "--mesh=1x4"], "multi-GPU"),
+    # the mesh routes run now; what dcf_tpu refuses on them still exits
+    (["dcf", "--backend=sharded"], "single-point latency bench"),
+    (["secure_relu", "--mesh=4by2"], "--mesh wants KxP (e.g. 4x2)"),
+    (["secure_relu", "--backend=sharded-pallas", "--device-gen"],
+     "its own pipeline"),
+    (["dcf_large_lambda", "--backend=sharded", "--mesh=1x4"],
+     "lam=16 only"),
     (["dcf_batch_eval", "--backend=pallas"], "--backend walk"),
     (["dcf", "--backend=jax"], "--backend walk"),
     (["serve_bench", "--backend=bitsliced"], "--backend walk"),
@@ -574,3 +576,86 @@ def test_module_entry():
     assert [r["bench"] for r in recs] == ["dcf_gen", "dcf_eval_1pt"]
     assert all(r["device"] == "cpu" and math.isfinite(r["value"])
                for r in recs)
+
+
+# -- the device mesh on CPU positions (DCF_CPU_DEVICES) ---------------------
+
+MESH_RUNS = {
+    "batch_sharded_pallas": (
+        ["dcf_batch_eval", "--backend", "sharded-pallas", "--points", "64",
+         "--domain-bytes", "2", "--check"], "sharded-pallas", MED),
+    "batch_prefix_mesh": (
+        ["dcf_batch_eval", "--backend", "prefix", "--mesh", "1x4",
+         "--points", "64", "--domain-bytes", "2", "--check"],
+        "prefix --mesh=1x4", MED),
+    "relu_sharded": (
+        ["secure_relu", "--backend", "sharded", "--mesh", "2x2", "--keys",
+         "4", "--points", "4"], "sharded", MED),
+    "relu_sharded_pallas": (
+        ["secure_relu", "--backend", "sharded-pallas", "--mesh", "2x2",
+         "--keys", "40", "--points", "4"], "sharded-keylanes-pallas", MED),
+    "full_domain_tree_mesh": (
+        ["full_domain", "--backend", "tree", "--mesh", "2x2", "--n-bits",
+         "16"], "tree", MED),
+    "hybrid_mesh": (
+        ["dcf_large_lambda", "--backend", "hybrid", "--lam", "48", "--mesh",
+         "2x2", "--keys", "2", "--points", "32", "--prefix-levels", "6",
+         "--check"], "hybrid (K=2)", MED),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_RUNS))
+def test_mesh_routes_on_cpu_positions(case, capsys, monkeypatch):
+    """``DCF_CPU_DEVICES=4`` runs the sharded routes on four CPU
+    positions (dcf_tpu's virtual-device mode), without ``--device cpu``:
+    each line has dcf_tpu's name for the route and keys, says ``"device":
+    "cpu"``, and its parity gates passed."""
+    monkeypatch.setenv("DCF_CPU_DEVICES", "4")
+    argv, backend, keys = MESH_RUNS[case]
+    tcli.main(argv + ["--reps", "1"])
+    out = capsys.readouterr()
+    (rec,) = [json.loads(line) for line in out.out.strip().splitlines()]
+    assert rec["backend"] == backend
+    assert_keys(rec, COMMON | keys)
+    assert "mesh: {" in out.err and "forced 4 CPU positions" in out.err
+
+
+def test_mesh_routes_need_a_device(monkeypatch):
+    """A mesh the host cannot hold exits non-zero with make_mesh's text
+    (dcf_tpu's "requested N devices, have M"); without CUDA and without
+    DCF_CPU_DEVICES a mesh route never runs on the CPU."""
+    monkeypatch.setenv("DCF_CPU_DEVICES", "4")
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["full_domain", "--backend", "tree", "--mesh", "4x4",
+                   "--n-bits", "16"])
+    assert "requested 16 devices, have 4" in str(e.value.code)
+    monkeypatch.delenv("DCF_CPU_DEVICES")
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")  # pragma: no cover
+    with pytest.raises(SystemExit) as e:
+        tcli.main(["dcf_batch_eval", "--backend", "sharded", "--points",
+                   "4"])
+    assert e.value.code not in (0, None)
+    assert "CUDA is not available" in str(e.value.code)
+
+
+@pytest.mark.parametrize("backend", ["sharded", "sharded-pallas", "walk"])
+def test_all_skips_what_dcf_tpu_skips(backend, monkeypatch, capsys):
+    """``all`` runs the same benches as dcf_tpu's for each backend: the
+    sharded ones skip ``dcf`` (one point is not shardable) and the
+    large-lambda bench (lam = 16 backends)."""
+    ran = {}
+    for mod in (tcli, jcli):
+        names = ran.setdefault(mod.__name__, [])
+        monkeypatch.setattr(mod, "BENCHES", {
+            k: (lambda args, k=k, names=names: names.append(k))
+            for k in mod.BENCHES})
+    tcli.main(["all", "--backend", backend])
+    jcli.main(["all", "--backend",
+               "pallas" if backend == "walk" else backend])
+    assert ran[tcli.__name__] == ran[jcli.__name__]
+    if backend != "walk":
+        assert "dcf" not in ran[tcli.__name__]
+        assert "skipping dcf (single-point bench" in capsys.readouterr().err

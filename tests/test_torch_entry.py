@@ -68,3 +68,79 @@ def test_select_device():
         with pytest.raises(BackendUnavailableError):
             entry()
     assert provision.repo_cache_dir().endswith("_build")
+
+
+def test_dryrun_multichip_on_four_cpu_positions(capfd, monkeypatch):
+    """``dryrun_multichip(4, device="cpu")``
+    (``__graft_entry__.dryrun_multichip``'s counterpart) exits 0 in its
+    subprocess on four CPU positions and prints one OK line per sharded
+    class, per facade route and per negative control.  The subprocess
+    runs torch on one thread, as this module's tests do
+    (``one_torch_thread``): beside the suite's other workers a thread a
+    core thrashes."""
+    from dcf_tpu_torch.entry import dryrun_multichip
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    dryrun_multichip(4, device="cpu")
+    out = capfd.readouterr().out
+    tags = [line.split("[", 1)[1].split("]", 1)[0]
+            for line in out.splitlines()
+            if line.startswith("dryrun_multichip OK [")]
+    assert tags == [
+        "ShardedWalkBackend", "ShardedKeyLanesBackend",
+        "ShardedLargeLambdaBackend", "ShardedPrefixBackend",
+        "ShardedTreeFullDomain", "ShardedDpfEvalAll",
+        "Dcf facade mesh={'keys': 2, 'points': 2} -> walk",
+        "negative control", "negative control keylanes",
+        "negative control prefix"], out
+
+
+def test_dryrun_multichip_runs_on_the_card_unless_asked(monkeypatch):
+    """The dry run asks for the card by default (no fallback: without
+    CUDA its subprocess fails and it raises) and for CPU positions only
+    through ``device="cpu"`` or ``DCF_CPU_DEVICES``."""
+    from dcf_tpu_torch import entry as entry_mod
+
+    runs = []
+    monkeypatch.setattr(entry_mod.subprocess, "run", lambda argv, **kw: (
+        runs.append((argv[-1].split("; ")[1],
+                     kw["env"].get("DCF_CPU_DEVICES")))
+        or type("Done", (), {"returncode": 0})()))
+    monkeypatch.delenv("DCF_CPU_DEVICES", raising=False)
+    entry_mod.dryrun_multichip(4)
+    entry_mod.dryrun_multichip(2, device="cpu")
+    monkeypatch.setenv("DCF_CPU_DEVICES", "8")
+    entry_mod.dryrun_multichip(4)
+    entry_mod.dryrun_multichip(4, device="cuda")
+    assert runs == [("_dryrun_multichip_impl(4, 'cuda')", None),
+                    ("_dryrun_multichip_impl(2, 'cpu')", "2"),
+                    ("_dryrun_multichip_impl(4, 'cpu')", "4"),
+                    ("_dryrun_multichip_impl(4, 'cuda')", None)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        entry_mod.dryrun_multichip(4, device="tpu")
+    monkeypatch.undo()
+    if not torch.cuda.is_available():
+        monkeypatch.delenv("DCF_CPU_DEVICES", raising=False)
+        with pytest.raises(RuntimeError, match="rc=1"):
+            entry_mod.dryrun_multichip(4)
+
+
+@pytest.mark.parametrize("n_cards", [1, 2, 4])
+def test_dryrun_mesh_lays_the_cards_over_the_positions(n_cards):
+    """Four positions (2 x 2) and a 1 x 4 row over ``n_cards`` cards:
+    each position takes card q % n_cards, so one card repeats in every
+    position and four cards give each position its own."""
+    from dcf_tpu_torch.entry import _dryrun_mesh
+
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    for shape, mesh in (((2, 2), _dryrun_mesh(4, cards)),
+                        ((1, 4), _dryrun_mesh(4, cards, shape=(1, 4)))):
+        assert mesh.devices.shape == shape
+        assert [d.index for d in mesh.devices.reshape(-1)] == [
+            q % n_cards for q in range(4)]
+
+
+def test_force_cpu_devices_sets_the_port_variable():
+    env = {}
+    provision.force_cpu_devices(env, 4)
+    assert env == {"DCF_CPU_DEVICES": "4"}

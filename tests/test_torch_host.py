@@ -239,7 +239,10 @@ def test_port_imports_neither_jax_nor_dcf_tpu():
                 "serve/replicate.py", "serve/loadgen.py",
                 "serve/service.py", "serve/membership.py",
                 "serve/capacity.py", "testing/lockwatch.py", "errors.py",
-                "cli.py", "entry.py", "utils/provision.py"):
+                "cli.py", "entry.py", "utils/provision.py",
+                "parallel/__init__.py", "parallel/_compat.py",
+                "parallel/mesh.py", "parallel/sharded.py",
+                "parallel/mesh_eval.py"):
         assert f"dcf_tpu_torch/{sub}" in scanned
     assert "bench_torch.py" in scanned and "chip_gates.py" in scanned
     assert "chip_phase24.py" in scanned
@@ -379,3 +382,28 @@ def test_repaired_sites_raise_dcf_tpus_class(idx):
         port()
     assert type(got.value).__name__ == type(want.value).__name__, name
     assert isinstance(got.value, ValueError), name
+
+
+#: dcf_tpu's three sharded routes to the from-root walk (its XLA byte
+#: walk, its bitsliced core and its Pallas kernel) are one class of the
+#: port's, as the module docstring of dcf_tpu_torch.parallel says.
+PARALLEL_RENAMES = {"ShardedJaxBackend": "ShardedWalkBackend",
+                    "ShardedBitslicedBackend": "ShardedWalkBackend",
+                    "ShardedPallasBackend": "ShardedWalkBackend"}
+
+
+def test_parallel_names_match_dcf_tpu():
+    """Every public name of dcf_tpu.parallel has its counterpart in
+    dcf_tpu_torch.parallel, under the documented renames."""
+    import dcf_tpu.parallel as jpar
+
+    import dcf_tpu_torch.parallel as tpar
+
+    jnames = {n for n in dir(jpar) if not n.startswith("_")
+              and (n.startswith("Sharded") or n.startswith("make_")
+                   or n.startswith("Mesh"))}
+    jnames.discard("mesh")  # the JAX package's submodule, not a name
+    want = {PARALLEL_RENAMES.get(n, n) for n in jnames}
+    assert want <= set(tpar.__all__), want - set(tpar.__all__)
+    for name in tpar.__all__:
+        assert getattr(tpar, name) is not None
