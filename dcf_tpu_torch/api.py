@@ -124,6 +124,7 @@ from dcf_tpu_torch.spec import (
     ReferenceContractWarning,
     hirose_used_cipher_indices,
 )
+from dcf_tpu_torch.utils.tracing import span
 
 __all__ = ["Dcf", "reset_backend_health", "register_reset_listener"]
 
@@ -452,37 +453,41 @@ class Dcf:
         ``bundle`` may be the two-party bundle (restricted to party ``b``
         here; its key image is shipped once per party and reused while
         the caller passes the same object) or ``bundle.for_party(b)``."""
-        xs = np.asarray(xs, dtype=np.uint8)
-        if self.backend_name == "keylanes":
-            # One two-party image serves both parties (the correction
-            # words are shared, the reference's src/lib.rs:269-272).
-            if bundle.s0s.shape[1] != 2:
-                raise ShapeError(
-                    "the keylanes backend wants the full two-party bundle "
-                    "(its key image is shared between parties)")
-            be = self.eval_backend(b)
-            if self._shipped_bundle.get("kl") is not bundle:
-                be.put_bundle(bundle)
-                self._shipped_bundle["kl"] = bundle
-            return be.eval(int(b), xs)
-        kb = bundle.for_party(b) if bundle.s0s.shape[1] == 2 else bundle
-        if self.backend_name == "cpu":
-            if kb.group != "xor":
-                raise ShapeError(
-                    f"the cpu (native) backend is XOR-only; bundle has "
-                    f"group {kb.group!r} — use numpy/bitsliced/pallas")
-            return self._native.eval(b, kb, xs)
-        if self.backend_name == "numpy":
-            from dcf_tpu_torch.backends.numpy_backend import eval_batch_np
+        with span("eval"):
+            xs = np.asarray(xs, dtype=np.uint8)
+            if self.backend_name == "keylanes":
+                # One two-party image serves both parties (the correction
+                # words are shared, the reference's src/lib.rs:269-272).
+                if bundle.s0s.shape[1] != 2:
+                    raise ShapeError(
+                        "the keylanes backend wants the full two-party "
+                        "bundle (its key image is shared between parties)")
+                be = self.eval_backend(b)
+                if self._shipped_bundle.get("kl") is not bundle:
+                    be.put_bundle(bundle)
+                    self._shipped_bundle["kl"] = bundle
+                return be.eval(int(b), xs)
+            kb = (bundle.for_party(b) if bundle.s0s.shape[1] == 2
+                  else bundle)
+            if self.backend_name == "cpu":
+                if kb.group != "xor":
+                    raise ShapeError(
+                        f"the cpu (native) backend is XOR-only; bundle has "
+                        f"group {kb.group!r} — use numpy/bitsliced/pallas")
+                return self._native.eval(b, kb, xs)
+            if self.backend_name == "numpy":
+                from dcf_tpu_torch.backends.numpy_backend import (
+                    eval_batch_np)
 
-            return eval_batch_np(self._prg, b, kb, xs)
-        be = self.eval_backend(b)
-        # Keyed on the caller's object by identity, and the object is kept
-        # in the entry, so a freed bundle's reused address cannot hit.
-        if self._shipped_bundle.get(int(b)) is not bundle:
-            be.put_bundle(kb)
-            self._shipped_bundle[int(b)] = bundle
-        return be.eval(b, xs)
+                return eval_batch_np(self._prg, b, kb, xs)
+            be = self.eval_backend(b)
+            # Keyed on the caller's object by identity, and the object is
+            # kept in the entry, so a freed bundle's reused address cannot
+            # hit.
+            if self._shipped_bundle.get(int(b)) is not bundle:
+                be.put_bundle(kb)
+                self._shipped_bundle[int(b)] = bundle
+            return be.eval(b, xs)
 
     # -- DPF / PIR: point functions and full-domain evaluation ---------------
 

@@ -34,6 +34,8 @@ build).
 
 from __future__ import annotations
 
+from dcf_tpu_torch.utils.tracing import span
+
 __all__ = ["FrontierConsumerMixin"]
 
 
@@ -65,10 +67,15 @@ class FrontierConsumerMixin:
         b = int(b)
         prov = self.frontier_provider
         if prov is not None:
-            return prov.get(b, self._k(),
-                            lambda: self._build_frontier_tables(b))
+            return prov.get(b, self._k(), lambda: self._frontier_build(b))
         tbl = self._frontier.get(b)
         if tbl is None:
-            tbl = self._build_frontier_tables(b)
+            tbl = self._frontier_build(b)
             self._frontier[b] = tbl
         return tbl
+
+    def _frontier_build(self, b: int):
+        """One uncached build, inside the ``frontier_build`` span (a hit
+        opens none)."""
+        with span("frontier_build"):
+            return self._build_frontier_tables(b)

@@ -38,6 +38,7 @@ from dcf_tpu_torch.keys import KeyBundle
 from dcf_tpu_torch.ops.keylanes_eval import keylanes_eval
 from dcf_tpu_torch.ops.walk_eval import aes_image
 from dcf_tpu_torch.spec import hirose_used_cipher_indices
+from dcf_tpu_torch.utils.tracing import span
 
 __all__ = ["KeyLanesBackend"]
 
@@ -107,26 +108,31 @@ class KeyLanesBackend:
     def stage(self, xs) -> dict:
         """Ship the shared points uint8 [M, n_bytes]; returns the staged
         dict for ``eval_staged``."""
-        n = self._dims()[1]
-        xs = np.asarray(xs)
-        if xs.dtype != np.uint8 or xs.ndim != 2:
-            raise ShapeError("the keylanes backend takes shared points, "
-                             "uint8 [M, n_bytes]")
-        if xs.shape[1] * 8 != n:
-            raise ShapeError("xs width mismatch with bundle")
-        return {"xs": to_device(xs[None], self.device), "m": xs.shape[0]}
+        with span("stage"):
+            n = self._dims()[1]
+            xs = np.asarray(xs)
+            if xs.dtype != np.uint8 or xs.ndim != 2:
+                raise ShapeError("the keylanes backend takes shared points, "
+                                 "uint8 [M, n_bytes]")
+            if xs.shape[1] * 8 != n:
+                raise ShapeError("xs width mismatch with bundle")
+            return {"xs": to_device(xs[None], self.device),
+                    "m": xs.shape[0]}
 
     def eval_staged(self, b: int, staged: dict) -> torch.Tensor:
         """Party ``b``'s shares on the device: uint8 [K, M, 16]
         (asynchronous on the card)."""
-        self._dims()
-        d = self._bundle_dev
-        return keylanes_eval(self.aes, d["s0s"], d["cw_s"], d["cw_v"],
-                             d["cw_t"], d["cw_np1"], staged["xs"], b=int(b))
+        with span("eval_staged"):
+            self._dims()
+            d = self._bundle_dev
+            return keylanes_eval(self.aes, d["s0s"], d["cw_s"], d["cw_v"],
+                                 d["cw_t"], d["cw_np1"], staged["xs"],
+                                 b=int(b))
 
     def staged_to_bytes(self, y: torch.Tensor, m: int) -> np.ndarray:
         """``eval_staged`` output -> uint8 [K, m, 16] on the host."""
-        return y[:, :m].cpu().numpy()
+        with span("fetch"):
+            return y[:, :m].cpu().numpy()
 
     def eval(self, b: int, xs, bundle: KeyBundle | None = None) -> np.ndarray:
         """Party ``b``'s shares at shared points xs uint8 [M, n_bytes]:

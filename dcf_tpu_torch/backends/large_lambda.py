@@ -48,6 +48,7 @@ from dcf_tpu_torch.ops.narrow_walk import NARROW, narrow_aes_image, narrow_walk
 from dcf_tpu_torch.ops.prg import HirosePrgNp
 from dcf_tpu_torch.ops.wide_tail import wide_tail
 from dcf_tpu_torch.spec import hirose_used_cipher_indices
+from dcf_tpu_torch.utils.tracing import span
 
 __all__ = ["LargeLambdaBackend", "wide_affine_batch_np",
            "narrow_walk_np", "HYBRID_MAX_PREFIX_LEVELS", "NARROW"]
@@ -246,29 +247,34 @@ class LargeLambdaBackend(FrontierConsumerMixin):
 
     def _build_frontier_tables(self, b: int):
         """Party ``b``'s frontier (rows [K * 2^k, 64], words [K * 2^k, 4])
-        by kernel B5a; key material, off the eval clock."""
+        by kernel B5a; key material, off the eval clock.  All its levels
+        are device levels."""
         dev = self._dev
-        return narrow_frontier(self.aes, dev["s0"], dev["cw_s"], dev["cw_v"],
-                               dev["cw_t"], k=self._k(), b=int(b))
+        with span("frontier_device_levels"):
+            return narrow_frontier(self.aes, dev["s0"], dev["cw_s"],
+                                   dev["cw_v"], dev["cw_t"], k=self._k(),
+                                   b=int(b))
 
     def stage(self, xs) -> dict:
         """Ship shared points uint8 [M, n_bytes] to the device, padded to
         whole warps (pad points are genuine evaluations of x = 0, dropped
         by ``staged_to_bytes``).  With ``prefix_levels`` the dict also
         records the geometry (k, n) it was staged for."""
-        xs = np.asarray(xs)
-        if xs.dtype != np.uint8:
-            raise ShapeError(f"xs must be uint8, got {xs.dtype}")
-        if xs.ndim != 2:
-            raise ShapeError("LargeLambdaBackend wants shared points [M, nb]")
-        xs, _, m = prepare_batch(
-            self._dims(), xs, lambda m: -(-m // POINT_TILE) * POINT_TILE)
-        if m == 0:
-            raise ShapeError("cannot stage an empty batch")
-        staged = {"xs": torch.from_numpy(xs).to(self.device), "m": m}
-        if self.prefix_levels:
-            staged.update(k=self._k(), n=8 * xs.shape[-1])
-        return staged
+        with span("stage"):
+            xs = np.asarray(xs)
+            if xs.dtype != np.uint8:
+                raise ShapeError(f"xs must be uint8, got {xs.dtype}")
+            if xs.ndim != 2:
+                raise ShapeError(
+                    "LargeLambdaBackend wants shared points [M, nb]")
+            xs, _, m = prepare_batch(
+                self._dims(), xs, lambda m: -(-m // POINT_TILE) * POINT_TILE)
+            if m == 0:
+                raise ShapeError("cannot stage an empty batch")
+            staged = {"xs": torch.from_numpy(xs).to(self.device), "m": m}
+            if self.prefix_levels:
+                staged.update(k=self._k(), n=8 * xs.shape[-1])
+            return staged
 
     def _check_staged_fresh(self, staged: dict) -> None:
         """Reject staged points cut for a prefix geometry (k, n) this
@@ -291,24 +297,28 @@ class LargeLambdaBackend(FrontierConsumerMixin):
     def eval_staged(self, b: int, staged: dict) -> torch.Tensor:
         """Party ``b`` eval on staged points; returns the device-resident
         shares uint8 [K, M_pad, lam] (asynchronous on the card)."""
-        self._dims()
-        const, w = self._wide_staged()
-        dev = self._dev
-        if self.prefix_levels:
-            self._check_staged_fresh(staged)
-            rows, words = self._frontier_tables(b)
-            y, traj = hybrid_prefix_eval(
-                self.aes, rows, words, dev["cw_s"], dev["cw_v"], dev["cw_t"],
-                dev["cw_np1"], staged["xs"], k=staged["k"], lam=self.lam)
-        else:
-            y, traj = narrow_walk(
-                self.aes, dev["s0"], dev["cw_s"], dev["cw_v"], dev["cw_t"],
-                dev["cw_np1"], staged["xs"], b=int(b), lam=self.lam)
-        return wide_tail(y, traj, const, w)
+        with span("eval_staged"):
+            self._dims()
+            const, w = self._wide_staged()
+            dev = self._dev
+            if self.prefix_levels:
+                self._check_staged_fresh(staged)
+                rows, words = self._frontier_tables(b)
+                y, traj = hybrid_prefix_eval(
+                    self.aes, rows, words, dev["cw_s"], dev["cw_v"],
+                    dev["cw_t"], dev["cw_np1"], staged["xs"], k=staged["k"],
+                    lam=self.lam)
+            else:
+                y, traj = narrow_walk(
+                    self.aes, dev["s0"], dev["cw_s"], dev["cw_v"],
+                    dev["cw_t"], dev["cw_np1"], staged["xs"], b=int(b),
+                    lam=self.lam)
+            return wide_tail(y, traj, const, w)
 
     def staged_to_bytes(self, y: torch.Tensor, m: int) -> np.ndarray:
         """``eval_staged`` output -> uint8 [K, m, lam] on the host."""
-        return y[:, :m].cpu().numpy()
+        with span("fetch"):
+            return y[:, :m].cpu().numpy()
 
     def eval(self, b: int, xs, bundle: KeyBundle | None = None) -> np.ndarray:
         """Evaluate party ``b`` on shared points xs uint8 [M, n_bytes].

@@ -30,6 +30,7 @@ from dcf_tpu_torch.ops.prefix_eval import frontier_table, prefix_eval
 from dcf_tpu_torch.ops.prg import HirosePrgNp
 from dcf_tpu_torch.ops.tree_expand import tree_expand
 from dcf_tpu_torch.spec import ReferenceContractWarning
+from dcf_tpu_torch.utils.tracing import span
 
 __all__ = ["PrefixBackend", "MAX_PREFIX_LEVELS"]
 
@@ -100,26 +101,29 @@ class PrefixBackend(FrontierConsumerMixin, WalkBackend):
                 s0s=kb.s0s[key:key + 1], cw_s=kb.cw_s[key:key + 1],
                 cw_v=kb.cw_v[key:key + 1], cw_t=kb.cw_t[key:key + 1],
                 cw_np1=kb.cw_np1[key:key + 1], group=kb.group)
-            s, v, t = (torch.from_numpy(a).to(self.device)
-                       for a in tree_expand_np(self._prg, one, int(b), k0))
-            s, v, t = tree_expand(self.aes, dev["cw_s"][key],
-                                  dev["cw_v"][key], dev["cw_t"][key], s, v,
-                                  t, k0=k0, k1=k, group=self._group)
-            tables.append(frontier_table(s, v, t))
+            with span("frontier_host_levels"):
+                s, v, t = (torch.from_numpy(a).to(self.device) for a in
+                           tree_expand_np(self._prg, one, int(b), k0))
+            with span("frontier_device_levels"):
+                s, v, t = tree_expand(self.aes, dev["cw_s"][key],
+                                      dev["cw_v"][key], dev["cw_t"][key], s,
+                                      v, t, k0=k0, k1=k, group=self._group)
+                tables.append(frontier_table(s, v, t))
         return tables[0] if len(tables) == 1 else torch.cat(tables)
 
     def stage(self, xs) -> dict:
         """Ship shared points [M, nb] to the device, tagged with the prefix
         geometry (k, n) they are staged for."""
-        xs, m = self._prepare(xs)
-        if m == 0:
-            raise ShapeError("cannot stage an empty batch")
-        if xs.shape[0] != 1:
-            raise ShapeError(
-                "PrefixBackend wants shared points [M, nb]; use WalkBackend "
-                "for per-key point batches")
-        return {"xs": torch.from_numpy(xs).to(self.device), "m": m,
-                "k": self._k(), "n": 8 * xs.shape[-1]}
+        with span("stage"):
+            xs, m = self._prepare(xs)
+            if m == 0:
+                raise ShapeError("cannot stage an empty batch")
+            if xs.shape[0] != 1:
+                raise ShapeError(
+                    "PrefixBackend wants shared points [M, nb]; use "
+                    "WalkBackend for per-key point batches")
+            return {"xs": torch.from_numpy(xs).to(self.device), "m": m,
+                    "k": self._k(), "n": 8 * xs.shape[-1]}
 
     def _check_staged_fresh(self, staged: dict) -> None:
         """Reject staged points cut for a bundle geometry this backend no
@@ -140,14 +144,15 @@ class PrefixBackend(FrontierConsumerMixin, WalkBackend):
                 f"n={n_now}; re-stage the points after put_bundle")
 
     def eval_staged(self, b: int, staged: dict) -> torch.Tensor:
-        self._check_staged_fresh(staged)
-        table = self._frontier_tables(b)
-        dev = self._bundle_dev
-        return prefix_eval(self.aes, table, dev["cw_s"], dev["cw_v"],
-                           dev["cw_t"], dev["cw_np1"], staged["xs"],
-                           k=staged["k"],
-                           negate=bool(b) and self._group != "xor",
-                           group=self._group)
+        with span("eval_staged"):
+            self._check_staged_fresh(staged)
+            table = self._frontier_tables(b)
+            dev = self._bundle_dev
+            return prefix_eval(self.aes, table, dev["cw_s"], dev["cw_v"],
+                               dev["cw_t"], dev["cw_np1"], staged["xs"],
+                               k=staged["k"],
+                               negate=bool(b) and self._group != "xor",
+                               group=self._group)
 
     def eval(self, b: int, xs, bundle: KeyBundle | None = None) -> np.ndarray:
         """Bytes-in/bytes-out convenience path (shared points)."""

@@ -42,6 +42,7 @@ from dcf_tpu_torch.ops.narrow_walk import narrow_aes_image
 from dcf_tpu_torch.ops.walk32_eval import walk32_eval
 from dcf_tpu_torch.ops.walk_eval import aes_image, walk_eval
 from dcf_tpu_torch.spec import hirose_used_cipher_indices
+from dcf_tpu_torch.utils.tracing import span
 
 __all__ = ["WalkBackend", "POINT_TILE"]
 
@@ -100,10 +101,11 @@ class WalkBackend:
     def stage(self, xs) -> dict:
         """Ship xs to the device; returns the staged dict for
         ``eval_staged`` (outside any timed region)."""
-        xs, m = self._prepare(xs)
-        if m == 0:
-            raise ShapeError("cannot stage an empty batch")
-        return {"xs": torch.from_numpy(xs).to(self.device), "m": m}
+        with span("stage"):
+            xs, m = self._prepare(xs)
+            if m == 0:
+                raise ShapeError("cannot stage an empty batch")
+            return {"xs": torch.from_numpy(xs).to(self.device), "m": m}
 
     def stage_range(self, start: int, count: int) -> dict:
         """Stage the consecutive points start..start+count-1 with no host
@@ -145,25 +147,29 @@ class WalkBackend:
     def eval_staged(self, b: int, staged: dict) -> torch.Tensor:
         """Party ``b`` eval on staged points; returns the device-resident
         shares uint8 [K, M_pad, lam] (asynchronous on the card)."""
-        self._dims()
-        dev = self._bundle_dev
-        return self._walk(self.aes, dev["s0"], dev["cw_s"], dev["cw_v"],
-                          dev["cw_t"], dev["cw_np1"], staged["xs"], b=int(b),
-                          group=self._group)
+        with span("eval_staged"):
+            self._dims()
+            dev = self._bundle_dev
+            return self._walk(self.aes, dev["s0"], dev["cw_s"], dev["cw_v"],
+                              dev["cw_t"], dev["cw_np1"], staged["xs"],
+                              b=int(b), group=self._group)
 
     def staged_to_bytes(self, y: torch.Tensor, m: int) -> np.ndarray:
         """``eval_staged`` output -> uint8 [K, m, lam] on the host."""
-        return y[:, :m].cpu().numpy()
+        with span("fetch"):
+            return y[:, :m].cpu().numpy()
 
     def eval(self, b: int, xs, bundle: KeyBundle | None = None) -> np.ndarray:
         """Evaluate party ``b``; xs uint8 [M, n_bytes] or [K, M, n_bytes].
         Returns uint8 [K, M, lam]."""
         if bundle is not None:
             self.put_bundle(bundle)
-        xs, m = self._prepare(xs)
-        if m == 0:
-            return np.zeros((self._dims()[0], 0, self.lam), dtype=np.uint8)
-        staged = {"xs": torch.from_numpy(xs).to(self.device), "m": m}
+        with span("stage"):
+            xs, m = self._prepare(xs)
+            if m == 0:
+                return np.zeros((self._dims()[0], 0, self.lam),
+                                dtype=np.uint8)
+            staged = {"xs": torch.from_numpy(xs).to(self.device), "m": m}
         return self.staged_to_bytes(self.eval_staged(b, staged), m)
 
     def points_mismatch_count(self, y0, y1, alpha, beta, staged: dict,

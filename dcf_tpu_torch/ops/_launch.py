@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from dcf_tpu_torch.errors import BackendUnavailableError, ShapeError
+from dcf_tpu_torch.utils.tracing import span
 
 __all__ = ["MAX_DEPTH", "MAX_GRID_Y", "check_u8", "check_words",
            "key_slices", "launch_checked", "launch_depths"]
@@ -57,8 +58,9 @@ def _check(name, t, dtype, shape, device, align) -> None:
 
 def launch_checked(name: str, fn, device: torch.device, *args) -> None:
     """Call a kernel's C entry point on ``device``'s current stream and
-    raise if the launch reports a CUDA error."""
-    with torch.cuda.device(device):
+    raise if the launch reports a CUDA error.  Every kernel launch of the
+    port passes here, inside the ``launch`` span."""
+    with span("launch"), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
