@@ -351,10 +351,11 @@ def case_walk_eval(torch, dev):
             lambda: (walk_eval(*args, b=0, group="xor"),))
 
 
-def case_prefix_eval(torch, dev):
+def _prefix_case(torch, dev, xs=None):
     """B3 at the flagship shape from the k = 21 frontier (the prefix
     backend's depth at 2^20 points), built by B2 from the host's top 6
-    levels: one key, n = 128, 2^20 shared points, XOR, party 0."""
+    levels: one key, n = 128, 2^20 shared points (the flagship's, or
+    ``xs``), XOR, party 0."""
     from dcf_tpu_torch.backends.fulldomain import tree_expand_np
     from dcf_tpu_torch.ops.prefix_eval import frontier_table, prefix_eval
     from dcf_tpu_torch.ops.tree_expand import tree_expand
@@ -366,9 +367,82 @@ def case_prefix_eval(torch, dev):
         aes, on["cw_s"][0], on["cw_v"][0], on["cw_t"][0], *top, k0=k0, k1=k,
         group="xor"))
     args = (aes, table, on["cw_s"], on["cw_v"], on["cw_t"], on["cw_np1"],
-            on["xs"])
+            on["xs"] if xs is None else xs)
     return (f"K=1 M=1048576 n=128 k={k}", 10,
             lambda: (prefix_eval(*args, k=k, negate=False, group="xor"),))
+
+
+def case_prefix_eval(torch, dev):
+    """B3 on the flagship's random points."""
+    return _prefix_case(torch, dev)
+
+
+def case_prefix_eval_ordered(torch, dev):
+    """B3 on 2^20 consecutive points from a seeded start: a warp's points
+    share their walked bits at all but the last levels, so its lanes turn
+    alike."""
+    rng = np.random.default_rng(SEED + 1)
+    m = 1 << 20
+    lo = np.arange(m, dtype=np.uint64) + np.uint64(rng.integers(0, 1 << 62))
+    xs = np.concatenate([
+        np.broadcast_to(rng.integers(0, 256, 8, dtype=np.uint8), (m, 8)),
+        lo.astype(">u8").view(np.uint8).reshape(m, 8)], 1)
+    shape, reps, call = _prefix_case(
+        torch, dev, torch.from_numpy(np.ascontiguousarray(xs[None])).to(dev))
+    return shape + " consecutive", reps, call
+
+
+def _prefix_keys(torch, dev, k_num: int, n_bytes: int, k: int,
+                 group: str):
+    """B3 on K = ``k_num`` stacked keys at 2^20 random shared points of
+    ``n_bytes`` bytes from their depth-k frontiers (the host's top 6
+    levels, then B2), party 0, in ``group``: the protocols' shapes."""
+    from dcf_tpu_torch.backends.fulldomain import tree_expand_np
+    from dcf_tpu_torch.gen import gen_batch, random_s0s
+    from dcf_tpu_torch.keys import KeyBundle
+    from dcf_tpu_torch.ops.prefix_eval import frontier_table, prefix_eval
+    from dcf_tpu_torch.ops.prg import HirosePrgNp
+    from dcf_tpu_torch.ops.tree_expand import tree_expand
+    from dcf_tpu_torch.ops.walk_eval import aes_image
+    from dcf_tpu_torch.spec import Bound
+
+    rng = np.random.default_rng(SEED + 2)
+    ck = [rng.bytes(32), rng.bytes(32)]
+    prg = HirosePrgNp(16, ck)
+    kb = gen_batch(prg, rng.integers(0, 256, (k_num, n_bytes), np.uint8),
+                   rng.integers(0, 256, (k_num, 16), np.uint8),
+                   random_s0s(k_num, 16, rng), Bound.LT_BETA,
+                   group=group).for_party(0)
+    aes = torch.from_numpy(aes_image(ck[0])).to(dev)
+    on = {name: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for name, a in (("cw_s", kb.cw_s), ("cw_v", kb.cw_v),
+                          ("cw_t", kb.cw_t), ("cw_np1", kb.cw_np1))}
+    tables = []
+    for i in range(k_num):
+        one = KeyBundle(*(a[i:i + 1] for a in (
+            kb.s0s, kb.cw_s, kb.cw_v, kb.cw_t, kb.cw_np1)), group=group)
+        top = (torch.from_numpy(a).to(dev)
+               for a in tree_expand_np(prg, one, 0, 6))
+        tables.append(frontier_table(*tree_expand(
+            aes, on["cw_s"][i], on["cw_v"][i], on["cw_t"][i], *top, k0=6,
+            k1=k, group=group)))
+    xs = torch.from_numpy(
+        rng.integers(0, 256, (1, 1 << 20, n_bytes), np.uint8)).to(dev)
+    args = (aes, torch.cat(tables), on["cw_s"], on["cw_v"], on["cw_t"],
+            on["cw_np1"], xs)
+    return (f"K={k_num} M=1048576 n={8 * n_bytes} k={k} {group}", 5,
+            lambda: (prefix_eval(*args, k=k, negate=False, group=group),))
+
+
+def case_prefix_eval_mic(torch, dev):
+    """B3 at the MIC protocol's shape: 16 keys, n = 128, k = 17."""
+    return _prefix_keys(torch, dev, 16, 16, 17, "xor")
+
+
+def case_prefix_eval_short(torch, dev):
+    """B3 at the sigmoid gate's shape: 16 keys, n = 16, k = 8, add16 (8
+    walked levels a point)."""
+    return _prefix_keys(torch, dev, 16, 2, 8, "add16")
 
 
 def _wide_xor(torch, dev, lam: int, m: int, reps: int):
@@ -551,6 +625,9 @@ CASES = {"keylanes_eval": ("keylanes_eval", case_keylanes_eval),
          "walk_eval": ("walk_eval", case_walk_eval),
          "walk32_eval": ("walk32_eval", case_walk32_eval),
          "prefix_eval": ("prefix_eval", case_prefix_eval),
+         "prefix_eval_ordered": ("prefix_eval", case_prefix_eval_ordered),
+         "prefix_eval_mic": ("prefix_eval", case_prefix_eval_mic),
+         "prefix_eval_short": ("prefix_eval", case_prefix_eval_short),
          "wide_xor": ("wide_xor", case_wide_xor),
          "wide_xor_crate": ("wide_xor", case_wide_xor_crate),
          "tree_expand": ("tree_expand", case_tree_expand),

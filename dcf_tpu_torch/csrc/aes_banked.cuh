@@ -1,11 +1,12 @@
 // A bank-conflict-free T-table AES-256 for Hopper, and the per-lane bodies
-// that run on it: kernel B8's (keylanes_eval.cu), and the walk of kernels
-// B1 and B3 (walk_eval.cu, prefix_eval.cu), two points a lane.  The
-// three-slot narrow level of kernels B4 and B5b (narrow_walk.cu,
-// hybrid_prefix.cu) and the DPF node of kernel B6 (evalall_expand.cu) run
-// on it too (narrow_walk.cuh), and so does the lam = 16 tree node of
-// kernel B2 (tree_expand.cu), up to three levels a thread (tree_subtree),
-// and with the leaf finalize on its last level, kernel B2f.
+// that run on it: kernel B8's (keylanes_eval.cu), the walk of kernel B1
+// (walk_eval.cu), two points a lane, and kernel B3's (prefix_eval.cu), a
+// point a slot and several slots a lane.  The three-slot narrow level of
+// kernels B4 and B5b (narrow_walk.cu, hybrid_prefix.cu) and the DPF node of
+// kernel B6 (evalall_expand.cu) run on it too (narrow_walk.cuh), and so
+// does the lam = 16 tree node of kernel B2 (tree_expand.cu), up to three
+// levels a thread (tree_subtree), and with the leaf finalize on its last
+// level, kernel B2f.
 //
 // Why: the T-tables of dcf_walk.cuh are uint32_t te[4][256] in shared
 // memory, so entry x sits in bank x mod 32.  Each round does 16 lookups
@@ -103,17 +104,69 @@ DCF_HD uint32_t bk_entry(const BkLane& t, uint32_t x, int j, uint32_t col) {
       reinterpret_cast<const unsigned char*>(t.te) + off);
 }
 
+// Kernel B3's view of the table, which it holds twice: te[x][64] as above,
+// and at te + 64 KB the same rotated by 8 bits (T1 and T3), so that a
+// middle round's column takes no rotation.  te sits at a 64 KB boundary of
+// the shared window, whose address is folded into the lane's column
+// offsets (bytes 2-3; byte 0 the column), so that one byte permute builds
+// a lookup's whole address and the load adds nothing to it.  B3's lanes
+// leave one another's step, and in such a loop the compiler keeps a table
+// base in a per-lane register, adding it to every lookup; BkLane's
+// kernels run their loops in step and keep the base in a uniform
+// register, which the load adds for free.  On the host it is BkLane, so
+// the host's slot harness does not check this addressing: the card tests
+// (tests/test_torch_prefix_card.py) and the smoke do.
+struct BkWin {
+  const uint32_t* te;
+  uint32_t c0, c2, c1, c3;
+};
+
+DCF_HD BkWin bk_win(const uint32_t* te, int lane) {
+#if defined(__CUDA_ARCH__)
+  const uint32_t at = (uint32_t)__cvta_generic_to_shared(te);
+#else
+  const uint32_t at = 0u;
+#endif
+  const uint32_t at13 = at + 4u * kBankedWords;
+  const uint32_t c = 4u * (uint32_t)lane;
+  return {te, at | c, at | (128u + c), at13 | c, at13 | (128u + c)};
+}
+
+DCF_HD uint32_t bk_entry(const BkWin& t, uint32_t x, int j, uint32_t col) {
+#if defined(__CUDA_ARCH__)
+  const uint32_t at = __byte_perm(x, col, 0x7604u | ((uint32_t)j << 4));
+  uint32_t v;
+  asm("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(at));
+  return v;
+#else
+  return bk_entry(BkLane{t.te, t.c0, t.c2}, x, j, col);
+#endif
+}
+
 // One output column of a middle round: SubBytes, ShiftRows and
 // MixColumns of (byte 0 of a, byte 1 of b, byte 2 of c, byte 3 of d):
-// T0[a] ^ T1[b] ^ T2[c] ^ T3[d] ^ k.
-DCF_HD uint32_t bk_col(const BkLane& t, uint32_t a, uint32_t b, uint32_t c,
+// T0[a] ^ T1[b] ^ T2[c] ^ T3[d] ^ k.  L is BkLane or BkWin.
+template <class L>
+DCF_HD uint32_t bk_col(const L& t, uint32_t a, uint32_t b, uint32_t c,
                        uint32_t d, uint32_t k) {
   return bk_entry(t, a, 0, t.c0) ^ rotl_bytes(bk_entry(t, b, 1, t.c0), 8) ^
          bk_entry(t, c, 2, t.c2) ^ rotl_bytes(bk_entry(t, d, 3, t.c2), 8) ^
          k;
 }
 
-DCF_HD void bk_round(const BkLane& t, const RoundKey& k, uint32_t x[4]) {
+// ... on BkWin: T1 and T3 from their own table.
+DCF_HD uint32_t bk_col(const BkWin& t, uint32_t a, uint32_t b, uint32_t c,
+                       uint32_t d, uint32_t k) {
+#if defined(__CUDA_ARCH__)
+  return bk_entry(t, a, 0, t.c0) ^ bk_entry(t, b, 1, t.c1) ^
+         bk_entry(t, c, 2, t.c2) ^ bk_entry(t, d, 3, t.c3) ^ k;
+#else
+  return bk_col(BkLane{t.te, t.c0, t.c2}, a, b, c, d, k);
+#endif
+}
+
+template <class L>
+DCF_HD void bk_round(const L& t, const RoundKey& k, uint32_t x[4]) {
   const uint32_t y0 = bk_col(t, x[0], x[1], x[2], x[3], k.w[0]);
   const uint32_t y1 = bk_col(t, x[1], x[2], x[3], x[0], k.w[1]);
   const uint32_t y2 = bk_col(t, x[2], x[3], x[0], x[1], k.w[2]);
@@ -126,8 +179,9 @@ DCF_HD void bk_round(const BkLane& t, const RoundKey& k, uint32_t x[4]) {
 
 // One output column of the last round (SubBytes and ShiftRows): S[x] is
 // byte 0 and 3 of T2[x], byte 1 and 2 of T0[x].
-DCF_HD uint32_t bk_last_col(const BkLane& t, uint32_t a, uint32_t b,
-                            uint32_t c, uint32_t d, uint32_t k) {
+template <class L>
+DCF_HD uint32_t bk_last_col(const L& t, uint32_t a, uint32_t b, uint32_t c,
+                            uint32_t d, uint32_t k) {
   return ((bk_entry(t, a, 0, t.c2) & 0xFFu) |
           (bk_entry(t, b, 1, t.c0) & 0xFF00u) |
           (bk_entry(t, c, 2, t.c0) & 0xFF0000u) |
@@ -135,7 +189,8 @@ DCF_HD uint32_t bk_last_col(const BkLane& t, uint32_t a, uint32_t b,
          k;
 }
 
-DCF_HD void bk_last(const BkLane& t, const RoundKey& k, uint32_t x[4]) {
+template <class L>
+DCF_HD void bk_last(const L& t, const RoundKey& k, uint32_t x[4]) {
   const uint32_t y0 = bk_last_col(t, x[0], x[1], x[2], x[3], k.w[0]);
   const uint32_t y1 = bk_last_col(t, x[1], x[2], x[3], x[0], k.w[1]);
   const uint32_t y2 = bk_last_col(t, x[2], x[3], x[0], x[1], k.w[2]);
@@ -153,8 +208,8 @@ DCF_HD void bk_last(const BkLane& t, const RoundKey& k, uint32_t x[4]) {
 // the column of round 13 and the byte of the last round that feed it (197
 // lookups instead of 224).  The round loop is not unrolled: unrolled, the
 // lockstep forms a kernel uses overflow the instruction cache.
-template <int NF, int NB = 0>
-DCF_HD void bk_encrypt(const BkLane& t, const RoundKey* const rk[],
+template <int NF, int NB = 0, class L>
+DCF_HD void bk_encrypt(const L& t, const RoundKey* const rk[],
                        uint32_t (*x)[4], uint32_t* bit = nullptr) {
   constexpr int N = NF + NB;
   for (int j = 0; j < N; ++j)
@@ -352,10 +407,11 @@ DCF_HD void keylanes_lane_pair(const BkLane& t, const RoundKey* rk,
 }
 
 // ---------------------------------------------------------------------------
-// Kernels B1 and B3 (walk_eval.cu, prefix_eval.cu): one key's lam = 16
-// walk at many points, any group.  The points of a warp are unrelated, so
-// its lanes turn both ways at most levels; a left turn needs E(s) and
-// E(~s), a right turn only bit 0 of E(~s).
+// Kernel B1 (walk_eval.cu), and kernel B3 on the units it walks two points
+// a lane (prefix_eval.cu): one key's lam = 16 walk at many points, any
+// group.  The points of a warp are unrelated, so its lanes turn both ways
+// at most levels; a left turn needs E(s) and E(~s), a right turn only bit
+// 0 of E(~s).
 // ---------------------------------------------------------------------------
 
 // Level i's correction word from one key's rows (cw_s / cw_v [n, 16],
@@ -552,6 +608,234 @@ DCF_HD void tree_subtree(const BkLane& t, const RoundKey* rk,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel B3 (prefix_eval.cu): the slot-per-point schedule.  A lane holds
+// kPrefixSlots points in flight, one a slot, and a step runs one block of
+// every slot in lockstep (bk_encrypt<C>, one cipher): the block that the
+// slot's own point needs at its own level.  A right turn is one step,
+// E(~s); a left turn two, E(~s) then E(s).  v takes its level's update
+// from E(~s) at the turn's first step, s and t theirs from the turn's last
+// block, so nothing but the phase is carried between a left turn's two
+// steps.  Every step of a live slot carries a needed block (a right turn's
+// E(~s) in full: 224 lookups where the function needs 197), so random
+// points issue 336 lookups a point and level, 1.042x the 322.5 they need,
+// against 448 for the pair walk's vote.  The slots leave level lockstep:
+// each reads its own level's correction words and walk bit, and a slot
+// whose point has walked level n - 1 stores its share and takes the lane's
+// next point.  No lane reads another lane's state, so a host test can run
+// the lanes of a warp one after another.  Some units are left to the pair
+// walk (pair_walks_unit).
+// ---------------------------------------------------------------------------
+
+#if defined(__CUDACC__)
+#define DCF_UNROLL _Pragma("unroll")
+#else
+#define DCF_UNROLL
+#endif
+
+constexpr int kPrefixSlots = 4;  // points in flight a lane
+
+// B3's arguments: K keys' stacked frontier tables (table [K * 2^k, 32]),
+// correction words (cw_s / cw_v [K, n, 16], cw_t [K, n, 2], cw_np1
+// [K, 16]), the points all keys share (xs [m, nb], nb = n / 8) and the
+// shares (y [K, m, 16]).  A unit is (key, tile): tile j of a key holds its
+// points j * 32 C .. (j + 1) * 32 C - 1, point l + 32 c of it lane l's
+// c-th.
+struct SlotWalk {
+  const uint8_t* table;
+  const uint8_t* cw_s;
+  const uint8_t* cw_v;
+  const uint8_t* cw_t;
+  const uint8_t* cw_np1;
+  const uint8_t* xs;
+  uint8_t* y;
+  int n, nb, k, m;
+  bool negate;
+  int tiles, keys;
+};
+
+// A slot: point pt of key `key` at level i (i == n: the slot is empty), in
+// the first (ph 0, E(~s)) or second (ph 1, E(s)) step of its turn; win
+// holds its walk bits of levels i.. from bit 31 down.
+struct Slot {
+  KlState p;
+  uint32_t ph, win;
+  int i, key, pt;
+};
+
+// A warp's units, in order: tile `tile` of key `key`, then `stride` units
+// on (into the next keys past a key's last tile).
+struct SlotUnits {
+  int key, tile, stride;
+};
+
+DCF_HD void slot_units_next(const SlotWalk& a, SlotUnits& u) {
+  u.tile += u.stride;
+  u.key += u.tile / a.tiles;
+  u.tile %= a.tiles;
+}
+
+constexpr int kSlotMinLevels = 16;  // shorter walks go to the pair walk
+
+// Whether B3 walks a unit (tile `tile` of every key) two points a lane
+// with the pair walk's vote (walk_pair_levels) rather than on its slots:
+// where its points turn alike, its first and last points sharing their
+// walk bits at levels k .. n - 1 - (n - k) / 4 (sorted points then share
+// them all, and the vote computes no more than their turns need there,
+// where the slots compute a right turn's E(~s) in full); and on walks of
+// fewer than kSlotMinLevels levels, where a slot would store a share and
+// take a point every few steps.  Every lane reads the same two points, so
+// the lanes agree on a unit without a vote.
+template <int C>
+DCF_HD bool pair_walks_unit(const SlotWalk& a, int tile) {
+  if (a.n - a.k < kSlotMinLevels) return true;
+  const int first = tile * (kLanes * C);
+  const int last = (first + kLanes * C < a.m ? first + kLanes * C : a.m) - 1;
+  const uint8_t* x0 = a.xs + (size_t)first * a.nb;
+  const uint8_t* x1 = a.xs + (size_t)last * a.nb;
+  for (int i = a.k; i < a.n - (a.n - a.k) / 4; ++i)
+    if (walk_bit(x0, i) != walk_bit(x1, i)) return false;
+  return true;
+}
+
+// A lane's points, in order: C of each unit of its warp that the pair walk
+// does not take, the c-th next.
+struct SlotQueue {
+  SlotUnits u;
+  int c;
+};
+
+DCF_HD uint32_t brev32(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  return __brev(x);
+#else
+  uint32_t r = 0;
+  for (int j = 0; j < 32; ++j) r |= ((x >> j) & 1u) << (31 - j);
+  return r;
+#endif
+}
+
+// Walk bits i..i+31 of x (nb bytes) from bit 31 down, zeros past its end.
+DCF_HD uint32_t walk_window(const uint8_t* x, int i, int nb) {
+  uint64_t w = 0;
+  for (int j = 0; j < 5; ++j) {
+    const int b = (i >> 3) + j;
+    w = (w << 8) | (b < nb ? x[b] : 0u);
+  }
+  return (uint32_t)(w >> (8 - (i & 7)));
+}
+
+// The lane's next point into slot s, its frontier row gathered (its index
+// the first k <= 30 walk bits, reversed); empty if the lane has none
+// left.  Points past m are skipped.
+template <int C>
+DCF_HD void slot_take(const SlotWalk& a, SlotQueue& q, int lane, Slot& s) {
+  s.i = a.n;
+  while (q.u.key < a.keys) {
+    if (q.c == 0 && pair_walks_unit<C>(a, q.u.tile)) {
+      slot_units_next(a, q.u);
+      continue;
+    }
+    s.key = q.u.key;
+    s.pt = q.u.tile * (kLanes * C) + lane + kLanes * q.c;
+    if (++q.c == C) {
+      q.c = 0;
+      slot_units_next(a, q.u);
+    }
+    if (s.pt < a.m) {
+      const uint8_t* x = a.xs + (size_t)s.pt * a.nb;
+      const uint32_t idx =
+          brev32(walk_window(x, 0, a.nb)) & ((1u << a.k) - 1u);
+      walk_row(s.p, a.table + (((size_t)s.key << a.k) + idx) * 32);
+      s.i = a.k;
+      s.ph = 0u;
+      s.win = walk_window(x, a.k, a.nb);
+      return;
+    }
+  }
+}
+
+// One step of a live slot, from the block `out` that it computed (E(~s)
+// at ph 0, E(s) at ph 1): walk_turn's algebra split over the turn's
+// steps, its selects on the phase and the walk bit.
+template <int GW>
+DCF_HD void slot_step(const SlotWalk& a, Slot& s, const uint32_t out[4]) {
+  const uint32_t xb = s.win >> 31;
+  const uint32_t row = (uint32_t)(s.key * a.n + s.i);
+  uint32_t ws[4], wv[4];
+  load16(a.cw_s + 16 * (size_t)row, ws);
+  load16(a.cw_v + 16 * (size_t)row, wv);
+  const uint32_t ct = a.cw_t[2 * (size_t)row + xb] & 1u;
+  const uint32_t first = s.ph - 1u;  // all ones at a turn's first step
+  const uint32_t lm = xb - 1u;       // all ones on a left turn
+  const uint32_t g = 0u - s.p.t;
+  uint32_t sc[4], vc[4];
+  for (int q = 0; q < 4; ++q) {
+    sc[q] = s.p.s[q] ^ (out[q] & ~first);  // left E(s) ^ s, right s
+    vc[q] = ~s.p.s[q] ^ (out[q] & lm);     // left E(~s) ^ ~s, right ~s
+  }
+  const uint32_t tc = (out[0] ^ s.p.s[0] ^ first) & 1u;
+  sc[3] &= kMaskBit;
+  vc[3] &= kMaskBit;
+  for (int q = 0; q < 4; ++q)
+    s.p.v[q] = gadd<GW>(s.p.v[q], gadd<GW>(vc[q], wv[q] & g) & first);
+  if (s.ph | xb) {  // the turn's last block
+    for (int q = 0; q < 4; ++q) s.p.s[q] = sc[q] ^ (ws[q] & g);
+    s.p.t = tc ^ (s.p.t & ct);
+    s.ph = 0u;
+    s.win <<= 1;
+    if (((++s.i - a.k) & 31) == 0 && s.i < a.n)
+      s.win = walk_window(a.xs + (size_t)s.pt * a.nb, s.i, a.nb);
+  } else {
+    s.ph = 1u;
+  }
+}
+
+// Lane `lane`'s part of B3 on a warp that takes units first, first +
+// stride, ...: its C slots run until the lane has no point left in the
+// units the pair walk does not take.  Returns the steps the lane ran;
+// *carried (if given) counts its slots' live steps, each a needed block.
+template <int GW, int C>
+DCF_HD long long prefix_slot_walk(const BkWin& t, const RoundKey* rk,
+                                  const SlotWalk& a, int lane, int first,
+                                  int stride, long long* carried = nullptr) {
+  SlotQueue q{{first / a.tiles, first % a.tiles, stride}, 0};
+  Slot sl[C];
+  const RoundKey* rks[C];
+  DCF_UNROLL
+  for (int c = 0; c < C; ++c) {
+    rks[c] = rk;  // one cipher
+    slot_take<C>(a, q, lane, sl[c]);
+  }
+  long long steps = 0;
+  for (;;) {
+    bool live = false;
+    DCF_UNROLL
+    for (int c = 0; c < C; ++c) live |= sl[c].i < a.n;
+    if (!live) break;
+    ++steps;
+    uint32_t x[C][4];
+    DCF_UNROLL
+    for (int c = 0; c < C; ++c)
+      for (int w = 0; w < 4; ++w) x[c][w] = sl[c].p.s[w] ^ (sl[c].ph - 1u);
+    bk_encrypt<C>(t, rks, x);
+    DCF_UNROLL
+    for (int c = 0; c < C; ++c) {
+      if (sl[c].i == a.n) continue;
+      if (carried) ++*carried;
+      slot_step<GW>(a, sl[c], x[c]);
+      if (sl[c].i == a.n) {  // the point's share, then the next point
+        uint32_t np1[4], y[4];
+        load16(a.cw_np1 + 16 * (size_t)sl[c].key, np1);
+        finalize<GW>(sl[c].p.s, sl[c].p.t, sl[c].p.v, np1, a.negate, y);
+        store16(a.y + ((size_t)sl[c].key * a.m + sl[c].pt) * 16, y);
+        slot_take<C>(a, q, lane, sl[c]);
+      }
+    }
+  }
+  return steps;
+}
+
 #if defined(__CUDACC__)
 // Block-cooperative fills; the caller syncs.
 __device__ __forceinline__ void fill_banked_table(uint32_t* te,
@@ -560,14 +844,22 @@ __device__ __forceinline__ void fill_banked_table(uint32_t* te,
     te[e] = banked_table_word(sbox, e);
 }
 
+// BkWin's second table: each word of the first rotated by 8 bits.
+__device__ __forceinline__ void fill_banked_table_rot8(uint32_t* te,
+                                                       const uint8_t* sbox) {
+  for (int e = threadIdx.x; e < kBankedWords; e += blockDim.x)
+    te[e] = rotl32(banked_table_word(sbox, e), 8);
+}
+
 __device__ __forceinline__ void fill_round_keys(RoundKey* rk,
                                                 const uint8_t* bytes) {
   for (int i = threadIdx.x; i < 60; i += blockDim.x)
     rk[i >> 2].w[i & 3] = le32(bytes + 4 * i);
 }
 
-// B1's and B3's level loop: a lane walks its two points (bytes at x0 and
-// x1) through levels lo..n-1 of one key (rows cw_s, cw_v, cw_t).
+// B1's level loop, and B3's on the units it walks two points a lane: a
+// lane walks its two points (bytes at x0 and x1) through levels lo..n-1 of
+// one key (rows cw_s, cw_v, cw_t).
 template <int GW>
 __device__ __forceinline__ void walk_pair_levels(
     const BkLane& t, const RoundKey* rk, const uint8_t* cw_s,

@@ -7,8 +7,9 @@ node and ``tree_leaves``), and ``csrc/narrow_walk.cuh`` that of the
 large-lambda kernel W1 (its table of XORs of W's rows and the lookups).
 ``csrc/aes_banked.cuh`` holds the bank-conflict-free
 AES core (T0 and T2 replicated over 32 lanes) with kernel B8's
-keys-in-lanes body, the two-points-a-lane walk of kernels B1 and B3 and
-the tree node of kernel B2, up to three levels a thread;
+keys-in-lanes body, the two-points-a-lane walk of kernel B1, kernel
+B3's slot-per-point walk and the tree node of kernel B2, up to three
+levels a thread;
 ``narrow_walk.cuh`` the bodies on it of kernels B4 and B5b (the
 three-slot narrow level, from the root or from a frontier row), B5a (a
 frontier node into both children, up to three levels a thread, in place)
@@ -821,6 +822,96 @@ void host_pair_walk(const uint8_t* sbox, const uint8_t* rk, const uint8_t* s0,
 """
 
 
+_SLOT_HARNESS = r"""
+#include <algorithm>
+
+// Kernel B3 as its warps run it on a grid of `warps` warps, warp g taking
+// units g, g + warps, ...: first the units that pair_walks_unit gives the
+// pair walk, 64 points at a time through pair_unit (the warp's votes over
+// all lanes first; *paired counts their lookups), then its lanes one after
+// another (no lane reads another's state), each with its kPrefixSlots
+// slots.
+// *carried counts the slots' live steps, each a needed block;
+// *slot_steps the slot-steps the warps ran, kPrefixSlots x 32 a step of
+// the warp's longest lane.
+template <int GW>
+static void paired_units(const BkLane* lanes, const RoundKey* rks,
+                        const SlotWalk& a, SlotUnits u, long long* paired) {
+  const int tile = kLanes * kPrefixSlots;
+  for (; u.key < a.keys; slot_units_next(a, u)) {
+    if (!pair_walks_unit<kPrefixSlots>(a, u.tile)) continue;
+    const int lim = std::min((u.tile + 1) * tile, a.m);
+    const size_t cw = (size_t)u.key * a.n;
+    uint32_t np1[4];
+    load16(a.cw_np1 + 16 * (size_t)u.key, np1);
+    for (int base = u.tile * tile; base < lim; base += 2 * kLanes) {
+      const uint8_t* x[2 * kLanes];
+      KlState P[kLanes][2];
+      for (int j = 0; j < 2 * kLanes; ++j) {
+        x[j] = a.xs + (size_t)std::min(base + j, lim - 1) * a.nb;
+        walk_row(P[j % kLanes][j / kLanes],
+                 a.table + (((size_t)u.key << a.k) +
+                            frontier_index(x[j], a.k)) * 32);
+      }
+      pair_unit<GW>(lanes, rks, a.cw_s + cw * 16, a.cw_v + cw * 16,
+                    a.cw_t + cw * 2, a.k, a.n, x, P, paired);
+      for (int j = 0; j < 2 * kLanes && base + j < lim; ++j) {
+        const KlState& p = P[j % kLanes][j / kLanes];
+        uint32_t out[4];
+        finalize<GW>(p.s, p.t, p.v, np1, a.negate, out);
+        store16(a.y + ((size_t)u.key * a.m + base + j) * 16, out);
+      }
+    }
+  }
+}
+
+template <int GW>
+static void slot_grid(const uint8_t* sbox, const uint8_t* rk,
+                      const SlotWalk& a, int warps, long long* paired,
+                      long long* carried, long long* slot_steps) {
+  std::vector<uint32_t> te;
+  banked_table(te, sbox);
+  RoundKey rks[15];
+  round_keys(rks, rk);
+  BkLane lanes[kLanes];
+  for (int l = 0; l < kLanes; ++l) lanes[l] = bk_lane(te.data(), l);
+  for (int g = 0; g < warps; ++g) {
+    paired_units<GW>(lanes, rks, a, {g / a.tiles, g % a.tiles, warps}, paired);
+    long long longest = 0;
+    for (int l = 0; l < kLanes; ++l)
+      longest = std::max(longest, prefix_slot_walk<GW, kPrefixSlots>(
+                                      bk_win(te.data(), l), rks, a, l, g,
+                                      warps, carried));
+    *slot_steps += (long long)kPrefixSlots * kLanes * longest;
+  }
+}
+
+extern "C" {
+int host_prefix_slots() { return kPrefixSlots; }
+
+// B3 over K keys' stacked frontier tables at depth k, m shared points, on
+// a grid of `warps` warps; negate is party 1 of an additive group.
+void host_slot_walk(const uint8_t* sbox, const uint8_t* rk,
+                    const uint8_t* table, const uint8_t* cw_s,
+                    const uint8_t* cw_v, const uint8_t* cw_t,
+                    const uint8_t* cw_np1, const uint8_t* xs, uint8_t* y,
+                    int K, int n, int k, int m, int negate, int gw, int warps,
+                    long long* paired, long long* carried,
+                    long long* slot_steps) {
+  const int tile = kLanes * kPrefixSlots, tiles = (m + tile - 1) / tile;
+  const SlotWalk a{table, cw_s, cw_v,  cw_t, cw_np1,      xs,   y,
+                   n,     n / 8, k,    m,    negate != 0, tiles, K};
+#define SLOT_ARGS sbox, rk, a, warps, paired, carried, slot_steps
+  if (gw == 0) slot_grid<0>(SLOT_ARGS);
+  else if (gw == 8) slot_grid<8>(SLOT_ARGS);
+  else if (gw == 16) slot_grid<16>(SLOT_ARGS);
+  else slot_grid<32>(SLOT_ARGS);
+#undef SLOT_ARGS
+}
+}
+"""
+
+
 _WALK32_HARNESS = r"""
 // Kernel E1: the points of one key on lane pt % 32 of warp pt / 32 (shared
 // by all keys, or the key's own with per_key), slot C run at a level where
@@ -958,7 +1049,8 @@ def lib(tmp_path_factory):
     src = d / "harness.cpp"
     src.write_text(_HARNESS + _NARROW_HARNESS + _BANKED_HARNESS
                    + _KEYGEN_HARNESS + _TREE_HARNESS + _BANKED_NARROW_HARNESS
-                   + _PAIR_HARNESS + _PIR_HARNESS + _WALK32_HARNESS)
+                   + _PAIR_HARNESS + _SLOT_HARNESS + _PIR_HARNESS
+                   + _WALK32_HARNESS)
     out = d / "libharness.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-Wall", "-Werror", "-shared",
                     "-fPIC", "-I", str(CSRC), "-o", str(out), str(src)],
@@ -1967,8 +2059,9 @@ def test_hybrid_prefix_banked_body_matches_oracle(lib, lam):
 
 
 # ---------------------------------------------------------------------------
-# Kernels B1 and B3 on the banked AES: two points a lane, the left turns'
-# E(s) compacted across the warp (aes_banked.cuh, walk_pair_levels).
+# Kernel B1 on the banked AES: two points a lane, a warp vote a level and
+# point (aes_banked.cuh, walk_pair_levels), from the root and, as kernel
+# B3 ran it before its slot schedule, from a frontier.
 # ---------------------------------------------------------------------------
 
 def _pair_points(rng, alphas, n_bytes):
@@ -1997,8 +2090,9 @@ def _pair_points(rng, alphas, n_bytes):
 
 
 def _host_pair(lib, rk, kb, xs, b, gw, table=None, k=0):
-    """B1 (table None) or B3 through the lane harness: shares [K, M, 16]
-    and the lookups its slots computed."""
+    """The pair walk from the root (table None: B1) or from a frontier
+    through the lane harness: shares [K, M, 16] and the lookups its slots
+    computed."""
     k_num, n = kb.cw_s.shape[:2]
     m = xs.shape[-2]
     y = np.zeros((k_num, m, 16), np.uint8)
@@ -2060,7 +2154,7 @@ def _path_frontier(prg, rk, kb, b, k, xs, group):
 
 @pytest.mark.parametrize("group", GROUPS)
 def test_pair_prefix_body_matches_oracle(lib, group):
-    """B3's body from tree_expand_np's depth-4 frontier (n = 16, K = 2,
+    """The pair walk from tree_expand_np's depth-4 frontier (n = 16, K = 2,
     the 134 points of ``_pair_points``), both bounds, both parties,
     against eval_batch_np; the frontier rows the points gather, made by
     ``_path_frontier``, equal tree_expand_np's."""
@@ -2094,7 +2188,7 @@ def test_pair_prefix_body_matches_oracle(lib, group):
 
 @pytest.mark.parametrize("bound", list(Bound))
 def test_pair_prefix_body_at_depth_21(lib, bound):
-    """B3's body at the main path's frontier depth, k = 21, n = 24, from
+    """The pair walk at B3's frontier depth, k = 21, n = 24, from
     a frontier with the points' rows (``_path_frontier``; a full numpy
     expansion to depth 21 takes about 40 s a key and party), add16, K = 2,
     both parties, against eval_batch_np."""
@@ -2112,7 +2206,7 @@ def test_pair_prefix_body_at_depth_21(lib, bound):
 @pytest.mark.parametrize("n_bytes", [2, 16])
 def test_pair_lookups_computed_counts_the_blocks(lib, n_bytes):
     """``chip_smoke.pair_lookups_computed``, the design figure the smoke
-    prints for B1 and B3, equals the lookups the lane harness's slots
+    prints for B1, equals the lookups the lane harness's slots
     compute, from the root and from depth 4."""
     from chip_smoke import pair_lookups_computed
 
@@ -2126,3 +2220,103 @@ def test_pair_lookups_computed_counts_the_blocks(lib, n_bytes):
     table = _path_frontier(prg, rk, kb, 0, 4, xs, "xor")
     _, got = _host_pair(lib, rk, kb, xs, 0, 0, table, 4)
     assert got == pair_lookups_computed(bits[:, 4:])
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3 on the banked AES: the slot-per-point schedule
+# (aes_banked.cuh, prefix_slot_walk).
+# ---------------------------------------------------------------------------
+
+def _slot_points(rng, alphas, n_bytes, m):
+    """m shared points: x = alpha - 1, alpha and alpha + 1 of each key
+    first (as many as fit), the rest random, and from m = 200 on a run of
+    64 consecutive points at 32 (lanes whose points turn alike at all but
+    the last levels) and a run of one point repeated from 128 to 383 (units
+    that turn alike)."""
+    xs = rng.integers(0, 256, (m, n_bytes), dtype=np.uint8)
+    top = 1 << (8 * n_bytes)
+    vals = dict(enumerate(int.from_bytes(a.tobytes(), "big") + d
+                          for a in alphas for d in (-1, 0, 1)))
+    if m >= 200:
+        start, same = (int(v) for v in rng.integers(0, top, 2))
+        vals.update({32 + j: start + j for j in range(64)})
+        vals.update({j: same for j in range(128, 384)})
+    for j, x in vals.items():
+        if j < m:
+            xs[j] = np.frombuffer((x % top).to_bytes(n_bytes, "big"),
+                                  np.uint8)
+    return xs
+
+
+def _host_slot(lib, rk, kb, xs, table, k, negate, gw, warps):
+    """B3 through the slot harness on a grid of ``warps`` warps: shares
+    [K, M, 16], the lookups of the units walked two points a lane, the
+    slots' live steps and the slot-steps the warps ran."""
+    k_num, n = kb.cw_s.shape[:2]
+    m = xs.shape[0]
+    y = np.zeros((k_num, m, 16), np.uint8)
+    counts = [ctypes.c_longlong(0) for _ in range(3)]
+    lib.host_slot_walk(
+        _p(SBOX_NP), _p(rk), _p(table), _p(kb.cw_s), _p(kb.cw_v),
+        _p(kb.cw_t), _p(kb.cw_np1), _p(xs), _p(y), k_num, n, k, m,
+        int(negate), gw, warps, *map(ctypes.byref, counts))
+    return (y, *(c.value for c in counts))
+
+
+@pytest.mark.parametrize("k, n_bytes", [(4, 3), (21, 5), (8, 2)])
+@pytest.mark.parametrize("group", GROUPS)
+def test_slot_walk_body_matches_oracle(lib, group, k, n_bytes):
+    """B3's body, its lanes run one after another on a grid of 3 warps:
+    K = 2 keys at m = 1, 63, 65 and 200 shared points (``_slot_points``),
+    from depth-k frontiers with the points' rows (``_path_frontier``), both
+    bounds, both parties, against eval_batch_np; 20 and 19 walked levels
+    (slots, and the pair walk on the units whose points turn alike) and 8
+    (a short walk: the pair walk on every unit).  The host reads the table
+    as BkLane, so BkWin's addressing is checked on the card alone
+    (``test_torch_prefix_card.py``)."""
+    gw = GROUP_WIDTH.get(group, 0)
+    k_num = 2
+    for bound in Bound:
+        rng, prg, rk, alphas, bundle = _setup(
+            490 + 2 * GROUPS.index(group) + list(Bound).index(bound) + k,
+            k_num, n_bytes, group, bound)
+        for m in (1, 63, 65, 200):
+            xs = _slot_points(rng, alphas, n_bytes, m)
+            for b in (0, 1):
+                kb = bundle.for_party(b)
+                table = _path_frontier(prg, rk, kb, b, k, xs, group)
+                y, *_ = _host_slot(lib, rk, kb, xs, table, k,
+                                   b and gw > 0, gw, 3)
+                assert np.array_equal(y, eval_batch_np(prg, b, kb, xs)), \
+                    (bound, m, b)
+
+
+@pytest.mark.parametrize("warps", [1, 3, 7])
+def test_slot_lookups_computed_counts_the_steps(lib, warps):
+    """``chip_smoke.slot_lookups_computed``, the design figures the smoke
+    prints for B3, equal what the slot harness counts: the lookups of the
+    units walked two points a lane and of the slots' live steps, and the
+    live steps' share of the slot-steps the warps ran, K = 2 keys at m =
+    200 and 1000 points (``_slot_points``: units of both kinds) from depth
+    4 at n = 24, on grids of 1, 3 and 7 warps; and its slots and warps are
+    the kernel's."""
+    from chip_smoke import (LOOKUPS_BLOCK, PREFIX_SLOTS, PREFIX_WARPS,
+                            SLOT_MIN_LEVELS, slot_lookups_computed)
+
+    assert lib.host_prefix_slots() == PREFIX_SLOTS
+    assert f"constexpr int kWarps = {PREFIX_WARPS};" in (
+        CSRC / "prefix_eval.cu").read_text()
+    assert f"constexpr int kSlotMinLevels = {SLOT_MIN_LEVELS};" in (
+        CSRC / "aes_banked.cuh").read_text()
+    rng, prg, rk, alphas, bundle = _setup(500 + warps, 2, 3, "xor",
+                                          Bound.LT_BETA)
+    kb = bundle.for_party(0)
+    for m in (200, 1000):
+        xs = _slot_points(rng, alphas, 3, m)
+        table = _path_frontier(prg, rk, kb, 0, 4, xs, "xor")
+        _, paired, carried, slot_steps = _host_slot(lib, rk, kb, xs, table,
+                                                    4, 0, 0, warps)
+        assert paired > 0 and carried > 0, m
+        bits = walk_bits_plain(torch.from_numpy(xs))[:, 4:]
+        assert slot_lookups_computed(bits, keys=2, warps=warps) == (
+            paired + LOOKUPS_BLOCK * carried, carried / slot_steps), m
